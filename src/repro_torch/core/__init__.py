@@ -1,0 +1,34 @@
+"""Core of the port: atomic parallelism points, segment-group specs, the
+unified ``Schedule`` with its strategy registry, and the selector."""
+from .atomic_parallelism import DA_SPMM_POINTS, AtomicParallelism  # noqa: F401
+from .device import resolve_device  # noqa: F401
+from .dtypes import VALUE_DTYPES, canonical_value_dtype  # noqa: F401
+from .schedule import (  # noqa: F401
+    ACTIVATIONS,
+    Epilogue,
+    ReductionStrategy,
+    Schedule,
+    as_schedule,
+    available_strategies,
+    get_strategy,
+    register_strategy,
+)
+from .segment_group import (  # noqa: F401
+    MONOIDS,
+    GroupReduceStrategy,
+    Monoid,
+    SegmentGroup,
+    get_monoid,
+    group_waste_fraction,
+    group_writeback_counts,
+    make_monoid,
+    spec_accumulate,
+    spec_parallel,
+    spec_segment,
+)
+from .selector import (  # noqa: F401
+    candidate_schedules,
+    cost_terms,
+    predict_cost,
+    select_schedule,
+)

@@ -1,0 +1,137 @@
+"""Build and bind the CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface, loaded with ``ctypes``.  Libraries are built at
+first use into ``_build/`` beside this file (git-ignored), named by a
+hash of their sources and flags, so an edited source is never served by
+a stale library.  :func:`build` starts one ``nvcc`` per missing library,
+all at once.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+#: One library per source.
+SOURCES = ("spmm_eb", "spmm_rb", "epilogue")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([Path(home) / "bin" / "nvcc"] if home else []) + [
+            Path("/usr/local/cuda/bin/nvcc")]:
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA "
+                           "toolkit that builds the port's kernels")
+    return found
+
+
+def library_path(source: str) -> Path:
+    """Where the library of ``csrc/<source>.cu`` is (or will be) built."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in [CSRC / f"{source}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"lib{source}-{h.hexdigest()[:16]}.so"
+
+
+def build(sources=SOURCES) -> dict:
+    """Compile every library of ``sources`` that is not built yet, one
+    ``nvcc`` per source, all started together.  Returns each compiled
+    source's compiler report (``-Xptxas -v``: registers, shared memory,
+    spills); raises with the compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs = {}
+    try:
+        for s in sources:
+            lib = library_path(s)
+            if lib.exists():
+                continue
+            nvcc = nvcc or _nvcc()
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{s}.cu")]
+            procs[s] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp, lib)
+        reports, failed = {}, []
+        for s, (proc, tmp, lib) in procs.items():
+            reports[s] = proc.communicate()[0]
+            if proc.returncode:
+                failed.append(f"--- {s}.cu (exit {proc.returncode}):\n"
+                              f"{reports[s]}")
+            else:
+                os.replace(tmp, lib)
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return reports
+
+
+def ptr(t) -> int | None:
+    """Device pointer of a tensor for ``ctypes`` (None for None)."""
+    return None if t is None else t.data_ptr()
+
+
+class CudaKernel:
+    """One C entry point ``symbol`` of the library built from
+    ``csrc/<source>.cu``, launched on PyTorch's current stream.
+
+    ``argtypes`` lists the entry point's arguments without the trailing
+    device index and stream.  ``launches`` counts successful launches;
+    the wrapper that owns the kernel increments it through
+    :meth:`launch` and nowhere else.
+    """
+
+    def __init__(self, source: str, symbol: str, argtypes):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes) + [ctypes.c_int, ctypes.c_void_p]
+        self.launches = 0
+        self._lib = None
+        self._fn = None
+
+    def _load(self):
+        if self._fn is None:
+            path = library_path(self.source)
+            if not path.exists():
+                build([self.source])
+            self._lib = ctypes.CDLL(str(path))
+            fn = getattr(self._lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Launch on ``device`` and its current PyTorch stream; raise if
+        the launch was refused (the C function returns
+        ``cudaGetLastError()``)."""
+        fn = self._load()
+        index = torch.cuda.current_device() if device.index is None \
+            else device.index
+        err = fn(*args, index, torch.cuda.current_stream(index).cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.symbol} did not launch: cudaError_t {err}")
+        self.launches += 1

@@ -23,6 +23,9 @@ DEVICE_COUNT = 8
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (subprocess / multi-device)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips when "
+        "torch.cuda.is_available() is False")
 
 
 def run_distributed(code: str, timeout=600, device_count: int = DEVICE_COUNT):
