@@ -4,14 +4,30 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into the
-git-ignored ``_build`` directory beside them), holds each kernel against
-its plain PyTorch version on the card, then serves a two-layer GCN
-forward (169,343 nodes as in ogbn-arxiv, 128 -> 256 -> 40) three times on
-a power-law "social" graph (``Schedule.auto`` -> the EB kernel) and three
-times on a near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), with
-random weights from a seed.  It prints kernel and forward times, the
-launch counts of the serving runs, a ``{"kernels": [...]}`` line and, as
-its last line, ``{"ok": true, "device": {...}}``.  Any failed phase exits
+git-ignored ``_build`` directory beside them) and holds each kernel
+against its plain PyTorch version on the card: EB and RB SpMM, the
+epilogue, SDDMM, and fused sparse attention forward and backward.  Then
+it drives the paths of the port on a power-law "social" graph
+(``Schedule.auto`` -> the EB kernel) and a near-regular "roadnet" graph
+(``RB+PR`` -> the RB kernel), both at 169,343 nodes as in ogbn-arxiv,
+with random weights from a seed:
+
+- serving: a two-layer GCN forward (128 -> 256 -> 40), three requests;
+- training: the GCN of ``examples/gcn_spmm.py`` (mean NLL of
+  ``log_softmax`` on teacher labels, SGD at lr 0.5) for a few full-batch
+  steps, with the adjacency's values trainable too, so the backward runs
+  SDDMM and the transpose SpMM; step 0's gradients are held against the
+  plain path (``impl="ref"`` under torch autograd) and the loss must
+  fall;
+- ``make_spmm``: the pattern-closed differentiable SpMM over the social
+  graph's stream, forward and backward, against ``impl="ref"``;
+- graph attention: 4 heads of width 64 over the normalized adjacency
+  (its values as the score bias), forward and backward, held against the
+  plain path.
+
+It prints kernel, forward, training-step and attention times, the launch
+counts of each path, a ``{"kernels": [...]}`` line and, as its last
+line, ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero without that line; so does a machine without CUDA.
 """
 import json
@@ -35,6 +51,45 @@ F32_TOL = 1e-4
 #: bf16 outputs may round to neighbouring values: one bf16 step (2^-7
 #: relative) on top of the f32 tolerance.
 BF16_RTOL = 2.0 ** -7
+#: Attention's row statistics m and l compare per element, at F32_TOL of
+#: each value plus this floor: one score's f32 rounding over a 64-long
+#: dot is about 1e-6, and a tolerance set by the largest value would let
+#: the hub row's denominator (or an empty row's m of -1e30) cover every
+#: other row.
+STAT_ATOL = 1e-5
+#: Gradients of the training loss, as the relative L2 error against the
+#: plain path: f32 sums taken in another order (atomics in the kernels,
+#: ``index_add_`` in the plain path), chained through both layers.  The
+#: plain path takes its relu mask from the kernel path's pre-activation:
+#: where the two round a value near 0 to opposite signs, the gradient
+#: has a kink, and a handful of such elements moved the gradient of the
+#: roadnet adjacency's values by 2.4e-4 of its norm on the H100.
+GRAD_RTOL = 1e-4
+#: The borrowed mask is allowed only while the two paths disagree on the
+#: sign of at most this share of the layer-1 pre-activations (runs on the
+#: H100 read 0 to 3 of 43.4 M); more fails the check.
+MAX_FLIP_SHARE = 1e-6
+TRAIN_STEPS = 5
+LR = 0.5
+#: Graph attention: HEADS x HEAD_DIM = 256, the GCN's hidden width.
+HEADS, HEAD_DIM = 4, 64
+#: Where each kernel came from: its source and the TPU kernel it replaces.
+KERNEL_META = {
+    "spmm_eb": ("src/repro_torch/kernels/csrc/spmm_eb.cu",
+                "src/repro/kernels/spmm_eb.py:102"),
+    "spmm_rb": ("src/repro_torch/kernels/csrc/spmm_rb.cu",
+                "src/repro/kernels/spmm_rb.py:69"),
+    "epilogue": ("src/repro_torch/kernels/csrc/epilogue.cu",
+                 "src/repro/kernels/common.py:215"),
+    "sddmm": ("src/repro_torch/kernels/csrc/sddmm.cu",
+              "src/repro/kernels/sddmm.py:55"),
+    "fused_attention_fwd": (
+        "src/repro_torch/kernels/csrc/fused_attention_fwd.cu",
+        "src/repro/kernels/fused_attention.py:225"),
+    "fused_attention_bwd": (
+        "src/repro_torch/kernels/csrc/fused_attention_bwd.cu",
+        "src/repro/kernels/fused_attention.py:373"),
+}
 
 
 def fail(msg: str) -> None:
@@ -69,13 +124,19 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(got, want):
-    """(max |got - want|, tolerance text, within tolerance) in f32."""
+def compare(got, want, per_element=False):
+    """(max |got - want|, tolerance text, within tolerance) in f32; with
+    ``per_element`` each value is held to F32_TOL of itself plus
+    STAT_ATOL."""
     import torch
 
-    g, w = got.float(), want.float()
+    g, w = got.detach().float(), want.detach().float()
     if g.shape != w.shape or not bool(torch.isfinite(g).all()):
         return float("inf"), "finite, same shape", False
+    if per_element:
+        err = (g - w).abs()
+        return float(err.max()), f"{F32_TOL:.0e}|ref| + {STAT_ATOL:.0e}", \
+            bool((err <= F32_TOL * w.abs() + STAT_ATOL).all())
     scale = max(1.0, float(w.abs().max()))
     err = (g - w).abs()
     if got.dtype == torch.bfloat16:
@@ -83,6 +144,77 @@ def compare(got, want):
         return float(err.max()), f"2^-7|ref| + {F32_TOL * scale:.2e}", ok
     return float(err.max()), f"{F32_TOL * scale:.2e}", \
         float(err.max()) <= F32_TOL * scale
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| in f32 (inf for a non-finite result)."""
+    import torch
+
+    g, w = got.detach().float(), want.detach().float()
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+        return float("inf")
+    return float(torch.linalg.vector_norm(g - w)
+                 / torch.linalg.vector_norm(w).clamp_min(1e-30))
+
+
+class Checker:
+    """Worst error per kernel over its checks, and the checks that
+    failed."""
+
+    def __init__(self, kernels):
+        self.worst = {k: 0.0 for k in kernels}
+        self.failures = []
+
+    def record(self, kernel, label, got, want, per_element=False):
+        err, tol, ok = compare(got, want, per_element)
+        self.worst[kernel] = max(self.worst[kernel], err)
+        print(f"  {kernel:19s} {label:48s} max_abs_err {err:.3e} "
+              f"tol {tol} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            self.failures.append(f"{kernel} {label}")
+
+    def done(self):
+        import torch
+
+        torch.cuda.synchronize()
+        if self.failures:
+            fail("kernel disagrees with its plain version: "
+                 + "; ".join(self.failures))
+        return self.worst
+
+
+class LaunchTimer:
+    """While active, brackets every kernel launch with CUDA events on the
+    launching stream; :meth:`ms` sums the device time per kernel."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels.build import CudaKernel
+
+        self._cls, self._orig, self.events = CudaKernel, CudaKernel.launch, []
+
+        def launch(kernel, device, *args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self._orig(kernel, device, *args)
+            end.record()
+            self.events.append((kernel.source, start, end))
+
+        CudaKernel.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.launch = self._orig
+
+    def ms(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for source, start, end in self.events:
+            out[source] = out.get(source, 0.0) + start.elapsed_time(end)
+        return out
 
 
 def library_csr(adj):
@@ -130,16 +262,8 @@ def check_kernels(graphs, x, model, dev):
     from repro_torch.sparse import matrix_stats
 
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
-    worst = {"spmm_eb": 0.0, "spmm_rb": 0.0, "epilogue": 0.0}
-    failures = []
-
-    def record(kernel, label, got, want):
-        err, tol, ok = compare(got, want)
-        worst[kernel] = max(worst[kernel], err)
-        print(f"  {kernel:9s} {label:48s} max_abs_err {err:.3e} "
-              f"tol {tol} {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            failures.append(f"{kernel} {label}")
+    checker = Checker(("spmm_eb", "spmm_rb", "epilogue"))
+    record, failures = checker.record, checker.failures
 
     b1 = (x @ model.w1).contiguous()
     rand = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
@@ -232,11 +356,75 @@ def check_kernels(graphs, x, model, dev):
                                row_tile=row_tile, col_tile=N_CLASS),
                spmm_rb.spmm_rb_plain(e.cols, e.vals, b2,
                                      n_rows=adj.shape[0]))
-    torch.cuda.synchronize()
-    if failures:
-        fail("kernel disagrees with its plain version: "
-             + "; ".join(failures))
-    return worst
+    return checker.done()
+
+
+def attention_operands(adj, gen, dev, *, grad=False):
+    """q, k, v and a cotangent of graph attention over ``adj``: (n, HEADS,
+    HEAD_DIM) each, from ``gen``."""
+    import torch
+
+    n = adj.shape[0]
+    ops = [torch.randn(n, HEADS, HEAD_DIM, generator=gen).to(dev)
+           for _ in range(4)]
+    return [t.requires_grad_(grad) for t in ops[:3]] + [ops[3]]
+
+
+def head_major(t):
+    """(n, H, d) -> the kernels' (H, n, d), contiguous."""
+    return t.detach().movedim(1, 0).contiguous()
+
+
+def check_sddmm_and_attention(graphs, x, model, dev):
+    """SDDMM and the fused attention kernels against their plain versions
+    at the shapes of the training and attention paths; returns the worst
+    error per kernel."""
+    import torch
+    from repro_torch.kernels import fused_attention as fa
+    from repro_torch.kernels import sddmm
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    checker = Checker(("sddmm", "fused_attention_fwd",
+                       "fused_attention_bwd"))
+    adj = graphs["social"][0]
+    coo = adj.tocoo()
+    print("check: SDDMM on the social graph's stream (the gradient in the "
+          "adjacency's values)", flush=True)
+    b1 = (x @ model.w1).contiguous()
+    for width, b in ((HIDDEN, b1), (N_CLASS, None)):
+        if b is None:
+            b = torch.randn(x.shape[0], width, generator=gen).to(dev)
+        dz = torch.randn(x.shape[0], width, generator=gen).to(dev)
+        for scale in (None, adj.vals):
+            label = (f"dz ({x.shape[0]} x {width}) . B"
+                     + (" * vals" if scale is not None else ""))
+            checker.record("sddmm", label,
+                           sddmm.sddmm(coo.rows, coo.cols, dz, b, scale),
+                           sddmm.sddmm_plain(coo.rows, coo.cols, dz, b,
+                                             scale))
+    del b1, dz, b
+    for name, (adj, _) in graphs.items():
+        print(f"check: fused attention on the {name} graph, {HEADS} heads "
+              f"of {HEAD_DIM}, bias = the adjacency's values", flush=True)
+        q, k, v, do = (head_major(t) for t in attention_operands(adj, gen,
+                                                                  dev))
+        kw = dict(scale=HEAD_DIM ** -0.5, bias=adj.vals)
+        got = fa.fused_sparse_attention(adj.indptr, adj.indices, q, k, v,
+                                        **kw)
+        want = fa.fused_sparse_attention_plain(adj.indptr, adj.indices, q,
+                                               k, v, **kw)
+        for label, g, w in zip(("out", "m", "l"), got, want):
+            checker.record("fused_attention_fwd", f"{name} {label}", g, w,
+                           per_element=label != "out")
+        got = fa.fused_sparse_attention_bwd(adj.indptr, adj.indices, q, k, v,
+                                            do, got[1], got[2], **kw)
+        want = fa.fused_sparse_attention_bwd_plain(
+            adj.indptr, adj.indices, q, k, v, do, want[1], want[2], **kw)
+        for label, g, w in zip(("dq", "dk", "dv"), got, want):
+            checker.record("fused_attention_bwd", f"{name} {label}", g, w)
+        del q, k, v, do, got, want
+    torch.cuda.empty_cache()
+    return checker.done()
 
 
 def reference_forward(model, adj, x):
@@ -281,6 +469,226 @@ def serve(name, model, adj, x, counters):
     print(f"serve {name}: outputs finite, (n, {N_CLASS}), match the plain "
           f"path within {tol}", flush=True)
     return times, counts
+
+
+def train(name, adj, sched, x, counters):
+    """The GCN of ``examples/gcn_spmm.py`` at full width on one graph:
+    step 0's gradients (w1, b1, w2 and the adjacency's values) against
+    the plain path, then TRAIN_STEPS SGD steps with the launch counts
+    zeroed just before and read just after, and one more step with every
+    launch timed.  Returns the numbers of the run."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import GCN
+    from repro_torch.sparse import CSR, spmm
+
+    dev = x.device
+    gen = torch.Generator().manual_seed(SEED + 3)
+    w_teacher = torch.randn(N_FEAT, N_CLASS, generator=gen).to(dev)
+    with torch.no_grad():  # the example's teacher labels
+        labels = spmm(adj, x @ w_teacher, impl="ref", device=dev).argmax(1)
+    model = GCN(N_FEAT, HIDDEN, N_CLASS, schedule=sched, device=dev,
+                generator=torch.Generator().manual_seed(SEED))
+    vals = adj.vals.requires_grad_()
+    params = [model.w1, model.b1, model.w2]
+
+    def loss_of(logits):  # the example's mean NLL of log_softmax
+        return F.cross_entropy(logits, labels)
+
+    got = torch.autograd.grad(loss_of(model(adj, x)), params + [vals])
+    leaves = [t.detach().clone().requires_grad_() for t in params + [vals]]
+    ref_adj = CSR(adj.indptr, adj.indices, leaves[3], adj.shape)
+    z = spmm(ref_adj, x @ leaves[0], bias=leaves[1], impl="ref", device=dev)
+    with torch.no_grad():
+        z_kernel = spmm(adj, x @ model.w1, bias=model.b1, schedule=sched,
+                        device=dev)
+    mask = z_kernel > 0
+    flips = int((mask != (z > 0)).sum())
+    want = torch.autograd.grad(
+        loss_of(spmm(ref_adj, (z * mask) @ leaves[2], impl="ref",
+                     device=dev)), leaves)
+    print(f"train {name}: {flips} of {z.numel()} layer-1 pre-activations "
+          "round to opposite signs of 0 in the two paths (bound "
+          f"{MAX_FLIP_SHARE:.0e} of them); the plain path takes the kernel "
+          "path's relu mask", flush=True)
+    if flips > MAX_FLIP_SHARE * z.numel():
+        fail(f"train {name}: {flips} pre-activations change sign between "
+             "the kernel and the plain path")
+    grad_err = {}
+    for pname, g, w in zip(("w1", "b1", "w2", "vals"), got, want):
+        grad_err[pname] = rel_l2(g, w)
+        print(f"train {name}: step-0 d{pname} {tuple(g.shape)} relative L2 "
+              f"error {grad_err[pname]:.3e} (max_abs_err "
+              f"{float((g - w).abs().max()):.3e}) against the plain path, "
+              f"tol {GRAD_RTOL:.0e}", flush=True)
+        if not grad_err[pname] <= GRAD_RTOL:
+            fail(f"train {name}: step-0 gradient of {pname} disagrees with "
+                 "the plain path")
+    del got, want, leaves, ref_adj, z, z_kernel, mask
+
+    opt = torch.optim.SGD(model.parameters(), lr=LR)
+
+    def step():
+        opt.zero_grad()
+        vals.grad = None
+        loss = loss_of(model(adj, x))
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    for k in counters.values():
+        k.launches = 0
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TRAIN_STEPS + 1)]
+    losses = []
+    events[0].record()
+    for i in range(TRAIN_STEPS):
+        losses.append(step())
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in counters.items()}
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(TRAIN_STEPS)]
+    losses = [float(t) for t in losses]
+    with torch.no_grad():
+        final = float(loss_of(model(adj, x)))
+    print(f"train {name}: schedule {sched}; loss "
+          + " -> ".join(f"{v:.4f}" for v in losses + [final])
+          + "; step ms " + ", ".join(f"{t:.3f}" for t in step_ms)
+          + f"; launches in {TRAIN_STEPS} steps {counts}", flush=True)
+    if not all(v == v and abs(v) != float("inf") for v in losses + [final]):
+        fail(f"train {name}: a loss is not finite")
+    if not final < losses[0]:
+        fail(f"train {name}: the loss did not fall ({losses[0]} -> "
+             f"{final})")
+
+    with LaunchTimer() as timer:
+        step()
+    kernel_ms = timer.ms()
+    with torch.no_grad():
+        h = torch.relu(x @ model.w1)
+        g1 = torch.randn_like(h)
+        g2 = torch.randn(x.shape[0], N_CLASS, device=dev)
+        # the step's dense products: x @ w1 and h @ w2 forward; dw2, dh
+        # and dw1 backward
+        dense_ms = cuda_ms(lambda: (x @ model.w1, h @ model.w2,
+                                    h.t() @ g2, g2 @ model.w2.t(),
+                                    x.t() @ g1))
+    del h, g1, g2
+    vals.requires_grad_(False)
+    vals.grad = None
+    mean_ms = sum(step_ms[1:]) / (TRAIN_STEPS - 1)
+    sparse_ms = sum(kernel_ms.values())
+    print(f"train {name}: step {mean_ms:.4f} ms (CUDA events, mean of steps "
+          f"2-{TRAIN_STEPS}) = sparse kernels {sparse_ms:.4f} ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(kernel_ms.items()))
+          + f") + dense products {dense_ms:.4f} + the rest "
+          f"{mean_ms - sparse_ms - dense_ms:.4f}", flush=True)
+    return {"counts": counts, "losses": losses + [final],
+            "step_ms": mean_ms, "kernel_ms": kernel_ms,
+            "dense_ms": dense_ms, "grad_err": grad_err}
+
+
+def differentiate(adj, counters):
+    """``make_spmm`` over the social graph's (rows, cols) stream at the
+    hidden width, forward and backward, with the launch counts zeroed
+    just before and read just after the kernel run; out, dvals and dB
+    against impl='ref' under autograd."""
+    import torch
+    from repro_torch.sparse import make_spmm
+
+    dev = adj.device
+    coo = adj.tocoo()
+    gen = torch.Generator().manual_seed(SEED + 6)
+    b, cot = (torch.randn(n, HIDDEN, generator=gen).to(dev)
+              for n in adj.shape[::-1])
+    results = {}
+    for impl in ("ref", "kernel"):
+        fn = make_spmm(coo.rows, coo.cols, *adj.shape, impl=impl, device=dev)
+        vals = adj.vals.detach().clone().requires_grad_()
+        b_in = b.clone().requires_grad_()
+        for c in counters.values():
+            c.launches = 0
+        out = fn(vals, b_in)
+        results[impl] = (out.detach(),) + torch.autograd.grad(
+            out, (vals, b_in), cot)
+        torch.cuda.synchronize()
+    counts = {n: c.launches for n, c in counters.items()}
+    for label, g, w in zip(("out", "dvals", "dB"), results["kernel"],
+                           results["ref"]):
+        err, tol, ok = compare(g, w)
+        print(f"make_spmm social: {label} {tuple(g.shape)} max_abs_err "
+              f"{err:.3e} tol {tol} against impl='ref' "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"make_spmm social: {label} disagrees with impl='ref'")
+    print(f"make_spmm social: launches {counts}", flush=True)
+    if (counts["spmm_eb"], counts["sddmm"]) != (2, 1):
+        fail("make_spmm: expected 2 EB launches (forward, dB) and 1 SDDMM "
+             f"launch (dvals), got {counts}")
+    del results
+    torch.cuda.empty_cache()
+    return counts
+
+
+def attend(name, adj, counters):
+    """Graph attention forward and backward on one graph, with the launch
+    counts zeroed just before and read just after; output and gradients
+    against the plain path; forward and backward times."""
+    import torch
+    from repro_torch.kernels import fused_attention as fa
+    from repro_torch.models import graph_attention
+    from repro_torch.sparse import sparse_attention
+
+    dev = adj.device
+    gen = torch.Generator().manual_seed(SEED + 4)
+    q, k, v, cot = attention_operands(adj, gen, dev, grad=True)
+    for c in counters.values():
+        c.launches = 0
+    out = graph_attention(adj, q, k, v, device=dev)
+    grads = torch.autograd.grad(out, (q, k, v), cot)
+    torch.cuda.synchronize()
+    counts = {n: c.launches for n, c in counters.items()}
+    out_ref = sparse_attention(adj, q, k, v, impl="ref", device=dev)
+    want = torch.autograd.grad(out_ref, (q, k, v), cot)
+    for label, g, w in zip(("out", "dq", "dk", "dv"), (out,) + grads,
+                           (out_ref,) + want):
+        err, tol, ok = compare(g, w)
+        print(f"attend {name}: {label} {tuple(g.shape)} max_abs_err "
+              f"{err:.3e} tol {tol} against the plain path "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"attend {name}: {label} disagrees with the plain path")
+    del out, grads, out_ref, want
+    torch.cuda.empty_cache()
+
+    def fwd():
+        return graph_attention(adj, q, k, v, device=dev)
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(fwd, 5, 1)
+    both_ms = cuda_ms(lambda: torch.autograd.grad(fwd(), (q, k, v), cot),
+                      5, 1)
+    # the longest row alone: one warp per head walks it
+    lengths = (adj.indptr[1:] - adj.indptr[:-1]).long()
+    hub = int(lengths.argmax())
+    lo, hi = int(adj.indptr[hub]), int(adj.indptr[hub + 1])
+    ip = torch.tensor([0, hi - lo], dtype=torch.int32, device=dev)
+    hub_args = (ip, adj.indices[lo:hi], head_major(q[hub:hub + 1]),
+                head_major(k), head_major(v))
+    kw = dict(scale=HEAD_DIM ** -0.5, bias=adj.vals[lo:hi])
+    _, m, l = fa.fused_sparse_attention(*hub_args, **kw)
+    hub_fwd = cuda_ms(lambda: fa.fused_sparse_attention(*hub_args, **kw),
+                      3, 1)
+    hub_bwd = cuda_ms(lambda: fa.fused_sparse_attention_bwd(
+        *hub_args, head_major(cot[hub:hub + 1]), m, l, **kw), 3, 1)
+    print(f"attend {name}: forward {fwd_ms:.4f} ms, backward "
+          f"{both_ms - fwd_ms:.4f} ms (forward + backward {both_ms:.4f} ms; "
+          f"CUDA events, mean of 5); launches {counts}; the longest row "
+          f"({hi - lo} nnz) alone: forward {hub_fwd:.4f} ms, backward "
+          f"{hub_bwd:.4f} ms", flush=True)
+    return {"counts": counts, "fwd_ms": fwd_ms, "bwd_ms": both_ms - fwd_ms,
+            "hub": (hi - lo, hub_fwd, hub_bwd)}
 
 
 def bound(nbytes: int, flops: int):
@@ -374,6 +782,87 @@ def time_kernels(graphs, social_model, road_model, x):
     return results, dense_ms
 
 
+def sampled_addmm_ms(lib, dz, b, want):
+    """``torch.sparse.sampled_addmm`` (cuSPARSE SDDMM) on the same CSR:
+    the SDDMM yardstick (``library_ms``), which the port never calls.
+    None where it refuses these operands."""
+    import torch
+
+    bt = b.t().contiguous()
+    try:
+        got = torch.sparse.sampled_addmm(lib, dz, bt, beta=0.0)
+    except RuntimeError as e:
+        print(f"library SDDMM: torch.sparse.sampled_addmm refused: {e}",
+              flush=True)
+        return None
+    print(f"library SDDMM: sampled_addmm agrees with the kernel to "
+          f"max_abs_err {float((got.values() - want).abs().max()):.3e}",
+          flush=True)
+    return cuda_ms(lambda: torch.sparse.sampled_addmm(lib, dz, bt, beta=0.0))
+
+
+def time_sddmm_and_attention(graphs):
+    """Times of SDDMM and the attention kernels, their plain versions and
+    the library yardstick, with the bytes and operations of the work:
+    SDDMM for one training step on each graph (the gradient in the
+    values, at both layers' widths), each attention kernel for one pass
+    on each graph."""
+    import torch
+    from repro_torch.kernels import fused_attention as fa
+    from repro_torch.kernels import sddmm
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    res = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bytes": 0,
+               "flops": 0}
+           for k in ("sddmm", "fused_attention_fwd", "fused_attention_bwd")}
+    sd, fw, bw = (res[k] for k in res)
+    sd["library_ms"] = 0.0
+    hd = HEADS * HEAD_DIM
+    for name, (adj, _) in graphs.items():
+        dev, n, nnz = adj.device, adj.shape[0], adj.nnz
+        coo = adj.tocoo()
+        lib = library_csr(adj)
+        for width in (HIDDEN, N_CLASS):
+            dz, b = (torch.randn(n, width, generator=gen).to(dev)
+                     for _ in range(2))
+            sd["ms"] += cuda_ms(lambda: sddmm.sddmm(coo.rows, coo.cols, dz,
+                                                    b))
+            sd["plain_ms"] += cuda_ms(lambda: sddmm.sddmm_plain(
+                coo.rows, coo.cols, dz, b), 3, 1)
+            lib_ms = sampled_addmm_ms(lib, dz, b, sddmm.sddmm(
+                coo.rows, coo.cols, dz, b))
+            sd["library_ms"] = (None if lib_ms is None
+                                or sd["library_ms"] is None
+                                else sd["library_ms"] + lib_ms)
+            sd["bytes"] += nnz * 12 + 2 * n * width * 4
+            sd["flops"] += 2 * nnz * width
+        del dz, b
+        q, k, v, do = (head_major(t) for t in attention_operands(adj, gen,
+                                                                  dev))
+        kw = dict(scale=HEAD_DIM ** -0.5, bias=adj.vals)
+        args = (adj.indptr, adj.indices, q, k, v)
+        _, m, l = fa.fused_sparse_attention(*args, **kw)
+        fw["ms"] += cuda_ms(lambda: fa.fused_sparse_attention(*args, **kw),
+                            5, 1)
+        fw["plain_ms"] += cuda_ms(
+            lambda: fa.fused_sparse_attention_plain(*args, **kw), 2, 1)
+        # indptr, cols, bias; q, k, v; out; m and l
+        fw["bytes"] += ((n + 1) * 4 + nnz * 8 + 4 * n * hd * 4
+                       + 2 * HEADS * n * 4)
+        fw["flops"] += 4 * HEADS * nnz * HEAD_DIM
+        bw["ms"] += cuda_ms(lambda: fa.fused_sparse_attention_bwd(
+            *args, do, m, l, **kw), 5, 1)
+        bw["plain_ms"] += cuda_ms(lambda: fa.fused_sparse_attention_bwd_plain(
+            *args, do, m, l, **kw), 2, 1)
+        # indptr, cols, bias; q, k, v, dout; m, l; dq, dk, dv
+        bw["bytes"] += ((n + 1) * 4 + nnz * 8 + 7 * n * hd * 4
+                       + 2 * HEADS * n * 4)
+        bw["flops"] += 10 * HEADS * nnz * HEAD_DIM
+        del q, k, v, do, m, l
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> None:
     import torch
 
@@ -382,7 +871,14 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.core import Schedule
-        from repro_torch.kernels import build, common, spmm_eb, spmm_rb
+        from repro_torch.kernels import (
+            build,
+            common,
+            fused_attention,
+            sddmm,
+            spmm_eb,
+            spmm_rb,
+        )
         from repro_torch.models import GCN
         from repro_torch.sparse import matrix_stats
     except ImportError as e:
@@ -418,24 +914,50 @@ def main() -> None:
               f"{Schedule.auto(st, HIDDEN)}, N={N_CLASS} "
               f"{Schedule.auto(st, N_CLASS)}", flush=True)
 
-    worst = check_kernels(graphs, x, social_model, dev)
+    with torch.no_grad():
+        worst = check_kernels(graphs, x, social_model, dev)
+        worst.update(check_sddmm_and_attention(graphs, x, social_model, dev))
 
     counters = {"spmm_eb": spmm_eb.KERNEL, "spmm_rb": spmm_rb.KERNEL,
-                "epilogue": common.EPILOGUE_KERNEL}
-    _, social_counts = serve("social", social_model,
-                             graphs["social"][0], x, counters)
-    _, road_counts = serve("roadnet", road_model, graphs["roadnet"][0], x,
-                           counters)
-    launches = {n: social_counts[n] + road_counts[n] for n in counters}
-    for n, path in (("spmm_eb", social_counts), ("epilogue", social_counts),
-                    ("spmm_rb", road_counts)):
-        if path[n] == 0:
-            fail(f"the {n} kernel was not launched on its serving path")
+                "epilogue": common.EPILOGUE_KERNEL, "sddmm": sddmm.KERNEL,
+                "fused_attention_fwd": fused_attention.FWD_KERNEL,
+                "fused_attention_bwd": fused_attention.BWD_KERNEL}
+    runs, expected = [], []  # each path's counts; the kernels it must use
+    with torch.no_grad():  # serving
+        for name, model in (("social", social_model),
+                            ("roadnet", road_model)):
+            runs.append(serve(name, model, graphs[name][0], x, counters)[1])
+            expected.append((f"serve {name}",
+                             ("spmm_eb", "epilogue") if name == "social"
+                             else ("spmm_rb",)))
+    trained = {}
+    for name, (adj, sched) in graphs.items():
+        trained[name] = train(name, adj, sched, x, counters)
+        runs.append(trained[name]["counts"])
+        expected.append((f"train {name}",
+                         ("spmm_eb", "epilogue", "sddmm")
+                         if name == "social"
+                         else ("spmm_rb", "spmm_eb", "sddmm")))
+    runs.append(differentiate(graphs["social"][0], counters))
+    expected.append(("make_spmm social", ("spmm_eb", "sddmm")))
+    attended = {}
+    for name, (adj, _) in graphs.items():
+        attended[name] = attend(name, adj, counters)
+        runs.append(attended[name]["counts"])
+        expected.append((f"attend {name}",
+                         ("fused_attention_fwd", "fused_attention_bwd")))
+    for (path, kernels), counts in zip(expected, runs):
+        for n in kernels:
+            if counts[n] == 0:
+                fail(f"the {n} kernel was not launched on the {path} path")
+    launches = {n: sum(c[n] for c in runs) for n in counters}
 
-    fwd_ms = {name: cuda_ms(lambda m=m, a=graphs[name][0]: m(a, x), 5)
-              for name, m in (("social", social_model),
-                              ("roadnet", road_model))}
-    results, dense_ms = time_kernels(graphs, social_model, road_model, x)
+    with torch.no_grad():
+        fwd_ms = {name: cuda_ms(lambda m=m, a=graphs[name][0]: m(a, x), 5)
+                  for name, m in (("social", social_model),
+                                  ("roadnet", road_model))}
+        results, dense_ms = time_kernels(graphs, social_model, road_model, x)
+    results.update(time_sddmm_and_attention(graphs))
     parts = {"social": results["spmm_eb"]["ms"] + results["epilogue"]["ms"],
              "roadnet": results["spmm_rb"]["ms"]}
     for name in graphs:
@@ -444,17 +966,16 @@ def main() -> None:
               f"dense products {dense_ms[name]:.4f} + the rest "
               f"{fwd_ms[name] - parts[name] - dense_ms[name]:.4f}",
               flush=True)
+    for name in graphs:
+        t = trained[name]
+        per_step = {n: c / TRAIN_STEPS for n, c in t["counts"].items() if c}
+        print(f"training step {name}: {t['step_ms']:.4f} ms; per kernel ms "
+              + ", ".join(f"{k} {v:.4f}"
+                          for k, v in sorted(t["kernel_ms"].items()))
+              + f"; launches per step {per_step}", flush=True)
 
-    meta = {
-        "spmm_eb": ("src/repro_torch/kernels/csrc/spmm_eb.cu",
-                    "src/repro/kernels/spmm_eb.py:102"),
-        "spmm_rb": ("src/repro_torch/kernels/csrc/spmm_rb.cu",
-                    "src/repro/kernels/spmm_rb.py:69"),
-        "epilogue": ("src/repro_torch/kernels/csrc/epilogue.cu",
-                     "src/repro/kernels/common.py:215"),
-    }
     kernels = []
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces) in KERNEL_META.items():
         r = results[name]
         bound_ms, bound_by = bound(r["bytes"], r["flops"])
         kernels.append({
@@ -465,10 +986,10 @@ def main() -> None:
             "bound_by": bound_by, "library_ms": r["library_ms"]})
         lib = ("null" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
-        print(f"kernel {name}: {r['ms']:.4f} ms per forward (bound "
-              f"{bound_ms:.4f} ms by {bound_by}, {r['bytes']} bytes), "
-              f"plain {r['plain_ms']:.4f} ms, library {lib} ms, "
-              f"launches {launches[name]}", flush=True)
+        print(f"kernel {name}: {r['ms']:.4f} ms (bound {bound_ms:.4f} ms "
+              f"by {bound_by}, {r['bytes']} bytes, {r['flops']} "
+              f"operations), plain {r['plain_ms']:.4f} ms, library {lib} "
+              f"ms, launches {launches[name]}", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

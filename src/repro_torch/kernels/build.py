@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 #: One library per source.
-SOURCES = ("spmm_eb", "spmm_rb", "epilogue")
+SOURCES = ("spmm_eb", "spmm_rb", "epilogue", "sddmm", "fused_attention_fwd",
+           "fused_attention_bwd")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",

@@ -3,13 +3,15 @@
 ``spmm`` converts a CSR to the feed format its schedule selects (through
 the per-instance memo), passes the epilogue operands and runs the EB or
 RB kernel wrapper.  The kernels mask the ragged column edge themselves,
-so B is not padded to the column tile as the reference pads it.
+so B is not padded to the column tile as the reference pads it; nor is
+``sddmm``'s stream padded to its nnz tile.
 """
 from __future__ import annotations
 
 from ..core.schedule import Schedule
 from ..sparse.formats import CSR, ELL, GroupedCOO, round_up
 from . import ref
+from .sddmm import sddmm as _sddmm_kernel
 from .spmm_eb import spmm_eb
 from .spmm_rb import spmm_rb
 
@@ -81,3 +83,17 @@ def spmm(a, b, schedule: Schedule | None = None, *, bias=None,
                    row_tile=schedule.row_tile, col_tile=col_tile,
                    epilogue=ep, bias=bias, residual=residual)
 
+
+def sddmm(rows, cols, a, b, scale=None, *, nnz_tile: int = 256,
+          impl: str = "kernel"):
+    """vals[t] = <A[rows[t]], B[cols[t]]> (* scale[t]); rows/cols (nnz,).
+
+    impl='kernel' runs the SDDMM kernel wrapper (``nnz_tile`` lanes per
+    block; lanes past nnz are masked in the kernel), impl='ref' the
+    plain oracle.
+    """
+    if impl == "ref":
+        return ref.sddmm_ref(rows, cols, a, b, scale)
+    if impl != "kernel":
+        raise ValueError(f"impl must be 'kernel' or 'ref', got {impl!r}")
+    return _sddmm_kernel(rows, cols, a, b, scale, nnz_tile=nnz_tile)

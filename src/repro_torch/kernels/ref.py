@@ -1,6 +1,6 @@
 """Plain PyTorch oracles (port of ``repro/kernels/ref.py``): the
-``impl='ref'`` path of ``sparse.spmm`` and the ground truth of the
-tests."""
+``impl='ref'`` path of ``sparse.spmm`` and ``sparse.sddmm`` and the
+ground truth of the tests."""
 from __future__ import annotations
 
 import torch
@@ -20,3 +20,12 @@ def spmm_ell_ref(ecols, evals, b, n_rows):
     gathered = b.to(torch.float32)[ecols.long()]  # (R, W, C)
     out = (evals[..., None].to(torch.float32) * gathered).sum(dim=1)
     return out[:n_rows]
+
+
+def sddmm_ref(rows, cols, a, b, scale=None):
+    """SDDMM: vals[t] = <A[rows[t]], B[cols[t]]> (optionally * scale[t])."""
+    prod = (a.to(torch.float32)[rows.long()]
+            * b.to(torch.float32)[cols.long()]).sum(dim=-1)
+    if scale is not None:
+        prod = prod * scale.to(torch.float32)
+    return prod

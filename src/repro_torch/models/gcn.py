@@ -1,6 +1,7 @@
-"""Two-layer GCN for inference, shaped like ``examples/gcn_spmm.py``'s
-``gcn_fwd``: ``logits = Ã (relu(Ã (X W1) + b1) W2)``, each aggregation one
-scheduled SpMM (the bias and relu fused into the first)."""
+"""Two-layer GCN for serving and training, shaped like
+``examples/gcn_spmm.py``'s ``gcn_fwd``:
+``logits = Ã (relu(Ã (X W1) + b1) W2)``, each aggregation one scheduled
+SpMM (the bias and relu fused into the first)."""
 from __future__ import annotations
 
 import numpy as np
@@ -36,13 +37,14 @@ def normalized_adjacency(adj: CSR, *, device=None) -> CSR:
 
 
 class GCN(nn.Module):
-    """Two-layer GCN, inference only.
+    """Two-layer GCN, trainable.
 
-    The weights are parameters with ``requires_grad=False``: the port has
-    no SpMM backward yet, and ``spmm`` refuses inputs that require a
-    gradient rather than return an output without one.  ``schedule`` is
-    resolved per aggregation ('auto' picks from the matrix statistics and
-    that layer's width).
+    The weights are parameters that require a gradient: ``spmm`` over
+    the CSR is differentiable on the kernels (its backward is an SDDMM
+    and a transpose SpMM), so a loss on the logits trains them, and the
+    adjacency's values too if they require a gradient.  Serve under
+    ``torch.no_grad()``.  ``schedule`` is resolved per aggregation
+    ('auto' picks from the matrix statistics and that layer's width).
     """
 
     def __init__(self, in_features: int, hidden: int, n_classes: int, *,
@@ -53,11 +55,10 @@ class GCN(nn.Module):
 
         def param(*shape, scale):
             w = torch.randn(*shape, generator=generator) * scale
-            return nn.Parameter(w.to(dev), requires_grad=False)
+            return nn.Parameter(w.to(dev))
 
         self.w1 = param(in_features, hidden, scale=0.1)
-        self.b1 = nn.Parameter(torch.zeros(hidden, device=dev),
-                               requires_grad=False)
+        self.b1 = nn.Parameter(torch.zeros(hidden, device=dev))
         self.w2 = param(hidden, n_classes, scale=0.1)
         self.schedule = schedule
 
@@ -70,11 +71,12 @@ class GCN(nn.Module):
                       for k in ("w1", "b1", "w2"))
         model = cls(w1.shape[0], w1.shape[1], w2.shape[1],
                     schedule=schedule, device=device)
-        for p, v in ((model.w1, w1), (model.b1, b1), (model.w2, w2)):
-            if tuple(p.shape) != v.shape:
-                raise ValueError(f"parameter shape {v.shape} does not fit "
-                                 f"{tuple(p.shape)}")
-            p.copy_(torch.from_numpy(v))
+        with torch.no_grad():
+            for p, v in ((model.w1, w1), (model.b1, b1), (model.w2, w2)):
+                if tuple(p.shape) != v.shape:
+                    raise ValueError(f"parameter shape {v.shape} does not "
+                                     f"fit {tuple(p.shape)}")
+                p.copy_(torch.from_numpy(v))
         return model
 
     def forward(self, adj: CSR, x: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,10 @@ index ops convert to int64 where they need it.  The layout passes run in
 numpy on the host, line for line as in the reference, so the padded
 layouts match the JAX ones index for index.  ``CSR`` and ``GroupedCOO``
 memoize their conversions per instance and parameters, so a serving
-loop converts once however many requests reuse the matrix.
+loop converts once however many requests reuse the matrix.  Torch values
+can change in place, so ``spmm`` places the CSR's current values into a
+memoized layout on every call (``GroupedCOO.with_vals``,
+``CSR.ell_scatter_index``) and never reads the values a memo holds.
 """
 from __future__ import annotations
 
@@ -231,6 +234,36 @@ class CSR:
                             lambda: ELL.fromcsr(self, width=width,
                                                 row_tile=row_tile))
 
+    def ell_scatter_index(self):
+        """Memoized (row_ids, positions) int64 tensors scattering the flat
+        CSR value stream into the ELL (row, slot) layout:
+        ``evals[row_ids, positions] = vals`` rebuilds ``ELL.vals`` from
+        fresh values."""
+        def _build():
+            row_ids, pos = _csr_scatter_index(_host(self.indptr))
+            return (torch.as_tensor(row_ids, device=self.device),
+                    torch.as_tensor(pos, device=self.device))
+
+        return self._cached("ell_scatter", _build)
+
+    def transposed(self, nnz_tile: int):
+        """Memoized ``(g, perm)``: Aᵀ as an EB feed in CSC order (lanes
+        sorted by this matrix's column, standard layout, shape
+        ``(n_cols, n_rows)``) and the permutation that carries this
+        CSR's value stream into it, ``g.with_vals(vals[perm])``.  The
+        SpMM backward's transpose product ``Aᵀ·dz`` runs on it."""
+        def _build():
+            perm = torch.argsort(self.indices, stable=True)
+            rows, cols, vals = _padded_stream(
+                self.indices[perm], self.tocoo().rows[perm],
+                self.vals.detach()[perm], nnz_tile, self.shape[1] - 1)
+            g = GroupedCOO(rows=rows, cols=cols, vals=vals,
+                           shape=(self.shape[1], self.shape[0]),
+                           nnz=self.nnz, nnz_tile=nnz_tile)
+            return g, perm
+
+        return self._cached(("transposed", nnz_tile), _build)
+
     def todense(self) -> torch.Tensor:
         """Dense (n_rows, n_cols) tensor of this matrix."""
         return self.tocoo().todense()
@@ -318,15 +351,33 @@ class GroupedCOO:
             indptr, indices, shape, nnz_tile, group_size, split_threshold,
             merge_threshold)
         dev = vals.device
-        pos_t = torch.as_tensor(pos, device=dev)
-        vpad = torch.zeros(rows.shape[0], dtype=vals.dtype, device=dev)
-        vpad[pos_t.long()] = vals
         g = GroupedCOO(
             rows=torch.as_tensor(rows, device=dev),
-            cols=torch.as_tensor(cols, device=dev), vals=vpad, shape=shape,
-            nnz=nnz, nnz_tile=nnz_tile,
+            cols=torch.as_tensor(cols, device=dev),
+            vals=torch.zeros(rows.shape[0], dtype=vals.dtype, device=dev),
+            shape=shape, nnz=nnz, nnz_tile=nnz_tile,
             skew=(split_threshold, merge_threshold, group_size, heavy_tiles))
-        object.__setattr__(g, "_skew_positions", pos_t)
+        object.__setattr__(g, "_skew_positions",
+                           torch.as_tensor(pos, device=dev))
+        return g.with_vals(vals)
+
+    def with_vals(self, vals) -> "GroupedCOO":
+        """This layout carrying a fresh (nnz,) value stream in CSR order:
+        a trailing pad for the standard layout, the scatter index
+        :meth:`skew_positions` for the skew layout.  Padding lanes keep
+        val 0."""
+        if tuple(vals.shape) != (self.nnz,):
+            raise ValueError(f"need {self.nnz} values, got "
+                             f"{tuple(vals.shape)}")
+        if self.skew is None:
+            vpad = torch.nn.functional.pad(vals,
+                                           (0, self.nnz_padded - self.nnz))
+            return dataclasses.replace(self, vals=vpad)
+        pos = self.skew_positions()
+        vpad = vals.new_zeros(self.nnz_padded).index_copy_(0, pos.long(),
+                                                           vals)
+        g = dataclasses.replace(self, vals=vpad)
+        object.__setattr__(g, "_skew_positions", pos)
         return g
 
     @staticmethod
@@ -437,9 +488,9 @@ class ELL:
                 f"ELL layout of {n_pad} x {w} needs {nbytes} bytes, above "
                 f"ELL_MAX_BYTES={ELL_MAX_BYTES}: the longest row sets the "
                 "width, so use an 'eb' schedule for this matrix")
-        row_ids, pos = _csr_scatter_index(indptr)
+        row_ids, pos = csr.ell_scatter_index()
         dev = csr.device
-        flat = torch.as_tensor(row_ids * w + pos, device=dev)
+        flat = row_ids * w + pos
         ecols = torch.zeros(n_pad * w, dtype=torch.int32, device=dev)
         evals = torch.zeros(n_pad * w, dtype=csr.vals.dtype, device=dev)
         ecols[flat] = csr.indices

@@ -1,9 +1,12 @@
 """The public sparse API of the port (port of ``repro/sparse/ops.py``):
 schedule resolution, epilogue derivation and kernel dispatch for
-``spmm``.
+``spmm``, ``sddmm`` and ``sparse_attention``.
 
-This slice serves the forward only: an input that requires a gradient is
-refused rather than answered with an output that has none.
+``spmm`` over a CSR and ``sparse_attention`` are differentiable, and
+both directions run on the kernels.  ``spmm``'s backward closes the
+paper's algebra on itself (Eq. 2c/2d): ``dvals`` is an SDDMM and ``dB``
+a transpose SpMM on the EB kernel over the CSR's memoized column-sorted
+view.  ``sparse_attention``'s backward is the fused backward kernel.
 """
 from __future__ import annotations
 
@@ -12,12 +15,13 @@ import dataclasses
 import torch
 
 from ..core.device import check_on, resolve_device
-from ..core.schedule import Epilogue, Schedule, as_schedule
+from ..core.schedule import ACTIVATIONS, Epilogue, Schedule, as_schedule
+from ..kernels import fused_attention as fa
 from ..kernels import ops as kops
 from .formats import CSR, ELL, GroupedCOO
 from .random import matrix_stats
 
-__all__ = ["spmm"]
+__all__ = ["spmm", "sddmm", "sparse_attention"]
 
 
 def _resolve_schedule(a, b, schedule, epilogue: Epilogue | None = None):
@@ -66,21 +70,268 @@ def spmm(a, b, schedule="auto", *, bias=None, residual=None,
     residual    (n_rows, N) fused post-activation residual add.
     epilogue    explicit :class:`~repro_torch.core.Epilogue`; bias and
                 residual flags follow the arrays above.
-    impl        'kernel' (the scheduled kernel) or 'ref' (plain oracle).
+    impl        'kernel' (the scheduled kernel) or 'ref' (plain oracle,
+                differentiated by torch autograd).
     device      where the operands must lie: None means 'cuda', which
                 raises when no CUDA device is available; pass 'cpu' to
                 run the kernels' plain versions on the CPU.
+
+    Over a CSR the kernel path is differentiable in ``a.vals``, ``b``,
+    ``bias`` and ``residual`` (:class:`_SpmmCSR`).  A GroupedCOO or ELL
+    input that requires a gradient is refused: its kernel output would
+    have none.
     """
     dev = resolve_device(device)
     vals = a.vals if isinstance(a, (CSR, GroupedCOO, ELL)) else None
     check_on(dev, a=vals, b=b, bias=bias, residual=residual)
-    if torch.is_grad_enabled() and any(
+    ep = _derive_epilogue(schedule, epilogue, bias, residual)
+    sched = _resolve_schedule(a, b, schedule, epilogue=ep)
+    if impl == "kernel" and isinstance(a, CSR):
+        return _SpmmCSR.apply(a.vals, b, bias, residual, a, sched)
+    if impl == "kernel" and torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (vals, b, bias, residual)):
         raise RuntimeError(
-            "spmm has no backward in the port yet: an input requires a "
+            f"spmm over a {type(a).__name__} has no backward: an input "
+            "requires a gradient, and the output would silently have none. "
+            " Pass the CSR, use impl='ref', or run under torch.no_grad().")
+    return kops.spmm(a, b, sched, bias=bias, residual=residual, impl=impl)
+
+
+def _feed(a: CSR, sched: Schedule, vals):
+    """The kernel feed ``sched`` selects for ``a``: the memoized layout
+    carrying ``vals``, placed anew on every call because torch values can
+    change in place (the skew layout through its scatter index, the
+    standard layout with a trailing pad, ELL through
+    ``CSR.ell_scatter_index``)."""
+    if sched.kernel == "eb":
+        return a.grouped(sched.nnz_tile, group_size=sched.group_size,
+                         split_threshold=sched.split_threshold,
+                         merge_threshold=sched.merge_threshold
+                         ).with_vals(vals)
+    e = a.ell(row_tile=sched.row_tile)
+    rid, pos = a.ell_scatter_index()
+    evals = vals.new_zeros(e.vals.shape)
+    evals[rid, pos] = vals
+    return dataclasses.replace(e, vals=evals)
+
+
+def _transpose_spmm(a: CSR, sched: Schedule, vals, dz):
+    """Aᵀ·dz (n_cols, N) on the EB kernel over the CSC-order view of
+    ``a``: the forward's nnz tile, group and column tile when it ran EB,
+    the ``Schedule`` defaults after RB, and ``segment`` (the view is
+    column-sorted, so a run is a column's nonzeros in a group)."""
+    tsched = (Schedule("eb", nnz_tile=sched.nnz_tile,
+                       group_size=sched.group_size, col_tile=sched.col_tile)
+              if sched.kernel == "eb" else Schedule("eb"))
+    g, perm = a.transposed(tsched.nnz_tile)
+    return kops.spmm(g.with_vals(vals[perm]), dz, tsched)
+
+
+class _SpmmCSR(torch.autograd.Function):
+    """``spmm`` over a CSR on the kernels, differentiable in vals, B,
+    bias and residual (port of ``_spmm_csr_diff``).  With
+    ``y = cast(act(A@B + bias) + residual)``:
+
+        dz        = dy ⊙ act'(A@B + bias)   (z recomputed on the forward
+                                             kernel, bias-only epilogue)
+        dvals     = SDDMM(dz, B)            (Eq. 2c, the SDDMM kernel)
+        dB        = Aᵀ · dz                 (Eq. 2d, the EB kernel)
+        dbias     = Σ_rows dz
+        dresidual = dy
+    """
+
+    @staticmethod
+    def forward(ctx, vals, b, bias, residual, a, sched):
+        ctx.a, ctx.sched = a, sched
+        ctx.res_dtype = None if residual is None else residual.dtype
+        ctx.save_for_backward(vals, b, bias)
+        return kops.spmm(_feed(a, sched, vals), b, sched, bias=bias,
+                         residual=residual)
+
+    @staticmethod
+    def backward(ctx, dout):
+        vals, b, bias = ctx.saved_tensors
+        a, sched = ctx.a, ctx.sched
+        ep = sched.epilogue
+        need_vals, need_b, need_bias, need_res = ctx.needs_input_grad[:4]
+        dout = dout.to(torch.float32)
+        dz = dout
+        if ep.activation is not None and (need_vals or need_b or need_bias):
+            z = kops.spmm(_feed(a, sched, vals), b,
+                          sched.replace(epilogue=Epilogue(bias=ep.bias)),
+                          bias=bias)
+            with torch.enable_grad():
+                zz = z.detach().requires_grad_()
+                dz, = torch.autograd.grad(ACTIVATIONS[ep.activation](zz),
+                                          zz, dout)
+        dvals = db = dbias = dres = None
+        if need_vals:
+            coo = a.tocoo()
+            dvals = kops.sddmm(coo.rows, coo.cols, dz, b).to(vals.dtype)
+        if need_b:
+            db = _transpose_spmm(a, sched, vals, dz).to(b.dtype)
+        if need_bias:
+            dbias = dz.sum(dim=0).reshape(bias.shape).to(bias.dtype)
+        if need_res:
+            dres = dout.to(ctx.res_dtype)
+        return dvals, db, dbias, dres, None, None
+
+
+def sddmm(rows, cols, a, b, scale=None, *, schedule=None,
+          nnz_tile: int | None = None, impl: str = "kernel", device=None):
+    """vals[t] = <A[rows[t]], B[cols[t]]> (* scale[t]); rows/cols (nnz,).
+
+    ``schedule`` supplies the nnz tile (its ``nnz_tile`` field, the lanes
+    one block of the kernel takes); an explicit ``nnz_tile=`` overrides
+    it.  ``schedule='tune'`` raises until the tuner is ported.  Not
+    differentiable: an input that requires a gradient is refused.
+    """
+    dev = resolve_device(device)
+    check_on(dev, rows=rows, cols=cols, a=a, b=b, scale=scale)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, scale)):
+        raise RuntimeError(
+            "sddmm has no backward in the port: an input requires a "
             "gradient, and the output would silently have none.  Run "
             "under torch.no_grad() or detach the inputs.")
-    ep = _derive_epilogue(schedule, epilogue, bias, residual)
-    sched = _resolve_schedule(a, b, schedule, epilogue=ep)
-    return kops.spmm(a, b, sched, bias=bias, residual=residual, impl=impl)
+    if schedule is not None and nnz_tile is None:
+        nnz_tile = as_schedule(schedule).nnz_tile
+    return kops.sddmm(rows, cols, a, b, scale,
+                      nnz_tile=nnz_tile if nnz_tile else 256, impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# Fused sparse attention
+# ---------------------------------------------------------------------------
+
+
+def _attn_pattern(adj, n_kv: int):
+    """``(indptr, cols, n_rows, bias)`` from an adjacency.
+
+    A CSR contributes its stored values as an additive score bias
+    (``s[t] = <Q[r], K[c]>·scale + vals[t]``; row-constant values cancel
+    in the softmax) and must have ``n_kv`` columns.  A ``(rows, cols,
+    n_rows)`` tuple is a pure pattern (``bias=None``) whose rows must be
+    sorted (CSR order); its row pointer is built here, per call.
+    """
+    if isinstance(adj, CSR):
+        if adj.shape[1] != n_kv:
+            raise ValueError(f"k/v hold {n_kv} rows, the adjacency "
+                             f"{adj.shape[1]} columns")
+        return adj.indptr, adj.indices, adj.shape[0], adj.vals.detach()
+    rows, cols, n_rows = adj
+    indptr, cols = _sorted_pattern(rows, cols, int(n_rows), n_kv)
+    return indptr, cols, int(n_rows), None
+
+
+def _sorted_pattern(rows, cols, n_rows: int, n_cols: int):
+    """``(indptr, cols)`` of a (rows, cols) stream whose rows are sorted
+    non-decreasing (CSR order); raises on unsorted rows or indices
+    outside ``[0, n_rows) x [0, n_cols)``, which the kernels would read
+    unchecked."""
+    rows = torch.as_tensor(rows)
+    cols = torch.as_tensor(cols, device=rows.device).to(torch.int32)
+    if rows.shape != cols.shape or rows.dim() != 1:
+        raise ValueError("rows and cols must be equal 1-D streams")
+    if rows.numel():
+        if bool((rows[1:] < rows[:-1]).any()):
+            raise ValueError("the pattern's rows must be sorted "
+                             "non-decreasing (CSR order)")
+        if (int(rows[0]) < 0 or int(rows[-1]) >= n_rows
+                or int(cols.min()) < 0 or int(cols.max()) >= n_cols):
+            raise ValueError(f"pattern indices outside [0, {n_rows}) x "
+                             f"[0, {n_cols})")
+    counts = torch.bincount(rows.long(), minlength=n_rows)
+    indptr = torch.zeros(n_rows + 1, dtype=torch.int32, device=rows.device)
+    indptr[1:] = torch.cumsum(counts, 0)
+    return indptr, cols
+
+
+def _attn_heads(q, k, v):
+    """q/k/v in the kernels' head-major (H, n, ·) layout: 2-D inputs are
+    one head, 3-D inputs are (n, H, ·).  Returns (qh, kh, vh, multi)."""
+    if q.dim() == k.dim() == v.dim() == 2:
+        return q[None], k[None], v[None], False
+    if not (q.dim() == k.dim() == v.dim() == 3
+            and q.shape[1] == k.shape[1] == v.shape[1]):
+        raise ValueError(
+            f"attention wants all-2-D (n, d) q/k/v or all-3-D (n, H, d) "
+            f"with one shared head count H; got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}")
+    return q.movedim(1, 0), k.movedim(1, 0), v.movedim(1, 0), True
+
+
+def sparse_attention(adj, q, k, v, *, schedule=None,
+                     scale: float | None = None, impl: str = "kernel",
+                     device=None):
+    """One-pass sparse attention over a pattern:
+    ``out[r] = Σ_t softmax_row(<Q[r], K[c_t]>·scale + bias_t) V[c_t]``.
+
+    adj       a CSR adjacency (its stored values are an additive score
+              bias) or a ``(rows, cols, n_rows)`` pure pattern with rows
+              sorted non-decreasing.
+    q         (n_rows, d) queries, or (n_rows, H, d) for H heads;
+    k, v      (n_cols, d) / (n_cols, dv), or with a head axis 1.  All
+              heads share the pattern and run in one kernel launch.
+    schedule  validated as the reference does: 'parallel' is refused
+              and 'tune' raises until the tuner is ported.  Its tiles,
+              group and strategy do not change the kernels' results.
+    impl      'kernel' (the fused kernels, both directions) or 'ref'
+              (the spec oracle per head, differentiated by autograd).
+    device    as for :func:`spmm`.
+
+    The output is f32.  Differentiable in q, k and v; the adjacency,
+    pattern and values, is data.  Empty rows give zero rows.
+    """
+    dev = resolve_device(device)
+    check_on(dev, q=q, k=k, v=v)
+    qh, kh, vh, multi = _attn_heads(q, k, v)
+    indptr, cols, n_rows, bias = _attn_pattern(adj, kh.shape[1])
+    check_on(dev, indptr=indptr)
+    if qh.shape[1] != n_rows:
+        raise ValueError(f"q holds {qh.shape[1]} rows, the pattern "
+                         f"{n_rows}")
+    if scale is None:
+        scale = float(q.shape[-1]) ** -0.5
+    if impl == "ref":
+        rows = fa.rows_of(indptr)
+        out = torch.stack([
+            fa.sparse_attention_ref(rows, cols, qh[h], kh[h], vh[h],
+                                    n_rows=n_rows, scale=scale, bias=bias)
+            for h in range(qh.shape[0])])
+    elif impl == "kernel":
+        sched = as_schedule(schedule)
+        if sched.strategy == "parallel":
+            raise ValueError(
+                "sparse_attention cannot run the 'parallel' strategy: its "
+                "single-writeback contract does not hold for attention "
+                "rows")
+        out = _SparseAttention.apply(qh, kh, vh, indptr, cols, bias,
+                                     float(scale))
+    else:
+        raise ValueError(f"impl must be 'kernel' or 'ref', got {impl!r}")
+    return out.movedim(0, 1) if multi else out[0]
+
+
+class _SparseAttention(torch.autograd.Function):
+    """The fused kernels over head-major (H, n, ·) operands (port of
+    ``_sparse_attention_diff``): the forward saves ``(q, k, v, m, l)``,
+    the O(H·n_rows) row statistics, and the backward kernel recomputes
+    the probabilities from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, indptr, cols, bias, scale):
+        out, m, l = fa.fused_sparse_attention(indptr, cols, q, k, v,
+                                              scale=scale, bias=bias)
+        ctx.save_for_backward(q, k, v, m, l, indptr, cols, bias)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, m, l, indptr, cols, bias = ctx.saved_tensors
+        dq, dk, dv = fa.fused_sparse_attention_bwd(
+            indptr, cols, q, k, v, dout, m, l, scale=ctx.scale, bias=bias)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)

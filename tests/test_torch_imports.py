@@ -3,6 +3,8 @@
 refuse to run on the CPU unless asked to by ``device="cpu"``."""
 import ast
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -32,9 +34,32 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_port_has_its_kernel_sources():
+    from repro_torch.kernels import build
+
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-    assert {p.stem for p in csrc.glob("*.cu")} == {
-        "spmm_eb", "spmm_rb", "epilogue"}
+    assert {p.stem for p in csrc.glob("*.cu")} == set(build.SOURCES) == {
+        "spmm_eb", "spmm_rb", "epilogue", "sddmm", "fused_attention_fwd",
+        "fused_attention_bwd"}
+
+
+def test_importing_every_port_module_loads_no_jax():
+    """Transitive imports too: a fresh interpreter imports every module
+    of the port and finds neither JAX nor the JAX package loaded."""
+    mods = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+            for p in PORT_FILES if p.is_relative_to(ROOT / "src")]
+    mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n"
+            "print(len(sys.modules))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       env={"PYTHONPATH": str(ROOT / "src"),
+                            "PATH": "/usr/bin:/bin"})
+    assert r.returncode == 0, r.stderr
 
 
 @pytest.fixture
@@ -54,14 +79,19 @@ def test_spmm_without_device_raises_when_cuda_is_absent(no_cuda):
 
 def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda):
     import repro_torch.sparse as ts
-    from repro_torch.models import GCN, normalized_adjacency
+    from repro_torch.models import GCN, graph_attention, normalized_adjacency
 
     a = ts.random_csr(16, 16, density=0.2, seed=0, device="cpu")
+    x = torch.ones(16, 4)
     for call in (lambda: ts.random_csr(16, 16, seed=0),
                  lambda: ts.graph_pattern_csr("roadnet", 16),
                  lambda: ts.CSR.from_numpy(np.array([0, 0]), [], [], (1, 1)),
                  lambda: normalized_adjacency(a),
-                 lambda: GCN(4, 8, 2)):
+                 lambda: GCN(4, 8, 2),
+                 lambda: ts.sddmm(a.indices, a.indices, x, x),
+                 lambda: ts.make_spmm(a.indices, a.indices, 16, 16),
+                 lambda: ts.sparse_attention(a, x, x, x),
+                 lambda: graph_attention(a, x, x, x)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

@@ -165,12 +165,30 @@ def test_parallel_layouts_against_dense_oracle(split, merge):
 
 
 def test_spmm_refuses_inputs_that_require_grad():
+    """Over a CSR, spmm is differentiable and matches autograd through
+    the dense product; a GroupedCOO or ELL input that requires a
+    gradient is still refused (its kernel output would have none)."""
     _, a_t, b, _, _ = _inputs()
     bt = torch.from_numpy(b).requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        ts.spmm(a_t, bt, device="cpu")
-    with torch.no_grad():
-        assert ts.spmm(a_t, bt, device="cpu").shape == (96, N_DENSE)
+    a_t.vals.requires_grad_()
+    cot = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (96, N_DENSE)).astype(np.float32))
+    out = ts.spmm(a_t, bt, device="cpu")
+    dvals, db = torch.autograd.grad(out, (a_t.vals, bt), cot)
+    dense = a_t.todense().detach().requires_grad_()
+    ddense, db_want = torch.autograd.grad(dense @ bt, (dense, bt), cot)
+    coo = a_t.tocoo()
+    torch.testing.assert_close(db, db_want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(dvals, ddense[coo.rows.long(),
+                                             coo.cols.long()],
+                               rtol=RTOL, atol=ATOL)
+    for fmt, sched in ((a_t.grouped(64), TS(nnz_tile=64)),
+                       (a_t.ell(8), TS(kernel="rb"))):
+        with pytest.raises(RuntimeError, match="no backward"):
+            ts.spmm(fmt, bt, sched, device="cpu")
+        with torch.no_grad():
+            assert ts.spmm(fmt, bt, sched, device="cpu").shape == (
+                96, N_DENSE)
 
 
 def test_narrow_value_dtype_is_not_ported():
