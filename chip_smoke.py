@@ -6,11 +6,13 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into the
 git-ignored ``_build`` directory beside them) and holds each kernel
 against its plain PyTorch version on the card: EB and RB SpMM, the
-epilogue, SDDMM, and fused sparse attention forward and backward.  Then
-it drives the paths of the port on a power-law "social" graph
-(``Schedule.auto`` -> the EB kernel) and a near-regular "roadnet" graph
-(``RB+PR`` -> the RB kernel), both at 169,343 nodes as in ogbn-arxiv,
-with random weights from a seed:
+epilogue, SDDMM, fused sparse attention forward and backward, and
+segment reduce (on four profiles: the social graph's row statistics,
+batched and hidden graph readout, and G-aligned ``parallel``; max and
+min bit for bit).  Then it drives the paths of the port on a
+power-law "social" graph (``Schedule.auto`` -> the EB kernel) and a
+near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
+169,343 nodes as in ogbn-arxiv, with random weights from a seed:
 
 - serving: a two-layer GCN forward (128 -> 256 -> 40), three requests;
 - training: the GCN of ``examples/gcn_spmm.py`` (mean NLL of
@@ -23,14 +25,21 @@ with random weights from a seed:
   graph's stream, forward and backward, against ``impl="ref"``;
 - graph attention: 4 heads of width 64 over the normalized adjacency
   (its values as the score bias), forward and backward, held against the
-  plain path.
+  plain path;
+- the fusion planner: ``gcn_two_layer`` with the served GCN's weights in
+  2 planned launches, three requests, against the GCN's forward and the
+  unfused plain composition (``run_chain_ref``);
+- graph readout: the same chain ending in ``segment_reduce`` (mean and
+  max over segments of 26 nodes) in 3 planned launches, three requests,
+  against ``run_chain_ref``.
 
-It prints kernel, forward, training-step and attention times, the launch
-counts of each path, a ``{"kernels": [...]}`` line and, as its last
-line, ``{"ok": true, "device": {...}}``.  Any failed phase exits
+It prints kernel, forward, training-step, attention and readout times,
+the launch counts of each path, a ``{"kernels": [...]}`` line and, as
+its last line, ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero without that line; so does a machine without CUDA.
 """
 import json
+import math
 import subprocess
 import sys
 import time
@@ -73,6 +82,9 @@ TRAIN_STEPS = 5
 LR = 0.5
 #: Graph attention: HEADS x HEAD_DIM = 256, the GCN's hidden width.
 HEADS, HEAD_DIM = 4, 64
+#: Graph readout: the nodes pooled in contiguous segments of 26, the mean
+#: graph size of OGB's ogbg-molpcba (a batch of graphs is a node range).
+READOUT_SIZE = 26
 #: Where each kernel came from: its source and the TPU kernel it replaces.
 KERNEL_META = {
     "spmm_eb": ("src/repro_torch/kernels/csrc/spmm_eb.cu",
@@ -89,6 +101,8 @@ KERNEL_META = {
     "fused_attention_bwd": (
         "src/repro_torch/kernels/csrc/fused_attention_bwd.cu",
         "src/repro/kernels/fused_attention.py:373"),
+    "segment_reduce": ("src/repro_torch/kernels/csrc/segment_reduce.cu",
+                       "src/repro/kernels/segment_reduce.py:50"),
 }
 
 
@@ -124,6 +138,17 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_median(fn, window_ms: float = 5.0, windows: int = 5) -> float:
+    """Median over ``windows`` CUDA-event windows of the mean time of
+    ``fn``, each window holding enough calls to fill about ``window_ms``
+    (at least 10): steadier than ``cuda_ms`` for kernels of tens of
+    microseconds."""
+    import statistics
+
+    iters = max(10, math.ceil(window_ms / max(cuda_ms(fn), 1e-3)))
+    return statistics.median(cuda_ms(fn, iters, 0) for _ in range(windows))
+
+
 def compare(got, want, per_element=False):
     """(max |got - want|, tolerance text, within tolerance) in f32; with
     ``per_element`` each value is held to F32_TOL of itself plus
@@ -146,6 +171,27 @@ def compare(got, want, per_element=False):
         float(err.max()) <= F32_TOL * scale
 
 
+def compare_bits(got, want):
+    """(max |got - want| over the non-NaN values, tolerance text, equal bit
+    for bit): NaN where the plain result has NaN, every other value with
+    its bits.  max and min order -0.0 below +0.0, so their order of
+    reduction does not matter."""
+    import torch
+
+    g, w = got.detach(), want.detach()
+    if g.shape != w.shape or g.dtype != w.dtype:
+        return float("inf"), "same bits", False
+    nan = torch.isnan(w)
+    keep = ~nan
+    same = bool(torch.equal(torch.isnan(g), nan)) and bool(torch.equal(
+        g[keep].view(torch.int32), w[keep].view(torch.int32)))
+    gk, wk = g[keep], w[keep]
+    diff = torch.where(gk == wk, 0.0, (gk - wk).abs()).nan_to_num(
+        nan=float("inf"))
+    err = float(diff.max()) if diff.numel() else 0.0
+    return err, "same bits", same
+
+
 def rel_l2(got, want) -> float:
     """||got - want|| / ||want|| in f32 (inf for a non-finite result)."""
     import torch
@@ -165,8 +211,10 @@ class Checker:
         self.worst = {k: 0.0 for k in kernels}
         self.failures = []
 
-    def record(self, kernel, label, got, want, per_element=False):
-        err, tol, ok = compare(got, want, per_element)
+    def record(self, kernel, label, got, want, per_element=False,
+               exact=False):
+        err, tol, ok = (compare_bits(got, want) if exact
+                        else compare(got, want, per_element))
         self.worst[kernel] = max(self.worst[kernel], err)
         print(f"  {kernel:19s} {label:48s} max_abs_err {err:.3e} "
               f"tol {tol} {'ok' if ok else 'FAIL'}", flush=True)
@@ -863,6 +911,281 @@ def time_sddmm_and_attention(graphs):
     return res
 
 
+def segment_profiles(graphs, x, model):
+    """The segment-reduce kernel's four input profiles, each ``(label,
+    seg ids, data, num_segments, cases)`` with ``cases`` the (strategy,
+    op) pairs held and timed on it:
+
+    - row statistics: the social graph's row ids over its nnz, data
+      (nnz, HEADS) per-head scores, ops max and add: the per-row pass of
+      unfused attention (``benchmarks/beyond.py``); the hub row is one
+      segment of 169,343 lanes;
+    - batched readout: ids ``arange(n) // READOUT_SIZE``, data the served
+      logits plus the count column (n, 41), as the mean readout runs it;
+    - hidden readout: the same ids over layer 1's output (n, 256), ops
+      max and min (relu's zeros tie);
+    - parallel: ids ``arange(n) // 32``, aligned to G = 32, the one
+      profile where ``parallel`` may be held against the dense oracle.
+    """
+    import torch
+    from repro_torch.core import Epilogue
+    from repro_torch.sparse import spmm
+
+    adj = graphs["social"][0]
+    dev, n = x.device, adj.shape[0]
+    gen = torch.Generator().manual_seed(SEED + 7)
+    scores = torch.randn(adj.nnz, HEADS, generator=gen).to(dev)
+    hidden = spmm(adj, x @ model.w1, bias=model.b1,
+                  epilogue=Epilogue("relu"), impl="ref", device=dev)
+    logits = spmm(adj, hidden @ model.w2, impl="ref", device=dev)
+    readout = torch.cat([logits, torch.ones(n, 1, device=dev)], 1)
+    nodes = torch.arange(n, device=dev)
+    pooled = (nodes // READOUT_SIZE).to(torch.int32)
+    aligned = (nodes // 32).to(torch.int32)
+    n_pool = -(-n // READOUT_SIZE)
+    return [
+        ("row statistics", adj.tocoo().rows, scores, n,
+         (("segment", "max"), ("segment", "add"), ("accumulate", "max"))),
+        ("batched readout", pooled, readout, n_pool,
+         (("segment", "add"), ("accumulate", "add"))),
+        ("hidden readout", pooled, hidden, n_pool,
+         (("segment", "max"), ("segment", "min"))),
+        ("parallel", aligned, readout, -(-n // 32),
+         (("parallel", "add"), ("parallel", "max"))),
+    ]
+
+
+def check_segment_reduce(profiles):
+    """The segment-reduce kernel against its plain version on every
+    profile and case: max and min bit for bit, sums at F32_TOL of the
+    largest magnitude; ``parallel`` on its aligned ids against the dense
+    oracle too.  Returns the worst error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_reduce as sr
+
+    checker = Checker(("segment_reduce",))
+    for label, seg, data, n_seg, cases in profiles:
+        print(f"check: segment_reduce, {label}: {seg.numel()} lanes x "
+              f"{data.shape[1]} -> {n_seg} segments", flush=True)
+        for strategy, op in cases:
+            kw = dict(num_segments=n_seg, strategy=strategy, op=op)
+            got = sr.segment_reduce(seg, data, **kw)
+            checker.record("segment_reduce", f"{label} {strategy} {op}", got,
+                           sr.segment_reduce_plain(seg, data, **kw),
+                           exact=op != "add")
+            if strategy == "parallel":
+                checker.record(
+                    "segment_reduce", f"{label} {strategy} {op} vs oracle",
+                    got, ref.segment_reduce_ref(
+                        data, seg, n_seg, op="sum" if op == "add" else op),
+                    exact=op != "add")
+    return checker.done()
+
+
+def run_requests(fn, counters):
+    """REQUESTS calls of ``fn``, with the launch counts zeroed just before
+    and read just after: (outputs, host ms of each, counts, launches per
+    request of the kernels that ran)."""
+    import torch
+
+    for k in counters.values():
+        k.launches = 0
+    times, outs = [], []
+    for _ in range(REQUESTS):
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = {n: k.launches for n, k in counters.items()}
+    return outs, times, counts, {n: c / REQUESTS for n, c in counts.items()
+                                 if c}
+
+
+def serve_planned(name, model, adj, sched, x, counters, want):
+    """REQUESTS forwards of ``gcn_two_layer`` with the served GCN's
+    weights, through the fusion planner, with the launch counts zeroed
+    just before and read just after; the plan must take 2 launches, the
+    CUDA launches per request must be ``want``, and the outputs must
+    match the GCN's forward and the unfused plain composition."""
+    from repro_torch.fuse import gcn_chain, plan, run_chain_ref
+    from repro_torch.models import gcn_two_layer
+
+    weights, biases = (model.w1, model.w2), (model.b1, None)
+    chain, params = gcn_chain(adj, weights, biases, schedule=sched)
+    n_planned = plan(chain).n_launches
+
+    def request():
+        return gcn_two_layer(adj, x, *weights, *biases, schedule=sched,
+                             device=x.device)
+
+    outs, times, counts, per_request = run_requests(request, counters)
+    ms = cuda_ms(request, 5)
+    print(f"planned serve {name}: {n_planned} planned launches; request ms "
+          + ", ".join(f"{t:.3f}" for t in times)
+          + f"; {ms:.4f} ms (CUDA events, mean of 5); launches per request "
+          f"{per_request}", flush=True)
+    if n_planned != 2:
+        fail(f"planned serve {name}: {n_planned} planned launches, not 2")
+    if per_request != want:
+        fail(f"planned serve {name}: launches per request {per_request}, "
+             f"expected {want}")
+    for label, ref_out in (("the GCN forward", model(adj, x)),
+                           ("run_chain_ref", run_chain_ref(chain, x,
+                                                           params))):
+        checks = [compare(out, ref_out) for out in outs]
+        for i, (err, tol, ok) in enumerate(checks):
+            if not ok:
+                fail(f"planned serve {name} request {i}: max_abs_err "
+                     f"{err:.3e} above {tol} against {label}")
+        print(f"planned serve {name}: outputs (n, {N_CLASS}) match {label} "
+              f"within {tol} (max_abs_err "
+              f"{max(c[0] for c in checks):.3e})", flush=True)
+    return {"counts": counts, "ms": ms}
+
+
+#: The split reason the reference planner gives at a readout boundary.
+READOUT_REASONS = {
+    "mean": "consumer 'segment_reduce' reduces over its own iteration "
+            "space",
+    "max": "consumer monoid 'max' cannot be composed from the producer's "
+           "blocked partial outputs",
+}
+
+
+def readout(name, model, adj, sched, x, counters, op, want):
+    """Graph readout: the served GCN's chain ending in
+    ``segment_reduce(op)`` over segments of READOUT_SIZE nodes, REQUESTS
+    runs of its plan with the launch counts zeroed just before and read
+    just after.  The plan must take 3 launches, split at the readout for
+    the reference's reason; each request launches ``want`` plus one
+    segment reduce.  The output is held against ``run_chain_ref`` and,
+    given the same SpMM output, the readout against its plain oracle (bit
+    for bit for max)."""
+    import torch
+    from repro_torch.fuse import (
+        gcn_chain,
+        plan,
+        run_chain_ref,
+        run_plan,
+        segment_reduce_node,
+    )
+    from repro_torch.kernels import ref
+
+    dev, n = x.device, adj.shape[0]
+    seg = (torch.arange(n, device=dev) // READOUT_SIZE).to(torch.int32)
+    n_pool = -(-n // READOUT_SIZE)
+    chain, params = gcn_chain(adj, (model.w1, model.w2), (model.b1, None),
+                              schedule=sched)
+    chain += (segment_reduce_node(op),)
+    params += [{"seg_ids": seg, "num_segments": n_pool}]
+    p = plan(chain)
+    if (p.n_launches, p.decision.fused) != (3, (True, False, False)) or \
+            not p.reasons[-1].startswith(READOUT_REASONS[op]):
+        fail(f"readout {op} {name}: plan {p.decision.tag}, "
+             f"{p.n_launches} launches, last split {p.reasons[-1]!r}")
+
+    def request():
+        return run_plan(p, x, params, device=dev)
+
+    outs, times, counts, per_request = run_requests(request, counters)
+    ms = cuda_ms(request, 5)
+    print(f"readout {op} {name}: {n_pool} segments of {READOUT_SIZE} nodes; "
+          f"plan {p.decision.tag}, {p.n_launches} launches; request ms "
+          + ", ".join(f"{t:.3f}" for t in times)
+          + f"; {ms:.4f} ms (CUDA events, mean of 5); launches per request "
+          f"{per_request}", flush=True)
+    if per_request != {**want, "segment_reduce": 1}:
+        fail(f"readout {op} {name}: launches per request {per_request}")
+    want_out = run_chain_ref(chain, x, params)
+    checks = [compare(out, want_out) for out in outs]
+    for i, (err, tol, ok) in enumerate(checks):
+        if not ok:  # compare() also fails a wrong shape
+            fail(f"readout {op} {name} request {i}: max_abs_err {err:.3e} "
+                 f"above {tol} against run_chain_ref")
+    err = max(c[0] for c in checks)
+    h = run_plan(plan(chain[:3]), x, params[:3], device=dev)
+    got = run_plan(plan(chain[3:]), h, params[3:], device=dev)
+    oracle = ref.segment_reduce_ref(h, seg, n_pool, op=op)
+    err2, tol2, ok2 = (compare_bits(got, oracle) if op == "max"
+                       else compare(got, oracle))
+    print(f"readout {op} {name}: outputs ({n_pool}, {N_CLASS}) match "
+          f"run_chain_ref within {tol} (max_abs_err {err:.3e}); on the same "
+          f"SpMM output the readout matches its plain oracle: {tol2}, "
+          f"max_abs_err {err2:.3e} {'ok' if ok2 else 'FAIL'}", flush=True)
+    if not ok2:
+        fail(f"readout {op} {name}: the readout disagrees with its plain "
+             "oracle on the same SpMM output")
+    return {"counts": counts, "ms": ms}
+
+
+def library_segment_reduce_ms(data, reduce, lengths):
+    """``torch.segment_reduce`` over the same rows: the segment-reduce
+    yardstick (``library_ms``), which the port never calls.  None where
+    it refuses these operands."""
+    import torch
+
+    def call():
+        return torch.segment_reduce(data, reduce, lengths=lengths, axis=0)
+
+    try:
+        call()
+    except RuntimeError as e:
+        print(f"library segment reduce: torch.segment_reduce refused: {e}",
+              flush=True)
+        return None
+    return cuda_ms_median(call)
+
+
+def time_segment_reduce(profiles, adj):
+    """Times of the segment-reduce kernel, its plain version and the
+    library yardstick on every profile and case, summed into the kernel's
+    row, with the bytes (ids and data read once, the output written once;
+    the identity fill is the kernel's own cost, inside its time) and
+    operations (one per element) of that work; and the social hub row
+    alone under 'segment'.  The kernel and library times are medians of
+    windows of about 5 ms (``cuda_ms_median``)."""
+    import torch
+    from repro_torch.kernels import segment_reduce as sr
+
+    row = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+           "flops": 0}
+    for label, seg, data, n_seg, cases in profiles:
+        lengths = torch.bincount(seg.long(), minlength=n_seg)
+        t, c = data.shape
+        nbytes = t * 4 + t * c * 4 + n_seg * c * 4
+        for strategy, op in cases:
+            kw = dict(num_segments=n_seg, strategy=strategy, op=op)
+            ms = cuda_ms_median(lambda: sr.segment_reduce(seg, data, **kw))
+            plain = cuda_ms(lambda: sr.segment_reduce_plain(seg, data, **kw),
+                            3, 1)
+            lib = library_segment_reduce_ms(data, "sum" if op == "add"
+                                            else op, lengths)
+            b_ms, by = bound(nbytes, t * c)
+            print(f"segment_reduce {label} {strategy} {op} ({t} x {c} -> "
+                  f"{n_seg}): {ms:.4f} ms (bound {b_ms:.4f} ms by {by}), "
+                  f"plain {plain:.4f} ms, library "
+                  f"{'null' if lib is None else f'{lib:.4f}'} ms",
+                  flush=True)
+            row["ms"] += ms
+            row["plain_ms"] += plain
+            row["library_ms"] = (None if lib is None or row["library_ms"]
+                                 is None else row["library_ms"] + lib)
+            row["bytes"] += nbytes
+            row["flops"] += t * c
+    lengths = (adj.indptr[1:] - adj.indptr[:-1]).long()
+    hub = int(lengths.argmax())
+    lo, hi = int(adj.indptr[hub]), int(adj.indptr[hub + 1])
+    data = profiles[0][2][lo:hi]
+    seg = torch.zeros(hi - lo, dtype=torch.int32, device=data.device)
+    hub_ms = {op: cuda_ms_median(lambda op=op: sr.segment_reduce(
+        seg, data, num_segments=1, op=op)) for op in ("max", "add")}
+    print(f"segment_reduce row statistics: the hub row alone ({hi - lo} "
+          f"lanes x {data.shape[1]}, 'segment', one atomic per group and "
+          f"column on one address): max {hub_ms['max']:.4f} ms, add "
+          f"{hub_ms['add']:.4f} ms", flush=True)
+    return row
+
+
 def main() -> None:
     import torch
 
@@ -876,6 +1199,7 @@ def main() -> None:
             common,
             fused_attention,
             sddmm,
+            segment_reduce,
             spmm_eb,
             spmm_rb,
         )
@@ -917,11 +1241,14 @@ def main() -> None:
     with torch.no_grad():
         worst = check_kernels(graphs, x, social_model, dev)
         worst.update(check_sddmm_and_attention(graphs, x, social_model, dev))
+        profiles = segment_profiles(graphs, x, social_model)
+        worst.update(check_segment_reduce(profiles))
 
     counters = {"spmm_eb": spmm_eb.KERNEL, "spmm_rb": spmm_rb.KERNEL,
                 "epilogue": common.EPILOGUE_KERNEL, "sddmm": sddmm.KERNEL,
                 "fused_attention_fwd": fused_attention.FWD_KERNEL,
-                "fused_attention_bwd": fused_attention.BWD_KERNEL}
+                "fused_attention_bwd": fused_attention.BWD_KERNEL,
+                "segment_reduce": segment_reduce.KERNEL}
     runs, expected = [], []  # each path's counts; the kernels it must use
     with torch.no_grad():  # serving
         for name, model in (("social", social_model),
@@ -946,6 +1273,24 @@ def main() -> None:
         runs.append(attended[name]["counts"])
         expected.append((f"attend {name}",
                          ("fused_attention_fwd", "fused_attention_bwd")))
+    planned = {}
+    with torch.no_grad():  # serving through the fusion planner, readout
+        for name, model in (("social", social_model),
+                            ("roadnet", road_model)):
+            adj, sched = graphs[name]
+            sched = None if sched == "auto" else sched
+            want = ({"spmm_eb": 2, "epilogue": 1} if name == "social"
+                    else {"spmm_rb": 2})
+            planned[name] = serve_planned(name, model, adj, sched, x,
+                                          counters, want)
+            runs.append(planned[name]["counts"])
+            expected.append((f"planned serve {name}", tuple(want)))
+            for op in ("mean", "max"):
+                planned[(name, op)] = readout(name, model, adj, sched, x,
+                                              counters, op, want)
+                runs.append(planned[(name, op)]["counts"])
+                expected.append((f"readout {op} {name}",
+                                 tuple(want) + ("segment_reduce",)))
     for (path, kernels), counts in zip(expected, runs):
         for n in kernels:
             if counts[n] == 0:
@@ -958,6 +1303,10 @@ def main() -> None:
                                   ("roadnet", road_model))}
         results, dense_ms = time_kernels(graphs, social_model, road_model, x)
     results.update(time_sddmm_and_attention(graphs))
+    with torch.no_grad():
+        results["segment_reduce"] = time_segment_reduce(
+            profiles, graphs["social"][0])
+    del profiles
     parts = {"social": results["spmm_eb"]["ms"] + results["epilogue"]["ms"],
              "roadnet": results["spmm_rb"]["ms"]}
     for name in graphs:
@@ -966,6 +1315,12 @@ def main() -> None:
               f"dense products {dense_ms[name]:.4f} + the rest "
               f"{fwd_ms[name] - parts[name] - dense_ms[name]:.4f}",
               flush=True)
+    for name in graphs:
+        print(f"planned forward {name}: {planned[name]['ms']:.4f} ms "
+              f"(gcn_two_layer; GCN.forward {fwd_ms[name]:.4f} ms); readout "
+              f"mean {planned[(name, 'mean')]['ms']:.4f} ms, max "
+              f"{planned[(name, 'max')]['ms']:.4f} ms (CUDA events, mean of "
+              "5)", flush=True)
     for name in graphs:
         t = trained[name]
         per_step = {n: c / TRAIN_STEPS for n, c in t["counts"].items() if c}

@@ -263,6 +263,33 @@ class Epilogue:
             acc = acc.to(torch_dtype(self.out_dtype))
         return acc
 
+    def extended(self, tail: "Epilogue") -> "Optional[Epilogue]":
+        """Absorb ``tail`` (elementwise work that runs after this
+        epilogue) into one fused epilogue, or ``None`` when the fixed
+        template order ``cast(act(acc + bias) + residual)`` cannot express
+        the composition: a bias cannot land after an activation, a second
+        activation never merges, and nothing lands after a cast.  The
+        fusion planner's epilogue-fold rule asks exactly this."""
+        merged = self
+        if self.out_dtype and not tail.is_noop:
+            return None
+        if tail.bias:
+            if merged.bias or merged.activation or merged.residual:
+                return None
+            merged = dataclasses.replace(merged, bias=True)
+        if tail.activation:
+            if merged.activation or merged.residual:
+                return None
+            merged = dataclasses.replace(merged,
+                                         activation=tail.activation)
+        if tail.residual:
+            if merged.residual:
+                return None
+            merged = dataclasses.replace(merged, residual=True)
+        if tail.out_dtype:
+            merged = dataclasses.replace(merged, out_dtype=tail.out_dtype)
+        return merged
+
 
 # ---------------------------------------------------------------------------
 # The unified Schedule object

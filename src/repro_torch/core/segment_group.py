@@ -64,13 +64,44 @@ def _seg_sum(data, seg_ids, num_segments):
     return out.index_add_(0, seg_ids.long(), data)
 
 
+def _ordered_monoid(name: str) -> Monoid:
+    """``max`` or ``min`` with -0.0 < +0.0, as ``jnp.maximum`` and
+    ``jnp.minimum`` order them (and the CUDA kernels' atomics); NaN
+    propagates.  torch's ``maximum``, ``amax`` and ``scatter_reduce``
+    return whichever zero they meet first, so a tie of zeros is settled
+    here: the result is the winning zero wherever one was reduced."""
+    is_min = name == "min"
+    identity = float("inf") if is_min else -float("inf")
+    pair, axis = ((torch.minimum, torch.amin) if is_min
+                  else (torch.maximum, torch.amax))
+    scatter = _seg_scatter("amin" if is_min else "amax", identity)
+
+    def wins(x):  # the zero that wins a tie of zeros
+        return (x == 0) & (torch.signbit(x) == is_min)
+
+    def settle(r, won):
+        zero = torch.tensor(-0.0 if is_min else 0.0, dtype=r.dtype,
+                            device=r.device)
+        return torch.where((r == 0) & won, zero, r)
+
+    def combine(a, b):
+        return settle(pair(a, b), wins(a) | wins(b))
+
+    def reduce(x, dim):
+        return settle(axis(x, dim), wins(x).any(dim))
+
+    def seg_reduce(data, seg_ids, num_segments):
+        won = _seg_sum(wins(data).to(data.dtype), seg_ids, num_segments)
+        return settle(scatter(data, seg_ids, num_segments), won > 0)
+
+    return Monoid(name, identity, combine, reduce, seg_reduce)
+
+
 MONOIDS = {
     "add": Monoid("add", 0.0, torch.add, torch.sum, _seg_sum,
                   matmul_ok=True),
-    "max": Monoid("max", -float("inf"), torch.maximum, torch.amax,
-                  _seg_scatter("amax", -float("inf"))),
-    "min": Monoid("min", float("inf"), torch.minimum, torch.amin,
-                  _seg_scatter("amin", float("inf"))),
+    "max": _ordered_monoid("max"),
+    "min": _ordered_monoid("min"),
 }
 MONOIDS["sum"] = MONOIDS["add"]
 

@@ -80,16 +80,17 @@ def _plain_segment(rows, partial, out, group_size: int, *,
 
 def group_reduce_scatter(rows, partial, out, group_size: int,
                          strategy: str = "segment", *,
-                         nnz_tile: int) -> None:
+                         nnz_tile: int, op=None) -> None:
     """Reduce ``partial`` (T, C) by ``rows`` (T,) into ``out`` (R, C) in
-    place with the registered strategy.  Built-ins are group-local and
-    run over the whole stream at once; a user strategy runs tile by tile,
+    place with the registered strategy under the monoid ``op`` names
+    ('add' by default, 'max', 'min').  Built-ins are group-local and run
+    over the whole stream at once; a user strategy runs tile by tile,
     through its realization or, lacking one, through its spec."""
     T = partial.shape[0]
     if T % group_size or T % nnz_tile:
         raise ValueError(f"T={T} is not a multiple of group_size="
                          f"{group_size} and nnz_tile={nnz_tile}")
-    entry = get_strategy(strategy)
+    entry = get_strategy(strategy, op=op)
     if entry.builtin:
         entry.kernel_fn(rows, partial, out, group_size, monoid=entry.monoid)
         return

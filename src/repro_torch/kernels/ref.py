@@ -1,9 +1,12 @@
 """Plain PyTorch oracles (port of ``repro/kernels/ref.py``): the
-``impl='ref'`` path of ``sparse.spmm`` and ``sparse.sddmm`` and the
-ground truth of the tests."""
+``impl='ref'`` path of ``sparse.spmm`` and ``sparse.sddmm``, the
+segment reductions of ``fuse.run_chain_ref`` and the ground truth of the
+tests."""
 from __future__ import annotations
 
 import torch
+
+from ..core.segment_group import MONOIDS
 
 
 def spmm_coo_ref(rows, cols, vals, b, n_rows):
@@ -29,3 +32,21 @@ def sddmm_ref(rows, cols, a, b, scale=None):
     if scale is not None:
         prod = prod * scale.to(torch.float32)
     return prod
+
+
+def segment_reduce_ref(data, seg_ids, num_segments, op: str = "sum"):
+    """out[s] = op over data[t] with seg_ids[t] == s, in f32, for ``op``
+    in 'sum' / 'max' / 'min' / 'mean'.  Empty segments give 0, -inf,
+    +inf and 0, as ``jax.ops.segment_sum`` / ``segment_max`` /
+    ``segment_min`` and the reference's mean give them."""
+    data = data.to(torch.float32)
+    if op == "mean":
+        tot = MONOIDS["add"].seg_reduce(data, seg_ids, num_segments)
+        cnt = MONOIDS["add"].seg_reduce(
+            torch.ones((data.shape[0], 1), device=data.device), seg_ids,
+            num_segments)
+        return tot / cnt.clamp_min(1.0)
+    if op not in MONOIDS:
+        raise ValueError(f"segment_reduce_ref op {op!r}; one of "
+                         "sum/max/min/mean")
+    return MONOIDS[op].seg_reduce(data, seg_ids, num_segments)

@@ -2,4 +2,4 @@
 attention."""
 from .attention import graph_attention  # noqa: F401
 from .gcn import GCN, normalized_adjacency  # noqa: F401
-from .layers import gcn_layer  # noqa: F401
+from .layers import gcn_layer, gcn_two_layer  # noqa: F401

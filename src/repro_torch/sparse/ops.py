@@ -1,6 +1,6 @@
 """The public sparse API of the port (port of ``repro/sparse/ops.py``):
 schedule resolution, epilogue derivation and kernel dispatch for
-``spmm``, ``sddmm`` and ``sparse_attention``.
+``spmm``, ``sddmm``, ``segment_reduce`` and ``sparse_attention``.
 
 ``spmm`` over a CSR and ``sparse_attention`` are differentiable, and
 both directions run on the kernels.  ``spmm``'s backward closes the
@@ -18,10 +18,11 @@ from ..core.device import check_on, resolve_device
 from ..core.schedule import ACTIVATIONS, Epilogue, Schedule, as_schedule
 from ..kernels import fused_attention as fa
 from ..kernels import ops as kops
+from ..kernels import segment_reduce as kseg
 from .formats import CSR, ELL, GroupedCOO
 from .random import matrix_stats
 
-__all__ = ["spmm", "sddmm", "sparse_attention"]
+__all__ = ["segment_reduce", "spmm", "sddmm", "sparse_attention"]
 
 
 def _resolve_schedule(a, b, schedule, epilogue: Epilogue | None = None):
@@ -199,6 +200,48 @@ def sddmm(rows, cols, a, b, scale=None, *, schedule=None,
         nnz_tile = as_schedule(schedule).nnz_tile
     return kops.sddmm(rows, cols, a, b, scale,
                       nnz_tile=nnz_tile if nnz_tile else 256, impl=impl)
+
+
+def segment_reduce(seg_ids, data, num_segments: int, schedule=None, *,
+                   op: str = "sum", device=None):
+    """out[s] = op over data[t] with seg_ids[t] == s, through the
+    segment-group kernel, for ``op`` in 'sum' / 'max' / 'min' / 'mean'.
+
+    seg_ids   (T,) ids in [0, num_segments), non-decreasing as the
+              reference assumes ('segment' and 'parallel' rely on it).
+    data      (T, C) of any float type, reduced in f32; T may be ragged.
+    schedule  supplies the kernel's tile (its ``nnz_tile``), group size
+              and strategy; None means ``Schedule()``.  'tune' raises
+              until the tuner is ported.
+    device    as for :func:`spmm`.
+
+    'max' and 'min' leave untouched segments at -inf and +inf, as
+    ``jax.ops.segment_max`` does.  'mean' rides a ones column along the
+    data through one kernel pass and divides by ``max(count, 1)``, so
+    empty segments give 0.  Forward only, like the reference: data that
+    requires a gradient is refused.
+    """
+    dev = resolve_device(device)
+    check_on(dev, seg_ids=seg_ids, data=data)
+    if torch.is_grad_enabled() and data.requires_grad:
+        raise NotImplementedError(
+            "segment_reduce has no backward, as in the reference (jax.grad "
+            "through it fails); see ROADMAP.md, queue 1 item 5.  Run under "
+            "torch.no_grad() or detach the data.")
+    if op not in ("sum", "max", "min", "mean"):
+        raise ValueError(f"segment_reduce op {op!r}; one of "
+                         "sum/max/min/mean")
+    sched = as_schedule(schedule)
+    kw = dict(num_segments=num_segments, tile=sched.nnz_tile,
+              group_size=sched.group_size, strategy=sched.strategy)
+    if op == "mean":
+        aug = torch.cat([data.to(torch.float32),
+                         data.new_ones((data.shape[0], 1),
+                                       dtype=torch.float32)], dim=1)
+        out = kseg.segment_reduce(seg_ids, aug, **kw)
+        return out[:, :-1] / out[:, -1:].clamp_min(1.0)
+    return kseg.segment_reduce(seg_ids, data,
+                               op="add" if op == "sum" else op, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,17 @@
 """The port's CUDA kernels (EB and RB SpMM, the epilogue, SDDMM, fused
-attention forward and backward) against their plain versions on the
-card, at small sizes, and the kernel paths' gradients against the
-CPU's.  Every test here needs an NVIDIA GPU and skips, when it runs, on
+attention forward and backward, segment reduce) against their plain
+versions on the card, at small sizes, the kernel paths' gradients
+against the CPU's, and the launches of the planned GCN and readout.  Every test here needs an NVIDIA GPU and skips, when it runs, on
 a machine without one.  On the GPU machine:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
 Tolerance: f32 rtol = atol = 1e-5 (atomics reorder the sums; SDDMM's
 atol grows with d, the length of its dots); bf16 one bf16 step (2^-7).
-Gradients: 1e-4, as they sum products of two such results.
+Gradients: 1e-4, as they sum products of two such results.  Segment
+max and min compare bit for bit (NaN positions equal, every other value
+with the same bits): -0.0 orders below +0.0, so their order does not
+matter.
 """
 import numpy as np
 import pytest
@@ -269,3 +272,154 @@ def test_graph_attention_grads_on_cuda_match_cpu(dev):
                                atol=RTOL)
     for g_cuda, g_cpu in zip(grads[str(dev)], grads["cpu"]):
         torch.testing.assert_close(g_cuda, g_cpu, rtol=1e-4, atol=1e-4)
+
+
+# --- segment reduce, the planner's GCN and readout -------------------------
+
+
+def _segments(dev, t, n_seg, c, seed, *, aligned=0):
+    """Sorted ids (segment n_seg // 2 left empty) or, with ``aligned``,
+    segments of exactly that many lanes; standard-normal data."""
+    rng = np.random.default_rng(seed)
+    if aligned:
+        seg = np.arange(t) // aligned
+    else:
+        seg = np.sort(rng.integers(0, n_seg, t))
+        seg[seg == n_seg // 2] = n_seg // 2 - 1
+    data = rng.standard_normal((t, c)).astype(np.float32)
+    return (torch.from_numpy(seg.astype(np.int32)).to(dev),
+            torch.from_numpy(data).to(dev))
+
+
+def _assert_segred_same(got, want, op):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if op in ("max", "min"):
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan].view(torch.int32),
+                           want[~nan].view(torch.int32))
+    else:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+@pytest.mark.parametrize("strategy", ["segment", "parallel", "accumulate"])
+@pytest.mark.parametrize("G,c", [(8, 1), (32, 4), (16, 37), (32, 256)])
+def test_segment_reduce_kernel_matches_plain(dev, strategy, op, G, c):
+    """A ragged stream (T not a multiple of G or of the tile); ``parallel``
+    on unsorted-group ids, where kernel and plain version both compute
+    the group-to-first-lane realization."""
+    from repro_torch.kernels import segment_reduce as sr
+
+    seg, data = _segments(dev, 1000 + G // 2 + 3, 60, c, seed=G + c)
+    kw = dict(num_segments=60, tile=4 * G, group_size=G, strategy=strategy,
+              op=op)
+    before = sr.KERNEL.launches
+    got = sr.segment_reduce(seg, data, **kw)
+    assert sr.KERNEL.launches == before + 1
+    _assert_segred_same(got, sr.segment_reduce_plain(seg, data, **kw), op)
+    empty = {"add": 0.0, "max": -float("inf"), "min": float("inf")}[op]
+    assert bool((got[30] == empty).all())  # an untouched segment
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("strategy", ["segment", "accumulate"])
+def test_segment_reduce_signed_zeros_nan_and_inf(dev, strategy, op):
+    from repro_torch.kernels import segment_reduce as sr
+
+    vals = torch.tensor([[-0.0, 0.0], [0.0, -0.0], [-0.0, -0.0],
+                         [0.0, 0.0], [-0.0, float("inf")],
+                         [0.0, -float("inf")], [float("nan"), 1.0],
+                         [2.0, -0.0]])
+    data = vals.repeat(40, 1).to(dev)
+    seg = (torch.arange(data.shape[0]) // 3).to(torch.int32).to(dev)
+    kw = dict(num_segments=int(seg[-1]) + 2, tile=64, group_size=8,
+              strategy=strategy, op=op)
+    got = sr.segment_reduce(seg, data, **kw)
+    _assert_segred_same(got, sr.segment_reduce_plain(seg, data, **kw), op)
+    zeros = got[:-1][got[:-1] == 0]
+    assert zeros.numel() > 0 and bool(
+        (torch.signbit(zeros) == (op == "min")).all())
+
+
+def test_segment_reduce_edges(dev):
+    """Fewer lanes than a group, an empty stream, and ids outside
+    [0, num_segments) (not written)."""
+    from repro_torch.kernels import segment_reduce as sr
+
+    seg, data = _segments(dev, 5, 4, 3, seed=1)
+    for op in ("add", "max"):
+        _assert_segred_same(
+            sr.segment_reduce(seg, data, num_segments=4, op=op),
+            sr.segment_reduce_plain(seg, data, num_segments=4, op=op), op)
+    out = sr.segment_reduce(seg[:0], data[:0], num_segments=3, op="min")
+    assert bool((out == float("inf")).all()) and out.shape == (3, 3)
+    bad = torch.tensor([-1, 0, 7, 1], dtype=torch.int32, device=dev)
+    out = sr.segment_reduce(bad, torch.ones(4, 2, device=dev),
+                            num_segments=2, group_size=1, tile=4,
+                            strategy="accumulate")
+    assert out.tolist() == [[1.0, 1.0], [1.0, 1.0]]
+
+
+def test_segment_reduce_op_on_cuda_matches_cpu(dev):
+    import repro_torch.sparse as ts
+    from repro_torch.core import Schedule, register_strategy, spec_segment
+
+    seg, data = _segments("cpu", 700, 50, 6, seed=5)
+    for op in ("sum", "max", "min", "mean"):
+        want = ts.segment_reduce(seg, data, 50, op=op, device="cpu")
+        got = ts.segment_reduce(seg.to(dev), data.to(dev), 50, op=op)
+        _assert_segred_same(got.cpu(), want, op)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ts.segment_reduce(seg.to(dev), data.to(dev).requires_grad_(), 50)
+    register_strategy("t_cuda_segred_user", spec_segment, overwrite=True)
+    with pytest.raises(NotImplementedError, match="no CUDA realization"):
+        ts.segment_reduce(seg.to(dev), data.to(dev), 50,
+                          schedule=Schedule(strategy="t_cuda_segred_user"))
+
+
+@pytest.mark.parametrize("schedule", ["eb", "rb"])
+def test_planned_gcn_and_readout_launches(dev, schedule):
+    """``run_plan`` on the two-layer GCN chain takes 2 planned launches:
+    EB 2 + epilogue 1 CUDA launches, or RB 2; the readout chain adds one
+    segment-reduce launch.  Outputs match the CPU's."""
+    import repro_torch.fuse as tf
+    import repro_torch.sparse as ts
+    from repro_torch.core import Schedule
+    from repro_torch.kernels import common, spmm_eb, spmm_rb
+    from repro_torch.kernels import segment_reduce as sr
+
+    sched = (Schedule("eb", nnz_tile=128, group_size=32)
+             if schedule == "eb" else Schedule.named("RB+PR"))
+    counters = (spmm_eb.KERNEL, common.EPILOGUE_KERNEL, spmm_rb.KERNEL,
+                sr.KERNEL)
+    want_counts = (2, 1, 0, 0) if schedule == "eb" else (0, 0, 2, 0)
+    outs = {}
+    for where in ("cpu", dev):
+        a = _matrix(where, n=300, seed=2)
+        w0, w1, b0 = (_dense(where, s, i) for i, s in
+                      enumerate(((16, 32), (32, 8), (32,))))
+        x = _dense(where, (300, 16), 7)
+        seg = (torch.arange(300) // 26).to(torch.int32).to(where)
+        for op in (None, "mean", "max"):
+            chain, params = tf.gcn_chain(a, (w0, w1), (b0, None),
+                                         schedule=sched)
+            if op is not None:
+                chain += (tf.segment_reduce_node(op),)
+                params += [{"seg_ids": seg, "num_segments": 12}]
+            p = tf.plan(chain)
+            assert p.n_launches == (2 if op is None else 3)
+            before = [k.launches for k in counters]
+            with torch.no_grad():
+                outs[(str(where), op)] = tf.run_plan(p, x, params,
+                                                     device=where).cpu()
+            delta = tuple(k.launches - b for k, b in zip(counters, before))
+            if where != "cpu":
+                assert delta == want_counts[:3] + (int(op is not None),)
+                torch.testing.assert_close(
+                    outs[(str(where), op)],
+                    tf.run_chain_ref(chain, x, params).cpu(), rtol=1e-4,
+                    atol=1e-4)
+    for op in (None, "mean", "max"):
+        torch.testing.assert_close(outs[(str(dev), op)], outs[("cpu", op)],
+                                   rtol=1e-4, atol=1e-4)

@@ -112,3 +112,54 @@ def test_gcn_parameters_and_devices():
              device="cpu", generator=gen)
     with torch.no_grad():
         assert m2(adj_t, torch.from_numpy(x)).shape == (N_NODES, N_CLASS)
+
+
+@pytest.mark.parametrize("schedule", ["eb", "rb"])
+def test_gcn_two_layer_matches_reference(schedule):
+    """``gcn_two_layer`` through the port's planner against
+    ``repro.models.layers.gcn_two_layer``: the output, and the gradients
+    in x, w0, w1 and b0 against ``jax.grad``, at the tolerances of
+    ``tests/test_fuse_planner.py`` (2e-4 forward, 2e-3 gradients)."""
+    from repro.core import Schedule as JS
+    from repro.models.layers import gcn_two_layer as jax_two_layer
+    from repro_torch.models import gcn_two_layer
+
+    kw = (dict(kernel="eb", nnz_tile=64, group_size=8) if schedule == "eb"
+          else dict(kernel="rb", row_tile=8))
+    rng = np.random.default_rng(3)
+    adj_j = js.random_csr(32, 32, 0.15, seed=3)
+    adj_t = ts.random_csr(32, 32, 0.15, seed=3, device="cpu")
+    arrays = [rng.normal(size=(32, 8)), rng.normal(size=(8, 8)) * 0.3,
+              rng.normal(size=(8, 4)) * 0.3, rng.normal(size=(8,))]
+    x, w0, w1, b0 = (np.asarray(a, np.float32) for a in arrays)
+
+    def jax_loss(*args):
+        return jnp.sum(jax_two_layer(adj_j, *args, schedule=JS(**kw)) ** 2)
+
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, w0, w1, b0)]
+    out = gcn_two_layer(adj_t, *leaves, schedule=TS(**kw), device="cpu")
+    want = jax_two_layer(adj_j, *(jnp.asarray(a) for a in (x, w0, w1, b0)),
+                         schedule=JS(**kw))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-4)
+    got = torch.autograd.grad((out ** 2).sum(), leaves)
+    want = jax.grad(jax_loss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a) for a in (x, w0, w1, b0)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-3,
+                                   atol=2e-3)
+
+
+def test_gcn_two_layer_serves_the_gcn_weights():
+    """With the served GCN's weights (no second bias) the planner's
+    two-layer GCN gives the model's forward."""
+    from repro_torch.models import gcn_two_layer
+
+    _, adj_t, _, x, params = _setup("social")
+    model = GCN.from_jax_params(params, device="cpu")
+    with torch.no_grad():
+        xt = torch.from_numpy(x)
+        got = gcn_two_layer(adj_t, xt, model.w1, model.w2, model.b1,
+                            device="cpu")
+        torch.testing.assert_close(got, model(adj_t, xt), rtol=RTOL,
+                                   atol=ATOL)

@@ -39,7 +39,20 @@ def test_port_has_its_kernel_sources():
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.stem for p in csrc.glob("*.cu")} == set(build.SOURCES) == {
         "spmm_eb", "spmm_rb", "epilogue", "sddmm", "fused_attention_fwd",
-        "fused_attention_bwd"}
+        "fused_attention_bwd", "segment_reduce"}
+
+
+def test_the_scan_covers_the_fuse_package_and_every_kernel_module():
+    scanned = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+               for p in PORT_FILES if p.is_relative_to(ROOT / "src")}
+    assert {"fuse/__init__.py", "fuse/ir.py", "fuse/rules.py",
+            "fuse/legality.py", "fuse/planner.py", "fuse/execute.py",
+            "kernels/segment_reduce.py"} <= scanned
+    from repro_torch.kernels import build
+
+    assert {f"kernels/{s}.py" for s in ("spmm_eb", "spmm_rb", "sddmm",
+                                        "segment_reduce")} <= scanned
+    assert len(build.SOURCES) == 7
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -78,11 +91,19 @@ def test_spmm_without_device_raises_when_cuda_is_absent(no_cuda):
 
 
 def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda):
+    import repro_torch.fuse as tf
     import repro_torch.sparse as ts
-    from repro_torch.models import GCN, graph_attention, normalized_adjacency
+    from repro_torch.models import (
+        GCN,
+        gcn_two_layer,
+        graph_attention,
+        normalized_adjacency,
+    )
 
     a = ts.random_csr(16, 16, density=0.2, seed=0, device="cpu")
     x = torch.ones(16, 4)
+    seg = torch.zeros(16, dtype=torch.int32)
+    chain, params = tf.gcn_chain(a, (torch.ones(4, 4), torch.ones(4, 2)))
     for call in (lambda: ts.random_csr(16, 16, seed=0),
                  lambda: ts.graph_pattern_csr("roadnet", 16),
                  lambda: ts.CSR.from_numpy(np.array([0, 0]), [], [], (1, 1)),
@@ -91,7 +112,11 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda):
                  lambda: ts.sddmm(a.indices, a.indices, x, x),
                  lambda: ts.make_spmm(a.indices, a.indices, 16, 16),
                  lambda: ts.sparse_attention(a, x, x, x),
-                 lambda: graph_attention(a, x, x, x)):
+                 lambda: graph_attention(a, x, x, x),
+                 lambda: ts.segment_reduce(seg, x, 1),
+                 lambda: gcn_two_layer(a, x, torch.ones(4, 4),
+                                       torch.ones(4, 2)),
+                 lambda: tf.run_plan(tf.plan(chain), x, params)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
