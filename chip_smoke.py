@@ -31,12 +31,22 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   unfused plain composition (``run_chain_ref``);
 - graph readout: the same chain ending in ``segment_reduce`` (mean and
   max over segments of 26 nodes) in 3 planned launches, three requests,
-  against ``run_chain_ref``.
+  against ``run_chain_ref``;
+- MoE serving (``moe_serve``): Qwen3-MoE-235B-A22B at full width (d_model
+  4096, 64 heads over 4 kv heads, 128 experts top-8, expert width 1536,
+  vocab 151,936, bf16), cut to 4 layers, random weights from seed 0 made
+  on the card; the grouped-matmul kernel held against its plain version
+  at layer 0's decode (tile 4) and prefill (tile 10) shapes, prefill and
+  decode logits against the einsum path (``moe_kernel_dispatch=False``),
+  and ``ServeEngine`` (4 slots) serving 8 requests of 128-token prompts,
+  16 greedy tokens each, with 12 grouped-matmul launches a decode step
+  and a prefill.
 
-It prints kernel, forward, training-step, attention and readout times,
-the launch counts of each path, a ``{"kernels": [...]}`` line and, as
-its last line, ``{"ok": true, "device": {...}}``.  Any failed phase exits
-non-zero without that line; so does a machine without CUDA.
+It prints kernel, forward, training-step, attention, readout, prefill and
+decode times, the launch counts of each path, a ``{"kernels": [...]}``
+line and, as its last line, ``{"ok": true, "device": {...}}``.  Any
+failed phase exits non-zero without that line; so does a machine without
+CUDA.
 """
 import json
 import math
@@ -54,6 +64,9 @@ DEVICE = "cuda"
 #: outside the tensor cores (the kernels run FMAs on the CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+#: bf16 dense tensor-core peak (NVIDIA data sheet): the operation bound of
+#: a product of bf16 operands.
+BF16_FLOP_PER_S = 989e12
 #: f32 tolerance, relative to the largest magnitude of the plain result:
 #: atomics and the kernels' loop order reorder every f32 sum.
 F32_TOL = 1e-4
@@ -85,6 +98,19 @@ HEADS, HEAD_DIM = 4, 64
 #: Graph readout: the nodes pooled in contiguous segments of 26, the mean
 #: graph size of OGB's ogbg-molpcba (a batch of graphs is a node range).
 READOUT_SIZE = 26
+#: MoE serving: the configuration, its depth cut, and the traffic.
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 4
+MOE_SLOTS, MOE_MAX_LEN = 4, 160
+MOE_REQUESTS, MOE_PROMPT, MOE_NEW = 8, 128, 16
+#: Logits of the kernel path against the einsum path, relative L2 error.
+#: Both compute the same function but round to bf16 in other places: the
+#: einsum path rounds each expert projection and the SiLU product to bf16,
+#: the kernel path keeps them in f32 until h is cast, as in the
+#: reference's two paths.  On the CPU, at d_model 512 and 2048 with 4
+#: layers, the two differ by 0.8 to 1.3 % of the logits' norm, flat in the
+#: width; 2^-5 leaves a margin of 2.5x, where a routing or indexing fault
+#: moves the logits by tens of percent.
+LOGIT_REL_L2 = 2.0 ** -5
 #: Where each kernel came from: its source and the TPU kernel it replaces.
 KERNEL_META = {
     "spmm_eb": ("src/repro_torch/kernels/csrc/spmm_eb.cu",
@@ -103,6 +129,8 @@ KERNEL_META = {
         "src/repro/kernels/fused_attention.py:373"),
     "segment_reduce": ("src/repro_torch/kernels/csrc/segment_reduce.cu",
                        "src/repro/kernels/segment_reduce.py:50"),
+    "grouped_matmul": ("src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                       "src/repro/kernels/grouped_matmul.py:79"),
 }
 
 
@@ -739,11 +767,12 @@ def attend(name, adj, counters):
             "hub": (hi - lo, hub_fwd, hub_bwd)}
 
 
-def bound(nbytes: int, flops: int):
-    """(least ms, what bounds it): bytes at the HBM rate or f32
-    operations at the peak rate, whichever takes longer."""
+def bound(nbytes: int, flops: int, flop_per_s: float = F32_FLOP_PER_S):
+    """(least ms, what bounds it): bytes at the HBM rate or operations at
+    the peak rate of their type (f32 unless given), whichever takes
+    longer."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / F32_FLOP_PER_S * 1e3
+    t_f = flops / flop_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -1186,6 +1215,316 @@ def time_segment_reduce(profiles, adj):
     return row
 
 
+def moe_model(dev):
+    """Qwen3-MoE at full width cut to MOE_LAYERS layers, its parameters
+    drawn on the card from seed SEED, and the model API of both MoE paths
+    (kernel, einsum) over the same parameters."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = get_config(MOE_ARCH).scaled(n_layers=MOE_LAYERS)
+    api = get_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED),
+                      device=dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"moe_serve: {cfg.name} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads x {cfg.d_head} over {cfg.n_kv_heads} kv, "
+          f"{cfg.n_experts} experts top-{cfg.experts_per_token} of width "
+          f"{cfg.moe_d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype}), "
+          f"{cfg.n_layers} of 94 layers; {n_bytes / 1e9:.2f} GB of weights "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    einsum = get_model(cfg.scaled(moe_kernel_dispatch=False))
+    return cfg, api, einsum, params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def moe_kernel_cases(cfg, params, dev):
+    """The grouped-matmul launches of layer 0 at the serving shapes, each
+    ``(label, x, tile_experts, weights, epilogue, tile)``: the gate (SiLU
+    fused), up and down projections at decode (MOE_SLOTS tokens) and at a
+    MOE_PROMPT-token prefill, with the capacity ``models.moe`` gives
+    them; x drawn from a seed in bf16."""
+    import torch
+    from repro_torch.core import Epilogue
+    from repro_torch.models.moe import _capacity
+
+    moe = params["layers"][0]["moe"]
+    e, d, f = moe["wg"].shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    cases = []
+    for phase, tokens in (("decode", MOE_SLOTS), ("prefill", MOE_PROMPT)):
+        tile = min(_capacity(cfg, tokens), 128)
+        te = torch.arange(e, dtype=torch.int32, device=dev)
+        xd, xf = (torch.randn(e * tile, n, generator=gen, device=dev).to(
+            torch.bfloat16) for n in (d, f))
+        cases += [(f"{phase} gate+silu", xd, te, moe["wg"],
+                   Epilogue("silu"), tile),
+                  (f"{phase} up", xd, te, moe["wi"], Epilogue(), tile),
+                  (f"{phase} down", xf, te, moe["wo"], Epilogue(), tile)]
+    return cases
+
+
+def check_grouped_matmul(cases):
+    """The grouped-matmul kernel against its plain version on every case,
+    at F32_TOL of the output's largest magnitude (both sum the same bf16
+    products in f32, in another order)."""
+    import torch
+    from repro_torch.kernels import grouped_matmul as gm
+
+    checker = Checker(("grouped_matmul",))
+    for label, x, te, w, ep, tile in cases:
+        kw = dict(epilogue=ep, token_tile=tile)
+        got = gm.grouped_matmul(x, te, w, f_tile=w.shape[2],
+                                d_tile=w.shape[1], **kw)
+        checker.record("grouped_matmul",
+                       f"{label} ({x.shape[0]} x {w.shape[1]} -> "
+                       f"{w.shape[2]}, tile {tile})", got,
+                       gm.grouped_matmul_plain(x, te, w, **kw))
+        del got
+        torch.cuda.empty_cache()
+    return checker.done()
+
+
+def moe_prompts(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, cfg.vocab_size, size=MOE_PROMPT, dtype=np.int32)
+            for _ in range(MOE_REQUESTS)]
+
+
+def check_moe_logits(api, einsum, params, prompt, dev):
+    """One prefill's last-token logits and one decode step's logits (4
+    slots, each the prompt) on the kernel path against the einsum path,
+    relative L2 within LOGIT_REL_L2; both finite."""
+    import torch
+
+    tokens = torch.as_tensor(prompt[None, :], dtype=torch.int64,
+                             device=dev).repeat(MOE_SLOTS, 1)
+    lk, cache = api.prefill(params, {"tokens": tokens}, MOE_MAX_LEN)
+    nxt = lk.argmax(-1)
+    dk, _ = api.decode_step(params, cache, nxt)
+    le, cache = einsum.prefill(params, {"tokens": tokens}, MOE_MAX_LEN)
+    de, _ = einsum.decode_step(params, cache, nxt)
+    del cache
+    for label, got, want in (("prefill last-token", lk, le),
+                             ("decode step", dk, de)):
+        err = rel_l2(got, want)
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        print(f"moe_serve: {label} logits {tuple(got.shape)} {got.dtype}, "
+              f"kernel path against the einsum path: relative L2 error "
+              f"{err:.3e} (tol {LOGIT_REL_L2:.3e}), max_abs_err "
+              f"{float((got.float() - want.float()).abs().max()):.3e} of "
+              f"max |logit| {float(want.float().abs().max()):.3f}; argmax "
+              f"equal in {agree:.2f} of the rows", flush=True)
+        if not err <= LOGIT_REL_L2:
+            fail(f"moe_serve: {label} logits of the kernel path disagree "
+                 "with the einsum path")
+    torch.cuda.empty_cache()
+
+
+def _counting(api, kernel):
+    """``api`` whose prefill and decode_step record the kernel's launches
+    in each call."""
+    import dataclasses
+
+    calls = {"prefill": [], "decode": []}
+
+    def wrap(fn, key):
+        def counted(*args, **kw):
+            before = kernel.launches
+            out = fn(*args, **kw)
+            calls[key].append(kernel.launches - before)
+            return out
+        return counted
+
+    return dataclasses.replace(
+        api, prefill=wrap(api.prefill, "prefill"),
+        decode_step=wrap(api.decode_step, "decode")), calls
+
+
+def serve_moe(cfg, api, params, prompts, dev, counters=None):
+    """ServeEngine over the prompts: (results, host seconds, launches per
+    prefill and per decode step).  With ``counters``, the counts are
+    zeroed just before the run and read just after."""
+    import torch
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.serve import Request, ServeEngine
+
+    counted, calls = _counting(api, gm.KERNEL)
+    engine = ServeEngine(counted, params, slots=MOE_SLOTS,
+                         max_len=MOE_MAX_LEN, device=dev)
+    for rid, p in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=MOE_NEW))
+    for k in (counters or {}).values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.run_to_completion()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {n: k.launches for n, k in (counters or {}).items()}
+    return results, seconds, calls, counts
+
+
+def moe_serve(cfg, api, einsum, params, dev, counters):
+    """The engine on the kernel path (counts zeroed just before, read just
+    after; 3 x n_layers grouped-matmul launches in every prefill and
+    decode step; every request served in full), then on the einsum path
+    for the agreement of the greedy tokens (printed only: near-ties in
+    bf16 logits may flip); prefill and decode-step times and the
+    grouped-matmul share of a decode step."""
+    import torch
+
+    prompts = moe_prompts(cfg)
+    check_moe_logits(api, einsum, params, prompts[0], dev)
+    results, seconds, calls, counts = serve_moe(cfg, api, params, prompts,
+                                                dev, counters)
+    want = 3 * cfg.n_layers
+    n_tok = sum(len(v) for v in results.values())
+    print(f"moe_serve: served {len(results)} requests, {n_tok} tokens in "
+          f"{seconds:.3f} s ({n_tok / seconds:.1f} tokens/s, host clock); "
+          f"{len(calls['prefill'])} prefills, {len(calls['decode'])} decode "
+          f"steps; grouped-matmul launches per prefill "
+          f"{sorted(set(calls['prefill']))}, per decode step "
+          f"{sorted(set(calls['decode']))}; launches {counts}", flush=True)
+    if sorted(results) != list(range(MOE_REQUESTS)) or any(
+            len(v) != MOE_NEW or not all(0 <= t < cfg.vocab_size for t in v)
+            for v in results.values()):
+        fail("moe_serve: the engine did not serve every request in full")
+    if set(calls["prefill"] + calls["decode"]) != {want}:
+        fail(f"moe_serve: expected {want} grouped-matmul launches in every "
+             f"prefill and decode step, got {calls}")
+    ref, _, _, _ = serve_moe(cfg, einsum, params, prompts, dev)
+    same = sum(a == b for rid in results
+               for a, b in zip(results[rid], ref[rid]))
+    print(f"moe_serve: greedy tokens of the kernel path equal the einsum "
+          f"path's in {same} of {n_tok} ({same / n_tok:.3f}; printed only)",
+          flush=True)
+
+    # times: one prefill (one prompt) and one decode step (all slots)
+    tokens = torch.as_tensor(prompts[0][None, :], dtype=torch.int64,
+                             device=dev)
+    cache = api.init_cache(MOE_SLOTS, MOE_MAX_LEN, device=dev)
+    cache["pos"] = MOE_PROMPT
+    step_tokens = torch.zeros(MOE_SLOTS, dtype=torch.int64, device=dev)
+    steps = {"prefill": lambda: api.prefill(params, {"tokens": tokens},
+                                            MOE_MAX_LEN),
+             "decode step": lambda: api.decode_step(params, cache,
+                                                    step_tokens)}
+    ms, gmm = {}, {}
+    for label, fn in steps.items():
+        ms[label] = cuda_ms(fn, 10, 2)
+        with LaunchTimer() as timer:
+            fn()
+        gmm[label] = timer.ms().get("grouped_matmul", 0.0)
+        profile_step(label, fn)
+    einsum_ms = cuda_ms(lambda: einsum.decode_step(params, cache,
+                                                   step_tokens), 10, 2)
+    print(f"moe_serve: prefill of {MOE_PROMPT} tokens {ms['prefill']:.4f} "
+          f"ms, grouped matmul {gmm['prefill']:.4f} ms of it; decode step "
+          f"({MOE_SLOTS} slots) {ms['decode step']:.4f} ms, grouped matmul "
+          f"{gmm['decode step']:.4f} ms of it "
+          f"({gmm['decode step'] / ms['decode step']:.3f}), on the einsum "
+          f"path {einsum_ms:.4f} ms (CUDA events, means of 10 after "
+          f"warm-up; the {want} grouped-matmul launches of each timed one "
+          "by one)", flush=True)
+    prefill_ms, decode_ms, gmm_ms = ms["prefill"], ms["decode step"], \
+        gmm["decode step"]
+    return {"counts": counts, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "einsum_decode_ms": einsum_ms,
+            "gmm_ms": gmm_ms, "tokens_per_s": n_tok / seconds}
+
+
+def profile_step(label, fn):
+    """``torch.profiler`` over one call of ``fn``: the device's busy
+    share of the call (kernel time over the CUDA-event time of the same
+    window) and the kernels that take most of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    wall_us = start.elapsed_time(end) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    print(f"profile {label}: {wall_us / 1e3:.4f} ms (CUDA events, under "
+          f"the profiler), kernels {busy_us / 1e3:.4f} ms in "
+          f"{sum(e.count for e in kernels)} launches: busy share "
+          f"{busy_us / wall_us:.3f}; top: "
+          + "; ".join(f"{e.key[:48]} x{e.count} "
+                      f"{e.self_device_time_total / 1e3:.4f} ms"
+                      for e in top), flush=True)
+
+
+def time_grouped_matmul(cases):
+    """Row 7: the three decode-shape launches of one layer (gate with
+    SiLU, up, down), the kernel's median ms over 5 ms windows, its plain
+    version's ms and the library yardstick's, ``torch.bmm`` on the
+    (E, cap, D) x (E, D, F) bf16 layout that ``_expert_ffn`` builds (which
+    the port never calls), summed; bytes: x, each touched expert's weights
+    and the output once; operations at the bf16 peak.  The prefill-shape
+    launches are timed and printed beside them."""
+    import torch
+    from repro_torch.kernels import grouped_matmul as gm
+
+    row = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+           "flops": 0, "flop_per_s": BF16_FLOP_PER_S}
+    for label, x, te, w, ep, tile in cases:
+        e, d, f = w.shape
+        kw = dict(epilogue=ep, token_tile=tile)
+        ms = cuda_ms_median(lambda: gm.grouped_matmul(
+            x, te, w, f_tile=f, d_tile=d, **kw))
+        plain = cuda_ms(lambda: gm.grouped_matmul_plain(x, te, w, **kw), 3, 1)
+        xb = x.reshape(e, tile, d)
+        lib = cuda_ms_median(lambda: torch.bmm(xb, w))
+        n_out = x.shape[0] * f
+        nbytes = (x.numel() * x.element_size()
+                  + len(set(te.tolist())) * d * f * w.element_size()
+                  + n_out * 4)
+        b_ms, by = bound(nbytes, 2 * x.shape[0] * d * f, BF16_FLOP_PER_S)
+        print(f"grouped_matmul {label} ({x.shape[0]} x {d} -> {f}, tile "
+              f"{tile}): {ms:.4f} ms (bound {b_ms:.4f} ms by {by}; "
+              f"{nbytes / ms / 1e6:.0f} GB/s of {nbytes} bytes), plain "
+              f"{plain:.4f} ms, torch.bmm {lib:.4f} ms", flush=True)
+        if not label.startswith("decode"):
+            continue  # the row holds one layer's decode launches
+        row["ms"] += ms
+        row["plain_ms"] += plain
+        row["library_ms"] += lib
+        row["bytes"] += nbytes
+        row["flops"] += 2 * x.shape[0] * d * f
+        torch.cuda.empty_cache()
+    return row
+
+
 def main() -> None:
     import torch
 
@@ -1198,6 +1537,7 @@ def main() -> None:
             build,
             common,
             fused_attention,
+            grouped_matmul,
             sddmm,
             segment_reduce,
             spmm_eb,
@@ -1248,7 +1588,8 @@ def main() -> None:
                 "epilogue": common.EPILOGUE_KERNEL, "sddmm": sddmm.KERNEL,
                 "fused_attention_fwd": fused_attention.FWD_KERNEL,
                 "fused_attention_bwd": fused_attention.BWD_KERNEL,
-                "segment_reduce": segment_reduce.KERNEL}
+                "segment_reduce": segment_reduce.KERNEL,
+                "grouped_matmul": grouped_matmul.KERNEL}
     runs, expected = [], []  # each path's counts; the kernels it must use
     with torch.no_grad():  # serving
         for name, model in (("social", social_model),
@@ -1291,12 +1632,6 @@ def main() -> None:
                 runs.append(planned[(name, op)]["counts"])
                 expected.append((f"readout {op} {name}",
                                  tuple(want) + ("segment_reduce",)))
-    for (path, kernels), counts in zip(expected, runs):
-        for n in kernels:
-            if counts[n] == 0:
-                fail(f"the {n} kernel was not launched on the {path} path")
-    launches = {n: sum(c[n] for c in runs) for n in counters}
-
     with torch.no_grad():
         fwd_ms = {name: cuda_ms(lambda m=m, a=graphs[name][0]: m(a, x), 5)
                   for name, m in (("social", social_model),
@@ -1307,6 +1642,24 @@ def main() -> None:
         results["segment_reduce"] = time_segment_reduce(
             profiles, graphs["social"][0])
     del profiles
+
+    # MoE serving at full width, 4 layers
+    with torch.no_grad():
+        cfg, api, einsum, moe_params = moe_model(dev)
+        cases = moe_kernel_cases(cfg, moe_params, dev)
+        worst.update(check_grouped_matmul(cases))
+        moe = moe_serve(cfg, api, einsum, moe_params, dev, counters)
+        runs.append(moe["counts"])
+        expected.append(("moe_serve", ("grouped_matmul",)))
+        results["grouped_matmul"] = time_grouped_matmul(cases)
+    del cases, moe_params
+    torch.cuda.empty_cache()
+    for (path, kernels), counts in zip(expected, runs):
+        for n in kernels:
+            if counts[n] == 0:
+                fail(f"the {n} kernel was not launched on the {path} path")
+    launches = {n: sum(c[n] for c in runs) for n in counters}
+
     parts = {"social": results["spmm_eb"]["ms"] + results["epilogue"]["ms"],
              "roadnet": results["spmm_rb"]["ms"]}
     for name in graphs:
@@ -1328,11 +1681,17 @@ def main() -> None:
               + ", ".join(f"{k} {v:.4f}"
                           for k, v in sorted(t["kernel_ms"].items()))
               + f"; launches per step {per_step}", flush=True)
+    print(f"moe_serve: prefill {moe['prefill_ms']:.4f} ms, decode step "
+          f"{moe['decode_ms']:.4f} ms (einsum path "
+          f"{moe['einsum_decode_ms']:.4f} ms), grouped matmul "
+          f"{moe['gmm_ms']:.4f} ms of the step, {moe['tokens_per_s']:.1f} "
+          "tokens/s", flush=True)
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = results[name]
-        bound_ms, bound_by = bound(r["bytes"], r["flops"])
+        bound_ms, bound_by = bound(r["bytes"], r["flops"],
+                                   r.get("flop_per_s", F32_FLOP_PER_S))
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

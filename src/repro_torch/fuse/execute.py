@@ -8,14 +8,16 @@ epilogue attached (so a fused bias and activation stay in the EB
 epilogue launch or in RB's store, and the launch is differentiable),
 ``segment_reduce`` anchors through ``repro_torch.sparse.segment_reduce``,
 ``combine`` through the torch monoid scatter (:func:`moe_combine`, which
-the reference keeps in XLA), and unfused ``ewise`` launches apply their
-epilogue spec in torch.  A ``grouped_matmul`` anchor raises until its
-kernel is ported (ROADMAP 2.11).
+the reference keeps in XLA), ``grouped_matmul`` anchors through
+``kernels.ops.grouped_matmul`` with the launch's merged epilogue and
+per-expert bias (one grouped-matmul kernel launch), and unfused
+``ewise`` launches apply their epilogue spec in torch.
 
 ``run_chain_ref`` is the parity oracle: the unfused spec composition,
-each node its own plain pass (``impl='ref'`` SpMM and the plain segment
-reductions), which every plan of the same chain must match.  Tests and
-``chip_smoke.py`` use it; the serving path does not.
+each node its own plain pass (``impl='ref'`` SpMM, the plain grouped
+matmul and the plain segment reductions), which every plan of the same
+chain must match.  Tests and ``chip_smoke.py`` use it; the serving path
+does not.
 
 Operands travel in ``params``, a per-chain-node list of dicts aligned
 with the chain (see the chain constructors in ``repro_torch.fuse.ir``):
@@ -37,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops as kops
+from ..kernels.grouped_matmul import grouped_matmul_plain
 from ..kernels.ref import segment_reduce_ref
 from ..sparse.ops import segment_reduce, spmm
 from .ir import FusePlan, Launch
@@ -89,12 +92,6 @@ def _epilogue_operands(launch: Launch, params):
     return bias, residual
 
 
-def _no_grouped_matmul():
-    return NotImplementedError(
-        "a grouped_matmul anchor needs the grouped GEMM kernel, which the "
-        "port does not have yet (ROADMAP 2.11)")
-
-
 def _run_launch(launch: Launch, cur, params, device):
     a = launch.anchor
     p = params[launch.anchor_idx] or {}
@@ -107,7 +104,11 @@ def _run_launch(launch: Launch, cur, params, device):
                     residual=residual, epilogue=None if ep.is_noop else ep,
                     device=device)
     if a.kind == "grouped_matmul":
-        raise _no_grouped_matmul()
+        return kops.grouped_matmul(
+            cur, p["tile_experts"], p["weights"], bias=bias, epilogue=ep,
+            token_tile=p.get("token_tile", 128),
+            f_tile=p.get("f_tile", 128), d_tile=p.get("d_tile", 128),
+            device=device)
     if a.kind == "segment_reduce":
         return segment_reduce(p["seg_ids"], cur, p["num_segments"],
                               schedule=a.schedule, op=a.op, device=device)
@@ -139,7 +140,9 @@ def _run_node_ref(node, cur, p, params):
         out = kops.spmm(p["a"], x, impl="ref")
         return out if node.epilogue.is_noop else node.epilogue.apply(out)
     if node.kind == "grouped_matmul":
-        raise _no_grouped_matmul()
+        return grouped_matmul_plain(
+            cur, p["tile_experts"], p["weights"], epilogue=node.epilogue,
+            token_tile=p.get("token_tile", 128))
     if node.kind == "segment_reduce":
         return segment_reduce_ref(cur, p["seg_ids"], p["num_segments"],
                                   op=node.op)

@@ -1,0 +1,142 @@
+"""Grouped (expert-segment) matmul (port of
+``repro/kernels/grouped_matmul.py``): the MoE expert GEMM.  Tokens arrive
+sorted by expert and capacity-padded so that each token tile belongs to
+one expert; for tile ``i`` with ``e = tile_experts[i]``,
+``out[i] = epilogue(x[i] @ weights[e], bias=bias[e])``, summed in f32.
+
+``grouped_matmul`` launches the CUDA kernel of ``csrc/grouped_matmul.cu``
+on CUDA tensors and runs ``grouped_matmul_plain`` on CPU tensors.
+
+Source note.  Replaces ``src/repro/kernels/grouped_matmul.py:79
+grouped_matmul`` (Pallas body ``_gmm_kernel`` :52, ``pallas_call`` :124).
+The TPU kernel scalar-prefetches the tile -> expert map into the weight
+BlockSpec and carries its f32 sum over a sequential d-tile grid axis,
+with the epilogue on the last step.  On the H100 one block holds 4 or 8 of
+a tile's rows and a slab of output columns, reads the expert id itself
+and loops over D, so the epilogue runs on the finished sums.  On
+the serving path the tiles hold 4 to 10 rows, so the kernel is bound by
+the bytes of the expert weights, each read once per tile; ``d_tile`` and
+``f_tile`` do not change the function, and are checked as the reference
+asserts them.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.schedule import Epilogue, torch_dtype
+from .build import CudaKernel, ptr
+from .common import ACT_CODES, CUDA_OUT_DTYPES
+
+_NOOP = Epilogue()
+
+#: Operand types the CUDA kernel loads (and upcasts to f32).
+CUDA_IN_DTYPES = (torch.float32, torch.bfloat16)
+
+KERNEL = CudaKernel(
+    "grouped_matmul", "grouped_matmul_launch",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9)
+
+
+def fit_tile(n: int, tile: int) -> int:
+    """Largest power-of-two shrink of ``tile`` that divides ``n``: the
+    exact blocking of D and F that ``grouped_matmul`` checks."""
+    t = max(1, min(tile, n))
+    while n % t and t > 1:
+        t //= 2
+    return t
+
+
+def _check(x, tile_experts, weights, bias, epilogue, token_tile, f_tile,
+           d_tile):
+    """Raise ValueError for what the reference asserts."""
+    if x.dim() != 2 or weights.dim() != 3:
+        raise ValueError(f"need x (T_pad, D) and weights (E, D, F), got "
+                         f"{tuple(x.shape)} and {tuple(weights.shape)}")
+    t_pad, d = x.shape
+    e, dw, f = weights.shape
+    if dw != d or token_tile < 1 or t_pad % token_tile:
+        raise ValueError(f"x {tuple(x.shape)} against weights "
+                         f"{tuple(weights.shape)}: need D equal and T_pad a "
+                         f"multiple of token_tile={token_tile}")
+    if tuple(tile_experts.shape) != (t_pad // token_tile,):
+        raise ValueError(f"tile_experts {tuple(tile_experts.shape)}: need "
+                         f"one expert per token tile, "
+                         f"({t_pad // token_tile},)")
+    if d_tile < 1 or f_tile < 1 or d % d_tile or f % f_tile:
+        raise ValueError(f"d_tile={d_tile} and f_tile={f_tile} must divide "
+                         f"D={d} and F={f}")
+    if epilogue.residual:
+        raise ValueError("grouped_matmul has no residual operand (there is "
+                         "no (T_pad, F) residual in the expert-sorted layout)")
+    if epilogue.bias != (bias is not None):
+        raise ValueError("pass bias exactly when the epilogue declares it")
+    if bias is not None and tuple(bias.shape) != (e, f):
+        raise ValueError(f"bias {tuple(bias.shape)}, need per-expert "
+                         f"{(e, f)}")
+
+
+def grouped_matmul_plain(x, tile_experts, weights, *, bias=None,
+                         epilogue: Epilogue = _NOOP, token_tile: int = 128):
+    """Plain version of the kernel, as the reference's
+    ``grouped_matmul_ref`` computes it: every tile's expert block gathered
+    and upcast to f32, one batched product, the epilogue spec on the f32
+    sums.  Runs on any device; it materializes ``weights[tile_experts]``
+    in f32, so it is a check, never the serving path."""
+    t_pad, d = x.shape
+    xt = x.reshape(-1, token_tile, d).to(torch.float32)
+    te = tile_experts.long()
+    z = torch.bmm(xt, weights[te].to(torch.float32))  # (NT, tt, F)
+    b = None if bias is None else bias[te][:, None, :].to(torch.float32)
+    return epilogue.apply(z, bias=b).reshape(t_pad, -1)
+
+
+def grouped_matmul(x, tile_experts, weights, *, bias=None,
+                   epilogue: Epilogue = _NOOP, token_tile: int = 128,
+                   f_tile: int = 128, d_tile: int = 128):
+    """x (T_pad, D) expert-sorted tokens, T_pad % token_tile == 0;
+    tile_experts (T_pad // token_tile,) int expert of each tile; weights
+    (E, D, F); bias (E, F) per expert, given exactly when
+    ``epilogue.bias``.  Returns (T_pad, F) in ``epilogue.out_dtype`` (f32
+    by default) with the epilogue applied to the f32 sums.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel, or
+    raise for what it does not take (operands other than f32 and bf16, an
+    output type other than f32 and bf16).
+    """
+    _check(x, tile_experts, weights, bias, epilogue, token_tile, f_tile,
+           d_tile)
+    if x.device.type == "cpu":
+        return grouped_matmul_plain(x, tile_experts, weights, bias=bias,
+                                    epilogue=epilogue, token_tile=token_tile)
+    if x.device.type != "cuda":
+        raise ValueError(f"no grouped-matmul kernel for device {x.device}")
+    for name, t in (("tile_experts", tile_experts), ("weights", weights),
+                    ("bias", bias)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} lies on {t.device}, x on {x.device}")
+    for name, t in (("x", x), ("weights", weights)):
+        if t.dtype not in CUDA_IN_DTYPES:
+            raise NotImplementedError(
+                f"{name} is {t.dtype}; the CUDA kernel loads "
+                f"{CUDA_IN_DTYPES} (narrow and int8 storage are still to be "
+                "ported)")
+    out_dtype = torch_dtype(epilogue.out_dtype or "float32")
+    if out_dtype not in CUDA_OUT_DTYPES:
+        raise NotImplementedError(
+            f"the CUDA epilogue stores {CUDA_OUT_DTYPES}, not {out_dtype}")
+    xc = x.contiguous()
+    wc = weights.contiguous()
+    te = tile_experts.to(torch.int32).contiguous()
+    bias_c = (None if bias is None
+              else bias.to(torch.float32).contiguous())
+    e, d, f = wc.shape
+    out = torch.empty((x.shape[0], f), dtype=out_dtype, device=x.device)
+    KERNEL.launch(x.device, ptr(xc), ptr(te), ptr(wc), ptr(bias_c), ptr(out),
+                  te.numel(), token_tile, e, d, f,
+                  int(xc.dtype == torch.bfloat16),
+                  int(wc.dtype == torch.bfloat16),
+                  ACT_CODES[epilogue.activation],
+                  int(out_dtype == torch.bfloat16))
+    return out

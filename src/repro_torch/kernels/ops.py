@@ -4,13 +4,19 @@
 the per-instance memo), passes the epilogue operands and runs the EB or
 RB kernel wrapper.  The kernels mask the ragged column edge themselves,
 so B is not padded to the column tile as the reference pads it; nor is
-``sddmm``'s stream padded to its nnz tile.
+``sddmm``'s stream padded to its nnz tile.  ``grouped_matmul`` is the
+MoE expert GEMM on its kernel, forward only.
 """
 from __future__ import annotations
 
-from ..core.schedule import Schedule
+import numpy as np
+import torch
+
+from ..core.device import check_on, resolve_device
+from ..core.schedule import Epilogue, Schedule
 from ..sparse.formats import CSR, ELL, GroupedCOO, round_up
 from . import ref
+from .grouped_matmul import grouped_matmul as _gmm_kernel
 from .sddmm import sddmm as _sddmm_kernel
 from .spmm_eb import spmm_eb
 from .spmm_rb import spmm_rb
@@ -97,3 +103,41 @@ def sddmm(rows, cols, a, b, scale=None, *, nnz_tile: int = 256,
     if impl != "kernel":
         raise ValueError(f"impl must be 'kernel' or 'ref', got {impl!r}")
     return _sddmm_kernel(rows, cols, a, b, scale, nnz_tile=nnz_tile)
+
+
+def expert_tile_map(group_sizes: np.ndarray, token_tile: int) -> np.ndarray:
+    """tile -> expert map for capacity-padded grouped matmul: expert e owns
+    ceil(group_sizes[e] / token_tile) consecutive tiles."""
+    tiles = []
+    for e, g in enumerate(group_sizes):
+        tiles.extend([e] * int(np.ceil(g / token_tile)))
+    return np.asarray(tiles, np.int32)
+
+
+def grouped_matmul(x, tile_experts, weights, *, bias=None,
+                   epilogue: Epilogue = Epilogue(), token_tile: int = 128,
+                   f_tile: int = 128, d_tile: int = 128, device=None):
+    """The epilogued grouped matmul: per token tile i with expert
+    ``e = tile_experts[i]``, ``epilogue(x_tile @ weights[e], bias[e])``,
+    on the kernel wrapper.
+
+    x (T_pad, D) expert-sorted tokens, tile_experts (T_pad // token_tile,)
+    int, weights (E, D, F), bias (E, F) given exactly when
+    ``epilogue.bias``.  ``device``: None means 'cuda' (raises without a
+    card), 'cpu' runs the kernel's plain version.
+
+    Forward only: the reference's custom VJP comes with LM training
+    (ROADMAP.md, queue 1 item 9), so operands that require a gradient are
+    refused.
+    """
+    dev = resolve_device(device)
+    check_on(dev, x=x, tile_experts=tile_experts, weights=weights, bias=bias)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weights, bias)):
+        raise NotImplementedError(
+            "grouped_matmul has no backward in the port yet (the "
+            "reference's custom VJP comes with LM training; see ROADMAP.md, "
+            "queue 1 item 9).  Run under torch.no_grad() or detach the "
+            "operands.")
+    return _gmm_kernel(x, tile_experts, weights, bias=bias, epilogue=epilogue,
+                       token_tile=token_tile, f_tile=f_tile, d_tile=d_tile)

@@ -1,7 +1,18 @@
-"""Graph attention (port of ``graph_attention`` in
-``repro/models/attention.py``)."""
+"""Attention (port of ``repro/models/attention.py``): graph attention over
+a sparse pattern on the fused kernels, and the LM's dense GQA attention.
+
+Layout as in the reference: q (B, Sq, H, Dh), k and v (B, Skv, KH, Dh)
+with H = KH * G; query head ``h`` reads kv head ``h // G``.
+``flash_attention`` is plain jnp in the reference (a chunked online
+softmax in f32, no Pallas), so the port computes the same function with
+``scaled_dot_product_attention`` on f32 operands.
+"""
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
+
+from ..kernels.fused_attention import NEG_INF
 from ..sparse.ops import sparse_attention
 
 
@@ -18,3 +29,54 @@ def graph_attention(adj, q, k, v, *, schedule=None, scale=None,
     """
     return sparse_attention(adj, q, k, v, schedule=schedule, scale=scale,
                             device=device)
+
+
+def _heads_first(t, groups: int = 1):
+    """(B, S, K, Dh) -> (B, K * groups, S, Dh) in f32, each head repeated
+    ``groups`` times in place (the GQA mapping h -> h // groups)."""
+    t = t.to(torch.float32).transpose(1, 2)
+    return t.repeat_interleave(groups, dim=1) if groups > 1 else t
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Softmax attention with GQA, computed in f32 and cast to q's type.
+    The causal mask keeps key positions ``<=`` the query's (both counted
+    from 0)."""
+    g = q.shape[2] // k.shape[2]
+    o = F.scaled_dot_product_attention(
+        _heads_first(q), _heads_first(k, g), _heads_first(v, g),
+        is_causal=causal)
+    return o.transpose(1, 2).to(q.dtype)
+
+
+def attention_ref(q, k, v, causal=True):
+    """Naive reference for tests: the full score matrix in f32."""
+    b, sq, h, dh = q.shape
+    kh = k.shape[2]
+    qi = q.reshape(b, sq, kh, h // kh, dh).to(torch.float32)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qi, k.to(torch.float32)) \
+        * dh ** -0.5
+    if causal:
+        mask = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(k.shape[1], device=q.device)[None, :])
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqc,bckd->bqkgd", p, v.to(torch.float32))
+    return o.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, pos: int):
+    """One decode token.  q (B, H, Dh); caches (B, S, KH, Dh); cache
+    entries at index ``<= pos`` are valid.  Scores in f32; the
+    probabilities are cast to the cache's type before the product with V,
+    as in the reference, which accumulates that product in f32."""
+    b, s, kh, dh = k_cache.shape
+    qi = q.reshape(b, kh, q.shape[1] // kh, dh).to(torch.float32)
+    scores = torch.einsum("bkgd,bskd->bkgs", qi,
+                          k_cache.to(torch.float32)) * dh ** -0.5
+    valid = torch.arange(s, device=q.device) <= pos
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(torch.float32),
+                     v_cache.to(torch.float32))
+    return o.reshape(b, q.shape[1], dh).to(q.dtype)

@@ -1,0 +1,151 @@
+"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``, single shard).
+
+Routing is the paper's sparse-dense hybrid algebra: a top-k routing
+matrix (tokens x experts) times the token activations.  Each expert takes
+its top-``capacity`` tokens by gate weight (zero extension: a token with
+gate 0 may fill an expert's spare capacity and contributes 0), the
+expert GEMMs run grouped, and a gate-weighted scatter writes the outputs
+back to their tokens (``fuse.moe_combine``).
+
+Two paths with the same math, chosen by ``cfg.moe_kernel_dispatch``:
+
+* True (the default): the grouped-matmul kernel
+  (``kernels/csrc/grouped_matmul.cu``) on the capacity-gathered tokens,
+  three launches a layer: the gate projection with SiLU fused, the up
+  projection, and the down projection;
+* False: the reference's einsum path.
+
+The expert-parallel path under a mesh (``ShardingCtx`` with a mesh) and
+the dispatch tuning (``dispatch=``, ``moe_tune_dispatch`` and the rest)
+are not ported yet (ROADMAP.md, queue 1 items 11 and 6).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from ..core.device import check_on, resolve_device
+from ..core.schedule import Epilogue
+from ..fuse.execute import moe_combine
+from ..kernels.grouped_matmul import fit_tile
+from ..kernels.ops import grouped_matmul
+from .layers import init_normal
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingCtx:
+    """How the MoE layer would see a mesh.  Only single-shard execution
+    (no mesh) is ported."""
+
+    mesh: object = None
+    data_axes: tuple = ()
+    model_axis: str | None = None
+
+
+def init_moe(cfg, gen):
+    """Router (D, E) in f32; expert weights wg, wi (E, D, F) and wo
+    (E, F, D) in ``cfg.param_dtype``, drawn from ``gen`` on its device."""
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    return {
+        "router": init_normal(gen, (d, e), d ** -0.5, "float32"),
+        "wg": init_normal(gen, (e, d, f), d ** -0.5, cfg.param_dtype),
+        "wi": init_normal(gen, (e, d, f), d ** -0.5, cfg.param_dtype),
+        "wo": init_normal(gen, (e, f, d), f ** -0.5, cfg.param_dtype),
+    }
+
+
+def _capacity(cfg, t_local: int) -> int:
+    cap = int(t_local * cfg.experts_per_token * cfg.capacity_factor
+              / cfg.n_experts)
+    return min(max(8, cap), t_local)
+
+
+def _expert_ffn(cfg, x, wg, wi, wo, gates, capacity, use_kernel,
+                combine: str = "sum"):
+    """x (T, D) tokens; wg/wi (E, D, F), wo (E, F, D); gates (T, E) with
+    zeros off the top-k.  Returns the combined output (T, D) in f32.
+
+    Each expert takes its ``capacity`` largest gates, ties to the lower
+    token index, as ``jax.lax.top_k`` breaks them: a stable sort, where
+    ``torch.topk`` leaves the order of ties open.  Which zero-gate tokens
+    fill spare capacity adds 0 to a 'sum' combine but enters a 'min' and
+    the count of a 'mean'."""
+    t, d = x.shape
+    e_loc = wg.shape[0]
+    topv, topi = torch.sort(gates.t(), dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :capacity], topi[:, :capacity]  # (E, C)
+    xg = x[topi.reshape(-1)].reshape(e_loc, capacity, d)
+
+    if use_kernel:
+        f = wg.shape[-1]
+        dt, ft = fit_tile(d, 128), fit_tile(f, 128)
+        tile = min(capacity, 128)
+        cap_pad = -(-capacity // tile) * tile
+        if cap_pad != capacity:
+            xg = F.pad(xg, (0, 0, 0, cap_pad - capacity))
+        tile_experts = torch.arange(
+            e_loc, dtype=torch.int32, device=x.device).repeat_interleave(
+                cap_pad // tile)
+        flat = xg.reshape(e_loc * cap_pad, d)
+
+        def gmm(x_, w_, contract_tile, out_tile, epilogue=Epilogue()):
+            return grouped_matmul(x_, tile_experts, w_, token_tile=tile,
+                                  d_tile=contract_tile, f_tile=out_tile,
+                                  epilogue=epilogue, device=x.device)
+
+        # the up projections contract D and emit F, the down projection
+        # contracts F and emits D; the gate projection's SiLU runs on the
+        # kernel's f32 sums (the fused grouped_matmul -> ewise chain)
+        h = gmm(flat, wg, dt, ft, Epilogue(activation="silu")) * gmm(
+            flat, wi, dt, ft)
+        y = gmm(h.to(x.dtype), wo, ft, dt)
+        y = y.reshape(e_loc, cap_pad, d)[:, :capacity]
+    else:
+        h = F.silu(torch.einsum("ecd,edf->ecf", xg, wg)) * torch.einsum(
+            "ecd,edf->ecf", xg, wi)
+        y = torch.einsum("ecf,efd->ecd", h.to(x.dtype), wo)
+
+    return moe_combine(y.reshape(-1, d), topi.reshape(-1), topv.reshape(-1),
+                       t, op=combine)
+
+
+def _route(cfg, x, router):
+    """Router: top-k gates.  Returns (gates (T, E) with zeros off the
+    top-k, renormalized over it; probs (T, E) for the aux loss)."""
+    logits = x.to(torch.float32) @ router
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.topk(probs, cfg.experts_per_token, dim=-1)
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+    gates = torch.zeros_like(probs).scatter(1, topi, topv)
+    return gates, probs
+
+
+def _aux_loss(cfg, gates, probs):
+    """Switch-style load-balance loss over the tokens."""
+    f = (gates > 0).to(torch.float32).mean(dim=0)  # dispatch fraction
+    p = probs.mean(dim=0)
+    return cfg.n_experts * (f * p).sum()
+
+
+def apply_moe(cfg, p, x2d, ctx: ShardingCtx | None = None, *,
+              combine: str = "sum", device=None):
+    """x2d (T, D) tokens -> (out (T, D) in x2d's type, aux loss).
+
+    ``combine`` picks the expert -> token writeback monoid ('sum', or
+    'min' / 'mean': the same gate-weighted scatter under those monoids,
+    ``fuse.moe_combine``).  ``device``: None means 'cuda' (raises without
+    a card); 'cpu' runs the kernel's plain version.  A ``ctx`` with a
+    mesh raises: the expert-parallel path is not ported yet."""
+    if ctx is not None and ctx.mesh is not None and ctx.model_axis is not None:
+        raise NotImplementedError(
+            "expert-parallel MoE under a mesh is not ported yet (ROADMAP.md, "
+            "queue 1 item 11); pass ctx=None")
+    dev = resolve_device(device)
+    check_on(dev, x2d=x2d, router=p["router"], wg=p["wg"])
+    gates, probs = _route(cfg, x2d, p["router"])
+    cap = _capacity(cfg, x2d.shape[0])
+    out = _expert_ffn(cfg, x2d, p["wg"], p["wi"], p["wo"], gates, cap,
+                      cfg.moe_kernel_dispatch, combine)
+    return out.to(x2d.dtype), _aux_loss(cfg, gates, probs)

@@ -1,8 +1,10 @@
 """The port's CUDA kernels (EB and RB SpMM, the epilogue, SDDMM, fused
-attention forward and backward, segment reduce) against their plain
-versions on the card, at small sizes, the kernel paths' gradients
-against the CPU's, and the launches of the planned GCN and readout.  Every test here needs an NVIDIA GPU and skips, when it runs, on
-a machine without one.  On the GPU machine:
+attention forward and backward, segment reduce, grouped matmul) against
+their plain versions on the card, at small sizes, the kernel paths'
+gradients against the CPU's, the launches of the planned GCN and
+readout, and those of the MoE layer and an LM decode step.  Every test
+here needs an NVIDIA GPU and skips, when it runs, on a machine without
+one.  On the GPU machine:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -423,3 +425,110 @@ def test_planned_gcn_and_readout_launches(dev, schedule):
     for op in (None, "mean", "max"):
         torch.testing.assert_close(outs[(str(dev), op)], outs[("cpu", op)],
                                    rtol=1e-4, atol=1e-4)
+
+
+def _gmm_operands(dev, tile, n_tiles, e, d, f, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n_tiles * tile, d, generator=g).to(dtype).to(dev)
+    w = (torch.randn(e, d, f, generator=g) * d ** -0.5).to(dtype).to(dev)
+    te = torch.randint(0, e, (n_tiles,), generator=g,
+                       dtype=torch.int32).to(dev)
+    b = torch.randn(e, f, generator=g).to(dev)
+    return x, te, w, b
+
+
+@pytest.mark.parametrize("f", [64, 40, 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [1, 4, 10, 17, 128])
+def test_grouped_matmul_kernel_matches_plain(dev, tile, dtype, f):
+    """Token tiles on both row-chunk sizes (4 and 8, ragged above 8),
+    D = 300 (a ragged last chunk of the staged rows), F with and without
+    the 16-byte weight loads (F = 40 in bf16, F = 20 in f32 take scalar
+    loads); no epilogue, bias + SiLU, and a bf16 output."""
+    from repro_torch.core import Epilogue
+    from repro_torch.kernels import grouped_matmul as gm
+
+    x, te, w, b = _gmm_operands(dev, tile, 5, 6, 300, f, dtype, tile + f)
+    for ep, bias in ((Epilogue(), None),
+                     (Epilogue("silu", bias=True), b),
+                     (Epilogue(out_dtype="bfloat16"), None)):
+        kw = dict(bias=bias, epilogue=ep, token_tile=tile)
+        before = gm.KERNEL.launches
+        got = gm.grouped_matmul(x, te, w, f_tile=f, d_tile=300, **kw)
+        assert gm.KERNEL.launches == before + 1
+        want = gm.grouped_matmul_plain(x, te, w, **kw)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        rtol = RTOL + (2.0 ** -7 if ep.out_dtype else 0.0)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=ATOL)
+
+
+def test_grouped_matmul_kernel_mixed_misaligned_and_bad_experts(dev):
+    """f32 tokens on bf16 weights; weights 2 bytes off a 16-byte boundary
+    (scalar loads); a tile whose expert id lies outside [0, E) is NaN;
+    f16 operands are refused."""
+    from repro_torch.kernels import grouped_matmul as gm
+
+    x, te, w, _ = _gmm_operands(dev, 4, 6, 3, 128, 64, torch.bfloat16, 0)
+    got = gm.grouped_matmul(x.float(), te, w, token_tile=4, f_tile=64,
+                            d_tile=128)
+    torch.testing.assert_close(
+        got, gm.grouped_matmul_plain(x.float(), te, w, token_tile=4),
+        rtol=RTOL, atol=ATOL)
+    flat = torch.empty(w.numel() + 1, dtype=w.dtype, device=dev)
+    w_off = flat[1:].view(w.shape)
+    w_off.copy_(w)
+    torch.testing.assert_close(
+        gm.grouped_matmul(x, te, w_off, token_tile=4, f_tile=64, d_tile=128),
+        gm.grouped_matmul_plain(x, te, w, token_tile=4), rtol=RTOL,
+        atol=ATOL)
+    bad = te.clone()
+    bad[2] = 7
+    out = gm.grouped_matmul(x, bad, w, token_tile=4, f_tile=64, d_tile=128)
+    assert bool(out[8:12].isnan().all()) and not bool(
+        out[:8].isnan().any())
+    with pytest.raises(NotImplementedError, match="loads"):
+        gm.grouped_matmul(x.half(), te, w, token_tile=4, f_tile=64,
+                          d_tile=128)
+
+
+def test_moe_and_decode_step_launches(dev):
+    """``apply_moe`` on the kernel path is 3 grouped-matmul launches and
+    matches the einsum path and the CPU; a decode step of the 2-layer
+    smoke MoE model is 6, and its logits match the CPU's."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.models import get_model
+    from repro_torch.models.moe import apply_moe
+
+    cfg = smoke_config(ARCHS["qwen3-moe-235b-a22b"])
+    api = get_model(cfg)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+
+    def to_dev(tree):
+        if isinstance(tree, dict):
+            return {k: to_dev(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_dev(v) for v in tree]
+        return tree.to(dev)
+
+    p_dev = to_dev(params)
+    x = _dense("cpu", (24, cfg.d_model), 3)
+    moe_cpu, moe_dev = params["layers"][0]["moe"], p_dev["layers"][0]["moe"]
+    with torch.no_grad():
+        before = gm.KERNEL.launches
+        got, _ = apply_moe(cfg, moe_dev, x.to(dev))
+        assert gm.KERNEL.launches == before + 3
+        einsum, _ = apply_moe(cfg.scaled(moe_kernel_dispatch=False),
+                              moe_dev, x.to(dev))
+        want, _ = apply_moe(cfg, moe_cpu, x, device="cpu")
+        torch.testing.assert_close(got, einsum, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        toks = torch.randint(0, cfg.vocab_size, (2, 6))
+        lc, cc = api.prefill(params, {"tokens": toks}, 10)
+        ld, cd = api.prefill(p_dev, {"tokens": toks.to(dev)}, 10)
+        before = gm.KERNEL.launches
+        lc, _ = api.decode_step(params, cc, lc.argmax(-1))
+        ld, _ = api.decode_step(p_dev, cd, ld.argmax(-1))
+        assert gm.KERNEL.launches == before + 3 * cfg.n_layers
+        torch.testing.assert_close(ld.cpu(), lc, rtol=1e-4, atol=1e-4)

@@ -2,8 +2,8 @@
 with the JAX package's (``repro.fuse``) on the same chains and numpy
 inputs: the plan (per-boundary decision, split reasons, launch members,
 planned launches) of every chain shape of
-``tests/test_fuse_planner.py::build_case`` that needs no grouped matmul,
-and of the GCN readout (the two-layer GCN chain ending in a
+``tests/test_fuse_planner.py::build_case``, the grouped-matmul chains
+included, and of the GCN readout (the two-layer GCN chain ending in a
 ``segment_reduce``); ``run_plan`` and ``run_chain_ref`` outputs; the rule
 registry; and ``moe_combine``.
 
@@ -178,15 +178,76 @@ def test_moe_combine_matches_reference(op):
 
 
 def test_grouped_matmul_anchor_raises_until_its_kernel_is_ported():
-    te = torch.zeros(2, dtype=torch.int32)
-    chain, params = TF.moe_expert_chain(te, torch.zeros(1, 4, 4),
-                                        token_tile=8)
-    p = TF.plan(chain)
+    """The kernel is ported (2.11), so the anchor runs: the MoE expert
+    chain (grouped matmul -> per-expert bias + SiLU) plans as one launch
+    and ``run_plan`` and ``run_chain_ref`` match the reference's."""
+    x, te, w, b = _gmm_problem(9)
+    jc, jp = JF.moe_expert_chain(jnp.asarray(te), jnp.asarray(w),
+                                 jnp.asarray(b), **GMM_TILES)
+    tc, tp = TF.moe_expert_chain(torch.from_numpy(te), torch.from_numpy(w),
+                                 torch.from_numpy(b), **GMM_TILES)
+    p = TF.plan(tc)
     assert p.n_launches == 1 and p.decision.fused == (True,)
-    with pytest.raises(NotImplementedError, match="2.11"):
-        TF.run_plan(p, torch.zeros(16, 4), params, device="cpu")
-    with pytest.raises(NotImplementedError, match="2.11"):
-        TF.run_chain_ref(chain, torch.zeros(16, 4), params)
+    assert _launch_view(p) == _launch_view(JF.plan(jc))
+    want = np.asarray(JF.run_plan(JF.plan(jc), jnp.asarray(x), jp))
+    got = TF.run_plan(p, torch.from_numpy(x), tp, device="cpu")
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    want_ref = np.asarray(JF.run_chain_ref(jc, jnp.asarray(x), jp))
+    got_ref = TF.run_chain_ref(tc, torch.from_numpy(x), tp)
+    np.testing.assert_allclose(got_ref.numpy(), want_ref, rtol=RTOL,
+                               atol=ATOL)
+
+
+#: token_tile, f_tile and d_tile of the grouped-matmul chains
+GMM_TILES = {"token_tile": 16, "f_tile": 16, "d_tile": 16}
+
+
+def _gmm_problem(seed, t_tiles=4, d=32, f=32, e=4):
+    """The inputs of ``tests/test_fuse_planner.py::_gmm_problem``."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(t_tiles * GMM_TILES["token_tile"], d)).astype(
+        np.float32)
+    te = rng.integers(0, e, size=(t_tiles,)).astype(np.int32)
+    w = (rng.normal(size=(e, d, f)) * d ** -0.5).astype(np.float32)
+    b = rng.normal(size=(e, f)).astype(np.float32)
+    return x, te, w, b
+
+
+@pytest.mark.parametrize("kind", ["gmm-act", "gmm-bias-act",
+                                  "gmm-act-combine"])
+def test_grouped_matmul_chains_match_reference(kind):
+    """The grouped-matmul chain shapes of the reference's planner tests:
+    the same plans, and outputs that match ``repro.fuse``'s."""
+    x, te, w, b = _gmm_problem(3)
+    rng = np.random.default_rng(4)
+    s = x.shape[0]
+    topi = rng.integers(0, s // 2, size=(s,)).astype(np.int32)
+    topv = rng.uniform(0.1, 1.0, size=(s,)).astype(np.float32)
+
+    def make(F, arr):
+        gp = {"tile_experts": arr(te), "weights": arr(w), **GMM_TILES}
+        if kind == "gmm-act":
+            return [F.grouped_matmul_node(), F.ewise("silu")], [gp, {}]
+        if kind == "gmm-bias-act":
+            return ([F.grouped_matmul_node(), F.ewise("silu", bias=True)],
+                    [gp, {"bias": arr(b)}])
+        return ([F.grouped_matmul_node(), F.ewise("silu"),
+                 F.combine_node("sum")],
+                [gp, {}, {"topi": arr(topi), "topv": arr(topv),
+                          "num_tokens": s // 2}])
+
+    (jc, jp), (tc, tp) = make(JF, jnp.asarray), make(TF, torch.from_numpy)
+    jplan, tplan = JF.plan(jc), TF.plan(tc)
+    assert tplan.decision.fused == jplan.decision.fused
+    assert tplan.reasons == jplan.reasons
+    assert _launch_view(tplan) == _launch_view(jplan)
+    want = np.asarray(JF.run_plan(jplan, jnp.asarray(x), jp))
+    got = TF.run_plan(tplan, torch.from_numpy(x), tp, device="cpu")
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    want_ref = np.asarray(JF.run_chain_ref(jc, jnp.asarray(x), jp))
+    got_ref = TF.run_chain_ref(tc, torch.from_numpy(x), tp)
+    np.testing.assert_allclose(got_ref.numpy(), want_ref, rtol=RTOL,
+                               atol=ATOL)
 
 
 def test_run_plan_checks_params_and_device():

@@ -39,7 +39,7 @@ def test_port_has_its_kernel_sources():
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.stem for p in csrc.glob("*.cu")} == set(build.SOURCES) == {
         "spmm_eb", "spmm_rb", "epilogue", "sddmm", "fused_attention_fwd",
-        "fused_attention_bwd", "segment_reduce"}
+        "fused_attention_bwd", "segment_reduce", "grouped_matmul"}
 
 
 def test_the_scan_covers_the_fuse_package_and_every_kernel_module():
@@ -47,12 +47,17 @@ def test_the_scan_covers_the_fuse_package_and_every_kernel_module():
                for p in PORT_FILES if p.is_relative_to(ROOT / "src")}
     assert {"fuse/__init__.py", "fuse/ir.py", "fuse/rules.py",
             "fuse/legality.py", "fuse/planner.py", "fuse/execute.py",
-            "kernels/segment_reduce.py"} <= scanned
+            "kernels/segment_reduce.py", "configs/__init__.py",
+            "configs/base.py", "configs/qwen3_moe_235b.py",
+            "models/moe.py", "models/transformer.py",
+            "models/registry.py", "serve/engine.py",
+            "launch/serve.py"} <= scanned
     from repro_torch.kernels import build
 
     assert {f"kernels/{s}.py" for s in ("spmm_eb", "spmm_rb", "sddmm",
-                                        "segment_reduce")} <= scanned
-    assert len(build.SOURCES) == 7
+                                        "segment_reduce",
+                                        "grouped_matmul")} <= scanned
+    assert len(build.SOURCES) == 8
 
 
 def test_importing_every_port_module_loads_no_jax():
