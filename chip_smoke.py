@@ -5,8 +5,11 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into the
 git-ignored ``_build`` directory beside them) and holds each kernel
-against its plain PyTorch version on the card: EB and RB SpMM, the
-epilogue, SDDMM, fused sparse attention forward and backward, and
+against its plain PyTorch version on the card: EB and RB SpMM with their
+fused epilogue (EB and RB per output element within K_TERMS units of
+2^-24 of the terms entering it; EB's carry rows against
+``eb_carry_plan`` and two launches bit for bit), SDDMM, fused sparse
+attention forward and backward, and
 segment reduce (on four profiles: the social graph's row statistics,
 batched and hidden graph readout, and G-aligned ``parallel``; max and
 min bit for bit).  Then it drives the paths of the port on a
@@ -43,7 +46,8 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   and a prefill.
 
 It prints kernel, forward, training-step, attention, readout, prefill and
-decode times, the launch counts of each path, a ``{"kernels": [...]}``
+decode times, EB, RB and ``torch.sparse.mm`` at N = 64 and 128 on both
+graphs, the launch counts of each path, a ``{"kernels": [...]}``
 line and, as its last line, ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero without that line; so does a machine without
 CUDA.
@@ -53,6 +57,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -91,6 +96,16 @@ GRAD_RTOL = 1e-4
 #: sign of at most this share of the layer-1 pre-activations (runs on the
 #: H100 read 0 to 3 of 43.4 M); more fails the check.
 MAX_FLIP_SHARE = 1e-6
+#: EB and RB against their plain versions, per output element: both sum
+#: the same f32 terms in other orders, and the fused epilogue's expf and
+#: tanhf differ from torch's by an ulp or two, so each output may differ
+#: by K_TERMS units of 2^-24 of the magnitude of everything entering it
+#: (the sum of |val * B| over its terms, |bias|, |residual| and itself);
+#: a bf16 output one bf16 step more.  A fixed atol cannot hold a row whose
+#: terms cancel (it struck twice under atomics).  On the H100 the observed
+#: k (printed per case) stayed at or below 4.66 over every EB and RB case
+#: here; 16 leaves a margin of 3.4.
+K_TERMS = 16
 TRAIN_STEPS = 5
 LR = 0.5
 #: Graph attention: HEADS x HEAD_DIM = 256, the GCN's hidden width.
@@ -117,7 +132,9 @@ KERNEL_META = {
                 "src/repro/kernels/spmm_eb.py:102"),
     "spmm_rb": ("src/repro_torch/kernels/csrc/spmm_rb.cu",
                 "src/repro/kernels/spmm_rb.py:69"),
-    "epilogue": ("src/repro_torch/kernels/csrc/epilogue.cu",
+    # the epilogue is fused into EB's stores; this row is EB's finishing
+    # launch, which applies it to the rows that cross chunks
+    "epilogue": ("src/repro_torch/kernels/csrc/spmm_eb.cu",
                  "src/repro/kernels/common.py:215"),
     "sddmm": ("src/repro_torch/kernels/csrc/sddmm.cu",
               "src/repro/kernels/sddmm.py:55"),
@@ -249,6 +266,33 @@ class Checker:
         if not ok:
             self.failures.append(f"{kernel} {label}")
 
+    def record_terms(self, kernel, label, got, want, terms):
+        """Hold ``got`` to ``want`` per element within K_TERMS units of
+        2^-24 of ``terms + |want|`` (one bf16 step more for bf16); print
+        the observed k, the largest error in those units."""
+        import torch
+
+        g, w = got.detach().float(), want.detach().float()
+        if g.shape != w.shape or got.dtype != want.dtype or not bool(
+                torch.isfinite(g).all()):
+            err, k_obs, ok = float("inf"), float("inf"), False
+        else:
+            unit = 2.0 ** -24 * (terms + w.abs())
+            slack = (2.0 ** -7 * w.abs() if got.dtype == torch.bfloat16
+                     else torch.zeros_like(w))
+            diff = (g - w).abs()
+            err = float(diff.max())
+            k_obs = float(((diff - slack).clamp_min(0) / unit.clamp_min(
+                1e-30)).max())
+            ok = bool((diff <= K_TERMS * unit + slack).all())
+        self.worst[kernel] = max(self.worst[kernel], err)
+        print(f"  {kernel:19s} {label:48s} max_abs_err {err:.3e} k "
+              f"{k_obs:.3f} (tol K_TERMS {K_TERMS} x 2^-24 x terms"
+              f"{' + 2^-7|ref|' if got.dtype == torch.bfloat16 else ''}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            self.failures.append(f"{kernel} {label}")
+
     def done(self):
         import torch
 
@@ -275,7 +319,7 @@ class LaunchTimer:
             start.record()
             self._orig(kernel, device, *args)
             end.record()
-            self.events.append((kernel.source, start, end))
+            self.events.append((kernel.name, start, end))
 
         CudaKernel.launch = launch
         return self
@@ -329,17 +373,35 @@ def make_graphs(n_nodes: int, dev):
     return graphs
 
 
+def terms_of(plain, *args, bias=None, residual=None, **kw):
+    """Per output, the sum of the magnitudes of the terms entering it: the
+    plain version on |values| and |B|, plus |bias| and |residual|."""
+    t = plain(*[a.abs() if a.is_floating_point() else a for a in args],
+              **kw)
+    if bias is not None:
+        t = t + bias.abs()
+    if residual is not None:
+        t = t + residual.abs()
+    return t
+
+
 def check_kernels(graphs, x, model, dev):
     """Each kernel's wrapper against its plain version on the same
-    inputs; returns the worst error per kernel."""
+    inputs; returns the worst error per kernel.  EB on the social graph
+    (its three hub rows of 169,343 nnz cross hundreds of the kernel's
+    chunks) under every strategy, with and without heavy tiles, at N =
+    256, 40 and 33, the fused epilogue's variants (kernel ``epilogue``,
+    EB's finishing launch), the carry rows the kernel writes against
+    ``eb_carry_plan`` and two launches bit for bit; RB on the roadnet
+    graph at N = 256, 40 and 33 with the same variants."""
     import torch
     from repro_torch.core import Epilogue, Schedule
-    from repro_torch.kernels import common, spmm_eb, spmm_rb
+    from repro_torch.kernels import spmm_eb, spmm_rb
     from repro_torch.sparse import matrix_stats
 
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     checker = Checker(("spmm_eb", "spmm_rb", "epilogue"))
-    record, failures = checker.record, checker.failures
+    record, failures = checker.record_terms, checker.failures
 
     b1 = (x @ model.w1).contiguous()
     rand = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
@@ -347,6 +409,7 @@ def check_kernels(graphs, x, model, dev):
     n = x.shape[0]
     res = rand(n, HIDDEN)
     b2 = rand(n, N_CLASS)
+    b33 = b1[:, :33].contiguous()
     variants = {
         "none": (Epilogue(), {}),
         "bias+relu": (Epilogue("relu", bias=True), {"bias": bias}),
@@ -357,7 +420,19 @@ def check_kernels(graphs, x, model, dev):
         "sigmoid+residual": (Epilogue("sigmoid", residual=True),
                              {"residual": res}),
         "bf16": (Epilogue(out_dtype="bfloat16"), {}),
+        "bias+relu bf16": (Epilogue("relu", bias=True, out_dtype="bfloat16"),
+                           {"bias": bias}),
     }
+
+    def eb_record(kernel, label, g, b, kw, ops=None):
+        ops = ops or {}
+        got = spmm_eb.spmm_eb(g.rows, g.cols, g.vals, b, **kw, **ops)
+        want = spmm_eb.spmm_eb_plain(g.rows, g.cols, g.vals, b, **kw, **ops)
+        plain_kw = {k: v for k, v in kw.items() if k != "epilogue"}
+        record(kernel, label, got, want,
+               terms_of(spmm_eb.spmm_eb_plain, g.rows, g.cols, g.vals, b,
+                        **plain_kw, **ops))
+        return got
 
     adj, _ = graphs["social"]
     stats = matrix_stats(adj)
@@ -367,8 +442,15 @@ def check_kernels(graphs, x, model, dev):
         for strat in ("segment", "accumulate"):
             eb_cases.append((Schedule("eb", nnz_tile=128, group_size=G,
                                       strategy=strat), f"G={G} {strat}"))
+    # parallel over the standard layout: the kernel's group-to-first-lane
+    # attribution on groups that span rows (Schedule refuses it, the
+    # kernel takes it)
+    eb_cases.append((types.SimpleNamespace(
+        nnz_tile=128, group_size=8, strategy="parallel", is_skew=False,
+        split_threshold=None, merge_threshold=None), "G=8 parallel"))
     split = max(64, stats["row_quantiles"][-1][1])
-    for strat, merge in (("segment", 2), ("segment", 0), ("parallel", 0)):
+    for strat, merge in (("segment", 2), ("segment", 0), ("parallel", 0),
+                         ("accumulate", 0)):
         eb_cases.append((Schedule("eb", nnz_tile=128, group_size=8,
                                   strategy=strat, split_threshold=split,
                                   merge_threshold=merge),
@@ -377,61 +459,86 @@ def check_kernels(graphs, x, model, dev):
         g = adj.grouped(sched.nnz_tile, group_size=sched.group_size,
                         split_threshold=sched.split_threshold,
                         merge_threshold=sched.merge_threshold)
-        kw = dict(n_rows=n, nnz_tile=sched.nnz_tile, group_size=sched.group_size,
-                  strategy=sched.strategy, heavy_tiles=g.heavy_tiles)
+        kw = dict(n_rows=n, nnz_tile=sched.nnz_tile,
+                  group_size=sched.group_size, strategy=sched.strategy,
+                  heavy_tiles=g.heavy_tiles)
         if sched.is_skew and g.heavy_tiles == 0:
             failures.append(f"{label}: layout has no heavy tiles")
-        record("spmm_eb", f"{label} heavy_tiles={g.heavy_tiles} N={HIDDEN}",
-               spmm_eb.spmm_eb(g.rows, g.cols, g.vals, b1,
-                               col_tile=128, **kw),
-               spmm_eb.spmm_eb_plain(g.rows, g.cols, g.vals, b1, **kw))
+        walk = ("carry" if spmm_eb.rows_sorted(g.rows, n) else "atomic")
+        eb_record("spmm_eb", f"{label} heavy_tiles={g.heavy_tiles} "
+                  f"{walk} N={HIDDEN}", g, b1, kw)
     auto1 = Schedule.auto(stats, HIDDEN)
     auto2 = Schedule.auto(stats, N_CLASS)
     g = adj.grouped(auto1.nnz_tile)
     for vname, (ep, ops) in variants.items():
-        kw = dict(n_rows=adj.shape[0], nnz_tile=auto1.nnz_tile,
+        kw = dict(n_rows=n, nnz_tile=auto1.nnz_tile,
                   group_size=auto1.group_size, strategy=auto1.strategy,
-                  epilogue=ep, **ops)
-        record("spmm_eb", f"auto {vname} N={HIDDEN}",
-               spmm_eb.spmm_eb(g.rows, g.cols, g.vals, b1,
-                               col_tile=auto1.col_tile, **kw),
-               spmm_eb.spmm_eb_plain(g.rows, g.cols, g.vals, b1, **kw))
+                  epilogue=ep)
+        eb_record("spmm_eb" if ep.is_noop else "epilogue",
+                  f"auto {vname} N={HIDDEN}", g, b1, kw, ops)
     g2 = adj.grouped(auto2.nnz_tile)
-    kw = dict(n_rows=adj.shape[0], nnz_tile=auto2.nnz_tile,
-              group_size=auto2.group_size, strategy=auto2.strategy)
-    record("spmm_eb", f"auto none N={N_CLASS}",
-           spmm_eb.spmm_eb(g2.rows, g2.cols, g2.vals, b2,
-                           col_tile=auto2.col_tile, **kw),
-           spmm_eb.spmm_eb_plain(g2.rows, g2.cols, g2.vals, b2, **kw))
+    for b, vname in ((b2, "none"), (b2, "bias+relu bf16"), (b33, "none"),
+                     (b33, "bias+gelu+residual")):
+        ep, ops = variants[vname]
+        w = b.shape[1]
+        ops = {k: (v[:w] if k == "bias" else v[:, :w].contiguous())
+               for k, v in ops.items()}
+        kw = dict(n_rows=n, nnz_tile=auto2.nnz_tile,
+                  group_size=auto2.group_size, strategy=auto2.strategy,
+                  epilogue=ep)
+        eb_record("spmm_eb" if ep.is_noop else "epilogue",
+                  f"auto {vname} N={w}", g2, b, kw, ops)
 
-    print("check: epilogue on the EB accumulator", flush=True)
-    acc = spmm_eb.spmm_eb_plain(g.rows, g.cols, g.vals, b1,
-                                n_rows=adj.shape[0],
-                                nnz_tile=auto1.nnz_tile,
-                                group_size=auto1.group_size)
-    for vname, (ep, ops) in variants.items():
-        if ep.is_noop:
-            continue
-        record("epilogue", vname,
-               common.apply_epilogue(acc.clone(), ep, **ops),
-               common.apply_epilogue_plain(acc.clone(), ep, **ops))
+    print("check: EB's carry walk (rows crossing chunks) and determinism",
+          flush=True)
+    for sched, b, ep, ops in ((auto1, b1, *variants["bias+relu"]),
+                              (auto2, b2, *variants["none"])):
+        g = adj.grouped(sched.nnz_tile)
+        kw = dict(n_rows=n, nnz_tile=sched.nnz_tile,
+                  group_size=sched.group_size, strategy=sched.strategy,
+                  heavy_tiles=0, epilogue=ep, **ops)
+        kw = {"bias": None, "residual": None, **kw}
+        out1, carry, chunk = spmm_eb._launch(g.rows, g.cols, g.vals, b,
+                                             **kw)
+        out2, _, _ = spmm_eb._launch(g.rows, g.cols, g.vals, b, **kw)
+        plan = spmm_eb.eb_carry_plan(g.rows, chunk=chunk,
+                                     group_size=sched.group_size,
+                                     strategy=sched.strategy,
+                                     nnz_tile=sched.nnz_tile)
+        same_plan = bool(torch.equal(carry, plan))
+        same_bits = bool(torch.equal(out1, out2))
+        heads = int((plan[1::2] >= 0).sum())
+        cont = int((plan[0::2] >= 0).sum())
+        print(f"  N={b.shape[1]}: chunks of {chunk} lanes, "
+              f"{plan.numel() // 2} workers; {heads} rows cross chunks, "
+              f"{cont} continuation carries; carry rows equal "
+              f"eb_carry_plan: {same_plan}; two launches bit for bit: "
+              f"{same_bits}", flush=True)
+        if not (same_plan and same_bits):
+            failures.append(f"EB carry walk N={b.shape[1]}")
+        del out1, out2
 
     adj, rb_sched = graphs["roadnet"]
     print("check: RB (spmm_rb) on the roadnet graph", flush=True)
+
+    def rb_record(label, e, row_tile, b, ep, ops):
+        kw = dict(n_rows=adj.shape[0], epilogue=ep, **ops)
+        record("spmm_rb", label,
+               spmm_rb.spmm_rb(e.cols, e.vals, b, row_tile=row_tile,
+                               col_tile=rb_sched.col_tile, **kw),
+               spmm_rb.spmm_rb_plain(e.cols, e.vals, b, **kw),
+               terms_of(spmm_rb.spmm_rb_plain, e.cols, e.vals, b,
+                        n_rows=adj.shape[0], **ops))
+
     for row_tile in (8, 32):
         e = adj.ell(row_tile=row_tile)
         for vname, (ep, ops) in variants.items():
-            kw = dict(n_rows=adj.shape[0], epilogue=ep, **ops)
-            record("spmm_rb",
-                   f"row_tile={row_tile} W={e.width} {vname} N={HIDDEN}",
-                   spmm_rb.spmm_rb(e.cols, e.vals, b1, row_tile=row_tile,
-                                   col_tile=rb_sched.col_tile, **kw),
-                   spmm_rb.spmm_rb_plain(e.cols, e.vals, b1, **kw))
-        record("spmm_rb", f"row_tile={row_tile} none N={N_CLASS}",
-               spmm_rb.spmm_rb(e.cols, e.vals, b2, n_rows=adj.shape[0],
-                               row_tile=row_tile, col_tile=N_CLASS),
-               spmm_rb.spmm_rb_plain(e.cols, e.vals, b2,
-                                     n_rows=adj.shape[0]))
+            rb_record(f"row_tile={row_tile} W={e.width} {vname} N={HIDDEN}",
+                      e, row_tile, b1, ep, ops)
+        rb_record(f"row_tile={row_tile} none N={N_CLASS}", e, row_tile, b2,
+                  Epilogue(), {})
+        rb_record(f"row_tile={row_tile} none N=33", e, row_tile, b33,
+                  Epilogue(), {})
     return checker.done()
 
 
@@ -776,10 +883,25 @@ def bound(nbytes: int, flops: int, flop_per_s: float = F32_FLOP_PER_S):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def launch_ms(fn, reps: int = 10) -> dict:
+    """Mean device ms per call of each kernel ``fn`` launches, from CUDA
+    events around every launch (``LaunchTimer``), after two warm-up
+    calls."""
+    for _ in range(2):
+        fn()
+    with LaunchTimer() as timer:
+        for _ in range(reps):
+            fn()
+    return {k: v / reps for k, v in timer.ms().items()}
+
+
 def time_kernels(graphs, social_model, road_model, x):
     """Per-forward times of each kernel, its plain version and the
-    library yardstick at the serving shapes, with the bytes and
-    operations of that work; and the dense products' time per graph."""
+    library yardstick at the serving shapes (layer 1 with its bias and
+    relu, as served), with the bytes and operations of that work; the
+    gathers each SpMM requests (nnz x N x 4 bytes); and the dense
+    products' time per graph.  EB's kernel and its finishing launch
+    (row ``epilogue``) are timed apart, launch by launch."""
     import torch
     from repro_torch.core import Epilogue, Schedule
     from repro_torch.kernels import common, spmm_eb, spmm_rb
@@ -793,47 +915,68 @@ def time_kernels(graphs, social_model, road_model, x):
 
     def zero():
         return {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-                "flops": 0}
+                "flops": 0, "gather_bytes": 0}
 
     relu_bias = Epilogue("relu", bias=True)
     results, dense_ms = {}, {}
-    # EB: layer 1 (N=256) and layer 2 (N=40) on the social graph
+    # EB: layer 1 (N=256, bias + relu) and layer 2 (N=40) on the social
+    # graph
     adj = graphs["social"][0]
     st = matrix_stats(adj)
+    n = adj.shape[0]
     b1, b2, h = layer_inputs(social_model, adj)
     dense_ms["social"] = (cuda_ms(lambda: x @ social_model.w1)
                           + cuda_ms(lambda: h @ social_model.w2))
     lib_csr = library_csr(adj)
     eb = results["spmm_eb"] = zero()
-    for b in (b1, b2):
+    fin = results["epilogue"] = zero()
+    fin["library_ms"] = None
+    for b, ep, ops in ((b1, relu_bias, {"bias": social_model.b1}),
+                       (b2, Epilogue(), {})):
         s = Schedule.auto(st, b.shape[1])
         g = adj.grouped(s.nnz_tile)
-        kw = dict(n_rows=adj.shape[0], nnz_tile=s.nnz_tile,
-                  group_size=s.group_size, strategy=s.strategy)
-        eb["ms"] += cuda_ms(lambda: spmm_eb.spmm_eb(
-            g.rows, g.cols, g.vals, b, col_tile=s.col_tile, **kw))
+        kw = dict(n_rows=n, nnz_tile=s.nnz_tile, group_size=s.group_size,
+                  strategy=s.strategy, epilogue=ep, **ops)
+        split = launch_ms(lambda: spmm_eb.spmm_eb(g.rows, g.cols, g.vals, b,
+                                                  **kw))
+        total = cuda_ms(lambda: spmm_eb.spmm_eb(g.rows, g.cols, g.vals, b,
+                                                **kw))
+        eb["ms"] += split["spmm_eb"]
+        fin["ms"] += split["spmm_eb_finish"]
         eb["plain_ms"] += cuda_ms(lambda: spmm_eb.spmm_eb_plain(
             g.rows, g.cols, g.vals, b, **kw), 3, 1)
-        eb["library_ms"] += cuda_ms(lambda: torch.sparse.mm(lib_csr, b))
-        eb["bytes"] += (g.nnz_padded * 12 + b.numel() * 4
-                        + adj.shape[0] * b.shape[1] * 4)
-        eb["flops"] += 2 * adj.nnz * b.shape[1]
-    # epilogue: layer 1's bias + relu on the EB accumulator
+        lib = cuda_ms(lambda: torch.sparse.mm(lib_csr, b))
+        eb["library_ms"] += lib
+        w = b.shape[1]
+        eb["bytes"] += (g.nnz_padded * 12 + b.numel() * 4 + n * w * 4
+                        + (w * 4 if ep.bias else 0))
+        eb["flops"] += 2 * adj.nnz * w
+        eb["gather_bytes"] += adj.nnz * w * 4
+        plan = spmm_eb.eb_carry_plan(
+            g.rows, chunk=spmm_eb.eb_geometry(g.nnz_padded, s.nnz_tile, w,
+                                              4)[2],
+            group_size=s.group_size, strategy=s.strategy,
+            nnz_tile=s.nnz_tile)
+        carries, heads = int((plan >= 0).sum()), int((plan[1::2] >= 0).sum())
+        # the finish reads the carry rows and carries, writes each crossing
+        # row once (with bias, the epilogue's operand)
+        fin["bytes"] += (plan.numel() * 4 + carries * w * 4 + heads * w * 4
+                         + (w * 4 if ep.bias else 0))
+        fin["flops"] += carries * w + (2 * heads * w if not ep.is_noop
+                                       else 0)
+        print(f"EB social N={w} ({s}): kernel {split['spmm_eb']:.4f} ms + "
+              f"finish {split['spmm_eb_finish']:.4f} ms (launch by launch); "
+              f"the wrapper {total:.4f} ms; torch.sparse.mm {lib:.4f} ms; "
+              f"{heads} rows cross chunks, {carries} carries; gathers "
+              f"requested {adj.nnz * w * 4} bytes", flush=True)
+    # the plain epilogue the fused one replaces, on layer 1's accumulator
     s = Schedule.auto(st, HIDDEN)
     g = adj.grouped(s.nnz_tile)
-    acc = spmm_eb.spmm_eb_plain(g.rows, g.cols, g.vals, b1,
-                                n_rows=adj.shape[0], nnz_tile=s.nnz_tile,
-                                group_size=s.group_size)
-    acc_k = acc.clone()
-    results["epilogue"] = {
-        "ms": cuda_ms(lambda: common.apply_epilogue(
-            acc_k, relu_bias, bias=social_model.b1)),
-        "plain_ms": cuda_ms(lambda: common.apply_epilogue_plain(
-            acc, relu_bias, bias=social_model.b1)),
-        "library_ms": None,
-        "bytes": 2 * acc.numel() * 4 + HIDDEN * 4,
-        "flops": 2 * acc.numel()}
-    del acc, acc_k
+    acc = spmm_eb.spmm_eb_plain(g.rows, g.cols, g.vals, b1, n_rows=n,
+                                nnz_tile=s.nnz_tile, group_size=s.group_size)
+    fin["plain_ms"] = cuda_ms(lambda: common.apply_epilogue_plain(
+        acc, relu_bias, bias=social_model.b1))
+    del acc
     # RB: layer 1 (bias + relu fused) and layer 2 on the roadnet graph
     adj, rs = graphs["roadnet"]
     b1, b2, h = layer_inputs(road_model, adj)
@@ -856,7 +999,48 @@ def time_kernels(graphs, social_model, road_model, x):
                         + adj.shape[0] * b.shape[1] * 4
                         + (HIDDEN * 4 if ep.bias else 0))
         rb["flops"] += 2 * adj.nnz * b.shape[1]
+        rb["gather_bytes"] += adj.nnz * b.shape[1] * 4
     return results, dense_ms
+
+
+def time_widths(graphs):
+    """EB, RB and ``torch.sparse.mm`` at the widths between the serving
+    ones, N = 64 and 128, on both graphs (CUDA events, mean of 10): EB
+    under ``Schedule.auto``'s EB choice on the social graph and an EB
+    schedule (nnz_tile 128, G 32, segment) on the roadnet graph; RB on
+    the roadnet graph only, as the social graph's ELL would be 169,343
+    slots wide."""
+    import torch
+    from repro_torch.core import Schedule
+    from repro_torch.kernels import spmm_eb, spmm_rb
+    from repro_torch.sparse import matrix_stats
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    out = {}
+    for name, (adj, sched) in graphs.items():
+        n = adj.shape[0]
+        lib_csr = library_csr(adj)
+        for w in (64, 128):
+            b = torch.randn(n, w, generator=gen).to(adj.device)
+            s = (Schedule.auto(matrix_stats(adj), w) if name == "social"
+                 else Schedule("eb", nnz_tile=128, group_size=32))
+            g = adj.grouped(s.nnz_tile)
+            kw = dict(n_rows=n, nnz_tile=s.nnz_tile,
+                      group_size=s.group_size, strategy=s.strategy)
+            row = {"spmm_eb": cuda_ms(lambda: spmm_eb.spmm_eb(
+                g.rows, g.cols, g.vals, b, **kw)),
+                "torch.sparse.mm": cuda_ms(
+                    lambda: torch.sparse.mm(lib_csr, b))}
+            if name == "roadnet":
+                e = adj.ell(row_tile=sched.row_tile)
+                row["spmm_rb"] = cuda_ms(lambda: spmm_rb.spmm_rb(
+                    e.cols, e.vals, b, n_rows=n))
+            out[(name, w)] = row
+            print(f"width sweep {name} N={w}: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in row.items())
+                + f" (EB schedule {s})", flush=True)
+        del lib_csr
+    return out
 
 
 def sampled_addmm_ms(lib, dz, b, want):
@@ -1535,7 +1719,6 @@ def main() -> None:
         from repro_torch.core import Schedule
         from repro_torch.kernels import (
             build,
-            common,
             fused_attention,
             grouped_matmul,
             sddmm,
@@ -1585,7 +1768,7 @@ def main() -> None:
         worst.update(check_segment_reduce(profiles))
 
     counters = {"spmm_eb": spmm_eb.KERNEL, "spmm_rb": spmm_rb.KERNEL,
-                "epilogue": common.EPILOGUE_KERNEL, "sddmm": sddmm.KERNEL,
+                "epilogue": spmm_eb.FINISH, "sddmm": sddmm.KERNEL,
                 "fused_attention_fwd": fused_attention.FWD_KERNEL,
                 "fused_attention_bwd": fused_attention.BWD_KERNEL,
                 "segment_reduce": segment_reduce.KERNEL,
@@ -1620,7 +1803,7 @@ def main() -> None:
                             ("roadnet", road_model)):
             adj, sched = graphs[name]
             sched = None if sched == "auto" else sched
-            want = ({"spmm_eb": 2, "epilogue": 1} if name == "social"
+            want = ({"spmm_eb": 2, "epilogue": 2} if name == "social"
                     else {"spmm_rb": 2})
             planned[name] = serve_planned(name, model, adj, sched, x,
                                           counters, want)
@@ -1637,6 +1820,7 @@ def main() -> None:
                   for name, m in (("social", social_model),
                                   ("roadnet", road_model))}
         results, dense_ms = time_kernels(graphs, social_model, road_model, x)
+        time_widths(graphs)
     results.update(time_sddmm_and_attention(graphs))
     with torch.no_grad():
         results["segment_reduce"] = time_segment_reduce(
@@ -1700,10 +1884,12 @@ def main() -> None:
             "bound_by": bound_by, "library_ms": r["library_ms"]})
         lib = ("null" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
+        gathers = (f"; gathers requested {r['gather_bytes']} bytes"
+                   if r.get("gather_bytes") else "")
         print(f"kernel {name}: {r['ms']:.4f} ms (bound {bound_ms:.4f} ms "
               f"by {bound_by}, {r['bytes']} bytes, {r['flops']} "
-              f"operations), plain {r['plain_ms']:.4f} ms, library {lib} "
-              f"ms, launches {launches[name]}", flush=True)
+              f"operations{gathers}), plain {r['plain_ms']:.4f} ms, library "
+              f"{lib} ms, launches {launches[name]}", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 #: One library per source.
-SOURCES = ("spmm_eb", "spmm_rb", "epilogue", "sddmm", "fused_attention_fwd",
+SOURCES = ("spmm_eb", "spmm_rb", "sddmm", "fused_attention_fwd",
            "fused_attention_bwd", "segment_reduce", "grouped_matmul")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -101,11 +101,13 @@ class CudaKernel:
     ``argtypes`` lists the entry point's arguments without the trailing
     device index and stream.  ``launches`` counts successful launches;
     the wrapper that owns the kernel increments it through
-    :meth:`launch` and nowhere else.
+    :meth:`launch` and nowhere else.  ``name`` (the source's by default)
+    names it in timings.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes):
+    def __init__(self, source: str, symbol: str, argtypes, name=None):
         self.source = source
+        self.name = name or source
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_int, ctypes.c_void_p]
         self.launches = 0

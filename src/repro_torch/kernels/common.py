@@ -7,14 +7,12 @@ lanes of other rows.  Every realization is written against the
 strategy's monoid and writes in place into ``out``.  The CUDA EB kernel
 realizes the three built-ins itself (``csrc/spmm_eb.cu``).
 
-``apply_epilogue`` finishes an f32 accumulator with
-``cast(act(acc + bias) + residual)``: on a CUDA tensor it launches the
-epilogue kernel (``csrc/epilogue.cu``), on a CPU tensor it runs the
-plain version.
+The epilogue ``cast(act(acc + bias) + residual)`` runs inside the CUDA
+kernels at their final store (``csrc/epilogue.cuh``); its plain version
+is ``apply_epilogue_plain``.  ``worker_geometry`` lays the EB and RB
+kernels' workers over the dense width (``csrc/spmm.cuh``).
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -28,7 +26,6 @@ from ..core.schedule import (
     get_strategy,
     torch_dtype,
 )
-from .build import CudaKernel, ptr
 
 _ADD = MONOIDS["add"]
 
@@ -39,9 +36,9 @@ ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "tanh": 4,
 #: Output types the CUDA epilogue stores.
 CUDA_OUT_DTYPES = (torch.float32, torch.bfloat16)
 
-EPILOGUE_KERNEL = CudaKernel(
-    "epilogue", "epilogue_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3)
+#: Threads an SpMM worker takes at least: a warp holds at most 8 workers
+#: (``csrc/spmm.cuh``, ``kMaxWorkersPerWarp``).
+MIN_WORKER_THREADS = 4
 
 
 def _combine_into(out, monoid: Monoid, tile):
@@ -147,27 +144,19 @@ def cuda_epilogue_args(epilogue: Epilogue, bias, residual, device):
     return bias_c, res_c, ACT_CODES[epilogue.activation], out_dtype
 
 
-def apply_epilogue(acc, epilogue: Epilogue, bias=None, residual=None):
-    """``cast(act(acc + bias) + residual)`` over a finished f32
-    accumulator ``acc`` (n_rows, N); ``bias`` has N values, ``residual``
-    is (n_rows, N).  On CUDA an f32 output is written over ``acc``."""
-    if epilogue.is_noop:
-        return acc
-    check_epilogue_operands(acc.shape, epilogue, bias, residual)
-    if acc.device.type == "cpu":
-        return apply_epilogue_plain(acc, epilogue, bias, residual)
-    if acc.device.type != "cuda":
-        raise ValueError(f"no epilogue kernel for device {acc.device}")
-    if acc.dtype != torch.float32 or not acc.is_contiguous():
-        raise ValueError("the epilogue kernel takes a contiguous f32 acc")
-    bias_c, res_c, act, out_dtype = cuda_epilogue_args(epilogue, bias,
-                                                       residual, acc.device)
-    out = acc if out_dtype == torch.float32 else torch.empty_like(
-        acc, dtype=out_dtype)
-    EPILOGUE_KERNEL.launch(acc.device, ptr(acc), ptr(bias_c), ptr(res_c),
-                           ptr(out), acc.numel(), acc.shape[1], act,
-                           int(out_dtype == torch.bfloat16))
-    return out
+def worker_geometry(n_cols: int, vec: int):
+    """(lw, col_width) of the EB and RB kernels' workers for a dense width
+    ``n_cols`` loaded ``vec`` columns at a time: a worker is ``lw``
+    threads of one warp (at least ``MIN_WORKER_THREADS``), one vector
+    each, over a column slice of ``col_width = lw * vec`` columns, at
+    most 32 vectors; a wider B runs in slices.  Several workers share a
+    warp below 32 vectors (10 threads each at N = 40, three to a
+    warp)."""
+    if vec not in (1, 4) or n_cols < 1:
+        raise ValueError(f"need vec in (1, 4) and n_cols >= 1, got {vec}, "
+                         f"{n_cols}")
+    lw = max(min(32, -(-n_cols // vec)), MIN_WORKER_THREADS)
+    return lw, lw * vec
 
 
 attach_kernel_impl("accumulate", _plain_accumulate)

@@ -6,11 +6,15 @@ tensors and runs ``spmm_rb_plain`` on CPU tensors.
 Source note.  Replaces ``src/repro/kernels/spmm_rb.py:69 spmm_rb``
 (Pallas body ``_spmm_rb_kernel``).  The TPU walks the ELL width as a
 sequential grid axis into a VMEM block; on the H100 each row belongs to
-one block and the width loop runs inside it, so no atomics are needed
-and the epilogue (bias, activation, residual, cast) is applied in
-registers at the single final store.  The kernel is bound by bytes: the
-ELL arrays once, the gathered rows of B and one write of the output;
-threads run across columns so every gather of a B row is coalesced.
+one worker (``csrc/spmm.cuh``: a warp at N >= 128, a 10-thread slice of
+one at N = 40), so no atomics are needed and the epilogue (bias,
+activation, residual, cast) is applied in registers at the single final
+store.  The kernel is bound by its gathers of B's rows, which reach far
+across B; it loads them 16 bytes a thread, stages a row's slots in
+shared memory with one coalesced load so that no gather waits on an
+index load, and keeps eight slots' gathers in flight.  ``row_tile``
+pads the ELL rows and ``col_tile`` is the TPU's column block: the kernel
+takes neither.
 """
 from __future__ import annotations
 
@@ -24,13 +28,14 @@ from .common import (
     apply_epilogue_plain,
     check_epilogue_operands,
     cuda_epilogue_args,
+    worker_geometry,
 )
 
 _NOOP = Epilogue()
 
 KERNEL = CudaKernel(
     "spmm_rb", "spmm_rb_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7)
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8)
 
 
 def spmm_rb_plain(ecols, evals, b, *, n_rows: int,
@@ -74,8 +79,11 @@ def spmm_rb(ecols, evals, b, *, n_rows: int, row_tile: int = 8,
                              f"{b.device}, got {t.dtype} on {t.device}")
     bias_c, res_c, act, out_dtype = cuda_epilogue_args(epilogue, bias,
                                                        residual, b.device)
+    del row_tile, col_tile
+    vec = 4 if n % 4 == 0 and b.data_ptr() % 16 == 0 else 1
+    lw, col_width = worker_geometry(n, vec)
     out = torch.empty((n_rows, n), dtype=out_dtype, device=b.device)
     KERNEL.launch(b.device, ptr(ecols), ptr(evals), ptr(b), ptr(bias_c),
-                  ptr(res_c), ptr(out), n_rows, ecols.shape[1], n, row_tile,
-                  col_tile, act, int(out_dtype == torch.bfloat16))
+                  ptr(res_c), ptr(out), n_rows, ecols.shape[1], n, vec, lw,
+                  col_width, act, int(out_dtype == torch.bfloat16))
     return out

@@ -206,6 +206,10 @@ def decode_step(cfg, params, cache, tokens, ctx=None):
     ``prefill``, written in place at ``pos``.  Returns (logits (B, V), the
     cache with ``pos + 1``)."""
     pos = int(cache["pos"])
+    max_len = cache["k"].shape[2]
+    if not 0 <= pos < max_len:
+        raise ValueError(f"decode_step at pos {pos} is outside the cache's "
+                         f"max_len {max_len}")
     x = _embed_input(cfg, params, tokens)[:, None, :]
     b = x.shape[0]
     positions = torch.full((b, 1), float(pos), dtype=torch.float32,

@@ -49,6 +49,15 @@ class ServeEngine:
         self._next_tokens = np.zeros((slots,), np.int64)
 
     def submit(self, req: Request):
+        """Queue ``req``; refuse one whose prompt and decode steps would
+        write past the cache (positions ``0 .. len(prompt) +
+        max_new_tokens - 2`` must lie below ``max_len``)."""
+        need = len(req.prompt) + req.max_new_tokens - 1
+        if need > self.max_len:
+            raise ValueError(
+                f"request {req.rid}: {len(req.prompt)} prompt tokens and "
+                f"{req.max_new_tokens} new tokens need {need} cache "
+                f"positions, more than max_len {self.max_len}")
         self.queue.append(req)
 
     def _slot_prefill(self, slot: int, req: Request):

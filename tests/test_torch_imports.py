@@ -38,8 +38,11 @@ def test_port_has_its_kernel_sources():
 
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.stem for p in csrc.glob("*.cu")} == set(build.SOURCES) == {
-        "spmm_eb", "spmm_rb", "epilogue", "sddmm", "fused_attention_fwd",
+        "spmm_eb", "spmm_rb", "sddmm", "fused_attention_fwd",
         "fused_attention_bwd", "segment_reduce", "grouped_matmul"}
+    # the epilogue is fused into the kernels; the headers they share
+    assert {p.name for p in csrc.glob("*.cuh")} == {
+        "attention.cuh", "epilogue.cuh", "spmm.cuh"}
 
 
 def test_the_scan_covers_the_fuse_package_and_every_kernel_module():
@@ -57,7 +60,7 @@ def test_the_scan_covers_the_fuse_package_and_every_kernel_module():
     assert {f"kernels/{s}.py" for s in ("spmm_eb", "spmm_rb", "sddmm",
                                         "segment_reduce",
                                         "grouped_matmul")} <= scanned
-    assert len(build.SOURCES) == 8
+    assert len(build.SOURCES) == 7
 
 
 def test_importing_every_port_module_loads_no_jax():

@@ -187,6 +187,54 @@ def test_serve_engine_matches_reference():
     assert all(len(v) == 5 for v in got.values())
 
 
+def test_serve_engine_matches_reference_at_an_exact_fit():
+    """A request whose last decode step writes the cache's last position
+    (``len(prompt) + max_new_tokens - 1 == max_len``) is served, and its
+    tokens equal the JAX engine's."""
+    _, tcfg, japi, jparams, tapi, tparams = _models("qwen2-7b")
+    prompts = _prompts(2, 7, tcfg.vocab_size, seed=4)
+    jeng = JEngine(japi, jparams, slots=2, max_len=10)
+    teng = ServeEngine(tapi, tparams, slots=2, max_len=10, device="cpu")
+    for rid, p in enumerate(prompts):
+        jeng.submit(JRequest(rid=rid, prompt=p, max_new_tokens=4))
+        teng.submit(Request(rid=rid, prompt=p, max_new_tokens=4))
+    got = teng.run_to_completion()
+    assert got == jeng.run_to_completion()
+    assert sorted(got) == [0, 1] and all(len(v) == 4 for v in got.values())
+
+
+def test_submit_refuses_a_request_past_max_len():
+    cfg = tconfigs.smoke_config(tconfigs.ARCHS["qwen2-7b"])
+    api = get_model(cfg)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    eng = ServeEngine(api, params, slots=2, max_len=10, device="cpu")
+    prompt = _prompts(1, 7, cfg.vocab_size)[0]
+    with pytest.raises(ValueError, match="need 11 cache positions, more "
+                                         "than max_len 10"):
+        eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=5))
+    assert not eng.queue
+    eng.submit(Request(rid=1, prompt=prompt, max_new_tokens=4))
+    assert len(eng.queue) == 1
+
+
+def test_decode_step_refuses_pos_past_max_len():
+    """``decode_step`` raises before it writes the cache when ``pos`` is
+    not a position of it."""
+    cfg = tconfigs.smoke_config(tconfigs.ARCHS["qwen2-7b"])
+    api = get_model(cfg)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    cache = api.init_cache(2, 10, device="cpu")
+    cache["pos"] = 10
+    toks = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(ValueError, match="pos 10 is outside the cache's "
+                                         "max_len 10"):
+        api.decode_step(params, cache, toks)
+    assert not cache["k"].any() and not cache["v"].any()
+    cache["pos"] = 9
+    logits, cache = api.decode_step(params, cache, toks)
+    assert cache["pos"] == 10 and bool(torch.isfinite(logits).all())
+
+
 def test_temperature_sampling_is_seeded():
     cfg = tconfigs.smoke_config(tconfigs.ARCHS["qwen2-7b"])
     api = get_model(cfg)

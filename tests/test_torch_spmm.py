@@ -212,13 +212,13 @@ def test_user_strategy_runs_through_its_spec_on_cpu():
 
 
 def test_wrappers_take_the_plain_version_for_cpu_tensors():
-    from repro_torch.kernels import common, spmm_rb
+    from repro_torch.kernels import spmm_rb
 
     before = (teb.KERNEL.launches, spmm_rb.KERNEL.launches,
-              common.EPILOGUE_KERNEL.launches)
+              teb.FINISH.launches)
     _, a_t, b, bias, _ = _inputs()
     bt = torch.from_numpy(b)
     ts.spmm(a_t, bt, bias=torch.from_numpy(bias), device="cpu")
     ts.spmm(a_t, bt, schedule="RB+PR", device="cpu")
     assert (teb.KERNEL.launches, spmm_rb.KERNEL.launches,
-            common.EPILOGUE_KERNEL.launches) == before
+            teb.FINISH.launches) == before
