@@ -9,7 +9,9 @@ against its plain PyTorch version on the card: EB and RB SpMM with their
 fused epilogue (EB and RB per output element within K_TERMS units of
 2^-24 of the terms entering it; EB's carry rows against
 ``eb_carry_plan`` and two launches bit for bit), SDDMM, fused sparse
-attention forward and backward, and
+attention forward and backward (the backward walks rows longer than
+``BWD_CHUNK`` in chunks: the split rows' dQ bit for bit over two
+launches), and
 segment reduce (on four profiles: the social graph's row statistics,
 batched and hidden graph readout, and G-aligned ``parallel``; max and
 min bit for bit).  Then it drives the paths of the port on a
@@ -39,11 +41,12 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   4096, 64 heads over 4 kv heads, 128 experts top-8, expert width 1536,
   vocab 151,936, bf16), cut to 4 layers, random weights from seed 0 made
   on the card; the grouped-matmul kernel held against its plain version
-  at layer 0's decode (tile 4) and prefill (tile 10) shapes, prefill and
+  at layer 0's decode (tile 4) and prefill (tile 10) shapes, each on the
+  tensor-core route (``mma``, printed with the case), prefill and
   decode logits against the einsum path (``moe_kernel_dispatch=False``),
   and ``ServeEngine`` (4 slots) serving 8 requests of 128-token prompts,
   16 greedy tokens each, with 12 grouped-matmul launches a decode step
-  and a prefill.
+  and a prefill, every one on the tensor-core route.
 
 It prints kernel, forward, training-step, attention, readout, prefill and
 decode times, EB, RB and ``torch.sparse.mm`` at N = 64 and 128 on both
@@ -599,13 +602,22 @@ def check_sddmm_and_attention(graphs, x, model, dev):
         for label, g, w in zip(("out", "m", "l"), got, want):
             checker.record("fused_attention_fwd", f"{name} {label}", g, w,
                            per_element=label != "out")
+        m, l = got[1], got[2]
         got = fa.fused_sparse_attention_bwd(adj.indptr, adj.indices, q, k, v,
-                                            do, got[1], got[2], **kw)
+                                            do, m, l, **kw)
         want = fa.fused_sparse_attention_bwd_plain(
             adj.indptr, adj.indices, q, k, v, do, want[1], want[2], **kw)
         for label, g, w in zip(("dq", "dk", "dv"), got, want):
             checker.record("fused_attention_bwd", f"{name} {label}", g, w)
-        del q, k, v, do, got, want
+        plan = fa.attn_row_plan(adj.indptr, fa.BWD_CHUNK)
+        split = plan.split_rows.long()
+        again = fa.fused_sparse_attention_bwd(adj.indptr, adj.indices, q, k,
+                                              v, do, m, l, **kw)
+        checker.record("fused_attention_bwd",
+                       f"{name} dq of {plan.n_split} split rows "
+                       f"({plan.n_chunks} chunks), 2 launches",
+                       again[0][:, split], got[0][:, split], exact=True)
+        del q, k, v, do, got, want, again
     torch.cuda.empty_cache()
     return checker.done()
 
@@ -852,7 +864,8 @@ def attend(name, adj, counters):
         fwd_ms = cuda_ms(fwd, 5, 1)
     both_ms = cuda_ms(lambda: torch.autograd.grad(fwd(), (q, k, v), cot),
                       5, 1)
-    # the longest row alone: one warp per head walks it
+    # the longest row alone: one warp per head walks it in the forward,
+    # the backward's warps a chunk each
     lengths = (adj.indptr[1:] - adj.indptr[:-1]).long()
     hub = int(lengths.argmax())
     lo, hi = int(adj.indptr[hub]), int(adj.indptr[hub + 1])
@@ -1463,22 +1476,36 @@ def moe_kernel_cases(cfg, params, dev):
     return cases
 
 
+def routes_taken(before):
+    """The grouped-matmul routes launched since the counts ``before``."""
+    from repro_torch.kernels import grouped_matmul as gm
+
+    return {r: n - before[r] for r, n in gm.ROUTE_LAUNCHES.items()
+            if n != before[r]}
+
+
 def check_grouped_matmul(cases):
     """The grouped-matmul kernel against its plain version on every case,
     at F32_TOL of the output's largest magnitude (both sum the same bf16
-    products in f32, in another order)."""
+    products in f32, in another order); every case, bf16 on bf16, must
+    take the tensor-core route."""
     import torch
     from repro_torch.kernels import grouped_matmul as gm
 
     checker = Checker(("grouped_matmul",))
     for label, x, te, w, ep, tile in cases:
         kw = dict(epilogue=ep, token_tile=tile)
+        before = dict(gm.ROUTE_LAUNCHES)
         got = gm.grouped_matmul(x, te, w, f_tile=w.shape[2],
                                 d_tile=w.shape[1], **kw)
+        route = routes_taken(before)
         checker.record("grouped_matmul",
                        f"{label} ({x.shape[0]} x {w.shape[1]} -> "
-                       f"{w.shape[2]}, tile {tile})", got,
+                       f"{w.shape[2]}, tile {tile}) route {route}", got,
                        gm.grouped_matmul_plain(x, te, w, **kw))
+        if route != {"mma": 1}:
+            checker.failures.append(f"grouped_matmul {label}: route {route}, "
+                                    "not the tensor cores")
         del got
         torch.cuda.empty_cache()
     return checker.done()
@@ -1557,12 +1584,14 @@ def serve_moe(cfg, api, params, prompts, dev, counters=None):
         engine.submit(Request(rid=rid, prompt=p, max_new_tokens=MOE_NEW))
     for k in (counters or {}).values():
         k.launches = 0
+    before = dict(gm.ROUTE_LAUNCHES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = engine.run_to_completion()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {n: k.launches for n, k in (counters or {}).items()}
+    calls["routes"] = routes_taken(before)
     return results, seconds, calls, counts
 
 
@@ -1586,7 +1615,8 @@ def moe_serve(cfg, api, einsum, params, dev, counters):
           f"{len(calls['prefill'])} prefills, {len(calls['decode'])} decode "
           f"steps; grouped-matmul launches per prefill "
           f"{sorted(set(calls['prefill']))}, per decode step "
-          f"{sorted(set(calls['decode']))}; launches {counts}", flush=True)
+          f"{sorted(set(calls['decode']))} (routes {calls['routes']}); "
+          f"launches {counts}", flush=True)
     if sorted(results) != list(range(MOE_REQUESTS)) or any(
             len(v) != MOE_NEW or not all(0 <= t < cfg.vocab_size for t in v)
             for v in results.values()):
@@ -1594,6 +1624,9 @@ def moe_serve(cfg, api, einsum, params, dev, counters):
     if set(calls["prefill"] + calls["decode"]) != {want}:
         fail(f"moe_serve: expected {want} grouped-matmul launches in every "
              f"prefill and decode step, got {calls}")
+    if set(calls["routes"]) != {"mma"}:
+        fail(f"moe_serve: grouped-matmul routes {calls['routes']}: every "
+             "launch of the bf16 model belongs on the tensor cores")
     ref, _, _, _ = serve_moe(cfg, einsum, params, prompts, dev)
     same = sum(a == b for rid in results
                for a, b in zip(results[rid], ref[rid]))
@@ -1694,10 +1727,14 @@ def time_grouped_matmul(cases):
                   + len(set(te.tolist())) * d * f * w.element_size()
                   + n_out * 4)
         b_ms, by = bound(nbytes, 2 * x.shape[0] * d * f, BF16_FLOP_PER_S)
+        route = gm.gmm_route(x.dtype, w.dtype, d, f, x.data_ptr(),
+                             w.data_ptr())
         print(f"grouped_matmul {label} ({x.shape[0]} x {d} -> {f}, tile "
-              f"{tile}): {ms:.4f} ms (bound {b_ms:.4f} ms by {by}; "
-              f"{nbytes / ms / 1e6:.0f} GB/s of {nbytes} bytes), plain "
-              f"{plain:.4f} ms, torch.bmm {lib:.4f} ms", flush=True)
+              f"{tile}, route {route}): {ms:.4f} ms (bound {b_ms:.4f} ms by "
+              f"{by}; {nbytes / ms / 1e6:.0f} GB/s of {nbytes} bytes, "
+              f"{b_ms / ms:.3f} of the bound's {HBM_BYTES_PER_S / 1e9:.0f} "
+              f"GB/s), plain {plain:.4f} ms, torch.bmm {lib:.4f} ms "
+              f"({nbytes / lib / 1e6:.0f} GB/s)", flush=True)
         if not label.startswith("decode"):
             continue  # the row holds one layer's decode launches
         row["ms"] += ms

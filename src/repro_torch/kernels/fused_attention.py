@@ -23,19 +23,27 @@ fused_sparse_attention`` (Pallas body ``_fused_attn_fwd_kernel`` :152)
 and ``:373 fused_sparse_attention_bwd`` (body ``_fused_attn_bwd_kernel``
 :299).  The TPU kernels carry (m, l, alpha) and the probabilities across
 an nnz grid that runs in order, and scatter through a segment-group
-strategy.  On the H100 one warp owns a (head, row) and walks the row's
-range with the online statistics in registers, so the forward needs no
-atomics and writes out, m and l once; the backward walks the row twice
-(delta and the dV scatter, then ds, dQ and the dK scatter) and scatters
-dV and dK by column with f32 atomics.  The schedule's ``group_size`` and
-``strategy`` therefore do not change these kernels' results; the public
-``sparse_attention`` still refuses ``parallel``, as the reference does.
-Both kernels are bound by bytes: the K and V rows gathered per nonzero.
-A long row is walked by one warp, so a hub row sets a launch's time.
+strategy.  On the H100 both kernels are bound by bytes (the K and V rows
+gathered per nonzero).  The forward gives one warp a (head, row), which
+walks the row with the online statistics in registers: no atomics, out,
+m and l written once, and a hub row walked by one warp sets the
+forward's time.  The backward cuts every row longer than ``BWD_CHUNK``
+nonzeros into chunks (:func:`attn_row_plan`), so no warp walks more than
+one chunk: a first launch writes each chunk's partial of delta (and its
+dV scatter), the main launch walks whole rows twice (delta and dV, then
+ds, dQ and dK) and the chunks once (their row's delta summed from the
+partials in chunk order), and a finishing launch sums each split row's
+dQ partials in chunk order (:func:`fused_sparse_attention_bwd_chunked_plain`
+is that walk in plain PyTorch).  dV and dK are scattered by column with
+f32 atomics.  The schedule's ``group_size`` and ``strategy`` therefore do
+not change these kernels' results; the public ``sparse_attention`` still
+refuses ``parallel``, as the reference does.
 """
 from __future__ import annotations
 
 import ctypes
+import weakref
+from typing import NamedTuple
 
 import torch
 
@@ -43,8 +51,10 @@ from .build import CudaKernel, ptr
 
 __all__ = [
     "NEG_INF",
+    "attn_row_plan",
     "fused_sparse_attention",
     "fused_sparse_attention_bwd",
+    "fused_sparse_attention_bwd_chunked_plain",
     "fused_sparse_attention_bwd_plain",
     "fused_sparse_attention_plain",
     "sparse_attention_bwd_ref",
@@ -63,7 +73,38 @@ FWD_KERNEL = CudaKernel(
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float])
 BWD_KERNEL = CudaKernel(
     "fused_attention_bwd", "attn_bwd_launch",
-    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float])
+    [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_float]
+    + [ctypes.c_int] * 4)
+
+#: Nonzeros a warp of the backward walks at most: longer rows are split
+#: into chunks of this many (the last one shorter).
+BWD_CHUNK = 512
+
+_PLANS: dict = {}
+
+
+class AttnRowPlan(NamedTuple):
+    """The rows longer than ``chunk`` nonzeros, cut into chunks of at
+    most ``chunk`` (int32 tensors on the pattern's device): split row
+    ``s`` is row ``split_rows[s]`` and owns chunks ``split_first[s]`` to
+    ``split_first[s + 1]``; chunk ``j`` starts at nonzero
+    ``chunk_start[j]`` of row ``chunk_row[j]`` and belongs to split row
+    ``chunk_split[j]``."""
+
+    chunk: int
+    split_rows: torch.Tensor
+    split_first: torch.Tensor
+    chunk_row: torch.Tensor
+    chunk_start: torch.Tensor
+    chunk_split: torch.Tensor
+
+    @property
+    def n_chunks(self) -> int:
+        return self.chunk_row.numel()
+
+    @property
+    def n_split(self) -> int:
+        return self.split_rows.numel()
 
 
 def rows_of(indptr) -> torch.Tensor:
@@ -90,6 +131,37 @@ def _row_max(s, rows, n_rows):
     """Row max of the scores, NEG_INF for empty rows."""
     m = torch.full((n_rows,), NEG_INF, dtype=torch.float32, device=s.device)
     return m.scatter_reduce(0, rows.long(), s, "amax", include_self=True)
+
+
+def attn_row_plan(indptr, chunk: int = BWD_CHUNK) -> AttnRowPlan:
+    """The backward's chunk plan for the CSR row pointer ``indptr``:
+    every row of more than ``chunk`` nonzeros cut into chunks of
+    ``chunk`` (the last one shorter), in row order.  Computed on the
+    pattern's device with one synchronisation, and remembered for the
+    tensor's lifetime and contents (its storage, length and version
+    counter)."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    key = (str(indptr.device), indptr.data_ptr(), indptr.numel(),
+           indptr._version, chunk)
+    plan = _PLANS.get(key)
+    if plan is None:
+        ip = indptr.long()
+        lengths = ip[1:] - ip[:-1]
+        split = (lengths > chunk).nonzero()[:, 0]
+        counts = -(-lengths[split] // chunk)
+        first = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+        owner = torch.repeat_interleave(
+            torch.arange(split.numel(), device=ip.device), counts)
+        row = split[owner]
+        start = ip[row] + (torch.arange(owner.numel(), device=ip.device)
+                           - first[owner]) * chunk
+        i32 = (lambda t: t.to(torch.int32).contiguous())  # noqa: E731
+        plan = AttnRowPlan(chunk, i32(split), i32(first), i32(row),
+                           i32(start), i32(owner))
+        _PLANS[key] = plan
+        weakref.finalize(indptr, _PLANS.pop, key, None)
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +262,48 @@ def fused_sparse_attention_bwd_plain(indptr, cols, q, k, v, dout, m, l, *,
     return torch.stack(dqs), torch.stack(dks), torch.stack(dvs)
 
 
+def fused_sparse_attention_bwd_chunked_plain(indptr, cols, q, k, v, dout, m,
+                                             l, *, scale: float, bias=None,
+                                             chunk: int = BWD_CHUNK):
+    """Plain version of the backward kernel's chunk walk: rows longer
+    than ``chunk`` nonzeros are cut as :func:`attn_row_plan` cuts them,
+    each chunk sums its partial of delta and of dQ, and a split row's
+    delta and dQ are the sums of its chunks' partials in chunk order (a
+    whole row is one partial).  dK and dV are scattered by column as in
+    :func:`fused_sparse_attention_bwd_plain`.  Runs on any device."""
+    n_heads, n_rows, _ = q.shape
+    rows = rows_of(indptr)
+    c = cols.long()
+    ip = indptr.long()
+    lengths = ip[1:] - ip[:-1]
+    # the chunk of each nonzero: a whole row is one, a split row several
+    n_parts = torch.where(lengths > chunk, -(-lengths // chunk),
+                          (lengths > 0).long())
+    first = torch.cat([n_parts.new_zeros(1), n_parts.cumsum(0)])
+    local = torch.arange(c.numel(), device=c.device) - ip[rows]
+    part = first[rows] + local // chunk
+    part_row = torch.repeat_interleave(
+        torch.arange(n_rows, device=c.device), n_parts)
+    n_all = int(first[-1])
+    dqs, dks, dvs = [], [], []
+    for h in range(n_heads):
+        qf, kf, vf, do = (x[h].to(torch.float32) for x in (q, k, v, dout))
+        s = _scores(rows, cols, qf, kf, scale, bias)
+        m_safe = torch.where(m[h] <= NEG_INF / 2, torch.zeros_like(m[h]),
+                             m[h])
+        linv = 1.0 / torch.clamp(l[h], min=1e-30)
+        w = torch.exp(s - m_safe[rows]) * linv[rows]
+        dw = (do[rows] * vf[c]).sum(dim=-1)
+        delta = _segment_sum(_segment_sum(w * dw, part, n_all), part_row,
+                             n_rows)
+        ds = w * (dw - delta[rows]) * scale
+        dq_part = _segment_sum(ds[:, None] * kf[c], part, n_all)
+        dqs.append(_segment_sum(dq_part, part_row, n_rows))
+        dks.append(_segment_sum(ds[:, None] * qf[rows], c, kf.shape[0]))
+        dvs.append(_segment_sum(w[:, None] * do[rows], c, vf.shape[0]))
+    return torch.stack(dqs), torch.stack(dks), torch.stack(dvs)
+
+
 # ---------------------------------------------------------------------------
 # The kernel wrappers
 # ---------------------------------------------------------------------------
@@ -267,11 +381,13 @@ def fused_sparse_attention(indptr, cols, q, k, v, *, scale: float,
 
 def fused_sparse_attention_bwd(indptr, cols, q, k, v, dout, m, l, *,
                                scale: float, bias=None):
-    """One launch over all heads: ``(dq, dk, dv)`` in f32 from the
-    forward's operands, the cotangent ``dout`` (H, n_rows, dv) and its
-    row statistics ``m``, ``l`` (H, n_rows).  CPU tensors run the plain
+    """``(dq, dk, dv)`` in f32 over all heads from the forward's
+    operands, the cotangent ``dout`` (H, n_rows, dv) and its row
+    statistics ``m``, ``l`` (H, n_rows).  CPU tensors run the plain
     version; CUDA tensors launch the kernel, or raise for what it does
-    not take."""
+    not take: one launch when no row is longer than ``BWD_CHUNK``
+    nonzeros, else three (the chunks' delta partials, the walk, the split
+    rows' dQ), each counted in ``BWD_KERNEL.launches``."""
     _check(indptr, cols, q, k, v, bias)
     n_heads, n_rows, _ = q.shape
     if (tuple(dout.shape) != (n_heads, n_rows, v.shape[2])
@@ -287,10 +403,25 @@ def fused_sparse_attention_bwd(indptr, cols, q, k, v, dout, m, l, *,
     bias, (q, k, v, dout, m, l) = _cuda_operands(indptr, cols, bias, q, k,
                                                  v, dout, m, l)
     d, n_kv, dv = q.shape[2], v.shape[1], v.shape[2]
+    plan = attn_row_plan(indptr, BWD_CHUNK)
     dq = torch.empty_like(q)
     dk = torch.zeros_like(k)
     dv_ = torch.zeros_like(v)
-    BWD_KERNEL.launch(q.device, ptr(indptr), ptr(cols), ptr(bias), ptr(q),
-                      ptr(k), ptr(v), ptr(dout), ptr(m), ptr(l), ptr(dq),
-                      ptr(dk), ptr(dv_), n_rows, n_kv, n_heads, d, dv, scale)
+    delta_part = dq_part = None
+    phases = (1,)
+    if plan.n_chunks:
+        delta_part = torch.empty((n_heads, plan.n_chunks),
+                                 dtype=torch.float32, device=q.device)
+        dq_part = torch.empty((n_heads, plan.n_chunks, d),
+                              dtype=torch.float32, device=q.device)
+        phases = (0, 1, 2)
+    for phase in phases:
+        BWD_KERNEL.launch(
+            q.device, ptr(indptr), ptr(cols), ptr(bias), ptr(q), ptr(k),
+            ptr(v), ptr(dout), ptr(m), ptr(l), ptr(dq), ptr(dk), ptr(dv_),
+            ptr(plan.chunk_row), ptr(plan.chunk_start),
+            ptr(plan.chunk_split), ptr(plan.split_first),
+            ptr(plan.split_rows), ptr(delta_part), ptr(dq_part), n_rows,
+            n_kv, n_heads, d, dv, scale, plan.chunk, plan.n_chunks,
+            plan.n_split, phase)
     return dq, dk, dv_

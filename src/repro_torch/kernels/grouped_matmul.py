@@ -11,11 +11,17 @@ Source note.  Replaces ``src/repro/kernels/grouped_matmul.py:79
 grouped_matmul`` (Pallas body ``_gmm_kernel`` :52, ``pallas_call`` :124).
 The TPU kernel scalar-prefetches the tile -> expert map into the weight
 BlockSpec and carries its f32 sum over a sequential d-tile grid axis,
-with the epilogue on the last step.  On the H100 one block holds 4 or 8 of
-a tile's rows and a slab of output columns, reads the expert id itself
-and loops over D, so the epilogue runs on the finished sums.  On
-the serving path the tiles hold 4 to 10 rows, so the kernel is bound by
-the bytes of the expert weights, each read once per tile; ``d_tile`` and
+with the epilogue on the last step.  On the H100 a block reads its
+expert id itself and loops over all of D, so the epilogue runs on the
+finished sums in one launch.  On the serving path the tiles hold 4 to
+10 rows, so the kernel is bound by the bytes of the expert weights.  The
+serving operands (bf16 on bf16) take route ``"mma"``: tensor-core
+``mma.sync`` products, a block per 128-column slab of a tile holding all
+of its rows, the weights streamed once per tile through a ring of
+``cp.async`` copies in shared memory.  The other operand types take
+route ``"fma"``, FMAs on the CUDA cores over operands upcast on load
+(TF32 would round f32 operands).  :func:`gmm_route` picks the route;
+``ROUTE_LAUNCHES`` counts the launches of each.  ``d_tile`` and
 ``f_tile`` do not change the function, and are checked as the reference
 asserts them.
 """
@@ -36,7 +42,25 @@ CUDA_IN_DTYPES = (torch.float32, torch.bfloat16)
 
 KERNEL = CudaKernel(
     "grouped_matmul", "grouped_matmul_launch",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9)
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10)
+
+#: The kernel's routes, by the code its C entry point takes.
+ROUTES = {"fma": 0, "mma": 1}
+
+#: Launches of each route (beside ``KERNEL.launches``, which counts all).
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+
+
+def gmm_route(x_dtype, w_dtype, d: int, f: int, x_addr: int = 0,
+              w_addr: int = 0) -> str:
+    """The route the CUDA kernel takes: ``"mma"`` (tensor cores) for bf16
+    tokens on bf16 weights whose rows its copies can take (F % 8 == 0 and
+    16-byte aligned weights; D % 2 == 0 and 4-byte aligned tokens),
+    ``"fma"`` (CUDA cores) for everything else it loads."""
+    if (x_dtype == w_dtype == torch.bfloat16 and f % 8 == 0 and d % 2 == 0
+            and w_addr % 16 == 0 and x_addr % 4 == 0):
+        return "mma"
+    return "fma"
 
 
 def fit_tile(n: int, tile: int) -> int:
@@ -101,9 +125,10 @@ def grouped_matmul(x, tile_experts, weights, *, bias=None,
     ``epilogue.bias``.  Returns (T_pad, F) in ``epilogue.out_dtype`` (f32
     by default) with the epilogue applied to the f32 sums.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel, or
-    raise for what it does not take (operands other than f32 and bf16, an
-    output type other than f32 and bf16).
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    the route :func:`gmm_route` picks, or raise for what it does not take
+    (operands other than f32 and bf16, an output type other than f32 and
+    bf16).
     """
     _check(x, tile_experts, weights, bias, epilogue, token_tile, f_tile,
            d_tile)
@@ -132,11 +157,13 @@ def grouped_matmul(x, tile_experts, weights, *, bias=None,
     bias_c = (None if bias is None
               else bias.to(torch.float32).contiguous())
     e, d, f = wc.shape
+    route = gmm_route(xc.dtype, wc.dtype, d, f, xc.data_ptr(), wc.data_ptr())
     out = torch.empty((x.shape[0], f), dtype=out_dtype, device=x.device)
     KERNEL.launch(x.device, ptr(xc), ptr(te), ptr(wc), ptr(bias_c), ptr(out),
                   te.numel(), token_tile, e, d, f,
                   int(xc.dtype == torch.bfloat16),
                   int(wc.dtype == torch.bfloat16),
                   ACT_CODES[epilogue.activation],
-                  int(out_dtype == torch.bfloat16))
+                  int(out_dtype == torch.bfloat16), ROUTES[route])
+    ROUTE_LAUNCHES[route] += 1
     return out

@@ -84,12 +84,12 @@ def _terms(plain, *args, bias=None, residual=None, **kw):
     return t
 
 
-def _assert_within_terms(got, want, terms):
-    """Per output: |got - want| <= K_TERMS * 2^-24 * (its terms' magnitude
+def _assert_within_terms(got, want, terms, k=K_TERMS):
+    """Per output: |got - want| <= k * 2^-24 * (its terms' magnitude
     + |want|), plus one bf16 step of |want| for a bf16 output."""
     assert got.dtype == want.dtype and got.shape == want.shape
     w = want.float()
-    bound = K_TERMS * 2.0 ** -24 * (terms + w.abs())
+    bound = k * 2.0 ** -24 * (terms + w.abs())
     if got.dtype == torch.bfloat16:
         bound = bound + 2.0 ** -7 * w.abs()
     err = (got.float() - w).abs()
@@ -380,6 +380,46 @@ def test_fused_attention_kernels_match_plain(dev, heads, d, dv, with_bias):
         before[0] + 1, before[1] + 1)
 
 
+def test_fused_attention_bwd_splits_long_rows(dev):
+    """Rows longer than ``BWD_CHUNK`` (one of about 5,000 nonzeros, one of
+    a chunk and one, one of two chunks and seven) are walked in chunks in
+    three launches; one of exactly a chunk is not split.  The gradients
+    match the plain version and the chunk walk's plain version at the
+    backward's 1e-4, and dQ (split rows' included) is the same bit for
+    bit over two launches."""
+    from repro_torch.kernels import fused_attention as fa
+
+    rng = np.random.default_rng(11)
+    n_rows, n_kv, heads, d = 64, 6000, 2, 64
+    chunk = fa.BWD_CHUNK
+    lengths = rng.integers(0, 6, n_rows)
+    lengths[::9] = 0
+    lengths[[5, 20, 30, 40]] = (5000, chunk, chunk + 1, 2 * chunk + 7)
+    cols = np.concatenate([rng.choice(n_kv, int(n), replace=False)
+                           for n in lengths]).astype(np.int32)
+    indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    g = torch.Generator().manual_seed(12)
+    q, k, v, do = (torch.randn(heads, n, d, generator=g).to(dev)
+                   for n in (n_rows, n_kv, n_kv, n_rows))
+    bias = torch.randn(len(cols), generator=g).to(dev)
+    ip, cc = (torch.from_numpy(a).to(dev) for a in (indptr, cols))
+    plan = fa.attn_row_plan(ip, chunk)
+    assert plan.split_rows.tolist() == [5, 30, 40]
+    kw = dict(scale=d ** -0.5, bias=bias)
+    _, m, l = fa.fused_sparse_attention(ip, cc, q, k, v, **kw)
+    before = fa.BWD_KERNEL.launches
+    got = fa.fused_sparse_attention_bwd(ip, cc, q, k, v, do, m, l, **kw)
+    assert fa.BWD_KERNEL.launches == before + 3
+    again = fa.fused_sparse_attention_bwd(ip, cc, q, k, v, do, m, l, **kw)
+    assert torch.equal(got[0].view(torch.int32), again[0].view(torch.int32))
+    args = (ip, cc, q, k, v, do, m, l)
+    for want in (fa.fused_sparse_attention_bwd_plain(*args, **kw),
+                 fa.fused_sparse_attention_bwd_chunked_plain(
+                     *args, chunk=chunk, **kw)):
+        for g_, w_ in zip(got, want):
+            torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4)
+
+
 def test_graph_attention_grads_on_cuda_match_cpu(dev):
     from repro_torch.models import graph_attention
 
@@ -563,21 +603,64 @@ def _gmm_operands(dev, tile, n_tiles, e, d, f, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tile", [1, 4, 10, 17, 128])
 def test_grouped_matmul_kernel_matches_plain(dev, tile, dtype, f):
-    """Token tiles on both row-chunk sizes (4 and 8, ragged above 8),
-    D = 300 (a ragged last chunk of the staged rows), F with and without
-    the 16-byte weight loads (F = 40 in bf16, F = 20 in f32 take scalar
-    loads); no epilogue, bias + SiLU, and a bf16 output."""
+    """Both routes: bf16 with F = 64 and 40 on the tensor cores (``mma``;
+    D = 300 takes 4-byte token copies and a ragged last ring stage, F =
+    40 a ragged slab), bf16 with F = 20 and f32 on the CUDA cores
+    (``fma``; both row-chunk sizes, 4 and 8, ragged above 8; F = 40 in
+    bf16 and F = 20 in f32 would take scalar loads there); token tiles
+    of 1 to 128 (the tensor-core route takes 32 rows a pass); no
+    epilogue, bias + SiLU, and a bf16 output."""
     from repro_torch.core import Epilogue
     from repro_torch.kernels import grouped_matmul as gm
 
     x, te, w, b = _gmm_operands(dev, tile, 5, 6, 300, f, dtype, tile + f)
+    route = "mma" if dtype == torch.bfloat16 and f % 8 == 0 else "fma"
     for ep, bias in ((Epilogue(), None),
                      (Epilogue("silu", bias=True), b),
                      (Epilogue(out_dtype="bfloat16"), None)):
         kw = dict(bias=bias, epilogue=ep, token_tile=tile)
         before = gm.KERNEL.launches
+        taken = gm.ROUTE_LAUNCHES[route]
         got = gm.grouped_matmul(x, te, w, f_tile=f, d_tile=300, **kw)
         assert gm.KERNEL.launches == before + 1
+        assert gm.ROUTE_LAUNCHES[route] == taken + 1
+        want = gm.grouped_matmul_plain(x, te, w, **kw)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        rtol = RTOL + (2.0 ** -7 if ep.out_dtype else 0.0)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("case", ["odd_d", "tokens_off_4_bytes"])
+@pytest.mark.parametrize("tile", [4, 10, 17])
+def test_grouped_matmul_cuda_core_route_takes_bf16_16_byte_loads(dev, tile,
+                                                                  case):
+    """bf16 tokens on bf16 weights whose rows the tensor-core copies cannot
+    take (odd D, or tokens 2 bytes off a 4-byte boundary) but whose F % 8
+    and aligned weights give the CUDA-core route its 16-byte weight loads;
+    row chunks of 4 and 8, ragged above 8; no epilogue, bias + SiLU, and a
+    bf16 output."""
+    from repro_torch.core import Epilogue
+    from repro_torch.kernels import grouped_matmul as gm
+
+    d = 301 if case == "odd_d" else 300
+    x, te, w, b = _gmm_operands(dev, tile, 5, 6, d, 64, torch.bfloat16,
+                                tile + d)
+    if case == "tokens_off_4_bytes":
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        x_off = flat[1:].view(x.shape)
+        x_off.copy_(x)
+        x = x_off
+    assert gm.gmm_route(x.dtype, w.dtype, d, 64, x.data_ptr(),
+                        w.data_ptr()) == "fma"
+    for ep, bias in ((Epilogue(), None),
+                     (Epilogue("silu", bias=True), b),
+                     (Epilogue(out_dtype="bfloat16"), None)):
+        kw = dict(bias=bias, epilogue=ep, token_tile=tile)
+        before = (gm.KERNEL.launches, gm.ROUTE_LAUNCHES["fma"])
+        got = gm.grouped_matmul(x, te, w, f_tile=64, d_tile=d, **kw)
+        assert (gm.KERNEL.launches, gm.ROUTE_LAUNCHES["fma"]) == (
+            before[0] + 1, before[1] + 1)
         want = gm.grouped_matmul_plain(x, te, w, **kw)
         assert got.dtype == want.dtype and got.shape == want.shape
         rtol = RTOL + (2.0 ** -7 if ep.out_dtype else 0.0)
@@ -612,6 +695,63 @@ def test_grouped_matmul_kernel_mixed_misaligned_and_bad_experts(dev):
     with pytest.raises(NotImplementedError, match="loads"):
         gm.grouped_matmul(x.half(), te, w, token_tile=4, f_tile=64,
                           d_tile=128)
+
+
+#: The tensor-core route's per-element bound, in units of 2^-24 of the
+#: magnitude of the terms entering an output (``_assert_within_terms``):
+#: ``mma.sync`` adds each k16 step's products into its f32 sum with
+#: truncation, up to 2 units of the sum's magnitude a step, so the bound
+#: is 2 units per step of D plus K_TERMS for the plain version's own f32
+#: order and the epilogue's expf and tanhf.  A wrong fragment, stage or
+#: expert moves an output by whole products, far above it.
+def _mma_k(d):
+    return 2 * -(-d // 16) + K_TERMS
+
+
+@pytest.mark.parametrize("d,f", [(300, 40), (4096, 1536)])
+@pytest.mark.parametrize("tile", [1, 4, 10, 16, 17, 128])
+def test_grouped_matmul_tensor_core_route_matches_plain(dev, tile, d, f):
+    """The tensor-core route at the tiles of decode (4), prefill (10),
+    one and two mma.sync n8 tiles, a ragged third and four passes of 32
+    rows (128), at the MoE width (D 4096, F 1536) and at ragged D and F,
+    for every activation with and without bias and both output types,
+    per element against the plain version."""
+    from repro_torch.core import Epilogue
+    from repro_torch.kernels import grouped_matmul as gm
+
+    x, te, w, b = _gmm_operands(dev, tile, 5, 6, d, f, torch.bfloat16,
+                                tile + d)
+    assert gm.gmm_route(x.dtype, w.dtype, d, f, x.data_ptr(),
+                        w.data_ptr()) == "mma"
+    terms = gm.grouped_matmul_plain(x.abs(), te, w.abs(), token_tile=tile)
+    for ep, bias in ((Epilogue(), None),
+                     (Epilogue("relu", bias=True), b),
+                     (Epilogue("gelu"), None),
+                     (Epilogue("silu", bias=True), b),
+                     (Epilogue("tanh", bias=True), b),
+                     (Epilogue("sigmoid"), None),
+                     (Epilogue(out_dtype="bfloat16"), None),
+                     (Epilogue("silu", bias=True, out_dtype="bfloat16"), b)):
+        kw = dict(bias=bias, epilogue=ep, token_tile=tile)
+        before = (gm.KERNEL.launches, gm.ROUTE_LAUNCHES["mma"])
+        got = gm.grouped_matmul(x, te, w, f_tile=f, d_tile=d, **kw)
+        assert (gm.KERNEL.launches, gm.ROUTE_LAUNCHES["mma"]) == (
+            before[0] + 1, before[1] + 1)
+        want = gm.grouped_matmul_plain(x, te, w, **kw)
+        t = terms if bias is None else terms + bias[te.long()].abs(
+        ).repeat_interleave(tile, 0)
+        _assert_within_terms(got, want, t, _mma_k(d))
+
+
+def test_grouped_matmul_tensor_core_route_is_deterministic(dev):
+    """One block sums each output over all of D in a fixed order: two
+    launches at the decode shape give the same bits."""
+    from repro_torch.kernels import grouped_matmul as gm
+
+    x, te, w, _ = _gmm_operands(dev, 4, 8, 8, 4096, 1536, torch.bfloat16, 3)
+    kw = dict(token_tile=4, f_tile=1536, d_tile=4096)
+    a, b = (gm.grouped_matmul(x, te, w, **kw) for _ in range(2))
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_moe_and_decode_step_launches(dev):
