@@ -9,9 +9,10 @@ against its plain PyTorch version on the card: EB and RB SpMM with their
 fused epilogue (EB and RB per output element within K_TERMS units of
 2^-24 of the terms entering it; EB's carry rows against
 ``eb_carry_plan`` and two launches bit for bit), SDDMM, fused sparse
-attention forward and backward (the backward walks rows longer than
-``BWD_CHUNK`` in chunks: the split rows' dQ bit for bit over two
-launches), and
+attention forward and backward (both walk rows longer than a chunk,
+``FWD_CHUNK`` and ``BWD_CHUNK``, in chunks: the split rows' forward out
+and backward dQ bit for bit over two launches, the forward also against
+its chunk walk's plain version), and
 segment reduce (on four profiles: the social graph's row statistics,
 batched and hidden graph readout, and G-aligned ``parallel``; max and
 min bit for bit).  Then it drives the paths of the port on a
@@ -602,6 +603,23 @@ def check_sddmm_and_attention(graphs, x, model, dev):
         for label, g, w in zip(("out", "m", "l"), got, want):
             checker.record("fused_attention_fwd", f"{name} {label}", g, w,
                            per_element=label != "out")
+        plan = fa.attn_row_plan(adj.indptr, fa.FWD_CHUNK)
+        if plan.n_split:
+            split = plan.split_rows.long()
+            chunked = fa.fused_sparse_attention_chunked_plain(
+                adj.indptr, adj.indices, q, k, v, chunk=fa.FWD_CHUNK, **kw)
+            for label, g, w in zip(("out", "m", "l"), got, chunked):
+                checker.record("fused_attention_fwd",
+                               f"{name} {label} against the chunk walk", g,
+                               w, per_element=label != "out")
+            del chunked
+            again = fa.fused_sparse_attention(adj.indptr, adj.indices, q, k,
+                                              v, **kw)
+            checker.record("fused_attention_fwd",
+                           f"{name} out of {plan.n_split} split rows "
+                           f"({plan.n_chunks} chunks), 2 launches",
+                           again[0][:, split], got[0][:, split], exact=True)
+            del again
         m, l = got[1], got[2]
         got = fa.fused_sparse_attention_bwd(adj.indptr, adj.indices, q, k, v,
                                             do, m, l, **kw)
@@ -756,6 +774,9 @@ def train(name, adj, sched, x, counters):
     if not final < losses[0]:
         fail(f"train {name}: the loss did not fall ({losses[0]} -> "
              f"{final})")
+    if counts["sddmm"] != 2 * TRAIN_STEPS:
+        fail(f"train {name}: expected one SDDMM launch per layer and step "
+             f"({2 * TRAIN_STEPS}), got {counts['sddmm']}")
 
     with LaunchTimer() as timer:
         step()
@@ -844,6 +865,15 @@ def attend(name, adj, counters):
     grads = torch.autograd.grad(out, (q, k, v), cot)
     torch.cuda.synchronize()
     counts = {n: c.launches for n, c in counters.items()}
+    # rows longer than a chunk: the forward walks and merges (2 launches),
+    # the backward takes 3
+    split = fa.attn_row_plan(adj.indptr, fa.FWD_CHUNK).n_split > 0
+    want_counts = (2, 3) if split else (1, 1)
+    got_counts = (counts["fused_attention_fwd"],
+                  counts["fused_attention_bwd"])
+    if got_counts != want_counts:
+        fail(f"attend {name}: expected {want_counts} forward and backward "
+             f"launches, got {got_counts}")
     out_ref = sparse_attention(adj, q, k, v, impl="ref", device=dev)
     want = torch.autograd.grad(out_ref, (q, k, v), cot)
     for label, g, w in zip(("out", "dq", "dk", "dv"), (out,) + grads,
@@ -864,8 +894,8 @@ def attend(name, adj, counters):
         fwd_ms = cuda_ms(fwd, 5, 1)
     both_ms = cuda_ms(lambda: torch.autograd.grad(fwd(), (q, k, v), cot),
                       5, 1)
-    # the longest row alone: one warp per head walks it in the forward,
-    # the backward's warps a chunk each
+    # the longest row alone: the warps of both walk a chunk each (the plan
+    # of its one-row pattern is built by the first call, before timing)
     lengths = (adj.indptr[1:] - adj.indptr[:-1]).long()
     hub = int(lengths.argmax())
     lo, hi = int(adj.indptr[hub]), int(adj.indptr[hub + 1])
@@ -1087,7 +1117,7 @@ def time_sddmm_and_attention(graphs):
 
     gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
     res = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bytes": 0,
-               "flops": 0}
+               "flops": 0, "gather_bytes": 0}
            for k in ("sddmm", "fused_attention_fwd", "fused_attention_bwd")}
     sd, fw, bw = (res[k] for k in res)
     sd["library_ms"] = 0.0
@@ -1099,8 +1129,8 @@ def time_sddmm_and_attention(graphs):
         for width in (HIDDEN, N_CLASS):
             dz, b = (torch.randn(n, width, generator=gen).to(dev)
                      for _ in range(2))
-            sd["ms"] += cuda_ms(lambda: sddmm.sddmm(coo.rows, coo.cols, dz,
-                                                    b))
+            ms = cuda_ms(lambda: sddmm.sddmm(coo.rows, coo.cols, dz, b))
+            sd["ms"] += ms
             sd["plain_ms"] += cuda_ms(lambda: sddmm.sddmm_plain(
                 coo.rows, coo.cols, dz, b), 3, 1)
             lib_ms = sampled_addmm_ms(lib, dz, b, sddmm.sddmm(
@@ -1108,22 +1138,38 @@ def time_sddmm_and_attention(graphs):
             sd["library_ms"] = (None if lib_ms is None
                                 or sd["library_ms"] is None
                                 else sd["library_ms"] + lib_ms)
-            sd["bytes"] += nnz * 12 + 2 * n * width * 4
+            nbytes = nnz * 12 + 2 * n * width * 4
+            sd["bytes"] += nbytes
             sd["flops"] += 2 * nnz * width
+            sd["gather_bytes"] += nnz * width * 4  # B's rows, by column
+            g = sddmm.sddmm_geometry(width, True)
+            print(f"SDDMM {name} width {width}: {ms:.4f} ms (bound "
+                  f"{bound(nbytes, 2 * nnz * width)[0]:.4f} ms; gathers "
+                  f"of B requested {nnz * width * 4} bytes; workers of "
+                  f"{g.lw} lanes, {g.workers} a warp)", flush=True)
         del dz, b
         q, k, v, do = (head_major(t) for t in attention_operands(adj, gen,
                                                                   dev))
         kw = dict(scale=HEAD_DIM ** -0.5, bias=adj.vals)
         args = (adj.indptr, adj.indices, q, k, v)
         _, m, l = fa.fused_sparse_attention(*args, **kw)
-        fw["ms"] += cuda_ms(lambda: fa.fused_sparse_attention(*args, **kw),
-                            5, 1)
+        ms = cuda_ms(lambda: fa.fused_sparse_attention(*args, **kw), 5, 1)
+        fw["ms"] += ms
         fw["plain_ms"] += cuda_ms(
             lambda: fa.fused_sparse_attention_plain(*args, **kw), 2, 1)
         # indptr, cols, bias; q, k, v; out; m and l
-        fw["bytes"] += ((n + 1) * 4 + nnz * 8 + 4 * n * hd * 4
-                       + 2 * HEADS * n * 4)
+        nbytes = ((n + 1) * 4 + nnz * 8 + 4 * n * hd * 4
+                  + 2 * HEADS * n * 4)
+        fw["bytes"] += nbytes
         fw["flops"] += 4 * HEADS * nnz * HEAD_DIM
+        # the K and V rows each nonzero requests, per head
+        fw["gather_bytes"] += nnz * HEADS * 2 * HEAD_DIM * 4
+        plan = fa.attn_row_plan(adj.indptr, fa.FWD_CHUNK)
+        print(f"attention forward {name}: {ms:.4f} ms (bound "
+              f"{bound(nbytes, 4 * HEADS * nnz * HEAD_DIM)[0]:.4f} ms; "
+              f"gathers of K and V requested "
+              f"{nnz * HEADS * 2 * HEAD_DIM * 4} bytes; {plan.n_split} "
+              f"split rows in {plan.n_chunks} chunks)", flush=True)
         bw["ms"] += cuda_ms(lambda: fa.fused_sparse_attention_bwd(
             *args, do, m, l, **kw), 5, 1)
         bw["plain_ms"] += cuda_ms(lambda: fa.fused_sparse_attention_bwd_plain(

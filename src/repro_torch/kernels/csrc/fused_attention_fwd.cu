@@ -1,59 +1,148 @@
 // Fused sparse attention forward for sm_90a: SDDMM -> online row softmax
-// -> SpMM in one pass, H heads in one launch, returning (out, m, l).
+// -> SpMM in one pass, H heads, returning (out, m, l).
 //
-// Replaces src/repro/kernels/fused_attention.py::fused_sparse_attention
-// (Pallas body _fused_attn_fwd_kernel).  The TPU kernel carries the row
-// max m, the denominator l, the rescale alpha and the probabilities across
-// nnz tiles of a grid that runs in order; that carry is wrong when blocks
-// run at once.  Here rows are owned instead: the stream is in CSR order,
-// so one warp takes one (head, row) and walks the row's range with an
-// online (m, l, acc[dv]) in registers.  There are no atomics, and out, m
-// and l are written once.
+// Replaces src/repro/kernels/fused_attention.py:225 fused_sparse_attention
+// (Pallas body _fused_attn_fwd_kernel :152, pallas_call :270).  The TPU
+// kernel carries the row max m, the denominator l, the rescale alpha and
+// the probabilities across nnz tiles of a grid that runs in order; that
+// carry is wrong when blocks run at once.  Here rows are owned instead:
+// the stream is in CSR order, so one warp takes one (head, row) and walks
+// the row's range with an online (m, l, acc[dv]) in registers.
 //
 // Per chunk of 32 nonzeros: each lane scores its nonzero
 // (s = <Q[r], K[c]> * scale + bias[t], f32), the warp takes the chunk max,
 // rescales (l, acc) by alpha = exp(m - m_new), and then walks the chunk's
 // lanes, each lane adding p_j * V[c_j] over its own columns (coalesced
-// row reads of V).  Empty rows give out = 0, m = -1e30, l = 0, and the
-// denominator is floored at 1e-30, as in the reference.
+// row reads of V; 16-byte reads by groups of lanes, two nonzeros a pass,
+// took 6-10 % longer on the H100).  Empty rows give out = 0, m = -1e30,
+// l = 0, and the denominator is floored at 1e-30, as in the reference.
 //
 // Bound: bytes (the index stream, Q and the output once; K and V rows
-// gathered per nonzero).  A long row is walked by one warp: the social
-// graph's hub row sets the launch's time.
+// gathered per nonzero).  Walked by one warp, a row of the social graph's
+// 169,343 nonzeros took 54 ms of a 56 ms launch.  So every row longer
+// than `chunk` nonzeros is cut into chunks (the host's plan:
+// kernels/fused_attention.py::attn_row_plan, shared with the backward),
+// in up to two launches of this kernel:
+//   phase 0  a warp per (head, chunk of a split row) walks its chunk and
+//            writes the unnormalized partial (m_j, l_j, acc_j[dv]); a
+//            warp per (head, row) walks a whole row as before and writes
+//            out, m and l; chunks come first in the grid, so the longest
+//            work starts first;
+//   phase 1  a warp per (head, split row) merges the row's partials in
+//            chunk order: m = max_j m_j, l = sum_j l_j exp(m_j - m),
+//            out = sum_j acc_j exp(m_j - m) / max(l, 1e-30).
+// A pattern with no row longer than `chunk` takes phase 0 alone.  No
+// atomics: the same inputs give the same bits, and m is the whole row's
+// max exactly.
 #include "attention.cuh"
 
+namespace {
+
+// Phase 1: a warp per (head, split row) merges the row's partials in
+// chunk order.  Float i of acc holds column lane + 32 i.
 template <int NC>
 __global__ void __launch_bounds__(ATTN_WARPS * 32)
-    attn_fwd_kernel(const int* __restrict__ indptr,
-                    const int* __restrict__ cols,
-                    const float* __restrict__ bias,
-                    const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ out,
-                    float* __restrict__ m_out, float* __restrict__ l_out,
-                    int n_rows, int n_kv, int n_heads, int d, int dv,
-                    float scale, int vec4) {
+    attn_fwd_combine(const float* __restrict__ part,
+                     const int* __restrict__ split_first,
+                     const int* __restrict__ split_rows,
+                     float* __restrict__ out, float* __restrict__ m_out,
+                     float* __restrict__ l_out, int n_rows, int n_heads,
+                     int dv, int n_chunks, int n_split) {
+  const long long task =
+      (long long)blockIdx.x * ATTN_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (task >= (long long)n_heads * n_split) return;
+  const int h = (int)(task / n_split);
+  const int s = (int)(task - (long long)h * n_split);
+  const long long rt = (long long)h * n_rows + split_rows[s];
+  const int lo = split_first[s], hi = split_first[s + 1];
+  const float* acc_h = part + (long long)h * n_chunks * dv;
+  const float* ml_h =
+      part + (long long)n_heads * n_chunks * dv + (long long)h * n_chunks * 2;
+  float m = ATTN_NEG_INF;
+  for (int j = lo + lane; j < hi; j += 32) m = fmaxf(m, ml_h[2 * j]);
+  m = attn_warp_max(m);
+  float l = 0.f;
+  float acc[NC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) acc[i] = 0.f;
+#pragma unroll 4
+  for (int j = lo; j < hi; ++j) {
+    const float w = expf(ml_h[2 * j] - m);
+    l += ml_h[2 * j + 1] * w;
+    const float* aj = acc_h + (long long)j * dv;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int col = lane + 32 * i;
+      if (col < dv) acc[i] += aj[col] * w;
+    }
+  }
+  if (lane == 0) {
+    m_out[rt] = m;
+    l_out[rt] = l;
+  }
+  const float denom = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int col = lane + 32 * i;
+    if (col < dv) out[rt * dv + col] = acc[i] / denom;
+  }
+}
+
+// Phase 0: the walk.  Float i of acc holds column lane + 32 i.
+template <int NC>
+__global__ void __launch_bounds__(ATTN_WARPS * 32)
+    attn_fwd_walk(const int* __restrict__ indptr,
+                  const int* __restrict__ cols,
+                  const float* __restrict__ bias,
+                  const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out,
+                  float* __restrict__ m_out, float* __restrict__ l_out,
+                  const int* __restrict__ chunk_row,
+                  const int* __restrict__ chunk_start,
+                  float* __restrict__ part, int n_rows, int n_kv,
+                  int n_heads, int d, int dv, float scale, int vec4,
+                  int chunk, int n_chunks) {
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long task = (long long)blockIdx.x * ATTN_WARPS + warp;
-  if (task >= (long long)n_heads * n_rows) return;  // whole warp leaves
-  const int h = (int)(task / n_rows);
-  const int r = (int)(task - (long long)h * n_rows);
+
+  // the chunks of split rows first, then the whole rows
+  const long long chunk_tasks = (long long)n_heads * n_chunks;
+  int h, r, start, end, kc = -1;  // kc: the chunk, -1 for a whole row
+  if (task < chunk_tasks) {
+    h = (int)(task / n_chunks);
+    kc = (int)(task - (long long)h * n_chunks);
+    r = chunk_row[kc];
+    start = chunk_start[kc];
+    end = min(start + chunk, indptr[r + 1]);
+  } else {
+    const long long i = task - chunk_tasks;
+    if (i >= (long long)n_heads * n_rows) return;  // whole warp leaves
+    h = (int)(i / n_rows);
+    r = (int)(i - (long long)h * n_rows);
+    start = indptr[r];
+    end = indptr[r + 1];
+    if (end - start > chunk) return;  // split: its chunks' warps take it
+  }
+  const long long rt = (long long)h * n_rows + r;  // (head, row) of q, out
+  // where the result goes: out's row, or the chunk's partial (one index
+  // live across the walk, as the unsplit kernel kept one)
+  const bool whole = kc < 0;
+  const long long slot = whole ? rt : (long long)h * n_chunks + kc;
 
   float* qs = smem + warp * d;
-  const float* qr = q + task * d;
-  for (int i = lane; i < d; i += 32) qs[i] = qr[i];
+  for (int i = lane; i < d; i += 32) qs[i] = q[rt * d + i];
   __syncwarp();
   const float* kh = k + (long long)h * n_kv * d;
   const float* vh = v + (long long)h * n_kv * dv;
 
-  const int start = indptr[r];
-  const int end = indptr[r + 1];
   float m = ATTN_NEG_INF;
   float l = 0.f;
   float acc[NC];
 #pragma unroll
-  for (int j = 0; j < NC; ++j) acc[j] = 0.f;
+  for (int i = 0; i < NC; ++i) acc[i] = 0.f;
 
   for (int base = start; base < end; base += 32) {
     const int t = base + lane;
@@ -71,7 +160,7 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32)
     const float p = valid ? expf(s - m_new) : 0.f;
     l = l * alpha + attn_warp_sum(p);
 #pragma unroll
-    for (int j = 0; j < NC; ++j) acc[j] *= alpha;
+    for (int i = 0; i < NC; ++i) acc[i] *= alpha;
     const int n = min(32, end - base);
 #pragma unroll 4
     for (int jj = 0; jj < n; ++jj) {
@@ -79,71 +168,107 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32)
       const int cj = __shfl_sync(ATTN_FULL_MASK, c, jj);
       const float* vr = vh + (long long)cj * dv;
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const int col = lane + 32 * j;
-        if (col < dv) acc[j] += pj * __ldg(vr + col);
+      for (int i = 0; i < NC; ++i) {
+        const int col = lane + 32 * i;
+        if (col < dv) acc[i] += pj * __ldg(vr + col);
       }
     }
     m = m_new;
   }
 
-  if (lane == 0) {
-    m_out[task] = m;
-    l_out[task] = l;
+  // out's row, normalized, or the chunk's partial as it stands
+  float* dst;
+  float denom = 1.f;
+  if (whole) {
+    dst = out + slot * dv;
+    denom = fmaxf(l, 1e-30f);
+    if (lane == 0) {
+      m_out[slot] = m;
+      l_out[slot] = l;
+    }
+  } else {
+    dst = part + slot * dv;
+    float* ml = part + (long long)n_heads * n_chunks * dv + 2 * slot;
+    if (lane == 0) {
+      ml[0] = m;
+      ml[1] = l;
+    }
   }
-  const float denom = fmaxf(l, 1e-30f);
-  float* orow = out + task * dv;
 #pragma unroll
-  for (int j = 0; j < NC; ++j) {
-    const int col = lane + 32 * j;
-    if (col < dv) orow[col] = acc[j] / denom;
+  for (int i = 0; i < NC; ++i) {
+    const int col = lane + 32 * i;
+    if (col < dv) dst[col] = acc[i] / denom;
   }
 }
 
-template <int NC>
-static void launch_fwd(int blocks, size_t smem, cudaStream_t stream,
-                       const int* indptr, const int* cols, const float* bias,
-                       const float* q, const float* k, const float* v,
-                       float* out, float* m, float* l, int n_rows, int n_kv,
-                       int n_heads, int d, int dv, float scale, int vec4) {
-  attn_fwd_kernel<NC><<<blocks, ATTN_WARPS * 32, smem, stream>>>(
-      indptr, cols, bias, q, k, v, out, m, l, n_rows, n_kv, n_heads, d, dv,
-      scale, vec4);
-}
+}  // namespace
 
-extern "C" int attn_fwd_launch(const int* indptr, const int* cols,
-                               const float* bias, const float* q,
-                               const float* k, const float* v, float* out,
-                               float* m, float* l, int n_rows, int n_kv,
-                               int n_heads, int d, int dv, float scale,
-                               int device, cudaStream_t stream) {
+// One phase (0 or 1, above) of the forward.  indptr (n_rows + 1,), cols
+// and bias (nnz,); q (H, n_rows, d), k (H, n_kv, d), v (H, n_kv, dv);
+// out (H, n_rows, dv), m and l (H, n_rows).  The plan: chunk_row and
+// chunk_start (n_chunks,), split_first (n_split + 1,) and split_rows
+// (n_split,); part holds H * n_chunks * (dv + 2) floats of scratch.
+extern "C" int attn_fwd_launch(
+    const int* indptr, const int* cols, const float* bias, const float* q,
+    const float* k, const float* v, float* out, float* m, float* l,
+    const int* chunk_row, const int* chunk_start, const int* split_first,
+    const int* split_rows, float* part, int n_rows, int n_kv, int n_heads,
+    int d, int dv, float scale, int chunk, int n_chunks, int n_split,
+    int phase, int device, cudaStream_t stream) {
   // this library links its own CUDA runtime: make the tensors' device
   // current in it before launching
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const int nc = attn_chunks(d, dv);
-  if (nc == 0 || d <= 0 || dv <= 0) return (int)cudaErrorInvalidValue;
-  const long long tasks = (long long)n_heads * n_rows;
+  if (nc == 0 || d <= 0 || dv <= 0 || chunk < 1 || phase < 0 || phase > 1 ||
+      (phase == 1 && n_chunks < 1) || (n_chunks > 0 && part == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long tasks =
+      phase == 0 ? (long long)n_heads * (n_rows + (long long)n_chunks)
+                 : (long long)n_heads * n_split;
   if (tasks <= 0) return 0;
-  const int vec4 = (d % 4 == 0) && attn_aligned(k);
   const int blocks = (int)((tasks + ATTN_WARPS - 1) / ATTN_WARPS);
+  if (phase == 1) {
+#define ATTN_FWD_COMBINE(NC)                                             \
+  attn_fwd_combine<NC><<<blocks, ATTN_WARPS * 32, 0, stream>>>(          \
+      part, split_first, split_rows, out, m, l, n_rows, n_heads, dv,     \
+      n_chunks, n_split)
+    switch (attn_chunks(dv, dv)) {
+      case 1:
+        ATTN_FWD_COMBINE(1);
+        break;
+      case 2:
+        ATTN_FWD_COMBINE(2);
+        break;
+      case 4:
+        ATTN_FWD_COMBINE(4);
+        break;
+      default:
+        ATTN_FWD_COMBINE(8);
+    }
+#undef ATTN_FWD_COMBINE
+    return (int)cudaGetLastError();
+  }
+  const int vec4 = (d % 4 == 0) && attn_aligned(k);
   const size_t smem = (size_t)ATTN_WARPS * d * sizeof(float);
+#define ATTN_FWD_WALK(NC)                                                    \
+  attn_fwd_walk<NC><<<blocks, ATTN_WARPS * 32, smem, stream>>>(              \
+      indptr, cols, bias, q, k, v, out, m, l, chunk_row, chunk_start, part,  \
+      n_rows, n_kv, n_heads, d, dv, scale, vec4, chunk, n_chunks)
   switch (nc) {
     case 1:
-      launch_fwd<1>(blocks, smem, stream, indptr, cols, bias, q, k, v, out,
-                    m, l, n_rows, n_kv, n_heads, d, dv, scale, vec4);
+      ATTN_FWD_WALK(1);
       break;
     case 2:
-      launch_fwd<2>(blocks, smem, stream, indptr, cols, bias, q, k, v, out,
-                    m, l, n_rows, n_kv, n_heads, d, dv, scale, vec4);
+      ATTN_FWD_WALK(2);
       break;
     case 4:
-      launch_fwd<4>(blocks, smem, stream, indptr, cols, bias, q, k, v, out,
-                    m, l, n_rows, n_kv, n_heads, d, dv, scale, vec4);
+      ATTN_FWD_WALK(4);
       break;
     default:
-      launch_fwd<8>(blocks, smem, stream, indptr, cols, bias, q, k, v, out,
-                    m, l, n_rows, n_kv, n_heads, d, dv, scale, vec4);
+      ATTN_FWD_WALK(8);
   }
+#undef ATTN_FWD_WALK
   return (int)cudaGetLastError();
 }

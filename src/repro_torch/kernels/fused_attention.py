@@ -24,12 +24,16 @@ and ``:373 fused_sparse_attention_bwd`` (body ``_fused_attn_bwd_kernel``
 :299).  The TPU kernels carry (m, l, alpha) and the probabilities across
 an nnz grid that runs in order, and scatter through a segment-group
 strategy.  On the H100 both kernels are bound by bytes (the K and V rows
-gathered per nonzero).  The forward gives one warp a (head, row), which
-walks the row with the online statistics in registers: no atomics, out,
-m and l written once, and a hub row walked by one warp sets the
-forward's time.  The backward cuts every row longer than ``BWD_CHUNK``
-nonzeros into chunks (:func:`attn_row_plan`), so no warp walks more than
-one chunk: a first launch writes each chunk's partial of delta (and its
+gathered per nonzero).  Both cut every row longer than a chunk
+(``FWD_CHUNK``, ``BWD_CHUNK``: 512 nonzeros) into chunks
+(:func:`attn_row_plan`, one cached plan for both), so no warp walks more
+than one chunk.  The forward gives one warp a (head, row) or a (head,
+chunk), which walks it with the online statistics in registers: whole
+rows write out, m and l once, a chunk writes its unnormalized partial
+(m_j, l_j, acc_j), and a second launch merges a split row's partials in
+chunk order (:func:`fused_sparse_attention_chunked_plain` is that walk
+in plain PyTorch); no atomics, the same bits from the same inputs.  In
+the backward a first launch writes each chunk's partial of delta (and its
 dV scatter), the main launch walks whole rows twice (delta and dV, then
 ds, dQ and dK) and the chunks once (their row's delta summed from the
 partials in chunk order), and a finishing launch sums each split row's
@@ -56,6 +60,7 @@ __all__ = [
     "fused_sparse_attention_bwd",
     "fused_sparse_attention_bwd_chunked_plain",
     "fused_sparse_attention_bwd_plain",
+    "fused_sparse_attention_chunked_plain",
     "fused_sparse_attention_plain",
     "sparse_attention_bwd_ref",
     "sparse_attention_ref",
@@ -70,7 +75,8 @@ MAX_HEAD_DIM = 256
 
 FWD_KERNEL = CudaKernel(
     "fused_attention_fwd", "attn_fwd_launch",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float])
+    [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_float]
+    + [ctypes.c_int] * 4)
 BWD_KERNEL = CudaKernel(
     "fused_attention_bwd", "attn_bwd_launch",
     [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_float]
@@ -79,6 +85,9 @@ BWD_KERNEL = CudaKernel(
 #: Nonzeros a warp of the backward walks at most: longer rows are split
 #: into chunks of this many (the last one shorter).
 BWD_CHUNK = 512
+#: The same for the forward: equal to ``BWD_CHUNK``, so the two share one
+#: cached plan per pattern.
+FWD_CHUNK = BWD_CHUNK
 
 _PLANS: dict = {}
 
@@ -134,7 +143,7 @@ def _row_max(s, rows, n_rows):
 
 
 def attn_row_plan(indptr, chunk: int = BWD_CHUNK) -> AttnRowPlan:
-    """The backward's chunk plan for the CSR row pointer ``indptr``:
+    """The attention kernels' chunk plan for the CSR row pointer ``indptr``:
     every row of more than ``chunk`` nonzeros cut into chunks of
     ``chunk`` (the last one shorter), in row order.  Computed on the
     pattern's device with one synchronisation, and remembered for the
@@ -262,6 +271,56 @@ def fused_sparse_attention_bwd_plain(indptr, cols, q, k, v, dout, m, l, *,
     return torch.stack(dqs), torch.stack(dks), torch.stack(dvs)
 
 
+def _chunk_parts(indptr, chunk: int):
+    """The pieces the kernels' chunk walks sum separately: a whole row is
+    one, a row longer than ``chunk`` nonzeros one per chunk, in row and
+    chunk order.  Returns (rows, part, part_row, n_parts): each nonzero's
+    row and piece, each piece's row, and the count."""
+    rows = rows_of(indptr)
+    ip = indptr.long()
+    n_rows = ip.numel() - 1
+    lengths = ip[1:] - ip[:-1]
+    n_parts = torch.where(lengths > chunk, -(-lengths // chunk),
+                          (lengths > 0).long())
+    first = torch.cat([n_parts.new_zeros(1), n_parts.cumsum(0)])
+    local = torch.arange(rows.numel(), device=rows.device) - ip[rows]
+    part = first[rows] + local // chunk
+    part_row = torch.repeat_interleave(
+        torch.arange(n_rows, device=rows.device), n_parts)
+    return rows, part, part_row, int(first[-1])
+
+
+def fused_sparse_attention_chunked_plain(indptr, cols, q, k, v, *,
+                                         scale: float, bias=None,
+                                         chunk: int = FWD_CHUNK):
+    """Plain version of the forward kernel's chunk walk: rows longer than
+    ``chunk`` nonzeros are cut as :func:`attn_row_plan` cuts them, each
+    chunk takes its own (m_j, l_j, acc_j) with acc_j unnormalized, and a
+    split row merges its chunks' partials in chunk order: m = max_j m_j,
+    l = sum_j l_j exp(m_j - m), out = sum_j acc_j exp(m_j - m) / max(l,
+    1e-30) (a whole row is one partial, merged with weight 1).  Returns
+    ``(out, m, l)`` as :func:`fused_sparse_attention_plain` does.  Runs
+    on any device."""
+    n_heads, n_rows, _ = q.shape
+    rows, part, part_row, n_all = _chunk_parts(indptr, chunk)
+    outs, ms, ls = [], [], []
+    for h in range(n_heads):
+        s = _scores(rows, cols, q[h], k[h], scale, bias)
+        m_part = _row_max(s, part, n_all)
+        p = torch.exp(s - m_part[part])
+        l_part = _segment_sum(p, part, n_all)
+        acc_part = _segment_sum(
+            p[:, None] * v[h].to(torch.float32)[cols.long()], part, n_all)
+        m = _row_max(m_part, part_row, n_rows)
+        w = torch.exp(m_part - m[part_row])
+        l = _segment_sum(l_part * w, part_row, n_rows)
+        acc = _segment_sum(acc_part * w[:, None], part_row, n_rows)
+        outs.append(acc / torch.clamp(l, min=1e-30)[:, None])
+        ms.append(m)
+        ls.append(l)
+    return torch.stack(outs), torch.stack(ms), torch.stack(ls)
+
+
 def fused_sparse_attention_bwd_chunked_plain(indptr, cols, q, k, v, dout, m,
                                              l, *, scale: float, bias=None,
                                              chunk: int = BWD_CHUNK):
@@ -272,19 +331,8 @@ def fused_sparse_attention_bwd_chunked_plain(indptr, cols, q, k, v, dout, m,
     whole row is one partial).  dK and dV are scattered by column as in
     :func:`fused_sparse_attention_bwd_plain`.  Runs on any device."""
     n_heads, n_rows, _ = q.shape
-    rows = rows_of(indptr)
+    rows, part, part_row, n_all = _chunk_parts(indptr, chunk)
     c = cols.long()
-    ip = indptr.long()
-    lengths = ip[1:] - ip[:-1]
-    # the chunk of each nonzero: a whole row is one, a split row several
-    n_parts = torch.where(lengths > chunk, -(-lengths // chunk),
-                          (lengths > 0).long())
-    first = torch.cat([n_parts.new_zeros(1), n_parts.cumsum(0)])
-    local = torch.arange(c.numel(), device=c.device) - ip[rows]
-    part = first[rows] + local // chunk
-    part_row = torch.repeat_interleave(
-        torch.arange(n_rows, device=c.device), n_parts)
-    n_all = int(first[-1])
     dqs, dks, dvs = [], [], []
     for h in range(n_heads):
         qf, kf, vf, do = (x[h].to(torch.float32) for x in (q, k, v, dout))
@@ -354,12 +402,15 @@ def _cuda_operands(indptr, cols, bias, *floats):
 
 def fused_sparse_attention(indptr, cols, q, k, v, *, scale: float,
                            bias=None):
-    """One launch over all heads: ``(out, m, l)`` with out (H, n_rows, dv)
-    and m, l (H, n_rows), all f32.  ``indptr`` (n_rows + 1,) and ``cols``
-    (nnz,) are the pattern in CSR order, shared by the heads; ``bias`` is
-    an optional (nnz,) additive score term.  CPU tensors run the plain
+    """``(out, m, l)`` over all heads, with out (H, n_rows, dv) and m, l
+    (H, n_rows), all f32.  ``indptr`` (n_rows + 1,) and ``cols`` (nnz,)
+    are the pattern in CSR order, shared by the heads; ``bias`` is an
+    optional (nnz,) additive score term.  CPU tensors run the plain
     version; CUDA tensors launch the kernel, or raise for what it does
-    not take."""
+    not take: one launch when no row is longer than ``FWD_CHUNK``
+    nonzeros, else two (the walk, with the split rows' chunks writing
+    partials, then the split rows' merge), each counted in
+    ``FWD_KERNEL.launches``."""
     _check(indptr, cols, q, k, v, bias)
     if q.device.type == "cpu":
         return fused_sparse_attention_plain(indptr, cols, q, k, v,
@@ -373,9 +424,21 @@ def fused_sparse_attention(indptr, cols, q, k, v, *, scale: float,
                       device=q.device)
     m = torch.empty((n_heads, n_rows), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    FWD_KERNEL.launch(q.device, ptr(indptr), ptr(cols), ptr(bias), ptr(q),
-                      ptr(k), ptr(v), ptr(out), ptr(m), ptr(l), n_rows, n_kv,
-                      n_heads, d, dv, scale)
+    plan = attn_row_plan(indptr, FWD_CHUNK)
+    part = None
+    phases = (0,)
+    if plan.n_chunks:
+        # acc_j (H, n_chunks, dv), then (m_j, l_j) (H, n_chunks, 2)
+        part = torch.empty(n_heads * plan.n_chunks * (dv + 2),
+                           dtype=torch.float32, device=q.device)
+        phases = (0, 1)
+    for phase in phases:
+        FWD_KERNEL.launch(
+            q.device, ptr(indptr), ptr(cols), ptr(bias), ptr(q), ptr(k),
+            ptr(v), ptr(out), ptr(m), ptr(l), ptr(plan.chunk_row),
+            ptr(plan.chunk_start), ptr(plan.split_first),
+            ptr(plan.split_rows), ptr(part), n_rows, n_kv, n_heads, d, dv,
+            scale, plan.chunk, plan.n_chunks, plan.n_split, phase)
     return out, m, l
 
 

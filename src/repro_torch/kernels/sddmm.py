@@ -7,16 +7,21 @@ and runs ``sddmm_plain`` on CPU tensors.
 Source note.  Replaces ``src/repro/kernels/sddmm.py:55 sddmm`` (Pallas
 body ``_sddmm_kernel`` :27).  The TPU kernel accumulates each lane's dot
 product in its output block across a sequential feature-tile grid axis;
-on the H100 one warp owns a lane, runs across the feature axis with
-coalesced loads of ``A[row]`` and ``B[col]`` and finishes the dot with a
-shuffle reduce, so no reduction crosses blocks.  One block takes an nnz
-tile and masks lanes ``t >= nnz``, so the stream is not padded.  The
-kernel is bound by bytes: the index stream, the output, and the rows of
-B gathered by column.
+on the H100 no reduction crosses blocks.  The kernel is bound by bytes:
+the index stream, the output, and the rows of B gathered by column.  It
+works in segment groups, as the EB SpMM does: a worker is a slice of a
+warp sized to a row's vectors (:func:`sddmm_geometry`), a warp stages 32
+(row, col) entries with coalesced loads, its workers walk contiguous
+slices of them with several B rows in flight and A's row kept in
+registers across a run of equal rows, each dot is reduced over its
+worker's lanes, and the warp's 32 results are stored at once with the
+scale applied.  One block takes an nnz tile and masks lanes
+``t >= nnz``, so the stream is not padded.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -24,7 +29,39 @@ from . import ref
 from .build import CudaKernel, ptr
 
 KERNEL = CudaKernel(
-    "sddmm", "sddmm_launch", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3)
+    "sddmm", "sddmm_launch", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6)
+
+#: Vectors a lane of a worker holds at most; wider rows take the wide
+#: walk (a warp a nonzero).
+MAX_VECTORS_PER_LANE = 8
+
+
+class SddmmGeometry(NamedTuple):
+    """How the kernel cuts a warp for rows of ``d`` floats: ``vec``
+    floats a load (4: 16-byte loads), ``lw`` lanes a worker, ``workers``
+    workers a warp (``32 - workers * lw`` lanes idle), ``vpl`` vectors a
+    lane (1, 2, 4 or 8; 0 for the wide walk)."""
+
+    vec: int
+    lw: int
+    workers: int
+    vpl: int
+
+
+def sddmm_geometry(d: int, aligned: bool) -> SddmmGeometry:
+    """The worker geometry for rows of ``d`` floats; ``aligned`` says A
+    and B start on 16 bytes (16-byte loads need it and ``d % 4 == 0``).
+    A worker is as many lanes as a row has vectors, up to a warp."""
+    if d < 1:
+        raise ValueError(f"d must be >= 1, got {d}")
+    vec = 4 if aligned and d % 4 == 0 else 1
+    nv = d // vec
+    lw = min(32, nv)
+    per_lane = -(-nv // lw)
+    vpl = 1 << (per_lane - 1).bit_length()
+    if vpl > MAX_VECTORS_PER_LANE:
+        vpl = 0
+    return SddmmGeometry(vec, lw, 32 // lw, vpl)
 
 #: Lanes the plain version gathers at once: bounds its two (chunk, d)
 #: intermediates on the card at full size.
@@ -46,9 +83,9 @@ def sddmm_plain(rows, cols, a, b, scale=None):
 def sddmm(rows, cols, a, b, scale=None, *, nnz_tile: int = 256):
     """(nnz,) f32 ``<A[rows[t]], B[cols[t]]> (* scale[t])`` for rows/cols
     (nnz,), A (M, D), B (N, D), scale (nnz,) or None.  ``nnz_tile`` is
-    the lanes one block takes.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel (narrow A/B are upcast to f32 first), or
-    raise for what it does not take."""
+    the lanes one block takes (one launch whatever it is).  CPU tensors
+    run the plain version; CUDA tensors launch the kernel (narrow A/B
+    are upcast to f32 first), or raise for what it does not take."""
     if rows.shape != cols.shape or rows.dim() != 1:
         raise ValueError(f"rows/cols must be equal 1-D streams, got "
                          f"{tuple(rows.shape)}, {tuple(cols.shape)}")
@@ -79,6 +116,9 @@ def sddmm(rows, cols, a, b, scale=None, *, nnz_tile: int = 256):
     if nnz >= 2 ** 31:
         raise ValueError(f"nnz {nnz} does not fit the kernel's int32 count")
     out = torch.empty(nnz, dtype=torch.float32, device=a.device)
+    g = sddmm_geometry(a.shape[1], a.data_ptr() % 16 == 0
+                       and b.data_ptr() % 16 == 0)
     KERNEL.launch(a.device, ptr(rows), ptr(cols), ptr(a), ptr(b),
-                  ptr(scale), ptr(out), nnz, a.shape[1], nnz_tile)
+                  ptr(scale), ptr(out), nnz, a.shape[1], nnz_tile, g.vec,
+                  g.lw, g.vpl)
     return out

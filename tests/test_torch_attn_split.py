@@ -1,15 +1,18 @@
-"""The attention backward's chunk plan and its split walk (the plain
-version of what ``csrc/fused_attention_bwd.cu`` computes: rows longer
-than a chunk cut into chunks, delta and dQ summed from the chunks'
-partials in chunk order) against the port's unsplit plain version and
-the JAX package's fused backward in interpret mode, on the same numpy
-inputs; and the grouped matmul's choice between its tensor-core and
-CUDA-core routes.
+"""The attention kernels' chunk plan and their split walks (the plain
+versions of what ``csrc/fused_attention_fwd.cu`` and ``..._bwd.cu``
+compute: rows longer than a chunk cut into chunks; the forward's
+(m, l, acc) partials merged in chunk order, the backward's delta and dQ
+summed from the chunks' partials in chunk order) against the port's
+unsplit plain versions and the JAX package's fused kernels in interpret
+mode, on the same numpy inputs; and the grouped matmul's choice between
+its tensor-core and CUDA-core routes.
 
 Tolerance: rtol = atol = 1e-5, as in ``test_torch_attention.py``: every
 value is an f32 sum of at most a few hundred terms of size about one,
 taken in another order (chunk partials first; the reference tile by
-tile).
+tile).  The forward's row max m is exact against the unsplit plain
+version (a max does not depend on the order), and a chunk longer than
+every row gives the plain walk's bits.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -138,6 +141,109 @@ def test_chunked_walk_without_a_split_row_is_the_plain_walk():
     want = tfa.fused_sparse_attention_bwd(*args, scale=0.4, bias=t(bias))
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+
+
+def _jax_forward(rows, cols, q, k, v, n_rows, scale, bias):
+    """(out, m, l) of the reference's fused forward in interpret mode, on
+    the trailing-padded stream and V padded to a multiple of 8 columns."""
+    nnz = rows.shape[0]
+    pad = -(-nnz // NNZ_TILE) * NNZ_TILE - nnz
+    rp, cp = (jnp.asarray(np.pad(x, (0, pad))) for x in (rows, cols))
+    dv = v.shape[-1]
+    dv_pad = -(-dv // 8) * 8
+    vp = np.pad(v, ((0, 0), (0, 0), (0, dv_pad - dv)))
+    out, m, l = jfa.fused_sparse_attention(
+        rp, cp, jnp.asarray(q), jnp.asarray(k), jnp.asarray(vp),
+        n_rows=n_rows, nnz=nnz, nnz_tile=NNZ_TILE, dv_tile=dv_pad,
+        scale=scale,
+        bias=None if bias is None else jnp.asarray(np.pad(bias, (0, pad))),
+        interpret=True)
+    return out[..., :dv], m, l
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("heads,d,dv", [(1, 8, 8), (3, 16, 5)])
+def test_chunked_forward_matches_plain_and_reference(heads, d, dv,
+                                                     with_bias):
+    indptr, rows, cols, n_kv = _pattern(seed=heads + 10)
+    n_rows = indptr.shape[0] - 1
+    q, k, v, _, bias = _operands(heads, n_rows, n_kv, d, dv, rows.shape[0],
+                                 seed=heads + d + 10)
+    bias = bias if with_bias else None
+    scale = d ** -0.5
+    t = torch.from_numpy
+    kw = dict(scale=scale, bias=None if bias is None else t(bias))
+    args = (t(indptr), t(cols), t(q), t(k), t(v))
+    got = tfa.fused_sparse_attention_chunked_plain(*args, chunk=CHUNK, **kw)
+    unsplit = tfa.fused_sparse_attention_plain(*args, **kw)
+    want = _jax_forward(rows, cols, q, k, v, n_rows, scale, bias)
+    assert tfa.attn_row_plan(t(indptr), CHUNK).n_split == 3
+    for label, g, u, w in zip("out m l".split(), got, unsplit, want):
+        assert g.dtype == torch.float32 and g.shape == u.shape
+        if label == "m":
+            assert torch.equal(g, u)
+        else:
+            torch.testing.assert_close(g, u, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+    empty = np.diff(indptr) == 0
+    assert bool((got[0][:, empty] == 0).all())
+    assert bool((got[1][:, empty] == tfa.NEG_INF).all())
+    assert bool((got[2][:, empty] == 0).all())
+
+
+def test_chunked_forward_without_a_split_row_is_the_plain_walk():
+    """A chunk longer than every row leaves one partial per row, merged
+    with weight exp(0) = 1: the plain walk's values exactly."""
+    indptr, rows, cols, n_kv = _pattern(seed=12)
+    q, k, v, _, bias = _operands(2, indptr.shape[0] - 1, n_kv, 8, 6,
+                                 rows.shape[0], seed=13)
+    t = torch.from_numpy
+    args = (t(indptr), t(cols), t(q), t(k), t(v))
+    got = tfa.fused_sparse_attention_chunked_plain(
+        *args, scale=0.4, bias=t(bias), chunk=1000)
+    want = tfa.fused_sparse_attention(*args, scale=0.4, bias=t(bias))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_backward_from_chunked_forward_stats_matches_reference(with_bias):
+    """The split forward's (m, l) feed the backward as the unsplit
+    forward's do: the gradients match the reference's fused backward fed
+    with its own forward's statistics."""
+    indptr, rows, cols, n_kv = _pattern(seed=14)
+    n_rows = indptr.shape[0] - 1
+    heads, d, dv = 2, 8, 8
+    q, k, v, do, bias = _operands(heads, n_rows, n_kv, d, dv, rows.shape[0],
+                                  seed=15)
+    bias = bias if with_bias else None
+    scale = d ** -0.5
+    t = torch.from_numpy
+    kw = dict(scale=scale, bias=None if bias is None else t(bias))
+    _, m, l = tfa.fused_sparse_attention_chunked_plain(
+        t(indptr), t(cols), t(q), t(k), t(v), chunk=CHUNK, **kw)
+    got = tfa.fused_sparse_attention_bwd(t(indptr), t(cols), t(q), t(k),
+                                         t(v), t(do), m, l, **kw)
+    _, jm, jl = _jax_forward(rows, cols, q, k, v, n_rows, scale, bias)
+    pad = -(-rows.shape[0] // NNZ_TILE) * NNZ_TILE - rows.shape[0]
+    rp, cp = (jnp.asarray(np.pad(x, (0, pad))) for x in (rows, cols))
+    want = jfa.fused_sparse_attention_bwd(
+        rp, cp, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(do), jm, jl, n_rows=n_rows, nnz=rows.shape[0],
+        nnz_tile=NNZ_TILE, scale=scale,
+        bias=None if bias is None else jnp.asarray(np.pad(bias, (0, pad))),
+        interpret=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_forward_and_backward_share_one_plan():
+    assert tfa.FWD_CHUNK == tfa.BWD_CHUNK
+    ip = torch.from_numpy(_pattern()[0])
+    assert (tfa.attn_row_plan(ip, tfa.FWD_CHUNK)
+            is tfa.attn_row_plan(ip, tfa.BWD_CHUNK))
 
 
 BF16, F32 = torch.bfloat16, torch.float32

@@ -259,19 +259,52 @@ def test_gcn_forward_on_cuda_matches_cpu(dev, schedule):
 
 
 @pytest.mark.parametrize("nnz", [1, 300, 1000])
-@pytest.mark.parametrize("d", [1, 37, 64, 256])
+@pytest.mark.parametrize("d", [1, 37, 40, 64, 256])
 @pytest.mark.parametrize("with_scale", [False, True])
-def test_sddmm_kernel_matches_plain(dev, nnz, d, with_scale):
+@pytest.mark.parametrize("shuffled", [False, True])
+def test_sddmm_kernel_matches_plain(dev, nnz, d, with_scale, shuffled):
+    """Sorted streams (runs of one row crossing warp and block edges) and
+    the same streams shuffled, nnz not a multiple of 32."""
     from repro_torch.kernels import sddmm
 
     rng = np.random.default_rng(nnz + d)
-    rows = torch.from_numpy(np.sort(rng.integers(0, 50, nnz)).astype(
-        np.int32)).to(dev)
+    rows = np.sort(rng.integers(0, 50, nnz))
+    if shuffled:
+        rows = rng.permutation(rows)
+    rows = torch.from_numpy(rows.astype(np.int32)).to(dev)
     cols = torch.from_numpy(rng.integers(0, 70, nnz).astype(np.int32)).to(dev)
     a, b = _dense(dev, (50, d), 10), _dense(dev, (70, d), 11)
     scale = _dense(dev, (nnz,), 12) if with_scale else None
     before = sddmm.KERNEL.launches
     got = sddmm.sddmm(rows, cols, a, b, scale, nnz_tile=128)
+    assert sddmm.KERNEL.launches == before + 1
+    torch.testing.assert_close(got, sddmm.sddmm_plain(rows, cols, a, b, scale),
+                               rtol=RTOL, atol=RTOL * d)
+
+
+@pytest.mark.parametrize("d,aligned", [(40, True), (40, False), (300, True),
+                                       (1032, True), (301, True)])
+@pytest.mark.parametrize("nnz_tile", [100, 256])
+def test_sddmm_kernel_long_runs_and_geometries(dev, d, aligned, nnz_tile):
+    """Runs of one row of 1 to 300 entries over tiles that are not a
+    multiple of 32, on every geometry: 16-byte workers, 4-byte loads of a
+    misaligned A, 4 vectors a lane, and the wide walk."""
+    from repro_torch.kernels import sddmm
+
+    rng = np.random.default_rng(d + nnz_tile)
+    lengths = rng.integers(1, 300, 12)
+    rows = np.repeat(rng.permutation(40)[:12], lengths).astype(np.int32)
+    nnz = rows.shape[0]
+    cols = rng.integers(0, 60, nnz).astype(np.int32)
+    rows, cols = (torch.from_numpy(x).to(dev) for x in (rows, cols))
+    a = _dense(dev, (40 * d + 1,), 13)
+    a = (a[:40 * d] if aligned else a[1:]).view(40, d)
+    b = _dense(dev, (60, d), 14)
+    scale = _dense(dev, (nnz,), 15)
+    g = sddmm.sddmm_geometry(d, a.data_ptr() % 16 == 0)
+    assert (g.vec == 4) == (aligned and d % 4 == 0)
+    before = sddmm.KERNEL.launches
+    got = sddmm.sddmm(rows, cols, a, b, scale, nnz_tile=nnz_tile)
     assert sddmm.KERNEL.launches == before + 1
     torch.testing.assert_close(got, sddmm.sddmm_plain(rows, cols, a, b, scale),
                                rtol=RTOL, atol=RTOL * d)
@@ -418,6 +451,52 @@ def test_fused_attention_bwd_splits_long_rows(dev):
                      *args, chunk=chunk, **kw)):
         for g_, w_ in zip(got, want):
             torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dv", [64, 40])
+def test_fused_attention_fwd_splits_long_rows(dev, dv):
+    """Rows longer than ``FWD_CHUNK`` (one of 5,000 nonzeros, one of a
+    chunk and one, one of two chunks and seven) are walked in chunks and
+    merged in a second launch; one of exactly a chunk is not split.  out,
+    m and l match the plain version and the chunk walk's plain version,
+    and out (split rows' included) is the same bit for bit over two
+    launches.  dv 64 takes the 16-byte V walk, dv 40 the 4-byte one."""
+    from repro_torch.kernels import fused_attention as fa
+
+    rng = np.random.default_rng(13)
+    n_rows, n_kv, heads, d = 64, 6000, 2, 64
+    chunk = fa.FWD_CHUNK
+    lengths = rng.integers(0, 6, n_rows)
+    lengths[::9] = 0
+    lengths[[5, 20, 30, 40]] = (5000, chunk, chunk + 1, 2 * chunk + 7)
+    cols = np.concatenate([rng.choice(n_kv, int(n), replace=False)
+                           for n in lengths]).astype(np.int32)
+    indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    g = torch.Generator().manual_seed(14)
+    q, k = (torch.randn(heads, n, d, generator=g).to(dev)
+            for n in (n_rows, n_kv))
+    v = torch.randn(heads, n_kv, dv, generator=g).to(dev)
+    bias = torch.randn(len(cols), generator=g).to(dev)
+    ip, cc = (torch.from_numpy(a).to(dev) for a in (indptr, cols))
+    plan = fa.attn_row_plan(ip, chunk)
+    assert plan.split_rows.tolist() == [5, 30, 40]
+    kw = dict(scale=d ** -0.5, bias=bias)
+    before = fa.FWD_KERNEL.launches
+    got = fa.fused_sparse_attention(ip, cc, q, k, v, **kw)
+    assert fa.FWD_KERNEL.launches == before + 2
+    again = fa.fused_sparse_attention(ip, cc, q, k, v, **kw)
+    for g_, a_ in zip(got, again):
+        assert torch.equal(g_.view(torch.int32), a_.view(torch.int32))
+    args = (ip, cc, q, k, v)
+    for want in (fa.fused_sparse_attention_plain(*args, **kw),
+                 fa.fused_sparse_attention_chunked_plain(*args, chunk=chunk,
+                                                         **kw)):
+        for g_, w_ in zip(got, want):
+            torch.testing.assert_close(g_, w_, rtol=RTOL, atol=RTOL)
+    empty = (ip[1:] == ip[:-1]).nonzero()[:, 0]
+    assert bool((got[1][:, empty] == fa.NEG_INF).all())
+    assert bool((got[2][:, empty] == 0).all())
+    assert bool((got[0][:, empty] == 0).all())
 
 
 def test_graph_attention_grads_on_cuda_match_cpu(dev):

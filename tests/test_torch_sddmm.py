@@ -93,3 +93,30 @@ def test_sddmm_contracts():
     empty = torch.zeros(0, dtype=torch.int32)
     assert ts.sddmm(empty, empty, at.detach(), bt,
                     device="cpu").shape == (0,)
+
+
+@pytest.mark.parametrize("d,aligned,want", [
+    (256, True, (4, 32, 1, 2)),   # the hidden width: a warp, 2 vectors a lane
+    (40, True, (4, 10, 3, 1)),    # the class width: 3 workers, 2 lanes idle
+    (64, True, (4, 16, 2, 1)),
+    (128, True, (4, 32, 1, 1)),
+    (40, False, (1, 32, 1, 2)),   # misaligned: 4-byte loads
+    (37, True, (1, 32, 1, 2)),    # d % 4: 4-byte loads
+    (5, True, (1, 5, 6, 1)),
+    (1, True, (1, 1, 32, 1)),     # 32 one-lane workers
+    (300, True, (4, 32, 1, 4)),   # 75 vectors: 3 a lane, rounded to 4
+    (1024, True, (4, 32, 1, 8)),
+    (1032, True, (4, 32, 1, 0)),  # past 8 vectors a lane: the wide walk
+    (301, True, (1, 32, 1, 0)),
+])
+def test_sddmm_geometry(d, aligned, want):
+    g = tsddmm.sddmm_geometry(d, aligned)
+    assert tuple(g) == want
+    # the worker's lanes hold the row, and the workers fit the warp
+    assert g.vpl == 0 or g.lw * g.vpl * g.vec >= d
+    assert g.workers * g.lw <= 32
+
+
+def test_sddmm_geometry_refuses_empty_rows():
+    with pytest.raises(ValueError, match="d must be"):
+        tsddmm.sddmm_geometry(0, True)
