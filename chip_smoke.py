@@ -15,7 +15,8 @@ and backward dQ bit for bit over two launches, the forward also against
 its chunk walk's plain version), and
 segment reduce (on four profiles: the social graph's row statistics,
 batched and hidden graph readout, and G-aligned ``parallel``; max and
-min bit for bit).  Then it drives the paths of the port on a
+min bit for bit, add the same bits over two launches on these ids in
+order; the social hub row alone, and shuffled ids on the atomic path).  Then it drives the paths of the port on a
 power-law "social" graph (``Schedule.auto`` -> the EB kernel) and a
 near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
 169,343 nodes as in ogbn-arxiv, with random weights from a seed:
@@ -196,6 +197,35 @@ def cuda_ms_median(fn, window_ms: float = 5.0, windows: int = 5) -> float:
 
     iters = max(10, math.ceil(window_ms / max(cuda_ms(fn), 1e-3)))
     return statistics.median(cuda_ms(fn, iters, 0) for _ in range(windows))
+
+
+def device_ms(fn, calls: int = 20) -> dict:
+    """Device ms per call of each kernel ``fn`` launches (fills
+    included), by kernel name, from ``torch.profiler``'s CUDA activity
+    over ``calls`` calls after two warm-up calls.  Unlike a CUDA-event
+    window, it leaves out the device's idle time while the host prepares
+    the next launch, which bounds calls of a few tens of microseconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then records no kernel
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                out[e.key] = out.get(e.key, 0.0) + (
+                    e.self_device_time_total / 1e3 / calls)
+        if sum(out.values()) > 0:
+            return out
+    fail("torch.profiler recorded no kernel in three tries")
 
 
 def compare(got, want, per_element=False):
@@ -1227,13 +1257,40 @@ def segment_profiles(graphs, x, model):
     ]
 
 
-def check_segment_reduce(profiles):
+def hub_row(adj, scores):
+    """The social graph's longest row as a stream of its own: (one
+    segment's ids, its lanes' score rows)."""
+    import torch
+
+    lengths = (adj.indptr[1:] - adj.indptr[:-1]).long()
+    hub = int(lengths.argmax())
+    lo, hi = int(adj.indptr[hub]), int(adj.indptr[hub + 1])
+    return (torch.zeros(hi - lo, dtype=torch.int32, device=scores.device),
+            scores[lo:hi])
+
+
+def check_segment_reduce(profiles, adj):
     """The segment-reduce kernel against its plain version on every
-    profile and case: max and min bit for bit, sums at F32_TOL of the
-    largest magnitude; ``parallel`` on its aligned ids against the dense
-    oracle too.  Returns the worst error."""
+    profile and case, each output over NaN-poisoned memory (a NaN-filled
+    tensor of its size freed just before the call, so a segment the walk
+    never writes shows): max and min bit for bit, sums at F32_TOL of the
+    largest magnitude and, on these ids in order, the same bits over two
+    launches; ``parallel`` on its aligned ids against the dense oracle
+    too.  The walk's carry segments on the row statistics against
+    ``carry_plan``.  Then the social hub row alone (one segment over
+    every chunk) under add and max, and the row-statistics profile with
+    its ids shuffled under ``accumulate`` (the atomic path: no finishing
+    launch).  Returns the worst error."""
+    import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.kernels.common import carry_plan
+
+    def call(seg, data, **kw):
+        poison = torch.full((kw["num_segments"], data.shape[1]),
+                            float("nan"), device=data.device)
+        del poison
+        return sr.segment_reduce(seg, data, **kw)
 
     checker = Checker(("segment_reduce",))
     for label, seg, data, n_seg, cases in profiles:
@@ -1241,16 +1298,56 @@ def check_segment_reduce(profiles):
               f"{data.shape[1]} -> {n_seg} segments", flush=True)
         for strategy, op in cases:
             kw = dict(num_segments=n_seg, strategy=strategy, op=op)
-            got = sr.segment_reduce(seg, data, **kw)
+            got = call(seg, data, **kw)
             checker.record("segment_reduce", f"{label} {strategy} {op}", got,
                            sr.segment_reduce_plain(seg, data, **kw),
                            exact=op != "add")
+            if op == "add":
+                checker.record("segment_reduce",
+                               f"{label} {strategy} {op} two launches",
+                               got, call(seg, data, **kw), exact=True)
             if strategy == "parallel":
                 checker.record(
                     "segment_reduce", f"{label} {strategy} {op} vs oracle",
                     got, ref.segment_reduce_ref(
                         data, seg, n_seg, op="sum" if op == "add" else op),
                     exact=op != "add")
+    label, seg, data, n_seg, _ = profiles[0]
+    _, rows, chunk = sr._launch(
+        seg, data, num_segments=n_seg, group_size=32, strategy="segment",
+        op="add", count_column=False, sorted_=True)
+    same_plan = bool(torch.equal(rows, carry_plan(seg, chunk).to(
+        rows.device)))
+    print(f"check: segment_reduce, {label}: the walk's carry segments "
+          f"({rows.numel() // 2} chunks of {chunk} lanes, "
+          f"{int((rows[1::2] >= 0).sum())} crossing segments) equal "
+          f"carry_plan: {same_plan}", flush=True)
+    if not same_plan:
+        checker.failures.append("segment_reduce carry segments")
+    seg, data = hub_row(adj, profiles[0][2])
+    print(f"check: segment_reduce, the hub row alone: {seg.numel()} lanes x "
+          f"{data.shape[1]} -> 1 segment", flush=True)
+    for op in ("add", "max"):
+        kw = dict(num_segments=1, op=op)
+        checker.record("segment_reduce", f"hub row segment {op}",
+                       call(seg, data, **kw),
+                       sr.segment_reduce_plain(seg, data, **kw),
+                       exact=op != "add")
+    label, seg, data, n_seg, _ = profiles[0]
+    gen = torch.Generator(device=seg.device).manual_seed(SEED + 8)
+    order = torch.randperm(seg.numel(), generator=gen, device=seg.device)
+    shuffled = seg[order]
+    print(f"check: segment_reduce, {label} with its ids shuffled (the "
+          "atomic path)", flush=True)
+    for op in ("add", "max"):
+        kw = dict(num_segments=n_seg, strategy="accumulate", op=op)
+        before = sr.FINISH.launches
+        got = sr.segment_reduce(shuffled, data, **kw)
+        if sr.FINISH.launches != before:
+            fail("segment_reduce: shuffled ids took the carry walk")
+        checker.record("segment_reduce", f"{label} shuffled accumulate {op}",
+                       got, sr.segment_reduce_plain(shuffled, data, **kw),
+                       exact=op != "add")
     return checker.done()
 
 
@@ -1330,7 +1427,8 @@ def readout(name, model, adj, sched, x, counters, op, want):
     runs of its plan with the launch counts zeroed just before and read
     just after.  The plan must take 3 launches, split at the readout for
     the reference's reason; each request launches ``want`` plus one
-    segment reduce.  The output is held against ``run_chain_ref`` and,
+    segment reduce, whose finishing launch (the segments crossing its
+    chunks) must run once a request too.  The output is held against ``run_chain_ref`` and,
     given the same SpMM output, the readout against its plain oracle (bit
     for bit for max)."""
     import torch
@@ -1342,6 +1440,7 @@ def readout(name, model, adj, sched, x, counters, op, want):
         segment_reduce_node,
     )
     from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_reduce as sr
 
     dev, n = x.device, adj.shape[0]
     seg = (torch.arange(n, device=dev) // READOUT_SIZE).to(torch.int32)
@@ -1359,15 +1458,23 @@ def readout(name, model, adj, sched, x, counters, op, want):
     def request():
         return run_plan(p, x, params, device=dev)
 
+    sr.FINISH.launches = 0
     outs, times, counts, per_request = run_requests(request, counters)
+    finishes = sr.FINISH.launches
     ms = cuda_ms(request, 5)
+    busy = sum(device_ms(request, 5).values())
     print(f"readout {op} {name}: {n_pool} segments of {READOUT_SIZE} nodes; "
           f"plan {p.decision.tag}, {p.n_launches} launches; request ms "
           + ", ".join(f"{t:.3f}" for t in times)
-          + f"; {ms:.4f} ms (CUDA events, mean of 5); launches per request "
-          f"{per_request}", flush=True)
+          + f"; {ms:.4f} ms (CUDA events, mean of 5), {busy:.4f} ms of it "
+          f"on the device; launches per request {per_request}, "
+          f"segment-reduce finishing launches {finishes / REQUESTS:g}",
+          flush=True)
     if per_request != {**want, "segment_reduce": 1}:
         fail(f"readout {op} {name}: launches per request {per_request}")
+    if finishes != REQUESTS:
+        fail(f"readout {op} {name}: {finishes} segment-reduce finishing "
+             f"launches over {REQUESTS} requests")
     want_out = run_chain_ref(chain, x, params)
     checks = [compare(out, want_out) for out in outs]
     for i, (err, tol, ok) in enumerate(checks):
@@ -1392,7 +1499,8 @@ def readout(name, model, adj, sched, x, counters, op, want):
 
 def library_segment_reduce_ms(data, reduce, lengths):
     """``torch.segment_reduce`` over the same rows: the segment-reduce
-    yardstick (``library_ms``), which the port never calls.  None where
+    yardstick (``library_ms``), which the port never calls, as (device
+    ms, call ms) as ``time_segment_reduce`` times the kernel.  None where
     it refuses these operands."""
     import torch
 
@@ -1405,56 +1513,73 @@ def library_segment_reduce_ms(data, reduce, lengths):
         print(f"library segment reduce: torch.segment_reduce refused: {e}",
               flush=True)
         return None
-    return cuda_ms_median(call)
+    return sum(device_ms(call).values()), cuda_ms_median(call)
 
 
 def time_segment_reduce(profiles, adj):
     """Times of the segment-reduce kernel, its plain version and the
     library yardstick on every profile and case, summed into the kernel's
-    row, with the bytes (ids and data read once, the output written once;
-    the identity fill is the kernel's own cost, inside its time) and
-    operations (one per element) of that work; and the social hub row
-    alone under 'segment'.  The kernel and library times are medians of
-    windows of about 5 ms (``cuda_ms_median``)."""
+    row, with the bytes (ids and data read once, the output written once)
+    and operations (one per element) of that work; and the social hub row
+    alone under 'segment'.  The kernel's and the library's times are
+    device times (``device_ms``: the durations of every kernel a call
+    launches, the walk and the finishing launch apart): a call takes tens
+    of microseconds on the card, and a CUDA-event window of back-to-back
+    calls (``cuda_ms_median``, printed beside them as the call's time)
+    measures the host's launches as much as the device."""
     import torch
     from repro_torch.kernels import segment_reduce as sr
 
     row = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-           "flops": 0}
+           "flops": 0, "call_ms": 0.0}
     for label, seg, data, n_seg, cases in profiles:
         lengths = torch.bincount(seg.long(), minlength=n_seg)
         t, c = data.shape
         nbytes = t * 4 + t * c * 4 + n_seg * c * 4
         for strategy, op in cases:
             kw = dict(num_segments=n_seg, strategy=strategy, op=op)
-            ms = cuda_ms_median(lambda: sr.segment_reduce(seg, data, **kw))
+
+            def fn():
+                return sr.segment_reduce(seg, data, **kw)
+
+            per_kernel = device_ms(fn)
+            ms = sum(per_kernel.values())
+            finish = sum(v for k, v in per_kernel.items()
+                         if "segred_finish" in k)
+            call = cuda_ms_median(fn)
             plain = cuda_ms(lambda: sr.segment_reduce_plain(seg, data, **kw),
                             3, 1)
             lib = library_segment_reduce_ms(data, "sum" if op == "add"
                                             else op, lengths)
             b_ms, by = bound(nbytes, t * c)
             print(f"segment_reduce {label} {strategy} {op} ({t} x {c} -> "
-                  f"{n_seg}): {ms:.4f} ms (bound {b_ms:.4f} ms by {by}), "
-                  f"plain {plain:.4f} ms, library "
-                  f"{'null' if lib is None else f'{lib:.4f}'} ms",
-                  flush=True)
+                  f"{n_seg}): {ms:.4f} ms on the device (walk "
+                  f"{ms - finish:.4f} + finish {finish:.4f}; bound "
+                  f"{b_ms:.4f} ms by {by}), call {call:.4f} ms, plain "
+                  f"{plain:.4f} ms, library "
+                  + ("null" if lib is None else
+                     f"{lib[0]:.4f} ms on the device, call {lib[1]:.4f}")
+                  + " ms", flush=True)
             row["ms"] += ms
+            row["call_ms"] += call
             row["plain_ms"] += plain
             row["library_ms"] = (None if lib is None or row["library_ms"]
-                                 is None else row["library_ms"] + lib)
+                                 is None else row["library_ms"] + lib[0])
             row["bytes"] += nbytes
             row["flops"] += t * c
-    lengths = (adj.indptr[1:] - adj.indptr[:-1]).long()
-    hub = int(lengths.argmax())
-    lo, hi = int(adj.indptr[hub]), int(adj.indptr[hub + 1])
-    data = profiles[0][2][lo:hi]
-    seg = torch.zeros(hi - lo, dtype=torch.int32, device=data.device)
-    hub_ms = {op: cuda_ms_median(lambda op=op: sr.segment_reduce(
-        seg, data, num_segments=1, op=op)) for op in ("max", "add")}
-    print(f"segment_reduce row statistics: the hub row alone ({hi - lo} "
-          f"lanes x {data.shape[1]}, 'segment', one atomic per group and "
-          f"column on one address): max {hub_ms['max']:.4f} ms, add "
-          f"{hub_ms['add']:.4f} ms", flush=True)
+    seg, data = hub_row(adj, profiles[0][2])
+    hub = {}
+    for op in ("max", "add"):
+        def fn(op=op):
+            return sr.segment_reduce(seg, data, num_segments=1, op=op)
+
+        hub[op] = (sum(device_ms(fn).values()), cuda_ms_median(fn))
+    print(f"segment_reduce row statistics: the hub row alone "
+          f"({seg.numel()} lanes x {data.shape[1]}, 'segment', one "
+          f"segment over every chunk): max {hub['max'][0]:.4f} ms on the "
+          f"device (call {hub['max'][1]:.4f}), add {hub['add'][0]:.4f} ms "
+          f"(call {hub['add'][1]:.4f}); the nine cases' calls "
+          f"{row['call_ms']:.4f} ms", flush=True)
     return row
 
 
@@ -1848,7 +1973,7 @@ def main() -> None:
         worst = check_kernels(graphs, x, social_model, dev)
         worst.update(check_sddmm_and_attention(graphs, x, social_model, dev))
         profiles = segment_profiles(graphs, x, social_model)
-        worst.update(check_segment_reduce(profiles))
+        worst.update(check_segment_reduce(profiles, graphs["social"][0]))
 
     counters = {"spmm_eb": spmm_eb.KERNEL, "spmm_rb": spmm_rb.KERNEL,
                 "epilogue": spmm_eb.FINISH, "sddmm": sddmm.KERNEL,

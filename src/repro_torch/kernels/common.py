@@ -11,8 +11,12 @@ The epilogue ``cast(act(acc + bias) + residual)`` runs inside the CUDA
 kernels at their final store (``csrc/epilogue.cuh``); its plain version
 is ``apply_epilogue_plain``.  ``worker_geometry`` lays the EB and RB
 kernels' workers over the dense width (``csrc/spmm.cuh``).
+``rows_sorted``, ``lane_rows`` and ``carry_plan`` are the host side of
+the EB and segment-reduce carry walks.
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -157,6 +161,63 @@ def worker_geometry(n_cols: int, vec: int):
                          f"{n_cols}")
     lw = max(min(32, -(-n_cols // vec)), MIN_WORKER_THREADS)
     return lw, lw * vec
+
+
+_SORTED: dict = {}
+
+
+def rows_sorted(rows, n_rows: int) -> bool:
+    """Whether ``rows`` is non-decreasing with every value in ``[0,
+    n_rows)``: the order the EB and segment-reduce carry walks need.
+    Computed on the rows' device with one synchronisation, and
+    remembered for the tensor's lifetime and contents (its storage,
+    length and version counter)."""
+    key = (str(rows.device), rows.data_ptr(), rows.numel(), rows._version,
+           n_rows)
+    hit = _SORTED.get(key)
+    if hit is None:
+        hit = bool(torch.stack([(rows[1:] >= rows[:-1]).all(),
+                                rows[0] >= 0, rows[-1] < n_rows]).all())
+        _SORTED[key] = hit
+        weakref.finalize(rows, _SORTED.pop, key, None)
+    return hit
+
+
+def lane_rows(rows, *, group_size: int, strategy: str,
+              heavy_tiles: int = 0, nnz_tile: int = 256):
+    """The row (segment) each lane's value goes to: ``rows[t]`` under
+    ``segment`` and ``accumulate``, the row of the lane's group's first
+    lane under ``parallel`` and on the leading ``heavy_tiles``."""
+    t = torch.arange(rows.numel(), device=rows.device)
+    lead = rows[t - t % group_size]
+    if strategy == "parallel":
+        return lead
+    return torch.where(t < heavy_tiles * nnz_tile, lead, rows)
+
+
+def carry_plan(targets, chunk: int):
+    """(2 * workers,) int32: the rows of the carry slots a carry walk
+    leaves over the non-decreasing lane targets ``targets`` (from
+    :func:`lane_rows`) in chunks of ``chunk`` lanes, -1 for an empty
+    slot.  Worker w's slot 0 holds the row its chunk continues from the
+    chunk before (its first run); slot 1 the row that starts in its
+    chunk and goes on into the next.  A run that both continues in and
+    goes on takes slot 0 alone.  The finishing launch serves each row of
+    a slot 1 with that carry and the slot-0 carries of the chunks after
+    it that continue the row."""
+    a = targets.long()
+    n = a.numel()
+    starts = torch.arange(0, n, chunk, device=a.device)
+    ends = torch.clamp(starts + chunk, max=n)
+    first, last = a[starts], a[ends - 1]
+    none = torch.full_like(first, -1)
+    prev = torch.cat([none[:1], a[starts[1:] - 1]])
+    nxt = torch.cat([a[ends[:-1]], none[:1]])
+    cont_in = first == prev
+    cont_out = last == nxt
+    slot0 = torch.where(cont_in, first, none)
+    slot1 = torch.where(cont_out & ~(cont_in & (first == last)), last, none)
+    return torch.stack([slot0, slot1], 1).reshape(-1).to(torch.int32)
 
 
 attach_kernel_impl("accumulate", _plain_accumulate)

@@ -25,7 +25,6 @@ the finishing launch.
 from __future__ import annotations
 
 import ctypes
-import weakref
 
 import torch
 
@@ -33,9 +32,12 @@ from ..core.schedule import Epilogue, get_strategy
 from .build import CudaKernel, ptr
 from .common import (
     apply_epilogue_plain,
+    carry_plan,
     check_epilogue_operands,
     cuda_epilogue_args,
     group_reduce_scatter,
+    lane_rows,
+    rows_sorted,
     worker_geometry,
 )
 
@@ -66,9 +68,6 @@ FINISH = CudaKernel(
     "spmm_eb", "spmm_eb_finish_launch",
     [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 8,
     name="spmm_eb_finish")
-
-_SORTED: dict = {}
-
 
 def _check(rows, cols, vals, b, n_rows, nnz_tile, group_size, heavy_tiles):
     nnz_pad = vals.shape[0]
@@ -103,58 +102,14 @@ def eb_geometry(n_lanes: int, nnz_tile: int, n_cols: int, vec: int):
     return lw, col_width, eb_chunk(n_lanes, nnz_tile, 32 // lw)
 
 
-def rows_sorted(rows, n_rows: int) -> bool:
-    """Whether ``rows`` is non-decreasing with every value in ``[0,
-    n_rows)``: the order the carry walk needs.  Computed on the rows'
-    device with one synchronisation, and remembered for the tensor's
-    lifetime and contents (its storage, length and version counter)."""
-    key = (str(rows.device), rows.data_ptr(), rows.numel(), rows._version,
-           n_rows)
-    hit = _SORTED.get(key)
-    if hit is None:
-        hit = bool(torch.stack([(rows[1:] >= rows[:-1]).all(),
-                                rows[0] >= 0, rows[-1] < n_rows]).all())
-        _SORTED[key] = hit
-        weakref.finalize(rows, _SORTED.pop, key, None)
-    return hit
-
-
-def lane_rows(rows, *, group_size: int, strategy: str,
-              heavy_tiles: int = 0, nnz_tile: int = 256):
-    """The row each lane's product goes to: ``rows[t]`` under
-    ``segment`` and ``accumulate``, the row of the lane's group's first
-    lane under ``parallel`` and on the leading ``heavy_tiles``."""
-    t = torch.arange(rows.numel(), device=rows.device)
-    lead = rows[t - t % group_size]
-    if strategy == "parallel":
-        return lead
-    return torch.where(t < heavy_tiles * nnz_tile, lead, rows)
-
-
 def eb_carry_plan(rows, *, chunk: int, group_size: int, strategy: str,
                   heavy_tiles: int = 0, nnz_tile: int = 256):
     """(2 * workers,) int32: the rows of the carry slots the CUDA kernel
-    leaves for a row-sorted stream walked in chunks of ``chunk`` lanes,
-    -1 for an empty slot.  Worker w's slot 0 holds the row its chunk
-    continues from the chunk before (its first run); slot 1 the row that
-    starts in its chunk and goes on into the next.  A run that both
-    continues in and goes on takes slot 0 alone.  The finishing launch
-    serves each row of a slot 1 with that carry and the slot-0 carries of
-    the chunks after it that continue the row."""
-    a = lane_rows(rows, group_size=group_size, strategy=strategy,
-                  heavy_tiles=heavy_tiles, nnz_tile=nnz_tile).long()
-    n = a.numel()
-    starts = torch.arange(0, n, chunk, device=a.device)
-    ends = torch.clamp(starts + chunk, max=n)
-    first, last = a[starts], a[ends - 1]
-    none = torch.full_like(first, -1)
-    prev = torch.cat([none[:1], a[starts[1:] - 1]])
-    nxt = torch.cat([a[ends[:-1]], none[:1]])
-    cont_in = first == prev
-    cont_out = last == nxt
-    slot0 = torch.where(cont_in, first, none)
-    slot1 = torch.where(cont_out & ~(cont_in & (first == last)), last, none)
-    return torch.stack([slot0, slot1], 1).reshape(-1).to(torch.int32)
+    leaves for a row-sorted stream walked in chunks of ``chunk`` lanes
+    (``carry_plan`` over the lanes' rows, :func:`lane_rows`)."""
+    return carry_plan(lane_rows(rows, group_size=group_size,
+                                strategy=strategy, heavy_tiles=heavy_tiles,
+                                nnz_tile=nnz_tile), chunk)
 
 
 def spmm_eb_chunked_plain(rows, cols, vals, b, *, n_rows: int,

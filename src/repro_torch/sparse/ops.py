@@ -216,9 +216,10 @@ def segment_reduce(seg_ids, data, num_segments: int, schedule=None, *,
     device    as for :func:`spmm`.
 
     'max' and 'min' leave untouched segments at -inf and +inf, as
-    ``jax.ops.segment_max`` does.  'mean' rides a ones column along the
-    data through one kernel pass and divides by ``max(count, 1)``, so
-    empty segments give 0.  Forward only, like the reference: data that
+    ``jax.ops.segment_max`` does.  'mean' reduces a column of ones beside
+    the data in the same kernel pass (the kernel's ``count_column``, a
+    virtual column: no copy of the data is made) and divides by
+    ``max(count, 1)``, so empty segments give 0.  Forward only, like the reference: data that
     requires a gradient is refused.
     """
     dev = resolve_device(device)
@@ -235,10 +236,7 @@ def segment_reduce(seg_ids, data, num_segments: int, schedule=None, *,
     kw = dict(num_segments=num_segments, tile=sched.nnz_tile,
               group_size=sched.group_size, strategy=sched.strategy)
     if op == "mean":
-        aug = torch.cat([data.to(torch.float32),
-                         data.new_ones((data.shape[0], 1),
-                                       dtype=torch.float32)], dim=1)
-        out = kseg.segment_reduce(seg_ids, aug, **kw)
+        out = kseg.segment_reduce(seg_ids, data, count_column=True, **kw)
         return out[:, :-1] / out[:, -1:].clamp_min(1.0)
     return kseg.segment_reduce(seg_ids, data,
                                op="add" if op == "sum" else op, **kw)

@@ -11,7 +11,8 @@ one.  On the GPU machine:
 
 Tolerance: EB and RB per output element, K_TERMS units of 2^-24 of the
 magnitude of the terms entering it (plus one bf16 step for a bf16
-output); other f32 kernels rtol = atol = 1e-5 (atomics reorder the sums;
+output), and so segment-reduce sums over a hub of thousands of lanes;
+other f32 kernels rtol = atol = 1e-5 (atomics reorder the sums;
 SDDMM's atol grows with d, the length of its dots); bf16 one bf16 step
 (2^-7).
 Gradients: 1e-4, as they sum products of two such results.  Segment
@@ -602,6 +603,140 @@ def test_segment_reduce_edges(dev):
                             num_segments=2, group_size=1, tile=4,
                             strategy="accumulate")
     assert out.tolist() == [[1.0, 1.0], [1.0, 1.0]]
+
+
+def _segred_hub_stream(dev, t, c, seed, *, shuffled=False):
+    """Ids in order over 200 segments (the first five and the last five
+    empty, others of 0 to 6 lanes, segment 97 a hub of the lanes left,
+    over many of the kernel's chunks), or the same ids shuffled."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, 7, size=200)
+    lengths[:5] = lengths[-5:] = lengths[97] = 0
+    lengths[97] = t - lengths.sum()
+    seg = np.repeat(np.arange(200), lengths).astype(np.int32)
+    if shuffled:
+        seg = rng.permutation(seg)
+    data = rng.standard_normal((t, c)).astype(np.float32)
+    return (torch.from_numpy(seg).to(dev), torch.from_numpy(data).to(dev))
+
+
+def _assert_segred_within_terms(sr, got, want, seg, data, op, **kw):
+    """max and min bit for bit; add per output element within K_TERMS
+    units of 2^-24 of the magnitude of the terms entering it (the sum of
+    |data| its lanes send there, and itself): the hub's sums of thousands
+    of terms cancel, so a tolerance relative to the output alone does not
+    hold its order of summation."""
+    if op != "add":
+        _assert_segred_same(got, want, op)
+        return
+    terms = sr.segment_reduce_plain(seg, data.abs(), **{**kw, "op": "add"})
+    _assert_within_terms(got, want, terms)
+
+
+def _poisoned_segment_reduce(sr, seg, data, **kw):
+    """The kernel's call just after a NaN-filled tensor of its output's
+    size is freed, so the output's ``torch.empty`` likely reuses it and a
+    segment the walk never writes shows as NaN."""
+    n_out = data.shape[1] + int(kw.get("count_column", False))
+    poison = torch.full((kw["num_segments"], n_out), float("nan"),
+                        device=data.device)
+    del poison
+    return sr.segment_reduce(seg, data, **kw)
+
+
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+@pytest.mark.parametrize("strategy", ["segment", "parallel", "accumulate"])
+@pytest.mark.parametrize("G,c", [(32, 4), (8, 1), (1, 3), (32, 41),
+                                 (16, 40), (32, 256)])
+def test_segment_reduce_carry_walk_on_poisoned_memory(dev, strategy, op, G,
+                                                      c):
+    """Ids in order with a hub over many chunks (its chain of carries
+    longer than a finishing worker walks alone) and empty segments below,
+    between and above the ids: the walk and its finishing launch write
+    every output element, over NaN-poisoned memory, and match the plain
+    version; C = 4 and 1 lane-parallel, 41 (4-byte loads), 40 (16-byte)
+    and 256 column-parallel."""
+    from repro_torch.kernels import segment_reduce as sr
+
+    seg, data = _segred_hub_stream(dev, 6007, c, seed=G + c)
+    kw = dict(num_segments=200, group_size=G, strategy=strategy, op=op)
+    before = (sr.KERNEL.launches, sr.FINISH.launches)
+    got = _poisoned_segment_reduce(sr, seg, data, **kw)
+    assert (sr.KERNEL.launches, sr.FINISH.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    want = sr.segment_reduce_plain(seg, data, **kw)
+    assert not bool(torch.isnan(got).any())
+    _assert_segred_within_terms(sr, got, want, seg, data, **kw)
+    empty = {"add": 0.0, "max": -float("inf"), "min": float("inf")}[op]
+    assert bool((got[:5] == empty).all()) and bool((got[-5:] == empty).all())
+
+
+@pytest.mark.parametrize("c", [1, 4, 41, 256])
+def test_segment_reduce_add_same_bits_over_two_launches(dev, c):
+    from repro_torch.kernels import segment_reduce as sr
+
+    seg, data = _segred_hub_stream(dev, 6007, c, seed=3)
+    kw = dict(num_segments=200, op="add")
+    first = sr.segment_reduce(seg, data, **kw)
+    assert torch.equal(first.view(torch.int32),
+                       sr.segment_reduce(seg, data, **kw).view(torch.int32))
+
+
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+@pytest.mark.parametrize("c", [4, 41, 256])
+def test_segment_reduce_out_of_order_takes_the_atomic_path(dev, op, c):
+    """Shuffled ids: one launch (no finishing launch), atomic write-backs
+    into an identity-filled output, the plain version's result."""
+    from repro_torch.kernels import segment_reduce as sr
+
+    seg, data = _segred_hub_stream(dev, 6007, c, seed=c, shuffled=True)
+    kw = dict(num_segments=200, group_size=1, strategy="accumulate", op=op)
+    before = (sr.KERNEL.launches, sr.FINISH.launches)
+    got = sr.segment_reduce(seg, data, **kw)
+    assert (sr.KERNEL.launches, sr.FINISH.launches) == (before[0] + 1,
+                                                        before[1])
+    _assert_segred_within_terms(sr, got,
+                                sr.segment_reduce_plain(seg, data, **kw),
+                                seg, data, **kw)
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("c", [2, 41])
+def test_segment_reduce_atomic_path_signed_zeros_nan_and_inf(dev, op, c):
+    """The atomic path's single atomicMax / atomicMin on the value's bits:
+    -0.0 against +0.0 in both orders, NaN and +-inf, on shuffled ids, bit
+    for bit as the plain version gives them."""
+    from repro_torch.kernels import segment_reduce as sr
+
+    vals = torch.tensor([-0.0, 0.0, -0.0, 0.0, float("inf"),
+                         -float("inf"), float("nan"), 2.0, -3.0])
+    rng = np.random.default_rng(c)
+    data = vals[torch.from_numpy(rng.integers(0, 9, (900, c)))].to(dev)
+    seg = torch.from_numpy(rng.integers(0, 300, 900).astype(np.int32))
+    seg = seg.to(dev)
+    for strategy in ("segment", "accumulate"):
+        kw = dict(num_segments=301, group_size=4, strategy=strategy, op=op)
+        got = sr.segment_reduce(seg, data, **kw)
+        _assert_segred_same(got, sr.segment_reduce_plain(seg, data, **kw),
+                            op)
+
+
+@pytest.mark.parametrize("c", [3, 40, 41])
+@pytest.mark.parametrize("shuffled", [False, True])
+def test_segment_reduce_count_column_matches_plain(dev, c, shuffled):
+    """The mean's virtual column of ones: the lane counts beside the
+    sums, as the plain version's concatenated column gives them."""
+    from repro_torch.kernels import segment_reduce as sr
+
+    seg, data = _segred_hub_stream(dev, 3001, c, seed=c, shuffled=shuffled)
+    kw = dict(num_segments=200, count_column=True)
+    got = _poisoned_segment_reduce(sr, seg, data, **kw)
+    assert got.shape == (200, c + 1)
+    _assert_segred_within_terms(sr, got,
+                                sr.segment_reduce_plain(seg, data, **kw),
+                                seg, data, op="add", **kw)
+    assert torch.equal(got[:, -1].long(),
+                       torch.bincount(seg.long(), minlength=200))
 
 
 def test_segment_reduce_op_on_cuda_matches_cpu(dev):
