@@ -12,6 +12,7 @@ from .schedule import (  # noqa: F401
     available_strategies,
     get_strategy,
     register_strategy,
+    schedule_axes,
 )
 from .segment_group import (  # noqa: F401
     MONOIDS,
@@ -29,6 +30,8 @@ from .segment_group import (  # noqa: F401
 from .selector import (  # noqa: F401
     candidate_schedules,
     cost_terms,
+    get_cost_weights,
     predict_cost,
     select_schedule,
+    set_cost_weights,
 )

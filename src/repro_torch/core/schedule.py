@@ -48,6 +48,7 @@ __all__ = [
     "call_spec_fn",
     "get_strategy",
     "register_strategy",
+    "schedule_axes",
     "strategy_name",
 ]
 
@@ -315,17 +316,31 @@ class Schedule:
     value_dtype value storage width; only float32 runs in this port yet.
     """
 
-    kernel: str = "eb"
-    nnz_tile: int = 256
-    row_tile: int = 8
-    col_tile: int = 128
-    group_size: int = 32
-    strategy: str = "segment"
-    epilogue: Epilogue = Epilogue()
-    split_threshold: Optional[int] = None
-    merge_threshold: Optional[int] = None
-    collective: Optional[str] = None
-    value_dtype: Optional[str] = None
+    # each field names the search axis that owns it (``metadata["axis"]``
+    # matches a built-in of ``repro_torch.tune.space``; ``schedule_axes()``
+    # exposes the map)
+    kernel: str = dataclasses.field(
+        default="eb", metadata={"axis": "tiling"})
+    nnz_tile: int = dataclasses.field(
+        default=256, metadata={"axis": "tiling"})
+    row_tile: int = dataclasses.field(
+        default=8, metadata={"axis": "tiling"})
+    col_tile: int = dataclasses.field(
+        default=128, metadata={"axis": "tiling"})
+    group_size: int = dataclasses.field(
+        default=32, metadata={"axis": "strategy"})
+    strategy: str = dataclasses.field(
+        default="segment", metadata={"axis": "strategy"})
+    epilogue: Epilogue = dataclasses.field(
+        default=Epilogue(), metadata={"axis": "epilogue"})
+    split_threshold: Optional[int] = dataclasses.field(
+        default=None, metadata={"axis": "skew"})
+    merge_threshold: Optional[int] = dataclasses.field(
+        default=None, metadata={"axis": "skew"})
+    collective: Optional[str] = dataclasses.field(
+        default=None, metadata={"axis": "collective"})
+    value_dtype: Optional[str] = dataclasses.field(
+        default=None, metadata={"axis": "value_dtype"})
 
     def __post_init__(self):
         if self.kernel not in ("eb", "rb"):
@@ -419,6 +434,16 @@ class Schedule:
         return select_schedule(stats, n_dense_cols)
 
     @classmethod
+    def tune(cls, matrix, n_dense_cols: int, **kw) -> "Schedule":
+        """Empirically tuned schedule for ``matrix @ B``: measures the top
+        candidates on the matrix's device (or replays the fingerprint
+        cache) through ``repro_torch.tune.tune_schedule``; ``**kw``
+        forwards (cache=, top_k=, ...)."""
+        from ..tune import tune_schedule
+
+        return tune_schedule(matrix, n_dense_cols, **kw).schedule
+
+    @classmethod
     def from_group(cls, group: SegmentGroup, **kw) -> "Schedule":
         """Lift a :class:`SegmentGroup` into a full schedule."""
         strategy = strategy_name(group.strategy)
@@ -464,12 +489,22 @@ class Schedule:
                 f"{vd}{ep})")
 
 
+def schedule_axes() -> dict:
+    """Search-axis name -> the :class:`Schedule` fields it owns, read from
+    the field metadata declared next to each field."""
+    out: dict = {}
+    for f in dataclasses.fields(Schedule):
+        out.setdefault(f.metadata.get("axis", "other"), []).append(f.name)
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def as_schedule(s, *, stats: dict | None = None,
-                n_dense_cols: int | None = None) -> Schedule:
+                n_dense_cols: int | None = None, matrix=None) -> Schedule:
     """Coerce ``None``, a :class:`Schedule`, a DA-SpMM name, 'auto' (with
-    ``stats`` and ``n_dense_cols``), an ``AtomicParallelism`` point or a
-    :class:`SegmentGroup` into a :class:`Schedule`.  'tune' raises until
-    the tuner is ported."""
+    ``stats`` and ``n_dense_cols``), 'tune' (with ``matrix``, a CSR, and
+    ``n_dense_cols``: runs or replays the empirical tuner), an
+    ``AtomicParallelism`` point or a :class:`SegmentGroup` into a
+    :class:`Schedule`."""
     if s is None:
         return Schedule()
     if isinstance(s, Schedule):
@@ -485,9 +520,12 @@ def as_schedule(s, *, stats: dict | None = None,
                     "derives them (repro_torch.sparse.spmm)")
             return Schedule.auto(stats, n_dense_cols)
         if s == "tune":
-            raise NotImplementedError(
-                "schedule='tune' needs the empirical tuner, which the "
-                "port does not have yet")
+            if matrix is None or n_dense_cols is None:
+                raise ValueError(
+                    "'tune' needs the matrix itself: pass matrix= (CSR) "
+                    "and n_dense_cols= to as_schedule, or use an op that "
+                    "supplies them (repro_torch.sparse.spmm)")
+            return Schedule.tune(matrix, n_dense_cols)
         return Schedule.named(s)
     from .atomic_parallelism import AtomicParallelism
 

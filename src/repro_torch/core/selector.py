@@ -2,8 +2,9 @@
 
 The cost model and candidate grid are the reference's, term for term, so
 that ``Schedule.auto`` picks the same schedule as the JAX package for the
-same statistics.  The weights are the reference's hand-set defaults; the
-calibration that refits them returns with the tuner.
+same statistics and weights.  The weights start at the reference's
+hand-set defaults; ``repro_torch.tune.calibrate`` fits them to measured
+timings and installs the fit with :func:`set_cost_weights`.
 """
 from __future__ import annotations
 
@@ -18,8 +19,10 @@ __all__ = [
     "DEFAULT_COST_WEIGHTS",
     "candidate_schedules",
     "cost_terms",
+    "get_cost_weights",
     "predict_cost",
     "select_schedule",
+    "set_cost_weights",
 ]
 
 COST_TERM_NAMES = ("work", "waste", "writeback", "gather")
@@ -27,6 +30,29 @@ COST_TERM_NAMES = ("work", "waste", "writeback", "gather")
 #: cost = work + waste + 2*writeback + 0.25*gather.
 DEFAULT_COST_WEIGHTS: Tuple[float, float, float, float] = (1.0, 1.0, 2.0,
                                                            0.25)
+
+_cost_weights: Tuple[float, float, float, float] = DEFAULT_COST_WEIGHTS
+
+
+def get_cost_weights() -> Tuple[float, float, float, float]:
+    """The active (work, waste, writeback, gather) term weights."""
+    return _cost_weights
+
+
+def set_cost_weights(weights: Sequence[float] | None) -> None:
+    """Install calibrated term weights (``None`` restores the defaults).
+    Every later :func:`predict_cost` and ``Schedule.auto`` call reads
+    them: this is how measured tuning data feeds the static selector."""
+    global _cost_weights
+    if weights is None:
+        _cost_weights = DEFAULT_COST_WEIGHTS
+        return
+    w = tuple(float(x) for x in weights)
+    if len(w) != 4:
+        raise ValueError(f"need 4 weights {COST_TERM_NAMES}, got {len(w)}")
+    if any(x < 0 for x in w) or not any(x > 0 for x in w):
+        raise ValueError(f"weights must be >= 0 with at least one > 0: {w}")
+    _cost_weights = w
 
 
 def candidate_schedules(n_dense_cols: int) -> list[Schedule]:
@@ -119,8 +145,9 @@ def _skew_terms(stats: Dict, sched: Schedule, nnz: float, C: float,
 
 def predict_cost(stats: Dict, sched: Schedule, n_dense_cols: int,
                  weights: Sequence[float] | None = None) -> float:
-    """Weighted relative cost (lower = better)."""
-    w = DEFAULT_COST_WEIGHTS if weights is None else tuple(weights)
+    """Weighted relative cost (lower = better): :func:`cost_terms` dotted
+    with ``weights`` (default: the active, possibly calibrated, ones)."""
+    w = _cost_weights if weights is None else tuple(weights)
     terms = cost_terms(stats, sched, n_dense_cols)
     return (w[0] * terms[0] + w[1] * terms[1]
             + w[2] * terms[2] + w[3] * terms[3])

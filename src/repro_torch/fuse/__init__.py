@@ -11,8 +11,9 @@ The IR (:mod:`~repro_torch.fuse.ir`) describes chains of
 may fold into the producer's launch; the planner
 (:mod:`~repro_torch.fuse.planner`) emits launches and the executor
 (:mod:`~repro_torch.fuse.execute`) runs them on the port's kernels.  The
-reference's measured planner (``plan_key``, ``tune_plan``,
-``tuned_plan``) waits for the tuner.
+measured planner (``tune_plan``, with ``plan_key`` and the
+measurement-free ``tuned_plan``) times plans on the card through the
+tuner's driver.
 """
 from .execute import moe_combine, run_chain_ref, run_plan
 from .ir import (
@@ -32,7 +33,7 @@ from .ir import (
     spmm_node,
 )
 from .legality import can_fuse
-from .planner import plan, split_all
+from .planner import plan, plan_key, split_all, tune_plan, tuned_plan
 from .rules import available_rules, register_rule, unregister_rule
 
 __all__ = [
@@ -52,11 +53,14 @@ __all__ = [
     "moe_combine",
     "moe_expert_chain",
     "plan",
+    "plan_key",
     "register_rule",
     "run_chain_ref",
     "run_plan",
     "segment_reduce_node",
     "split_all",
     "spmm_node",
+    "tune_plan",
+    "tuned_plan",
     "unregister_rule",
 ]

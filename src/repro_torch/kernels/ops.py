@@ -5,7 +5,9 @@ the per-instance memo), passes the epilogue operands and runs the EB or
 RB kernel wrapper.  The kernels mask the ragged column edge themselves,
 so B is not padded to the column tile as the reference pads it; nor is
 ``sddmm``'s stream padded to its nnz tile.  ``grouped_matmul`` is the
-MoE expert GEMM on its kernel, forward only.
+MoE expert GEMM on its kernel, forward only.  ``schedule_fits_card`` is
+the tuner's feasibility predicate: the schedules the wrappers and kernels
+take on the card.
 """
 from __future__ import annotations
 
@@ -13,13 +15,38 @@ import numpy as np
 import torch
 
 from ..core.device import check_on, resolve_device
-from ..core.schedule import Epilogue, Schedule
-from ..sparse.formats import CSR, ELL, GroupedCOO, round_up
+from ..core.schedule import Epilogue, Schedule, get_strategy
+from ..sparse.formats import CSR, ELL, ELL_MAX_BYTES, GroupedCOO, round_up
 from . import ref
 from .grouped_matmul import grouped_matmul as _gmm_kernel
 from .sddmm import sddmm as _sddmm_kernel
-from .spmm_eb import spmm_eb
+from .spmm_eb import MAX_NNZ_TILE, spmm_eb
 from .spmm_rb import spmm_rb
+
+def schedule_fits_card(sched: Schedule, *, n_rows: int,
+                       row_max: int = 0) -> bool:
+    """Whether the SpMM wrappers and kernels take ``sched`` on the card
+    for a matrix of ``n_rows`` rows whose longest row holds ``row_max``
+    entries: False exactly where they refuse it.  The tuner filters its
+    candidates with it, so no point it measures raises.
+
+    Refused: any ``value_dtype`` but float32 (None; :func:`spmm`: narrow
+    and int8 storage are ROADMAP queue 1 item 3); on 'eb', an
+    ``nnz_tile`` above ``MAX_NNZ_TILE`` or a
+    strategy the CUDA kernel does not realize (a user strategy, or one
+    with its own combine); on 'rb', an ELL layout above
+    ``ELL_MAX_BYTES`` (every row padded to ``row_max``).  The kernels'
+    shared memory and registers are fixed when they are built (a warp's
+    staging window, not a tile, sizes them), so no schedule exceeds a
+    block's budget, and the matrix's column count sets no limit."""
+    if sched.value_dtype is not None:
+        return False
+    if sched.kernel == "eb":
+        entry = get_strategy(sched.strategy)
+        return (sched.nnz_tile <= MAX_NNZ_TILE and entry.builtin
+                and entry.monoid.name == "add")
+    n_pad = round_up(max(n_rows, 1), sched.row_tile)
+    return n_pad * max(row_max, 1) * 8 <= ELL_MAX_BYTES
 
 
 def spmm(a, b, schedule: Schedule | None = None, *, bias=None,

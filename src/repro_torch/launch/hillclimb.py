@@ -1,0 +1,130 @@
+"""Tuner launcher: pre-warm the tuner's cache on the card (port of the
+``--spmm`` and ``--attention`` modes of ``repro/launch/hillclimb.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.hillclimb --spmm \\
+        [--n-dense 4] [--full] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.hillclimb --attention
+
+``--spmm`` runs the empirical tuner (``repro_torch.tune``) over the
+synthetic matrix suite, timing the port's kernels on ``--device``
+(default ``cuda``; ``cpu`` times the plain versions), consulting and
+populating the device's cache file under ``REPRO_TUNE_CACHE``: a second
+run replays every cell with no tuning measurement.  It prints auto
+(static selector) against tuned per cell.  ``--attention`` tunes the
+fused attention kernels, forward and backward, for a uniform and a
+skewed pattern.  ``--full`` runs the larger suite.
+
+``--cell`` (the roofline mode, which needs ``launch/dryrun.py``),
+``--moe`` (``tune/moe.py``) and ``--dist`` (the distributed tuner) are
+not ported yet and exit with the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+
+#: Modes of the reference still to port, and the ROADMAP item of each.
+NOT_PORTED = {
+    "cell": "the roofline mode needs launch/dryrun.py (ROADMAP queue 1 "
+            "item 6)",
+    "moe": "MoE dispatch tuning needs tune/moe.py (ROADMAP queue 1 item 2)",
+    "dist": "distributed tuning needs the distributed port (ROADMAP queue "
+            "1 item 5)",
+}
+
+
+def _geomean(xs) -> float:
+    return float(np.exp(np.mean(np.log(np.maximum(xs, 1e-9)))))
+
+
+def spmm_hillclimb(n_dense: int = 4, quick: bool = True, device=None):
+    """Tune schedules for the synthetic suite through the device's
+    persistent cache; print auto against tuned per cell and the geomean
+    win."""
+    from ..core import Schedule
+    from ..sparse import matrix_stats, random_csr
+    from ..tune import default_cache, measure_schedule, tune_schedule
+
+    dev = resolve_device(device)
+    cache = default_cache(dev)
+    cells = [(1024 if quick else 4096, d, s)
+             for d in (0.002, 0.01) for s in (0.0, 1.5)]
+    wins = []
+    for m, d, s in cells:
+        csr = random_csr(m, m, density=d, skew=s, seed=int(s * 10),
+                         device=dev)
+        res = tune_schedule(csr, n_dense, cache=cache)
+        auto = Schedule.auto(matrix_stats(csr), n_dense)
+        t_auto = measure_schedule(csr, n_dense, auto) * 1e6
+        wins.append(t_auto / max(res.us_per_call, 1e-9))
+        src = "cache" if res.from_cache else f"{res.n_measurements} meas"
+        print(f"--- spmm {m}x{m} d={d} skew={s} N={n_dense} [{src}] ---")
+        print(f"  auto  {auto}: {t_auto:9.1f} us")
+        print(f"  tuned {res.schedule}: {res.us_per_call:9.1f} us "
+              f"({wins[-1]:.2f}x)")
+    print(f"geomean tuned-vs-auto: {_geomean(wins):.3f}x "
+          f"({len(cache)} records in {cache.path})")
+
+
+def attention_hillclimb(quick: bool = True, device=None):
+    """Tune the fused attention kernels (fwd and bwd) for a uniform and a
+    skewed pattern through the device's persistent cache."""
+    from ..sparse import random_csr
+    from ..tune import default_cache, tune_sparse_attention
+
+    dev = resolve_device(device)
+    cache = default_cache(dev)
+    n = 256 if quick else 1024
+    d = dv = 16 if quick else 64
+    for name, skew in (("uniform", 0.0), ("skewed", 1.5)):
+        coo = random_csr(n, n, density=0.05, skew=skew,
+                         seed=int(skew * 10), device=dev).tocoo()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        q, k, v = (torch.randn((n, w), generator=gen, device=dev)
+                   for w in (d, d, dv))
+        for direction in ("fwd", "bwd"):
+            res = tune_sparse_attention(coo.rows, coo.cols, q, k, v,
+                                        n_rows=n, direction=direction,
+                                        cache=cache)
+            src = ("cache" if res.from_cache
+                   else f"{res.n_measurements} meas")
+            print(f"--- attn {name} {n}x{n} d={d} {direction} [{src}] ---")
+            print(f"  tuned {res.schedule}: {res.us_per_call:9.1f} us")
+    print(f"({len(cache)} records in {cache.path})")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--spmm", action="store_true",
+                    help="tune sparse schedules on the kernels (populates "
+                         "the device's tuner cache)")
+    ap.add_argument("--attention", action="store_true",
+                    help="tune the fused attention kernels (fwd and bwd)")
+    ap.add_argument("--cell", action="append", default=None,
+                    help="arch:shape:tag (not ported)")
+    ap.add_argument("--moe", action="store_true", help="(not ported)")
+    ap.add_argument("--dist", action="store_true", help="(not ported)")
+    ap.add_argument("--n-dense", type=int, default=4)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    for mode, why in NOT_PORTED.items():
+        if getattr(args, mode):
+            sys.exit(f"--{mode} is not ported: {why}")
+    if args.spmm:
+        spmm_hillclimb(args.n_dense, quick=not args.full,
+                       device=args.device)
+    elif args.attention:
+        attention_hillclimb(quick=not args.full, device=args.device)
+    else:
+        sys.exit(f"pick a mode: --spmm or --attention ({NOT_PORTED['cell']})")
+
+
+if __name__ == "__main__":
+    main()

@@ -26,22 +26,27 @@ def gcn_layer(adj, x, w, b=None, *, activation="relu", residual=None,
 
 
 def gcn_two_layer(adj, x, w0, w1, b0=None, b1=None, *, activation="relu",
-                  final_activation=None, schedule=None, device=None):
+                  final_activation=None, schedule=None, plan=None,
+                  device=None):
     """Two-layer GCN, ``Ã act(Ã (x @ w0) + b0) @ w1 [+ b1]``, built as a
     ``repro_torch.fuse`` chain and run by the fusion planner: the
     activations and biases fold into their producing SpMM's epilogue, so
     the model is 2 planned launches (on an EB schedule each SpMM with an
     epilogue runs it as a second CUDA kernel; RB fuses it in its store).
 
-    ``schedule`` rides on both SpMM anchors (None: per-matrix 'auto'
-    selection).  ``device`` as for ``spmm``: None means 'cuda'.
+    ``plan`` overrides the greedy plan (e.g. a
+    :func:`repro_torch.fuse.tuned_plan` replay, or an explicit split for
+    A/B timing); ``schedule`` rides on both SpMM anchors (None:
+    per-matrix 'auto' selection).  ``device`` as for ``spmm``: None
+    means 'cuda'.
     Differentiable in x, the weights and biases (and a CSR ``adj``'s
     values) through ``spmm``'s backward."""
     chain, params = gcn_chain(adj, (w0, w1), (b0, b1),
                               activation=activation,
                               final_activation=final_activation,
                               schedule=schedule)
-    return run_plan(plan_chain(chain), x, params, device=device)
+    return run_plan(plan_chain(chain) if plan is None else plan, x, params,
+                    device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -27,16 +27,18 @@ __all__ = ["segment_reduce", "spmm", "sddmm", "sparse_attention"]
 
 def _resolve_schedule(a, b, schedule, epilogue: Epilogue | None = None):
     if isinstance(schedule, str) and schedule in ("auto", "tune"):
-        if schedule == "tune":
-            raise NotImplementedError(
-                "schedule='tune' needs the empirical tuner, which the port "
-                "does not have yet; use 'auto' or a Schedule")
-        if isinstance(a, CSR):
+        if not isinstance(a, CSR):
+            # no CSR to derive statistics (or a fingerprint) from
+            sched = Schedule("eb")
+        elif schedule == "tune":
+            from ..tune import tune_schedule
+
+            return tune_schedule(a, int(b.shape[1]),
+                                 epilogue=epilogue).schedule
+        else:
             # memoized: a serving loop derives the statistics once
             stats = a._cached("stats", lambda: matrix_stats(a))
             sched = Schedule.auto(stats, int(b.shape[1]))
-        else:
-            sched = Schedule("eb")
     else:
         sched = as_schedule(schedule)
     if epilogue is not None:
@@ -65,8 +67,11 @@ def spmm(a, b, schedule="auto", *, bias=None, residual=None,
     """out = epilogue(A @ B) for sparse A (CSR / GroupedCOO / ELL) and
     dense B (K, N); the output is (n_rows, N).
 
-    schedule    'auto' | name | Schedule | AtomicParallelism |
-                SegmentGroup ('tune' raises until the tuner is ported).
+    schedule    'auto' | 'tune' | name | Schedule | AtomicParallelism |
+                SegmentGroup.  'tune' measures the top schedule
+                candidates for this matrix on its device, or replays
+                the persistent fingerprint cache (``repro_torch.tune``);
+                the epilogue is part of what is measured.
     bias        (N,) fused bias-row add.
     residual    (n_rows, N) fused post-activation residual add.
     epilogue    explicit :class:`~repro_torch.core.Epilogue`; bias and
@@ -185,8 +190,9 @@ def sddmm(rows, cols, a, b, scale=None, *, schedule=None,
 
     ``schedule`` supplies the nnz tile (its ``nnz_tile`` field, the lanes
     one block of the kernel takes); an explicit ``nnz_tile=`` overrides
-    it.  ``schedule='tune'`` raises until the tuner is ported.  Not
-    differentiable: an input that requires a gradient is refused.
+    it.  ``schedule='tune'`` takes the tuned ``nnz_tile`` of
+    ``tune_segment_reduce`` for this row profile, as the reference does.
+    Not differentiable: an input that requires a gradient is refused.
     """
     dev = resolve_device(device)
     check_on(dev, rows=rows, cols=cols, a=a, b=b, scale=scale)
@@ -197,7 +203,15 @@ def sddmm(rows, cols, a, b, scale=None, *, schedule=None,
             "gradient, and the output would silently have none.  Run "
             "under torch.no_grad() or detach the inputs.")
     if schedule is not None and nnz_tile is None:
-        nnz_tile = as_schedule(schedule).nnz_tile
+        if isinstance(schedule, str) and schedule == "tune":
+            from ..tune import tune_segment_reduce
+
+            nnz_tile = tune_segment_reduce(
+                rows, int(a.shape[1]),
+                num_segments=int(rows.max()) + 1 if rows.numel() else 1
+            ).schedule.nnz_tile
+        else:
+            nnz_tile = as_schedule(schedule).nnz_tile
     return kops.sddmm(rows, cols, a, b, scale,
                       nnz_tile=nnz_tile if nnz_tile else 256, impl=impl)
 
@@ -211,8 +225,10 @@ def segment_reduce(seg_ids, data, num_segments: int, schedule=None, *,
               reference assumes ('segment' and 'parallel' rely on it).
     data      (T, C) of any float type, reduced in f32; T may be ragged.
     schedule  supplies the kernel's tile (its ``nnz_tile``), group size
-              and strategy; None means ``Schedule()``.  'tune' raises
-              until the tuner is ported.
+              and strategy; None means ``Schedule()``.  'tune' measures
+              (tile, group size, strategy) for this segment profile
+              (``repro_torch.tune.tune_segment_reduce``, cached by
+              fingerprint).
     device    as for :func:`spmm`.
 
     'max' and 'min' leave untouched segments at -inf and +inf, as
@@ -232,7 +248,13 @@ def segment_reduce(seg_ids, data, num_segments: int, schedule=None, *,
     if op not in ("sum", "max", "min", "mean"):
         raise ValueError(f"segment_reduce op {op!r}; one of "
                          "sum/max/min/mean")
-    sched = as_schedule(schedule)
+    if isinstance(schedule, str) and schedule == "tune":
+        from ..tune import tune_segment_reduce
+
+        sched = tune_segment_reduce(seg_ids, int(data.shape[1]),
+                                    num_segments).schedule
+    else:
+        sched = as_schedule(schedule)
     kw = dict(num_segments=num_segments, tile=sched.nnz_tile,
               group_size=sched.group_size, strategy=sched.strategy)
     if op == "mean":
@@ -315,9 +337,11 @@ def sparse_attention(adj, q, k, v, *, schedule=None,
     q         (n_rows, d) queries, or (n_rows, H, d) for H heads;
     k, v      (n_cols, d) / (n_cols, dv), or with a head axis 1.  All
               heads share the pattern and run in one kernel launch.
-    schedule  validated as the reference does: 'parallel' is refused
-              and 'tune' raises until the tuner is ported.  Its tiles,
-              group and strategy do not change the kernels' results.
+    schedule  validated as the reference does: 'parallel' is refused.
+              'tune' runs or replays the forward's tuner
+              (``repro_torch.tune.tune_sparse_attention``, keyed by
+              pattern, head count and direction).  Its tiles, group and
+              strategy do not change the kernels' results.
     impl      'kernel' (the fused kernels, both directions) or 'ref'
               (the spec oracle per head, differentiated by autograd).
     device    as for :func:`spmm`.
@@ -342,7 +366,14 @@ def sparse_attention(adj, q, k, v, *, schedule=None,
                                     n_rows=n_rows, scale=scale, bias=bias)
             for h in range(qh.shape[0])])
     elif impl == "kernel":
-        sched = as_schedule(schedule)
+        if isinstance(schedule, str) and schedule == "tune":
+            from ..tune import tune_sparse_attention
+
+            sched = tune_sparse_attention(
+                fa.rows_of(indptr), cols, q, k, v, n_rows=n_rows,
+                bias=bias, scale=scale).schedule
+        else:
+            sched = as_schedule(schedule)
         if sched.strategy == "parallel":
             raise ValueError(
                 "sparse_attention cannot run the 'parallel' strategy: its "

@@ -1,0 +1,78 @@
+"""``repro_torch.tune``: the empirical schedule tuner (port of
+``repro.tune``), measuring the port's kernels on the card.
+
+``tune_schedule(csr, n_dense_cols)`` warm-starts from the static cost
+model, measures the top-k candidates the card takes on the kernels
+themselves, hillclimbs around the winner, and persists the result in a
+fingerprint-keyed file per device (``REPRO_TUNE_CACHE`` with a
+``torch-cuda-<device name>`` or ``torch-cpu`` namespace), so the search
+runs once per matrix profile.  ``schedule="tune"`` on
+``repro_torch.sparse.spmm`` / ``sddmm`` / ``segment_reduce`` /
+``sparse_attention`` routes here; ``cached_or_auto`` is the
+measurement-free serving resolver; ``calibrate`` feeds measured timings
+back into ``Schedule.auto``'s cost model.  Every tuner is a thin wrapper
+over one search framework: ``tune.space`` declares the axes and
+``tune.driver.drive`` runs the one budgeted loop.
+
+Not ported yet: ``tune/moe.py`` (the MoE dispatch tuner; ROADMAP queue 1
+item 2) and the distributed search (``tune_dist_spmm``,
+``make_dist_runner``, ``measure_dist_schedule`` raise; item 5).
+"""
+from .cache import (  # noqa: F401
+    MIGRATIONS,
+    SCHEMA_VERSION,
+    ScheduleCache,
+    TuneRecord,
+    cache_key,
+    cache_namespace,
+    default_cache,
+    default_cache_path,
+    fingerprint,
+    fingerprint_from_lengths,
+    legacy_cache_path,
+    migrate_records,
+    set_default_cache,
+)
+from .attention import (  # noqa: F401
+    attention_cache_key,
+    tune_sparse_attention,
+)
+from .calibrate import (  # noqa: F401
+    CalibrationResult,
+    CalibrationSample,
+    calibrate,
+    collect_samples,
+    fit_weights,
+    model_regret,
+    samples_from_results,
+)
+from .measure import (  # noqa: F401
+    bench_iters,
+    make_eb_runner,
+    make_rb_runner,
+    make_runner,
+    measure_schedule,
+    time_fn,
+)
+from .driver import (  # noqa: F401
+    TuneResult,
+    drive,
+)
+from .space import (  # noqa: F401
+    Axis,
+    EpilogueAxis,
+    FuseBoundaryAxis,
+    SearchContext,
+    SearchSpace,
+    SkewAxis,
+    StrategyAxis,
+    TilingAxis,
+    ValueDtypeAxis,
+)
+from .search import (  # noqa: F401
+    DEFAULT_VALUE_DTYPES,
+    cached_or_auto,
+    schedule_key,
+    tune_schedule,
+    tune_segment_reduce,
+)

@@ -1,0 +1,217 @@
+"""Measurement layer of the tuner (port of ``repro/tune/measure.py``).
+
+``time_fn`` is the tuner's one timer.  On CUDA tensors it records a pair
+of CUDA events around each call and synchronizes before reading them, so
+a tuned number and a ``chip_smoke.py`` number come from the same
+instrument: the time a caller waits for the call on the card, its host
+side included.  On the CPU it reads ``time.perf_counter``.  The
+iteration counts follow ``REPRO_BENCH_ITERS`` / ``REPRO_BENCH_WARMUP``.
+
+Where the reference times a jitted pure-JAX analogue of each schedule
+(interpret-mode Pallas on a CPU measures nothing real), the runners here
+call the port's kernel wrappers themselves (``kernels/ops.py::spmm``):
+the EB or RB CUDA kernel on the card, their plain versions on CPU
+tensors.  Each runner builds the schedule's format (``GroupedCOO`` with
+the skew thresholds, or ``ELL``), B and the epilogue operands once,
+outside the timed region, and keeps them alive across its calls, so the
+wrappers' per-tensor caches (EB's row-order check and carry plan) hit
+as they do on a serving path.
+"""
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..core.schedule import Schedule
+from ..kernels import ops as kops
+
+__all__ = [
+    "bench_iters",
+    "bench_warmup",
+    "time_fn",
+    "make_eb_runner",
+    "make_rb_runner",
+    "make_runner",
+    "make_dist_runner",
+    "measure_schedule",
+    "measure_dist_schedule",
+]
+
+
+def bench_iters(default: int = 7) -> int:
+    """Timing iterations per measurement; override with REPRO_BENCH_ITERS."""
+    return max(1, int(os.environ.get("REPRO_BENCH_ITERS", default)))
+
+
+def bench_warmup(default: int = 2) -> int:
+    """Warmup iterations per measurement; override with
+    REPRO_BENCH_WARMUP."""
+    return max(0, int(os.environ.get("REPRO_BENCH_WARMUP", default)))
+
+
+def _device_of(args):
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    return torch.device("cpu")
+
+
+def time_fn(fn, *args, warmup: int | None = None,
+            iters: int | None = None, cap_env: bool = True) -> float:
+    """Median seconds per call of ``fn(*args)``.
+
+    The device of the first tensor in ``args`` (else the CPU) picks the
+    clock: on CUDA a pair of CUDA events around each call
+    on the current stream, read after a synchronize; on the CPU
+    ``time.perf_counter``.  ``REPRO_BENCH_ITERS`` / ``REPRO_BENCH_WARMUP``
+    supply the defaults and cap explicit arguments; ``cap_env=False``
+    exempts a measurement from the caps."""
+    if warmup is None:
+        warmup = bench_warmup()
+    elif cap_env and "REPRO_BENCH_WARMUP" in os.environ:
+        warmup = min(warmup, bench_warmup())
+    if iters is None:
+        iters = bench_iters()
+    elif cap_env and "REPRO_BENCH_ITERS" in os.environ:
+        iters = max(1, min(iters, bench_iters()))
+    dev = _device_of(args)
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            for _ in range(warmup):
+                fn(*args)
+            pairs = []
+            for _ in range(iters):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(*args)
+                end.record()
+                pairs.append((start, end))
+            torch.cuda.synchronize(dev)
+            ts = [s.elapsed_time(e) * 1e-3 for s, e in pairs]
+    elif dev.type == "cpu":
+        for _ in range(warmup):
+            fn(*args)
+        ts = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn(*args)
+            ts.append(time.perf_counter() - t0)
+    else:
+        raise ValueError(f"time_fn has no clock for device {dev}")
+    return float(np.median(ts))
+
+
+# ------------------------------------------------------------------------
+# Schedule runners: the port's kernel wrappers over operands built once.
+# ------------------------------------------------------------------------
+
+
+def _dense_b(csr, n_dense):
+    """B (K, n_dense) f32 from a generator seeded 0 on the CSR's device."""
+    gen = torch.Generator(device=csr.device).manual_seed(0)
+    return torch.randn((csr.shape[1], n_dense), generator=gen,
+                       device=csr.device)
+
+
+def _epilogue_args(epilogue, n_rows, n_dense, device):
+    """Epilogue operands drawn from a generator seeded 1: the tuner
+    measures the fused work a real workload would run."""
+    if epilogue is None or epilogue.is_noop:
+        return None, None
+    gen = torch.Generator(device=device).manual_seed(1)
+    bias = (torch.randn((n_dense,), generator=gen, device=device)
+            if epilogue.bias else None)
+    res = (torch.randn((n_rows, n_dense), generator=gen, device=device)
+           if epilogue.residual else None)
+    return bias, res
+
+
+def _runner(feed, csr, n_dense, sched):
+    bias, res = _epilogue_args(sched.epilogue, csr.shape[0], n_dense,
+                               csr.device)
+    b = _dense_b(csr, n_dense)
+
+    def run(a, bb):
+        return kops.spmm(a, bb, sched, bias=bias, residual=res)
+
+    return run, (feed, b)
+
+
+def make_eb_runner(csr, n_dense, *, group_size: int, strategy: str,
+                   nnz_tile: int = 256, epilogue=None,
+                   split_threshold: int | None = None,
+                   merge_threshold: int | None = None,
+                   value_dtype: str | None = None):
+    """(fn, args) running the EB kernel under this schedule point on
+    ``csr @ B``: ``fn(*args)`` is one wrapper call over the prebuilt
+    ``GroupedCOO`` (skew layout with the thresholds), B and epilogue
+    operands.  A ``value_dtype`` the kernels do not store raises at the
+    first call, as ``kernels.ops.spmm`` refuses it."""
+    sched = Schedule("eb", nnz_tile=nnz_tile, group_size=group_size,
+                     strategy=strategy, epilogue=epilogue,
+                     split_threshold=split_threshold,
+                     merge_threshold=merge_threshold,
+                     value_dtype=value_dtype)
+    g = csr.grouped(nnz_tile, group_size=group_size,
+                    split_threshold=split_threshold,
+                    merge_threshold=merge_threshold)
+    return _runner(g, csr, n_dense, sched)
+
+
+def make_rb_runner(csr, n_dense, *, row_tile: int = 8,
+                   width: int | None = None, epilogue=None,
+                   value_dtype: str | None = None):
+    """(fn, args) running the RB kernel over the prebuilt ``ELL`` layout
+    with the epilogue fused."""
+    sched = Schedule("rb", row_tile=row_tile, strategy="parallel",
+                     epilogue=epilogue, value_dtype=value_dtype)
+    return _runner(csr.ell(row_tile=row_tile, width=width), csr, n_dense,
+                   sched)
+
+
+def make_runner(csr, n_dense: int, sched: Schedule):
+    """Runner for an arbitrary :class:`Schedule` (dispatch on kernel); the
+    schedule's epilogue is part of the measured program."""
+    if sched.kernel == "eb":
+        return make_eb_runner(csr, n_dense, group_size=sched.group_size,
+                              strategy=sched.strategy,
+                              nnz_tile=sched.nnz_tile,
+                              epilogue=sched.epilogue,
+                              split_threshold=sched.split_threshold,
+                              merge_threshold=sched.merge_threshold,
+                              value_dtype=sched.value_dtype)
+    return make_rb_runner(csr, n_dense, row_tile=sched.row_tile,
+                          epilogue=sched.epilogue,
+                          value_dtype=sched.value_dtype)
+
+
+def measure_schedule(csr, n_dense: int, sched: Schedule, *,
+                     warmup: int | None = None,
+                     iters: int | None = None) -> float:
+    """Seconds per call of ``sched`` applied to ``csr @ B`` with
+    ``n_dense`` dense columns, on the CSR's device: the tuner's
+    objective."""
+    fn, args = make_runner(csr, n_dense, sched)
+    return time_fn(fn, *args, warmup=warmup, iters=iters)
+
+
+def make_dist_runner(csr, n_dense: int, sched: Schedule, *, mesh,
+                     axis: str, interpret: bool = True):
+    """The distributed runner waits for the distributed port."""
+    raise NotImplementedError(
+        "make_dist_runner times the sharded SpMM, which the port does not "
+        "have yet (ROADMAP queue 1 item 5)")
+
+
+def measure_dist_schedule(csr, n_dense: int, sched: Schedule, *, mesh,
+                          axis: str, warmup: int | None = None,
+                          iters: int | None = None,
+                          interpret: bool = True) -> float:
+    """The distributed objective waits for the distributed port."""
+    raise NotImplementedError(
+        "measure_dist_schedule times the sharded SpMM, which the port does "
+        "not have yet (ROADMAP queue 1 item 5)")

@@ -1,0 +1,272 @@
+"""Empirical schedule search over the atomic-parallelism space (port of
+``repro/tune/search.py``).
+
+The paper's dgSPARSE result comes from *tuning*
+``<groupSz, blockSz, tileSz, workerDim>``, not from a fixed heuristic.
+:func:`tune_schedule` makes that search a library call on the card: the
+loop lives in :func:`repro_torch.tune.driver.drive`, and this module
+declares the SpMM and segment-reduce spaces (axes, cost model, cache
+key) and hands them to it:
+
+1. **warm start**: rank :func:`~repro_torch.core.candidate_schedules` by
+   the static cost model and drop the points the card refuses
+   (:func:`~repro_torch.kernels.ops.schedule_fits_card`);
+2. **measure**: time the top-k candidates plus the selector's pick on
+   the port's kernels (``Schedule.auto`` is always measured, so the tuned
+   choice can lose to it only by noise);
+3. **dtype axis**: each narrow value dtype the kernels store and whose
+   storage-parity error fits ``error_budget`` is measured as a variant
+   of the winner (none today: the kernels store f32 only);
+4. **hillclimb**: x2 / /2 steps on ``group_size`` and the tile fields
+   around the winner until no neighbor improves;
+5. **cache**: persist the winner under the matrix fingerprint, so a
+   later call replays it with zero measurements.
+
+``measure=`` is injectable (schedule -> seconds) for tests and for
+calibration replays.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..core.schedule import Schedule, torch_dtype
+from ..core.selector import candidate_schedules, predict_cost, select_schedule
+from ..kernels.ops import schedule_fits_card
+from ..sparse.random import matrix_stats
+from .cache import ScheduleCache, cache_key, default_cache
+from .driver import TuneResult, _replay, drive
+from .measure import measure_schedule, time_fn
+from .space import (EpilogueAxis, SearchContext, SearchSpace, SkewAxis,
+                    StrategyAxis, TilingAxis, ValueDtypeAxis, schedule_key)
+
+__all__ = [
+    "DEFAULT_VALUE_DTYPES",
+    "DIST_VALUE_DTYPES",
+    "TuneResult",
+    "cached_or_auto",
+    "schedule_key",
+    "tune_dist_spmm",
+    "tune_schedule",
+    "tune_segment_reduce",
+]
+
+#: Dtype-axis candidates measured by default, the reference's.  The
+#: kernel gate of :class:`~.space.ValueDtypeAxis` admits none of them
+#: until the kernels store narrow values (ROADMAP queue 1 item 3).
+DEFAULT_VALUE_DTYPES = ("bfloat16", "float16", "int8")
+
+#: Dtype-axis candidates of the distributed search (the reference's).
+DIST_VALUE_DTYPES = ("bfloat16", "float16")
+
+
+def _feasible(cands: List[Schedule], stats: dict) -> List[Schedule]:
+    kept = [s for s in cands
+            if schedule_fits_card(s, n_rows=stats["n_rows"],
+                                  row_max=stats["row_max"])]
+    return kept or cands  # never let pruning empty the pool
+
+
+def _dtype_parity_error(csr, n_dense_cols: int, vd: str) -> float:
+    """Relative L2 error of ``vd`` value storage against f32 on the
+    runners' B, through the plain versions (``kernels.ref``): the values
+    and B cast to the storage type and back, summed in f32.  int8 needs
+    the quantized CSR, which the port does not have yet."""
+    from ..kernels import ref
+    from .measure import _dense_b
+
+    if vd == "int8":
+        raise ValueError("int8 storage needs QuantizedCSR (ROADMAP queue "
+                         "1 item 3)")
+    dt = torch_dtype(vd)
+    coo = csr.tocoo()
+    b = _dense_b(csr, n_dense_cols)
+    out32 = ref.spmm_coo_ref(coo.rows, coo.cols, coo.vals, b, csr.shape[0])
+    out = ref.spmm_coo_ref(coo.rows, coo.cols, coo.vals.to(dt), b.to(dt),
+                           csr.shape[0])
+    num = float(torch.linalg.vector_norm(out - out32))
+    den = float(torch.linalg.vector_norm(out32))
+    return num / (den + 1e-12)
+
+
+def _storage_parity(ctx: SearchContext, vd: str) -> float:
+    """The :class:`ValueDtypeAxis` parity gate for CSR workloads."""
+    return _dtype_parity_error(ctx.workload, ctx.n_dense_cols, vd)
+
+
+def _card_filter(ctx: SearchContext, cands: List[Schedule]) -> List[Schedule]:
+    return _feasible(cands, ctx.stats)
+
+
+def _cache_for(cache, backend, device):
+    if cache is not None:
+        return cache
+    return default_cache(device if backend is None else backend)
+
+
+def tune_schedule(
+    csr,
+    n_dense_cols: int,
+    *,
+    cache: Optional[ScheduleCache] = None,
+    top_k: int = 4,
+    hill_steps: int = 3,
+    measure: Optional[Callable[[Schedule], float]] = None,
+    warmup: Optional[int] = None,
+    iters: Optional[int] = None,
+    backend=None,
+    epilogue=None,
+    value_dtypes: Optional[tuple] = None,
+    error_budget: float = 0.05,
+) -> TuneResult:
+    """Empirically pick the best schedule for ``csr @ B`` (B with
+    ``n_dense_cols`` columns); see the module docstring for the phases.
+
+    cache       ScheduleCache to consult and update (default: the
+                process cache of the CSR's device namespace under
+                ``REPRO_TUNE_CACHE``); a hit replays with zero
+                measurements.
+    top_k       cost-ranked candidates to measure beyond the selector's
+                pick.
+    hill_steps  max hillclimb rounds around the measured winner.
+    measure     override objective ``schedule -> seconds``; default
+                times the port's kernel for the schedule on the CSR's
+                device (``tune.measure.measure_schedule``).
+    backend     the cache namespace's device (default: the CSR's).
+    epilogue    fused :class:`~repro_torch.core.Epilogue` the workload
+                runs: attached to every measured candidate and folded
+                into the key.  The tuned schedule carries it.
+    value_dtypes  dtype-axis candidates (default
+                :data:`DEFAULT_VALUE_DTYPES`; ``()`` disables the axis).
+    error_budget  max relative L2 parity error of an admitted dtype.
+    """
+    cache = _cache_for(cache, backend, csr.device)
+    if epilogue is not None and epilogue.is_noop:
+        epilogue = None
+    key = cache_key(csr, n_dense_cols)
+    if epilogue is not None:
+        key = f"{key}|ep:{epilogue.tag}"
+    hit = _replay(cache, key)
+    if hit is not None:
+        return hit
+
+    stats = matrix_stats(csr)
+    if measure is None:
+        def measure(s: Schedule) -> float:
+            return measure_schedule(csr, n_dense_cols, s,
+                                    warmup=warmup, iters=iters)
+
+    def _with_ep(s: Schedule) -> Schedule:
+        return s if epilogue is None else s.replace(epilogue=epilogue)
+
+    if value_dtypes is None:
+        value_dtypes = DEFAULT_VALUE_DTYPES
+    space = SearchSpace(
+        (StrategyAxis(), TilingAxis(), SkewAxis(),
+         ValueDtypeAxis(value_dtypes, error_budget=error_budget,
+                        parity=_storage_parity),
+         EpilogueAxis()),
+        key_fn=schedule_key,
+        neighbor_filter=_card_filter,
+    )
+    ctx = SearchContext(stats=stats, n_dense_cols=n_dense_cols, workload=csr)
+    ranked = space.rank(ctx, _feasible(candidate_schedules(n_dense_cols),
+                                       stats),
+                        lambda s: predict_cost(stats, s, n_dense_cols))
+    ranked = [_with_ep(s) for s in ranked]
+    seeds = [_with_ep(select_schedule(stats, n_dense_cols))]
+    return drive(space, ctx, cache=cache, key=key, measure=measure,
+                 seeds=seeds, ranked=ranked, top_k=top_k,
+                 hill_steps=hill_steps)
+
+
+def cached_or_auto(csr, n_dense_cols: int, *,
+                   cache: Optional[ScheduleCache] = None,
+                   backend=None, key: Optional[str] = None) -> Schedule:
+    """Cache-hit schedule if one exists, else the static selector's pick:
+    **never measures**, the serving-path resolver."""
+    cache = _cache_for(cache, backend, csr.device)
+    rec = cache.get(key if key is not None
+                    else cache_key(csr, n_dense_cols))
+    if rec is not None:
+        return rec.schedule
+    return Schedule.auto(matrix_stats(csr), n_dense_cols)
+
+
+# ---------------------------------------------------------------------------
+# segment_reduce tuning (no CSR matrix: segments play the role of rows)
+# ---------------------------------------------------------------------------
+
+
+def tune_segment_reduce(
+    seg_ids,
+    n_cols: int,
+    num_segments: int,
+    *,
+    cache: Optional[ScheduleCache] = None,
+    measure: Optional[Callable[[Schedule], float]] = None,
+    warmup: Optional[int] = None,
+    iters: Optional[int] = None,
+    backend=None,
+) -> TuneResult:
+    """Tune (tile, group_size, strategy) for a standalone segment reduce.
+
+    The segment-length histogram stands in for the row-length histogram
+    in the fingerprint (keys prefixed ``segred:``).  The default measure
+    times the segment-reduce kernel wrapper
+    (``kernels/segment_reduce.py::segment_reduce``) on the ids' device
+    (a tensor's; numpy ids mean the card) over data drawn from a
+    ``torch.Generator`` seeded 0.  The pool is the reference's eight
+    points, every one measured; the CUDA kernel ignores ``tile`` (its
+    realizations are group-local), so on the card they are four
+    programs, each measured twice."""
+    from .cache import fingerprint_from_lengths
+
+    if isinstance(seg_ids, torch.Tensor):
+        device = seg_ids.device
+        seg = seg_ids.detach().cpu().numpy()
+    else:
+        device = resolve_device(None)
+        seg = np.asarray(seg_ids)
+    t = int(seg.shape[0])
+    lengths = np.bincount(seg, minlength=max(num_segments, 1))
+    fp = fingerprint_from_lengths(lengths, (num_segments, n_cols), t)
+    key = f"segred:{fp}|N{n_cols}"
+
+    cache = _cache_for(cache, backend, device)
+    hit = _replay(cache, key)
+    if hit is not None:
+        return hit
+
+    if measure is None:
+        from ..kernels.segment_reduce import segment_reduce as _segred
+
+        gen = torch.Generator(device=device).manual_seed(0)
+        data = torch.randn((t, n_cols), generator=gen, device=device)
+        seg_t = torch.as_tensor(seg, dtype=torch.int32, device=device)
+
+        def measure(s: Schedule) -> float:
+            def fn(ss, d):
+                return _segred(ss, d, num_segments=num_segments,
+                               tile=s.nnz_tile, group_size=s.group_size,
+                               strategy=s.strategy)
+
+            return time_fn(fn, seg_t, data, warmup=warmup, iters=iters)
+
+    space = SearchSpace((StrategyAxis(), TilingAxis()), key_fn=schedule_key)
+    pool = [Schedule("eb", nnz_tile=tile, group_size=g, strategy=st)
+            for tile in (128, 512)
+            for g in (8, 32)
+            for st in ("segment", "accumulate")]
+    return drive(space, SearchContext(), cache=cache, key=key,
+                 measure=measure, ranked=pool)
+
+
+def tune_dist_spmm(csr, n_dense_cols: int, *, mesh, axis: str, **kw):
+    """The distributed search waits for the distributed port."""
+    raise NotImplementedError(
+        "tune_dist_spmm searches the sharded SpMM, which the port does not "
+        "have yet (ROADMAP queue 1 item 5)")

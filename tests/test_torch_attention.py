@@ -187,7 +187,7 @@ def test_graph_attention_over_a_pattern_tuple_matches_reference():
                                    rtol=RTOL, atol=ATOL)
 
 
-def test_sparse_attention_contracts():
+def test_sparse_attention_contracts(tmp_path, monkeypatch):
     a_j, a_t = _csr_pair()
     n = a_t.shape[0]
     x_j, x_t = jnp.ones((n, 4)), torch.ones(n, 4)
@@ -199,9 +199,19 @@ def test_sparse_attention_contracts():
     with pytest.raises(ValueError, match="parallel"):
         ts.sparse_attention(a_t, x_t, x_t, x_t, schedule=TS(**parallel),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="tuner"):
-        ts.sparse_attention(a_t, x_t, x_t, x_t, schedule="tune",
-                            device="cpu")
+    # 'tune' runs the forward's tuner (keys in the port's own file) and
+    # gives the JAX package's output
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_BENCH_ITERS", "1")
+    monkeypatch.setenv("REPRO_BENCH_WARMUP", "0")
+    q = np.random.default_rng(1).standard_normal((n, 4)).astype(np.float32)
+    got = ts.sparse_attention(a_t, torch.from_numpy(q), x_t, x_t + 1.0,
+                              schedule="tune", device="cpu")
+    want = js.sparse_attention(a_j, jnp.asarray(q), x_j, x_j + 1.0,
+                               impl="ref")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    assert (tmp_path / "tune.torch-cpu.json").exists()
     rows = torch.tensor([1, 0], dtype=torch.int32)
     with pytest.raises(ValueError, match="sorted"):
         ts.sparse_attention((rows, rows, 2), x_t[:2], x_t[:2], x_t[:2],

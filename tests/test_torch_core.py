@@ -85,13 +85,26 @@ def test_named_schedules_match(name):
     assert str(tc.as_schedule(tp)) == str(jc.as_schedule(p))
 
 
-def test_as_schedule_coercions():
+def test_as_schedule_coercions(tmp_path, monkeypatch):
     for sg in [(8, "segment"), (16, "accumulate")]:
         assert str(tc.as_schedule(tc.SegmentGroup(*sg))) == \
             str(jc.as_schedule(jc.SegmentGroup(*sg)))
     assert str(tc.as_schedule(None)) == str(jc.as_schedule(None))
-    with pytest.raises(NotImplementedError):
+    # 'tune' needs the matrix, as in the JAX package, and then routes to
+    # the tuner, which persists what it picked
+    with pytest.raises(ValueError, match="matrix"):
         tc.as_schedule("tune")
+    with pytest.raises(ValueError, match="matrix"):
+        jc.as_schedule("tune")
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_BENCH_ITERS", "1")
+    monkeypatch.setenv("REPRO_BENCH_WARMUP", "0")
+    from repro_torch.sparse import random_csr
+    from repro_torch.tune import cached_or_auto
+
+    csr = random_csr(120, 120, density=0.05, seed=9, device="cpu")
+    s = tc.as_schedule("tune", matrix=csr, n_dense_cols=4)
+    assert isinstance(s, tc.Schedule) and cached_or_auto(csr, 4) == s
     with pytest.raises(ValueError):
         tc.as_schedule("auto")
     with pytest.raises(TypeError):

@@ -1008,3 +1008,107 @@ def test_moe_and_decode_step_launches(dev):
         ld, _ = api.decode_step(p_dev, cd, ld.argmax(-1))
         assert gm.KERNEL.launches == before + 3 * cfg.n_layers
         torch.testing.assert_close(ld.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The tuner on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def tuner_env(dev, tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_BENCH_ITERS", "3")
+    monkeypatch.setenv("REPRO_BENCH_WARMUP", "1")
+    return dev
+
+
+def test_time_fn_synchronizes_and_returns_a_positive_median(tuner_env):
+    from repro_torch.tune import time_fn
+
+    x = torch.randn(4096, 4096, device=tuner_env)
+    t = time_fn(lambda a: a @ a, x, iters=5)
+    # a 4096^3 f32 product takes well over 100 us on any H100: the events
+    # were read after the device finished, not after the enqueue
+    assert 1e-4 < t < 10.0
+
+
+@pytest.mark.parametrize("sched", [
+    dict(kernel="eb", nnz_tile=256, group_size=16),
+    dict(kernel="eb", nnz_tile=128, group_size=8, split_threshold=8,
+         merge_threshold=0, strategy="parallel"),
+    dict(kernel="rb", row_tile=16, strategy="parallel")])
+def test_measure_schedule_launches_the_kernels(tuner_env, sched):
+    from repro_torch.core import Schedule
+    from repro_torch.kernels import spmm_eb, spmm_rb
+    from repro_torch.tune import measure_schedule
+    from repro_torch.tune.measure import bench_iters, bench_warmup
+
+    a = _matrix(tuner_env)
+    s = Schedule(**sched)
+    kernel = spmm_eb.KERNEL if s.kernel == "eb" else spmm_rb.KERNEL
+    before = kernel.launches
+    assert measure_schedule(a, 40, s) > 0
+    assert kernel.launches - before == bench_iters() + bench_warmup()
+
+
+def test_tuned_spmm_matches_plain_per_element(tuner_env):
+    """The tuned schedule's kernel against its plain version on the same
+    feed (the grouping of the sums is the schedule's), per element."""
+    import repro_torch.sparse as ts
+    from repro_torch.core import Epilogue
+    from repro_torch.kernels import spmm_eb, spmm_rb
+    from repro_torch.tune import tune_schedule
+
+    a = _matrix(tuner_env, n=2000)
+    b = _dense(tuner_env, (a.shape[1], 40), 3)
+    bias = _dense(tuner_env, (40,), 4)
+    ep = Epilogue("relu", bias=True)
+    res = tune_schedule(a, 40, epilogue=ep)
+    assert res.n_measurements >= 5
+    before = spmm_eb.KERNEL.launches + spmm_rb.KERNEL.launches
+    got = ts.spmm(a, b, schedule="tune", bias=bias, epilogue=Epilogue("relu"))
+    assert spmm_eb.KERNEL.launches + spmm_rb.KERNEL.launches == before + 1
+    s = res.schedule
+    if s.kernel == "eb":
+        g = a.grouped(s.nnz_tile, group_size=s.group_size,
+                      split_threshold=s.split_threshold,
+                      merge_threshold=s.merge_threshold)
+        plain = spmm_eb.spmm_eb_plain
+        args = (g.rows, g.cols, g.vals, b)
+        kw = dict(n_rows=a.shape[0], nnz_tile=s.nnz_tile,
+                  group_size=s.group_size, strategy=s.strategy,
+                  heavy_tiles=g.heavy_tiles)
+    else:
+        e = a.ell(row_tile=s.row_tile)
+        plain, args, kw = spmm_rb.spmm_rb_plain, (e.cols, e.vals, b), dict(
+            n_rows=a.shape[0])
+    want = plain(*args, epilogue=ep, bias=bias, **kw)
+    _assert_within_terms(got, want, _terms(plain, *args, bias=bias, **kw))
+
+
+def test_schedule_fits_card_refuses_what_the_cuda_wrappers_refuse(tuner_env):
+    import repro_torch.sparse as ts
+    from repro_torch.core import Schedule, register_strategy, spec_segment
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import spmm_eb
+
+    register_strategy("t_fits_user", spec_segment, overwrite=True)
+    a = _matrix(tuner_env)
+    b = _dense(tuner_env, (a.shape[1], 8), 8)
+    st = ts.matrix_stats(a)
+    cases = [Schedule(nnz_tile=64, group_size=8),
+             Schedule(nnz_tile=spmm_eb.MAX_NNZ_TILE, group_size=32),
+             Schedule(nnz_tile=2 * spmm_eb.MAX_NNZ_TILE, group_size=32),
+             Schedule(nnz_tile=64, group_size=8, strategy="t_fits_user"),
+             Schedule(nnz_tile=64, group_size=8, value_dtype="bf16"),
+             Schedule("rb", row_tile=8, strategy="parallel")]
+    for s in cases:
+        fits = kops.schedule_fits_card(s, n_rows=st["n_rows"],
+                                       row_max=st["row_max"])
+        try:
+            kops.spmm(a, b, s)
+            took = True
+        except (ValueError, NotImplementedError):
+            took = False
+        assert fits == took, s

@@ -54,7 +54,10 @@ def test_the_scan_covers_the_fuse_package_and_every_kernel_module():
             "configs/base.py", "configs/qwen3_moe_235b.py",
             "models/moe.py", "models/transformer.py",
             "models/registry.py", "serve/engine.py",
-            "launch/serve.py"} <= scanned
+            "launch/serve.py", "launch/hillclimb.py"} <= scanned
+    assert {f"tune/{m}.py" for m in (
+        "__init__", "measure", "cache", "space", "driver", "search",
+        "attention", "calibrate")} <= scanned
     from repro_torch.kernels import build
 
     assert {f"kernels/{s}.py" for s in ("spmm_eb", "spmm_rb", "sddmm",

@@ -81,11 +81,19 @@ def test_plain_version_chunks_agree_with_oracle(monkeypatch):
                                atol=0)
 
 
-def test_sddmm_contracts():
+def test_sddmm_contracts(tmp_path, monkeypatch):
     rows, cols, a, b, _ = _inputs(8)
     r, c, at, bt = (torch.from_numpy(x) for x in (rows, cols, a, b))
-    with pytest.raises(NotImplementedError, match="tuner"):
-        ts.sddmm(r, c, at, bt, schedule="tune", device="cpu")
+    # 'tune' takes the tile tune_segment_reduce picks for the row profile
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_BENCH_ITERS", "1")
+    monkeypatch.setenv("REPRO_BENCH_WARMUP", "0")
+    got = ts.sddmm(r, c, at, bt, schedule="tune", device="cpu")
+    np.testing.assert_allclose(got.numpy(), (a @ b.T)[rows, cols],
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(js.sddmm(
+        jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(a),
+        jnp.asarray(b))), rtol=RTOL, atol=ATOL)
     with pytest.raises(RuntimeError, match="no backward"):
         ts.sddmm(r, c, at.requires_grad_(), bt, device="cpu")
     with pytest.raises(ValueError, match="share D"):

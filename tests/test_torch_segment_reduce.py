@@ -200,8 +200,6 @@ def test_parallel_matches_dense_oracle_on_aligned_segments():
 def test_schedules_the_port_refuses():
     seg, data = _inputs(40, 5, 2, seed=0)
     seg_t, data_t = torch.from_numpy(seg), torch.from_numpy(data)
-    with pytest.raises(NotImplementedError, match="tuner"):
-        ts.segment_reduce(seg_t, data_t, 5, schedule="tune", device="cpu")
     # the port's Schedule keeps 'eb' + 'parallel' for group-aligned skew
     # layouts only: a default Schedule with it is refused
     with pytest.raises(ValueError, match="parallel"):
@@ -209,6 +207,36 @@ def test_schedules_the_port_refuses():
                           schedule=TS(strategy="parallel"), device="cpu")
     with pytest.raises(ValueError, match="op"):
         ts.segment_reduce(seg_t, data_t, 5, op="prod", device="cpu")
+
+
+@pytest.mark.parametrize("op", ["sum", "max", "mean"])
+def test_schedule_tune_matches_the_jax_oracle(tmp_path, monkeypatch, op):
+    """'tune' measures the eight (tile, group, strategy) points of the
+    reference's pool on the plain version and reduces with the winner."""
+    from repro_torch.tune import tune_segment_reduce
+
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_BENCH_ITERS", "1")
+    monkeypatch.setenv("REPRO_BENCH_WARMUP", "0")
+    seg, data = _inputs(300, 25, 6, seed=11)
+    seg_t, data_t = torch.from_numpy(seg), torch.from_numpy(data)
+    got = ts.segment_reduce(seg_t, data_t, 25, schedule="tune", op=op,
+                            device="cpu")
+    res = tune_segment_reduce(seg_t, 6, 25, measure=lambda s: 1 / 0)
+    assert res.from_cache and res.schedule.strategy in ("segment",
+                                                        "accumulate")
+    sj, dj = jnp.asarray(seg), jnp.asarray(data)
+    if op == "mean":
+        want = (jax.ops.segment_sum(dj, sj, 25) / jnp.maximum(
+            jax.ops.segment_sum(jnp.ones_like(dj[:, :1]), sj, 25), 1.0))
+    else:
+        want = {"sum": jax.ops.segment_sum,
+                "max": jax.ops.segment_max}[op](dj, sj, 25)
+    if op == "max":
+        _assert_same(got.numpy(), want, op)
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=RTOL, atol=RTOL)
 
 
 def test_op_is_forward_only():

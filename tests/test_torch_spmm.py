@@ -196,8 +196,45 @@ def test_narrow_value_dtype_is_not_ported():
     with pytest.raises(NotImplementedError, match="value_dtype"):
         ts.spmm(a_t, torch.from_numpy(b), schedule=TS(value_dtype="bf16"),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="tuner"):
-        ts.spmm(a_t, torch.from_numpy(b), schedule="tune", device="cpu")
+
+
+def _tuner_env(tmp_path, monkeypatch):
+    """A tmp tuner cache and one timed call a measured point."""
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_BENCH_ITERS", "1")
+    monkeypatch.setenv("REPRO_BENCH_WARMUP", "0")
+
+
+def test_schedule_tune_matches_jax_and_the_dense_oracle(tmp_path,
+                                                        monkeypatch):
+    """'tune' measures the candidates (the plain versions on the CPU),
+    persists the winner in the port's own file, and replays it; the
+    output equals the dense oracle and the JAX package's on the tuned
+    schedule."""
+    import dataclasses
+
+    from repro_torch.tune import default_cache_path, tune_schedule
+
+    _tuner_env(tmp_path, monkeypatch)
+    a_j, a_t, b, bias, _ = _inputs()
+    bt, biast = torch.from_numpy(b), torch.from_numpy(bias)
+    got = ts.spmm(a_t, bt, schedule="tune", bias=biast,
+                  epilogue=TE("relu"), device="cpu")
+    res = tune_schedule(a_t, N_DENSE, epilogue=TE("relu", bias=True),
+                        measure=lambda s: 1 / 0)
+    assert res.from_cache and res.schedule.epilogue == TE("relu", bias=True)
+    assert default_cache_path().name == "tune.torch-cpu.json"
+    assert default_cache_path().exists()
+    torch.testing.assert_close(got, torch.relu(a_t.todense() @ bt + biast),
+                               rtol=RTOL, atol=ATOL)
+    want = js.spmm(a_j, jnp.asarray(b), bias=jnp.asarray(bias),
+                   epilogue=JE("relu"),
+                   schedule=JS(**dataclasses.asdict(res.schedule)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    again = ts.spmm(a_t, bt, schedule="tune", bias=biast,
+                    epilogue=TE("relu"), device="cpu")
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
 
 
 def test_user_strategy_runs_through_its_spec_on_cpu():
