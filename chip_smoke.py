@@ -66,13 +66,27 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   decode logits against the einsum path (``moe_kernel_dispatch=False``),
   and ``ServeEngine`` (4 slots) serving 8 requests of 128-token prompts,
   16 greedy tokens each, with 12 grouped-matmul launches a decode step
-  and a prefill, every one on the tensor-core route.
+  and a prefill, every one on the tensor-core route;
+- the MoE dispatch tuner (``moe_tune``) on the same model, through
+  ``ServeEngine(tuner_cache=...)`` over a cache in a temporary
+  directory: ``prepare_moe`` for the eight prompts prefilled as one batch
+  (1024 tokens) on three expert histograms (balanced and assumed, layer
+  0's router on the batch's hidden states, Zipf-skewed), each measured
+  point printed with its (tile, cap_pad), the pick and the default
+  re-timed in turns and the dropped tokens of both (fails where a replay
+  measures, the pick drops more than the default, or a launch leaves the
+  tensor cores); the grouped-matmul kernel against its plain version in
+  its three roles at every (tile, cap_pad) measured, timed against its
+  bytes bound; ``apply_moe`` at the observed pick on the kernel path
+  against the einsum path; and the engine's sparse side channel,
+  ``prepare_sparse`` and ``spmm`` on both graphs at N = 256 and 40,
+  against f64 within K_TERMS, a second ``prepare_sparse`` replaying.
 
 It prints kernel, forward, training-step, attention, readout, tuning,
 prefill and decode times, EB, RB and ``torch.sparse.mm`` at N = 64 and 128 on both
 graphs, the launch counts of each path, a ``{"kernels": [...]}``
-line (``launches`` counts every path but the tune phase, whose count
-follows the points its timing visits and stands apart as
+line (``launches`` counts every path but the tune and moe_tune phases,
+whose counts follow the points their timing visits and stand apart as
 ``tune_launches``) and, as its last line, ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero without that line; so does a machine without
 CUDA.
@@ -157,6 +171,9 @@ LOGIT_REL_L2 = 2.0 ** -5
 #: least TUNE_MIN_AUTO_MS (shorter calls are host-bound: their schedules
 #: differ by less than their noise).
 TUNE_WINDOWS, TUNE_SLACK, TUNE_MIN_AUTO_MS = 5, 0.10, 0.1
+#: The grouped matmul's plain version runs over at most this many tiles
+#: at a time (it gathers each tile's expert weights in f32).
+GMM_PLAIN_TILES = 128
 #: Where each kernel came from: its source and the TPU kernel it replaces.
 KERNEL_META = {
     "spmm_eb": ("src/repro_torch/kernels/csrc/spmm_eb.cu",
@@ -1636,13 +1653,14 @@ class MeasureCount:
     """While active, counts the tuner's measurements: one per call of the
     ``time_fn`` its default objectives reach (SpMM through
     ``tune.measure``, segment reduce through ``tune.search``, attention
-    through ``tune.attention``, the planner through ``tune.measure``)."""
+    through ``tune.attention``, the planner through ``tune.measure``, the
+    MoE dispatch through ``tune.moe``)."""
 
     def __enter__(self):
-        from repro_torch.tune import attention, measure, search
+        from repro_torch.tune import attention, measure, moe, search
 
         self.n, self._saved = 0, []
-        for mod in (measure, search, attention):
+        for mod in (measure, search, attention, moe):
             orig = mod.time_fn
 
             def counted(*args, _orig=orig, **kw):
@@ -1714,13 +1732,34 @@ def exact_spmm(adj, b, epilogue, bias):
                           else bias.double().reshape(1, -1))
 
 
+def f64_k(adj, b, sched, bias, got):
+    """(kernel k, plain k): the largest error of ``got`` and of the plain
+    version at ``sched`` against the f64 result, in units of 2^-24 of
+    the terms entering each output."""
+    _, want, terms = plain_spmm(adj, b, sched, bias)
+    exact = exact_spmm(adj, b, sched.epilogue, bias)
+    unit = 2.0 ** -24 * (terms.double() + exact.abs())
+    return tuple(float(((t.double() - exact).abs() / unit).max())
+                 for t in (got, want))
+
+
+def retime_in_turns(fn_a, args_a, fn_b, args_b):
+    """(median ms of a, median ms of b) over TUNE_WINDOWS CUDA-event
+    windows of 10 calls each, a and b in turns."""
+    import statistics
+
+    ta, tb = [], []
+    for _ in range(TUNE_WINDOWS):
+        ta.append(cuda_ms(lambda: fn_a(*args_a), 10, 1))
+        tb.append(cuda_ms(lambda: fn_b(*args_b), 10, 1))
+    return statistics.median(ta), statistics.median(tb)
+
+
 def tune_spmm(checker, mc, name, adj, n, b, bias, ep):
     """``tune_schedule`` at width ``n`` (with the served epilogue), then
     ``spmm(schedule="tune")``, which must replay with no measurement, held
     per element against the plain version; then the tuned and the auto
     schedule re-timed in turns, TUNE_WINDOWS CUDA-event windows each."""
-    import statistics
-
     import torch
     from repro_torch.core import Epilogue, Schedule
     from repro_torch.sparse import matrix_stats, spmm
@@ -1752,10 +1791,7 @@ def tune_spmm(checker, mc, name, adj, n, b, bias, ep):
     # terms entering each output
     _, want, terms = plain_spmm(adj, b, res.schedule, bias)
     checker.record(kernel, f"tuned {label} served B", served, want)
-    exact = exact_spmm(adj, b, res.schedule.epilogue, bias)
-    unit = 2.0 ** -24 * (terms.double() + exact.abs())
-    k_kernel, k_plain = (float(((t.double() - exact).abs() / unit).max())
-                         for t in (served, want))
+    k_kernel, k_plain = f64_k(adj, b, res.schedule, bias, served)
     ok = k_kernel <= K_TERMS
     print(f"tune {label}: served B against the f64 result: kernel k "
           f"{k_kernel:.3f} (tol K_TERMS {K_TERMS}) "
@@ -1763,14 +1799,9 @@ def tune_spmm(checker, mc, name, adj, n, b, bias, ep):
           "(printed only)", flush=True)
     if not ok:
         checker.failures.append(f"{kernel} tuned {label} served B, f64")
-    del b_rand, got, served, want, terms, exact, unit
-    fn_t, args_t = make_runner(adj, n, res.schedule)
-    fn_a, args_a = make_runner(adj, n, auto)
-    ta, tt = [], []
-    for _ in range(TUNE_WINDOWS):
-        ta.append(cuda_ms(lambda: fn_a(*args_a), 10, 1))
-        tt.append(cuda_ms(lambda: fn_t(*args_t), 10, 1))
-    auto_ms, tuned_ms = statistics.median(ta), statistics.median(tt)
+    del b_rand, got, served, want, terms
+    auto_ms, tuned_ms = retime_in_turns(*make_runner(adj, n, auto),
+                                       *make_runner(adj, n, res.schedule))
     ratio = tuned_ms / auto_ms
     print(f"tune {label}: re-timed in turns ({TUNE_WINDOWS} windows of 10): "
           f"tuned {tuned_ms:.4f} ms, auto {auto_ms:.4f} ms, ratio "
@@ -1778,7 +1809,6 @@ def tune_spmm(checker, mc, name, adj, n, b, bias, ep):
     if auto_ms >= TUNE_MIN_AUTO_MS and ratio > 1.0 + TUNE_SLACK:
         fail(f"{label}: the tuned schedule is {ratio:.4f}x auto, more than "
              f"{TUNE_SLACK:.0%} slower")
-    del fn_t, args_t, fn_a, args_a
     torch.cuda.empty_cache()
     return {"res": res, "auto": auto, "auto_ms": auto_ms,
             "tuned_ms": tuned_ms, "ratio": ratio, "s": took}
@@ -2028,30 +2058,57 @@ def _leaves(tree):
         yield tree
 
 
-def moe_kernel_cases(cfg, params, dev):
-    """The grouped-matmul launches of layer 0 at the serving shapes, each
-    ``(label, x, tile_experts, weights, epilogue, tile)``: the gate (SiLU
-    fused), up and down projections at decode (MOE_SLOTS tokens) and at a
-    MOE_PROMPT-token prefill, with the capacity ``models.moe`` gives
-    them; x drawn from a seed in bf16."""
+def gmm_role_cases(moe, gen, label, tile, cap_pad):
+    """The three grouped-matmul launches of ``_expert_ffn`` at ``(tile,
+    cap_pad)`` on one layer's experts, each ``(label, x, tile_experts,
+    weights, epilogue, tile)``: the gate (SiLU fused), up and down
+    projections over E x cap_pad expert-sorted rows, ``cap_pad // tile``
+    tiles an expert; x drawn from ``gen`` in bf16."""
     import torch
     from repro_torch.core import Epilogue
+
+    e, d, f = moe["wg"].shape
+    dev = moe["wg"].device
+    te = torch.arange(e, dtype=torch.int32, device=dev).repeat_interleave(
+        cap_pad // tile)
+    xd, xf = (torch.randn(e * cap_pad, n, generator=gen, device=dev).to(
+        torch.bfloat16) for n in (d, f))
+    return [(f"{label} gate+silu", xd, te, moe["wg"], Epilogue("silu"), tile),
+            (f"{label} up", xd, te, moe["wi"], Epilogue(), tile),
+            (f"{label} down", xf, te, moe["wo"], Epilogue(), tile)]
+
+
+def moe_kernel_cases(cfg, params, dev):
+    """The grouped-matmul launches of layer 0 at the serving shapes
+    (:func:`gmm_role_cases`) at decode (MOE_SLOTS tokens) and at a
+    MOE_PROMPT-token prefill, with the capacity ``models.moe`` gives
+    them, one tile an expert."""
+    import torch
     from repro_torch.models.moe import _capacity
 
-    moe = params["layers"][0]["moe"]
-    e, d, f = moe["wg"].shape
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     cases = []
     for phase, tokens in (("decode", MOE_SLOTS), ("prefill", MOE_PROMPT)):
         tile = min(_capacity(cfg, tokens), 128)
-        te = torch.arange(e, dtype=torch.int32, device=dev)
-        xd, xf = (torch.randn(e * tile, n, generator=gen, device=dev).to(
-            torch.bfloat16) for n in (d, f))
-        cases += [(f"{phase} gate+silu", xd, te, moe["wg"],
-                   Epilogue("silu"), tile),
-                  (f"{phase} up", xd, te, moe["wi"], Epilogue(), tile),
-                  (f"{phase} down", xf, te, moe["wo"], Epilogue(), tile)]
+        cases += gmm_role_cases(params["layers"][0]["moe"], gen, phase, tile,
+                                tile)
     return cases
+
+
+def plain_gmm(x, te, w, *, token_tile, **kw):
+    """``grouped_matmul_plain`` over at most GMM_PLAIN_TILES tiles at a
+    time: it gathers each tile's expert weights in f32 (1.6 GB a 128
+    tiles at the MoE width), and the capacity-padded layouts hold up to
+    four tiles an expert."""
+    import torch
+    from repro_torch.kernels import grouped_matmul as gm
+
+    rows = GMM_PLAIN_TILES * token_tile
+    return torch.cat([
+        gm.grouped_matmul_plain(x[i:i + rows], te[i // token_tile:
+                                                  (i + rows) // token_tile],
+                                w, token_tile=token_tile, **kw)
+        for i in range(0, x.shape[0], rows)])
 
 
 def routes_taken(before):
@@ -2080,7 +2137,7 @@ def check_grouped_matmul(cases):
         checker.record("grouped_matmul",
                        f"{label} ({x.shape[0]} x {w.shape[1]} -> "
                        f"{w.shape[2]}, tile {tile}) route {route}", got,
-                       gm.grouped_matmul_plain(x, te, w, **kw))
+                       plain_gmm(x, te, w, **kw))
         if route != {"mma": 1}:
             checker.failures.append(f"grouped_matmul {label}: route {route}, "
                                     "not the tensor cores")
@@ -2246,6 +2303,230 @@ def moe_serve(cfg, api, einsum, params, dev, counters):
             "gmm_ms": gmm_ms, "tokens_per_s": n_tok / seconds}
 
 
+def layer0_moe_input(cfg, params, prompts, dev):
+    """The tokens that reach layer 0's MoE when the prompts are prefilled
+    as one batch: the embedding rows through layer 0's attention block and
+    its second norm, (MOE_REQUESTS x MOE_PROMPT, d_model) in bf16."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tr
+
+    tokens = torch.as_tensor(np.stack(prompts), dtype=torch.int64,
+                             device=dev)
+    p0 = params["layers"][0]
+    x = tr._embed_input(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], device=dev)
+    a, _ = tr.attn_block(cfg, p0["attn"], tr.apply_norm(cfg, p0["ln1"], x),
+                         positions)
+    h = tr.apply_norm(cfg, p0["ln2"], x + a)
+    return h.reshape(-1, cfg.d_model)
+
+
+def moe_tune(cfg, api, einsum, params, graphs, x, model, dev, counters):
+    """The MoE dispatch tuner and the engine's sparse side channel on the
+    card (``ServeEngine(tuner_cache=...)`` over a cache in a temporary
+    directory), on the ``moe_serve`` model.  The workload is the eight
+    prompts prefilled as one batch, MOE_REQUESTS x MOE_PROMPT tokens;
+    ``prepare_moe`` tunes three expert histograms: the balanced one
+    (assumed, no shrink), layer 0's router on the batch's hidden states
+    (observed) and ``skewed_expert_lengths``.  Per histogram it prints
+    the points measured, the pick and the default re-timed in turns on
+    layer 0's weights, and the dropped tokens of both; it fails where a
+    second ``prepare_moe`` or ``moe_dispatch_schedule`` measures, where
+    the pick drops more tokens than the default, or where a measured
+    launch leaves route ``mma``.  Then the grouped-matmul kernel is held
+    against its plain version at every (tile, cap_pad) measured, in its
+    three roles (and timed against its bytes bound), ``apply_moe`` at the
+    observed pick on the kernel path against the einsum path
+    (LOGIT_REL_L2), and ``prepare_sparse`` / ``spmm`` on both graphs at
+    N = 256 and 40 against f64 (K_TERMS), a second ``prepare_sparse``
+    replaying.  The launch counts are zeroed just before and read just
+    after."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch import tune
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve import ServeEngine
+    from repro_torch.tune import moe as tm
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_moe_tune_")
+    os.environ["REPRO_TUNE_CACHE"] = str(Path(tmp.name) / "tune.json")
+    tune.set_default_cache(None)
+    cache = tune.ScheduleCache(Path(tmp.name) / "engine.json")
+    engine = ServeEngine(api, params, slots=MOE_SLOTS, max_len=MOE_MAX_LEN,
+                         device=dev, tuner_cache=cache)
+    t_tokens = MOE_REQUESTS * MOE_PROMPT
+    d, f, dtype = cfg.d_model, cfg.moe_d_ff, str(cfg.param_dtype)
+    layer0 = params["layers"][0]["moe"]
+    weights = (layer0["wg"], layer0["wi"], layer0["wo"])
+    for c in counters.values():
+        c.launches = 0
+    out = {"hists": {}, "programs": {}}
+    with MeasureCount() as mc:
+        hidden = layer0_moe_input(cfg, params, moe_prompts(cfg), dev)
+        gates, _ = moe_mod._route(cfg, hidden, layer0["router"])
+        observed = moe_mod.expert_lengths_from_gates(gates)  # on the card
+        skewed = moe_mod.skewed_expert_lengths(cfg, t_tokens)
+        hists = (("balanced (assumed)", None,
+                  moe_mod.balanced_expert_lengths(cfg, t_tokens)),
+                 ("observed (layer 0)", observed, observed.cpu().numpy()),
+                 ("skewed", skewed, skewed))
+        programs = set()
+        default = moe_mod.default_dispatch(cfg)
+        for label, lengths, hist in hists:
+            routes = dict(gm.ROUTE_LAUNCHES)
+            before, t0 = mc.n, time.perf_counter()
+            pick = engine.prepare_moe(cfg, t_tokens, lengths)
+            took, n_meas = time.perf_counter() - t0, mc.n - before
+            taken = routes_taken(routes)
+            if set(taken) != {"mma"}:
+                fail(f"moe_tune {label}: the tuner's launches took routes "
+                     f"{taken}, not only the tensor cores")
+            key = tm.moe_cache_key(hist, d, f, dtype,
+                                   shrink=lengths is not None,
+                                   max_tokens=t_tokens)
+            rec = cache.get(key)
+            by_key = {tm.moe_schedule_key(s): s
+                      for s in tm.candidate_moe_schedules(
+                          hist, default=default,
+                          allow_capacity_shrink=lengths is not None,
+                          max_tokens=t_tokens)}
+            points = [(k, tm.moe_program(hist, by_key[k], t_tokens), us)
+                      for k, us in rec.measured.items()]
+            programs.update(p for _, p, _ in points)
+            print(f"moe_tune {label}: {int(hist.sum())} routed assignments "
+                  f"over {hist.shape[0]} experts (max {int(hist.max())}, "
+                  f"min {int(hist.min())}); {n_meas} measurements in "
+                  f"{took:.2f} s; key {key}", flush=True)
+            for k, (tile, cap_pad), us in points:
+                print(f"  {k:36s} tile {tile:3d} cap_pad {cap_pad:3d} "
+                      f"{us / 1e3:.4f} ms", flush=True)
+            before = mc.n
+            again = engine.prepare_moe(cfg, t_tokens, lengths)
+            resolved = engine.moe_dispatch_schedule(cfg, t_tokens, lengths)
+            fresh = ServeEngine(api, params, slots=1, max_len=MOE_MAX_LEN,
+                                device=dev, tuner_cache=cache)
+            fresh_pick = fresh.moe_dispatch_schedule(cfg, t_tokens, lengths)
+            if mc.n != before or not again == resolved == fresh_pick == pick:
+                fail(f"moe_tune {label}: the replays measured "
+                     f"{mc.n - before} points or resolved another schedule "
+                     f"({again}, {resolved}, {fresh_pick} against {pick})")
+            drops = {name: tm.dropped_tokens(hist, tm.moe_capacity(
+                hist, s.capacity_factor, max_tokens=t_tokens))
+                for name, s in (("pick", pick), ("default", default))}
+            if drops["pick"] > drops["default"]:
+                fail(f"moe_tune {label}: the pick drops {drops['pick']} "
+                     f"tokens, the default {drops['default']}")
+            runners = [tm.make_moe_runner(hist, d, f, s, dtype, t_tokens,
+                                          device=dev, weights=weights)
+                       for s in (pick, default)]
+            tuned_ms, default_ms = retime_in_turns(*runners[0], *runners[1])
+            del runners
+            ratio = tuned_ms / default_ms
+            print(f"moe_tune {label}: pick {tm.moe_schedule_key(pick)} "
+                  f"(tile, cap_pad) {tm.moe_program(hist, pick, t_tokens)}, "
+                  f"{rec.us_per_call / 1e3:.4f} ms measured; default "
+                  f"{tm.moe_schedule_key(default)} "
+                  f"{tm.moe_program(hist, default, t_tokens)}; re-timed in "
+                  f"turns on layer 0's weights ({TUNE_WINDOWS} windows of "
+                  f"10): tuned {tuned_ms:.4f} ms, default {default_ms:.4f} "
+                  f"ms, ratio {ratio:.4f}; dropped tokens pick "
+                  f"{drops['pick']}, default {drops['default']}; replays 0 "
+                  "measurements", flush=True)
+            out["hists"][label] = {
+                "n": n_meas, "s": took, "points": points, "pick": pick,
+                "tuned_ms": tuned_ms, "default_ms": default_ms,
+                "ratio": ratio, "drops": drops}
+        out["measurements"] = mc.n
+        torch.cuda.empty_cache()
+
+        # the kernel at every program the tuner measured, in its three roles
+        gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+        worst = 0.0
+        for tile, cap_pad in sorted(programs):
+            cases = gmm_role_cases(layer0, gen, f"moe_tune ({tile}, "
+                                   f"{cap_pad})", tile, cap_pad)
+            worst = max(worst, check_grouped_matmul(cases)["grouped_matmul"])
+            row = time_grouped_matmul(cases, row_prefix="")
+            b_ms, by = bound(row["bytes"], row["flops"], BF16_FLOP_PER_S)
+            print(f"moe_tune program (tile {tile}, cap_pad {cap_pad}): three "
+                  f"launches {row['ms']:.4f} ms (bound {b_ms:.4f} ms by {by},"
+                  f" {row['bytes']} bytes), plain {row['plain_ms']:.4f} ms, "
+                  f"torch.bmm {row['library_ms']:.4f} ms", flush=True)
+            out["programs"][(tile, cap_pad)] = {**row, "bound_ms": b_ms}
+            del cases
+            torch.cuda.empty_cache()
+        out["worst"] = worst
+
+        # the slice as a whole at the observed pick
+        pick = out["hists"]["observed (layer 0)"]["pick"]
+        before = gm.KERNEL.launches
+        got, _ = moe_mod.apply_moe(cfg, layer0, hidden, dispatch=pick,
+                                   device=dev)
+        n_launch = gm.KERNEL.launches - before
+        want, _ = moe_mod.apply_moe(cfg.scaled(moe_kernel_dispatch=False),
+                                    layer0, hidden, dispatch=pick,
+                                    device=dev)
+        err = rel_l2(got, want)
+        print(f"moe_tune apply_moe {tuple(hidden.shape)} {hidden.dtype} at "
+              f"the observed pick: {n_launch} grouped-matmul launches, kernel "
+              f"path against the einsum path relative L2 {err:.3e} (tol "
+              f"{LOGIT_REL_L2:.3e})", flush=True)
+        if n_launch != 3 or not err <= LOGIT_REL_L2:
+            fail("moe_tune: apply_moe at the tuned dispatch disagrees with "
+                 "the einsum path")
+        out["apply_moe_rel_l2"] = err
+        del hidden, gates, got, want
+
+        # the sparse side channel: tuned ahead, served with no measurement
+        from repro_torch.core import Epilogue
+        from repro_torch.sparse import spmm
+
+        out["spmm"] = {}
+        for name, (adj, _) in graphs.items():
+            xw = (x @ model.w1).contiguous()
+            h = spmm(adj, xw, bias=model.b1, epilogue=Epilogue("relu"),
+                     device=dev)
+            for n, b in ((HIDDEN, xw), (N_CLASS, (h @ model.w2).contiguous())):
+                before, t0 = mc.n, time.perf_counter()
+                sched = engine.prepare_sparse(adj, n, value_dtypes=())
+                took, n_meas = time.perf_counter() - t0, mc.n - before
+                before = mc.n
+                again = engine.prepare_sparse(adj, n, value_dtypes=())
+                got = engine.spmm(adj, b)
+                if mc.n != before or again != sched:
+                    fail(f"moe_tune spmm {name} N={n}: the second "
+                         f"prepare_sparse or spmm measured {mc.n - before} "
+                         "points instead of replaying")
+                k_kernel, k_plain = f64_k(adj, b, sched, None, got)
+                print(f"moe_tune spmm {name} N={n}: prepare_sparse "
+                      f"{n_meas} measurements in {took:.2f} s, pick {sched};"
+                      f" engine.spmm against the f64 result: kernel k "
+                      f"{k_kernel:.3f} (tol K_TERMS {K_TERMS}), plain "
+                      f"version k {k_plain:.3f} (printed only); replays 0 "
+                      "measurements", flush=True)
+                if not k_kernel <= K_TERMS:
+                    fail(f"moe_tune spmm {name} N={n}: engine.spmm is "
+                         f"k {k_kernel:.3f} from the f64 result")
+                out["spmm"][(name, n)] = {"sched": sched, "k": k_kernel,
+                                          "n": n_meas}
+                del got
+            del xw, h
+    torch.cuda.synchronize()
+    out["counts"] = {n: c.launches for n, c in counters.items()}
+    out["s"] = time.perf_counter() - t_phase
+    print(f"moe_tune: {out['measurements']} dispatch measurements, phase "
+          f"{out['s']:.1f} s; launches {out['counts']}", flush=True)
+    tune.set_default_cache(None)
+    del os.environ["REPRO_TUNE_CACHE"]
+    tmp.cleanup()
+    return out
+
+
 def profile_step(label, fn):
     """``torch.profiler`` over one call of ``fn``: the device's busy
     share of the call (kernel time over the CUDA-event time of the same
@@ -2279,14 +2560,15 @@ def profile_step(label, fn):
                       for e in top), flush=True)
 
 
-def time_grouped_matmul(cases):
+def time_grouped_matmul(cases, row_prefix="decode"):
     """Row 7: the three decode-shape launches of one layer (gate with
-    SiLU, up, down), the kernel's median ms over 5 ms windows, its plain
-    version's ms and the library yardstick's, ``torch.bmm`` on the
-    (E, cap, D) x (E, D, F) bf16 layout that ``_expert_ffn`` builds (which
-    the port never calls), summed; bytes: x, each touched expert's weights
-    and the output once; operations at the bf16 peak.  The prefill-shape
-    launches are timed and printed beside them."""
+    SiLU, up, down; the cases whose label starts with ``row_prefix``),
+    the kernel's median ms over 5 ms windows, its plain version's ms and
+    the library yardstick's, ``torch.bmm`` on the (E, cap_pad, D) x
+    (E, D, F) bf16 layout that ``_expert_ffn`` builds (which the port
+    never calls), summed; bytes: x, each touched expert's weights and the
+    output once; operations at the bf16 peak.  The other cases are timed
+    and printed beside them."""
     import torch
     from repro_torch.kernels import grouped_matmul as gm
 
@@ -2297,8 +2579,8 @@ def time_grouped_matmul(cases):
         kw = dict(epilogue=ep, token_tile=tile)
         ms = cuda_ms_median(lambda: gm.grouped_matmul(
             x, te, w, f_tile=f, d_tile=d, **kw))
-        plain = cuda_ms(lambda: gm.grouped_matmul_plain(x, te, w, **kw), 3, 1)
-        xb = x.reshape(e, tile, d)
+        plain = cuda_ms(lambda: plain_gmm(x, te, w, **kw), 3, 1)
+        xb = x.reshape(e, -1, d)
         lib = cuda_ms_median(lambda: torch.bmm(xb, w))
         n_out = x.shape[0] * f
         nbytes = (x.numel() * x.element_size()
@@ -2313,7 +2595,7 @@ def time_grouped_matmul(cases):
               f"{b_ms / ms:.3f} of the bound's {HBM_BYTES_PER_S / 1e9:.0f} "
               f"GB/s), plain {plain:.4f} ms, torch.bmm {lib:.4f} ms "
               f"({nbytes / lib / 1e6:.0f} GB/s)", flush=True)
-        if not label.startswith("decode"):
+        if not label.startswith(row_prefix):
             continue  # the row holds one layer's decode launches
         row["ms"] += ms
         row["plain_ms"] += plain
@@ -2458,15 +2740,26 @@ def main() -> None:
         runs.append(moe["counts"])
         expected.append(("moe_serve", ("grouped_matmul",)))
         results["grouped_matmul"] = time_grouped_matmul(cases)
-    del cases, moe_params
+        del cases
+        torch.cuda.empty_cache()
+        moe_tuned = moe_tune(cfg, api, einsum, moe_params, graphs, x,
+                             social_model, dev, counters)
+        runs.append(moe_tuned["counts"])  # held apart, as the tune phase's
+        expected.append(("moe_tune", ("grouped_matmul", "spmm_eb")))
+        worst["grouped_matmul"] = max(worst["grouped_matmul"],
+                                      moe_tuned["worst"])
+    del moe_params
     torch.cuda.empty_cache()
     for (path, kernels), counts in zip(expected, runs):
         for n in kernels:
             if counts[n] == 0:
                 fail(f"the {n} kernel was not launched on the {path} path")
-    # the tuner's launches follow how many points its timing visits
-    launches = {n: sum(c[n] for c in runs if c is not tuned["counts"])
+    # the tuners' launches follow how many points their timing visits
+    tuner_runs = (tuned["counts"], moe_tuned["counts"])
+    launches = {n: sum(c[n] for c in runs
+                       if not any(c is t for t in tuner_runs))
                 for n in counters}
+    tune_launches = {n: sum(c[n] for c in tuner_runs) for n in counters}
 
     parts = {"social": results["spmm_eb"]["ms"] + results["epilogue"]["ms"],
              "roadnet": results["spmm_rb"]["ms"]}
@@ -2494,6 +2787,11 @@ def main() -> None:
           f"{moe['einsum_decode_ms']:.4f} ms), grouped matmul "
           f"{moe['gmm_ms']:.4f} ms of the step, {moe['tokens_per_s']:.1f} "
           "tokens/s", flush=True)
+    print("moe_tune: tuned / default re-timed in turns "
+          + ", ".join(f"{label} {h['ratio']:.4f}"
+                      for label, h in moe_tuned["hists"].items())
+          + f"; {len(moe_tuned['programs'])} programs held against the "
+          f"plain version; phase {moe_tuned['s']:.1f} s", flush=True)
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
@@ -2503,7 +2801,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "tune_launches": tuned["counts"][name],
+            "tune_launches": tune_launches[name],
             "max_abs_err": worst[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": r["library_ms"]})
@@ -2514,8 +2812,8 @@ def main() -> None:
         print(f"kernel {name}: {r['ms']:.4f} ms (bound {bound_ms:.4f} ms "
               f"by {bound_by}, {r['bytes']} bytes, {r['flops']} "
               f"operations{gathers}), plain {r['plain_ms']:.4f} ms, library "
-              f"{lib} ms, launches {launches[name]} (tune phase "
-              f"{tuned['counts'][name]})", flush=True)
+              f"{lib} ms, launches {launches[name]} (tune and moe_tune "
+              f"phases {tune_launches[name]})", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

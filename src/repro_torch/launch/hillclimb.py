@@ -1,8 +1,10 @@
 """Tuner launcher: pre-warm the tuner's cache on the card (port of the
-``--spmm`` and ``--attention`` modes of ``repro/launch/hillclimb.py``).
+``--spmm``, ``--moe`` and ``--attention`` modes of
+``repro/launch/hillclimb.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.hillclimb --spmm \\
         [--n-dense 4] [--full] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.hillclimb --moe
     PYTHONPATH=src python -m repro_torch.launch.hillclimb --attention
 
 ``--spmm`` runs the empirical tuner (``repro_torch.tune``) over the
@@ -10,13 +12,19 @@ synthetic matrix suite, timing the port's kernels on ``--device``
 (default ``cuda``; ``cpu`` times the plain versions), consulting and
 populating the device's cache file under ``REPRO_TUNE_CACHE``: a second
 run replays every cell with no tuning measurement.  It prints auto
-(static selector) against tuned per cell.  ``--attention`` tunes the
-fused attention kernels, forward and backward, for a uniform and a
-skewed pattern.  ``--full`` runs the larger suite.
+(static selector) against tuned per cell.  ``--moe`` tunes the MoE
+dispatch (``tune.moe``) on the grouped-matmul kernel for a balanced and
+a skewed expert histogram of the reference's cells (D 128, F 128, 8
+experts top-2, 512 tokens; ``--full`` adds D 256, F 512 and 2048
+tokens) and prints the default against the pick; those calls last tens
+of microseconds on the card, so they measure the host's launches as
+much as the kernel.  ``--attention`` tunes the fused attention kernels,
+forward and backward, for a uniform and a skewed pattern.  ``--full``
+runs the larger suite.
 
-``--cell`` (the roofline mode, which needs ``launch/dryrun.py``),
-``--moe`` (``tune/moe.py``) and ``--dist`` (the distributed tuner) are
-not ported yet and exit with the ROADMAP item that ports them.
+``--cell`` (the roofline mode, which needs ``launch/dryrun.py``) and
+``--dist`` (the distributed tuner) are not ported yet and exit with the
+ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -32,7 +40,6 @@ from ..core.device import resolve_device
 NOT_PORTED = {
     "cell": "the roofline mode needs launch/dryrun.py (ROADMAP queue 1 "
             "item 6)",
-    "moe": "MoE dispatch tuning needs tune/moe.py (ROADMAP queue 1 item 2)",
     "dist": "distributed tuning needs the distributed port (ROADMAP queue "
             "1 item 5)",
 }
@@ -68,6 +75,49 @@ def spmm_hillclimb(n_dense: int = 4, quick: bool = True, device=None):
         print(f"  tuned {res.schedule}: {res.us_per_call:9.1f} us "
               f"({wins[-1]:.2f}x)")
     print(f"geomean tuned-vs-auto: {_geomean(wins):.3f}x "
+          f"({len(cache)} records in {cache.path})")
+
+
+def moe_hillclimb(quick: bool = True, device=None):
+    """Tune the MoE dispatch for a balanced and a skewed expert histogram
+    through the device's persistent cache; print the default against the
+    pick per cell and the geomean.  ``ServeEngine.moe_dispatch_schedule``
+    replays the records with no measurement."""
+    from ..configs import ARCHS, smoke_config
+    from ..models.moe import (balanced_expert_lengths, default_dispatch,
+                              moe_tune_dispatch, skewed_expert_lengths)
+    from ..tune import default_cache
+    from ..tune.moe import measure_moe_dispatch, moe_schedule_key
+
+    dev = resolve_device(device)
+    cfg = smoke_config(ARCHS["qwen3-moe-235b-a22b"]).scaled(
+        d_model=128 if quick else 256, moe_d_ff=128 if quick else 512,
+        n_experts=8, experts_per_token=2)
+    cache = default_cache(dev)
+    cells = []
+    for t in ((512,) if quick else (512, 2048)):
+        cells.append((f"balanced_t{t}", t, balanced_expert_lengths(cfg, t)))
+        cells.append((f"skewed_t{t}", t, skewed_expert_lengths(cfg, t)))
+    wins = []
+    for name, t, lengths in cells:
+        res = moe_tune_dispatch(cfg, t, expert_lengths=lengths, cache=cache,
+                                device=dev)
+        base = default_dispatch(cfg)
+        # the default is always in the measured pool; a replay measured
+        # nothing, so it is timed afresh
+        t_base = res.measured.get(moe_schedule_key(base))
+        if t_base is None:
+            t_base = measure_moe_dispatch(
+                lengths, cfg.d_model, cfg.moe_d_ff, base,
+                dtype=str(cfg.param_dtype), max_tokens=t, device=dev) * 1e6
+        wins.append(t_base / max(res.us_per_call, 1e-9))
+        src = "cache" if res.from_cache else f"{res.n_measurements} meas"
+        print(f"--- moe {name} E={cfg.n_experts} D={cfg.d_model} "
+              f"F={cfg.moe_d_ff} [{src}] ---")
+        print(f"  default {base}: {t_base:9.1f} us")
+        print(f"  tuned   {res.schedule}: {res.us_per_call:9.1f} us "
+              f"({wins[-1]:.2f}x)")
+    print(f"geomean tuned-vs-default: {_geomean(wins):.3f}x "
           f"({len(cache)} records in {cache.path})")
 
 
@@ -107,7 +157,8 @@ def main(argv=None):
                     help="tune the fused attention kernels (fwd and bwd)")
     ap.add_argument("--cell", action="append", default=None,
                     help="arch:shape:tag (not ported)")
-    ap.add_argument("--moe", action="store_true", help="(not ported)")
+    ap.add_argument("--moe", action="store_true",
+                    help="tune the MoE dispatch on the grouped-matmul kernel")
     ap.add_argument("--dist", action="store_true", help="(not ported)")
     ap.add_argument("--n-dense", type=int, default=4)
     ap.add_argument("--full", action="store_true")
@@ -120,10 +171,13 @@ def main(argv=None):
     if args.spmm:
         spmm_hillclimb(args.n_dense, quick=not args.full,
                        device=args.device)
+    elif args.moe:
+        moe_hillclimb(quick=not args.full, device=args.device)
     elif args.attention:
         attention_hillclimb(quick=not args.full, device=args.device)
     else:
-        sys.exit(f"pick a mode: --spmm or --attention ({NOT_PORTED['cell']})")
+        sys.exit("pick a mode: --spmm, --moe or --attention "
+                 f"({NOT_PORTED['cell']})")
 
 
 if __name__ == "__main__":

@@ -6,12 +6,19 @@ active slot with one ``decode_step`` over the whole slot batch.  Finished
 slots are refilled from the request queue by per-slot prefill; sampling
 is greedy or by temperature.
 
+Sparse side-channel operands (retrieval adapters, graph features) go
+through :meth:`ServeEngine.spmm`, and the MoE dispatch through
+:meth:`ServeEngine.moe_dispatch_schedule`: both resolve their schedule
+from the engine's memo, then the persistent tuner cache
+(``repro_torch.tune``), else the static default, and never measure on
+the request path.  Tuning happens ahead of time in
+:meth:`ServeEngine.prepare_sparse` and :meth:`ServeEngine.prepare_moe`
+(or ``launch.hillclimb --spmm`` / ``--moe``).  ``prepare_dist`` waits
+for the distributed port (ROADMAP.md, queue 1 item 5).
+
 Kept from the reference as it is, for parity: the cache has one
 position ``pos`` for all slots, set by the last prefill, so prompts of
-one wave must have equal lengths (ROADMAP.md §3).  The sparse
-side-channel (``prepare_sparse``, ``prepare_dist``, ``prepare_moe``,
-``moe_dispatch_schedule``, ``spmm``) needs the tuner and is not ported
-yet (ROADMAP.md, queue 1 item 6).
+one wave must have equal lengths (ROADMAP.md §3).
 """
 from __future__ import annotations
 
@@ -33,7 +40,8 @@ class Request:
 
 class ServeEngine:
     def __init__(self, api, params, *, slots: int = 4, max_len: int = 128,
-                 temperature: float = 0.0, seed: int = 0, device=None):
+                 temperature: float = 0.0, seed: int = 0, device=None,
+                 tuner_cache=None):
         self.device = resolve_device(device)
         check_on(self.device, embed=params["embed"])
         self.api = api
@@ -47,6 +55,12 @@ class ServeEngine:
         self.cache = api.init_cache(slots, max_len, device=self.device)
         self.results: dict[int, list[int]] = {}
         self._next_tokens = np.zeros((slots,), np.int64)
+        # the tuner's ScheduleCache (None: the default cache of the
+        # engine's device); the memo maps fingerprint cache keys to tuned
+        # schedules, so it survives operand re-creation and never
+        # aliases two matrices
+        self.tuner_cache = tuner_cache
+        self._sched_memo: dict[str, object] = {}
 
     def submit(self, req: Request):
         """Queue ``req``; refuse one whose prompt and decode steps would
@@ -59,6 +73,89 @@ class ServeEngine:
                 f"{req.max_new_tokens} new tokens need {need} cache "
                 f"positions, more than max_len {self.max_len}")
         self.queue.append(req)
+
+    # -- tuned sparse side channel ------------------------------------------
+
+    def prepare_sparse(self, csr, n_dense_cols: int, *, value_dtypes=None,
+                       error_budget=None):
+        """Ahead-of-time tuning of a sparse operand this engine will serve
+        with: measures on the CSR's device (or replays the fingerprint
+        cache) and persists the winner, so :meth:`spmm` replays it for
+        free.  ``value_dtypes`` / ``error_budget`` forward to
+        ``tune_schedule``'s dtype axis: ``value_dtypes=()`` pins f32."""
+        from ..tune import cache_key, tune_schedule
+
+        kw = {}
+        if value_dtypes is not None:
+            kw["value_dtypes"] = value_dtypes
+        if error_budget is not None:
+            kw["error_budget"] = error_budget
+        sched = tune_schedule(csr, n_dense_cols, cache=self.tuner_cache,
+                              **kw).schedule
+        self._sched_memo[cache_key(csr, n_dense_cols)] = sched
+        return sched
+
+    def prepare_dist(self, csr, n_dense_cols: int, *, mesh, axis: str,
+                     value_dtypes=None, interpret: bool = True):
+        """Tuning a sharded operand waits for the distributed port."""
+        raise NotImplementedError(
+            "prepare_dist tunes the sharded SpMM, which the port does not "
+            "have yet (ROADMAP.md, queue 1 item 5)")
+
+    def prepare_moe(self, cfg, t_tokens: int, expert_lengths=None):
+        """Ahead-of-time tuning of the MoE dispatch this engine will run:
+        measures the grouped-matmul kernel on the engine's device (or
+        replays the cache) for this config's expert histogram, so
+        :meth:`moe_dispatch_schedule` replays it for free."""
+        from ..models.moe import moe_tune_dispatch
+
+        res = moe_tune_dispatch(cfg, t_tokens, expert_lengths=expert_lengths,
+                                cache=self.tuner_cache, device=self.device)
+        self._sched_memo[res.key] = res.schedule
+        return res.schedule
+
+    def moe_dispatch_schedule(self, cfg, t_tokens: int,
+                              expert_lengths=None):
+        """Serving-path resolver for ``apply_moe(..., dispatch=...)``: the
+        memo, then the persistent cache, else the config's static default;
+        never a measurement.  An assumed (None) histogram resolves only
+        the no-shrink record, as ``moe_tune_dispatch`` keys it."""
+        from ..models.moe import balanced_expert_lengths, moe_dispatch_schedule
+        from ..tune.moe import moe_cache_key
+
+        observed = expert_lengths is not None
+        lengths = (expert_lengths if observed
+                   else balanced_expert_lengths(cfg, t_tokens))
+        key = moe_cache_key(lengths, cfg.d_model, cfg.moe_d_ff,
+                            str(cfg.param_dtype), shrink=observed,
+                            max_tokens=t_tokens)
+        sched = self._sched_memo.get(key)
+        if sched is None:
+            sched = moe_dispatch_schedule(cfg, t_tokens,
+                                          expert_lengths=expert_lengths,
+                                          cache=self.tuner_cache,
+                                          device=self.device)
+        return sched
+
+    def spmm(self, a, b):
+        """Serving-path SpMM on the engine's device: the schedule comes
+        from the memo, then the persistent cache, else the static
+        selector; never from a measurement.  Misses are not memoized, so
+        tuning done later is picked up on the next call.  A non-CSR
+        operand has no fingerprint and runs ``spmm(...,
+        schedule="auto")``."""
+        from ..sparse import spmm as _spmm
+        from ..sparse.formats import CSR
+        from ..tune import cache_key, cached_or_auto
+
+        if not isinstance(a, CSR):
+            return _spmm(a, b, schedule="auto", device=self.device)
+        key = cache_key(a, int(b.shape[1]))  # memoized on the CSR
+        sched = self._sched_memo.get(key)
+        if sched is None:
+            sched = cached_or_auto(a, int(b.shape[1]),
+                                   cache=self.tuner_cache, key=key)
+        return _spmm(a, b, schedule=sched, device=self.device)
 
     def _slot_prefill(self, slot: int, req: Request):
         """Prefill one slot: run the prompt batched by 1 and splice its

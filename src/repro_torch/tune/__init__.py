@@ -12,11 +12,14 @@ runs once per matrix profile.  ``schedule="tune"`` on
 measurement-free serving resolver; ``calibrate`` feeds measured timings
 back into ``Schedule.auto``'s cost model.  Every tuner is a thin wrapper
 over one search framework: ``tune.space`` declares the axes and
-``tune.driver.drive`` runs the one budgeted loop.
+``tune.driver.drive`` runs the one budgeted loop.  ``tune_moe_dispatch``
+tunes the MoE grouped-matmul dispatch on the kernel, keyed by the
+expert-segment histogram; ``moe_cached_or_default`` is its serving
+resolver.
 
-Not ported yet: ``tune/moe.py`` (the MoE dispatch tuner; ROADMAP queue 1
-item 2) and the distributed search (``tune_dist_spmm``,
-``make_dist_runner``, ``measure_dist_schedule`` raise; item 5).
+Not ported yet: the distributed search (``tune_dist_spmm``,
+``make_dist_runner``, ``measure_dist_schedule`` raise; ROADMAP queue 1
+item 5).
 """
 from .cache import (  # noqa: F401
     MIGRATIONS,
@@ -54,14 +57,27 @@ from .measure import (  # noqa: F401
     measure_schedule,
     time_fn,
 )
+from .moe import (  # noqa: F401
+    MoeDispatchSchedule,
+    dropped_tokens,
+    measure_moe_dispatch,
+    moe_cache_key,
+    moe_cached_or_default,
+    moe_capacity,
+    moe_schedule_key,
+    tune_moe_dispatch,
+)
 from .driver import (  # noqa: F401
     TuneResult,
     drive,
 )
 from .space import (  # noqa: F401
     Axis,
+    CapacityAxis,
+    CollectiveAxis,
     EpilogueAxis,
     FuseBoundaryAxis,
+    MoeTilingAxis,
     SearchContext,
     SearchSpace,
     SkewAxis,

@@ -168,31 +168,37 @@ def default_cache_path(namespace: str | None = None) -> pathlib.Path:
 @dataclasses.dataclass(frozen=True)
 class TuneRecord:
     """One cached tuning outcome: a :class:`~repro_torch.core.Schedule`
-    (SpMM, segment-reduce and attention records) or a
-    :class:`~repro_torch.fuse.FuseDecision` (``fuse:`` planner records);
-    serialization dispatches on a ``kind`` tag, as in the reference.  The
-    reference's ``moe`` kind raises until ``tune/moe.py`` is ported."""
+    (SpMM, segment-reduce and attention records), a
+    :class:`~repro_torch.tune.moe.MoeDispatchSchedule` (``moe:`` records)
+    or a :class:`~repro_torch.fuse.FuseDecision` (``fuse:`` planner
+    records); serialization dispatches on a ``kind`` tag in the
+    reference's JSON shape, so each package reads the other's records."""
 
     schedule: object
     us_per_call: float
     measured: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def to_json(self) -> dict:
-        """Serialize to a plain dict, tagging a FuseDecision ``fuse``."""
+        """Serialize to a plain dict, tagging the non-Schedule kinds
+        (``moe``, ``fuse``)."""
         from ..fuse.ir import FuseDecision
+        from .moe import MoeDispatchSchedule
 
         d = {
             "schedule": dataclasses.asdict(self.schedule),
             "us_per_call": self.us_per_call,
             "measured": self.measured,
         }
-        if isinstance(self.schedule, FuseDecision):
+        if isinstance(self.schedule, MoeDispatchSchedule):
+            d["kind"] = "moe"
+        elif isinstance(self.schedule, FuseDecision):
             d["kind"] = "fuse"
             d["schedule"] = {"fused": list(self.schedule.fused)}
         elif not isinstance(self.schedule, Schedule):
             raise TypeError(
                 f"unserializable schedule type {type(self.schedule).__name__}"
-                " (known kinds: Schedule, FuseDecision)")
+                " (known kinds: Schedule, MoeDispatchSchedule, "
+                "FuseDecision)")
         return d
 
     @staticmethod
@@ -200,10 +206,10 @@ class TuneRecord:
         """Inverse of :meth:`to_json`; dispatches on the ``kind`` tag."""
         kind = d.get("kind")
         if kind == "moe":
-            raise NotImplementedError(
-                "moe records need tune/moe.py, which the port does not "
-                "have yet (ROADMAP queue 1 item 2)")
-        if kind == "fuse":
+            from .moe import MoeDispatchSchedule
+
+            sched = MoeDispatchSchedule(**d["schedule"])
+        elif kind == "fuse":
             from ..fuse.ir import FuseDecision
 
             sched = FuseDecision(fused=tuple(bool(b)
@@ -266,7 +272,7 @@ class ScheduleCache:
         for key, rec in records.items():
             try:
                 out[key] = TuneRecord.from_json(rec)
-            except (KeyError, TypeError, ValueError, NotImplementedError):
+            except (KeyError, TypeError, ValueError):
                 continue  # one bad record must not poison the rest
         return out
 

@@ -923,11 +923,13 @@ def _mma_k(d):
 
 
 @pytest.mark.parametrize("d,f", [(300, 40), (4096, 1536)])
-@pytest.mark.parametrize("tile", [1, 4, 10, 16, 17, 128])
+@pytest.mark.parametrize("tile", [1, 4, 10, 16, 17, 32, 64, 80, 96, 128])
 def test_grouped_matmul_tensor_core_route_matches_plain(dev, tile, d, f):
     """The tensor-core route at the tiles of decode (4), prefill (10),
-    one and two mma.sync n8 tiles, a ragged third and four passes of 32
-    rows (128), at the MoE width (D 4096, F 1536) and at ragged D and F,
+    one and two mma.sync n8 tiles, a ragged third, the dispatch tuner's
+    tiles at 1024 tokens (one to three passes of 32 rows, a ragged half
+    pass at 80) and four passes (128), at the MoE width (D 4096, F 1536)
+    and at ragged D and F,
     for every activation with and without bias and both output types,
     per element against the plain version."""
     from repro_torch.core import Epilogue
@@ -1112,3 +1114,46 @@ def test_schedule_fits_card_refuses_what_the_cuda_wrappers_refuse(tuner_env):
         except (ValueError, NotImplementedError):
             took = False
         assert fits == took, s
+
+
+def test_moe_dispatch_tuner_on_cuda(dev, tmp_path, monkeypatch):
+    """``tune_moe_dispatch`` times the kernel's three launches on the
+    card, every one on the tensor-core route; a replay measures nothing;
+    ``apply_moe`` at the pick matches the CPU's plain version."""
+    from repro_torch import tune
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.models import moe as tmoe
+    from repro_torch.tune import moe as tm
+
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_BENCH_ITERS", "2")
+    tune.set_default_cache(None)
+    cfg = smoke_config(ARCHS["qwen3-moe-235b-a22b"]).scaled(
+        d_model=256, moe_d_ff=128, n_experts=8, param_dtype="bfloat16",
+        compute_dtype="bfloat16")
+    lengths = tmoe.skewed_expert_lengths(cfg, 512)
+    before = dict(gm.ROUTE_LAUNCHES)
+    res = tmoe.moe_tune_dispatch(cfg, 512, expert_lengths=lengths, device=dev)
+    assert res.n_measurements > 0
+    assert {r for r, n in gm.ROUTE_LAUNCHES.items() if n != before[r]} == {
+        "mma"}
+    again = tmoe.moe_tune_dispatch(cfg, 512, expert_lengths=lengths,
+                                   device=dev)
+    assert again.from_cache and again.schedule == res.schedule
+    assert tmoe.moe_dispatch_schedule(cfg, 512, expert_lengths=lengths,
+                                      device=dev) == res.schedule
+    assert tm.dropped_tokens(lengths, tm.moe_capacity(
+        lengths, res.schedule.capacity_factor, max_tokens=512)) <= (
+        tm.dropped_tokens(lengths, tm.moe_capacity(
+            lengths, cfg.capacity_factor, max_tokens=512)))
+    p = tmoe.init_moe(cfg, torch.Generator().manual_seed(0))
+    x = _dense("cpu", (512, cfg.d_model), 5).to(torch.bfloat16)
+    with torch.no_grad():
+        got, _ = tmoe.apply_moe(cfg, {k: v.to(dev) for k, v in p.items()},
+                                x.to(dev), dispatch=res.schedule)
+        want, _ = tmoe.apply_moe(cfg, p, x, dispatch=res.schedule,
+                                 device="cpu")
+    torch.testing.assert_close(got.float().cpu(), want.float(),
+                               rtol=2.0 ** -7, atol=2e-2)
+    tune.set_default_cache(None)

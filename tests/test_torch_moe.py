@@ -181,5 +181,5 @@ def test_apply_moe_paths_agree_and_mesh_raises():
         assert tmoe._capacity(tcfg, t) == jmoe._capacity(tcfg, t)
     ctx = tmoe.ShardingCtx(mesh=object(), data_axes=("data",),
                            model_axis="model")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         tmoe.apply_moe(tcfg, tp, xt, ctx, device="cpu")

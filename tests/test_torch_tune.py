@@ -163,9 +163,18 @@ def test_cache_schema_merge_and_moe_records(tuner_env):
     path.write_text(raw)
     assert len(tt.ScheduleCache(path)) == 0  # v3 -> v4 drops and re-tunes
     assert tt.migrate_records("x", {"k": {}}) == {}
-    with pytest.raises(NotImplementedError, match="moe"):
-        tt.TuneRecord.from_json({"kind": "moe", "schedule": {},
-                                 "us_per_call": 1.0})
+    # a moe record round-trips and reads back through the JAX classes
+    moe = tt.TuneRecord(tt.MoeDispatchSchedule(token_tile=32,
+                                               capacity_factor=1.5), 2.0)
+    assert moe.to_json()["kind"] == "moe"
+    assert tt.TuneRecord.from_json(moe.to_json()) == moe
+    assert jt.moe_schedule_key(jt.TuneRecord.from_json(
+        moe.to_json()).schedule) == tt.moe_schedule_key(moe.schedule)
+    c = tt.ScheduleCache(path)
+    c.put("moe:k", moe)
+    c.save()
+    assert jt.ScheduleCache(path).get("moe:k").schedule == (
+        jt.MoeDispatchSchedule(token_tile=32, capacity_factor=1.5))
 
 
 # ---------------------------------------------------------------------------
@@ -460,8 +469,7 @@ def test_not_ported_parts_raise_naming_their_item(tuner_env):
                      a, 4, tc.Schedule(), mesh=None, axis="x")):
         with pytest.raises(NotImplementedError, match="item 5"):
             call()
-    for mode, item in (("--moe", "item 2"), ("--dist", "item 5"),
-                       ("--cell", "item 6")):
+    for mode, item in (("--dist", "item 5"), ("--cell", "item 6")):
         argv = [mode, "x:y:z"] if mode == "--cell" else [mode]
         with pytest.raises(SystemExit, match=item):
             hillclimb.main(argv)
