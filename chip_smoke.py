@@ -57,6 +57,17 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   roadnet's GCN chain with ``gcn_two_layer(plan=tuned_plan(...))``; and
   ``calibrate`` from the phase's own measurements, whose shipped fit must
   not rank worse than the prior;
+- low precision (``lowprec``, with ``Fp8Fallback`` an error): the GCN
+  served at bf16, fp16, fp8 (e4m3) and int8 (per-row scales) value
+  storage on both graphs against the same schedule at f32 (LOWPREC_TOL,
+  the reference's, and within 1 % of the storage's own error on the
+  plain path), one bf16 training step against f32 (LOWPREC_GRAD_TOL); EB
+  and RB at each storage type per element under K_TERMS; the fp16 and
+  e4m3 epilogue stores on EB, RB and the grouped matmul (e4m3 NaN above
+  464); int8 codes and scales card against CPU bit for bit; the byte
+  model against the EB runner's feed; EB (with its finish) and RB timed
+  at each storage type beside f32; and ``tune_schedule`` with the dtype
+  axis at N = 256 on both graphs, its replay measuring nothing;
 - MoE serving (``moe_serve``): Qwen3-MoE-235B-A22B at full width (d_model
   4096, 64 heads over 4 kv heads, 128 experts top-8, expert width 1536,
   vocab 151,936, bf16), cut to 4 layers, random weights from seed 0 made
@@ -85,8 +96,9 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
 It prints kernel, forward, training-step, attention, readout, tuning,
 prefill and decode times, EB, RB and ``torch.sparse.mm`` at N = 64 and 128 on both
 graphs, the launch counts of each path, a ``{"kernels": [...]}``
-line (``launches`` counts every path but the tune and moe_tune phases,
-whose counts follow the points their timing visits and stand apart as
+line (``launches`` counts every path but the tuners' (the tune and
+moe_tune phases and the lowprec phase's dtype-axis tuning), whose counts
+follow the points their timing visits and stand apart as
 ``tune_launches``) and, as its last line, ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero without that line; so does a machine without
 CUDA.
@@ -145,6 +157,20 @@ MAX_FLIP_SHARE = 1e-6
 #: k (printed per case) stayed at or below 4.66 over every EB and RB case
 #: here; 16 leaves a margin of 3.4.
 K_TERMS = 16
+#: One step of a narrow output type, (relative, absolute at the bottom of
+#: its subnormals): the kernel and the plain version round f32 results
+#: that differ in their last bits, so they may land on neighbours.
+OUT_STEP = {"bfloat16": (2.0 ** -7, 0.0), "float16": (2.0 ** -10, 2.0 ** -24),
+            "float8_e4m3fn": (2.0 ** -3, 2.0 ** -9)}
+#: The low-precision phase: the storage types, the relative L2 of each
+#: one's served GCN forward against the same schedule at f32 (the
+#: reference's TOL, tests/test_lowprec.py: storage rounding only, the sums
+#: are f32), and of a bf16 training step's gradients against the f32
+#: step's (the reference's bound, tests/test_lowprec.py:144-156).
+LOWPREC_DTYPES = ("bfloat16", "float16", "float8_e4m3fn", "int8")
+LOWPREC_TOL = {"bfloat16": 2e-2, "float16": 3e-3, "float8_e4m3fn": 1.5e-1,
+               "int8": 5e-2}
+LOWPREC_GRAD_TOL = 5e-2
 TRAIN_STEPS = 5
 LR = 0.5
 #: Graph attention: HEADS x HEAD_DIM = 256, the GCN's hidden width.
@@ -294,6 +320,11 @@ def device_ms(fn, calls: int = 20, windows: int = 3) -> dict:
             for k in complete[0]}
 
 
+def dtype_name(t) -> str:
+    """'float32', 'bfloat16', ... of a tensor."""
+    return str(t.dtype).removeprefix("torch.")
+
+
 def compare(got, want, per_element=False):
     """(max |got - want|, tolerance text, within tolerance) in f32; with
     ``per_element`` each value is held to F32_TOL of itself plus
@@ -368,27 +399,33 @@ class Checker:
 
     def record_terms(self, kernel, label, got, want, terms):
         """Hold ``got`` to ``want`` per element within K_TERMS units of
-        2^-24 of ``terms + |want|`` (one bf16 step more for bf16); print
-        the observed k, the largest error in those units."""
+        2^-24 of ``terms + |want|`` (one step of a narrow output type
+        more, ``OUT_STEP``; NaN, an e4m3 overflow, exactly where the plain
+        version has it); print the observed k, the largest error in
+        those units."""
         import torch
 
         g, w = got.detach().float(), want.detach().float()
-        if g.shape != w.shape or got.dtype != want.dtype or not bool(
-                torch.isfinite(g).all()):
+        nan = torch.isnan(w)
+        if (g.shape != w.shape or got.dtype != want.dtype
+                or not torch.equal(torch.isnan(g), nan)
+                or not bool(torch.isfinite(g[~nan]).all())):
             err, k_obs, ok = float("inf"), float("inf"), False
         else:
+            g, w = g.masked_fill(nan, 0.0), w.masked_fill(nan, 0.0)
             unit = 2.0 ** -24 * (terms + w.abs())
-            slack = (2.0 ** -7 * w.abs() if got.dtype == torch.bfloat16
-                     else torch.zeros_like(w))
+            rel, floor = OUT_STEP.get(dtype_name(got), (0.0, 0.0))
+            slack = rel * w.abs() + floor
             diff = (g - w).abs()
             err = float(diff.max())
             k_obs = float(((diff - slack).clamp_min(0) / unit.clamp_min(
                 1e-30)).max())
             ok = bool((diff <= K_TERMS * unit + slack).all())
+        step = (f" + {OUT_STEP[dtype_name(got)][0]:.0e}|ref|"
+                if dtype_name(got) in OUT_STEP else "")
         self.worst[kernel] = max(self.worst[kernel], err)
         print(f"  {kernel:19s} {label:48s} max_abs_err {err:.3e} k "
-              f"{k_obs:.3f} (tol K_TERMS {K_TERMS} x 2^-24 x terms"
-              f"{' + 2^-7|ref|' if got.dtype == torch.bfloat16 else ''}) "
+              f"{k_obs:.3f} (tol K_TERMS {K_TERMS} x 2^-24 x terms{step}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             self.failures.append(f"{kernel} {label}")
@@ -1695,28 +1732,52 @@ def one_program_spread(res, programs):
             for g, v in groups.items()}
 
 
+def stored(adj, b, value_dtype):
+    """(the CSR whose layout the kernels are fed, per-row scales or None,
+    B) under ``value_dtype``: the values and B in their storage types, or
+    the int8 codes of the CSR's quantization with its scales on a bf16
+    B."""
+    from repro_torch.core.dtypes import cast, operand_dtype, storage_dtype
+
+    if value_dtype is None:
+        return adj, None, b
+    bb = cast(b, operand_dtype(value_dtype, b.device))
+    if value_dtype == "int8":
+        q = adj.quantized()
+        return q.csr, q.scales, bb
+    return adj.astype(storage_dtype(value_dtype, b.device)), None, bb
+
+
 def plain_spmm(adj, b, sched, bias):
     """(kernel, out, terms): the plain version of the kernel ``sched``
     selects, on the CSR's feed for it (the grouping of the sums is the
-    schedule's), and the magnitudes of the terms entering each output."""
+    schedule's) at the schedule's value storage, and the magnitudes of
+    the terms entering each output (the stored values upcast)."""
     from repro_torch.kernels import spmm_eb, spmm_rb
 
+    adj_s, scales, b = stored(adj, b, sched.value_dtype)
     if sched.kernel == "eb":
-        g = adj.grouped(sched.nnz_tile, group_size=sched.group_size,
-                        split_threshold=sched.split_threshold,
-                        merge_threshold=sched.merge_threshold)
+        g = adj_s.grouped(sched.nnz_tile, group_size=sched.group_size,
+                          split_threshold=sched.split_threshold,
+                          merge_threshold=sched.merge_threshold)
         kernel, plain, args = "spmm_eb", spmm_eb.spmm_eb_plain, (
             g.rows, g.cols, g.vals, b)
         kw = dict(n_rows=adj.shape[0], nnz_tile=sched.nnz_tile,
                   group_size=sched.group_size, strategy=sched.strategy,
                   heavy_tiles=g.heavy_tiles)
+        term_args = (g.rows, g.cols,
+                     spmm_eb.lane_values(g.vals, g.rows, scales), b.float())
     else:
-        e = adj.ell(row_tile=sched.row_tile)
+        e = adj_s.ell(row_tile=sched.row_tile)
         kernel, plain, args = "spmm_rb", spmm_rb.spmm_rb_plain, (
             e.cols, e.vals, b)
         kw = dict(n_rows=adj.shape[0])
-    return (kernel, plain(*args, epilogue=sched.epilogue, bias=bias, **kw),
-            terms_of(plain, *args, bias=bias, **kw))
+        v = e.vals.float()
+        term_args = (e.cols, v if scales is None else
+                     v[:adj.shape[0]] * scales[:, None], b.float())
+    return (kernel, plain(*args, epilogue=sched.epilogue, scales=scales,
+                          bias=bias, **kw),
+            terms_of(plain, *term_args, bias=bias, **kw))
 
 
 def exact_spmm(adj, b, epilogue, bias):
@@ -1767,7 +1828,8 @@ def tune_spmm(checker, mc, name, adj, n, b, bias, ep):
 
     label = f"spmm {name} N={n}"
     t0 = time.perf_counter()
-    res = tune_schedule(adj, n, epilogue=ep)
+    # f32 storage: the dtype axis is the lowprec phase's
+    res = tune_schedule(adj, n, epilogue=ep, value_dtypes=())
     took = time.perf_counter() - t0
     auto = Schedule.auto(matrix_stats(adj), n)
     auto = auto if ep is None else auto.replace(epilogue=ep)
@@ -2017,6 +2079,420 @@ def tune_phase(graphs, x, model, profiles, counters):
     tune.set_default_cache(None)
     del os.environ["REPRO_TUNE_CACHE"]
     tmp.cleanup()
+    return out
+
+
+def lowprec_phase(graphs, x, models, counters):
+    """Low-precision SpMM on the card (bf16, fp16, fp8 and int8 value
+    storage) at the GCN's full width, with ``Fp8Fallback`` an error:
+
+    - served: the GCN forward on both graphs under each one's served
+      schedule with ``.replace(value_dtype=vd)``, against the same
+      schedule at f32 within LOWPREC_TOL, and its error within 1 % of
+      the storage's alone (the plain path over the rounded values and B):
+      where the storage alone exceeds LOWPREC_TOL (e4m3 flushes values
+      below 2^-10 to 0), that error is printed and the kernels are held
+      to it.  Twice on one CSR instance (the value cast is memoized: a
+      served matrix is cast once); then one training
+      step under bf16 against the f32 step (LOWPREC_GRAD_TOL).  The
+      launch counts are zeroed just before and read just after these;
+    - EB (auto schedules at N = 256 with bias and relu, N = 40, and the
+      skew layout under 'parallel') and RB (roadnet) on each storage type
+      against their plain versions per element under K_TERMS on a
+      zero-mean B (narrow inputs upcast exactly: the f32 bound holds);
+    - the fp16 and e4m3 epilogue stores on EB, RB and the grouped matmul
+      against their plain versions, with outputs above 448 (e4m3 NaN);
+    - int8 codes and scales made on the card against the CPU's, bit for
+      bit, both calibrations, both graphs;
+    - ``predict_spmm_arg_bytes`` against the bytes the EB runner feeds
+      (``tune.make_eb_runner``) on the social graph at N = 256, each
+      storage type;
+    - EB (kernel and finishing launch apart) and RB at N = 256 and 40 at
+      each storage type beside f32, CUDA events, with the bytes bound of
+      ``predict_spmm_traffic_bytes`` at the HBM rate;
+    - ``tune_schedule`` with the dtype axis on both graphs at N = 256
+      (bias and relu), a cache in a temporary directory: the parity of
+      each dtype against its budget, the points measured, the pick, a
+      replay through ``spmm(schedule="tune")`` measuring nothing and held
+      per element against the plain version, and the pick against its
+      f32 twin re-timed in turns.  Its launches count apart.
+    """
+    import os
+    import tempfile
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import tune
+    from repro_torch.core import Epilogue, Schedule
+    from repro_torch.core.dtypes import (Fp8Fallback, cast, operand_dtype,
+                                         storage_dtype)
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import spmm_eb, spmm_rb
+    from repro_torch.roofline import (predict_spmm_arg_bytes,
+                                      predict_spmm_traffic_bytes)
+    from repro_torch.sparse import CSR, matrix_stats, quantize_csr, spmm
+    from repro_torch.tune import (make_eb_runner, make_runner, search,
+                                  tune_schedule)
+
+    t_phase = time.perf_counter()
+    dev = x.device
+    checker = Checker(("spmm_eb", "spmm_rb", "epilogue", "grouped_matmul"))
+    relu, relu_b = Epilogue("relu"), Epilogue("relu", bias=True)
+    stats = {name: matrix_stats(adj) for name, (adj, _) in graphs.items()}
+
+    def sched_of(name, n, vd):
+        served = graphs[name][1]
+        s = (Schedule.auto(stats[name], n) if served == "auto" else served)
+        return s.replace(value_dtype=vd)
+
+    def forward(name, model, vd, adj=None):
+        adj = graphs[name][0] if adj is None else adj
+        h = spmm(adj, x @ model.w1, sched_of(name, HIDDEN, vd),
+                 bias=model.b1, epilogue=relu, device=dev)
+        return spmm(adj, h @ model.w2, sched_of(name, N_CLASS, vd),
+                    device=dev)
+
+    def forward_plain(name, model, vd):
+        """The forward on the plain path (``impl="ref"``) over the values
+        and B rounded to ``vd``'s storage (int8: dequantized), summed in
+        f32: what the storage alone does to the output."""
+        adj = graphs[name][0]
+        if vd is not None:
+            adj = (adj.quantized() if vd == "int8"
+                   else adj.astype(storage_dtype(vd, dev)))
+        op = torch.float32 if vd is None else operand_dtype(vd, dev)
+        h = spmm(adj, cast(x @ model.w1, op), bias=model.b1, epilogue=relu,
+                 impl="ref", device=dev)
+        return spmm(adj, cast(h @ model.w2, op), impl="ref", device=dev)
+
+    out = {"served": {}, "grad": {}, "times": {}, "tune": {}}
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", Fp8Fallback)  # no fallback here
+        for c in counters.values():
+            c.launches = 0
+        # served forwards, then one training step under bf16
+        for name, model in models.items():
+            adj = graphs[name][0]
+            with torch.no_grad():
+                want = forward(name, model, None)
+                plain32 = forward_plain(name, model, None)
+                for vd in LOWPREC_DTYPES:
+                    outs, memo = [], []
+                    for _ in range(2):
+                        outs.append(forward(name, model, vd))
+                        memo.append(sorted(
+                            (str(k), id(v[1])) for k, v in
+                            adj.__dict__.get("_convcache", {}).items()
+                            if k[0] in ("vals_astype", "quantized")))
+                    torch.cuda.synchronize()
+                    err = rel_l2(outs[-1], want)
+                    storage = rel_l2(forward_plain(name, model, vd), plain32)
+                    same = bool(torch.equal(outs[0], outs[1]))
+                    out["served"][(name, vd)] = (err, storage)
+                    # the kernels add nothing to the storage's error; that
+                    # error is within the reference's TOL unless the
+                    # storage alone exceeds it (values below the type's
+                    # smallest subnormal flush to 0)
+                    within = (err <= LOWPREC_TOL[vd]
+                              or storage > LOWPREC_TOL[vd])
+                    ok = (within and abs(err - storage) <= 0.01 * storage
+                          + 1e-5 and same and memo[0] and memo[0] == memo[1]
+                          and outs[-1].shape == want.shape)
+                    print(f"lowprec serve {name} {vd}: "
+                          f"{sched_of(name, HIDDEN, vd)}; relative L2 "
+                          f"{err:.3e} against f32 (tol {LOWPREC_TOL[vd]:.1e}"
+                          f"); the storage alone (plain path) {storage:.3e}"
+                          + (" exceeds the tol" if storage > LOWPREC_TOL[vd]
+                             else "")
+                          + f"; two requests bit for bit {same}; cast memo "
+                          f"kept {memo[0] == memo[1]} "
+                          f"{'ok' if ok else 'FAIL'}", flush=True)
+                    if not ok:
+                        fail(f"lowprec serve {name} {vd}")
+                labels = want.argmax(1)
+            grads = {}
+            for vd in (None, "bfloat16"):
+                leaves = [t.detach().clone().requires_grad_() for t in
+                          (model.w1, model.b1, model.w2, adj.vals)]
+                m = types.SimpleNamespace(w1=leaves[0], b1=leaves[1],
+                                          w2=leaves[2])
+                a = CSR(adj.indptr, adj.indices, leaves[3], adj.shape)
+                loss = F.cross_entropy(forward(name, m, vd, adj=a), labels)
+                grads[vd] = torch.autograd.grad(loss, leaves)
+            for pname, g, w in zip(("w1", "b1", "w2", "vals"),
+                                   grads["bfloat16"], grads[None]):
+                err = rel_l2(g, w)
+                out["grad"][(name, pname)] = err
+                print(f"lowprec train {name}: bf16 step d{pname} relative "
+                      f"L2 {err:.3e} against the f32 step (tol "
+                      f"{LOWPREC_GRAD_TOL:.0e})", flush=True)
+                if not err <= LOWPREC_GRAD_TOL:
+                    fail(f"lowprec train {name}: d{pname} under bf16")
+            del grads
+        torch.cuda.synchronize()
+        out["counts"] = {n: k.launches for n, k in counters.items()}
+        print(f"lowprec: launches of the served forwards and training "
+              f"steps {out['counts']}", flush=True)
+
+        with torch.no_grad():
+            gen = torch.Generator(device="cpu").manual_seed(SEED + 11)
+
+            def rand(*shape):
+                return torch.randn(*shape, generator=gen).to(dev)
+
+            n = N_NODES
+            b_wide, b_narrow = rand(n, HIDDEN), rand(n, N_CLASS)
+            bias = rand(HIDDEN)
+            adj = graphs["social"][0]
+            print("lowprec check: EB per element on the social graph",
+                  flush=True)
+            split = max(64, stats["social"]["row_quantiles"][-1][1])
+            skew = Schedule("eb", nnz_tile=128, group_size=8,
+                            strategy="parallel", split_threshold=split,
+                            merge_threshold=0)
+            for vd in LOWPREC_DTYPES:
+                for s, b, ep, ops in (
+                        (sched_of("social", HIDDEN, vd), b_wide, relu_b,
+                         {"bias": bias}),
+                        (sched_of("social", N_CLASS, vd), b_narrow,
+                         Epilogue(), {}),
+                        (skew.replace(value_dtype=vd), b_narrow,
+                         Epilogue(), {})):
+                    kernel, want, terms = plain_spmm(
+                        adj, b, s.replace(epilogue=ep), ops.get("bias"))
+                    a_s, scales, bq = stored(adj, b, vd)
+                    g = a_s.grouped(s.nnz_tile, group_size=s.group_size,
+                                    split_threshold=s.split_threshold,
+                                    merge_threshold=s.merge_threshold)
+                    got = spmm_eb.spmm_eb(
+                        g.rows, g.cols, g.vals, bq, n_rows=n,
+                        nnz_tile=s.nnz_tile, group_size=s.group_size,
+                        strategy=s.strategy, heavy_tiles=g.heavy_tiles,
+                        epilogue=ep, scales=scales, **ops)
+                    checker.record_terms(
+                        "spmm_eb" if ep.is_noop else "epilogue",
+                        f"{vd} G={s.group_size} {s.strategy} heavy_tiles="
+                        f"{g.heavy_tiles} {ep.tag or 'none'} N={b.shape[1]}",
+                        got, want, terms)
+            adj, rs = graphs["roadnet"]
+            print("lowprec check: RB per element on the roadnet graph",
+                  flush=True)
+            for vd in LOWPREC_DTYPES:
+                for b, ep, ops in ((b_wide, relu_b, {"bias": bias}),
+                                   (b_narrow, Epilogue(), {})):
+                    s = rs.replace(value_dtype=vd, epilogue=ep)
+                    _, want, terms = plain_spmm(adj, b, s, ops.get("bias"))
+                    a_s, scales, bq = stored(adj, b, vd)
+                    e = a_s.ell(row_tile=rs.row_tile)
+                    got = spmm_rb.spmm_rb(e.cols, e.vals, bq, n_rows=n,
+                                          epilogue=ep, scales=scales, **ops)
+                    checker.record_terms(
+                        "spmm_rb", f"{vd} {ep.tag or 'none'} "
+                        f"N={b.shape[1]}", got, want, terms)
+
+            print("lowprec check: fp16 and e4m3 epilogue stores (B x 512: "
+                  "e4m3 overflows to NaN above 464)", flush=True)
+            big = b_wide * 512
+            for out_dtype in ("float16", "float8_e4m3fn"):
+                ep = Epilogue("relu", bias=True, out_dtype=out_dtype)
+                for name, s in (("social", sched_of("social", HIDDEN, None)),
+                                ("roadnet", rs)):
+                    adj = graphs[name][0]
+                    kernel, want, terms = plain_spmm(
+                        adj, big, s.replace(epilogue=ep), bias)
+                    if s.kernel == "eb":
+                        g = adj.grouped(s.nnz_tile)
+                        got = spmm_eb.spmm_eb(
+                            g.rows, g.cols, g.vals, big, n_rows=n,
+                            nnz_tile=s.nnz_tile, group_size=s.group_size,
+                            strategy=s.strategy, epilogue=ep, bias=bias)
+                    else:
+                        e = adj.ell(row_tile=s.row_tile)
+                        got = spmm_rb.spmm_rb(e.cols, e.vals, big, n_rows=n,
+                                              epilogue=ep, bias=bias)
+                    nans = int(torch.isnan(want.float()).sum())
+                    checker.record_terms(
+                        "epilogue" if kernel == "spmm_eb" else kernel,
+                        f"{name} {out_dtype} out ({nans} NaN)", got, want,
+                        terms)
+                    if out_dtype == "float8_e4m3fn" and not nans:
+                        checker.failures.append(f"{name} e4m3: no output "
+                                                "above 464")
+                # the grouped matmul on both of its routes
+                for dt, f in ((torch.bfloat16, 256), (torch.float32, 40)):
+                    gg = torch.Generator().manual_seed(SEED + 12)
+                    xx = (torch.randn(320, 512, generator=gg) * 256).to(
+                        dt).to(dev)
+                    ww = (torch.randn(16, 512, f, generator=gg)
+                          * 512 ** -0.5).to(dt).to(dev)
+                    te = torch.randint(0, 16, (32,), generator=gg,
+                                       dtype=torch.int32).to(dev)
+                    bb = torch.randn(16, f, generator=gg).to(dev)
+                    ep_g = Epilogue("silu", bias=True, out_dtype=out_dtype)
+                    kw = dict(bias=bb, epilogue=ep_g, token_tile=10)
+                    got = gm.grouped_matmul(xx, te, ww, f_tile=min(f, 128),
+                                            **kw)
+                    want = gm.grouped_matmul_plain(xx, te, ww, **kw)
+                    terms = gm.grouped_matmul_plain(
+                        xx.abs(), te, ww.abs(), token_tile=10) + bb.abs()[
+                            te.long()].repeat_interleave(10, 0)
+                    nans = int(torch.isnan(want.float()).sum())
+                    checker.record_terms(
+                        "grouped_matmul", f"{dt} x {f} {out_dtype} out "
+                        f"({nans} NaN)", got, want, terms)
+
+            print("lowprec check: int8 codes and scales, card against CPU",
+                  flush=True)
+            for name, (adj, _) in graphs.items():
+                cpu = CSR(adj.indptr.cpu(), adj.indices.cpu(),
+                          adj.vals.cpu(), adj.shape)
+                for method in ("absmax", "percentile"):
+                    qd, qc = (quantize_csr(a, method=method)
+                              for a in (adj, cpu))
+                    same = bool(torch.equal(qd.csr.vals.cpu(),
+                                            qc.csr.vals)) and bool(
+                        torch.equal(qd.scales.cpu().view(torch.int32),
+                                    qc.scales.view(torch.int32)))
+                    print(f"  {name} {method}: {adj.nnz} codes, "
+                          f"{adj.shape[0]} scales; card and CPU bit for "
+                          f"bit {same}", flush=True)
+                    if not same:
+                        checker.failures.append(f"int8 {name} {method}")
+            checker.done()
+
+            print("lowprec check: predict_spmm_arg_bytes against the bytes "
+                  "the EB runner feeds", flush=True)
+            adj = graphs["social"][0]
+            for vd in (None,) + LOWPREC_DTYPES:
+                _, (feed, bb) = make_eb_runner(adj, HIDDEN, group_size=32,
+                                               strategy="segment",
+                                               value_dtype=vd)
+                scales = None
+                if vd == "int8":
+                    feed, scales = feed.csr.grouped(256, group_size=32), \
+                        feed.scales
+                fed = sum(t.nbytes for t in (feed.rows, feed.cols, feed.vals,
+                                             bb))
+                fed += 0 if scales is None else scales.nbytes
+                want = predict_spmm_arg_bytes(
+                    feed.nnz_padded, adj.shape[1], HIDDEN, value_dtype=vd,
+                    scales_rows=0 if scales is None else n)
+                print(f"  {vd or 'float32'}: fed {fed} bytes, predicted "
+                      f"{want} {'ok' if fed == want else 'FAIL'}",
+                      flush=True)
+                if fed != want:
+                    fail(f"lowprec: predict_spmm_arg_bytes at {vd}")
+                del feed, bb
+
+            print("lowprec times (CUDA events; bound = "
+                  "predict_spmm_traffic_bytes at 3.35 TB/s)", flush=True)
+            for vd in (None,) + LOWPREC_DTYPES:
+                row = {}
+                adj = graphs["social"][0]
+                for b, ep, ops in ((b_wide, relu_b, {"bias": bias}),
+                                   (b_narrow, Epilogue(), {})):
+                    s = sched_of("social", b.shape[1], vd)
+                    a_s, scales, bq = stored(adj, b, vd)
+                    g = a_s.grouped(s.nnz_tile)
+                    kw = dict(n_rows=n, nnz_tile=s.nnz_tile,
+                              group_size=s.group_size, strategy=s.strategy,
+                              epilogue=ep, scales=scales, **ops)
+                    split_ms = launch_ms(lambda: spmm_eb.spmm_eb(
+                        g.rows, g.cols, g.vals, bq, **kw))
+                    nbytes = predict_spmm_traffic_bytes(
+                        g.nnz_padded, n, b.shape[1], value_dtype=vd,
+                        scales_rows=n if scales is not None else 0)
+                    row[("eb", b.shape[1])] = (split_ms["spmm_eb"],
+                                               split_ms["spmm_eb_finish"],
+                                               nbytes)
+                adj, rs = graphs["roadnet"]
+                for b, ep, ops in ((b_wide, relu_b, {"bias": bias}),
+                                   (b_narrow, Epilogue(), {})):
+                    a_s, scales, bq = stored(adj, b, vd)
+                    e = a_s.ell(row_tile=rs.row_tile)
+                    ms = cuda_ms(lambda: spmm_rb.spmm_rb(
+                        e.cols, e.vals, bq, n_rows=n, epilogue=ep,
+                        scales=scales, **ops))
+                    nbytes = predict_spmm_traffic_bytes(
+                        e.cols.numel(), n, b.shape[1], value_dtype=vd,
+                        scales_rows=n if scales is not None else 0)
+                    row[("rb", b.shape[1])] = (ms, None, nbytes)
+                out["times"][vd or "float32"] = row
+                print(f"lowprec time {vd or 'float32'}: " + "; ".join(
+                    f"{k.upper()} N={w} {ms:.4f} ms"
+                    + (f" (+ finish {fin:.4f} ms)" if fin is not None
+                       else "")
+                    + f" bound {nb / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                    f"({nb} bytes)"
+                    for (k, w), (ms, fin, nb) in row.items()), flush=True)
+
+        # the tuner's dtype axis
+        saved_env = os.environ.get("REPRO_TUNE_CACHE")
+        tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_lowprec_")
+        os.environ["REPRO_TUNE_CACHE"] = str(Path(tmp.name) / "tune.json")
+        tune.set_default_cache(None)
+        for c in counters.values():
+            c.launches = 0
+        tcheck = Checker(("spmm_eb", "spmm_rb"))
+        with MeasureCount() as mc, torch.no_grad():
+            for name, model in models.items():
+                adj = graphs[name][0]
+                b = (x @ model.w1).contiguous()
+                budget = 0.05
+                parity = {vd: search._dtype_parity_error(adj, HIDDEN, vd)
+                          for vd in LOWPREC_DTYPES}
+                print(f"lowprec tune {name} N={HIDDEN}: parity against f32 "
+                      + ", ".join(f"{vd} {e:.3e}" for vd, e in
+                                  parity.items())
+                      + f" (budget {budget}); admitted "
+                      f"{[vd for vd, e in parity.items() if e <= budget]}",
+                      flush=True)
+                t0 = time.perf_counter()
+                res = tune_schedule(adj, HIDDEN, epilogue=relu_b,
+                                    value_dtypes=LOWPREC_DTYPES,
+                                    error_budget=budget)
+                took = time.perf_counter() - t0
+                print_points(f"lowprec {name} N={HIDDEN}", res)
+                before = mc.n
+                b_rand = torch.randn(b.shape, generator=torch.Generator(
+                    device=dev).manual_seed(SEED + 13), device=dev)
+                got = spmm(adj, b_rand, schedule="tune", bias=model.b1,
+                           epilogue=relu, device=dev)
+                if mc.n != before:
+                    fail(f"lowprec tune {name}: spmm(schedule='tune') "
+                         f"measured {mc.n - before} points")
+                kernel, want, terms = plain_spmm(adj, b_rand, res.schedule,
+                                                 model.b1)
+                tcheck.record_terms(kernel, f"lowprec tuned {name} "
+                                    f"{res.schedule.value_dtype}", got, want,
+                                    terms)
+                f32_ms, tuned_ms = retime_in_turns(
+                    *make_runner(adj, HIDDEN,
+                                 res.schedule.replace(value_dtype=None)),
+                    *make_runner(adj, HIDDEN, res.schedule))
+                out["tune"][name] = (res, f32_ms, tuned_ms)
+                print(f"lowprec tune {name} N={HIDDEN}: pick {res.schedule} "
+                      f"({res.n_measurements} measurements, {took:.2f} s); "
+                      f"replayed with 0 measurements; re-timed in turns: "
+                      f"pick {tuned_ms:.4f} ms, its f32 twin {f32_ms:.4f} "
+                      f"ms, ratio {tuned_ms / f32_ms:.4f}", flush=True)
+                del b, b_rand, got, want, terms
+        tcheck.done()
+        for k, v in tcheck.worst.items():
+            checker.worst[k] = max(checker.worst[k], v)
+        out["tune_counts"] = {n: k.launches for n, k in counters.items()}
+        if saved_env is None:
+            os.environ.pop("REPRO_TUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TUNE_CACHE"] = saved_env
+        tune.set_default_cache(None)
+        tmp.cleanup()
+    out["worst"] = checker.worst
+    out["s"] = time.perf_counter() - t_phase
+    print(f"lowprec: phase {out['s']:.1f} s; tuner launches "
+          f"{out['tune_counts']}", flush=True)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2641,7 +3117,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for src, rep in reports.items():
         for line in rep.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "build (" in line:
                 print(f"  {src}: {line.strip()}")
 
     graphs = make_graphs(N_NODES, dev)
@@ -2731,11 +3207,24 @@ def main() -> None:
         worst[k] = max(worst[k], v)
     del profiles
 
+    # low-precision storage: served forwards, a training step, the kernels
+    # at each storage type, the epilogue's narrow stores, the dtype axis
+    lowprec = lowprec_phase(graphs, x, {"social": social_model,
+                                        "roadnet": road_model}, counters)
+    runs.append(lowprec["counts"])
+    expected.append(("lowprec", ("spmm_eb", "epilogue", "spmm_rb",
+                                 "sddmm")))
+    runs.append(lowprec["tune_counts"])  # held apart, as the tune phase's
+    expected.append(("lowprec tune", ("spmm_eb", "epilogue")))
+    for k, v in lowprec["worst"].items():
+        worst[k] = max(worst.get(k, 0.0), v)
+
     # MoE serving at full width, 4 layers
     with torch.no_grad():
         cfg, api, einsum, moe_params = moe_model(dev)
         cases = moe_kernel_cases(cfg, moe_params, dev)
-        worst.update(check_grouped_matmul(cases))
+        for k, v in check_grouped_matmul(cases).items():
+            worst[k] = max(worst.get(k, 0.0), v)
         moe = moe_serve(cfg, api, einsum, moe_params, dev, counters)
         runs.append(moe["counts"])
         expected.append(("moe_serve", ("grouped_matmul",)))
@@ -2755,7 +3244,8 @@ def main() -> None:
             if counts[n] == 0:
                 fail(f"the {n} kernel was not launched on the {path} path")
     # the tuners' launches follow how many points their timing visits
-    tuner_runs = (tuned["counts"], moe_tuned["counts"])
+    tuner_runs = (tuned["counts"], moe_tuned["counts"],
+                  lowprec["tune_counts"])
     launches = {n: sum(c[n] for c in runs
                        if not any(c is t for t in tuner_runs))
                 for n in counters}

@@ -2,7 +2,14 @@
 unified ``Schedule`` with its strategy registry, and the selector."""
 from .atomic_parallelism import DA_SPMM_POINTS, AtomicParallelism  # noqa: F401
 from .device import resolve_device  # noqa: F401
-from .dtypes import VALUE_DTYPES, canonical_value_dtype  # noqa: F401
+from .dtypes import (  # noqa: F401
+    VALUE_DTYPES,
+    Fp8Fallback,
+    canonical_value_dtype,
+    fp8_supported,
+    operand_dtype,
+    storage_dtype,
+)
 from .schedule import (  # noqa: F401
     ACTIVATIONS,
     Epilogue,

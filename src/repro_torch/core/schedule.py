@@ -23,7 +23,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from .dtypes import canonical_value_dtype
+from .dtypes import canonical_value_dtype, cast
 from .segment_group import (
     MONOIDS,
     GroupReduceStrategy,
@@ -261,7 +261,7 @@ class Epilogue:
         if self.residual:
             acc = acc + residual.to(acc.dtype)
         if self.out_dtype:
-            acc = acc.to(torch_dtype(self.out_dtype))
+            acc = cast(acc, torch_dtype(self.out_dtype))
         return acc
 
     def extended(self, tail: "Epilogue") -> "Optional[Epilogue]":
@@ -313,7 +313,8 @@ class Schedule:
     epilogue    fused post-reduction work (:class:`Epilogue`).
     split_threshold / merge_threshold  the two-level skew layout ('eb').
     collective  mesh realization of the strategy (validated only).
-    value_dtype value storage width; only float32 runs in this port yet.
+    value_dtype value storage width (``core.dtypes``): float32 (None),
+                bfloat16, float16, float8_e4m3fn or int8.
     """
 
     # each field names the search axis that owns it (``metadata["axis"]``

@@ -5,7 +5,9 @@ with a plain C interface, loaded with ``ctypes``.  Libraries are built at
 first use into ``_build/`` beside this file (git-ignored), named by a
 hash of their sources and flags, so an edited source is never served by
 a stale library.  :func:`build` starts one ``nvcc`` per missing library,
-all at once.  Nothing here runs at import time.
+all at once; a source listed in :data:`PARTS` compiles as several objects
+at once (``-DKERNEL_PART=k``), linked into its library after.  Nothing
+here runs at import time.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -28,6 +31,12 @@ SOURCES = ("spmm_eb", "spmm_rb", "sddmm", "fused_attention_fwd",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+#: Sources compiled as this many objects at once, one ``KERNEL_PART``
+#: each: ``spmm_eb.cu``'s main kernel has ten instantiations (five
+#: (values, B) storage pairs at two vector widths), about 90 s of nvcc
+#: in one unit on the H100's host.
+PARTS = {"spmm_eb": 5}
 
 
 def _nvcc() -> str:
@@ -46,19 +55,37 @@ def _nvcc() -> str:
 def library_path(source: str) -> Path:
     """Where the library of ``csrc/<source>.cu`` is (or will be) built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(str(PARTS.get(source, 1)).encode())
     for p in [CSRC / f"{source}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{source}-{h.hexdigest()[:16]}.so"
 
 
+def _commands(nvcc: str, source: str, tmp: Path):
+    """(compile commands, link command or None) that build
+    ``csrc/<source>.cu`` into ``tmp``."""
+    src, inc = str(CSRC / f"{source}.cu"), ["-I", str(CSRC)]
+    parts = PARTS.get(source, 1)
+    if parts == 1:
+        return [[nvcc, *NVCC_FLAGS, *inc, "-o", str(tmp), src]], None
+    objs = [f"{tmp}.part{k}.o" for k in range(parts)]
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    return ([[nvcc, *flags, *inc, "-c", f"-DKERNEL_PART={k}", "-o", o, src]
+             for k, o in enumerate(objs)],
+            [nvcc, "-shared", "-o", str(tmp), *objs])
+
+
 def build(sources=SOURCES) -> dict:
     """Compile every library of ``sources`` that is not built yet, one
-    ``nvcc`` per source, all started together.  Returns each compiled
-    source's compiler report (``-Xptxas -v``: registers, shared memory,
-    spills); raises with the compiler's output if any build fails."""
+    ``nvcc`` per source (per part for a source in :data:`PARTS`), all
+    started together.  Returns each compiled source's compiler report
+    (the seconds into the build by which it was read, its nvcc count,
+    then ``-Xptxas -v``: registers, shared memory, spills);
+    raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
-    procs = {}
+    jobs = {}  # source -> (compile processes, link command, tmp, lib)
+    t0 = time.perf_counter()
     try:
         for s in sources:
             lib = library_path(s)
@@ -66,24 +93,31 @@ def build(sources=SOURCES) -> dict:
                 continue
             nvcc = nvcc or _nvcc()
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / f"{s}.cu")]
-            procs[s] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True),
-                        tmp, lib)
+            compiles, link = _commands(nvcc, s, tmp)
+            jobs[s] = ([subprocess.Popen(c, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True)
+                        for c in compiles], link, tmp, lib)
         reports, failed = {}, []
-        for s, (proc, tmp, lib) in procs.items():
-            reports[s] = proc.communicate()[0]
-            if proc.returncode:
-                failed.append(f"--- {s}.cu (exit {proc.returncode}):\n"
-                              f"{reports[s]}")
+        for s, (procs, link, tmp, lib) in jobs.items():
+            out = "".join(p.communicate()[0] for p in procs)
+            code = max(p.returncode for p in procs)
+            if not code and link is not None:
+                r = subprocess.run(link, capture_output=True, text=True)
+                out, code = out + r.stdout + r.stderr, r.returncode
+            reports[s] = (f"built {time.perf_counter() - t0:.1f} s into the "
+                          f"build ({len(procs)} nvcc)\n{out}")
+            if code:
+                failed.append(f"--- {s}.cu (exit {code}):\n{out}")
             else:
                 os.replace(tmp, lib)
     finally:
-        for proc, _, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        for procs, _, tmp, _ in jobs.values():
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for o in BUILD_DIR.glob(f"{tmp.name}.part*.o"):
+                o.unlink()
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return reports

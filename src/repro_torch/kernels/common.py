@@ -8,9 +8,10 @@ strategy's monoid and writes in place into ``out``.  The CUDA EB kernel
 realizes the three built-ins itself (``csrc/spmm_eb.cu``).
 
 The epilogue ``cast(act(acc + bias) + residual)`` runs inside the CUDA
-kernels at their final store (``csrc/epilogue.cuh``); its plain version
-is ``apply_epilogue_plain``.  ``worker_geometry`` lays the EB and RB
-kernels' workers over the dense width (``csrc/spmm.cuh``).
+kernels at their final store (``csrc/epilogue.cuh``; f32, bf16, fp16 and
+float8_e4m3fn outputs); its plain version is ``apply_epilogue_plain``.
+``worker_geometry`` lays the EB and RB kernels' workers over the dense
+width (``csrc/spmm.cuh``).
 ``rows_sorted``, ``lane_rows`` and ``carry_plan`` are the host side of
 the EB and segment-reduce carry walks.
 """
@@ -37,8 +38,22 @@ _ADD = MONOIDS["add"]
 ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "tanh": 4,
              "sigmoid": 5}
 
+#: Element type codes of the CUDA kernels' operands and outputs
+#: (``csrc/epilogue.cuh``, ``DtypeCode``).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+               torch.float8_e4m3fn: 3, torch.int8: 4}
+
 #: Output types the CUDA epilogue stores.
-CUDA_OUT_DTYPES = (torch.float32, torch.bfloat16)
+CUDA_OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16,
+                   torch.float8_e4m3fn)
+
+#: The (values, B) storage pairs the EB and RB kernels take: those of
+#: ``core.dtypes.operand_dtype`` (int8 codes come with per-row scales).
+CUDA_VALUE_PAIRS = ((torch.float32, torch.float32),
+                    (torch.bfloat16, torch.bfloat16),
+                    (torch.float16, torch.float16),
+                    (torch.float8_e4m3fn, torch.float8_e4m3fn),
+                    (torch.int8, torch.bfloat16))
 
 #: Threads an SpMM worker takes at least: a warp holds at most 8 workers
 #: (``csrc/spmm.cuh``, ``kMaxWorkersPerWarp``).
@@ -130,9 +145,9 @@ def check_epilogue_operands(shape, epilogue, bias, residual):
 
 
 def cuda_epilogue_args(epilogue: Epilogue, bias, residual, device):
-    """(bias f32, residual f32, act code, out dtype) for a CUDA kernel's
-    epilogue on ``device``; raises for operands on another device and for
-    output types the kernels do not store."""
+    """(bias f32, residual f32, act code, out dtype, out type code) for a
+    CUDA kernel's epilogue on ``device``; raises for operands on another
+    device and for output types the kernels do not store."""
     for name, t in (("bias", bias), ("residual", residual)):
         if t is not None and t.device != device:
             raise ValueError(f"{name} lies on {t.device}, the kernel's "
@@ -145,7 +160,37 @@ def cuda_epilogue_args(epilogue: Epilogue, bias, residual, device):
               if epilogue.bias else None)
     res_c = (residual.to(torch.float32).contiguous()
              if epilogue.residual else None)
-    return bias_c, res_c, ACT_CODES[epilogue.activation], out_dtype
+    return (bias_c, res_c, ACT_CODES[epilogue.activation], out_dtype,
+            DTYPE_CODES[out_dtype])
+
+
+def check_value_operands(vals, b, scales, *, n_scales: int, kernel: str):
+    """Raise unless (``vals``, ``b``) is a storage pair the CUDA kernels
+    take (:data:`CUDA_VALUE_PAIRS`), with f32 ``scales`` of at least
+    ``n_scales`` rows exactly when the values are int8 codes.  Returns
+    the pair's type codes."""
+    if (vals.dtype, b.dtype) not in CUDA_VALUE_PAIRS:
+        raise ValueError(
+            f"the CUDA {kernel} kernel takes (values, B) stored as one of "
+            f"{[(str(v), str(w)) for v, w in CUDA_VALUE_PAIRS]}, got "
+            f"({vals.dtype}, {b.dtype})")
+    if (vals.dtype == torch.int8) != (scales is not None):
+        raise ValueError("scales come exactly with int8 codes")
+    if scales is not None and (
+            scales.dtype != torch.float32 or scales.dim() != 1
+            or scales.numel() < n_scales or not scales.is_contiguous()
+            or scales.device != b.device):
+        raise ValueError(f"scales must be a contiguous f32 vector of at "
+                         f"least {n_scales} rows on {b.device}")
+    return DTYPE_CODES[vals.dtype], DTYPE_CODES[b.dtype]
+
+
+def vec_width(b) -> int:
+    """4 when the EB and RB kernels can gather B four columns at a time
+    (N a multiple of 4 and B aligned to four elements), else 1."""
+    n = b.shape[1]
+    return 4 if n % 4 == 0 and b.data_ptr() % (4 * b.element_size()) == 0 \
+        else 1
 
 
 def worker_geometry(n_cols: int, vec: int):

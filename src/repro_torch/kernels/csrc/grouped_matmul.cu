@@ -140,7 +140,7 @@ __global__ void __launch_bounds__(THREADS)
                    const __nv_bfloat16* __restrict__ w,
                    const float* __restrict__ bias, void* __restrict__ out,
                    int n_experts, int D, int F, int token_tile, int act,
-                   int out_bf16) {
+                   int out_type) {
   constexpr int NT = 8 * NB;  // token rows a pass
   constexpr int X_STAGE = NT * X_ROW;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -262,7 +262,7 @@ __global__ void __launch_bounds__(THREADS)
           const float y = valid ? epilogue_value(acc[i][j][v], be, nullptr, 0,
                                                  f, F, act)
                                 : __int_as_float(0x7fc00000);  // NaN
-          store_out(out, (row0 + p0 + n) * F + f, y, out_bf16);
+          store_out(out, (row0 + p0 + n) * F + f, y, out_type);
         }
       }
     }
@@ -273,7 +273,7 @@ template <int NB, int XV>
 cudaError_t launch_nb(const void* x, const int* tile_experts, const void* w,
                       const float* bias, void* out, int n_tiles,
                       int token_tile, int n_experts, int D, int F, int act,
-                      int out_bf16, cudaStream_t stream) {
+                      int out_type, cudaStream_t stream) {
   const int smem = STAGES * (W_STAGE + 8 * NB * X_ROW);  // 68-80 KB
   const cudaError_t err = cudaFuncSetAttribute(
       gmm_mma_kernel<NB, XV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -283,7 +283,7 @@ cudaError_t launch_nb(const void* x, const int* tile_experts, const void* w,
   gmm_mma_kernel<NB, XV><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), tile_experts,
       static_cast<const __nv_bfloat16*>(w), bias, out, n_experts, D, F,
-      token_tile, act, out_bf16);
+      token_tile, act, out_type);
   return cudaGetLastError();
 }
 
@@ -292,24 +292,24 @@ template <int XV>
 cudaError_t launch_xv(const void* x, const int* tile_experts, const void* w,
                       const float* bias, void* out, int n_tiles,
                       int token_tile, int n_experts, int D, int F, int act,
-                      int out_bf16, cudaStream_t stream) {
+                      int out_type, cudaStream_t stream) {
   const int nb = (token_tile + 7) / 8;
   switch (nb < 4 ? nb : 4) {
     case 1:
       return launch_nb<1, XV>(x, tile_experts, w, bias, out, n_tiles,
-                              token_tile, n_experts, D, F, act, out_bf16,
+                              token_tile, n_experts, D, F, act, out_type,
                               stream);
     case 2:
       return launch_nb<2, XV>(x, tile_experts, w, bias, out, n_tiles,
-                              token_tile, n_experts, D, F, act, out_bf16,
+                              token_tile, n_experts, D, F, act, out_type,
                               stream);
     case 3:
       return launch_nb<3, XV>(x, tile_experts, w, bias, out, n_tiles,
-                              token_tile, n_experts, D, F, act, out_bf16,
+                              token_tile, n_experts, D, F, act, out_type,
                               stream);
     default:
       return launch_nb<4, XV>(x, tile_experts, w, bias, out, n_tiles,
-                              token_tile, n_experts, D, F, act, out_bf16,
+                              token_tile, n_experts, D, F, act, out_type,
                               stream);
   }
 }
@@ -364,7 +364,7 @@ __global__ void __launch_bounds__(THREADS)
                    const int* __restrict__ tile_experts,
                    const TW* __restrict__ w, const float* __restrict__ bias,
                    void* __restrict__ out, int n_experts, int D, int F,
-                   int token_tile, int act, int out_bf16) {
+                   int token_tile, int act, int out_type) {
   constexpr int BN = 32 * VEC;  // columns of the block's slab
   __shared__ float xs[RB][DK];
   __shared__ float red[RB][BN];
@@ -460,7 +460,7 @@ __global__ void __launch_bounds__(THREADS)
     const float v = valid ? epilogue_value(red[r][c], be, nullptr, 0, gc, F,
                                            act)
                           : __int_as_float(0x7fc00000);  // NaN
-    store_out(out, (row0 + r) * F + gc, v, out_bf16);
+    store_out(out, (row0 + r) * F + gc, v, out_type);
   }
 }
 
@@ -468,12 +468,12 @@ template <typename TX, typename TW, int VEC, int RB>
 cudaError_t launch_rb(const void* x, const int* tile_experts, const void* w,
                       const float* bias, void* out, int n_tiles,
                       int token_tile, int n_experts, int D, int F, int act,
-                      int out_bf16, cudaStream_t stream) {
+                      int out_type, cudaStream_t stream) {
   constexpr int BN = 32 * VEC;
   const dim3 grid((token_tile + RB - 1) / RB, (F + BN - 1) / BN, n_tiles);
   gmm_fma_kernel<TX, TW, VEC, RB><<<grid, THREADS, 0, stream>>>(
       static_cast<const TX*>(x), tile_experts, static_cast<const TW*>(w),
-      bias, out, n_experts, D, F, token_tile, act, out_bf16);
+      bias, out, n_experts, D, F, token_tile, act, out_type);
   return cudaGetLastError();
 }
 
@@ -482,15 +482,15 @@ template <typename TX, typename TW, int VEC>
 cudaError_t launch_vec(const void* x, const int* tile_experts, const void* w,
                        const float* bias, void* out, int n_tiles,
                        int token_tile, int n_experts, int D, int F, int act,
-                       int out_bf16, cudaStream_t stream) {
+                       int out_type, cudaStream_t stream) {
   if (token_tile <= 4) {
     return launch_rb<TX, TW, VEC, 4>(x, tile_experts, w, bias, out, n_tiles,
                                      token_tile, n_experts, D, F, act,
-                                     out_bf16, stream);
+                                     out_type, stream);
   }
   return launch_rb<TX, TW, VEC, 8>(x, tile_experts, w, bias, out, n_tiles,
                                    token_tile, n_experts, D, F, act,
-                                   out_bf16, stream);
+                                   out_type, stream);
 }
 
 // 16-byte weight loads when F and the weights' address allow them.
@@ -498,15 +498,15 @@ template <typename TX, typename TW>
 cudaError_t launch_types(const void* x, const int* tile_experts,
                          const void* w, const float* bias, void* out,
                          int n_tiles, int token_tile, int n_experts, int D,
-                         int F, int act, int out_bf16, cudaStream_t stream) {
+                         int F, int act, int out_type, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(TW);
   if (F % VEC == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0) {
     return launch_vec<TX, TW, VEC>(x, tile_experts, w, bias, out, n_tiles,
-                                   token_tile, n_experts, D, F, act, out_bf16,
+                                   token_tile, n_experts, D, F, act, out_type,
                                    stream);
   }
   return launch_vec<TX, TW, 1>(x, tile_experts, w, bias, out, n_tiles,
-                               token_tile, n_experts, D, F, act, out_bf16,
+                               token_tile, n_experts, D, F, act, out_type,
                                stream);
 }
 
@@ -516,7 +516,8 @@ cudaError_t launch_types(const void* x, const int* tile_experts,
 
 // x (n_tiles * token_tile, D) and w (n_experts, D, F) are f32 or bf16
 // (x_bf16, w_bf16); tile_experts (n_tiles,) int32; bias (n_experts, F) f32
-// or null; out (n_tiles * token_tile, F) f32 or bf16 (out_bf16).  route 1
+// or null; out (n_tiles * token_tile, F) f32, bf16, fp16 or e4m3 (out_type,
+// epilogue.cuh's DtypeCode).  route 1
 // takes the tensor cores: both operands bf16, F % 8 == 0, w 16-byte
 // aligned, and x rows whole 16-byte (D % 8 == 0, x aligned) or 4-byte
 // (D % 2 == 0) copies; the wrapper's route choice mirrors these checks.
@@ -524,7 +525,7 @@ extern "C" int grouped_matmul_launch(const void* x, const int* tile_experts,
                                      const void* w, const float* bias,
                                      void* out, int n_tiles, int token_tile,
                                      int n_experts, int D, int F, int x_bf16,
-                                     int w_bf16, int act, int out_bf16,
+                                     int w_bf16, int act, int out_type,
                                      int route, int device,
                                      cudaStream_t stream) {
   // this library links its own CUDA runtime: make the tensors' device
@@ -545,29 +546,29 @@ extern "C" int grouped_matmul_launch(const void* x, const int* tile_experts,
     }
     if (D % 8 == 0 && xa % 16 == 0) {
       err = tensor_core::launch_xv<8>(x, tile_experts, w, bias, out, n_tiles,
-                              token_tile, n_experts, D, F, act, out_bf16,
+                              token_tile, n_experts, D, F, act, out_type,
                               stream);
     } else {
       err = tensor_core::launch_xv<2>(x, tile_experts, w, bias, out, n_tiles,
-                              token_tile, n_experts, D, F, act, out_bf16,
+                              token_tile, n_experts, D, F, act, out_type,
                               stream);
     }
   } else if (x_bf16 && w_bf16) {
     err = cuda_core::launch_types<__nv_bfloat16, __nv_bfloat16>(
         x, tile_experts, w, bias, out, n_tiles, token_tile, n_experts, D, F,
-        act, out_bf16, stream);
+        act, out_type, stream);
   } else if (x_bf16) {
     err = cuda_core::launch_types<__nv_bfloat16, float>(
         x, tile_experts, w, bias, out, n_tiles, token_tile, n_experts, D, F,
-        act, out_bf16, stream);
+        act, out_type, stream);
   } else if (w_bf16) {
     err = cuda_core::launch_types<float, __nv_bfloat16>(
         x, tile_experts, w, bias, out, n_tiles, token_tile, n_experts, D, F,
-        act, out_bf16, stream);
+        act, out_type, stream);
   } else {
     err = cuda_core::launch_types<float, float>(x, tile_experts, w, bias, out,
                                           n_tiles, token_tile, n_experts, D,
-                                          F, act, out_bf16, stream);
+                                          F, act, out_type, stream);
   }
   return (int)err;
 }

@@ -1,5 +1,6 @@
 // Shared pieces of the EB and RB SpMM kernels: the worker geometry and
-// the 16-byte row gathers.
+// the row gathers (16 bytes of f32, 8 of bf16 or fp16, 4 of e4m3 a
+// thread), converted to f32 in registers.
 //
 // A worker is a slice of `lw` threads of one warp that owns one stream of
 // work (a chunk of EB lanes, an RB row) across a column slice of at most
@@ -9,7 +10,12 @@
 // threads hold columns.  Blocks are 8 warps.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 constexpr int kWarpsPerBlock = 8;
 // workers a warp holds at most (so a worker has at least 4 threads); the
@@ -39,18 +45,65 @@ __device__ __forceinline__ Worker worker_of(int lw) {
   return w;
 }
 
-// VEC floats of B from p: one 16-byte load when VEC is 4 (p aligned), a
-// 4-byte load otherwise.  Read-only path: B is not written by the kernel.
-template <int VEC>
-__device__ __forceinline__ void load_vec(const float* p, float (&x)[VEC]) {
-  if constexpr (VEC == 4) {
+// One stored element as f32: exact for every type the kernels store
+// (f32, bf16, fp16, float8_e4m3fn, int8 codes).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(v.__x, __NV_E4M3)));
+}
+__device__ __forceinline__ float to_f32(signed char v) { return (float)v; }
+
+// two bf16 (low half first) of a 32-bit word as f32: the bf16 bits are
+// the top half of the f32's
+__device__ __forceinline__ void bf16x2_to_f32(unsigned w, float* x) {
+  x[0] = __uint_as_float(w << 16);
+  x[1] = __uint_as_float(w & 0xffff0000u);
+}
+
+__device__ __forceinline__ void f16x2_to_f32(unsigned w, float* x) {
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w));
+  x[0] = f.x;
+  x[1] = f.y;
+}
+
+__device__ __forceinline__ void e4m3x2_to_f32(unsigned short w, float* x) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(w, __NV_E4M3);
+  const float2 f = __half22float2(__half2(h));
+  x[0] = f.x;
+  x[1] = f.y;
+}
+
+// VEC elements of B from p as f32: one 16-byte (f32), 8-byte (bf16,
+// fp16) or 4-byte (e4m3) load when VEC is 4 (p aligned to 4 elements),
+// element loads otherwise.  Read-only path: B is not written by the
+// kernel.
+template <int VEC, typename T>
+__device__ __forceinline__ void load_vec(const T* p, float (&x)[VEC]) {
+  if constexpr (VEC == 4 && sizeof(T) == 4) {
     const float4 t = __ldg(reinterpret_cast<const float4*>(p));
     x[0] = t.x;
     x[1] = t.y;
     x[2] = t.z;
     x[3] = t.w;
+  } else if constexpr (VEC == 4 && sizeof(T) == 2) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      bf16x2_to_f32(t.x, x);
+      bf16x2_to_f32(t.y, x + 2);
+    } else {
+      f16x2_to_f32(t.x, x);
+      f16x2_to_f32(t.y, x + 2);
+    }
+  } else if constexpr (VEC == 4 && sizeof(T) == 1) {
+    const unsigned t = __ldg(reinterpret_cast<const unsigned*>(p));
+    e4m3x2_to_f32((unsigned short)(t & 0xffffu), x);
+    e4m3x2_to_f32((unsigned short)(t >> 16), x + 2);
   } else {
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) x[i] = __ldg(p + i);
+    for (int i = 0; i < VEC; ++i) x[i] = to_f32(p[i]);
   }
 }

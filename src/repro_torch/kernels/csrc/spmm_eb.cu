@@ -38,9 +38,9 @@
 //   worker keeps open in registers, so the strategies differ here only in
 //   the order of the f32 sums.
 // - A row that starts and ends inside the chunk is finished with the
-//   epilogue (epilogue.cuh: bias, activation, residual, f32 or bf16) and
-//   stored once.  Empty rows get epilogue(0) from the worker that steps
-//   over them.  No output is zero-filled.
+//   epilogue (epilogue.cuh: bias, activation, residual, f32, bf16, fp16
+//   or e4m3) and stored once.  Empty rows get epilogue(0) from the
+//   worker that steps over them.  No output is zero-filled.
 // - A row that crosses a chunk boundary leaves its partial sum in a carry
 //   slot: slot 0 for the run that continues the row of the chunk before,
 //   slot 1 for the run that goes on into the next chunk.  The finishing
@@ -48,6 +48,14 @@
 //   epilogue, so the result is the same bits run to run, and the hub rows
 //   (169,343 lanes each) take one carry per chunk in place of 5,292
 //   same-address writes per column.
+//
+// Values and B may be stored narrow (DESIGN.md section 13): bf16, fp16
+// or e4m3 both, or int8 codes with per-row f32 scales on a bf16 B.  A
+// thread then gathers 8 or 4 bytes of B in place of 16, and every value
+// converts to f32 in registers, exactly; an int8 code is dequantized as
+// its lane is staged (code * scales[row], the lane's own row), before any
+// reduction, as the reference does.  Sums, carries and the finishing
+// launch stay f32.
 //
 // That needs rows in non-decreasing order, which every standard-layout
 // GroupedCOO, the CSR transpose and make_spmm's stream have.  The wrapper
@@ -58,6 +66,16 @@
 // epilogue to the whole output.
 #include "epilogue.cuh"
 #include "spmm.cuh"
+
+// kernels/build.py compiles this file as PARTS["spmm_eb"] objects at once
+// (-DKERNEL_PART=k): part k holds the main kernel of (values, B) type pair
+// k (eb_pair_* below), part 0 also the finishing kernels and the entry
+// points.  Ten instantiations of the main kernel in one unit took nvcc
+// about 90 s.  Built as one unit (no KERNEL_PART), the file holds all.
+#ifndef KERNEL_PART
+#define KERNEL_PART -1
+#endif
+#define IN_PART(k) (KERNEL_PART < 0 || KERNEL_PART == (k))
 
 #define STRAT_SEGMENT 0
 #define STRAT_PARALLEL 1
@@ -76,8 +94,9 @@ constexpr int kAlone = 16;
 struct EbArgs {
   const int* rows;
   const int* cols;
-  const float* vals;
-  const float* b;
+  const void* vals;    // TV: f32, bf16, fp16, e4m3 or int8 codes
+  const void* b;       // TB: f32, bf16, fp16 or e4m3
+  const float* scales; // int8 codes: (n_rows,) per-row steps, else null
   const float* bias;
   const float* residual;
   void* out;
@@ -94,7 +113,7 @@ struct EbArgs {
   int chunk;
   int col_width;
   int act;
-  int out_bf16;
+  int out_type;
   int atomic_mode;
 };
 
@@ -104,7 +123,7 @@ __device__ __forceinline__ void zero(float (&x)[VEC]) {
   for (int i = 0; i < VEC; ++i) x[i] = 0.f;
 }
 
-template <int VEC>
+template <int VEC, typename TV, typename TB>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     spmm_eb_kernel(const EbArgs a) {
   __shared__ int s_col[kWarpsPerBlock][kMaxWorkersPerWarp][kWindow];
@@ -151,7 +170,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   auto store_row = [&]() {
     if (ok)
       epilogue_store<VEC>(a.out, run, a.bias, a.residual, cur, col,
-                          a.n_cols, a.act, a.out_bf16);
+                          a.n_cols, a.act, a.out_type);
   };
   auto fill_empty = [&](int from, int to) {  // rows strictly between
     float z[VEC];
@@ -159,7 +178,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     if (ok)
       for (int r = from + 1; r < to; ++r)
         epilogue_store<VEC>(a.out, z, a.bias, a.residual, r, col, a.n_cols,
-                            a.act, a.out_bf16);
+                            a.act, a.out_type);
   };
   // one write-back of `v` to row r
   auto write_back = [&](int r, const float (&v)[VEC]) {
@@ -201,7 +220,14 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
       const long long t = base + s;
       const int row = a.rows[t];
       sc[s] = a.cols[t];
-      sv[s] = a.vals[t];
+      // int8 codes dequantize here, per lane and before the reduction,
+      // with the scale of the lane's own row (padding lanes: the pad
+      // row's scale times code 0)
+      const TV v = static_cast<const TV*>(a.vals)[t];
+      if constexpr (std::is_same_v<TV, signed char>)
+        sv[s] = to_f32(v) * a.scales[row];
+      else
+        sv[s] = to_f32(v);
       const int gpos = (int)(t - t0) % G;  // chunks start on a group
       const bool group_end = gpos == G - 1;
       const int strat = t < a.heavy_lanes ? STRAT_PARALLEL : a.strategy;
@@ -229,7 +255,9 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
       for (int u = 0; u < kInFlight; ++u) {
         v[u] = u < m ? sv[w0 + u] : 0.f;
         if (u < m && ok) {
-          load_vec<VEC>(a.b + (long long)sc[w0 + u] * N + col, x[u]);
+          load_vec<VEC>(static_cast<const TB*>(a.b) +
+                            (long long)sc[w0 + u] * N + col,
+                        x[u]);
         } else {
           zero(x[u]);
         }
@@ -269,6 +297,49 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   }
 }
 
+// The main kernel of one (values, B) type pair of core/dtypes.py::
+// operand_dtype, at both vector widths.
+template <typename TV, typename TB>
+static void launch_pair(const EbArgs& a, int vec, dim3 grid, dim3 block,
+                        cudaStream_t stream) {
+  if (vec == 4) spmm_eb_kernel<4, TV, TB><<<grid, block, 0, stream>>>(a);
+  else spmm_eb_kernel<1, TV, TB><<<grid, block, 0, stream>>>(a);
+}
+
+// one per value type code (DtypeCode), each compiled in its own part
+using PairLaunch = void (*)(const EbArgs&, int, dim3, dim3, cudaStream_t);
+void eb_pair_f32(const EbArgs&, int, dim3, dim3, cudaStream_t);
+void eb_pair_bf16(const EbArgs&, int, dim3, dim3, cudaStream_t);
+void eb_pair_f16(const EbArgs&, int, dim3, dim3, cudaStream_t);
+void eb_pair_e4m3(const EbArgs&, int, dim3, dim3, cudaStream_t);
+void eb_pair_i8(const EbArgs&, int, dim3, dim3, cudaStream_t);
+#if IN_PART(0)
+void eb_pair_f32(const EbArgs& a, int vec, dim3 g, dim3 b, cudaStream_t s) {
+  launch_pair<float, float>(a, vec, g, b, s);
+}
+#endif
+#if IN_PART(1)
+void eb_pair_bf16(const EbArgs& a, int vec, dim3 g, dim3 b, cudaStream_t s) {
+  launch_pair<__nv_bfloat16, __nv_bfloat16>(a, vec, g, b, s);
+}
+#endif
+#if IN_PART(2)
+void eb_pair_f16(const EbArgs& a, int vec, dim3 g, dim3 b, cudaStream_t s) {
+  launch_pair<__half, __half>(a, vec, g, b, s);
+}
+#endif
+#if IN_PART(3)
+void eb_pair_e4m3(const EbArgs& a, int vec, dim3 g, dim3 b, cudaStream_t s) {
+  launch_pair<__nv_fp8_e4m3, __nv_fp8_e4m3>(a, vec, g, b, s);
+}
+#endif
+#if IN_PART(4)
+void eb_pair_i8(const EbArgs& a, int vec, dim3 g, dim3 b, cudaStream_t s) {
+  launch_pair<signed char, __nv_bfloat16>(a, vec, g, b, s);
+}
+#endif
+
+#if IN_PART(0)
 // Finishes the rows that cross chunk boundaries, one worker (the main
 // kernel's geometry) per chunk: worker w serves the row in its chunk's
 // slot 1 (the row starts in chunk w and goes on), adding to that carry
@@ -286,7 +357,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
                   const float* __restrict__ bias,
                   const float* __restrict__ residual, void* out,
                   int n_workers, int n_cols, int lw, int col_width, int act,
-                  int out_bf16) {
+                  int out_type) {
   constexpr int kSlots = kWarpsPerBlock * kMaxWorkersPerWarp;
   __shared__ int s_n_long, s_owner[kSlots], s_from[kSlots];
   extern __shared__ float s_part[];  // (workers in the block, col_width)
@@ -343,7 +414,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     if (from < 0) {
       if (ok)
         epilogue_store<VEC>(out, s, bias, residual, r, col, n_cols, act,
-                            out_bf16);
+                            out_type);
     } else if (wk.j == 0) {
       const int at = atomicAdd(&s_n_long, 1);
       s_owner[at] = slot;
@@ -369,7 +440,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
         for (int i = 0; i < VEC; ++i)
           s[i] += s_part[q * col_width + col - c0 + i];
       epilogue_store<VEC>(out, s, bias, residual, rl, col, n_cols, act,
-                          out_bf16);
+                          out_type);
     }
     __syncthreads();
   }
@@ -381,7 +452,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 __global__ void spmm_eb_epilogue(const float* acc, const float* bias,
                                  const float* residual, void* out,
                                  long long total, int n_cols, int act,
-                                 int out_bf16) {
+                                 int out_type) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += stride) {
@@ -389,7 +460,7 @@ __global__ void spmm_eb_epilogue(const float* acc, const float* bias,
     const int col = (int)(i - row * n_cols);
     store_out(out, i,
               epilogue_value(acc[i], bias, residual, row, col, n_cols, act),
-              out_bf16);
+              out_type);
   }
 }
 
@@ -399,34 +470,44 @@ static bool bad_geometry(int vec, int lw, int col_width) {
          col_width > lw * vec;
 }
 
+// the (values, B) type pairs the kernel is built for
+static bool bad_types(int val_type, int b_type, const float* scales) {
+  if (val_type == DT_I8) return b_type != DT_BF16 || scales == nullptr;
+  return val_type < DT_F32 || val_type > DT_E4M3 || b_type != val_type ||
+         scales != nullptr;
+}
+
 extern "C" int spmm_eb_launch(const int* rows, const int* cols,
-                              const float* vals, const float* b,
-                              const float* bias, const float* residual,
-                              void* out, float* acc, float* carry_val,
-                              int* carry_row, long long n_lanes,
-                              long long heavy_lanes, int n_rows, int n_cols,
-                              int group_size, int strategy, int vec, int lw,
-                              int chunk, int col_width, int act, int out_bf16,
-                              int atomic_mode, int device,
-                              cudaStream_t stream) {
+                              const void* vals, const void* b,
+                              const float* scales, const float* bias,
+                              const float* residual, void* out, float* acc,
+                              float* carry_val, int* carry_row,
+                              long long n_lanes, long long heavy_lanes,
+                              int n_rows, int n_cols, int group_size,
+                              int strategy, int vec, int lw, int chunk,
+                              int col_width, int act, int out_type,
+                              int atomic_mode, int val_type, int b_type,
+                              int device, cudaStream_t stream) {
   // this library links its own CUDA runtime: make the tensors' device
   // current in it before launching
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   if (n_lanes <= 0 || n_cols <= 0) return 0;
-  if (bad_geometry(vec, lw, col_width) || chunk < 1 || chunk % group_size)
+  if (bad_geometry(vec, lw, col_width) || chunk < 1 || chunk % group_size ||
+      bad_types(val_type, b_type, scales))
     return (int)cudaErrorInvalidValue;
-  const EbArgs a{rows, cols, vals, b, bias, residual, out, acc, carry_val,
-                 carry_row, n_lanes, heavy_lanes, n_rows, n_cols,
-                 group_size, strategy, lw, chunk, col_width, act, out_bf16,
+  const EbArgs a{rows, cols, vals, b, scales, bias, residual, out, acc,
+                 carry_val, carry_row, n_lanes, heavy_lanes, n_rows, n_cols,
+                 group_size, strategy, lw, chunk, col_width, act, out_type,
                  atomic_mode};
   const long long workers = (n_lanes + chunk - 1) / chunk;
   const long long per_block = (long long)kWarpsPerBlock * (32 / lw);
   const dim3 grid((unsigned)((workers + per_block - 1) / per_block),
                   (n_cols + col_width - 1) / col_width);
   const dim3 block(kWarpsPerBlock * 32);
-  if (vec == 4) spmm_eb_kernel<4><<<grid, block, 0, stream>>>(a);
-  else spmm_eb_kernel<1><<<grid, block, 0, stream>>>(a);
+  static const PairLaunch kPairs[] = {eb_pair_f32, eb_pair_bf16, eb_pair_f16,
+                                      eb_pair_e4m3, eb_pair_i8};
+  kPairs[val_type](a, vec, grid, block, stream);
   return (int)cudaGetLastError();
 }
 
@@ -435,7 +516,7 @@ extern "C" int spmm_eb_finish_launch(const float* acc, const float* carry_val,
                                      const float* residual, void* out,
                                      long long total, int n_workers,
                                      int n_cols, int vec, int lw,
-                                     int col_width, int act, int out_bf16,
+                                     int col_width, int act, int out_type,
                                      int atomic_mode, int device,
                                      cudaStream_t stream) {
   const cudaError_t set = cudaSetDevice(device);
@@ -447,7 +528,7 @@ extern "C" int spmm_eb_finish_launch(const float* acc, const float* carry_val,
     long long blocks = (total + threads - 1) / threads;
     if (blocks > 132LL * 64) blocks = 132LL * 64;
     spmm_eb_epilogue<<<(unsigned)blocks, threads, 0, stream>>>(
-        acc, bias, residual, out, total, n_cols, act, out_bf16);
+        acc, bias, residual, out, total, n_cols, act, out_type);
     return (int)cudaGetLastError();
   }
   if (n_workers <= 0) return 0;
@@ -460,10 +541,11 @@ extern "C" int spmm_eb_finish_launch(const float* acc, const float* carry_val,
   if (vec == 4)
     spmm_eb_fixup<4><<<grid, block, smem, stream>>>(
         carry_val, carry_row, bias, residual, out, n_workers, n_cols, lw,
-        col_width, act, out_bf16);
+        col_width, act, out_type);
   else
     spmm_eb_fixup<1><<<grid, block, smem, stream>>>(
         carry_val, carry_row, bias, residual, out, n_workers, n_cols, lw,
-        col_width, act, out_bf16);
+        col_width, act, out_type);
   return (int)cudaGetLastError();
 }
+#endif  // IN_PART(0)

@@ -28,6 +28,11 @@
 //   computes 0 * B[0]: they hit B's row 0 in L1.
 // - row_tile and col_tile are the TPU's blocks: row_tile pads the ELL
 //   arrays' rows, and the kernel takes neither.
+// - Values and B may be stored narrow (bf16, fp16 or e4m3 both, or int8
+//   codes with per-row f32 scales on a bf16 B): gathers of 8 or 4 bytes a
+//   thread, converted to f32 exactly in registers; an int8 row's scale
+//   multiplies each code as the slot is staged, as the reference applies
+//   it before the width reduction.
 #include "epilogue.cuh"
 #include "spmm.cuh"
 
@@ -36,15 +41,16 @@ constexpr int kSlotsInFlight = 8;
 // slot keeps the workers' slot w on different banks)
 constexpr int kSlotStride = 33;
 
-template <int VEC>
+template <int VEC, typename TV, typename TB>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     spmm_rb_kernel(const int* __restrict__ ecols,
-                   const float* __restrict__ evals,
-                   const float* __restrict__ b,
+                   const TV* __restrict__ evals,
+                   const TB* __restrict__ b,
+                   const float* __restrict__ scales,
                    const float* __restrict__ bias,
                    const float* __restrict__ residual, void* out, int n_rows,
                    int width, int n_cols, int lw, int col_width, int act,
-                   int out_bf16) {
+                   int out_type) {
   __shared__ int s_col[kWarpsPerBlock][kMaxWorkersPerWarp * kSlotStride];
   __shared__ float s_val[kWarpsPerBlock][kMaxWorkersPerWarp * kSlotStride];
   const Worker wk = worker_of(lw);
@@ -57,7 +63,12 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   int* sc = s_col[wk.warp] + (wk.active ? wk.sub : 0) * kSlotStride;
   float* sv = s_val[wk.warp] + (wk.active ? wk.sub : 0) * kSlotStride;
   const int* rc = ecols + (long long)r * width;
-  const float* rv = evals + (long long)r * width;
+  const TV* rv = evals + (long long)r * width;
+  // int8 codes: the row's scale applies to its values as they are staged,
+  // before the width reduction
+  constexpr bool kCodes = std::is_same_v<TV, signed char>;
+  float scale = 1.f;
+  if constexpr (kCodes) scale = live ? scales[r] : 1.f;
 
   float acc[VEC];
 #pragma unroll
@@ -70,7 +81,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     if (live)
       for (int s = wk.j; s < n; s += lw) {
         sc[s] = rc[base + s];
-        sv[s] = rv[base + s];
+        sv[s] = kCodes ? to_f32(rv[base + s]) * scale : to_f32(rv[base + s]);
       }
     __syncwarp();
     for (int w0 = 0; w0 < n; w0 += kSlotsInFlight) {
@@ -96,14 +107,36 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   }
   if (ok)
     epilogue_store<VEC>(out, acc, bias, residual, r, col, n_cols, act,
-                        out_bf16);
+                        out_type);
 }
 
-extern "C" int spmm_rb_launch(const int* ecols, const float* evals,
-                              const float* b, const float* bias,
-                              const float* residual, void* out, int n_rows,
-                              int width, int n_cols, int vec, int lw,
-                              int col_width, int act, int out_bf16,
+template <int VEC>
+static void launch_types(const int* ecols, const void* evals, const void* b,
+                         const float* scales, const float* bias,
+                         const float* residual, void* out, int n_rows,
+                         int width, int n_cols, int lw, int col_width,
+                         int act, int out_type, int val_type, dim3 grid,
+                         dim3 block, cudaStream_t stream) {
+#define RB_LAUNCH(TV, TB)                                                    \
+  spmm_rb_kernel<VEC, TV, TB><<<grid, block, 0, stream>>>(                  \
+      ecols, static_cast<const TV*>(evals), static_cast<const TB*>(b),       \
+      scales, bias, residual, out, n_rows, width, n_cols, lw, col_width, act, \
+      out_type)
+  // the (values, B) pairs of core/dtypes.py::operand_dtype
+  if (val_type == DT_F32) RB_LAUNCH(float, float);
+  else if (val_type == DT_BF16) RB_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  else if (val_type == DT_F16) RB_LAUNCH(__half, __half);
+  else if (val_type == DT_E4M3) RB_LAUNCH(__nv_fp8_e4m3, __nv_fp8_e4m3);
+  else RB_LAUNCH(signed char, __nv_bfloat16);
+#undef RB_LAUNCH
+}
+
+extern "C" int spmm_rb_launch(const int* ecols, const void* evals,
+                              const void* b, const float* scales,
+                              const float* bias, const float* residual,
+                              void* out, int n_rows, int width, int n_cols,
+                              int vec, int lw, int col_width, int act,
+                              int out_type, int val_type, int b_type,
                               int device, cudaStream_t stream) {
   // this library links its own CUDA runtime: make the tensors' device
   // current in it before launching
@@ -113,17 +146,22 @@ extern "C" int spmm_rb_launch(const int* ecols, const float* evals,
   if ((vec != 1 && vec != 4) || lw < 1 || lw > 32 ||
       32 / lw > kMaxWorkersPerWarp || col_width < 1 || col_width > lw * vec)
     return (int)cudaErrorInvalidValue;
+  // the (values, B) type pairs the kernel is built for
+  if (val_type == DT_I8 ? (b_type != DT_BF16 || scales == nullptr)
+                        : (val_type < DT_F32 || val_type > DT_E4M3 ||
+                           b_type != val_type || scales != nullptr))
+    return (int)cudaErrorInvalidValue;
   const int per_block = kWarpsPerBlock * (32 / lw);
   const dim3 grid((n_rows + per_block - 1) / per_block,
                   (n_cols + col_width - 1) / col_width);
   const dim3 block(kWarpsPerBlock * 32);
   if (vec == 4)
-    spmm_rb_kernel<4><<<grid, block, 0, stream>>>(
-        ecols, evals, b, bias, residual, out, n_rows, width, n_cols, lw,
-        col_width, act, out_bf16);
+    launch_types<4>(ecols, evals, b, scales, bias, residual, out, n_rows,
+                    width, n_cols, lw, col_width, act, out_type, val_type,
+                    grid, block, stream);
   else
-    spmm_rb_kernel<1><<<grid, block, 0, stream>>>(
-        ecols, evals, b, bias, residual, out, n_rows, width, n_cols, lw,
-        col_width, act, out_bf16);
+    launch_types<1>(ecols, evals, b, scales, bias, residual, out, n_rows,
+                    width, n_cols, lw, col_width, act, out_type, val_type,
+                    grid, block, stream);
   return (int)cudaGetLastError();
 }

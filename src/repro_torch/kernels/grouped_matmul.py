@@ -33,7 +33,7 @@ import torch
 
 from ..core.schedule import Epilogue, torch_dtype
 from .build import CudaKernel, ptr
-from .common import ACT_CODES, CUDA_OUT_DTYPES
+from .common import ACT_CODES, CUDA_OUT_DTYPES, DTYPE_CODES
 
 _NOOP = Epilogue()
 
@@ -127,8 +127,8 @@ def grouped_matmul(x, tile_experts, weights, *, bias=None,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
     the route :func:`gmm_route` picks, or raise for what it does not take
-    (operands other than f32 and bf16, an output type other than f32 and
-    bf16).
+    (operands other than f32 and bf16, an output type other than those of
+    ``CUDA_OUT_DTYPES``: f32, bf16, fp16 and float8_e4m3fn).
     """
     _check(x, tile_experts, weights, bias, epilogue, token_tile, f_tile,
            d_tile)
@@ -145,8 +145,8 @@ def grouped_matmul(x, tile_experts, weights, *, bias=None,
         if t.dtype not in CUDA_IN_DTYPES:
             raise NotImplementedError(
                 f"{name} is {t.dtype}; the CUDA kernel loads "
-                f"{CUDA_IN_DTYPES} (narrow and int8 storage are still to be "
-                "ported)")
+                f"{CUDA_IN_DTYPES} (fp16 and fp8 operands are ROADMAP queue 2 "
+                "item 5)")
     out_dtype = torch_dtype(epilogue.out_dtype or "float32")
     if out_dtype not in CUDA_OUT_DTYPES:
         raise NotImplementedError(
@@ -164,6 +164,6 @@ def grouped_matmul(x, tile_experts, weights, *, bias=None,
                   int(xc.dtype == torch.bfloat16),
                   int(wc.dtype == torch.bfloat16),
                   ACT_CODES[epilogue.activation],
-                  int(out_dtype == torch.bfloat16), ROUTES[route])
+                  DTYPE_CODES[out_dtype], ROUTES[route])
     ROUTE_LAUNCHES[route] += 1
     return out

@@ -1,8 +1,10 @@
-"""Format glue around the kernels (port of ``repro/kernels/ops.py``, f32 path).
+"""Format glue around the kernels (port of ``repro/kernels/ops.py``).
 
 ``spmm`` converts a CSR to the feed format its schedule selects (through
-the per-instance memo), passes the epilogue operands and runs the EB or
-RB kernel wrapper.  The kernels mask the ragged column edge themselves,
+the per-instance memo), casts the value stream and B to the storage the
+schedule's ``value_dtype`` names (int8: the CSR's memoized quantization,
+codes and per-row scales), passes the epilogue operands and runs the EB
+or RB kernel wrapper.  The kernels mask the ragged column edge themselves,
 so B is not padded to the column tile as the reference pads it; nor is
 ``sddmm``'s stream padded to its nnz tile.  ``grouped_matmul`` is the
 MoE expert GEMM on its kernel, forward only.  ``schedule_fits_card`` is
@@ -15,8 +17,17 @@ import numpy as np
 import torch
 
 from ..core.device import check_on, resolve_device
+from ..core.dtypes import cast, operand_dtype, storage_dtype
 from ..core.schedule import Epilogue, Schedule, get_strategy
-from ..sparse.formats import CSR, ELL, ELL_MAX_BYTES, GroupedCOO, round_up
+from ..sparse.formats import (
+    CSR,
+    ELL,
+    ELL_MAX_BYTES,
+    GroupedCOO,
+    QuantizedCSR,
+    _memoized_on,
+    round_up,
+)
 from . import ref
 from .grouped_matmul import grouped_matmul as _gmm_kernel
 from .sddmm import sddmm as _sddmm_kernel
@@ -30,35 +41,51 @@ def schedule_fits_card(sched: Schedule, *, n_rows: int,
     entries: False exactly where they refuse it.  The tuner filters its
     candidates with it, so no point it measures raises.
 
-    Refused: any ``value_dtype`` but float32 (None; :func:`spmm`: narrow
-    and int8 storage are ROADMAP queue 1 item 3); on 'eb', an
-    ``nnz_tile`` above ``MAX_NNZ_TILE`` or a
-    strategy the CUDA kernel does not realize (a user strategy, or one
-    with its own combine); on 'rb', an ELL layout above
-    ``ELL_MAX_BYTES`` (every row padded to ``row_max``).  The kernels'
-    shared memory and registers are fixed when they are built (a warp's
-    staging window, not a tile, sizes them), so no schedule exceeds a
-    block's budget, and the matrix's column count sets no limit."""
-    if sched.value_dtype is not None:
-        return False
+    Every ``value_dtype`` runs wherever float32 does.  Refused: on 'eb',
+    an ``nnz_tile`` above ``MAX_NNZ_TILE`` or a strategy the CUDA kernel
+    does not realize (a user strategy, or one with its own combine); on
+    'rb', an ELL layout above ``ELL_MAX_BYTES`` (every row padded to
+    ``row_max``; 4 index bytes and the value bytes of the CSR it is built
+    from: int8 codes, f32 otherwise, since narrow floats cast the ELL's
+    stream).  The kernels' shared memory and registers are fixed when
+    they are built (a warp's staging window, not a tile, sizes them), so
+    no schedule exceeds a block's budget, and the matrix's column count
+    sets no limit."""
     if sched.kernel == "eb":
         entry = get_strategy(sched.strategy)
         return (sched.nnz_tile <= MAX_NNZ_TILE and entry.builtin
                 and entry.monoid.name == "add")
     n_pad = round_up(max(n_rows, 1), sched.row_tile)
-    return n_pad * max(row_max, 1) * 8 <= ELL_MAX_BYTES
+    entry_bytes = 4 + (1 if sched.value_dtype == "int8" else 4)
+    return n_pad * max(row_max, 1) * entry_bytes <= ELL_MAX_BYTES
+
+
+def cast_stream(fmt, vals, dtype):
+    """``vals`` (a format's value stream) in storage ``dtype``, memoized
+    on the format instance and rebuilt when ``vals`` changes in place, so
+    a serving loop casts once."""
+    if vals.dtype == dtype:
+        return vals
+    return _memoized_on(fmt, ("vals_astype", str(dtype)), vals,
+                        lambda: cast(vals.detach(), dtype))
 
 
 def spmm(a, b, schedule: Schedule | None = None, *, bias=None,
          residual=None, impl: str = "kernel"):
-    """out = epilogue(A @ B) for sparse A (CSR / GroupedCOO / ELL) and
-    dense B (K, N).
+    """out = epilogue(A @ B) for sparse A (CSR / QuantizedCSR / GroupedCOO
+    / ELL) and dense B (K, N).
 
     impl='kernel' runs the kernel the schedule selects (eb -> GroupedCOO,
-    rb -> ELL); impl='ref' runs the plain oracle plus the epilogue spec.
-    ``bias`` (N,) and ``residual`` (n_rows, N) are required exactly when
-    ``schedule.epilogue`` declares them.  Only float32 value storage is
-    ported: another ``schedule.value_dtype`` raises NotImplementedError.
+    rb -> ELL); impl='ref' runs the plain oracle plus the epilogue spec
+    (a QuantizedCSR dequantized).  ``bias`` (N,) and ``residual``
+    (n_rows, N) are required exactly when ``schedule.epilogue`` declares
+    them.
+
+    ``schedule.value_dtype`` selects the storage the kernel moves: narrow
+    floats cast the value stream (memoized per format instance) and B to
+    that type; 'int8' quantizes a CSR once (``CSR.quantized``, memoized),
+    feeds a QuantizedCSR's codes and per-row scales directly, and casts B
+    to bf16.  The sums are f32 either way.
     """
     if schedule is None:
         schedule = Schedule("eb")
@@ -70,6 +97,8 @@ def spmm(a, b, schedule: Schedule | None = None, *, bias=None,
         raise ValueError("schedule epilogue declares residual=True but "
                          "no residual array was passed")
     if impl == "ref":
+        if isinstance(a, QuantizedCSR):
+            a = a.dequantize()
         if isinstance(a, CSR):
             coo = a.tocoo()
             out = ref.spmm_coo_ref(coo.rows, coo.cols, coo.vals, b,
@@ -84,11 +113,24 @@ def spmm(a, b, schedule: Schedule | None = None, *, bias=None,
                         bias.reshape(1, -1), residual=residual)
     if impl != "kernel":
         raise ValueError(f"impl must be 'kernel' or 'ref', got {impl!r}")
-    if schedule.value_dtype is not None:
-        raise NotImplementedError(
-            f"value_dtype={schedule.value_dtype!r}: the port's kernels "
-            "store float32 values only (narrow and int8 storage are still "
-            "to be ported)")
+
+    vd = schedule.value_dtype
+    scales = None
+    if isinstance(a, QuantizedCSR) or vd == "int8":
+        if isinstance(a, CSR):
+            a = a.quantized()
+        if not isinstance(a, QuantizedCSR):
+            raise TypeError(
+                "value_dtype='int8' needs a CSR or QuantizedCSR input (the "
+                "per-row scales are a CSR-level calibration); got "
+                f"{type(a).__name__}")
+        scales = a.scales
+        a = a.csr  # int8 codes on the original pattern
+        b = cast(b, operand_dtype("int8"))
+    elif vd is not None:
+        b = cast(b, operand_dtype(vd, b.device))
+    val_dt = None if vd is None or scales is not None else storage_dtype(
+        vd, b.device)
 
     col_tile = min(schedule.col_tile, round_up(b.shape[1], 8))
     if schedule.kernel == "eb":
@@ -101,20 +143,26 @@ def spmm(a, b, schedule: Schedule | None = None, *, bias=None,
             raise TypeError(f"an 'eb' schedule takes CSR or GroupedCOO, "
                             f"got {type(a).__name__}")
         a = a.regrouped(schedule.nnz_tile, **skew_kw)
-        return spmm_eb(a.rows, a.cols, a.vals, b, n_rows=a.shape[0],
+        vals = a.vals if val_dt is None else cast_stream(a, a.vals, val_dt)
+        return spmm_eb(a.rows, a.cols, vals, b, n_rows=a.shape[0],
                        nnz_tile=schedule.nnz_tile, col_tile=col_tile,
                        group_size=schedule.group_size,
                        strategy=schedule.strategy,
-                       heavy_tiles=a.heavy_tiles, epilogue=ep, bias=bias,
-                       residual=residual)
+                       heavy_tiles=a.heavy_tiles, epilogue=ep, scales=scales,
+                       bias=bias, residual=residual)
     if isinstance(a, CSR):
         a = a.ell(row_tile=schedule.row_tile)
     if not isinstance(a, ELL):
         raise TypeError(f"an 'rb' schedule takes CSR or ELL, got "
                         f"{type(a).__name__}")
-    return spmm_rb(a.cols, a.vals, b, n_rows=a.shape[0],
+    evals = a.vals if val_dt is None else cast_stream(a, a.vals, val_dt)
+    if scales is not None:
+        # per-row scales over the padded row axis; padded rows hold code 0
+        scales = torch.nn.functional.pad(
+            scales, (0, a.n_rows_padded - scales.shape[0]), value=1.0)
+    return spmm_rb(a.cols, evals, b, n_rows=a.shape[0],
                    row_tile=schedule.row_tile, col_tile=col_tile,
-                   epilogue=ep, bias=bias, residual=residual)
+                   epilogue=ep, scales=scales, bias=bias, residual=residual)
 
 
 def sddmm(rows, cols, a, b, scale=None, *, nnz_tile: int = 256,

@@ -21,6 +21,13 @@ needs the rows in order (:func:`rows_sorted`, checked once per stream);
 a stream out of order, as the skew layout is, runs the same walk with
 atomic write-backs into a zero-filled accumulator and the epilogue in
 the finishing launch.
+
+Values and B may be stored narrow, as ``core.dtypes.operand_dtype``
+pairs them: bf16, fp16 or float8_e4m3fn both, or int8 codes with
+per-row f32 ``scales`` on a bf16 B.  The kernel gathers B at its stored
+width and converts every value to f32 in registers (exactly), and an
+int8 code is dequantized with its own row's scale as its lane is staged,
+before the reduction; sums, carries and the finishing launch stay f32.
 """
 from __future__ import annotations
 
@@ -34,10 +41,12 @@ from .common import (
     apply_epilogue_plain,
     carry_plan,
     check_epilogue_operands,
+    check_value_operands,
     cuda_epilogue_args,
     group_reduce_scatter,
     lane_rows,
     rows_sorted,
+    vec_width,
     worker_geometry,
 )
 
@@ -60,7 +69,7 @@ TARGET_WARPS = 8192
 
 KERNEL = CudaKernel(
     "spmm_eb", "spmm_eb_launch",
-    [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 11)
+    [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 13)
 
 #: The finishing launch: the carried rows (or, for a stream out of order,
 #: the epilogue over the whole accumulator).
@@ -68,6 +77,13 @@ FINISH = CudaKernel(
     "spmm_eb", "spmm_eb_finish_launch",
     [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 8,
     name="spmm_eb_finish")
+
+def lane_values(vals, rows, scales=None):
+    """The f32 value of each lane: the stored value upcast (exact), times
+    its own row's scale for int8 codes, as the kernel stages it."""
+    v = vals.to(torch.float32)
+    return v if scales is None else v * scales[rows.long()]
+
 
 def _check(rows, cols, vals, b, n_rows, nnz_tile, group_size, heavy_tiles):
     nnz_pad = vals.shape[0]
@@ -116,8 +132,8 @@ def spmm_eb_chunked_plain(rows, cols, vals, b, *, n_rows: int,
                           nnz_tile: int = 256, group_size: int = 32,
                           strategy: str = "segment", heavy_tiles: int = 0,
                           chunk: int | None = None,
-                          epilogue: Epilogue = _NOOP, bias=None,
-                          residual=None):
+                          epilogue: Epilogue = _NOOP, scales=None,
+                          bias=None, residual=None):
     """Plain version of the CUDA kernel's carry walk over a row-sorted
     stream, step by step: each chunk *stores* the rows that start and end
     in it and the empty rows it steps over, leaves the carries
@@ -131,8 +147,8 @@ def spmm_eb_chunked_plain(rows, cols, vals, b, *, n_rows: int,
     chunk = chunk or eb_geometry(rows.numel(), nnz_tile, b.shape[1], 4)[2]
     a = lane_rows(rows, group_size=group_size, strategy=strategy,
                   heavy_tiles=heavy_tiles, nnz_tile=nnz_tile).long()
-    partial = vals[:, None].to(torch.float32) * b.to(torch.float32)[
-        cols.long()]
+    partial = lane_values(vals, rows, scales)[:, None] * b.to(
+        torch.float32)[cols.long()]
     plan = eb_carry_plan(rows, chunk=chunk, group_size=group_size,
                          strategy=strategy, heavy_tiles=heavy_tiles,
                          nnz_tile=nnz_tile).tolist()
@@ -170,12 +186,13 @@ def spmm_eb_chunked_plain(rows, cols, vals, b, *, n_rows: int,
 def spmm_eb_plain(rows, cols, vals, b, *, n_rows: int, nnz_tile: int = 256,
                   group_size: int = 32, strategy: str = "segment",
                   heavy_tiles: int = 0, epilogue: Epilogue = _NOOP,
-                  bias=None, residual=None):
-    """Plain version of the EB kernel: gather, scale, then the strategy's
-    plain realization (``parallel`` on the leading ``heavy_tiles``) and
-    the epilogue.  Runs on any device."""
-    partial = vals[:, None].to(torch.float32) * b.to(torch.float32)[
-        cols.long()]
+                  scales=None, bias=None, residual=None):
+    """Plain version of the EB kernel: gather, scale (int8 codes
+    dequantized per lane with ``scales``), then the strategy's plain
+    realization (``parallel`` on the leading ``heavy_tiles``) and the
+    epilogue.  Runs on any device."""
+    partial = lane_values(vals, rows, scales)[:, None] * b.to(
+        torch.float32)[cols.long()]
     out = torch.zeros((n_rows, b.shape[1]), dtype=torch.float32,
                       device=b.device)
     split = heavy_tiles * nnz_tile
@@ -188,14 +205,16 @@ def spmm_eb_plain(rows, cols, vals, b, *, n_rows: int, nnz_tile: int = 256,
 
 
 def _launch(rows, cols, vals, b, *, n_rows, nnz_tile, group_size, strategy,
-            heavy_tiles, epilogue, bias, residual):
+            heavy_tiles, epilogue, bias, residual, scales=None):
     """The kernel and its finishing launch on CUDA tensors: (out, the
     carry rows the kernel wrote, or None for a stream out of order, the
     chunk its workers walked)."""
-    bias_c, res_c, act, out_dtype = cuda_epilogue_args(epilogue, bias,
-                                                       residual, b.device)
+    bias_c, res_c, act, out_dtype, out_code = cuda_epilogue_args(
+        epilogue, bias, residual, b.device)
+    val_code, b_code = check_value_operands(vals, b, scales, n_scales=n_rows,
+                                            kernel="EB")
     n, n_lanes = b.shape[1], vals.shape[0]
-    vec = 4 if n % 4 == 0 and b.data_ptr() % 16 == 0 else 1
+    vec = vec_width(b)
     lw, col_width, chunk = eb_geometry(n_lanes, nnz_tile, n, vec)
     workers = -(-n_lanes // chunk)
     sorted_ = rows_sorted(rows, n_rows)
@@ -211,25 +230,31 @@ def _launch(rows, cols, vals, b, *, n_rows, nnz_tile, group_size, strategy,
         out = acc if out_dtype == torch.float32 else torch.empty(
             (n_rows, n), dtype=out_dtype, device=dev)
         carry_val = carry_row = None
-    bf16 = int(out_dtype == torch.bfloat16)
-    KERNEL.launch(dev, ptr(rows), ptr(cols), ptr(vals), ptr(b), ptr(bias_c),
-                  ptr(res_c), ptr(out), ptr(acc), ptr(carry_val),
-                  ptr(carry_row), n_lanes, heavy_tiles * nnz_tile, n_rows, n,
-                  group_size, CUDA_STRATEGIES[strategy], vec, lw, chunk,
-                  col_width, act, bf16, int(not sorted_))
+    KERNEL.launch(dev, ptr(rows), ptr(cols), ptr(vals), ptr(b), ptr(scales),
+                  ptr(bias_c), ptr(res_c), ptr(out), ptr(acc),
+                  ptr(carry_val), ptr(carry_row), n_lanes,
+                  heavy_tiles * nnz_tile, n_rows, n, group_size,
+                  CUDA_STRATEGIES[strategy], vec, lw, chunk, col_width, act,
+                  out_code, int(not sorted_), val_code, b_code)
     if sorted_ or acc is not out or not epilogue.is_noop:
         FINISH.launch(dev, ptr(acc), ptr(carry_val), ptr(carry_row),
                       ptr(bias_c), ptr(res_c), ptr(out), n_rows * n, workers,
-                      n, vec, lw, col_width, act, bf16, int(not sorted_))
+                      n, vec, lw, col_width, act, out_code, int(not sorted_))
     return out, carry_row, chunk
 
 
 def spmm_eb(rows, cols, vals, b, *, n_rows: int, nnz_tile: int = 256,
             col_tile: int = 128, group_size: int = 32,
             strategy: str = "segment", heavy_tiles: int = 0,
-            epilogue: Epilogue = _NOOP, bias=None, residual=None):
+            epilogue: Epilogue = _NOOP, scales=None, bias=None,
+            residual=None):
     """out (n_rows, N) = epilogue(scatter-reduce of vals * B[cols] by rows)
     over a padded GroupedCOO stream (``len(vals) % nnz_tile == 0``).
+
+    ``vals`` and ``B`` are f32, bf16, fp16 or float8_e4m3fn both, or int8
+    codes on a bf16 B with ``scales`` (n_rows,) f32: lane t then carries
+    ``vals[t] * scales[rows[t]]``.  The sums are f32 whatever the
+    storage.
 
     The leading ``heavy_tiles`` nnz tiles hold single-row groups and run
     ``parallel`` whatever ``strategy`` is.  ``bias`` has N values and
@@ -237,7 +262,8 @@ def spmm_eb(rows, cols, vals, b, *, n_rows: int, nnz_tile: int = 256,
     is the TPU kernel's column block: the CUDA kernel's workers cover up
     to 512 columns each and take no column tile.  CPU tensors run the
     plain version; CUDA tensors launch the kernel, or raise for what it
-    does not take (a user strategy, non-f32 values).
+    does not take (a user strategy, a (values, B) storage pair other than
+    those above).
     """
     del col_tile
     _check(rows, cols, vals, b, n_rows, nnz_tile, group_size, heavy_tiles)
@@ -246,7 +272,8 @@ def spmm_eb(rows, cols, vals, b, *, n_rows: int, nnz_tile: int = 256,
         return spmm_eb_plain(rows, cols, vals, b, n_rows=n_rows,
                              nnz_tile=nnz_tile, group_size=group_size,
                              strategy=strategy, heavy_tiles=heavy_tiles,
-                             epilogue=epilogue, bias=bias, residual=residual)
+                             epilogue=epilogue, scales=scales, bias=bias,
+                             residual=residual)
     if b.device.type != "cuda":
         raise ValueError(f"no EB kernel for device {b.device}")
     entry = get_strategy(strategy)
@@ -258,12 +285,11 @@ def spmm_eb(rows, cols, vals, b, *, n_rows: int, nnz_tile: int = 256,
         raise ValueError(f"nnz_tile {nnz_tile} > {MAX_NNZ_TILE}")
     for name, t, dt in (("rows", rows, torch.int32),
                         ("cols", cols, torch.int32),
-                        ("vals", vals, torch.float32),
-                        ("B", b, torch.float32)):
+                        ("vals", vals, vals.dtype), ("B", b, b.dtype)):
         if t.device != b.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dt} tensor on "
                              f"{b.device}, got {t.dtype} on {t.device}")
     return _launch(rows, cols, vals, b, n_rows=n_rows, nnz_tile=nnz_tile,
                    group_size=group_size, strategy=strategy,
                    heavy_tiles=heavy_tiles, epilogue=epilogue, bias=bias,
-                   residual=residual)[0]
+                   residual=residual, scales=scales)[0]

@@ -1,7 +1,16 @@
-"""repro_torch.sparse — formats, generators and the public ``spmm``,
+"""repro_torch.sparse — formats (``QuantizedCSR`` among them), generators
+and the public ``spmm``,
 ``sddmm``, ``segment_reduce``, ``sparse_attention`` and ``make_spmm``."""
 from ..core.schedule import Epilogue, Schedule, as_schedule  # noqa: F401
-from .formats import COO, CSR, ELL, GroupedCOO  # noqa: F401
+from .formats import (  # noqa: F401
+    COO,
+    CSR,
+    ELL,
+    GroupedCOO,
+    QuantizedCSR,
+    dequantize,
+    quantize_csr,
+)
 from .autodiff import make_spmm  # noqa: F401
 from .ops import segment_reduce, sddmm, sparse_attention, spmm  # noqa: F401
 from .random import (  # noqa: F401

@@ -5,6 +5,7 @@ CSR         the canonical input format.
 GroupedCOO  row-sorted COO padded to a multiple of ``nnz_tile``: the EB
             kernel's feed.  Padded lanes have ``val == 0``.
 ELL         per-row padded: the RB kernel's feed.
+QuantizedCSR  a CSR of int8 codes with per-row f32 scales.
 
 Index arrays stay int32 on the device, as the kernels take them; torch
 index ops convert to int64 where they need it.  The layout passes run in
@@ -14,7 +15,13 @@ memoize their conversions per instance and parameters, so a serving
 loop converts once however many requests reuse the matrix.  Torch values
 can change in place, so ``spmm`` places the CSR's current values into a
 memoized layout on every call (``GroupedCOO.with_vals``,
-``CSR.ell_scatter_index``) and never reads the values a memo holds.
+``CSR.ell_scatter_index``) and never reads the values a memo holds;
+the memos derived from the values themselves (``CSR.astype``,
+``CSR.quantized``, ``QuantizedCSR.dequantize``) are rebuilt when the
+values change in place.  Every layout keeps its value stream's dtype
+(bf16, fp16, fp8 or int8 codes pass through unchanged); float8 streams
+are padded and scattered through a byte view, since torch implements
+few operations on float8.
 """
 from __future__ import annotations
 
@@ -24,8 +31,10 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.dtypes import cast
 
-__all__ = ["COO", "CSR", "GroupedCOO", "ELL", "ELL_MAX_BYTES", "round_up"]
+__all__ = ["COO", "CSR", "GroupedCOO", "ELL", "ELL_MAX_BYTES", "QuantizedCSR",
+           "dequantize", "quantize_csr", "round_up"]
 
 #: Largest ELL layout (index plus value bytes) ``ELL.fromcsr`` allocates.
 #: ELL pads every row to the longest one, so a matrix with a hub row
@@ -47,6 +56,51 @@ def _memoized(obj, key, build):
     if key not in cache:
         cache[key] = build()
     return cache[key]
+
+
+def _memoized_on(obj, key, t, build):
+    """Per-instance memo of a result derived from the contents of tensor
+    ``t``: rebuilt when ``t`` has changed in place since (its storage or
+    version counter differs)."""
+    cache = obj.__dict__.get("_convcache")
+    if cache is None:
+        cache = {}
+        object.__setattr__(obj, "_convcache", cache)
+    stamp = (t.data_ptr(), t._version)
+    hit = cache.get(key)
+    if hit is None or hit[0] != stamp:
+        hit = (stamp, build())
+        cache[key] = hit
+    return hit[1]
+
+
+_FP8 = tuple(getattr(torch, n) for n in ("float8_e4m3fn", "float8_e5m2")
+             if hasattr(torch, n))
+
+
+def _raw(t):
+    """A byte view of a float8 tensor (torch implements few operations on
+    float8; the zero byte is +0.0), else ``t``."""
+    return t.view(torch.uint8) if t.dtype in _FP8 else t
+
+
+def _cooked(t, dtype):
+    """``t`` (from :func:`_raw`) back in ``dtype``."""
+    return t if t.dtype == dtype else t.view(dtype)
+
+
+def _padded(vals, n: int):
+    """``vals`` followed by zeros up to length ``n``, in its dtype."""
+    return _cooked(torch.nn.functional.pad(_raw(vals), (0, n - vals.shape[0])),
+                   vals.dtype)
+
+
+def _scattered(shape, index, vals):
+    """Zeros of ``shape`` in ``vals``' dtype with ``vals`` placed at
+    ``index`` (an index tuple or a flat index)."""
+    out = torch.zeros(shape, dtype=_raw(vals).dtype, device=vals.device)
+    out[index] = _raw(vals)
+    return _cooked(out, vals.dtype)
 
 
 def _host(t) -> np.ndarray:
@@ -149,7 +203,7 @@ def _padded_stream(rows, cols, vals, nnz_tile, pad_row):
                                         device=dev)]),
             torch.cat([cols, torch.zeros(pad, dtype=torch.int32,
                                          device=dev)]),
-            torch.cat([vals, torch.zeros(pad, dtype=vals.dtype, device=dev)]))
+            _padded(vals, nnz + pad))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,6 +318,31 @@ class CSR:
 
         return self._cached(("transposed", nnz_tile), _build)
 
+    def astype(self, dtype) -> "CSR":
+        """This matrix with its values stored in ``dtype`` (a torch dtype
+        or its name), memoized per dtype and rebuilt when the values
+        change in place, so a serving loop casts once.  Returns ``self``
+        when the dtype already matches.  The cast is ``core.dtypes.cast``
+        (the reference's rounding, fp8 overflow to NaN included)."""
+        dt = dtype if isinstance(dtype, torch.dtype) else getattr(
+            torch, str(dtype))
+        if dt == self.vals.dtype:
+            return self
+        return _memoized_on(
+            self, ("astype", str(dt)), self.vals,
+            lambda: CSR(indptr=self.indptr, indices=self.indices,
+                        vals=cast(self.vals.detach(), dt), shape=self.shape))
+
+    def quantized(self, *, method: str = "absmax",
+                  percentile: float = 99.9) -> "QuantizedCSR":
+        """Int8 quantization of this matrix (:func:`quantize_csr`),
+        memoized per method and percentile and rebuilt when the values
+        change in place."""
+        return _memoized_on(
+            self, ("quantized", method, percentile), self.vals,
+            lambda: quantize_csr(self, method=method,
+                                 percentile=percentile))
+
     def todense(self) -> torch.Tensor:
         """Dense (n_rows, n_cols) tensor of this matrix."""
         return self.tocoo().todense()
@@ -354,7 +433,7 @@ class GroupedCOO:
         g = GroupedCOO(
             rows=torch.as_tensor(rows, device=dev),
             cols=torch.as_tensor(cols, device=dev),
-            vals=torch.zeros(rows.shape[0], dtype=vals.dtype, device=dev),
+            vals=_padded(vals[:0], rows.shape[0]),
             shape=shape, nnz=nnz, nnz_tile=nnz_tile,
             skew=(split_threshold, merge_threshold, group_size, heavy_tiles))
         object.__setattr__(g, "_skew_positions",
@@ -370,12 +449,10 @@ class GroupedCOO:
             raise ValueError(f"need {self.nnz} values, got "
                              f"{tuple(vals.shape)}")
         if self.skew is None:
-            vpad = torch.nn.functional.pad(vals,
-                                           (0, self.nnz_padded - self.nnz))
-            return dataclasses.replace(self, vals=vpad)
+            return dataclasses.replace(self,
+                                       vals=_padded(vals, self.nnz_padded))
         pos = self.skew_positions()
-        vpad = vals.new_zeros(self.nnz_padded).index_copy_(0, pos.long(),
-                                                           vals)
+        vpad = _scattered(self.nnz_padded, pos.long(), vals)
         g = dataclasses.replace(self, vals=vpad)
         object.__setattr__(g, "_skew_positions", pos)
         return g
@@ -492,9 +569,8 @@ class ELL:
         dev = csr.device
         flat = row_ids * w + pos
         ecols = torch.zeros(n_pad * w, dtype=torch.int32, device=dev)
-        evals = torch.zeros(n_pad * w, dtype=csr.vals.dtype, device=dev)
         ecols[flat] = csr.indices
-        evals[flat] = csr.vals
+        evals = _scattered(n_pad * w, flat, csr.vals)
         return ELL(cols=ecols.reshape(n_pad, w), vals=evals.reshape(n_pad, w),
                    shape=csr.shape, width=w)
 
@@ -506,3 +582,96 @@ class ELL:
         full = COO(rows, self.cols.reshape(-1), self.vals.reshape(-1),
                    (self.n_rows_padded, self.shape[1])).todense()
         return full[: self.shape[0]]
+
+
+# ---------------------------------------------------------------------------
+# Int8 quantized values
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedCSR:
+    """Symmetric per-row int8 quantization of a CSR's values.
+
+    ``csr`` holds the original pattern with int8 codes as values;
+    ``scales`` (n_rows,) f32 is each row's step, so lane t dequantizes as
+    ``vals[t] * scales[row(t)]``.  Every lane of a row shares its scale,
+    so the kernels dequantize each lane before the segment reduction and
+    partial sums combine as in the f32 kernels, whichever strategy runs.
+    The layouts (``grouped`` / ``ell`` / ``tocoo``) memoize on the inner
+    ``csr`` and carry the int8 stream unchanged."""
+
+    csr: CSR  # int8 codes, original pattern
+    scales: torch.Tensor  # (n_rows,) float32
+
+    @property
+    def shape(self) -> tuple:
+        """Dense (n_rows, n_cols) of the matrix."""
+        return self.csr.shape
+
+    @property
+    def nnz(self) -> int:
+        """Stored-value count."""
+        return self.csr.nnz
+
+    @property
+    def device(self) -> torch.device:
+        """Device the arrays lie on."""
+        return self.csr.device
+
+    def row_lengths(self) -> torch.Tensor:
+        """(n_rows,) per-row nnz counts."""
+        return self.csr.row_lengths()
+
+    def dequantize(self) -> CSR:
+        """The f32 CSR with values ``codes * scales[row]``, memoized."""
+        def _build():
+            rows = self.csr.tocoo().rows.long()
+            return CSR(indptr=self.csr.indptr, indices=self.csr.indices,
+                       vals=self.csr.vals.to(torch.float32)
+                       * self.scales[rows], shape=self.csr.shape)
+
+        return _memoized_on(self, ("dequantized", self.scales._version),
+                            self.csr.vals, _build)
+
+    def todense(self) -> torch.Tensor:
+        """Dense f32 tensor of the dequantized matrix."""
+        return self.dequantize().todense()
+
+
+def quantize_csr(csr: CSR, *, method: str = "absmax",
+                 percentile: float = 99.9) -> QuantizedCSR:
+    """Quantize a CSR's values to int8 with per-row symmetric scales, on
+    the values' device.
+
+    ``"absmax"`` scales each row by its |max| / 127; ``"percentile"``
+    first clips the magnitudes at their global ``percentile``-th value
+    (numpy's, on the host, as the reference computes it), so a few
+    outliers do not inflate every scale, and the clipped values saturate
+    at +-127.  Empty rows get scale 1.0.  The codes and scales equal the
+    reference's bit for bit: f32 division, round half to even, clip to
+    +-127."""
+    if method not in ("absmax", "percentile"):
+        raise ValueError(f"unknown calibration method {method!r}; "
+                         "expected 'absmax' or 'percentile'")
+    vals = csr.vals.detach().to(torch.float32)
+    rows = csr.tocoo().rows.long()
+    absv = vals.abs()
+    if method == "percentile" and absv.numel():
+        cut = np.float32(np.percentile(_host(absv), percentile))
+        absv = torch.clamp(absv, max=float(cut))
+    amax = torch.zeros(csr.shape[0], dtype=torch.float32,
+                       device=vals.device).scatter_reduce_(
+                           0, rows, absv, "amax")
+    # a tensor divisor: torch multiplies by the reciprocal of a scalar one
+    scales = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                         torch.ones_like(amax))
+    codes = torch.round(vals / scales[rows]).clamp_(-127, 127).to(torch.int8)
+    inner = CSR(indptr=csr.indptr, indices=csr.indices, vals=codes,
+                shape=csr.shape)
+    return QuantizedCSR(csr=inner, scales=scales)
+
+
+def dequantize(q: QuantizedCSR) -> CSR:
+    """Module-level alias of :meth:`QuantizedCSR.dequantize`."""
+    return q.dequantize()

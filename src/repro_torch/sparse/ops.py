@@ -6,7 +6,11 @@ schedule resolution, epilogue derivation and kernel dispatch for
 both directions run on the kernels.  ``spmm``'s backward closes the
 paper's algebra on itself (Eq. 2c/2d): ``dvals`` is an SDDMM and ``dB``
 a transpose SpMM on the EB kernel over the CSR's memoized column-sorted
-view.  ``sparse_attention``'s backward is the fused backward kernel.
+view.  Under a narrow ``value_dtype`` the forward moves the cast storage
+and the backward runs in f32 (straight through the cast); the int8 path
+(``value_dtype="int8"`` or a ``QuantizedCSR``) is differentiable in B,
+bias and residual, its backward on the dequantized f32 values.
+``sparse_attention``'s backward is the fused backward kernel.
 """
 from __future__ import annotations
 
@@ -15,11 +19,12 @@ import dataclasses
 import torch
 
 from ..core.device import check_on, resolve_device
+from ..core.dtypes import storage_dtype
 from ..core.schedule import ACTIVATIONS, Epilogue, Schedule, as_schedule
 from ..kernels import fused_attention as fa
 from ..kernels import ops as kops
 from ..kernels import segment_reduce as kseg
-from .formats import CSR, ELL, GroupedCOO
+from .formats import CSR, ELL, GroupedCOO, QuantizedCSR, _scattered
 from .random import matrix_stats
 
 __all__ = ["segment_reduce", "spmm", "sddmm", "sparse_attention"]
@@ -27,7 +32,11 @@ __all__ = ["segment_reduce", "spmm", "sddmm", "sparse_attention"]
 
 def _resolve_schedule(a, b, schedule, epilogue: Epilogue | None = None):
     if isinstance(schedule, str) and schedule in ("auto", "tune"):
-        if not isinstance(a, CSR):
+        if isinstance(a, QuantizedCSR):
+            # the dtype axis is decided (int8): tile from the pattern
+            stats = a.csr._cached("stats", lambda: matrix_stats(a.csr))
+            sched = Schedule.auto(stats, int(b.shape[1]))
+        elif not isinstance(a, CSR):
             # no CSR to derive statistics (or a fingerprint) from
             sched = Schedule("eb")
         elif schedule == "tune":
@@ -64,8 +73,8 @@ def _derive_epilogue(schedule, epilogue, bias, residual) -> Epilogue | None:
 def spmm(a, b, schedule="auto", *, bias=None, residual=None,
          epilogue: Epilogue | None = None, impl: str = "kernel",
          device=None):
-    """out = epilogue(A @ B) for sparse A (CSR / GroupedCOO / ELL) and
-    dense B (K, N); the output is (n_rows, N).
+    """out = epilogue(A @ B) for sparse A (CSR / QuantizedCSR / GroupedCOO
+    / ELL) and dense B (K, N); the output is (n_rows, N).
 
     schedule    'auto' | 'tune' | name | Schedule | AtomicParallelism |
                 SegmentGroup.  'tune' measures the top schedule
@@ -83,16 +92,25 @@ def spmm(a, b, schedule="auto", *, bias=None, residual=None,
                 run the kernels' plain versions on the CPU.
 
     Over a CSR the kernel path is differentiable in ``a.vals``, ``b``,
-    ``bias`` and ``residual`` (:class:`_SpmmCSR`).  A GroupedCOO or ELL
-    input that requires a gradient is refused: its kernel output would
-    have none.
+    ``bias`` and ``residual`` (:class:`_SpmmCSR`), under a narrow float
+    ``value_dtype`` too (straight through the cast: the backward runs in
+    f32).  ``value_dtype="int8"`` over a CSR, or a QuantizedCSR, runs the
+    quantized kernels (:class:`_SpmmQuant`), differentiable in ``b``,
+    ``bias`` and ``residual``: the codes are a calibration of the values,
+    data rather than an operand.  A GroupedCOO or ELL input that requires
+    a gradient is refused: its kernel output would have none.
     """
     dev = resolve_device(device)
-    vals = a.vals if isinstance(a, (CSR, GroupedCOO, ELL)) else None
+    vals = (a.csr.vals if isinstance(a, QuantizedCSR) else
+            a.vals if isinstance(a, (CSR, GroupedCOO, ELL)) else None)
     check_on(dev, a=vals, b=b, bias=bias, residual=residual)
     ep = _derive_epilogue(schedule, epilogue, bias, residual)
     sched = _resolve_schedule(a, b, schedule, epilogue=ep)
+    if impl == "kernel" and isinstance(a, QuantizedCSR):
+        return _SpmmQuant.apply(b, bias, residual, a, sched)
     if impl == "kernel" and isinstance(a, CSR):
+        if sched.value_dtype == "int8":
+            return _SpmmQuant.apply(b, bias, residual, a.quantized(), sched)
         return _SpmmCSR.apply(a.vals, b, bias, residual, a, sched)
     if impl == "kernel" and torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
@@ -109,17 +127,21 @@ def _feed(a: CSR, sched: Schedule, vals):
     carrying ``vals``, placed anew on every call because torch values can
     change in place (the skew layout through its scatter index, the
     standard layout with a trailing pad, ELL through
-    ``CSR.ell_scatter_index``)."""
+    ``CSR.ell_scatter_index``).  A narrow float ``value_dtype`` places
+    the values cast to its storage type, the cast memoized on ``a`` per
+    dtype and rebuilt when ``vals`` changes in place (a training step),
+    so a served matrix is cast once."""
+    if sched.value_dtype is not None:
+        vals = kops.cast_stream(a, vals,
+                                storage_dtype(sched.value_dtype, vals.device))
     if sched.kernel == "eb":
         return a.grouped(sched.nnz_tile, group_size=sched.group_size,
                          split_threshold=sched.split_threshold,
                          merge_threshold=sched.merge_threshold
                          ).with_vals(vals)
     e = a.ell(row_tile=sched.row_tile)
-    rid, pos = a.ell_scatter_index()
-    evals = vals.new_zeros(e.vals.shape)
-    evals[rid, pos] = vals
-    return dataclasses.replace(e, vals=evals)
+    return dataclasses.replace(
+        e, vals=_scattered(e.vals.shape, a.ell_scatter_index(), vals))
 
 
 def _transpose_spmm(a: CSR, sched: Schedule, vals, dz):
@@ -159,18 +181,10 @@ class _SpmmCSR(torch.autograd.Function):
     def backward(ctx, dout):
         vals, b, bias = ctx.saved_tensors
         a, sched = ctx.a, ctx.sched
-        ep = sched.epilogue
         need_vals, need_b, need_bias, need_res = ctx.needs_input_grad[:4]
         dout = dout.to(torch.float32)
-        dz = dout
-        if ep.activation is not None and (need_vals or need_b or need_bias):
-            z = kops.spmm(_feed(a, sched, vals), b,
-                          sched.replace(epilogue=Epilogue(bias=ep.bias)),
-                          bias=bias)
-            with torch.enable_grad():
-                zz = z.detach().requires_grad_()
-                dz, = torch.autograd.grad(ACTIVATIONS[ep.activation](zz),
-                                          zz, dout)
+        dz = _activation_grad(a, sched, vals, b, bias, dout,
+                              need_vals or need_b or need_bias)
         dvals = db = dbias = dres = None
         if need_vals:
             coo = a.tocoo()
@@ -182,6 +196,57 @@ class _SpmmCSR(torch.autograd.Function):
         if need_res:
             dres = dout.to(ctx.res_dtype)
         return dvals, db, dbias, dres, None, None
+
+
+def _activation_grad(a: CSR, sched: Schedule, vals, b, bias, dout,
+                     needed: bool):
+    """dz = dout * act'(z), with the pre-activation ``z = A@B + bias``
+    recomputed in f32 on the forward's kernel (bias-only epilogue, f32
+    values: the backward is straight through a narrow storage cast, as
+    the reference's)."""
+    ep = sched.epilogue
+    if ep.activation is None or not needed:
+        return dout
+    z = kops.spmm(_feed(a, sched.replace(value_dtype=None), vals), b,
+                  sched.replace(epilogue=Epilogue(bias=ep.bias),
+                                value_dtype=None), bias=bias)
+    with torch.enable_grad():
+        zz = z.detach().requires_grad_()
+        dz, = torch.autograd.grad(ACTIVATIONS[ep.activation](zz), zz, dout)
+    return dz
+
+
+class _SpmmQuant(torch.autograd.Function):
+    """``spmm`` of a QuantizedCSR on the kernels (port of
+    ``_spmm_quant_diff``): the forward moves int8 codes and per-row
+    scales; the backward runs in f32 over the dequantized values, on the
+    kernels as :class:`_SpmmCSR`'s does.  Differentiable in B, bias and
+    residual."""
+
+    @staticmethod
+    def forward(ctx, b, bias, residual, qa, sched):
+        ctx.qa, ctx.sched = qa, sched
+        ctx.res_dtype = None if residual is None else residual.dtype
+        ctx.save_for_backward(b, bias)
+        return kops.spmm(qa, b, sched, bias=bias, residual=residual)
+
+    @staticmethod
+    def backward(ctx, dout):
+        b, bias = ctx.saved_tensors
+        need_b, need_bias, need_res = ctx.needs_input_grad[:3]
+        deq = ctx.qa.dequantize()
+        sched = ctx.sched.replace(value_dtype=None)
+        dout = dout.to(torch.float32)
+        dz = _activation_grad(deq, sched, deq.vals, b, bias, dout,
+                              need_b or need_bias)
+        db = dbias = dres = None
+        if need_b:
+            db = _transpose_spmm(deq, sched, deq.vals, dz).to(b.dtype)
+        if need_bias:
+            dbias = dz.sum(dim=0).reshape(bias.shape).to(bias.dtype)
+        if need_res:
+            dres = dout.to(ctx.res_dtype)
+        return db, dbias, dres, None, None
 
 
 def sddmm(rows, cols, a, b, scale=None, *, schedule=None,

@@ -15,7 +15,10 @@ tensors.  Each runner builds the schedule's format (``GroupedCOO`` with
 the skew thresholds, or ``ELL``), B and the epilogue operands once,
 outside the timed region, and keeps them alive across its calls, so the
 wrappers' per-tensor caches (EB's row-order check and carry plan) hit
-as they do on a serving path.
+as they do on a serving path.  A ``value_dtype`` narrows what is fed:
+narrow floats the value stream and B, int8 the CSR's codes and per-row
+scales (its memoized ``quantized()``) on a bf16 B, so the dtype axis
+measures the narrow kernels, not a relabelled f32 run.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import time
 import numpy as np
 import torch
 
+from ..core.dtypes import cast, operand_dtype, storage_dtype
 from ..core.schedule import Schedule
 from ..kernels import ops as kops
 
@@ -130,10 +134,23 @@ def _epilogue_args(epilogue, n_rows, n_dense, device):
     return bias, res
 
 
+def _storage(csr, value_dtype):
+    """(the CSR whose layout is fed, the matrix passed to ``kops.spmm``)
+    under ``value_dtype``: the CSR cast to its storage type, or for int8
+    the quantized codes and the QuantizedCSR that carries their scales."""
+    if value_dtype is None:
+        return csr, None
+    if value_dtype == "int8":
+        q = csr.quantized()
+        return q.csr, q
+    return csr.astype(storage_dtype(value_dtype, csr.device)), None
+
+
 def _runner(feed, csr, n_dense, sched):
     bias, res = _epilogue_args(sched.epilogue, csr.shape[0], n_dense,
                                csr.device)
-    b = _dense_b(csr, n_dense)
+    b = cast(_dense_b(csr, n_dense),
+             operand_dtype(sched.value_dtype, csr.device))
 
     def run(a, bb):
         return kops.spmm(a, bb, sched, bias=bias, residual=res)
@@ -149,17 +166,17 @@ def make_eb_runner(csr, n_dense, *, group_size: int, strategy: str,
     """(fn, args) running the EB kernel under this schedule point on
     ``csr @ B``: ``fn(*args)`` is one wrapper call over the prebuilt
     ``GroupedCOO`` (skew layout with the thresholds), B and epilogue
-    operands.  A ``value_dtype`` the kernels do not store raises at the
-    first call, as ``kernels.ops.spmm`` refuses it."""
+    operands, the value stream and B stored as ``value_dtype`` names."""
     sched = Schedule("eb", nnz_tile=nnz_tile, group_size=group_size,
                      strategy=strategy, epilogue=epilogue,
                      split_threshold=split_threshold,
                      merge_threshold=merge_threshold,
                      value_dtype=value_dtype)
-    g = csr.grouped(nnz_tile, group_size=group_size,
-                    split_threshold=split_threshold,
-                    merge_threshold=merge_threshold)
-    return _runner(g, csr, n_dense, sched)
+    layout, quantized = _storage(csr, value_dtype)
+    g = layout.grouped(nnz_tile, group_size=group_size,
+                       split_threshold=split_threshold,
+                       merge_threshold=merge_threshold)
+    return _runner(quantized or g, csr, n_dense, sched)
 
 
 def make_rb_runner(csr, n_dense, *, row_tile: int = 8,
@@ -169,8 +186,9 @@ def make_rb_runner(csr, n_dense, *, row_tile: int = 8,
     with the epilogue fused."""
     sched = Schedule("rb", row_tile=row_tile, strategy="parallel",
                      epilogue=epilogue, value_dtype=value_dtype)
-    return _runner(csr.ell(row_tile=row_tile, width=width), csr, n_dense,
-                   sched)
+    layout, quantized = _storage(csr, value_dtype)
+    e = layout.ell(row_tile=row_tile, width=width)
+    return _runner(quantized or e, csr, n_dense, sched)
 
 
 def make_runner(csr, n_dense: int, sched: Schedule):

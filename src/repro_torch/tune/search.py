@@ -14,9 +14,9 @@ key) and hands them to it:
 2. **measure**: time the top-k candidates plus the selector's pick on
    the port's kernels (``Schedule.auto`` is always measured, so the tuned
    choice can lose to it only by noise);
-3. **dtype axis**: each narrow value dtype the kernels store and whose
-   storage-parity error fits ``error_budget`` is measured as a variant
-   of the winner (none today: the kernels store f32 only);
+3. **dtype axis**: each narrow value dtype whose storage-parity error
+   fits ``error_budget`` is measured as a variant of the winner (the
+   kernels store bf16, fp16, fp8 and int8 values);
 4. **hillclimb**: x2 / /2 steps on ``group_size`` and the tile fields
    around the winner until no neighbor improves;
 5. **cache**: persist the winner under the matrix fingerprint, so a
@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..core.schedule import Schedule, torch_dtype
+from ..core.dtypes import cast, operand_dtype, storage_dtype
+from ..core.schedule import Schedule
 from ..core.selector import candidate_schedules, predict_cost, select_schedule
 from ..kernels.ops import schedule_fits_card
 from ..sparse.random import matrix_stats
@@ -54,9 +55,10 @@ __all__ = [
     "tune_segment_reduce",
 ]
 
-#: Dtype-axis candidates measured by default, the reference's.  The
-#: kernel gate of :class:`~.space.ValueDtypeAxis` admits none of them
-#: until the kernels store narrow values (ROADMAP queue 1 item 3).
+#: Dtype-axis candidates measured by default, the reference's, so keys
+#: and picks compare.  fp8 is measured only when it is asked for
+#: (``value_dtypes=("float8_e4m3fn", ...)``): where it degrades to bf16
+#: (``core.dtypes.storage_dtype``) the tuner would measure bf16 twice.
 DEFAULT_VALUE_DTYPES = ("bfloat16", "float16", "int8")
 
 #: Dtype-axis candidates of the distributed search (the reference's).
@@ -73,19 +75,21 @@ def _feasible(cands: List[Schedule], stats: dict) -> List[Schedule]:
 def _dtype_parity_error(csr, n_dense_cols: int, vd: str) -> float:
     """Relative L2 error of ``vd`` value storage against f32 on the
     runners' B, through the plain versions (``kernels.ref``): the values
-    and B cast to the storage type and back, summed in f32.  int8 needs
-    the quantized CSR, which the port does not have yet."""
+    cast to the storage type (int8: quantized and dequantized, per-row
+    scales) and B to the operand type, summed in f32.  A property of
+    (matrix, dtype), whatever the tiling."""
     from ..kernels import ref
     from .measure import _dense_b
 
-    if vd == "int8":
-        raise ValueError("int8 storage needs QuantizedCSR (ROADMAP queue "
-                         "1 item 3)")
-    dt = torch_dtype(vd)
     coo = csr.tocoo()
     b = _dense_b(csr, n_dense_cols)
     out32 = ref.spmm_coo_ref(coo.rows, coo.cols, coo.vals, b, csr.shape[0])
-    out = ref.spmm_coo_ref(coo.rows, coo.cols, coo.vals.to(dt), b.to(dt),
+    if vd == "int8":
+        vals = csr.quantized().dequantize().vals
+    else:
+        vals = cast(coo.vals, storage_dtype(vd, csr.device))
+    out = ref.spmm_coo_ref(coo.rows, coo.cols, vals,
+                           cast(b, operand_dtype(vd, csr.device)),
                            csr.shape[0])
     num = float(torch.linalg.vector_norm(out - out32))
     den = float(torch.linalg.vector_norm(out32))

@@ -335,11 +335,14 @@ class ValueDtypeAxis(Axis):
         return out
 
     def admit(self, ctx, s):
-        """Kernel gate: the port's kernels store float32 only (narrow and
-        int8 storage are ROADMAP queue 1 item 3), so no other dtype is
-        admitted; the reference's parity gate (``parity`` within
-        ``error_budget``) comes back with narrow storage."""
-        return s.value_dtype is None
+        """Parity gate: storage error must fit ``error_budget``."""
+        if s.value_dtype is None or self.parity is None:
+            return True
+        try:
+            err = self.parity(ctx, s.value_dtype)
+        except (TypeError, ValueError):
+            return False  # e.g. int8 under an unquantizable input
+        return err <= self.error_budget
 
     def key_fragment(self, s):
         """``:v[{dtype}]`` fragment; empty for f32 storage."""

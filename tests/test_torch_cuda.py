@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (EB and RB SpMM with their fused epilogue,
-SDDMM, fused attention forward and backward, segment reduce, grouped
-matmul) against
+"""The port's CUDA kernels (EB and RB SpMM with their fused epilogue, at
+f32 and at bf16, fp16, fp8 and int8 value storage, SDDMM, fused
+attention forward and backward, segment reduce, grouped matmul) against
 their plain versions on the card, at small sizes, the kernel paths'
 gradients against the CPU's, the launches of the planned GCN and
 readout, and those of the MoE layer and an LM decode step.  Every test
@@ -10,8 +10,10 @@ one.  On the GPU machine:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
 Tolerance: EB and RB per output element, K_TERMS units of 2^-24 of the
-magnitude of the terms entering it (plus one bf16 step for a bf16
-output), and so segment-reduce sums over a hub of thousands of lanes;
+magnitude of the terms entering it (plus one step of a narrow output
+type, ``OUT_STEP``; narrow inputs upcast exactly, so the f32 bound
+holds for them unchanged), and so segment-reduce sums over a hub of
+thousands of lanes;
 other f32 kernels rtol = atol = 1e-5 (atomics reorder the sums;
 SDDMM's atol grows with d, the length of its dots); bf16 one bf16 step
 (2^-7).
@@ -85,15 +87,29 @@ def _terms(plain, *args, bias=None, residual=None, **kw):
     return t
 
 
+#: One step of a narrow output type: (relative, absolute at the bottom of
+#: its subnormals).  The kernel and the plain version round f32 results
+#: that differ in their last bits, so they may land on neighbours.
+OUT_STEP = {torch.bfloat16: (2.0 ** -7, 0.0),
+            torch.float16: (2.0 ** -10, 2.0 ** -24),
+            torch.float8_e4m3fn: (2.0 ** -3, 2.0 ** -9)}
+
+
 def _assert_within_terms(got, want, terms, k=K_TERMS):
     """Per output: |got - want| <= k * 2^-24 * (its terms' magnitude
-    + |want|), plus one bf16 step of |want| for a bf16 output."""
+    + |want|), plus one step of the output type for a narrow output
+    (``OUT_STEP``); NaN (an e4m3 overflow) only where the plain version
+    has it."""
     assert got.dtype == want.dtype and got.shape == want.shape
     w = want.float()
+    nan = torch.isnan(w)
+    assert torch.equal(torch.isnan(got.float()), nan)
+    w = w.masked_fill(nan, 0.0)
     bound = k * 2.0 ** -24 * (terms + w.abs())
-    if got.dtype == torch.bfloat16:
-        bound = bound + 2.0 ** -7 * w.abs()
-    err = (got.float() - w).abs()
+    if got.dtype in OUT_STEP:
+        rel, floor = OUT_STEP[got.dtype]
+        bound = bound + rel * w.abs() + floor
+    err = (got.float().masked_fill(nan, 0.0) - w).abs()
     worst = float((err / bound.clamp_min(1e-30)).max())
     assert bool((err <= bound).all()), f"worst error {worst:.2f}x the bound"
 
@@ -162,11 +178,12 @@ def test_eb_kernel_carry_walk_on_hub_rows(dev, strategy, G, n_dense):
 
 @pytest.mark.parametrize("act", [None, "relu", "gelu", "silu", "tanh",
                                  "sigmoid"])
-@pytest.mark.parametrize("out_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("out_dtype", [None, "bfloat16", "float16",
+                                       "float8_e4m3fn"])
 def test_epilogue_kernel_matches_plain(dev, act, out_dtype):
     """The epilogue fused into the EB kernel (rows stored in the walk,
     rows finished from carries, empty rows) and into RB, with bias and
-    residual, f32 and bf16 outputs."""
+    residual, f32, bf16, fp16 and e4m3 outputs."""
     from repro_torch.core import Epilogue
     from repro_torch.kernels import spmm_eb, spmm_rb
 
@@ -221,6 +238,172 @@ def test_rb_kernel_takes_rows_wider_than_32_slots(dev):
         want = spmm_rb.spmm_rb_plain(e.cols, e.vals, b, n_rows=500)
         _assert_within_terms(got, want, _terms(spmm_rb.spmm_rb_plain, e.cols,
                                                e.vals, b, n_rows=500))
+
+
+VALUE_DTYPES = ("bfloat16", "float16", "float8_e4m3fn", "int8")
+
+
+def _stored(a, vd, b):
+    """(the CSR whose layout is fed, per-row scales or None, B) under
+    ``value_dtype`` ``vd``: values and B cast to their storage types, or
+    int8 codes with the CSR's quantization scales on a bf16 B."""
+    from repro_torch.core.dtypes import cast, operand_dtype, storage_dtype
+
+    bb = cast(b, operand_dtype(vd))
+    if vd == "int8":
+        q = a.quantized()
+        return q.csr, q.scales, bb
+    return a.astype(storage_dtype(vd)), None, bb
+
+
+@pytest.mark.parametrize("vd", VALUE_DTYPES)
+@pytest.mark.parametrize("strategy,skew", [
+    ("segment", None), ("accumulate", None), ("parallel", None),
+    ("segment", (8, 2)), ("parallel", (8, 0))])
+@pytest.mark.parametrize("n_dense", [40, 33, 256])
+def test_eb_kernel_narrow_matches_plain(dev, vd, strategy, skew, n_dense):
+    """Narrow and int8 storage through EB (skew layout included: int8
+    lanes take their own row's scale under 'parallel') against the plain
+    version on the same stored inputs, which upcast exactly, so the f32
+    bound holds unchanged."""
+    from repro_torch.kernels import spmm_eb
+
+    c, scales, b = _stored(_matrix(dev), vd,
+                           _dense(dev, (300, n_dense), 1))
+    kw = {} if skew is None else dict(group_size=8, split_threshold=skew[0],
+                                      merge_threshold=skew[1])
+    g = c.grouped(128, **kw)
+    assert g.vals.dtype == c.vals.dtype
+    args = dict(n_rows=300, nnz_tile=128, group_size=8, strategy=strategy,
+                heavy_tiles=g.heavy_tiles)
+    before = spmm_eb.KERNEL.launches
+    got = spmm_eb.spmm_eb(g.rows, g.cols, g.vals, b, scales=scales, **args)
+    assert spmm_eb.KERNEL.launches == before + 1
+    want = spmm_eb.spmm_eb_plain(g.rows, g.cols, g.vals, b, scales=scales,
+                                 **args)
+    v32 = spmm_eb.lane_values(g.vals, g.rows, scales)
+    _assert_within_terms(got, want, _terms(spmm_eb.spmm_eb_plain, g.rows,
+                                           g.cols, v32, b.float(), **args))
+
+
+@pytest.mark.parametrize("vd", VALUE_DTYPES)
+@pytest.mark.parametrize("n_dense", [40, 256])
+def test_eb_kernel_narrow_carry_walk(dev, vd, n_dense):
+    """Narrow storage over a hub row and a row across chunk boundaries:
+    carry rows as ``eb_carry_plan``, the same bits over two launches, and
+    the output against the plain version and its carry walk."""
+    from repro_torch.kernels import spmm_eb
+
+    a = _hub_matrix(dev)
+    c, scales, b = _stored(a, vd, _dense(dev, (a.shape[1], n_dense), 2))
+    g = c.grouped(128)
+    kw = dict(n_rows=a.shape[0], nnz_tile=128, group_size=32,
+              strategy="segment", heavy_tiles=0)
+    old = spmm_eb.TARGET_WARPS
+    spmm_eb.TARGET_WARPS = 16
+    try:
+        runs = [spmm_eb._launch(g.rows, g.cols, g.vals, b,
+                                epilogue=spmm_eb._NOOP, bias=None,
+                                residual=None, scales=scales, **kw)
+                for _ in range(2)]
+    finally:
+        spmm_eb.TARGET_WARPS = old
+    (got, carry, chunk), (again, _, _) = runs
+    assert torch.equal(carry, spmm_eb.eb_carry_plan(
+        g.rows, chunk=chunk, group_size=32, strategy="segment",
+        nnz_tile=128))
+    assert torch.equal(got, again)
+    v32 = spmm_eb.lane_values(g.vals, g.rows, scales)
+    terms = _terms(spmm_eb.spmm_eb_plain, g.rows, g.cols, v32, b.float(),
+                   **kw)
+    _assert_within_terms(got, spmm_eb.spmm_eb_plain(
+        g.rows, g.cols, g.vals, b, scales=scales, **kw), terms)
+    chunked = spmm_eb.spmm_eb_chunked_plain(
+        g.rows.cpu(), g.cols.cpu(), g.vals.cpu(), b.cpu(), chunk=chunk,
+        scales=None if scales is None else scales.cpu(), **kw)
+    _assert_within_terms(got.cpu(), chunked, terms.cpu())
+
+
+@pytest.mark.parametrize("vd", VALUE_DTYPES)
+@pytest.mark.parametrize("n_dense", [40, 33, 256])
+def test_rb_kernel_narrow_matches_plain(dev, vd, n_dense):
+    from repro_torch.core import Epilogue
+    from repro_torch.kernels import spmm_rb
+
+    c, scales, b = _stored(_matrix(dev, seed=5), vd,
+                           _dense(dev, (300, n_dense), 6))
+    e = c.ell(row_tile=8)
+    assert e.vals.dtype == c.vals.dtype
+    ops = dict(bias=_dense(dev, (n_dense,), 7))
+    kw = dict(n_rows=300, epilogue=Epilogue("relu", bias=True), **ops)
+    got = spmm_rb.spmm_rb(e.cols, e.vals, b, scales=scales, **kw)
+    want = spmm_rb.spmm_rb_plain(e.cols, e.vals, b, scales=scales, **kw)
+    v32 = e.vals.float() if scales is None else (
+        e.vals[:300].float() * scales[:, None])
+    _assert_within_terms(got, want, _terms(
+        spmm_rb.spmm_rb_plain, e.cols, v32, b.float(), n_rows=300, **ops))
+
+
+def test_narrow_wrappers_refuse_other_pairs(dev):
+    from repro_torch.kernels import spmm_eb, spmm_rb
+
+    a = _matrix(dev)
+    g, e = a.grouped(128), a.ell(row_tile=8)
+    b = _dense(dev, (300, 8), 1)
+    bad = [(g.vals.to(torch.bfloat16), b, None),  # bf16 values on f32 B
+           (g.vals, b.to(torch.float16), None),
+           (g.vals.to(torch.float16), b.to(torch.bfloat16), None),
+           (a.quantized().csr.grouped(128).vals, b.to(torch.bfloat16),
+            None),  # int8 codes without scales
+           (g.vals, b, torch.ones(300, device=dev))]  # scales without codes
+    for vals, bb, scales in bad:
+        with pytest.raises(ValueError):
+            spmm_eb.spmm_eb(g.rows, g.cols, vals, bb, n_rows=300,
+                            nnz_tile=128, scales=scales)
+    with pytest.raises(ValueError):
+        spmm_rb.spmm_rb(e.cols, e.vals.to(torch.bfloat16), b, n_rows=300)
+
+
+@pytest.mark.parametrize("schedule", ["auto", "RB+PR"])
+@pytest.mark.parametrize("vd", VALUE_DTYPES)
+def test_narrow_spmm_and_quantization_on_cuda_match_cpu(dev, schedule, vd):
+    """``spmm`` under each storage type on the card against the CPU's
+    plain path; the int8 codes and scales made on the card equal the
+    CPU's bit for bit; one bf16 (or int8) step's gradients match."""
+    import warnings
+
+    import repro_torch.sparse as ts
+    from repro_torch.core import Schedule
+    from repro_torch.core.dtypes import Fp8Fallback
+
+    a = _matrix(dev, seed=2)
+    a_cpu = ts.CSR(a.indptr.cpu(), a.indices.cpu(), a.vals.cpu(), a.shape)
+    sched = (Schedule.auto(ts.matrix_stats(a), 16) if schedule == "auto"
+             else Schedule.named(schedule)).replace(value_dtype=vd)
+    b = _dense(dev, (300, 16), 3)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", Fp8Fallback)  # never on the card
+        got = ts.spmm(a, b, sched, device=dev)
+    want = ts.spmm(a_cpu, b.cpu(), sched, device="cpu")
+    torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
+    if vd == "int8":
+        for method in ("absmax", "percentile"):
+            qg, qc = (ts.quantize_csr(x, method=method) for x in (a, a_cpu))
+            assert torch.equal(qg.csr.vals.cpu(), qc.csr.vals)
+            assert torch.equal(qg.scales.cpu().view(torch.int32),
+                               qc.scales.view(torch.int32))
+    if vd in ("bfloat16", "int8"):
+        grads = []
+        for m, bb in ((a, b), (a_cpu, b.cpu())):
+            vals = m.vals.clone().requires_grad_()
+            bb = bb.clone().requires_grad_()
+            x = ts.CSR(m.indptr, m.indices, vals, m.shape)
+            ts.spmm(x, bb, sched.with_epilogue("relu"),
+                    device=bb.device).square().sum().backward()
+            grads.append([t.grad for t in (vals, bb) if t.grad is not None])
+        for g_dev, g_cpu in zip(*grads):
+            torch.testing.assert_close(g_dev.cpu(), g_cpu, rtol=1e-4,
+                                       atol=1e-4)
 
 
 def test_user_strategy_raises_on_cuda(dev):
@@ -845,6 +1028,33 @@ def test_grouped_matmul_kernel_matches_plain(dev, tile, dtype, f):
                                    atol=ATOL)
 
 
+@pytest.mark.parametrize("out_dtype", ["float16", "float8_e4m3fn"])
+@pytest.mark.parametrize("dtype,f", [(torch.bfloat16, 64),
+                                     (torch.float32, 20)])
+def test_grouped_matmul_fp16_and_e4m3_outputs(dev, dtype, f, out_dtype):
+    """The fp16 and e4m3 epilogue stores on both routes, with values
+    large enough that some e4m3 outputs overflow to NaN."""
+    from repro_torch.core import Epilogue
+    from repro_torch.kernels import grouped_matmul as gm
+
+    x, te, w, b = _gmm_operands(dev, 10, 5, 6, 300, f, dtype, 11)
+    x = (x.float() * 256).to(dtype)
+    for ep, bias in ((Epilogue(out_dtype=out_dtype), None),
+                     (Epilogue("silu", bias=True, out_dtype=out_dtype), b)):
+        kw = dict(bias=bias, epilogue=ep, token_tile=10)
+        got = gm.grouped_matmul(x, te, w, f_tile=f, d_tile=300, **kw)
+        want = gm.grouped_matmul_plain(x, te, w, **kw)
+        assert got.dtype == want.dtype == getattr(torch, out_dtype)
+        nan = torch.isnan(want.float())
+        assert torch.equal(torch.isnan(got.float()), nan)
+        rel, floor = OUT_STEP[got.dtype]
+        g, wv = got.float()[~nan], want.float()[~nan]
+        assert bool(((g - wv).abs() <= (rel + RTOL) * wv.abs() + floor
+                     + ATOL).all())
+    if out_dtype == "float8_e4m3fn":
+        assert bool(nan.any())  # the overflow was exercised
+
+
 @pytest.mark.parametrize("case", ["odd_d", "tokens_off_4_bytes"])
 @pytest.mark.parametrize("tile", [4, 10, 17])
 def test_grouped_matmul_cuda_core_route_takes_bf16_16_byte_loads(dev, tile,
@@ -1072,21 +1282,30 @@ def test_tuned_spmm_matches_plain_per_element(tuner_env):
     got = ts.spmm(a, b, schedule="tune", bias=bias, epilogue=Epilogue("relu"))
     assert spmm_eb.KERNEL.launches + spmm_rb.KERNEL.launches == before + 1
     s = res.schedule
+    # the feed at the pick's storage (the dtype axis may narrow it)
+    c, scales, bq = (a, None, b) if s.value_dtype is None else _stored(
+        a, s.value_dtype, b)
     if s.kernel == "eb":
-        g = a.grouped(s.nnz_tile, group_size=s.group_size,
+        g = c.grouped(s.nnz_tile, group_size=s.group_size,
                       split_threshold=s.split_threshold,
                       merge_threshold=s.merge_threshold)
         plain = spmm_eb.spmm_eb_plain
-        args = (g.rows, g.cols, g.vals, b)
+        args = (g.rows, g.cols, g.vals, bq)
+        terms_args = (g.rows, g.cols,
+                      spmm_eb.lane_values(g.vals, g.rows, scales), bq.float())
         kw = dict(n_rows=a.shape[0], nnz_tile=s.nnz_tile,
                   group_size=s.group_size, strategy=s.strategy,
                   heavy_tiles=g.heavy_tiles)
     else:
-        e = a.ell(row_tile=s.row_tile)
-        plain, args, kw = spmm_rb.spmm_rb_plain, (e.cols, e.vals, b), dict(
+        e = c.ell(row_tile=s.row_tile)
+        plain, args, kw = spmm_rb.spmm_rb_plain, (e.cols, e.vals, bq), dict(
             n_rows=a.shape[0])
-    want = plain(*args, epilogue=ep, bias=bias, **kw)
-    _assert_within_terms(got, want, _terms(plain, *args, bias=bias, **kw))
+        v = e.vals[:a.shape[0]].float()
+        terms_args = (e.cols, v if scales is None else v * scales[:, None],
+                      bq.float())
+    want = plain(*args, epilogue=ep, scales=scales, bias=bias, **kw)
+    _assert_within_terms(got, want, _terms(plain, *terms_args, bias=bias,
+                                           **kw))
 
 
 def test_schedule_fits_card_refuses_what_the_cuda_wrappers_refuse(tuner_env):
@@ -1105,7 +1324,15 @@ def test_schedule_fits_card_refuses_what_the_cuda_wrappers_refuse(tuner_env):
              Schedule(nnz_tile=64, group_size=8, strategy="t_fits_user"),
              Schedule(nnz_tile=64, group_size=8, value_dtype="bf16"),
              Schedule("rb", row_tile=8, strategy="parallel")]
-    for s in cases:
+    narrow = [Schedule(nnz_tile=64, group_size=8, value_dtype=vd)
+              for vd in ("fp16", "fp8", "int8")]
+    narrow += [Schedule("rb", row_tile=8, strategy="parallel",
+                        value_dtype=vd)
+               for vd in ("bf16", "fp16", "fp8", "int8")]
+    for s in narrow:  # narrow and int8 storage run wherever f32 does
+        assert kops.schedule_fits_card(s, n_rows=st["n_rows"],
+                                       row_max=st["row_max"])
+    for s in cases + narrow:
         fits = kops.schedule_fits_card(s, n_rows=st["n_rows"],
                                        row_max=st["row_max"])
         try:

@@ -18,6 +18,7 @@ from repro.core import Schedule as JS
 from repro_torch.core import Epilogue as TE
 from repro_torch.core import Schedule as TS
 from repro_torch.core import register_strategy, spec_accumulate
+from repro_torch.core.dtypes import cast, operand_dtype, storage_dtype
 from repro_torch.kernels import spmm_eb as teb
 
 RTOL = ATOL = 1e-5
@@ -192,10 +193,16 @@ def test_spmm_refuses_inputs_that_require_grad():
 
 
 def test_narrow_value_dtype_is_not_ported():
-    _, a_t, b, _, _ = _inputs()
-    with pytest.raises(NotImplementedError, match="value_dtype"):
-        ts.spmm(a_t, torch.from_numpy(b), schedule=TS(value_dtype="bf16"),
-                device="cpu")
+    """Narrow value storage, refused until the low-precision slice, now
+    runs: bf16 storage on the power-law matrix equals the JAX package's
+    (tests/test_torch_lowprec.py holds every dtype and schedule)."""
+    a_j, a_t, b, _, _ = _inputs()
+    out_t = ts.spmm(a_t, torch.from_numpy(b),
+                    schedule=TS(value_dtype="bf16"), device="cpu")
+    out_j = js.spmm(a_j, jnp.asarray(b), schedule=JS(value_dtype="bf16"),
+                    interpret=True)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j),
+                               rtol=RTOL, atol=ATOL)
 
 
 def _tuner_env(tmp_path, monkeypatch):
@@ -225,7 +232,14 @@ def test_schedule_tune_matches_jax_and_the_dense_oracle(tmp_path,
     assert res.from_cache and res.schedule.epilogue == TE("relu", bias=True)
     assert default_cache_path().name == "tune.torch-cpu.json"
     assert default_cache_path().exists()
-    torch.testing.assert_close(got, torch.relu(a_t.todense() @ bt + biast),
+    # the dense oracle on the values and B the pick stores (the tuner's
+    # dtype axis may narrow them), in f32
+    vd = res.schedule.value_dtype
+    stored = (a_t.quantized().dequantize().vals if vd == "int8" else
+              a_t.astype(storage_dtype(vd)).vals.float())
+    dense = ts.CSR(a_t.indptr, a_t.indices, stored, a_t.shape).todense()
+    b_stored = cast(bt, operand_dtype(vd)).float()
+    torch.testing.assert_close(got, torch.relu(dense @ b_stored + biast),
                                rtol=RTOL, atol=ATOL)
     want = js.spmm(a_j, jnp.asarray(b), bias=jnp.asarray(bias),
                    epilogue=JE("relu"),

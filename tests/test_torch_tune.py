@@ -30,6 +30,7 @@ import repro_torch.core as tc
 import repro_torch.fuse as TF
 import repro_torch.sparse as ts
 import repro_torch.tune as tt
+from repro_torch.core.dtypes import storage_dtype
 from repro_torch.core.selector import DEFAULT_COST_WEIGHTS
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import hillclimb
@@ -186,7 +187,7 @@ def _tune_both(a_j, a_t, n, **kw):
     mj, calls_j = _fake(jt.schedule_key)
     mt, calls_t = _fake(tt.schedule_key)
     rj = jt.tune_schedule(a_j, n, cache=jt.ScheduleCache(None), measure=mj,
-                          value_dtypes=(), **kw)
+                          **kw)
     rt = tt.tune_schedule(a_t, n, cache=tt.ScheduleCache(None), measure=mt,
                           **kw)
     return rj, rt, calls_j, calls_t
@@ -403,10 +404,15 @@ def test_default_measure_times_the_wrappers_on_cpu(tuner_env):
     assert res.schedule.epilogue == tc.Epilogue("relu", bias=True)
     assert tt.default_cache_path("torch-cpu").exists()
     fn, args = tt.make_runner(a, 8, res.schedule)
-    b = args[1]
+    b = args[1].float()
     bias = torch.randn(8, generator=torch.Generator().manual_seed(1))
+    # the values the pick stores (the dtype axis may narrow them), in f32
+    vd = res.schedule.value_dtype
+    stored = (a.quantized().dequantize().vals if vd == "int8" else
+              a.astype(storage_dtype(vd)).vals.float())
+    dense = ts.CSR(a.indptr, a.indices, stored, a.shape).todense()
     torch.testing.assert_close(
-        fn(*args), torch.relu(a.todense() @ b + bias), rtol=1e-5, atol=1e-5)
+        fn(*args), torch.relu(dense @ b + bias), rtol=1e-5, atol=1e-5)
     assert tt.time_fn(fn, *args, iters=3) > 0
 
 
@@ -421,18 +427,20 @@ def test_schedule_fits_card_refuses_what_the_wrappers_refuse(monkeypatch):
         assert fits(s)
     assert fits(tc.Schedule(nnz_tile=spmm_eb.MAX_NNZ_TILE, group_size=32))
     assert not fits(tc.Schedule(nnz_tile=2 * spmm_eb.MAX_NNZ_TILE))
-    for vd in ("bf16", "float16", "int8"):
-        assert not fits(tc.Schedule(value_dtype=vd))
+    for vd in ("bf16", "float16", "fp8", "int8"):
+        assert fits(tc.Schedule(value_dtype=vd))
     tc.register_strategy("t_tune_user", tc.spec_accumulate, overwrite=True)
     tc.register_strategy("t_tune_max", tc.spec_accumulate, combine="max",
                          overwrite=True)
     for name in ("t_tune_user", "t_tune_max"):
         assert not fits(tc.Schedule(strategy=name))
-    # what the CPU path refuses as well: narrow storage, an ELL too large
+    # narrow storage runs on the CPU path too; an ELL too large is refused
     a = ts.random_csr(100, 100, density=0.1, seed=0, device="cpu")
     b = torch.ones(100, 4)
-    with pytest.raises(NotImplementedError, match="value_dtype"):
-        kops.spmm(a, b, tc.Schedule(value_dtype="bf16"))
+    np.testing.assert_allclose(
+        kops.spmm(a, b, tc.Schedule(value_dtype="bf16")).numpy(),
+        kops.spmm(a.astype(torch.bfloat16), b, tc.Schedule()).numpy(),
+        rtol=0, atol=0)
     row_max = ts.matrix_stats(a)["row_max"]
     rb = tc.Schedule("rb", row_tile=8, strategy="parallel")
     limit = 104 * row_max * 8
@@ -450,12 +458,23 @@ def test_schedule_fits_card_refuses_what_the_wrappers_refuse(monkeypatch):
     assert kops.spmm(a, b, rb).shape == (100, 4)
 
 
-def test_value_dtype_axis_admits_nothing_the_kernels_refuse():
+def test_value_dtype_axis_admits_what_fits_the_budget():
     from repro_torch.tune.space import ValueDtypeAxis
 
-    ax = ValueDtypeAxis(tt.DEFAULT_VALUE_DTYPES, parity=lambda c, vd: 0.0)
     memo = tt.driver._Memo(lambda s: 1.0, tt.schedule_key)
+    errors = {"bfloat16": 0.01, "float16": 0.001, "int8": 0.2}
+    ax = ValueDtypeAxis(tt.DEFAULT_VALUE_DTYPES, error_budget=0.05,
+                        parity=lambda c, vd: errors[vd])
+    got = ax.variants(None, tc.Schedule(), memo)
+    assert [s.value_dtype for s in got] == ["bfloat16", "float16"]
+    # a parity that cannot be computed refuses the dtype
+    def unquantizable(ctx, vd):
+        raise ValueError(vd)
+
+    ax = ValueDtypeAxis(("int8",), parity=unquantizable)
     assert ax.variants(None, tc.Schedule(), memo) == []
+    assert ValueDtypeAxis(tt.DEFAULT_VALUE_DTYPES).admit(
+        None, tc.Schedule(value_dtype="int8"))  # no gate: admitted
 
 
 def test_not_ported_parts_raise_naming_their_item(tuner_env):
