@@ -93,6 +93,27 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   ``prepare_sparse`` and ``spmm`` on both graphs at N = 256 and 40,
   against f64 within K_TERMS, a second ``prepare_sparse`` replaying.
 
+- narrow operands (``narrow``): SDDMM at bf16, fp16 and e4m3 A and B and
+  at f32 A with bf16 B on both graphs at D = 40 and 256 (per element
+  within K_TERMS of the plain version on the same stored values, each
+  launch handed the stored operands, timed beside the f32 kernel and a
+  copy to f32 before it), and one bf16-storage training step with B in
+  bf16, whose dvals runs the (f32, bf16) pair; graph attention through
+  ``sparse_attention`` at bf16 and fp16 q, k and v on both graphs,
+  forward and backward against the plain path, the kernels against
+  their plain versions (split rows bit for bit over two launches), and
+  one head at d = dv = 320 and 512, f32 and bf16, on both graphs (the
+  slabs, and on social the hub row's chunk split); then, on the MoE
+  model after ``moe_tune``, its experts cast to e4m3: logits against a
+  twin holding their exact bf16 upcast (largest difference printed),
+  the grouped matmul at bf16, e4m3 and f32 tokens on e4m3 experts and
+  ``ServeEngine`` served; and the same configuration drawn at fp16:
+  logits against the einsum path at fp16 on the kernel path's expert
+  choices (the free einsum path's routing printed, every token it routes
+  otherwise a near tie where the runs first part), the grouped matmul at
+  fp16 and f32 tokens, ``ServeEngine`` served; prefill, decode-step ms
+  and tokens/s of both serves.
+
 It prints kernel, forward, training-step, attention, readout, tuning,
 prefill and decode times, EB, RB and ``torch.sparse.mm`` at N = 64 and 128 on both
 graphs, the launch counts of each path, a ``{"kernels": [...]}``
@@ -200,6 +221,14 @@ TUNE_WINDOWS, TUNE_SLACK, TUNE_MIN_AUTO_MS = 5, 0.10, 0.1
 #: The grouped matmul's plain version runs over at most this many tiles
 #: at a time (it gathers each tile's expert weights in f32).
 GMM_PLAIN_TILES = 128
+#: The narrow phase: SDDMM's (A, B) operand types; attention's q, k and v
+#: types through ``sparse_attention``; head widths above one slab of the
+#: attention kernels (256 columns), run at f32 and bf16.
+NARROW_SDDMM_PAIRS = (("bfloat16", "bfloat16"), ("float16", "float16"),
+                      ("float8_e4m3fn", "float8_e4m3fn"),
+                      ("float32", "bfloat16"))
+NARROW_ATTN_DTYPES = ("bfloat16", "float16")
+WIDE_HEAD_DIMS = (320, 512)
 #: Where each kernel came from: its source and the TPU kernel it replaces.
 KERNEL_META = {
     "spmm_eb": ("src/repro_torch/kernels/csrc/spmm_eb.cu",
@@ -3082,6 +3111,608 @@ def time_grouped_matmul(cases, row_prefix="decode"):
     return row
 
 
+def as_type(t, name):
+    """``t`` stored as the named type, rounded as the reference rounds
+    (``core.dtypes.cast``: e4m3 NaN above 464)."""
+    import torch
+    from repro_torch.core.dtypes import cast
+
+    return cast(t, getattr(torch, name))
+
+
+def launch_spy(kernel):
+    """Spy on a CudaKernel's launches: (the list that receives each
+    launch's arguments, the device index and stream left out; a function
+    that ends the spying)."""
+    seen = []
+    launch = kernel.launch
+
+    def spy(device, *args):
+        seen.append(args)
+        return launch(device, *args)
+
+    kernel.launch = spy
+    return seen, lambda: delattr(kernel, "launch")
+
+
+def narrow_sddmm(graphs, checker, counters):
+    """SDDMM at every NARROW_SDDMM_PAIRS pair on both graphs at D = 40
+    and 256, per element within K_TERMS of the plain version on the same
+    stored values, each launch handed the operands themselves; timed
+    beside the f32 kernel and the old route (a copy to f32, then the f32
+    kernel).  Then one training step under bf16 storage with B held in
+    bf16 (counts zeroed just before, read just after): its dvals runs the
+    (f32 dz, bf16 B) pair, against the same step with B in f32.
+    Returns (timing rows, the step's counts)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import Schedule
+    from repro_torch.kernels import sddmm
+    from repro_torch.kernels.common import DTYPE_CODES
+    from repro_torch.sparse import CSR, matrix_stats, spmm
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 13)
+    rows_out = []
+    for name, (adj, _) in graphs.items():
+        dev, n, nnz = adj.device, adj.shape[0], adj.nnz
+        coo = adj.tocoo()
+        for width in (N_CLASS, HIDDEN):
+            dz, b = (torch.randn(n, width, generator=gen).to(dev)
+                     for _ in range(2))
+            f32_ms = cuda_ms(lambda: sddmm.sddmm(coo.rows, coo.cols, dz, b))
+            for at, bt in NARROW_SDDMM_PAIRS:
+                a_, b_ = as_type(dz, at), as_type(b, bt)
+                seen, restore = launch_spy(sddmm.KERNEL)
+                try:
+                    got = sddmm.sddmm(coo.rows, coo.cols, a_, b_)
+                finally:
+                    restore()
+                if (len(seen) != 1 or seen[0][2] != a_.data_ptr()
+                        or seen[0][3] != b_.data_ptr()
+                        or seen[0][-2:] != (DTYPE_CODES[a_.dtype],
+                                            DTYPE_CODES[b_.dtype])):
+                    checker.failures.append(
+                        f"sddmm {name} {at} x {bt}: the kernel was not "
+                        "handed the stored operands")
+                checker.record_terms(
+                    "sddmm", f"{name} D={width} A {at} B {bt}", got,
+                    sddmm.sddmm_plain(coo.rows, coo.cols, a_, b_),
+                    sddmm.sddmm_plain(coo.rows, coo.cols, a_.float().abs(),
+                                      b_.float().abs()))
+                ms = cuda_ms(lambda: sddmm.sddmm(coo.rows, coo.cols, a_, b_))
+                old = cuda_ms(lambda: sddmm.sddmm(coo.rows, coo.cols,
+                                                  a_.float(), b_.float()))
+                nbytes = nnz * 12 + n * width * (a_.element_size()
+                                                 + b_.element_size())
+                rows_out.append((f"SDDMM {name} D={width}", f"{at} x {bt}",
+                                 ms, bound(nbytes, 2 * nnz * width)[0],
+                                 f32_ms, old))
+            del dz, b, a_, b_, got
+    torch.cuda.empty_cache()
+
+    adj = graphs["social"][0]
+    sched = Schedule.auto(matrix_stats(adj), HIDDEN).replace(
+        value_dtype="bfloat16")
+    labels = torch.randint(0, HIDDEN, (adj.shape[0],), generator=gen).to(
+        adj.device)
+    b0 = torch.randn(adj.shape[1], HIDDEN, generator=gen).to(adj.device)
+    grads = {}
+    for b_type in ("bfloat16", "float32"):
+        vals = adj.vals.detach().clone().requires_grad_()
+        b = as_type(b0, "bfloat16").to(getattr(torch, b_type))
+        b.requires_grad_()
+        a = CSR(adj.indptr, adj.indices, vals, adj.shape)
+        if b_type == "bfloat16":
+            for c in counters.values():
+                c.launches = 0
+            seen, restore = launch_spy(sddmm.KERNEL)
+        try:
+            loss = F.cross_entropy(spmm(a, b, sched, device=adj.device),
+                                   labels)
+            grads[b_type] = torch.autograd.grad(loss, (vals, b))
+        finally:
+            if b_type == "bfloat16":
+                restore()
+        if b_type == "bfloat16":
+            torch.cuda.synchronize()
+            counts = {k: c.launches for k, c in counters.items()}
+            pairs = [s[-2:] for s in seen]
+    want_pair = (DTYPE_CODES[torch.float32], DTYPE_CODES[torch.bfloat16])
+    dvals = rel_l2(grads["bfloat16"][0], grads["float32"][0])
+    db = rel_l2(grads["bfloat16"][1].float(), grads["float32"][1].float())
+    ok = pairs == [want_pair] and dvals <= GRAD_RTOL and db <= BF16_RTOL
+    print(f"narrow train social: bf16 storage, B in bf16; SDDMM type codes "
+          f"{pairs} (f32 dz, bf16 B: {want_pair}); dvals relative L2 "
+          f"{dvals:.3e} against B in f32 (tol {GRAD_RTOL:.0e}), dB "
+          f"{db:.3e} (bf16, tol {BF16_RTOL:.1e}); launches {counts} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("narrow train: the bf16 step's dvals")
+    del grads, b0
+    torch.cuda.empty_cache()
+    return rows_out, counts
+
+
+def compare_narrow(got, want, name):
+    """(max |got - want|, tolerance text, within it) for gradients stored
+    in a narrow type: one step of the type (OUT_STEP) of each value plus
+    F32_TOL of the largest magnitude."""
+    import torch
+
+    g, w = got.detach().float(), want.detach().float()
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+        return float("inf"), "finite, same shape", False
+    rel, floor = OUT_STEP[name]
+    tol = F32_TOL * max(1.0, float(w.abs().max()))
+    err = (g - w).abs()
+    return (float(err.max()), f"{rel:.0e}|ref| + {tol:.2e}",
+            bool((err <= rel * w.abs() + floor + tol).all()))
+
+
+def narrow_attention(graphs, checker, counters):
+    """Graph attention (HEADS x HEAD_DIM) through ``sparse_attention`` at
+    each NARROW_ATTN_DTYPES type on both graphs, forward and backward
+    with the counts zeroed just before and read just after, against the
+    plain path on the same stored values; the kernels at that type
+    against their plain versions (the split rows' out and dQ bit for bit
+    over two launches), handed q, k and v themselves; then one head at
+    each WIDE_HEAD_DIMS width, f32 and bf16, on both graphs (social's hub
+    row runs both the chunk split and the slabs).  Returns (timing rows,
+    wide-head rows, the public paths' counts)."""
+    import torch
+    from repro_torch.kernels import fused_attention as fa
+    from repro_torch.sparse import sparse_attention
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 14)
+    rows_out, wide_out, runs = [], [], []
+    for name, (adj, _) in graphs.items():
+        dev = adj.device
+        q32, k32, v32, cot = attention_operands(adj, gen, dev)
+        kw = dict(scale=HEAD_DIM ** -0.5, bias=adj.vals)
+        ip, cc = adj.indptr, adj.indices
+        args32 = tuple(head_major(t) for t in (q32, k32, v32))
+        do = head_major(cot)
+        f32 = {"fwd": cuda_ms(lambda: fa.fused_sparse_attention(
+            ip, cc, *args32, **kw), 5, 1)}
+        _, m32, l32 = fa.fused_sparse_attention(ip, cc, *args32, **kw)
+        f32["bwd"] = cuda_ms(lambda: fa.fused_sparse_attention_bwd(
+            ip, cc, *args32, do, m32, l32, **kw), 5, 1)
+        for dt in NARROW_ATTN_DTYPES:
+            q, k, v = (as_type(t, dt).requires_grad_()
+                       for t in (q32, k32, v32))
+            for c in counters.values():
+                c.launches = 0
+            out = sparse_attention(adj, q, k, v, device=dev)
+            grads = torch.autograd.grad(out, (q, k, v), cot)
+            torch.cuda.synchronize()
+            runs.append(({n: c.launches for n, c in counters.items()},
+                         f"narrow attend {name} {dt}"))
+            out_ref = sparse_attention(adj, q, k, v, impl="ref", device=dev)
+            want = torch.autograd.grad(out_ref, (q, k, v), cot)
+            for label, g, w in zip(("out", "dq", "dk", "dv"), (out,) + grads,
+                                   (out_ref,) + want):
+                err, tol, ok = (compare(g, w) if label == "out"
+                                else compare_narrow(g, w, dt))
+                print(f"narrow attend {name} {dt}: {label} {g.dtype} "
+                      f"max_abs_err {err:.3e} tol {tol} against the plain "
+                      f"path {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    fail(f"narrow attend {name} {dt}: {label}")
+            del out, grads, out_ref, want
+            # the kernels at this type, against their plain versions
+            args = tuple(head_major(t) for t in (q, k, v))
+            seen, restore = launch_spy(fa.FWD_KERNEL)
+            try:
+                got = fa.fused_sparse_attention(ip, cc, *args, **kw)
+            finally:
+                restore()
+            if any(s[3:6] != tuple(t.data_ptr() for t in args)
+                   for s in seen):
+                checker.failures.append(f"attention {name} {dt}: q, k, v "
+                                        "copied before the launch")
+            plain = fa.fused_sparse_attention_plain(ip, cc, *args, **kw)
+            for label, g, w in zip(("out", "m", "l"), got, plain):
+                checker.record("fused_attention_fwd", f"{name} {dt} {label}",
+                               g, w, per_element=label != "out")
+            split = fa.attn_row_plan(ip, fa.FWD_CHUNK).split_rows.long()
+            again = fa.fused_sparse_attention(ip, cc, *args, **kw)
+            checker.record("fused_attention_fwd", f"{name} {dt} out of "
+                           f"{split.numel()} split rows, 2 launches",
+                           again[0][:, split], got[0][:, split], exact=True)
+            g_b = fa.fused_sparse_attention_bwd(ip, cc, *args, do, got[1],
+                                                got[2], **kw)
+            w_b = fa.fused_sparse_attention_bwd_plain(ip, cc, *args, do,
+                                                      plain[1], plain[2],
+                                                      **kw)
+            for label, g, w in zip(("dq", "dk", "dv"), g_b, w_b):
+                checker.record("fused_attention_bwd", f"{name} {dt} {label}",
+                               g, w)
+            again = fa.fused_sparse_attention_bwd(ip, cc, *args, do, got[1],
+                                                  got[2], **kw)
+            checker.record("fused_attention_bwd", f"{name} {dt} dq of split "
+                           "rows, 2 launches", again[0][:, split],
+                           g_b[0][:, split], exact=True)
+            m, l = got[1], got[2]
+            del got, plain, g_b, w_b, again
+            times = {"fwd": cuda_ms(lambda: fa.fused_sparse_attention(
+                ip, cc, *args, **kw), 5, 1),
+                "bwd": cuda_ms(lambda: fa.fused_sparse_attention_bwd(
+                    ip, cc, *args, do, m, l, **kw), 5, 1)}
+            old = {"fwd": cuda_ms(lambda: fa.fused_sparse_attention(
+                ip, cc, *(t.float() for t in args), **kw), 5, 1),
+                "bwd": cuda_ms(lambda: fa.fused_sparse_attention_bwd(
+                    ip, cc, *(t.float() for t in args), do, m, l, **kw), 5,
+                    1)}
+            n, nnz, hd = adj.shape[0], adj.nnz, HEADS * HEAD_DIM
+            size = args[0].element_size()
+            nbytes = {"fwd": (n + 1) * 4 + nnz * 8 + 3 * n * hd * size
+                      + n * hd * 4 + 2 * HEADS * n * 4,
+                      "bwd": (n + 1) * 4 + nnz * 8 + 3 * n * hd * size
+                      + 4 * n * hd * 4 + 2 * HEADS * n * 4}
+            flops = {"fwd": 4 * HEADS * nnz * HEAD_DIM,
+                     "bwd": 10 * HEADS * nnz * HEAD_DIM}
+            for d in ("fwd", "bwd"):
+                rows_out.append((f"attention {d} {name}", dt, times[d],
+                                 bound(nbytes[d], flops[d])[0], f32[d],
+                                 old[d]))
+            del q, k, v, args, m, l
+        del q32, k32, v32, cot, do, args32, m32, l32
+        torch.cuda.empty_cache()
+        # one head at each width above one slab
+        wide_gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+        for width in WIDE_HEAD_DIMS:
+            for dt in ("float32", "bfloat16"):
+                n = adj.shape[0]
+                q, k, v, do = (torch.randn(1, n, width, generator=wide_gen,
+                                           device=dev) for _ in range(4))
+                q, k, v = (as_type(t, dt) for t in (q, k, v))
+                kw = dict(scale=width ** -0.5, bias=adj.vals)
+                got = fa.fused_sparse_attention(ip, cc, q, k, v, **kw)
+                again = fa.fused_sparse_attention(ip, cc, q, k, v, **kw)
+                plain = fa.fused_sparse_attention_plain(ip, cc, q, k, v, **kw)
+                label = f"{name} d=dv={width} {dt}"
+                for part, g, w in zip(("out", "m", "l"), got, plain):
+                    checker.record("fused_attention_fwd", f"{label} {part}",
+                                   g, w, per_element=part != "out")
+                for part, g, a in zip(("out", "m", "l"), got, again):
+                    checker.record("fused_attention_fwd",
+                                   f"{label} {part}, 2 launches", a, g,
+                                   exact=True)
+                del again
+                g_b = fa.fused_sparse_attention_bwd(ip, cc, q, k, v, do,
+                                                    got[1], got[2], **kw)
+                w_b = fa.fused_sparse_attention_bwd_plain(
+                    ip, cc, q, k, v, do, plain[1], plain[2], **kw)
+                for part, g, w in zip(("dq", "dk", "dv"), g_b, w_b):
+                    checker.record("fused_attention_bwd", f"{label} {part}",
+                                   g, w)
+                del w_b, plain
+                again = fa.fused_sparse_attention_bwd(ip, cc, q, k, v, do,
+                                                      got[1], got[2], **kw)
+                checker.record("fused_attention_bwd", f"{label} dq, 2 "
+                               "launches", again[0], g_b[0], exact=True)
+                m, l = got[1], got[2]
+                del again, g_b, got
+                wide_out.append((
+                    name, width, dt,
+                    cuda_ms(lambda: fa.fused_sparse_attention(
+                        ip, cc, q, k, v, **kw), 3, 1),
+                    cuda_ms(lambda: fa.fused_sparse_attention_bwd(
+                        ip, cc, q, k, v, do, m, l, **kw), 3, 1)))
+                print(f"narrow wide head {label}: forward "
+                      f"{wide_out[-1][3]:.4f} ms, backward "
+                      f"{wide_out[-1][4]:.4f} ms ({len(fa.slab_ranges(width))}"
+                      f" slabs)", flush=True)
+                del q, k, v, do, m, l
+                torch.cuda.empty_cache()
+    return rows_out, wide_out, runs
+
+
+def narrow_phase(graphs, counters):
+    """The narrow operands of SDDMM and attention on the GCN
+    configuration's graphs (:func:`narrow_sddmm`,
+    :func:`narrow_attention`), each kernel against its plain version.
+    Returns the worst errors, the timing rows, and each public path's
+    counts."""
+    checker = Checker(("sddmm", "fused_attention_fwd",
+                       "fused_attention_bwd"))
+    t0 = time.perf_counter()
+    sddmm_rows, train_counts = narrow_sddmm(graphs, checker, counters)
+    attn_rows, wide_rows, runs = narrow_attention(graphs, checker, counters)
+    worst = checker.done()
+    print("narrow: kernel ms by operand type (CUDA events; bound: bytes at "
+          "the narrow widths, 3.35 TB/s; beside the f32 kernel and the old "
+          "route, a copy to f32 and then the f32 kernel)", flush=True)
+    for label, dt, ms, b, f32, old in sddmm_rows + attn_rows:
+        print(f"narrow time {label} {dt}: {ms:.4f} ms (bound {b:.4f}), f32 "
+              f"kernel {f32:.4f}, copy to f32 + kernel {old:.4f}",
+              flush=True)
+    print(f"narrow: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"worst": worst, "runs": [(train_counts, "narrow train social")]
+            + runs, "wide": wide_rows}
+
+
+def narrow_gmm(cases, checker):
+    """The grouped matmul at each (x, weights) pair of ``cases`` (label,
+    x, tile_experts, weights, epilogue, tile, route) against its plain
+    version at F32_TOL of the output's largest magnitude (the upcasts are
+    exact; both sum the same products in f32), each on the route named;
+    timed beside the f32 kernel on both operands in f32 and the old
+    route, their copy to f32 and then that kernel.  Returns timing
+    rows."""
+    import torch
+    from repro_torch.kernels import grouped_matmul as gm
+
+    rows_out = []
+    for label, x, te, w, ep, tile, want_route in cases:
+        kw = dict(epilogue=ep, token_tile=tile)
+        before = dict(gm.ROUTE_LAUNCHES)
+        got = gm.grouped_matmul(x, te, w, f_tile=w.shape[2],
+                                d_tile=w.shape[1], **kw)
+        route = routes_taken(before)
+        checker.record("grouped_matmul",
+                       f"{label} x {dtype_name(x)} W {dtype_name(w)} tile "
+                       f"{tile} route {route}", got,
+                       plain_gmm(x, te, w, **kw))
+        if route != {want_route: 1}:
+            checker.failures.append(f"grouped_matmul {label}: route "
+                                    f"{route}, not {want_route}")
+        del got
+        ms = cuda_ms(lambda: gm.grouped_matmul(
+            x, te, w, f_tile=w.shape[2], d_tile=w.shape[1], **kw), 10, 2)
+        e_used = int(torch.unique(te).numel())
+        nbytes = (e_used * w.shape[1] * w.shape[2] * w.element_size()
+                  + x.numel() * x.element_size() + x.shape[0] * w.shape[2]
+                  * 4)
+        flops = 2 * x.shape[0] * w.shape[1] * w.shape[2]
+        old = cuda_ms(lambda: gm.grouped_matmul(
+            x.float(), te, w.float(), f_tile=w.shape[2], d_tile=w.shape[1],
+            **kw), 3, 1)
+        x32, w32 = x.float(), w.float()
+        f32_ms = cuda_ms(lambda: gm.grouped_matmul(
+            x32, te, w32, f_tile=w.shape[2], d_tile=w.shape[1], **kw), 3, 1)
+        del x32, w32
+        rows_out.append((label, f"{dtype_name(x)} x {dtype_name(w)}", ms,
+                         bound(nbytes, flops, BF16_FLOP_PER_S)[0], f32_ms,
+                         old))
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def narrow_gmm_cases(cfg, moe, pairs, gen):
+    """Grouped-matmul cases at layer 0's decode and prefill tiles (one
+    tile an expert, as :func:`moe_kernel_cases` lays them) on this
+    layer's experts: each x type of ``pairs`` ((x, route) for these
+    weights) in the gate (SiLU) and down projections."""
+    import torch
+    from repro_torch.core import Epilogue
+    from repro_torch.models.moe import _capacity
+
+    e, d, f = moe["wg"].shape
+    dev = moe["wg"].device
+    te = torch.arange(e, dtype=torch.int32, device=dev)
+    cases = []
+    for phase, tokens in (("decode", MOE_SLOTS), ("prefill", MOE_PROMPT)):
+        tile = min(_capacity(cfg, tokens), 128)
+        for x_name, route in pairs:
+            xd, xf = (as_type(torch.randn(e * tile, n, generator=gen,
+                                          device=dev), x_name)
+                      for n in (d, f))
+            cases += [(f"{phase} gate+silu", xd, te, moe["wg"],
+                       Epilogue("silu"), tile, route),
+                      (f"{phase} down", xf, te, moe["wo"], Epilogue(), tile,
+                       route)]
+    return cases
+
+
+def narrow_serve(label, cfg, api, params, dev, counters):
+    """ServeEngine over the MoE prompts (counts zeroed just before, read
+    just after; every launch on the tensor cores), then a prefill and a
+    decode step timed.  Returns counts, times and the served tokens."""
+    import torch
+
+    prompts = moe_prompts(cfg)
+    results, seconds, calls, counts = serve_moe(cfg, api, params, prompts,
+                                                dev, counters)
+    n_tok = sum(len(v) for v in results.values())
+    if sorted(results) != list(range(MOE_REQUESTS)) or any(
+            len(v) != MOE_NEW for v in results.values()):
+        fail(f"narrow serve {label}: the engine did not serve every request "
+             "in full")
+    if set(calls["routes"]) != {"mma"}:
+        fail(f"narrow serve {label}: grouped-matmul routes {calls['routes']}")
+    tokens = torch.as_tensor(prompts[0][None, :], dtype=torch.int64,
+                             device=dev)
+    cache = api.init_cache(MOE_SLOTS, MOE_MAX_LEN, device=dev)
+    cache["pos"] = MOE_PROMPT
+    step = torch.zeros(MOE_SLOTS, dtype=torch.int64, device=dev)
+    prefill_ms = cuda_ms(lambda: api.prefill(params, {"tokens": tokens},
+                                             MOE_MAX_LEN), 10, 2)
+    decode_ms = cuda_ms(lambda: api.decode_step(params, cache, step), 10, 2)
+    print(f"narrow serve {label}: {len(results)} requests, {n_tok} tokens in "
+          f"{seconds:.3f} s ({n_tok / seconds:.1f} tokens/s, host clock); "
+          f"prefill of {MOE_PROMPT} tokens {prefill_ms:.4f} ms, decode step "
+          f"({MOE_SLOTS} slots) {decode_ms:.4f} ms (CUDA events, means of "
+          f"10); routes {calls['routes']}; launches {counts}; "
+          f"{card_line()}", flush=True)
+    return {"counts": counts, "results": results, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "tokens_per_s": n_tok / seconds}
+
+
+def twin_logits(api, params, twin, prompt, dev):
+    """Prefill last-token and decode-step logits of ``params`` against
+    ``twin`` (the same model with other stored weights): relative L2
+    within LOGIT_REL_L2, the largest difference printed."""
+    import torch
+
+    tokens = torch.as_tensor(prompt[None, :], dtype=torch.int64,
+                             device=dev).repeat(MOE_SLOTS, 1)
+    out = {}
+    for tag, p in (("e4m3", params), ("twin", twin)):
+        lp, cache = api.prefill(p, {"tokens": tokens}, MOE_MAX_LEN)
+        ld, _ = api.decode_step(p, cache, lp.argmax(-1) if tag == "e4m3"
+                                else out["e4m3"][0].argmax(-1))
+        out[tag] = (lp, ld)
+        del cache
+    worst = 0.0
+    for i, label in enumerate(("prefill last-token", "decode step")):
+        got, want = out["e4m3"][i], out["twin"][i]
+        err = rel_l2(got, want)
+        diff = float((got.float() - want.float()).abs().max())
+        worst = max(worst, diff)
+        print(f"narrow serve e4m3: {label} logits against the experts' "
+              f"exact bf16 upcast: relative L2 {err:.3e} (tol "
+              f"{LOGIT_REL_L2:.3e}), largest difference {diff:.3e}",
+              flush=True)
+        if not err <= LOGIT_REL_L2:
+            fail(f"narrow serve e4m3: {label} logits")
+    return worst
+
+
+def fp16_logits(api, einsum, params, prompt, dev):
+    """The fp16 model's prefill last-token and decode-step logits (4
+    slots, each the prompt) on the kernel path against the einsum path.
+    Top-k routing is a step: where a token's k-th and (k+1)-th experts
+    nearly tie, the paths' other roundings (the einsum path rounds each
+    projection to fp16, the kernel keeps f32 sums) may route it to other
+    experts, and its logits then part by far more than the rounding.  So
+    the einsum path runs twice: with the kernel path's expert choices
+    replayed, held within LOGIT_REL_L2; and free, printed, every token it
+    routes otherwise at the first layer where the runs part held to be a
+    near tie there (its k-th and (k+1)-th router probabilities on the
+    kernel path within LOGIT_REL_L2 of each other, relative; later layers
+    follow from the parted hidden states)."""
+    import torch
+    import repro_torch.models.moe as moe
+
+    route = moe._route
+    tokens = torch.as_tensor(prompt[None, :], dtype=torch.int64,
+                             device=dev).repeat(MOE_SLOTS, 1)
+
+    def run(a, nxt=None, replay=None):
+        log = []
+
+        def routed(cfg_, x, router):
+            log.append(route(cfg_, x, router) if replay is None
+                       else replay[len(log)])
+            return log[-1]
+
+        moe._route = routed
+        try:
+            lp, cache = a.prefill(params, {"tokens": tokens}, MOE_MAX_LEN)
+            nxt = lp.argmax(-1) if nxt is None else nxt
+            ld, _ = a.decode_step(params, cache, nxt)
+        finally:
+            moe._route = route
+        return (lp, ld), nxt, log
+
+    kernel, nxt, klog = run(api)
+    pinned, _, _ = run(einsum, nxt, klog)
+    free, _, flog = run(einsum, nxt)
+    for i, label in enumerate(("prefill last-token", "decode step")):
+        err = rel_l2(kernel[i], pinned[i])
+        print(f"narrow serve fp16: {label} logits {tuple(kernel[i].shape)}, "
+              f"kernel path against the einsum path on its expert choices: "
+              f"relative L2 {err:.3e} (tol {LOGIT_REL_L2:.3e}); free einsum "
+              f"path {rel_l2(kernel[i], free[i]):.3e}", flush=True)
+        if not err <= LOGIT_REL_L2:
+            fail(f"narrow serve fp16: {label} logits")
+    n_layers = len(params["layers"])
+    for phase, calls in (("prefill", range(n_layers)),
+                         ("decode", range(n_layers, 2 * n_layers))):
+        first = None
+        for c in calls:
+            differ = ((klog[c][0] > 0) != (flog[c][0] > 0)).any(dim=1)
+            n = int(differ.sum())
+            print(f"narrow serve fp16: {phase} layer {c % n_layers}: {n} of "
+                  f"{differ.numel()} tokens routed to other experts on the "
+                  "free einsum path", flush=True)
+            if n and first is None:
+                first = c
+                k = int((klog[c][0][0] > 0).sum())  # experts a token
+                top = klog[c][1][differ].topk(k + 1, dim=-1).values
+                margin = float(((top[:, k - 1] - top[:, k])
+                                / top[:, k - 1]).max())
+                print(f"narrow serve fp16: {phase} layer {c % n_layers}, "
+                      f"where the runs first part: the largest relative "
+                      f"margin of those tokens' expert {k} over expert "
+                      f"{k + 1} {margin:.3e} (tol {LOGIT_REL_L2:.3e})",
+                      flush=True)
+                if not margin <= LOGIT_REL_L2:
+                    fail(f"narrow serve fp16: {phase} routing parts off a "
+                         "near tie")
+    torch.cuda.empty_cache()
+
+
+def narrow_moe(cfg, params, dev, counters):
+    """Qwen3-MoE served at full width with e4m3 experts and at fp16.
+
+    (a) The bf16 model's expert weights cast in place to e4m3
+    (``core.dtypes.cast``); its logits against a twin whose experts are
+    their exact bf16 upcast; the grouped matmul at bf16, e4m3 and f32
+    tokens on those experts; the engine served.  (b) After the bf16
+    model is freed, the same configuration at param_dtype = compute_dtype
+    = float16 drawn from seed SEED; its logits against the einsum path;
+    the grouped matmul at fp16 and f32 tokens on its experts; the engine
+    served.  ``params`` is consumed.  Returns worst error, timing rows,
+    and the serves."""
+    import torch
+    from repro_torch.models import get_model
+
+    checker = Checker(("grouped_matmul",))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    t0 = time.perf_counter()
+    for layer in params["layers"]:
+        for k in ("wg", "wi", "wo"):
+            layer["moe"][k] = as_type(layer["moe"][k], "float8_e4m3fn")
+    torch.cuda.empty_cache()
+    twin = {**params, "layers": [
+        {**layer, "moe": {k: (v.to(torch.bfloat16) if k != "router" else v)
+                          for k, v in layer["moe"].items()}}
+        for layer in params["layers"]]}
+    n_e4m3 = sum(layer["moe"][k].numel() for layer in params["layers"]
+                 for k in ("wg", "wi", "wo"))
+    print(f"narrow serve e4m3: experts cast to e4m3 ({n_e4m3 / 1e9:.2f} GB) "
+          f"in {time.perf_counter() - t0:.1f} s, beside a twin with their "
+          f"bf16 upcast ({2 * n_e4m3 / 1e9:.2f} GB)", flush=True)
+    prompts = moe_prompts(cfg)
+    api = get_model(cfg)
+    worst_logit = twin_logits(api, params, twin, prompts[0], dev)
+    moe0 = params["layers"][0]["moe"]
+    rows = narrow_gmm(narrow_gmm_cases(cfg, moe0, (
+        ("bfloat16", "mma"), ("float8_e4m3fn", "mma"), ("float32", "fma")),
+        gen), checker)
+    a = narrow_serve("e4m3", cfg, api, params, dev, counters)
+    ref = narrow_serve("e4m3 twin (bf16 upcast)", cfg, api, twin, dev, None)
+    same = sum(x == y for rid in a["results"]
+               for x, y in zip(a["results"][rid], ref["results"][rid]))
+    print(f"narrow serve e4m3: greedy tokens equal the twin's in {same} of "
+          f"{sum(len(v) for v in a['results'].values())}", flush=True)
+    del twin, moe0
+    params.clear()
+    torch.cuda.empty_cache()
+
+    cfg16 = cfg.scaled(param_dtype="float16", compute_dtype="float16")
+    api16 = get_model(cfg16)
+    p16 = api16.init(torch.Generator(device=dev).manual_seed(SEED),
+                     device=dev)
+    fp16_logits(api16, get_model(cfg16.scaled(moe_kernel_dispatch=False)),
+                p16, prompts[0], dev)
+    rows += narrow_gmm(narrow_gmm_cases(cfg16, p16["layers"][0]["moe"], (
+        ("float16", "mma"), ("float32", "fma")), gen), checker)
+    b = narrow_serve("fp16", cfg16, api16, p16, dev, counters)
+    del p16
+    torch.cuda.empty_cache()
+    worst = checker.done()
+    for label, pair, ms, bnd, f32, old in rows:
+        print(f"narrow time grouped matmul {label} {pair}: {ms:.4f} ms "
+              f"(bound {bnd:.4f}), f32 kernel {f32:.4f}, copy to f32 + "
+              f"kernel {old:.4f}", flush=True)
+    return {"worst": worst, "worst_logit": worst_logit, "serves": (a, b),
+            "runs": [(a["counts"], "narrow serve e4m3"),
+                     (b["counts"], "narrow serve fp16")]}
+
+
 def main() -> None:
     import torch
 
@@ -3219,6 +3850,15 @@ def main() -> None:
     for k, v in lowprec["worst"].items():
         worst[k] = max(worst.get(k, 0.0), v)
 
+    # narrow operands: SDDMM, attention (and heads wider than a slab)
+    narrow = narrow_phase(graphs, counters)
+    for counts, label in narrow["runs"]:
+        runs.append(counts)
+        expected.append((label, ("sddmm", "spmm_eb") if "train" in label
+                         else ("fused_attention_fwd", "fused_attention_bwd")))
+    for k, v in narrow["worst"].items():
+        worst[k] = max(worst.get(k, 0.0), v)
+
     # MoE serving at full width, 4 layers
     with torch.no_grad():
         cfg, api, einsum, moe_params = moe_model(dev)
@@ -3237,6 +3877,13 @@ def main() -> None:
         expected.append(("moe_tune", ("grouped_matmul", "spmm_eb")))
         worst["grouped_matmul"] = max(worst["grouped_matmul"],
                                       moe_tuned["worst"])
+        # e4m3 experts (moe_params cast in place and freed), then fp16
+        narrow_m = narrow_moe(cfg, moe_params, dev, counters)
+        for counts, label in narrow_m["runs"]:
+            runs.append(counts)
+            expected.append((label, ("grouped_matmul",)))
+        worst["grouped_matmul"] = max(worst["grouped_matmul"],
+                                      narrow_m["worst"]["grouped_matmul"])
     del moe_params
     torch.cuda.empty_cache()
     for (path, kernels), counts in zip(expected, runs):
@@ -3277,6 +3924,10 @@ def main() -> None:
           f"{moe['einsum_decode_ms']:.4f} ms), grouped matmul "
           f"{moe['gmm_ms']:.4f} ms of the step, {moe['tokens_per_s']:.1f} "
           "tokens/s", flush=True)
+    for label, srv in zip(("e4m3 experts", "fp16"), narrow_m["serves"]):
+        print(f"narrow serve {label}: prefill {srv['prefill_ms']:.4f} ms, "
+              f"decode step {srv['decode_ms']:.4f} ms, "
+              f"{srv['tokens_per_s']:.1f} tokens/s", flush=True)
     print("moe_tune: tuned / default re-timed in turns "
           + ", ".join(f"{label} {h['ratio']:.4f}"
                       for label, h in moe_tuned["hists"].items())

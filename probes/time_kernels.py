@@ -1,7 +1,7 @@
-"""EB, RB and grouped-matmul kernel times of the port in a given source
-tree, at the storage earlier slices ran (f32 values and B; bf16 tokens
-and weights), so that two commits can be timed in turns within one run
-on the same card.
+"""EB, RB, SDDMM, attention and grouped-matmul kernel times of the port
+in a given source tree, at the storage earlier slices ran (f32 values,
+B and q, k, v; bf16 tokens and weights, and f32 ones), so that two
+commits can be timed in turns within one run on the same card.
 
     PYTHONPATH=src python3 probes/time_kernels.py [SRC]
 
@@ -15,9 +15,12 @@ kernel and its finishing launch); RB runs on roadnet under ``RB+PR`` at
 the same widths (``chip_smoke.cuda_ms``).  The grouped matmul runs one
 MoE decode launch at Qwen3-MoE's width (4 slots x top-8 = 32 tokens in
 tiles of 4 over 8 experts of 128, D 4096, F 1536, bf16, SiLU with a
-bias: the tensor-core route).  Operands come from a generator seeded 0.
-Five timings each, every one printed with their median.  Needs one
-GPU.
+bias: the tensor-core route), and the same launch at f32 tokens and
+weights (the CUDA-core route).  SDDMM runs on both graphs at N = 256
+(the training step's layer-1 gradient), the attention forward and
+backward on both graphs at 4 heads of 64 (the adjacency's values as the
+bias), f32.  Operands come from a generator seeded 0.  Five timings
+each, every one printed with their median.  Needs one GPU.
 """
 import statistics
 import sys
@@ -37,7 +40,8 @@ def main():
         cs.fail("no CUDA device")
     import repro_torch
     from repro_torch.core import Epilogue, Schedule
-    from repro_torch.kernels import build, spmm_eb, spmm_rb
+    from repro_torch.kernels import build, sddmm, spmm_eb, spmm_rb
+    from repro_torch.kernels import fused_attention as fa
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.sparse import matrix_stats
 
@@ -78,6 +82,23 @@ def main():
             report(f"RB roadnet N={w}", [cs.cuda_ms(lambda: spmm_rb.spmm_rb(
                 e.cols, e.vals, bs[w], n_rows=n, epilogue=ep, **ops))
                 for _ in range(5)])
+        for name, (adj, _) in graphs.items():
+            coo = adj.tocoo()
+            report(f"SDDMM {name} N={cs.HIDDEN}", [cs.cuda_ms(
+                lambda: sddmm.sddmm(coo.rows, coo.cols, bs[cs.HIDDEN],
+                                    bs[cs.HIDDEN])) for _ in range(5)])
+            q, k, v, do = (cs.head_major(t) for t in cs.attention_operands(
+                adj, gen, dev))
+            kw = dict(scale=cs.HEAD_DIM ** -0.5, bias=adj.vals)
+            args = (adj.indptr, adj.indices, q, k, v)
+            _, m, l = fa.fused_sparse_attention(*args, **kw)
+            report(f"attention forward {name}", [cs.cuda_ms(
+                lambda: fa.fused_sparse_attention(*args, **kw), 5, 1)
+                for _ in range(5)])
+            report(f"attention backward {name}", [cs.cuda_ms(
+                lambda: fa.fused_sparse_attention_bwd(*args, do, m, l, **kw),
+                5, 1) for _ in range(5)])
+            del q, k, v, do, m, l
         del graphs, bs
         g = torch.Generator(device=dev).manual_seed(0)
         x = torch.randn(32, 4096, generator=g, device=dev).to(torch.bfloat16)
@@ -89,6 +110,9 @@ def main():
         kw = dict(bias=gb, epilogue=Epilogue("silu", bias=True),
                   token_tile=4)
         report("grouped matmul decode", [cs.cuda_ms(
+            lambda: gm.grouped_matmul(x, te, w, **kw)) for _ in range(5)])
+        x, w = x.float(), w.float()
+        report("grouped matmul decode f32", [cs.cuda_ms(
             lambda: gm.grouped_matmul(x, te, w, **kw)) for _ in range(5)])
 
 

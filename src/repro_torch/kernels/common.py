@@ -43,6 +43,27 @@ ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "tanh": 4,
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.float8_e4m3fn: 3, torch.int8: 4}
 
+#: Float types the CUDA kernels load and convert in registers.
+CUDA_FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16,
+                     torch.float8_e4m3fn)
+
+
+def widest(*dtypes):
+    """The one type a kernel runs operands of ``dtypes`` (each one of
+    :data:`CUDA_FLOAT_DTYPES`) at: their type where they share one, else
+    the widest of them, f32 where two differ at the widest width (bf16
+    and fp16); so only the narrower operands are copied."""
+    for t in dtypes:
+        if t not in CUDA_FLOAT_DTYPES:
+            raise ValueError(f"the CUDA kernels load {CUDA_FLOAT_DTYPES}, "
+                             f"not {t}")
+    if len(set(dtypes)) == 1:
+        return dtypes[0]
+    size = max(t.itemsize for t in dtypes)
+    top = {t for t in dtypes if t.itemsize == size}
+    return top.pop() if len(top) == 1 else torch.float32
+
+
 #: Output types the CUDA epilogue stores.
 CUDA_OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16,
                    torch.float8_e4m3fn)

@@ -35,17 +35,27 @@
 // and dQ are summed in a fixed order, so the same inputs give the same
 // dQ bits; dV and dK are f32 atomicAdd by column (zeroed by the wrapper),
 // whose order of addition varies from run to run.
+//
+// Phases 0 and 1 run the columns in slabs of ATTN_SLAB (blockIdx.y, one
+// slab up to d = dv = 256; as many as the wider of d and dv takes): a
+// slab's warp recomputes every (w, dw) and delta in full, as each slab
+// of the forward re-walks its scores, and keeps or scatters only its own
+// columns of dQ, dK and dV; slab 0 writes the delta partials.  dout's dot
+// with a row of V streams from the staged dout row, as the scores stream
+// from Q.  Phase 2 sums all of dQ's columns with no registers held.
 #include "attention.cuh"
 
 namespace {
 
-template <int NC>
+// SLABS: the grid holds more than one slab (NC = ATTN_MAX_NC); without,
+// col0 is 0 and the code the f32 kernel had before slabs.
+template <int NC, typename T, bool SLABS>
 __global__ void __launch_bounds__(ATTN_WARPS * 32)
     attn_bwd_kernel(const int* __restrict__ indptr,
                     const int* __restrict__ cols,
                     const float* __restrict__ bias,
-                    const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
+                    const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v,
                     const float* __restrict__ dout,
                     const float* __restrict__ m_in,
                     const float* __restrict__ l_in, float* __restrict__ dq,
@@ -99,11 +109,17 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32)
 
   float* qs = smem + warp * (d + dv);
   float* dos = qs + d;
-  for (int j = lane; j < d; j += 32) qs[j] = q[rt * d + j];
+  for (int j = lane; j < d; j += 32) qs[j] = to_f32(q[rt * d + j]);
   for (int j = lane; j < dv; j += 32) dos[j] = dout[rt * dv + j];
   __syncwarp();
-  const float* kh = k + (long long)h * n_kv * d;
-  const float* vh = v + (long long)h * n_kv * dv;
+  const T* kh = k + (long long)h * n_kv * d;
+  const T* vh = v + (long long)h * n_kv * dv;
+  // this slab's columns of dQ and dK (of d) and of dV (of dv): col0 +
+  // lane + 32 j, as offsets lane + 32 j below ds_cols and dvs from col0
+  const int col0 = SLABS ? blockIdx.y * ATTN_SLAB : 0;
+  const int ds_cols = d - col0, dvs = dv - col0;
+  const float* qs_s = qs + col0;
+  const float* dos_s = dos + col0;
   float* dkh = dk + (long long)h * n_kv * d;
   float* dvh = dvo + (long long)h * n_kv * dv;
 
@@ -139,17 +155,19 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32)
       for (int jj = 0; jj < n; ++jj) {
         const float wj = __shfl_sync(ATTN_FULL_MASK, w, jj);
         const int cj = __shfl_sync(ATTN_FULL_MASK, c, jj);
-        float* dvr = dvh + (long long)cj * dv;
+        float* dvr = dvh + (long long)cj * dv + col0;
 #pragma unroll
         for (int j = 0; j < NC; ++j) {
           const int col = lane + 32 * j;
-          if (col < dv) atomicAdd(dvr + col, wj * dos[col]);
+          if (col < dvs) atomicAdd(dvr + col, wj * dos_s[col]);
         }
       }
     }
     delta = attn_warp_sum(delta);
     if (phase == 0) {
-      if (lane == 0) delta_part[(long long)h * n_chunks + kc] = delta;
+      if (lane == 0 && (!SLABS || blockIdx.y == 0)) {
+        delta_part[(long long)h * n_chunks + kc] = delta;
+      }
       return;
     }
   } else {
@@ -179,53 +197,97 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32)
     for (int jj = 0; jj < n; ++jj) {
       const float dsj = __shfl_sync(ATTN_FULL_MASK, ds, jj);
       const int cj = __shfl_sync(ATTN_FULL_MASK, c, jj);
-      const float* kr = kh + (long long)cj * d;
-      float* dkr = dkh + (long long)cj * d;
+      const T* kr = kh + (long long)cj * d + col0;
+      float* dkr = dkh + (long long)cj * d + col0;
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
         const int col = lane + 32 * j;
-        if (col < d) {
-          accq[j] += dsj * __ldg(kr + col);
-          atomicAdd(dkr + col, dsj * qs[col]);
+        if (col < ds_cols) {
+          accq[j] += dsj * attn_ld(kr + col);
+          atomicAdd(dkr + col, dsj * qs_s[col]);
         }
       }
     }
   }
-  float* dqr = kc < 0 ? dq + rt * d
-                      : dq_part + ((long long)h * n_chunks + kc) * d;
+  float* dqr = (kc < 0 ? dq + rt * d
+                       : dq_part + ((long long)h * n_chunks + kc) * d) +
+               col0;
 #pragma unroll
   for (int j = 0; j < NC; ++j) {
     const int col = lane + 32 * j;
-    if (col < d) dqr[col] = accq[j];
+    if (col < ds_cols) dqr[col] = accq[j];
   }
+}
+
+// One phase at q, k and v of type T.
+template <typename T>
+cudaError_t bwd_phase(int nc, dim3 grid, size_t smem, cudaStream_t stream,
+                      const int* indptr, const int* cols, const float* bias,
+                      const void* q, const void* k, const void* v,
+                      const float* dout, const float* m, const float* l,
+                      float* dq, float* dk, float* dv_out,
+                      const int* chunk_row, const int* chunk_start,
+                      const int* chunk_split, const int* split_first,
+                      const int* split_rows, float* delta_part,
+                      float* dq_part, int n_rows, int n_kv, int n_heads,
+                      int d, int dv, float scale, int vec4, int chunk,
+                      int n_chunks, int n_split, int phase) {
+  auto kernel = attn_bwd_kernel<8, T, true>;  // several slabs: NC 8
+  if (grid.y == 1) {
+    switch (nc) {
+      case 1:
+        kernel = attn_bwd_kernel<1, T, false>;
+        break;
+      case 2:
+        kernel = attn_bwd_kernel<2, T, false>;
+        break;
+      case 4:
+        kernel = attn_bwd_kernel<4, T, false>;
+        break;
+      default:
+        kernel = attn_bwd_kernel<8, T, false>;
+    }
+  }
+  const cudaError_t err = attn_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, ATTN_WARPS * 32, smem, stream>>>(
+      indptr, cols, bias, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), dout, m, l, dq, dk, dv_out, chunk_row,
+      chunk_start, chunk_split, split_first, split_rows, delta_part, dq_part,
+      n_rows, n_kv, n_heads, d, dv, scale, vec4, chunk, n_chunks, n_split,
+      phase);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // One phase (0, 1 or 2, above) of the backward.  indptr (n_rows + 1,),
-// cols and bias (nnz,); q (H, n_rows, d), k (H, n_kv, d), v (H, n_kv, dv),
-// dout (H, n_rows, dv), m and l (H, n_rows); dq like q, dk and dv_out like
-// k and v (zeroed).  The plan: chunk_row, chunk_start and chunk_split
-// (n_chunks,), split_first (n_split + 1,) and split_rows (n_split,);
-// delta_part (H, n_chunks) and dq_part (H, n_chunks, d) are scratch.
+// cols and bias (nnz,); q (H, n_rows, d), k (H, n_kv, d), v (H, n_kv, dv)
+// of type code qkv_type (epilogue.cuh's DtypeCode: f32, bf16, fp16 or
+// e4m3); dout (H, n_rows, dv), m and l (H, n_rows), f32; dq (H, n_rows,
+// d), dk and dv_out like k and v (zeroed), f32.  The plan: chunk_row,
+// chunk_start and chunk_split (n_chunks,), split_first (n_split + 1,) and
+// split_rows (n_split,); delta_part (H, n_chunks) and dq_part (H,
+// n_chunks, d) are scratch.
 extern "C" int attn_bwd_launch(
-    const int* indptr, const int* cols, const float* bias, const float* q,
-    const float* k, const float* v, const float* dout, const float* m,
+    const int* indptr, const int* cols, const float* bias, const void* q,
+    const void* k, const void* v, const float* dout, const float* m,
     const float* l, float* dq, float* dk, float* dv_out,
     const int* chunk_row, const int* chunk_start, const int* chunk_split,
     const int* split_first, const int* split_rows, float* delta_part,
     float* dq_part, int n_rows, int n_kv, int n_heads, int d, int dv,
     float scale, int chunk, int n_chunks, int n_split, int phase,
-    int device, cudaStream_t stream) {
+    int qkv_type, int device, cudaStream_t stream) {
   // this library links its own CUDA runtime: make the tensors' device
   // current in it before launching
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  const int nc = attn_chunks(d, dv);
-  if (nc == 0 || d <= 0 || dv <= 0 || chunk < 1 || phase < 0 || phase > 2 ||
+  if (d <= 0 || dv <= 0 || chunk < 1 || phase < 0 || phase > 2 ||
+      qkv_type < DT_F32 || qkv_type > DT_E4M3 ||
       (phase != 1 && n_chunks < 1)) {
     return (int)cudaErrorInvalidValue;
   }
+  const int nc = attn_chunks(d, dv);
   const long long per_head = phase == 0   ? n_chunks
                              : phase == 1 ? (long long)n_rows + n_chunks
                                           : n_split;
@@ -234,27 +296,29 @@ extern "C" int attn_bwd_launch(
   // float4 reads of the shared rows need both offsets 16-byte aligned
   const int vec4 = (d % 4 == 0) && (dv % 4 == 0) && attn_aligned(k) &&
                    attn_aligned(v);
-  const int blocks = (int)((tasks + ATTN_WARPS - 1) / ATTN_WARPS);
+  // phase 2 sums all of dQ's columns in one slab
+  const dim3 grid((unsigned)((tasks + ATTN_WARPS - 1) / ATTN_WARPS),
+                  phase == 2 ? 1 : attn_slabs(d > dv ? d : dv));
   const size_t smem = (size_t)ATTN_WARPS * (d + dv) * sizeof(float);
-#define ATTN_BWD_LAUNCH(NC)                                                  \
-  attn_bwd_kernel<NC><<<blocks, ATTN_WARPS * 32, smem, stream>>>(            \
-      indptr, cols, bias, q, k, v, dout, m, l, dq, dk, dv_out, chunk_row,    \
-      chunk_start, chunk_split, split_first, split_rows, delta_part, dq_part, \
-      n_rows, n_kv, n_heads, d, dv, scale, vec4, chunk, n_chunks, n_split,   \
-      phase)
-  switch (nc) {
-    case 1:
-      ATTN_BWD_LAUNCH(1);
+  cudaError_t err;
+#define ATTN_BWD_PHASE(T)                                                    \
+  bwd_phase<T>(nc, grid, smem, stream, indptr, cols, bias, q, k, v, dout, m, \
+               l, dq, dk, dv_out, chunk_row, chunk_start, chunk_split,       \
+               split_first, split_rows, delta_part, dq_part, n_rows, n_kv,   \
+               n_heads, d, dv, scale, vec4, chunk, n_chunks, n_split, phase)
+  switch (qkv_type) {  // f32 first
+    case DT_F32:
+      err = ATTN_BWD_PHASE(float);
       break;
-    case 2:
-      ATTN_BWD_LAUNCH(2);
+    case DT_BF16:
+      err = ATTN_BWD_PHASE(__nv_bfloat16);
       break;
-    case 4:
-      ATTN_BWD_LAUNCH(4);
+    case DT_F16:
+      err = ATTN_BWD_PHASE(__half);
       break;
     default:
-      ATTN_BWD_LAUNCH(8);
+      err = ATTN_BWD_PHASE(__nv_fp8_e4m3);
   }
-#undef ATTN_BWD_LAUNCH
-  return (int)cudaGetLastError();
+#undef ATTN_BWD_PHASE
+  return (int)err;
 }

@@ -34,13 +34,21 @@
 // A pattern with no row longer than `chunk` takes phase 0 alone.  No
 // atomics: the same inputs give the same bits, and m is the whole row's
 // max exactly.
+//
+// Both phases run a head's output columns in slabs of ATTN_SLAB
+// (blockIdx.y; one slab up to dv = 256): a slab's warp re-walks the
+// row's scores and keeps only its columns of acc, the same (m, l) in
+// every slab, written by slab 0.  The reference tiles dv by 128 over its
+// grid (sparse/ops.py _sparse_attention_diff, dv_tile) and holds the
+// whole d in its block; here d streams from the staged Q row, so the
+// width is bounded only by the shared memory that row takes.
 #include "attention.cuh"
 
 namespace {
 
 // Phase 1: a warp per (head, split row) merges the row's partials in
 // chunk order.  Float i of acc holds column lane + 32 i.
-template <int NC>
+template <int NC, bool SLABS>
 __global__ void __launch_bounds__(ATTN_WARPS * 32)
     attn_fwd_combine(const float* __restrict__ part,
                      const int* __restrict__ split_first,
@@ -56,6 +64,9 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32)
   const int s = (int)(task - (long long)h * n_split);
   const long long rt = (long long)h * n_rows + split_rows[s];
   const int lo = split_first[s], hi = split_first[s + 1];
+  // this slab's columns: col0 + lane + 32 i below dv
+  const int col0 = SLABS ? blockIdx.y * ATTN_SLAB : 0;
+  const int dvs = dv - col0;
   const float* acc_h = part + (long long)h * n_chunks * dv;
   const float* ml_h =
       part + (long long)n_heads * n_chunks * dv + (long long)h * n_chunks * 2;
@@ -70,33 +81,37 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32)
   for (int j = lo; j < hi; ++j) {
     const float w = expf(ml_h[2 * j] - m);
     l += ml_h[2 * j + 1] * w;
-    const float* aj = acc_h + (long long)j * dv;
+    const float* aj = acc_h + (long long)j * dv + col0;
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const int col = lane + 32 * i;
-      if (col < dv) acc[i] += aj[col] * w;
+      if (col < dvs) acc[i] += aj[col] * w;
     }
   }
-  if (lane == 0) {
+  if (lane == 0 && (!SLABS || blockIdx.y == 0)) {
     m_out[rt] = m;
     l_out[rt] = l;
   }
   const float denom = fmaxf(l, 1e-30f);
+  float* dst = out + rt * dv + col0;
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
     const int col = lane + 32 * i;
-    if (col < dv) out[rt * dv + col] = acc[i] / denom;
+    if (col < dvs) dst[col] = acc[i] / denom;
   }
 }
 
-// Phase 0: the walk.  Float i of acc holds column lane + 32 i.
-template <int NC>
+// Phase 0: the walk.  Float i of acc holds column col0 + lane + 32 i of
+// the slab that starts at col0.  SLABS: the grid holds more than one
+// slab (NC = ATTN_MAX_NC); without, col0 is 0 and the code the f32 walk
+// had before slabs.
+template <int NC, typename T, bool SLABS>
 __global__ void __launch_bounds__(ATTN_WARPS * 32)
     attn_fwd_walk(const int* __restrict__ indptr,
                   const int* __restrict__ cols,
                   const float* __restrict__ bias,
-                  const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out,
+                  const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, float* __restrict__ out,
                   float* __restrict__ m_out, float* __restrict__ l_out,
                   const int* __restrict__ chunk_row,
                   const int* __restrict__ chunk_start,
@@ -133,10 +148,14 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32)
   const long long slot = whole ? rt : (long long)h * n_chunks + kc;
 
   float* qs = smem + warp * d;
-  for (int i = lane; i < d; i += 32) qs[i] = q[rt * d + i];
+  for (int i = lane; i < d; i += 32) qs[i] = to_f32(q[rt * d + i]);
   __syncwarp();
-  const float* kh = k + (long long)h * n_kv * d;
-  const float* vh = v + (long long)h * n_kv * dv;
+  const T* kh = k + (long long)h * n_kv * d;
+  // this slab's columns of V and of the result: col0 + lane + 32 i below
+  // dv, as offsets lane + 32 i below dvs from col0
+  const int col0 = SLABS ? blockIdx.y * ATTN_SLAB : 0;
+  const int dvs = dv - col0;
+  const T* vh = v + (long long)h * n_kv * dv + col0;
 
   float m = ATTN_NEG_INF;
   float l = 0.f;
@@ -166,11 +185,11 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32)
     for (int jj = 0; jj < n; ++jj) {
       const float pj = __shfl_sync(ATTN_FULL_MASK, p, jj);
       const int cj = __shfl_sync(ATTN_FULL_MASK, c, jj);
-      const float* vr = vh + (long long)cj * dv;
+      const T* vr = vh + (long long)cj * dv;
 #pragma unroll
       for (int i = 0; i < NC; ++i) {
         const int col = lane + 32 * i;
-        if (col < dv) acc[i] += pj * __ldg(vr + col);
+        if (col < dvs) acc[i] += pj * attn_ld(vr + col);
       }
     }
     m = m_new;
@@ -180,16 +199,16 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32)
   float* dst;
   float denom = 1.f;
   if (whole) {
-    dst = out + slot * dv;
+    dst = out + slot * dv + col0;
     denom = fmaxf(l, 1e-30f);
-    if (lane == 0) {
+    if (lane == 0 && (!SLABS || blockIdx.y == 0)) {
       m_out[slot] = m;
       l_out[slot] = l;
     }
   } else {
-    dst = part + slot * dv;
+    dst = part + slot * dv + col0;
     float* ml = part + (long long)n_heads * n_chunks * dv + 2 * slot;
-    if (lane == 0) {
+    if (lane == 0 && (!SLABS || blockIdx.y == 0)) {
       ml[0] = m;
       ml[1] = l;
     }
@@ -197,43 +216,87 @@ __global__ void __launch_bounds__(ATTN_WARPS * 32)
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
     const int col = lane + 32 * i;
-    if (col < dv) dst[col] = acc[i] / denom;
+    if (col < dvs) dst[col] = acc[i] / denom;
   }
+}
+
+// The walk at q, k and v of type T.
+template <typename T>
+cudaError_t fwd_walk(int nc, dim3 grid, size_t smem, cudaStream_t stream,
+                     const int* indptr, const int* cols, const float* bias,
+                     const void* q, const void* k, const void* v, float* out,
+                     float* m, float* l, const int* chunk_row,
+                     const int* chunk_start, float* part, int n_rows,
+                     int n_kv, int n_heads, int d, int dv, float scale,
+                     int vec4, int chunk, int n_chunks) {
+  auto kernel = attn_fwd_walk<8, T, true>;  // several slabs: NC 8
+  if (grid.y == 1) {
+    switch (nc) {
+      case 1:
+        kernel = attn_fwd_walk<1, T, false>;
+        break;
+      case 2:
+        kernel = attn_fwd_walk<2, T, false>;
+        break;
+      case 4:
+        kernel = attn_fwd_walk<4, T, false>;
+        break;
+      default:
+        kernel = attn_fwd_walk<8, T, false>;
+    }
+  }
+  const cudaError_t err = attn_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, ATTN_WARPS * 32, smem, stream>>>(
+      indptr, cols, bias, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), out, m, l, chunk_row, chunk_start, part,
+      n_rows, n_kv, n_heads, d, dv, scale, vec4, chunk, n_chunks);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // One phase (0 or 1, above) of the forward.  indptr (n_rows + 1,), cols
-// and bias (nnz,); q (H, n_rows, d), k (H, n_kv, d), v (H, n_kv, dv);
-// out (H, n_rows, dv), m and l (H, n_rows).  The plan: chunk_row and
-// chunk_start (n_chunks,), split_first (n_split + 1,) and split_rows
-// (n_split,); part holds H * n_chunks * (dv + 2) floats of scratch.
+// and bias (nnz,); q (H, n_rows, d), k (H, n_kv, d), v (H, n_kv, dv), all
+// of type code qkv_type (epilogue.cuh's DtypeCode: f32, bf16, fp16 or
+// e4m3); out (H, n_rows, dv), m and l (H, n_rows), f32.  The plan:
+// chunk_row and chunk_start (n_chunks,), split_first (n_split + 1,) and
+// split_rows (n_split,); part holds H * n_chunks * (dv + 2) floats of
+// scratch.
 extern "C" int attn_fwd_launch(
-    const int* indptr, const int* cols, const float* bias, const float* q,
-    const float* k, const float* v, float* out, float* m, float* l,
+    const int* indptr, const int* cols, const float* bias, const void* q,
+    const void* k, const void* v, float* out, float* m, float* l,
     const int* chunk_row, const int* chunk_start, const int* split_first,
     const int* split_rows, float* part, int n_rows, int n_kv, int n_heads,
     int d, int dv, float scale, int chunk, int n_chunks, int n_split,
-    int phase, int device, cudaStream_t stream) {
+    int phase, int qkv_type, int device, cudaStream_t stream) {
   // this library links its own CUDA runtime: make the tensors' device
   // current in it before launching
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  const int nc = attn_chunks(d, dv);
-  if (nc == 0 || d <= 0 || dv <= 0 || chunk < 1 || phase < 0 || phase > 1 ||
+  if (d <= 0 || dv <= 0 || chunk < 1 || phase < 0 || phase > 1 ||
+      qkv_type < DT_F32 || qkv_type > DT_E4M3 ||
       (phase == 1 && n_chunks < 1) || (n_chunks > 0 && part == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
+  const int nc = attn_chunks(d, dv);
   const long long tasks =
       phase == 0 ? (long long)n_heads * (n_rows + (long long)n_chunks)
                  : (long long)n_heads * n_split;
   if (tasks <= 0) return 0;
-  const int blocks = (int)((tasks + ATTN_WARPS - 1) / ATTN_WARPS);
+  const dim3 grid((unsigned)((tasks + ATTN_WARPS - 1) / ATTN_WARPS),
+                  attn_slabs(dv));
   if (phase == 1) {
 #define ATTN_FWD_COMBINE(NC)                                             \
-  attn_fwd_combine<NC><<<blocks, ATTN_WARPS * 32, 0, stream>>>(          \
+  attn_fwd_combine<NC, false><<<grid, ATTN_WARPS * 32, 0, stream>>>(     \
       part, split_first, split_rows, out, m, l, n_rows, n_heads, dv,     \
       n_chunks, n_split)
+    if (grid.y > 1) {
+      attn_fwd_combine<8, true><<<grid, ATTN_WARPS * 32, 0, stream>>>(
+          part, split_first, split_rows, out, m, l, n_rows, n_heads, dv,
+          n_chunks, n_split);
+      return (int)cudaGetLastError();
+    }
     switch (attn_chunks(dv, dv)) {
       case 1:
         ATTN_FWD_COMBINE(1);
@@ -252,23 +315,31 @@ extern "C" int attn_fwd_launch(
   }
   const int vec4 = (d % 4 == 0) && attn_aligned(k);
   const size_t smem = (size_t)ATTN_WARPS * d * sizeof(float);
-#define ATTN_FWD_WALK(NC)                                                    \
-  attn_fwd_walk<NC><<<blocks, ATTN_WARPS * 32, smem, stream>>>(              \
-      indptr, cols, bias, q, k, v, out, m, l, chunk_row, chunk_start, part,  \
-      n_rows, n_kv, n_heads, d, dv, scale, vec4, chunk, n_chunks)
-  switch (nc) {
-    case 1:
-      ATTN_FWD_WALK(1);
+  cudaError_t err;
+  switch (qkv_type) {  // f32 first
+    case DT_F32:
+      err = fwd_walk<float>(nc, grid, smem, stream, indptr, cols, bias, q, k,
+                            v, out, m, l, chunk_row, chunk_start, part,
+                            n_rows, n_kv, n_heads, d, dv, scale, vec4, chunk,
+                            n_chunks);
       break;
-    case 2:
-      ATTN_FWD_WALK(2);
+    case DT_BF16:
+      err = fwd_walk<__nv_bfloat16>(nc, grid, smem, stream, indptr, cols,
+                                    bias, q, k, v, out, m, l, chunk_row,
+                                    chunk_start, part, n_rows, n_kv, n_heads,
+                                    d, dv, scale, vec4, chunk, n_chunks);
       break;
-    case 4:
-      ATTN_FWD_WALK(4);
+    case DT_F16:
+      err = fwd_walk<__half>(nc, grid, smem, stream, indptr, cols, bias, q,
+                             k, v, out, m, l, chunk_row, chunk_start, part,
+                             n_rows, n_kv, n_heads, d, dv, scale, vec4, chunk,
+                             n_chunks);
       break;
     default:
-      ATTN_FWD_WALK(8);
+      err = fwd_walk<__nv_fp8_e4m3>(nc, grid, smem, stream, indptr, cols,
+                                    bias, q, k, v, out, m, l, chunk_row,
+                                    chunk_start, part, n_rows, n_kv, n_heads,
+                                    d, dv, scale, vec4, chunk, n_chunks);
   }
-#undef ATTN_FWD_WALK
-  return (int)cudaGetLastError();
+  return (int)err;
 }

@@ -45,25 +45,63 @@
 //          XOR-swizzled by 16-byte chunk so that ldmatrix reads (.trans
 //          for W, whose M side is contiguous) hit 8 distinct bank quads.
 //
-// Route "fma" (f32 x or f32 W, bf16 x on f32 W, or bf16 operands whose
-// F % 8, D % 2 or alignment the copies cannot take): the first kernel, FMAs
-// on the CUDA cores over operands upcast on load.  TF32 tensor cores would
-// round f32 operands and break parity with the plain version.
+// The same route takes the other operand pairs that become one 16-bit
+// type exactly (the reference upcasts narrow x and W inside its kernel,
+// grouped_matmul.py:63-64): fp16 on fp16 (m16n8k16 f16 -> f32); a 16-bit
+// x on e4m3 W, the weights' ring stage converted to x's type in shared
+// memory after it lands (one more barrier a chunk), from where ldmatrix
+// reads it as it reads a 16-bit stage; e4m3 on e4m3 through fp16, x's
+// stage converted too.  e4m3 -> bf16 or fp16 is exact and so is every
+// 16-bit product in f32, so the sums are those of the f32 products.
+// These pairs copy x 16 bytes at a time (D a multiple of 16 bytes, x
+// aligned) and e4m3 weights 16 columns at a time (F % 16 == 0).
+//
+// Route "fma" (f32 x or f32 W, every other pair of f32, bf16, fp16 and
+// e4m3, or operands whose F, D or alignment the copies cannot take): the
+// first kernel, FMAs on the CUDA cores over operands upcast on load.  TF32
+// tensor cores would round f32 operands and break parity with the plain
+// version.
 //
 // A tile whose expert id lies outside [0, E) writes NaN on both routes.
+//
+// kernels/build.py compiles this file as PARTS["grouped_matmul"] objects
+// at once (-DKERNEL_PART=k): part 0 holds the entry point, route "mma" at
+// bf16 on bf16 and route "fma" at f32 x; part 1 the other "mma" pairs;
+// part 2 "fma" at bf16 and fp16 x; part 3 "fma" at e4m3 x.  Built as one
+// unit (no KERNEL_PART), the file holds all.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "epilogue.cuh"
+#include "spmm.cuh"
+
+#ifndef KERNEL_PART
+#define KERNEL_PART -1
+#endif
+#define IN_PART(k) (KERNEL_PART < 0 || KERNEL_PART == (k))
+
+// What one launch needs, whatever its route and types.
+struct GmmArgs {
+  const void* x;
+  const int* tile_experts;
+  const void* w;
+  const float* bias;
+  void* out;
+  int n_tiles;
+  int token_tile;
+  int n_experts;
+  int D;
+  int F;
+  int act;
+  int out_type;
+};
 
 namespace {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // ---------------------------------------------------------------------------
 // Route "mma": tensor cores, weights through a cp.async ring
@@ -116,14 +154,63 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t addr, uint32_t (&r)[2]) {
                : "r"(addr));
 }
 
-// d += a * b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// d += a * b: a 16 x 16 (row), b 16 x 8 (col), bf16 or fp16 (TC) in, f32
+// sums
+template <typename TC>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      const uint32_t (&b)[2]) {
+  if constexpr (std::is_same_v<TC, __nv_bfloat16>) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  } else {
+    static_assert(std::is_same_v<TC, __half>, "bf16 or fp16 products");
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+}
+
+// The type the products run in: x's where it is 16-bit, fp16 for e4m3.
+template <typename TX>
+using MmaType = std::conditional_t<sizeof(TX) == 2, TX, __half>;
+
+// Two e4m3 (low byte first) as two TC in a 32-bit word (low half first):
+// exact, NaN kept.
+template <typename TC>
+__device__ __forceinline__ uint32_t e4m3x2_to(unsigned short w) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(w, __NV_E4M3);
+  uint32_t r;
+  if constexpr (std::is_same_v<TC, __half>) {
+    r = (uint32_t)h.x | ((uint32_t)h.y << 16);
+  } else {
+    const float2 f = __half22float2(__half2(h));
+    const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+    r = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  return r;
+}
+
+// 16 e4m3 staged at src (shared, 16-byte aligned) as 16 TC in two 16-byte
+// chunks at dst0 and dst1 (shared).
+template <typename TC>
+__device__ __forceinline__ void convert16(const unsigned char* src,
+                                          unsigned char* dst0,
+                                          unsigned char* dst1) {
+  const uint4 t = *reinterpret_cast<const uint4*>(src);
+  const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = e4m3x2_to<TC>((unsigned short)(w[i] & 0xffffu));
+    o[2 * i + 1] = e4m3x2_to<TC>((unsigned short)(w[i] >> 16));
+  }
+  *reinterpret_cast<uint4*>(dst0) = make_uint4(o[0], o[1], o[2], o[3]);
+  *reinterpret_cast<uint4*>(dst1) = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
 // byte offset of 16-byte chunk c of staged row r: chunks XOR-swizzled by
@@ -132,20 +219,35 @@ __device__ __forceinline__ uint32_t swz(int r, int c, int row_bytes) {
   return r * row_bytes + ((c ^ (r & 7)) << 4);
 }
 
-// NB n8 tiles of tokens (8 NB rows) a pass; XV bf16 per x copy (8 or 2)
-template <int NB, int XV>
+// NB n8 tiles of tokens (8 NB rows) a pass; XV elements of x per copy (8
+// or 2 of a 16-bit x, 16 of e4m3: 16 or 4 bytes).  TX and TW are the
+// stored types, TC the products'.  A 16-bit operand is copied into its
+// ring stage swizzled, as ldmatrix reads it; an e4m3 operand is copied
+// plain and converted into a 16-bit stage of that layout after it lands.
+template <int NB, int XV, typename TX, typename TW>
 __global__ void __launch_bounds__(THREADS)
-    gmm_mma_kernel(const __nv_bfloat16* __restrict__ x,
+    gmm_mma_kernel(const TX* __restrict__ x,
                    const int* __restrict__ tile_experts,
-                   const __nv_bfloat16* __restrict__ w,
+                   const TW* __restrict__ w,
                    const float* __restrict__ bias, void* __restrict__ out,
                    int n_experts, int D, int F, int token_tile, int act,
                    int out_type) {
+  using TC = MmaType<TX>;
+  constexpr bool kCvtW = sizeof(TW) == 1;
+  constexpr bool kCvtX = sizeof(TX) == 1;
   constexpr int NT = 8 * NB;  // token rows a pass
-  constexpr int X_STAGE = NT * X_ROW;
+  constexpr int W_RAW_ROW = BN * sizeof(TW);  // bytes of a stored row
+  constexpr int W_RAW_STAGE = BK * W_RAW_ROW;
+  constexpr int X_RAW_ROW = BK * sizeof(TX);
+  constexpr int X_RAW_STAGE = NT * X_RAW_ROW;
+  constexpr int XB = XV * sizeof(TX);  // bytes a copy of x
+  static_assert(!kCvtX || XV == 16, "e4m3 x is copied 16 bytes at a time");
   extern __shared__ __align__(128) unsigned char smem[];
+  // the rings, then the converted stages of e4m3 operands
+  unsigned char* w_cvt = smem + STAGES * (W_RAW_STAGE + X_RAW_STAGE);
+  unsigned char* x_cvt = w_cvt + (kCvtW ? W_STAGE : 0);
   const uint32_t w_base = smem_addr(smem);
-  const uint32_t x_base = w_base + STAGES * W_STAGE;
+  const uint32_t x_base = w_base + STAGES * W_RAW_STAGE;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -154,7 +256,7 @@ __global__ void __launch_bounds__(THREADS)
   const int e = __ldg(tile_experts + tile);
   const bool valid = e >= 0 && e < n_experts;
   const long long row0 = (long long)tile * token_tile;
-  const __nv_bfloat16* we = w + (long long)(valid ? e : 0) * D * F;
+  const TW* we = w + (long long)(valid ? e : 0) * D * F;
   const int n_chunks = (D + BK - 1) / BK;
   const float* be = (bias != nullptr && valid) ? bias + (long long)e * F
                                                : nullptr;
@@ -175,19 +277,21 @@ __global__ void __launch_bounds__(THREADS)
     // chunk kc of D (rows d0 .. d0 + BK) into ring stage s
     auto load = [&](int kc, int s) {
       const int d0 = kc * BK;
-      const uint32_t ws = w_base + s * W_STAGE;
+      const uint32_t ws = w_base + s * W_RAW_STAGE;
+      constexpr int W_CHUNKS = W_RAW_ROW / 16;  // 16-byte copies a row
 #pragma unroll
-      for (int it = 0; it < BK * (BN / 8) / THREADS; ++it) {
+      for (int it = 0; it < BK * W_CHUNKS / THREADS; ++it) {
         const int i = threadIdx.x + it * THREADS;
-        const int r = i / (BN / 8), c = i % (BN / 8);
-        const int d = d0 + r, f = slab + c * 8;
-        const bool in = d < D && f < F;  // F % 8 == 0: whole chunks
-        cp_async16(ws + swz(r, c, W_ROW),
+        const int r = i / W_CHUNKS, c = i % W_CHUNKS;
+        constexpr int PER = 16 / sizeof(TW);  // columns a copy
+        const int d = d0 + r, f = slab + c * PER;
+        const bool in = d < D && f < F;  // F % PER == 0: whole chunks
+        cp_async16(kCvtW ? ws + r * W_RAW_ROW + c * 16 : ws + swz(r, c, W_ROW),
                    in ? (const void*)(we + (long long)d * F + f)
                       : (const void*)w,
                    in ? 16 : 0);
       }
-      const uint32_t xs = x_base + s * X_STAGE;
+      const uint32_t xs = x_base + s * X_RAW_STAGE;
       constexpr int PER_ROW = BK / XV;
       for (int i = threadIdx.x; i < NT * PER_ROW; i += THREADS) {
         const int n = i / PER_ROW, q = i % PER_ROW;
@@ -195,7 +299,9 @@ __global__ void __launch_bounds__(THREADS)
         const bool in = n < nrows && d < D;  // D % XV == 0
         const void* src = in ? (const void*)(x + (row0 + p0 + n) * D + d)
                              : (const void*)x;
-        if constexpr (XV == 8) {
+        if constexpr (kCvtX) {
+          cp_async16(xs + n * X_RAW_ROW + q * 16, src, in ? 16 : 0);
+        } else if constexpr (XB == 16) {
           cp_async16(xs + swz(n, q, X_ROW), src, in ? 16 : 0);
         } else {
           cp_async4(xs + swz(n, q / 4, X_ROW) + (q % 4) * 4, src,
@@ -218,8 +324,34 @@ __global__ void __launch_bounds__(THREADS)
         }
         cp_async_commit();
         const int s = kc % STAGES;
-        const uint32_t ws = w_base + s * W_STAGE;
-        const uint32_t xs = x_base + s * X_STAGE;
+        uint32_t ws = w_base + s * W_RAW_STAGE;
+        uint32_t xs = x_base + s * X_RAW_STAGE;
+        if constexpr (kCvtW || kCvtX) {
+          // the e4m3 stages into 16-bit ones; the barrier above freed the
+          // converted stages of chunk kc - 1
+          if constexpr (kCvtW) {
+            const unsigned char* raw = smem + s * W_RAW_STAGE;
+            for (int i = threadIdx.x; i < BK * (BN / 16); i += THREADS) {
+              const int r = i / (BN / 16), c = i % (BN / 16);
+              convert16<TC>(raw + r * W_RAW_ROW + c * 16,
+                            w_cvt + swz(r, 2 * c, W_ROW),
+                            w_cvt + swz(r, 2 * c + 1, W_ROW));
+            }
+            ws = smem_addr(w_cvt);
+          }
+          if constexpr (kCvtX) {
+            const unsigned char* raw =
+                smem + STAGES * W_RAW_STAGE + s * X_RAW_STAGE;
+            for (int i = threadIdx.x; i < NT * (BK / 16); i += THREADS) {
+              const int n = i / (BK / 16), q = i % (BK / 16);
+              convert16<TC>(raw + n * X_RAW_ROW + q * 16,
+                            x_cvt + swz(n, 2 * q, X_ROW),
+                            x_cvt + swz(n, 2 * q + 1, X_ROW));
+            }
+            xs = smem_addr(x_cvt);
+          }
+          __syncthreads();
+        }
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
           // A = W^T (16 columns x 16 rows of D), from the K-major stage:
@@ -239,8 +371,8 @@ __global__ void __launch_bounds__(THREADS)
             const int l = lane & 15;
             const int n = j * 8 + (l & 7);
             ldmatrix_x2(xs + swz(n, kk * 2 + (l >> 3), X_ROW), b);
-            mma_bf16(acc[0][j], a[0], b);
-            mma_bf16(acc[1][j], a[1], b);
+            mma16<TC>(acc[0][j], a[0], b);
+            mma16<TC>(acc[1][j], a[1], b);
           }
         }
       }
@@ -269,48 +401,38 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int NB, int XV>
-cudaError_t launch_nb(const void* x, const int* tile_experts, const void* w,
-                      const float* bias, void* out, int n_tiles,
-                      int token_tile, int n_experts, int D, int F, int act,
-                      int out_type, cudaStream_t stream) {
-  const int smem = STAGES * (W_STAGE + 8 * NB * X_ROW);  // 68-80 KB
+template <int NB, int XV, typename TX, typename TW>
+cudaError_t launch_nb(const GmmArgs& a, cudaStream_t stream) {
+  constexpr int NT = 8 * NB;
+  constexpr int smem =
+      STAGES * (BK * BN * (int)sizeof(TW) + NT * BK * (int)sizeof(TX)) +
+      (sizeof(TW) == 1 ? W_STAGE : 0) +
+      (sizeof(TX) == 1 ? NT * X_ROW : 0);  // 68-80 KB for bf16
   const cudaError_t err = cudaFuncSetAttribute(
-      gmm_mma_kernel<NB, XV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      gmm_mma_kernel<NB, XV, TX, TW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((F + BN - 1) / BN, n_tiles);
-  gmm_mma_kernel<NB, XV><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), tile_experts,
-      static_cast<const __nv_bfloat16*>(w), bias, out, n_experts, D, F,
-      token_tile, act, out_type);
+  const dim3 grid((a.F + BN - 1) / BN, a.n_tiles);
+  gmm_mma_kernel<NB, XV, TX, TW><<<grid, THREADS, smem, stream>>>(
+      static_cast<const TX*>(a.x), a.tile_experts,
+      static_cast<const TW*>(a.w), a.bias, a.out, a.n_experts, a.D, a.F,
+      a.token_tile, a.act, a.out_type);
   return cudaGetLastError();
 }
 
 // NB = the n8 tiles of the tile's rows, at most 4 (32 rows a pass)
-template <int XV>
-cudaError_t launch_xv(const void* x, const int* tile_experts, const void* w,
-                      const float* bias, void* out, int n_tiles,
-                      int token_tile, int n_experts, int D, int F, int act,
-                      int out_type, cudaStream_t stream) {
-  const int nb = (token_tile + 7) / 8;
+template <int XV, typename TX, typename TW>
+cudaError_t launch_xv(const GmmArgs& a, cudaStream_t stream) {
+  const int nb = (a.token_tile + 7) / 8;
   switch (nb < 4 ? nb : 4) {
     case 1:
-      return launch_nb<1, XV>(x, tile_experts, w, bias, out, n_tiles,
-                              token_tile, n_experts, D, F, act, out_type,
-                              stream);
+      return launch_nb<1, XV, TX, TW>(a, stream);
     case 2:
-      return launch_nb<2, XV>(x, tile_experts, w, bias, out, n_tiles,
-                              token_tile, n_experts, D, F, act, out_type,
-                              stream);
+      return launch_nb<2, XV, TX, TW>(a, stream);
     case 3:
-      return launch_nb<3, XV>(x, tile_experts, w, bias, out, n_tiles,
-                              token_tile, n_experts, D, F, act, out_type,
-                              stream);
+      return launch_nb<3, XV, TX, TW>(a, stream);
     default:
-      return launch_nb<4, XV>(x, tile_experts, w, bias, out, n_tiles,
-                              token_tile, n_experts, D, F, act, out_type,
-                              stream);
+      return launch_nb<4, XV, TX, TW>(a, stream);
   }
 }
 
@@ -331,7 +453,9 @@ constexpr int UNROLL = 4;  // independent weight loads in flight per thread
 // fills it, else one scalar load.
 template <typename TW, int VEC>
 __device__ __forceinline__ void load_w(const TW* p, float (&v)[VEC]) {
-  if constexpr (VEC == 1) {
+  if constexpr (VEC == 1 && sizeof(TW) == 1) {
+    v[0] = to_f32(*p);
+  } else if constexpr (VEC == 1) {
     v[0] = to_f32(__ldg(p));
   } else if constexpr (sizeof(TW) == 4) {
     static_assert(VEC == 4, "f32 weights load 4 at a time");
@@ -340,7 +464,7 @@ __device__ __forceinline__ void load_w(const TW* p, float (&v)[VEC]) {
     v[1] = q.y;
     v[2] = q.z;
     v[3] = q.w;
-  } else {
+  } else if constexpr (std::is_same_v<TW, __nv_bfloat16>) {
     // bf16 -> f32 is exact: the bf16 bits are the top half of the f32's
     static_assert(VEC == 8, "bf16 weights load 8 at a time");
     const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
@@ -350,6 +474,21 @@ __device__ __forceinline__ void load_w(const TW* p, float (&v)[VEC]) {
       v[2 * i] = __uint_as_float(words[i] << 16);
       v[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
     }
+  } else if constexpr (sizeof(TW) == 2) {
+    static_assert(VEC == 8, "fp16 weights load 8 at a time");
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f16x2_to_f32(words[i], v + 2 * i);
+  } else {
+    // e4m3 loads 8 (8 bytes) at a time: 16 would double the sums a
+    // thread keeps
+    static_assert(VEC == 8, "e4m3 weights load 8 at a time");
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    e4m3x2_to_f32((unsigned short)(q.x & 0xffffu), v);
+    e4m3x2_to_f32((unsigned short)(q.x >> 16), v + 2);
+    e4m3x2_to_f32((unsigned short)(q.y & 0xffffu), v + 4);
+    e4m3x2_to_f32((unsigned short)(q.y >> 16), v + 6);
   }
 }
 
@@ -465,67 +604,124 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <typename TX, typename TW, int VEC, int RB>
-cudaError_t launch_rb(const void* x, const int* tile_experts, const void* w,
-                      const float* bias, void* out, int n_tiles,
-                      int token_tile, int n_experts, int D, int F, int act,
-                      int out_type, cudaStream_t stream) {
+cudaError_t launch_rb(const GmmArgs& a, cudaStream_t stream) {
   constexpr int BN = 32 * VEC;
-  const dim3 grid((token_tile + RB - 1) / RB, (F + BN - 1) / BN, n_tiles);
+  const dim3 grid((a.token_tile + RB - 1) / RB, (a.F + BN - 1) / BN,
+                  a.n_tiles);
   gmm_fma_kernel<TX, TW, VEC, RB><<<grid, THREADS, 0, stream>>>(
-      static_cast<const TX*>(x), tile_experts, static_cast<const TW*>(w),
-      bias, out, n_experts, D, F, token_tile, act, out_type);
+      static_cast<const TX*>(a.x), a.tile_experts,
+      static_cast<const TW*>(a.w), a.bias, a.out, a.n_experts, a.D, a.F,
+      a.token_tile, a.act, a.out_type);
   return cudaGetLastError();
 }
 
 // RB: 4 rows a chunk when the tile has at most 4, else 8.
 template <typename TX, typename TW, int VEC>
-cudaError_t launch_vec(const void* x, const int* tile_experts, const void* w,
-                       const float* bias, void* out, int n_tiles,
-                       int token_tile, int n_experts, int D, int F, int act,
-                       int out_type, cudaStream_t stream) {
-  if (token_tile <= 4) {
-    return launch_rb<TX, TW, VEC, 4>(x, tile_experts, w, bias, out, n_tiles,
-                                     token_tile, n_experts, D, F, act,
-                                     out_type, stream);
-  }
-  return launch_rb<TX, TW, VEC, 8>(x, tile_experts, w, bias, out, n_tiles,
-                                   token_tile, n_experts, D, F, act,
-                                   out_type, stream);
+cudaError_t launch_vec(const GmmArgs& a, cudaStream_t stream) {
+  if (a.token_tile <= 4) return launch_rb<TX, TW, VEC, 4>(a, stream);
+  return launch_rb<TX, TW, VEC, 8>(a, stream);
 }
 
-// 16-byte weight loads when F and the weights' address allow them.
+// 16-byte weight loads (8-byte for e4m3) when F and the weights' address
+// allow them.
 template <typename TX, typename TW>
-cudaError_t launch_types(const void* x, const int* tile_experts,
-                         const void* w, const float* bias, void* out,
-                         int n_tiles, int token_tile, int n_experts, int D,
-                         int F, int act, int out_type, cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(TW);
-  if (F % VEC == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0) {
-    return launch_vec<TX, TW, VEC>(x, tile_experts, w, bias, out, n_tiles,
-                                   token_tile, n_experts, D, F, act, out_type,
-                                   stream);
+cudaError_t launch_types(const GmmArgs& a, cudaStream_t stream) {
+  constexpr int VEC = sizeof(TW) == 1 ? 8 : 16 / sizeof(TW);
+  if (a.F % VEC == 0 && reinterpret_cast<uintptr_t>(a.w) % 16 == 0) {
+    return launch_vec<TX, TW, VEC>(a, stream);
   }
-  return launch_vec<TX, TW, 1>(x, tile_experts, w, bias, out, n_tiles,
-                               token_tile, n_experts, D, F, act, out_type,
-                               stream);
+  return launch_vec<TX, TW, 1>(a, stream);
+}
+
+// x of type TX on weights of type code w_type, f32 first.
+template <typename TX>
+cudaError_t launch_x(const GmmArgs& a, int w_type, cudaStream_t stream) {
+  switch (w_type) {
+    case DT_F32:
+      return launch_types<TX, float>(a, stream);
+    case DT_BF16:
+      return launch_types<TX, __nv_bfloat16>(a, stream);
+    case DT_F16:
+      return launch_types<TX, __half>(a, stream);
+    default:
+      return launch_types<TX, __nv_fp8_e4m3>(a, stream);
+  }
 }
 
 }  // namespace cuda_core
 
 }  // namespace
 
-// x (n_tiles * token_tile, D) and w (n_experts, D, F) are f32 or bf16
-// (x_bf16, w_bf16); tile_experts (n_tiles,) int32; bias (n_experts, F) f32
-// or null; out (n_tiles * token_tile, F) f32, bf16, fp16 or e4m3 (out_type,
-// epilogue.cuh's DtypeCode).  route 1
-// takes the tensor cores: both operands bf16, F % 8 == 0, w 16-byte
-// aligned, and x rows whole 16-byte (D % 8 == 0, x aligned) or 4-byte
-// (D % 2 == 0) copies; the wrapper's route choice mirrors these checks.
+// Each part's launches (see the top of the file).
+cudaError_t gmm_mma_bf16(const GmmArgs& a, int xv, cudaStream_t stream);
+cudaError_t gmm_mma_narrow(const GmmArgs& a, int x_type, int w_type,
+                           cudaStream_t stream);
+cudaError_t gmm_fma_f32(const GmmArgs& a, int w_type, cudaStream_t stream);
+cudaError_t gmm_fma_16(const GmmArgs& a, int x_type, int w_type,
+                       cudaStream_t stream);
+cudaError_t gmm_fma_e4m3(const GmmArgs& a, int w_type, cudaStream_t stream);
+
+#if IN_PART(0)
+cudaError_t gmm_mma_bf16(const GmmArgs& a, int xv, cudaStream_t stream) {
+  if (xv == 8) {
+    return tensor_core::launch_xv<8, __nv_bfloat16, __nv_bfloat16>(a,
+                                                                   stream);
+  }
+  return tensor_core::launch_xv<2, __nv_bfloat16, __nv_bfloat16>(a, stream);
+}
+cudaError_t gmm_fma_f32(const GmmArgs& a, int w_type, cudaStream_t stream) {
+  return cuda_core::launch_x<float>(a, w_type, stream);
+}
+#endif
+#if IN_PART(1)
+// the pairs beside bf16 on bf16 that become one 16-bit type exactly,
+// with 16-byte copies of x
+cudaError_t gmm_mma_narrow(const GmmArgs& a, int x_type, int w_type,
+                           cudaStream_t stream) {
+  if (x_type == DT_F16 && w_type == DT_F16) {
+    return tensor_core::launch_xv<8, __half, __half>(a, stream);
+  }
+  if (x_type == DT_BF16) {
+    return tensor_core::launch_xv<8, __nv_bfloat16, __nv_fp8_e4m3>(a,
+                                                                   stream);
+  }
+  if (x_type == DT_F16) {
+    return tensor_core::launch_xv<8, __half, __nv_fp8_e4m3>(a, stream);
+  }
+  return tensor_core::launch_xv<16, __nv_fp8_e4m3, __nv_fp8_e4m3>(a, stream);
+}
+#endif
+#if IN_PART(2)
+cudaError_t gmm_fma_16(const GmmArgs& a, int x_type, int w_type,
+                       cudaStream_t stream) {
+  if (x_type == DT_BF16) {
+    return cuda_core::launch_x<__nv_bfloat16>(a, w_type, stream);
+  }
+  return cuda_core::launch_x<__half>(a, w_type, stream);
+}
+#endif
+#if IN_PART(3)
+cudaError_t gmm_fma_e4m3(const GmmArgs& a, int w_type, cudaStream_t stream) {
+  return cuda_core::launch_x<__nv_fp8_e4m3>(a, w_type, stream);
+}
+#endif
+
+#if IN_PART(0)
+// x (n_tiles * token_tile, D) and w (n_experts, D, F) of type codes x_type
+// and w_type (epilogue.cuh's DtypeCode: f32, bf16, fp16 or e4m3);
+// tile_experts (n_tiles,) int32; bias (n_experts, F) f32 or null; out
+// (n_tiles * token_tile, F) f32, bf16, fp16 or e4m3 (out_type).  route 1
+// takes the tensor cores, where the wrapper's route choice
+// (kernels/grouped_matmul.py::gmm_route) mirrors these checks: w 16-byte
+// aligned; bf16 on bf16 with F % 8 == 0 and x rows whole 16-byte (D % 8
+// == 0, x aligned) or 4-byte (D % 2 == 0) copies; fp16 on fp16, a 16-bit
+// x on e4m3 W, or e4m3 on e4m3, with F % 8 == 0 (16 for e4m3 W) and x
+// rows whole 16-byte copies.
 extern "C" int grouped_matmul_launch(const void* x, const int* tile_experts,
                                      const void* w, const float* bias,
                                      void* out, int n_tiles, int token_tile,
-                                     int n_experts, int D, int F, int x_bf16,
-                                     int w_bf16, int act, int out_type,
+                                     int n_experts, int D, int F, int x_type,
+                                     int w_type, int act, int out_type,
                                      int route, int device,
                                      cudaStream_t stream) {
   // this library links its own CUDA runtime: make the tensors' device
@@ -533,42 +729,38 @@ extern "C" int grouped_matmul_launch(const void* x, const int* tile_experts,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   if (n_tiles < 0 || n_tiles > 65535 || token_tile < 1 || n_experts < 1 ||
-      D < 1 || F < 1 || F / 32 + 1 > 65535) {
+      D < 1 || F < 1 || F / 32 + 1 > 65535 || x_type < DT_F32 ||
+      x_type > DT_E4M3 || w_type < DT_F32 || w_type > DT_E4M3) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_tiles == 0) return 0;
+  const GmmArgs a{x, tile_experts, w, bias, out, n_tiles, token_tile,
+                  n_experts, D, F, act, out_type};
+  const auto xa = reinterpret_cast<uintptr_t>(x);
+  const bool w16 = reinterpret_cast<uintptr_t>(w) % 16 == 0;
   cudaError_t err;
   if (route == 1) {
-    const auto xa = reinterpret_cast<uintptr_t>(x);
-    if (!x_bf16 || !w_bf16 || F % 8 || D % 2 || xa % 4 ||
-        reinterpret_cast<uintptr_t>(w) % 16) {
+    const int x_size = x_type == DT_E4M3 ? 1 : 2;
+    const bool bf16 = x_type == DT_BF16 && w_type == DT_BF16;
+    const bool narrow =
+        (x_type == DT_F16 && w_type == DT_F16) ||
+        ((x_type == DT_BF16 || x_type == DT_F16 || x_type == DT_E4M3) &&
+         w_type == DT_E4M3);
+    if (bf16 && w16 && F % 8 == 0 && D % 2 == 0 && xa % 4 == 0) {
+      err = gmm_mma_bf16(a, D % 8 == 0 && xa % 16 == 0 ? 8 : 2, stream);
+    } else if (narrow && w16 && F % (w_type == DT_E4M3 ? 16 : 8) == 0 &&
+               D % (16 / x_size) == 0 && xa % 16 == 0) {
+      err = gmm_mma_narrow(a, x_type, w_type, stream);
+    } else {
       return (int)cudaErrorInvalidValue;
     }
-    if (D % 8 == 0 && xa % 16 == 0) {
-      err = tensor_core::launch_xv<8>(x, tile_experts, w, bias, out, n_tiles,
-                              token_tile, n_experts, D, F, act, out_type,
-                              stream);
-    } else {
-      err = tensor_core::launch_xv<2>(x, tile_experts, w, bias, out, n_tiles,
-                              token_tile, n_experts, D, F, act, out_type,
-                              stream);
-    }
-  } else if (x_bf16 && w_bf16) {
-    err = cuda_core::launch_types<__nv_bfloat16, __nv_bfloat16>(
-        x, tile_experts, w, bias, out, n_tiles, token_tile, n_experts, D, F,
-        act, out_type, stream);
-  } else if (x_bf16) {
-    err = cuda_core::launch_types<__nv_bfloat16, float>(
-        x, tile_experts, w, bias, out, n_tiles, token_tile, n_experts, D, F,
-        act, out_type, stream);
-  } else if (w_bf16) {
-    err = cuda_core::launch_types<float, __nv_bfloat16>(
-        x, tile_experts, w, bias, out, n_tiles, token_tile, n_experts, D, F,
-        act, out_type, stream);
+  } else if (x_type == DT_F32) {
+    err = gmm_fma_f32(a, w_type, stream);
+  } else if (x_type == DT_E4M3) {
+    err = gmm_fma_e4m3(a, w_type, stream);
   } else {
-    err = cuda_core::launch_types<float, float>(x, tile_experts, w, bias, out,
-                                          n_tiles, token_tile, n_experts, D,
-                                          F, act, out_type, stream);
+    err = gmm_fma_16(a, x_type, w_type, stream);
   }
   return (int)err;
 }
+#endif  // IN_PART(0)

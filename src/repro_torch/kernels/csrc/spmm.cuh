@@ -77,9 +77,34 @@ __device__ __forceinline__ void e4m3x2_to_f32(unsigned short w, float* x) {
   x[1] = f.y;
 }
 
-// VEC elements of B from p as f32: one 16-byte (f32), 8-byte (bf16,
-// fp16) or 4-byte (e4m3) load when VEC is 4 (p aligned to 4 elements),
-// element loads otherwise.  Read-only path: B is not written by the
+// 16 bytes from p (16-byte aligned) as 16 / sizeof(T) f32 values: 4 f32,
+// 8 bf16 or fp16, 16 e4m3.  Read-only path.
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float* x) {
+  const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      x[i] = __uint_as_float(w[i]);
+    } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      bf16x2_to_f32(w[i], x + 2 * i);
+    } else if constexpr (std::is_same_v<T, __half>) {
+      f16x2_to_f32(w[i], x + 2 * i);
+    } else {
+      static_assert(std::is_same_v<T, __nv_fp8_e4m3>, "16-byte loads of "
+                    "f32, bf16, fp16 or e4m3");
+      e4m3x2_to_f32((unsigned short)(w[i] & 0xffffu), x + 4 * i);
+      e4m3x2_to_f32((unsigned short)(w[i] >> 16), x + 4 * i + 2);
+    }
+  }
+}
+
+// VEC elements from p as f32: one 16-byte (f32), 8-byte (bf16, fp16) or
+// 4-byte (e4m3) load when VEC is 4 (p aligned to 4 elements); 16-byte
+// loads when VEC elements fill whole 16-byte words (p 16-byte aligned:
+// SDDMM's 8 bf16 or fp16, 16 e4m3, or an f32 row beside them); element
+// loads otherwise.  Read-only path: the operand is not written by the
 // kernel.
 template <int VEC, typename T>
 __device__ __forceinline__ void load_vec(const T* p, float (&x)[VEC]) {
@@ -102,6 +127,10 @@ __device__ __forceinline__ void load_vec(const T* p, float (&x)[VEC]) {
     const unsigned t = __ldg(reinterpret_cast<const unsigned*>(p));
     e4m3x2_to_f32((unsigned short)(t & 0xffffu), x);
     e4m3x2_to_f32((unsigned short)(t >> 16), x + 2);
+  } else if constexpr (VEC * sizeof(T) % 16 == 0) {
+    constexpr int kPer = 16 / sizeof(T);
+#pragma unroll
+    for (int i = 0; i < VEC; i += kPer) load16(p + i, x + i);
   } else {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) x[i] = to_f32(p[i]);

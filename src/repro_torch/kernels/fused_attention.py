@@ -13,10 +13,17 @@ denominator the backward recomputes ``w`` from) and
 ``fused_sparse_attention_bwd`` returns ``(dq, dk, dv)``.  Each launches
 its CUDA kernel (``csrc/fused_attention_fwd.cu``, ``..._bwd.cu``) on CUDA
 tensors and runs its plain version on CPU tensors.  Scores, statistics
-and probabilities are f32 whatever the input type (narrow q/k/v/dout are
-upcast by the wrappers); a CSR's stored values are the additive ``bias``;
-empty rows give ``out = 0``, ``m = NEG_INF`` and ``l = 0``; the
-denominator is floored at 1e-30.
+and probabilities are f32 whatever the input type: the kernels gather
+q, k and v in their own type (f32, bf16, fp16 or e4m3; mixed types run
+at the widest) and convert them in registers, as the reference upcasts
+inside its kernels; the outputs and gradients are f32.  A CSR's stored
+values are the additive ``bias``; empty rows give ``out = 0``, ``m =
+NEG_INF`` and ``l = 0``; the denominator is floored at 1e-30.  Any head
+width runs: the kernels hold a row's output columns in slabs of
+``SLAB`` (each slab's warp re-walks the row's scores, so every slab
+derives the same m and l), and stream the dot products from the Q (and
+dout) row staged in shared memory, which bounds d (and d + dv in the
+backward) by :data:`SMEM_BYTES`.
 
 Source note.  Replaces ``src/repro/kernels/fused_attention.py:225
 fused_sparse_attention`` (Pallas body ``_fused_attn_fwd_kernel`` :152)
@@ -52,6 +59,7 @@ from typing import NamedTuple
 import torch
 
 from .build import CudaKernel, ptr
+from .common import DTYPE_CODES, widest
 
 __all__ = [
     "NEG_INF",
@@ -60,27 +68,36 @@ __all__ = [
     "fused_sparse_attention_bwd",
     "fused_sparse_attention_bwd_chunked_plain",
     "fused_sparse_attention_bwd_plain",
+    "fused_sparse_attention_bwd_slabbed_plain",
     "fused_sparse_attention_chunked_plain",
     "fused_sparse_attention_plain",
+    "fused_sparse_attention_slabbed_plain",
     "sparse_attention_bwd_ref",
     "sparse_attention_ref",
+    "slab_ranges",
     "sparse_softmax_weights",
 ]
 
 #: The masked-score floor of the reference; empty rows report it as m.
 NEG_INF = -1e30
 
-#: Largest head dimension (d or dv) the kernels hold in registers.
-MAX_HEAD_DIM = 256
+#: Output columns a warp holds in registers at once (``csrc/attention.cuh``,
+#: ``ATTN_SLAB``); a wider head runs in slabs of this many.
+SLAB = 256
+#: Warps a block of either kernel runs, each with its own staged rows.
+WARPS = 4
+#: Shared memory one block of the H100 can take (227 KB): the staged f32
+#: rows, Q's d floats a warp forward, Q's and dout's d + dv backward.
+SMEM_BYTES = 232448
 
 FWD_KERNEL = CudaKernel(
     "fused_attention_fwd", "attn_fwd_launch",
     [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_float]
-    + [ctypes.c_int] * 4)
+    + [ctypes.c_int] * 5)
 BWD_KERNEL = CudaKernel(
     "fused_attention_bwd", "attn_bwd_launch",
     [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_float]
-    + [ctypes.c_int] * 4)
+    + [ctypes.c_int] * 5)
 
 #: Nonzeros a warp of the backward walks at most: longer rows are split
 #: into chunks of this many (the last one shorter).
@@ -323,13 +340,18 @@ def fused_sparse_attention_chunked_plain(indptr, cols, q, k, v, *,
 
 def fused_sparse_attention_bwd_chunked_plain(indptr, cols, q, k, v, dout, m,
                                              l, *, scale: float, bias=None,
-                                             chunk: int = BWD_CHUNK):
+                                             chunk: int = BWD_CHUNK,
+                                             d_cols=slice(None),
+                                             dv_cols=slice(None)):
     """Plain version of the backward kernel's chunk walk: rows longer
     than ``chunk`` nonzeros are cut as :func:`attn_row_plan` cuts them,
     each chunk sums its partial of delta and of dQ, and a split row's
     delta and dQ are the sums of its chunks' partials in chunk order (a
     whole row is one partial).  dK and dV are scattered by column as in
-    :func:`fused_sparse_attention_bwd_plain`.  Runs on any device."""
+    :func:`fused_sparse_attention_bwd_plain`.  ``d_cols`` and ``dv_cols``
+    keep those columns of dQ and dK, and of dV, as one slab of the
+    kernel does (every (w, dw) and delta in full).  Runs on any
+    device."""
     n_heads, n_rows, _ = q.shape
     rows, part, part_row, n_all = _chunk_parts(indptr, chunk)
     c = cols.long()
@@ -345,11 +367,57 @@ def fused_sparse_attention_bwd_chunked_plain(indptr, cols, q, k, v, dout, m,
         delta = _segment_sum(_segment_sum(w * dw, part, n_all), part_row,
                              n_rows)
         ds = w * (dw - delta[rows]) * scale
-        dq_part = _segment_sum(ds[:, None] * kf[c], part, n_all)
+        dq_part = _segment_sum(ds[:, None] * kf[c][:, d_cols], part, n_all)
         dqs.append(_segment_sum(dq_part, part_row, n_rows))
-        dks.append(_segment_sum(ds[:, None] * qf[rows], c, kf.shape[0]))
-        dvs.append(_segment_sum(w[:, None] * do[rows], c, vf.shape[0]))
+        dks.append(_segment_sum(ds[:, None] * qf[rows][:, d_cols], c,
+                                kf.shape[0]))
+        dvs.append(_segment_sum(w[:, None] * do[rows][:, dv_cols], c,
+                                vf.shape[0]))
     return torch.stack(dqs), torch.stack(dks), torch.stack(dvs)
+
+
+def slab_ranges(width: int):
+    """The kernels' column slabs of a head width: ``(first, end)`` of each
+    slab of at most :data:`SLAB` columns, in the order ``blockIdx.y``
+    numbers them (one slab up to 256)."""
+    if width < 1:
+        raise ValueError(f"width must be >= 1, got {width}")
+    return [(c, min(c + SLAB, width)) for c in range(0, width, SLAB)]
+
+
+def fused_sparse_attention_slabbed_plain(indptr, cols, q, k, v, *,
+                                         scale: float, bias=None,
+                                         chunk: int = FWD_CHUNK):
+    """Plain version of the forward kernel's slab walk: each slab of
+    :func:`slab_ranges` (dv) runs the chunk walk
+    (:func:`fused_sparse_attention_chunked_plain`) on its own columns of
+    V, deriving (m, l) again from the row's scores.  Returns ``(out, m,
+    l)``, out the slabs' columns side by side, (m, l) slab 0's.  Runs on
+    any device (on CUDA torch's scatter sums l in no fixed order, so
+    the slabs' l may differ in their last bits, where the kernel's do
+    not)."""
+    parts = [fused_sparse_attention_chunked_plain(
+        indptr, cols, q, k, v[..., c0:c1], scale=scale, bias=bias,
+        chunk=chunk) for c0, c1 in slab_ranges(v.shape[2])]
+    return (torch.cat([p[0] for p in parts], dim=-1), parts[0][1],
+            parts[0][2])
+
+
+def fused_sparse_attention_bwd_slabbed_plain(indptr, cols, q, k, v, dout, m,
+                                             l, *, scale: float, bias=None,
+                                             chunk: int = BWD_CHUNK):
+    """Plain version of the backward kernel's slab walk: slab ``s`` of
+    :func:`slab_ranges` (the wider of d and dv) recomputes every (w, dw)
+    and delta in full and keeps its own columns of dQ and dK (of d) and
+    of dV (of dv); returns ``(dq, dk, dv)`` with the slabs' columns side
+    by side.  Runs on any device."""
+    d, dv = q.shape[2], v.shape[2]
+    parts = [fused_sparse_attention_bwd_chunked_plain(
+        indptr, cols, q, k, v, dout, m, l, scale=scale, bias=bias,
+        chunk=chunk, d_cols=slice(min(c0, d), min(c1, d)),
+        dv_cols=slice(min(c0, dv), min(c1, dv)))
+        for c0, c1 in slab_ranges(max(d, dv))]
+    return tuple(torch.cat([p[i] for p in parts], dim=-1) for i in range(3))
 
 
 # ---------------------------------------------------------------------------
@@ -378,26 +446,36 @@ def _check(indptr, cols, q, k, v, bias):
                          f"{None if bias is None else tuple(bias.shape)}")
 
 
-def _cuda_operands(indptr, cols, bias, *floats):
-    """The operands as the kernels take them, or raise."""
-    dev = floats[0].device
-    floats = tuple(x.to(torch.float32).contiguous() for x in floats)
+def _cuda_operands(indptr, cols, bias, qkv, stats=(), *, staged: int):
+    """The operands as the kernels take them, or raise: q, k and v at
+    their one type (:func:`~.common.widest` of theirs: a narrower one is
+    copied), the bias and the f32 ``stats`` (dout, m, l) in f32.
+    ``staged`` is the floats of shared memory a warp stages (d forward,
+    d + dv backward); above :data:`SMEM_BYTES` a block would not
+    launch."""
+    dev = qkv[0].device
+    qt = widest(*(x.dtype for x in qkv))
+    qkv = tuple(x.to(qt).contiguous() for x in qkv)
+    stats = tuple(x.to(torch.float32).contiguous() for x in stats)
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
     for name, t, dt in (("indptr", indptr, torch.int32),
                         ("cols", cols, torch.int32),
                         ("bias", bias, torch.float32),
-                        *((f"operand {i}", x, torch.float32)
-                          for i, x in enumerate(floats))):
+                        *((n, x, qt) for n, x in zip("qkv", qkv)),
+                        *((f"f32 operand {i}", x, torch.float32)
+                          for i, x in enumerate(stats))):
         if t is not None and (t.device != dev or t.dtype != dt
                               or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {dt} tensor on "
                              f"{dev}, got {t.dtype} on {t.device}")
-    d, dv = floats[0].shape[2], floats[2].shape[2]
-    if max(d, dv) > MAX_HEAD_DIM:
-        raise ValueError(f"head dimensions {d}, {dv} above the kernels' "
-                         f"{MAX_HEAD_DIM}")
-    return bias, floats
+    if WARPS * staged * 4 > SMEM_BYTES:
+        d, dv = qkv[0].shape[2], qkv[2].shape[2]
+        raise ValueError(
+            f"head dimensions d={d}, dv={dv}: the kernels stage {staged} "
+            f"f32 values a warp ({WARPS} warps a block) in shared memory, "
+            f"more than a block's {SMEM_BYTES} bytes")
+    return bias, qkv, stats, DTYPE_CODES[qt]
 
 
 def fused_sparse_attention(indptr, cols, q, k, v, *, scale: float,
@@ -417,7 +495,8 @@ def fused_sparse_attention(indptr, cols, q, k, v, *, scale: float,
                                             scale=scale, bias=bias)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
-    bias, (q, k, v) = _cuda_operands(indptr, cols, bias, q, k, v)
+    bias, (q, k, v), _, qkv_type = _cuda_operands(
+        indptr, cols, bias, (q, k, v), staged=q.shape[2])
     n_heads, n_rows, d = q.shape
     n_kv, dv = v.shape[1], v.shape[2]
     out = torch.empty((n_heads, n_rows, dv), dtype=torch.float32,
@@ -438,7 +517,7 @@ def fused_sparse_attention(indptr, cols, q, k, v, *, scale: float,
             ptr(v), ptr(out), ptr(m), ptr(l), ptr(plan.chunk_row),
             ptr(plan.chunk_start), ptr(plan.split_first),
             ptr(plan.split_rows), ptr(part), n_rows, n_kv, n_heads, d, dv,
-            scale, plan.chunk, plan.n_chunks, plan.n_split, phase)
+            scale, plan.chunk, plan.n_chunks, plan.n_split, phase, qkv_type)
     return out, m, l
 
 
@@ -463,13 +542,15 @@ def fused_sparse_attention_bwd(indptr, cols, q, k, v, dout, m, l, *,
             indptr, cols, q, k, v, dout, m, l, scale=scale, bias=bias)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
-    bias, (q, k, v, dout, m, l) = _cuda_operands(indptr, cols, bias, q, k,
-                                                 v, dout, m, l)
+    bias, (q, k, v), (dout, m, l), qkv_type = _cuda_operands(
+        indptr, cols, bias, (q, k, v), (dout, m, l),
+        staged=q.shape[2] + v.shape[2])
     d, n_kv, dv = q.shape[2], v.shape[1], v.shape[2]
     plan = attn_row_plan(indptr, BWD_CHUNK)
-    dq = torch.empty_like(q)
-    dk = torch.zeros_like(k)
-    dv_ = torch.zeros_like(v)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, **f32)
+    dk = torch.zeros(k.shape, **f32)
+    dv_ = torch.zeros(v.shape, **f32)
     delta_part = dq_part = None
     phases = (1,)
     if plan.n_chunks:
@@ -486,5 +567,5 @@ def fused_sparse_attention_bwd(indptr, cols, q, k, v, dout, m, l, *,
             ptr(plan.chunk_split), ptr(plan.split_first),
             ptr(plan.split_rows), ptr(delta_part), ptr(dq_part), n_rows,
             n_kv, n_heads, d, dv, scale, plan.chunk, plan.n_chunks,
-            plan.n_split, phase)
+            plan.n_split, phase, qkv_type)
     return dq, dk, dv_

@@ -14,13 +14,17 @@ BlockSpec and carries its f32 sum over a sequential d-tile grid axis,
 with the epilogue on the last step.  On the H100 a block reads its
 expert id itself and loops over all of D, so the epilogue runs on the
 finished sums in one launch.  On the serving path the tiles hold 4 to
-10 rows, so the kernel is bound by the bytes of the expert weights.  The
-serving operands (bf16 on bf16) take route ``"mma"``: tensor-core
-``mma.sync`` products, a block per 128-column slab of a tile holding all
-of its rows, the weights streamed once per tile through a ring of
-``cp.async`` copies in shared memory.  The other operand types take
-route ``"fma"``, FMAs on the CUDA cores over operands upcast on load
-(TF32 would round f32 operands).  :func:`gmm_route` picks the route;
+10 rows, so the kernel is bound by the bytes of the expert weights.  x
+and the weights are each f32, bf16, fp16 or e4m3, loaded in their own
+type and summed in f32, as the reference upcasts inside its kernel.
+The pairs that become one 16-bit type exactly (bf16 or fp16 on itself,
+a 16-bit x on e4m3 weights, e4m3 on e4m3 through fp16) take route
+``"mma"``: tensor-core ``mma.sync`` products, a block per 128-column
+slab of a tile holding all of its rows, the weights streamed once per
+tile through a ring of ``cp.async`` copies in shared memory (an e4m3
+stage converted to 16 bits there).  The other pairs take route
+``"fma"``, FMAs on the CUDA cores over operands upcast on load (TF32
+would round f32 operands).  :func:`gmm_route` picks the route;
 ``ROUTE_LAUNCHES`` counts the launches of each.  ``d_tile`` and
 ``f_tile`` do not change the function, and are checked as the reference
 asserts them.
@@ -33,12 +37,19 @@ import torch
 
 from ..core.schedule import Epilogue, torch_dtype
 from .build import CudaKernel, ptr
-from .common import ACT_CODES, CUDA_OUT_DTYPES, DTYPE_CODES
+from .common import ACT_CODES, CUDA_FLOAT_DTYPES, CUDA_OUT_DTYPES, DTYPE_CODES
 
 _NOOP = Epilogue()
 
-#: Operand types the CUDA kernel loads (and upcasts to f32).
-CUDA_IN_DTYPES = (torch.float32, torch.bfloat16)
+#: Operand types the CUDA kernel loads (and upcasts to f32), x and the
+#: weights each.
+CUDA_IN_DTYPES = CUDA_FLOAT_DTYPES
+
+_BF16, _F16, _E4M3 = torch.bfloat16, torch.float16, torch.float8_e4m3fn
+#: Beside bf16 on bf16, the (x, weights) pairs the tensor cores take, as
+#: one 16-bit type exactly; they copy x 16 bytes at a time.
+MMA_NARROW_PAIRS = ((_F16, _F16), (_BF16, _E4M3), (_F16, _E4M3),
+                    (_E4M3, _E4M3))
 
 KERNEL = CudaKernel(
     "grouped_matmul", "grouped_matmul_launch",
@@ -53,12 +64,21 @@ ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 def gmm_route(x_dtype, w_dtype, d: int, f: int, x_addr: int = 0,
               w_addr: int = 0) -> str:
-    """The route the CUDA kernel takes: ``"mma"`` (tensor cores) for bf16
-    tokens on bf16 weights whose rows its copies can take (F % 8 == 0 and
-    16-byte aligned weights; D % 2 == 0 and 4-byte aligned tokens),
-    ``"fma"`` (CUDA cores) for everything else it loads."""
-    if (x_dtype == w_dtype == torch.bfloat16 and f % 8 == 0 and d % 2 == 0
+    """The route the CUDA kernel takes: ``"mma"`` (tensor cores) for the
+    pairs that become one 16-bit type exactly, where its copies can take
+    the rows: bf16 on bf16 with F % 8 == 0, 16-byte aligned weights, D %
+    2 == 0 and 4-byte aligned tokens; the :data:`MMA_NARROW_PAIRS` with
+    F % 8 == 0 (16 for e4m3 weights), 16-byte aligned weights, and token
+    rows of whole 16-byte copies (D a multiple of 16 bytes, tokens
+    16-byte aligned).  ``"fma"`` (CUDA cores) for everything else it
+    loads."""
+    if (x_dtype == w_dtype == _BF16 and f % 8 == 0 and d % 2 == 0
             and w_addr % 16 == 0 and x_addr % 4 == 0):
+        return "mma"
+    if ((x_dtype, w_dtype) in MMA_NARROW_PAIRS
+            and f % (16 if w_dtype == _E4M3 else 8) == 0
+            and w_addr % 16 == 0 and (d * x_dtype.itemsize) % 16 == 0
+            and x_addr % 16 == 0):
         return "mma"
     return "fma"
 
@@ -127,8 +147,8 @@ def grouped_matmul(x, tile_experts, weights, *, bias=None,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
     the route :func:`gmm_route` picks, or raise for what it does not take
-    (operands other than f32 and bf16, an output type other than those of
-    ``CUDA_OUT_DTYPES``: f32, bf16, fp16 and float8_e4m3fn).
+    (operands other than f32, bf16, fp16 and float8_e4m3fn, an output
+    type other than those of ``CUDA_OUT_DTYPES``: the same four).
     """
     _check(x, tile_experts, weights, bias, epilogue, token_tile, f_tile,
            d_tile)
@@ -145,8 +165,7 @@ def grouped_matmul(x, tile_experts, weights, *, bias=None,
         if t.dtype not in CUDA_IN_DTYPES:
             raise NotImplementedError(
                 f"{name} is {t.dtype}; the CUDA kernel loads "
-                f"{CUDA_IN_DTYPES} (fp16 and fp8 operands are ROADMAP queue 2 "
-                "item 5)")
+                f"{CUDA_IN_DTYPES}")
     out_dtype = torch_dtype(epilogue.out_dtype or "float32")
     if out_dtype not in CUDA_OUT_DTYPES:
         raise NotImplementedError(
@@ -160,10 +179,8 @@ def grouped_matmul(x, tile_experts, weights, *, bias=None,
     route = gmm_route(xc.dtype, wc.dtype, d, f, xc.data_ptr(), wc.data_ptr())
     out = torch.empty((x.shape[0], f), dtype=out_dtype, device=x.device)
     KERNEL.launch(x.device, ptr(xc), ptr(te), ptr(wc), ptr(bias_c), ptr(out),
-                  te.numel(), token_tile, e, d, f,
-                  int(xc.dtype == torch.bfloat16),
-                  int(wc.dtype == torch.bfloat16),
-                  ACT_CODES[epilogue.activation],
+                  te.numel(), token_tile, e, d, f, DTYPE_CODES[xc.dtype],
+                  DTYPE_CODES[wc.dtype], ACT_CODES[epilogue.activation],
                   DTYPE_CODES[out_dtype], ROUTES[route])
     ROUTE_LAUNCHES[route] += 1
     return out

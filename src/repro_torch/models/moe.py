@@ -12,8 +12,13 @@ Two paths with the same math, chosen by ``cfg.moe_kernel_dispatch``:
 * True (the default): the grouped-matmul kernel
   (``kernels/csrc/grouped_matmul.cu``) on the capacity-gathered tokens,
   three launches a layer: the gate projection with SiLU fused, the up
-  projection, and the down projection;
-* False: the reference's einsum path.
+  projection, and the down projection.  The expert weights may be
+  stored narrower than the activations (e.g. e4m3 ``wg``, ``wi``, ``wo``
+  beside bf16 tokens, cast by ``core.dtypes.cast``): the kernel upcasts
+  them in its registers, as the reference's does;
+* False: the reference's einsum path, which refuses e4m3 weights (the
+  reference's einsums raise on them; neither path upcasts them to a
+  copy).
 
 ``dispatch=`` (a :class:`~repro_torch.tune.moe.MoeDispatchSchedule`, as
 ``moe_tune_dispatch`` tunes it on the kernel and
@@ -113,6 +118,14 @@ def _expert_ffn(cfg, x, wg, wi, wo, gates, capacity, use_kernel,
         y = gmm(h.to(x.dtype), wo, ft, dt)
         y = y.reshape(e_loc, cap_pad, d)[:, :capacity]
     else:
+        fp8 = [n for n, w_ in (("wg", wg), ("wi", wi), ("wo", wo))
+               if w_.dtype == torch.float8_e4m3fn]
+        if fp8:
+            raise TypeError(
+                f"expert weights {fp8} are float8_e4m3fn: the einsum path "
+                "(moe_kernel_dispatch=False) does not take them, as the "
+                "reference's einsums do not; the grouped-matmul kernel "
+                "(moe_kernel_dispatch=True) upcasts them in registers")
         h = F.silu(torch.einsum("ecd,edf->ecf", xg, wg)) * torch.einsum(
             "ecd,edf->ecf", xg, wi)
         y = torch.einsum("ecf,efd->ecd", h.to(x.dtype), wo)

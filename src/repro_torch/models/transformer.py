@@ -80,11 +80,17 @@ def init_params(cfg, generator: torch.Generator, device=None):
             "final_norm": init_norm(cfg, cfg.d_model, dev)}
 
 
+#: ml_dtypes' element types numpy cannot hand to torch, by their name:
+#: carried across as their bits, through an integer view of one width.
+_BIT_VIEWS = {"bfloat16": (np.int16, torch.bfloat16),
+              "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
 def _to_torch(a, device):
     a = np.array(a)  # a writable copy (JAX hands out read-only views)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(
-            torch.bfloat16).to(device)
+    if a.dtype.name in _BIT_VIEWS:
+        np_int, t = _BIT_VIEWS[a.dtype.name]
+        return torch.from_numpy(a.view(np_int)).view(t).to(device)
     return torch.from_numpy(a).to(device)
 
 
@@ -97,7 +103,8 @@ def _tree_map(fn, tree):
 def params_from_jax(cfg, tree, device=None):
     """The port's parameters from the reference's tree (numpy or JAX
     arrays, layers stacked on a leading L axis), so both packages compute
-    the same function."""
+    the same function.  Every array keeps its type, bf16 and
+    float8_e4m3fn (e.g. e4m3 expert weights) bit for bit."""
     dev = resolve_device(device)
     return {"embed": _to_torch(tree["embed"], dev),
             "layers": [_tree_map(lambda a, i=i: _to_torch(a[i], dev),

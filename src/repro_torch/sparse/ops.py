@@ -163,7 +163,8 @@ class _SpmmCSR(torch.autograd.Function):
 
         dz        = dy ⊙ act'(A@B + bias)   (z recomputed on the forward
                                              kernel, bias-only epilogue)
-        dvals     = SDDMM(dz, B)            (Eq. 2c, the SDDMM kernel)
+        dvals     = SDDMM(dz, B)            (Eq. 2c, the SDDMM kernel; B
+                                             in its own type)
         dB        = Aᵀ · dz                 (Eq. 2d, the EB kernel)
         dbias     = Σ_rows dz
         dresidual = dy
@@ -255,7 +256,8 @@ def sddmm(rows, cols, a, b, scale=None, *, schedule=None,
 
     ``schedule`` supplies the nnz tile (its ``nnz_tile`` field, the lanes
     one block of the kernel takes); an explicit ``nnz_tile=`` overrides
-    it.  ``schedule='tune'`` takes the tuned ``nnz_tile`` of
+    it.  A and B reach the kernel in their own types (f32, bf16, fp16
+    or float8_e4m3fn; the output is f32).  ``schedule='tune'`` takes the tuned ``nnz_tile`` of
     ``tune_segment_reduce`` for this row profile, as the reference does.
     Not differentiable: an input that requires a gradient is refused.
     """
@@ -411,8 +413,11 @@ def sparse_attention(adj, q, k, v, *, schedule=None,
               (the spec oracle per head, differentiated by autograd).
     device    as for :func:`spmm`.
 
-    The output is f32.  Differentiable in q, k and v; the adjacency,
-    pattern and values, is data.  Empty rows give zero rows.
+    q, k and v reach the kernels in their own type (f32, bf16, fp16 or
+    float8_e4m3fn; mixed types run at the widest) at any head width.
+    The output is f32, the gradients in the inputs' types.
+    Differentiable in q, k and v; the adjacency, pattern and values, is
+    data.  Empty rows give zero rows.
     """
     dev = resolve_device(device)
     check_on(dev, q=q, k=k, v=v)

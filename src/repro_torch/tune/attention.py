@@ -112,8 +112,8 @@ def tune_sparse_attention(
         indptr, cols_t = _sorted_pattern(
             torch.as_tensor(rows, device=dev), torch.as_tensor(
                 cols, device=dev), n_rows, n_cols)
-        qh, kh, vh = (t.to(torch.float32).contiguous()
-                      for t in (qh, kh, vh))
+        # the kernels load q, k and v in their own type
+        qh, kh, vh = (t.contiguous() for t in (qh, kh, vh))
         bias_t = (None if bias is None
                   else bias.to(torch.float32).contiguous())
         # the cotangent has the output's shape (H, n_rows, dv)

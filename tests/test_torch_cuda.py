@@ -1095,7 +1095,8 @@ def test_grouped_matmul_cuda_core_route_takes_bf16_16_byte_loads(dev, tile,
 def test_grouped_matmul_kernel_mixed_misaligned_and_bad_experts(dev):
     """f32 tokens on bf16 weights; weights 2 bytes off a 16-byte boundary
     (scalar loads); a tile whose expert id lies outside [0, E) is NaN;
-    f16 operands are refused."""
+    fp16 tokens on bf16 weights run on the CUDA cores; int8 operands are
+    refused."""
     from repro_torch.kernels import grouped_matmul as gm
 
     x, te, w, _ = _gmm_operands(dev, 4, 6, 3, 128, 64, torch.bfloat16, 0)
@@ -1116,8 +1117,15 @@ def test_grouped_matmul_kernel_mixed_misaligned_and_bad_experts(dev):
     out = gm.grouped_matmul(x, bad, w, token_tile=4, f_tile=64, d_tile=128)
     assert bool(out[8:12].isnan().all()) and not bool(
         out[:8].isnan().any())
-    with pytest.raises(NotImplementedError, match="loads"):
+    before = gm.ROUTE_LAUNCHES["fma"]
+    torch.testing.assert_close(
         gm.grouped_matmul(x.half(), te, w, token_tile=4, f_tile=64,
+                          d_tile=128),
+        gm.grouped_matmul_plain(x.half(), te, w, token_tile=4), rtol=RTOL,
+        atol=ATOL)
+    assert gm.ROUTE_LAUNCHES["fma"] == before + 1
+    with pytest.raises(NotImplementedError, match="loads"):
+        gm.grouped_matmul(x.to(torch.int8), te, w, token_tile=4, f_tile=64,
                           d_tile=128)
 
 
@@ -1384,3 +1392,248 @@ def test_moe_dispatch_tuner_on_cuda(dev, tmp_path, monkeypatch):
     torch.testing.assert_close(got.float().cpu(), want.float(),
                                rtol=2.0 ** -7, atol=2e-2)
     tune.set_default_cache(None)
+
+
+# ---------------------------------------------------------------------------
+# Narrow operands: SDDMM, attention and the grouped matmul
+# ---------------------------------------------------------------------------
+
+_NARROW = (torch.bfloat16, torch.float16, torch.float8_e4m3fn)
+
+
+def _launch_args(monkeypatch, kernel):
+    """Record the arguments of every launch of ``kernel`` (a CudaKernel)."""
+    seen = []
+    launch = kernel.launch
+
+    def spy(device, *args):
+        seen.append(args)
+        return launch(device, *args)
+
+    monkeypatch.setitem(kernel.__dict__, "launch", spy)
+    return seen
+
+
+def _no_plain(monkeypatch, module, *names):
+    """Make the named plain versions raise: a CUDA wrapper must not take
+    them."""
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA wrapper ran its plain version")
+
+    for n in names:
+        monkeypatch.setattr(module, n, refuse)
+
+
+@pytest.mark.parametrize("a_dtype,b_dtype", [
+    *((t, t) for t in _NARROW), *((torch.float32, t) for t in _NARROW),
+    (torch.bfloat16, torch.float32), (torch.float8_e4m3fn, torch.float16)])
+@pytest.mark.parametrize("d,aligned", [(1, True), (40, True), (64, True),
+                                       (256, True), (300, True),
+                                       (2056, True), (256, False)])
+def test_sddmm_kernel_narrow_pairs(dev, monkeypatch, a_dtype, b_dtype, d,
+                                   aligned):
+    """Every (A, B) pair the kernel loads, at every geometry (16-byte
+    vectors of 8 or 16 narrow elements, element loads where d or the
+    alignment does not allow them, the wide walk), and two promoted
+    pairs: within the f32 kernel's bound of the plain version on the same
+    stored values, one launch, the kernel handed the caller's narrow
+    operands themselves (no f32 copy) and no plain version taken."""
+    from repro_torch.kernels import sddmm
+
+    rng = np.random.default_rng(d)
+    nnz = 700
+    rows = torch.from_numpy(np.sort(rng.integers(0, 50, nnz)).astype(
+        np.int32)).to(dev)
+    cols = torch.from_numpy(rng.integers(0, 70, nnz).astype(np.int32)).to(dev)
+    a = _dense(dev, (50 * d + 16,), 10).to(a_dtype)
+    a = (a[:50 * d] if aligned else a[1:50 * d + 1]).view(50, d)
+    b = _dense(dev, (70, d), 11).to(b_dtype)
+    scale = _dense(dev, (nnz,), 12)
+    want = sddmm.sddmm_plain(rows, cols, a, b, scale)
+    seen = _launch_args(monkeypatch, sddmm.KERNEL)
+    _no_plain(monkeypatch, sddmm, "sddmm_plain")
+    got = sddmm.sddmm(rows, cols, a, b, scale, nnz_tile=128)
+    assert len(seen) == 1
+    native = (a_dtype, b_dtype) in sddmm.CUDA_PAIRS
+    assert (seen[0][2] == a.data_ptr()) == (native or a_dtype == torch.float32)
+    assert seen[0][3] == b.data_ptr() or not native
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=RTOL * d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, *_NARROW])
+@pytest.mark.parametrize("heads,d,dv", [(2, 64, 64), (1, 37, 130),
+                                        (2, 320, 320), (1, 512, 512),
+                                        (1, 16, 300), (1, 300, 8)])
+def test_fused_attention_narrow_and_wide(dev, monkeypatch, dtype, heads, d,
+                                         dv):
+    """q, k and v of one type at head widths of one and of several column
+    slabs (256 a slab): forward and backward against the plain versions
+    on the same stored values, the kernels handed the caller's q, k and v
+    (no f32 copy), no plain version taken, f32 outputs and gradients."""
+    from repro_torch.kernels import fused_attention as fa
+
+    indptr, cols, q, k, v, do, bias = _attention_case(dev, 90, 70, heads, d,
+                                                      dv, d + dv)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    kw = dict(scale=d ** -0.5, bias=bias)
+    want = fa.fused_sparse_attention_plain(indptr, cols, q, k, v, **kw)
+    want_b = fa.fused_sparse_attention_bwd_plain(indptr, cols, q, k, v, do,
+                                                 want[1], want[2], **kw)
+    fwd = _launch_args(monkeypatch, fa.FWD_KERNEL)
+    bwd = _launch_args(monkeypatch, fa.BWD_KERNEL)
+    _no_plain(monkeypatch, fa, "fused_sparse_attention_plain",
+              "fused_sparse_attention_bwd_plain")
+    got = fa.fused_sparse_attention(indptr, cols, q, k, v, **kw)
+    got_b = fa.fused_sparse_attention_bwd(indptr, cols, q, k, v, do, got[1],
+                                          got[2], **kw)
+    for args in fwd + bwd:
+        assert args[3:6] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == torch.float32
+        torch.testing.assert_close(g_, w_, rtol=RTOL, atol=RTOL)
+    for g_, w_ in zip(got_b, want_b):
+        assert g_.dtype == torch.float32
+        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dv", [(320, 320), (64, 600)])
+def test_fused_attention_wide_heads_split_rows(dev, dtype, d, dv):
+    """Rows longer than a chunk at head widths of several slabs: out, m,
+    l and dQ the same bits over two launches, against the plain versions
+    and the slab walk's plain version."""
+    from repro_torch.kernels import fused_attention as fa
+
+    rng = np.random.default_rng(d + dv)
+    n_rows, n_kv, heads = 40, 3000, 1
+    lengths = rng.integers(0, 6, n_rows)
+    lengths[[3, 17]] = (2500, fa.FWD_CHUNK + 1)
+    cols = np.concatenate([rng.choice(n_kv, int(n), replace=False)
+                           for n in lengths]).astype(np.int32)
+    indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    g = torch.Generator().manual_seed(d)
+    q, k, v, do = (torch.randn(heads, n, w, generator=g).to(dev)
+                   for n, w in ((n_rows, d), (n_kv, d), (n_kv, dv),
+                                (n_rows, dv)))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    ip, cc = (torch.from_numpy(a).to(dev) for a in (indptr, cols))
+    kw = dict(scale=d ** -0.5)
+    got = fa.fused_sparse_attention(ip, cc, q, k, v, **kw)
+    again = fa.fused_sparse_attention(ip, cc, q, k, v, **kw)
+    for g_, a_ in zip(got, again):
+        assert torch.equal(g_.view(torch.int32), a_.view(torch.int32))
+    for want in (fa.fused_sparse_attention_plain(ip, cc, q, k, v, **kw),
+                 fa.fused_sparse_attention_slabbed_plain(ip, cc, q, k, v,
+                                                         **kw)):
+        for g_, w_ in zip(got, want):
+            torch.testing.assert_close(g_, w_, rtol=RTOL, atol=RTOL)
+    b1 = fa.fused_sparse_attention_bwd(ip, cc, q, k, v, do, got[1], got[2],
+                                       **kw)
+    b2 = fa.fused_sparse_attention_bwd(ip, cc, q, k, v, do, got[1], got[2],
+                                       **kw)
+    assert torch.equal(b1[0].view(torch.int32), b2[0].view(torch.int32))
+    want_b = fa.fused_sparse_attention_bwd_slabbed_plain(
+        ip, cc, q, k, v, do, got[1], got[2], **kw)
+    for g_, w_ in zip(b1, want_b):
+        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4)
+
+
+def test_fused_attention_refuses_rows_past_shared_memory(dev):
+    """d + dv past what a block's shared memory stages (4 warps of f32
+    rows, 227 KB) is refused with the bound named; d = 14,000 forward
+    alone fits."""
+    from repro_torch.kernels import fused_attention as fa
+
+    indptr, cols, q, k, v, do, _ = _attention_case(dev, 10, 8, 1, 8, 8, 0)
+    big = torch.zeros(1, 10, 14_000, device=dev)
+    kbig = torch.zeros(1, 8, 14_000, device=dev)
+    out, m, l = fa.fused_sparse_attention(indptr, cols, big, kbig, v,
+                                          scale=1.0)
+    assert bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError, match="232448 bytes"):
+        fa.fused_sparse_attention_bwd(indptr, cols, big, kbig, kbig[..., :600]
+                                      .contiguous(),
+                                      torch.zeros(1, 10, 600, device=dev), m,
+                                      l, scale=1.0)
+
+
+_GMM_PAIRS = [(x, w) for x in (torch.float32, *_NARROW)
+              for w in (torch.float32, *_NARROW)]
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", _GMM_PAIRS,
+                         ids=[f"{x}-{w}".replace("torch.", "")
+                              for x, w in _GMM_PAIRS])
+@pytest.mark.parametrize("tile,d,f", [(4, 4096, 1536), (10, 4096, 1536),
+                                      (17, 320, 48), (4, 300, 40)])
+def test_grouped_matmul_every_operand_pair(dev, x_dtype, w_dtype, tile, d,
+                                           f):
+    """Every pair of f32, bf16, fp16 and e4m3 tokens and weights, per
+    element against the plain version on the same stored values (the
+    upcasts are exact, so the f32 bound holds, with the tensor cores'
+    steps of D on route ``mma``), with bias + SiLU and a bf16 output; the
+    route the wrapper names is the one counted, and at the serving widths
+    every pair that becomes one 16-bit type exactly takes the tensor
+    cores."""
+    from repro_torch.core import Epilogue
+    from repro_torch.kernels import grouped_matmul as gm
+
+    x, te, w, b = _gmm_operands(dev, tile, 4, 5, d, f, torch.float32,
+                                tile + d + f)
+    x, w = x.to(x_dtype), w.to(w_dtype)
+    route = gm.gmm_route(x.dtype, w.dtype, d, f, x.data_ptr(), w.data_ptr())
+    if d == 4096:  # the serving widths: every exact 16-bit pair on mma
+        exact16 = ((x_dtype, w_dtype) == (torch.bfloat16, torch.bfloat16)
+                   or (x_dtype, w_dtype) in gm.MMA_NARROW_PAIRS)
+        assert (route == "mma") == exact16
+    terms = gm.grouped_matmul_plain(x.float().abs(), te, w.float().abs(),
+                                    token_tile=tile)
+    for ep, bias in ((Epilogue("silu", bias=True), b),
+                     (Epilogue(out_dtype="bfloat16"), None)):
+        kw = dict(bias=bias, epilogue=ep, token_tile=tile)
+        before = gm.ROUTE_LAUNCHES[route]
+        got = gm.grouped_matmul(x, te, w, f_tile=f, d_tile=d, **kw)
+        assert gm.ROUTE_LAUNCHES[route] == before + 1
+        want = gm.grouped_matmul_plain(x, te, w, **kw)
+        t = terms if bias is None else terms + bias[te.long()].abs(
+        ).repeat_interleave(tile, 0)
+        _assert_within_terms(got, want, t,
+                             _mma_k(d) if route == "mma" else K_TERMS)
+
+
+def test_moe_with_e4m3_experts_and_fp16_on_cuda(dev):
+    """``apply_moe`` with e4m3 expert weights beside bf16 tokens takes the
+    tensor cores for its gate and up projections and the down projection
+    (bf16 h), and matches the same layer with the experts upcast to bf16
+    bit for bit; at fp16 it matches the CPU."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.core.dtypes import cast
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.models.moe import apply_moe, init_moe
+
+    cfg = smoke_config(ARCHS["qwen3-moe-235b-a22b"]).scaled(
+        param_dtype="bfloat16", compute_dtype="bfloat16")
+    p = init_moe(cfg, torch.Generator(device=dev).manual_seed(0))
+    p8 = {k: cast(v, torch.float8_e4m3fn) if k != "router" else v
+          for k, v in p.items()}
+    p16 = {k: v.to(torch.bfloat16) if k != "router" else v
+           for k, v in p8.items()}
+    x = _dense(dev, (24, cfg.d_model), 3).to(torch.bfloat16)
+    with torch.no_grad():
+        before = gm.ROUTE_LAUNCHES["mma"]
+        got, _ = apply_moe(cfg, p8, x)
+        assert gm.ROUTE_LAUNCHES["mma"] == before + 3
+        want, _ = apply_moe(cfg, p16, x)
+        assert torch.equal(got, want)
+        cfg16 = cfg.scaled(param_dtype="float16", compute_dtype="float16")
+        ph = {k: v.to(torch.float16) if k != "router" else v
+              for k, v in p.items()}
+        xh = x.to(torch.float16)
+        before = gm.ROUTE_LAUNCHES["mma"]
+        got, _ = apply_moe(cfg16, ph, xh)
+        assert gm.ROUTE_LAUNCHES["mma"] == before + 3
+        want, _ = apply_moe(cfg16, {k: v.cpu() for k, v in ph.items()},
+                            xh.cpu(), device="cpu")
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=2.0 ** -9, atol=1e-3)
+
