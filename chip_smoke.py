@@ -114,6 +114,24 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   fp16 and f32 tokens, ``ServeEngine`` served; prefill, decode-step ms
   and tokens/s of both serves.
 
+- user-defined reduction strategies (``user``, before ``moe_serve``),
+  registered in this script in torch (``user_strategies``: a port of
+  quickstart's ``"onehot-tile"``, its spec alone, a segment max with
+  ``combine="max"`` and with a callable combine, a spec generic in the
+  monoid): the partials kernel against its plain version bit for bit on
+  both graphs' streams at N = 256 and 40, window by window, and the
+  combine under add, max and min; the GCN served under the one-hot
+  strategy and its spec at nnz tile 4096 (3 requests against the
+  built-in ``segment`` forward, each layer against f64 within K_TERMS)
+  and at 256 (one request, for the record), each forward timed beside
+  the built-in's with the tiles it walks; one training step under the
+  one-hot strategy (gradients against the built-in step within
+  GRAD_RTOL; its backward must launch the partials kernel); EB under the
+  max and the callable combine on both graphs against the plain walk
+  on the card bit for bit; the readout (mean, max) under the generic
+  spec against the built-in kernel (max bit for bit, mean within
+  K_TERMS); and the two kernels timed on one social forward's work.
+
 It prints kernel, forward, training-step, attention, readout, tuning,
 prefill and decode times, EB, RB and ``torch.sparse.mm`` at N = 64 and 128 on both
 graphs, the launch counts of each path, a ``{"kernels": [...]}``
@@ -251,6 +269,12 @@ KERNEL_META = {
                        "src/repro/kernels/segment_reduce.py:50"),
     "grouped_matmul": ("src/repro_torch/kernels/csrc/grouped_matmul.cu",
                        "src/repro/kernels/grouped_matmul.py:79"),
+    # a user strategy on EB: the lane partials (the front of the EB body,
+    # before group_reduce_scatter) and the combine of spec_fallback_pallas
+    "eb_partials": ("src/repro_torch/kernels/csrc/eb_partials.cu",
+                    "src/repro/kernels/spmm_eb.py:44"),
+    "user_combine": ("src/repro_torch/kernels/csrc/eb_partials.cu",
+                     "src/repro/kernels/common.py:167"),
 }
 
 
@@ -306,14 +330,15 @@ def device_ms(fn, calls: int = 20, windows: int = 3) -> dict:
     the next launch, which bounds calls of a few tens of microseconds.
     The profiler now and then records no kernel or only some of a
     window's (one window read a walk at 0.42x its bytes bound on the
-    H100), so a window counts only where every kernel name holds the
+    H100), so each window opens with one call in the profiler's warm-up
+    step, and a window counts only where every kernel name holds the
     most events any window saw for it, a whole multiple of ``calls``;
     fails after 3 x ``windows`` tries with fewer complete windows."""
     import statistics
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(2):
         fn()
@@ -321,14 +346,24 @@ def device_ms(fn, calls: int = 20, windows: int = 3) -> dict:
     seen = []  # (ms per call, events) by kernel name, one per window
     complete = []
     for _ in range(3 * windows):
+        # one call in the profiler's warm-up step, whose events it drops:
+        # windows that opened on the timed calls recorded one walk launch
+        # fewer than the calls in all nine tries of one H100 run
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            prof.step()
         ms, events = {}, {}
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
+            if (e.device_type == DeviceType.CUDA
+                    and not e.key.startswith("ProfilerStep")):
                 ms[e.key] = ms.get(e.key, 0.0) + (
                     e.self_device_time_total / 1e3 / calls)
                 events[e.key] = events.get(e.key, 0) + e.count
@@ -1782,7 +1817,7 @@ def plain_spmm(adj, b, sched, bias):
     selects, on the CSR's feed for it (the grouping of the sums is the
     schedule's) at the schedule's value storage, and the magnitudes of
     the terms entering each output (the stored values upcast)."""
-    from repro_torch.kernels import spmm_eb, spmm_rb
+    from repro_torch.kernels import eb_partials, spmm_eb, spmm_rb
 
     adj_s, scales, b = stored(adj, b, sched.value_dtype)
     if sched.kernel == "eb":
@@ -1795,7 +1830,8 @@ def plain_spmm(adj, b, sched, bias):
                   group_size=sched.group_size, strategy=sched.strategy,
                   heavy_tiles=g.heavy_tiles)
         term_args = (g.rows, g.cols,
-                     spmm_eb.lane_values(g.vals, g.rows, scales), b.float())
+                     eb_partials.lane_values(g.vals, g.rows, scales),
+                     b.float())
     else:
         e = adj_s.ell(row_tile=sched.row_tile)
         kernel, plain, args = "spmm_rb", spmm_rb.spmm_rb_plain, (
@@ -3713,6 +3749,437 @@ def narrow_moe(cfg, params, dev, counters):
                      (b["counts"], "narrow serve fp16")]}
 
 
+#: The user phase: EB's nnz tiles (the kernel's largest, and the default
+#: for the record, where the per-tile loop of the user's code dominates),
+#: its group size, and the strategies the GCN is served under.
+USER_NNZ_TILES = (4096, 256)
+USER_GROUP = 32
+USER_SERVED = ("onehot-tile", "onehot-spec")
+
+
+def user_strategies():
+    """Register the user phase's strategies in the port's registry, each
+    written in torch and creating its tensors on the device of the
+    partials it is handed: ``onehot-tile``, a port of quickstart's
+    (``examples/quickstart.py``: a one-hot product per tile, spec and
+    realization); ``onehot-spec``, its spec alone (the path of the
+    reference's ``spec_fallback_pallas``); ``seg-max``, a segment max
+    registered with ``combine="max"``; ``seg-max-callable``, the same spec
+    with a callable combine and its identity; ``seg-generic``, a spec that
+    reduces under whatever monoid the op names."""
+    import torch
+    from repro_torch.core import register_strategy
+
+    def onehot(ids, n, dtype):
+        return (ids[:, None] == torch.arange(n, device=ids.device)).to(dtype)
+
+    def onehot_spec(p, ids, n, group_size):
+        return onehot(ids, n, p.dtype).T @ p
+
+    def onehot_tile(ids, p, out, group_size):
+        out += onehot(ids, out.shape[0], p.dtype).T @ p
+
+    def seg_max(p, ids, n, group_size):
+        return torch.full((n, p.shape[1]), -math.inf,
+                          device=p.device).scatter_reduce_(
+            0, ids.long()[:, None].expand_as(p), p, "amax")
+
+    def seg_generic(p, ids, n, group_size, monoid):
+        return monoid.seg_reduce(p, ids, n)
+
+    register_strategy("onehot-tile", onehot_spec, onehot_tile, overwrite=True)
+    register_strategy("onehot-spec", onehot_spec, overwrite=True)
+    register_strategy("seg-max", seg_max, combine="max", overwrite=True)
+    register_strategy("seg-max-callable", seg_max,
+                      combine=lambda a, b: torch.maximum(a, b),
+                      identity=-math.inf, overwrite=True)
+    register_strategy("seg-generic", seg_generic, overwrite=True)
+
+
+def user_windows(g, n_cols):
+    """The lane windows ``run_user_strategy`` asks the partials kernel for
+    over the GroupedCOO ``g`` at ``n_cols`` columns: whole nnz tiles, at
+    most ``WINDOW_BYTES`` of f32 partials each."""
+    from repro_torch.kernels.common import window_tiles
+
+    per = window_tiles(g.nnz_tile, n_cols) * g.nnz_tile
+    n = g.vals.shape[0]
+    return [(t0, min(n, t0 + per)) for t0 in range(0, n, per)]
+
+
+def tile_spans(g):
+    """(lo, hi) of the rows each nnz tile of ``g`` spans."""
+    import torch
+
+    t = g.rows.reshape(-1, g.nnz_tile)
+    return torch.stack([t.amin(1), t.amax(1)], 1).tolist()
+
+
+def user_check_kernels(graphs, x, model, checker):
+    """The partials kernel against its plain version, bit for bit, on each
+    graph's stream at the served widths (B = X W1, N = 256, and
+    relu(X W1) W2, N = 40) window by window, as the main path cuts them;
+    the combine kernel against its plain version under add, max and min
+    on spans of the accumulator's rows the social graph's tiles give."""
+    import torch
+    from repro_torch.core import MONOIDS
+    from repro_torch.kernels import common, eb_partials
+
+    b256 = x @ model.w1
+    b40 = torch.relu(b256) @ model.w2
+    for name, (adj, _) in graphs.items():
+        g = adj.grouped(USER_NNZ_TILES[0])
+        for b in (b256, b40):
+            wins = user_windows(g, b.shape[1])
+            for t0, t1 in wins:
+                args = (g.rows[t0:t1], g.cols[t0:t1], g.vals[t0:t1], b)
+                got = eb_partials.eb_partials(*args, n_rows=adj.shape[0])
+                want = eb_partials.eb_partials_plain(*args)
+                checker.record("eb_partials",
+                               f"{name} N={b.shape[1]} lanes {t0}-{t1}",
+                               got, want, exact=True)
+                del got, want
+    spans = tile_spans(graphs["social"][0].grouped(USER_NNZ_TILES[0]))
+    widest = max(spans, key=lambda s: s[1] - s[0])
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 25)
+    acc = torch.randn(N_NODES, HIDDEN, generator=gen).to(x.device)
+    acc.view(-1)[::97] = -0.0
+    for lo, hi in (widest, spans[len(spans) // 2]):
+        tile = torch.randn(hi - lo + 1, HIDDEN, generator=gen).to(x.device)
+        tile.view(-1)[::89] = 0.0
+        for op in ("add", "max", "min"):
+            got, want = acc.clone(), acc.clone()
+            eb_partials.combine(got[lo:hi + 1], tile, MONOIDS[op])
+            common.combine_plain(want[lo:hi + 1], tile, MONOIDS[op])
+            checker.record("user_combine", f"{op} rows {lo}-{hi}", got,
+                           want, exact=True)
+
+
+def user_twin(model, strategy, tile):
+    """A GCN with ``model``'s weights served under ``Schedule("eb",
+    nnz_tile=tile, group_size=USER_GROUP, strategy=strategy)``."""
+    from repro_torch.core import Schedule
+    from repro_torch.models import GCN
+
+    twin = GCN(N_FEAT, HIDDEN, N_CLASS, device=model.w1.device,
+               schedule=Schedule("eb", nnz_tile=tile, group_size=USER_GROUP,
+                                 strategy=strategy))
+    twin.load_state_dict(model.state_dict())
+    return twin
+
+
+def user_layers_k(adj, x, model, tile, strategy):
+    """Each GCN layer under ``strategy`` and under the built-in
+    ``segment`` at nnz tile ``tile``, held against f64 on the served
+    data (ROADMAP section 3 item 8): the largest error of each in units
+    of 2^-24 of the terms entering an output.  Returns (layer, user k,
+    built-in k) for both layers."""
+    import torch
+    from repro_torch.core import Epilogue, Schedule
+    from repro_torch.sparse import spmm
+
+    out = []
+    b, bias, ep = x @ model.w1, model.b1, Epilogue("relu", bias=True)
+    for layer in (1, 2):
+        sched = Schedule("eb", nnz_tile=tile, group_size=USER_GROUP,
+                         epilogue=ep)
+        got = spmm(adj, b, sched.replace(strategy=strategy), bias=bias,
+                   device=b.device)
+        builtin = spmm(adj, b, sched, bias=bias, device=b.device)
+        _, _, terms = plain_spmm(adj, b, sched, bias)
+        exact = exact_spmm(adj, b, ep, bias)
+        unit = 2.0 ** -24 * (terms.double() + exact.abs())
+        ks = [float(((t.double() - exact).abs() / unit).max())
+              for t in (got, builtin)]
+        out.append((layer, *ks))
+        del builtin, terms, exact, unit
+        if layer == 1:
+            b, bias, ep = got @ model.w2, None, Epilogue()
+        del got
+        torch.cuda.empty_cache()
+    return out
+
+
+def user_serve(graphs, x, model, counters, checker):
+    """The GCN served under ``onehot-tile`` and ``onehot-spec`` on both
+    graphs: at nnz tile 4096, REQUESTS forwards with the counts zeroed
+    just before and read just after, each against the built-in
+    ``segment`` forward at the same tile (F32_TOL of its largest
+    magnitude), every layer against f64 within K_TERMS, and the forward
+    timed beside the built-in's (CUDA events); at nnz tile 256 one
+    forward checked and one timed, for the record.  Returns the runs and
+    the timing rows."""
+    import torch
+
+    runs, rows = [], []
+    for name, (adj, _) in graphs.items():
+        for tile in USER_NNZ_TILES:
+            builtin = user_twin(model, "segment", tile)
+            want = builtin(adj, x)
+            ms_builtin = cuda_ms(lambda: builtin(adj, x), 5, 1)
+            n_tiles = 2 * adj.grouped(tile).vals.shape[0] // tile
+            for strategy in USER_SERVED:
+                m = user_twin(model, strategy, tile)
+                for k in counters.values():
+                    k.launches = 0
+                reqs = REQUESTS if tile == USER_NNZ_TILES[0] else 1
+                host = []
+                for i in range(reqs):
+                    t0 = time.perf_counter()
+                    got = m(adj, x)
+                    torch.cuda.synchronize()
+                    host.append((time.perf_counter() - t0) * 1e3)
+                    err, tol, ok = compare(got, want)
+                    if not ok:
+                        checker.failures.append(
+                            f"user serve {name} {strategy} tile {tile} "
+                            f"request {i}: {err:.3e} above {tol}")
+                counts = {n: k.launches for n, k in counters.items()}
+                label = f"user serve {name} {strategy} tile {tile}"
+                kernels = ("eb_partials", "epilogue") + (
+                    ("user_combine",) if strategy == "onehot-spec" else ())
+                runs.append((counts, label, kernels))
+                ms = (cuda_ms(lambda: m(adj, x), 2, 1)
+                      if tile == USER_NNZ_TILES[0] else host[-1])
+                print(f"{label}: request ms "
+                      + ", ".join(f"{t:.1f}" for t in host)
+                      + f"; against the built-in forward max_abs_err "
+                      f"{err:.3e} (tol {tol}); launches {counts}",
+                      flush=True)
+                if tile == USER_NNZ_TILES[0]:
+                    for layer, k_user, k_builtin in user_layers_k(
+                            adj, x, model, tile, strategy):
+                        ok = k_user <= K_TERMS
+                        print(f"  {label} layer {layer} against f64: k "
+                              f"{k_user:.3f} (built-in segment {k_builtin:.3f};"
+                              f" tol K_TERMS {K_TERMS}) "
+                              f"{'ok' if ok else 'FAIL'}", flush=True)
+                        if not ok:
+                            checker.failures.append(
+                                f"{label} layer {layer}: k {k_user:.3f} "
+                                "against f64")
+                rows.append((name, strategy, tile, ms, ms_builtin, n_tiles))
+                del got, m
+            del builtin, want
+            torch.cuda.empty_cache()
+    return runs, rows
+
+
+def user_train(adj, x, model, counters):
+    """One training step of the GCN (layer 1's bias and relu fused) under
+    ``onehot-tile`` at nnz tile 4096 on ``adj``: the weights' gradients
+    against the built-in ``segment`` step's within GRAD_RTOL relative L2;
+    the backward recomputes layer 1's pre-activation under the same
+    schedule, so the partials kernel must launch in the backward too.
+    Returns the step's counts."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 26)
+    labels = torch.randint(0, N_CLASS, (N_NODES,), generator=gen).to(x.device)
+    grads, counts = {}, None
+    for strategy in ("segment", "onehot-tile"):
+        m = user_twin(model, strategy, USER_NNZ_TILES[0])
+        loss = torch.nn.functional.cross_entropy(m(adj, x), labels)
+        for k in counters.values():
+            k.launches = 0
+        grads[strategy] = torch.autograd.grad(loss, (m.w1, m.b1, m.w2))
+        if strategy != "segment":
+            counts = {n: k.launches for n, k in counters.items()}
+    errs = [rel_l2(g, w) for g, w in zip(grads["onehot-tile"],
+                                         grads["segment"])]
+    print("user train social onehot-tile: gradients of w1, b1, w2 against "
+          "the built-in segment step, relative L2 "
+          + ", ".join(f"{e:.3e}" for e in errs)
+          + f" (tol {GRAD_RTOL}); backward launches {counts}", flush=True)
+    if max(errs) > GRAD_RTOL:
+        fail(f"user train: gradients {errs} above {GRAD_RTOL}")
+    if counts["eb_partials"] == 0:
+        fail("user train: the backward launched no partials kernel")
+    return counts
+
+
+def user_max_spmm(graphs, x, model, counters, checker):
+    """EB under ``seg-max`` (``combine="max"``) and ``seg-max-callable`` on
+    both graphs at N = 256, against the plain walk on the card (the
+    same tile walk over ``eb_partials_plain``'s partials, which equal the
+    kernel's bit for bit) bit for bit.  Returns the runs."""
+    from repro_torch.core import Schedule
+    from repro_torch.kernels import spmm_eb
+    from repro_torch.sparse import spmm
+
+    runs = []
+    b = x @ model.w1
+    for name, (adj, _) in graphs.items():
+        g = adj.grouped(USER_NNZ_TILES[0])
+        for strategy in ("seg-max", "seg-max-callable"):
+            for k in counters.values():
+                k.launches = 0
+            got = spmm(adj, b, Schedule("eb", nnz_tile=USER_NNZ_TILES[0],
+                                        group_size=USER_GROUP,
+                                        strategy=strategy), device=b.device)
+            counts = {n: k.launches for n, k in counters.items()}
+            want = spmm_eb.spmm_eb_plain(
+                g.rows, g.cols, g.vals, b, n_rows=adj.shape[0],
+                nnz_tile=USER_NNZ_TILES[0], group_size=USER_GROUP,
+                strategy=strategy)
+            label = f"user spmm {name} {strategy}"
+            checker.record("user_combine", f"{name} {strategy} N=256", got,
+                           want, exact=True)
+            kernels = ("eb_partials",) + (
+                ("user_combine",) if strategy == "seg-max" else ())
+            runs.append((counts, label, kernels))
+            del got, want
+    return runs
+
+
+def user_readout(x, model, adj, counters, checker):
+    """The readout under ``seg-generic`` (mean and max over segments of
+    READOUT_SIZE nodes of the served GCN's output) at both nnz tiles,
+    against the built-in ``segment`` kernel: max bit for bit, mean within
+    K_TERMS of the terms entering it.  Returns the runs."""
+    import torch
+    from repro_torch.core import Schedule
+    from repro_torch.sparse import segment_reduce
+
+    h = model(adj, x)
+    seg = (torch.arange(N_NODES, device=x.device) // READOUT_SIZE).to(
+        torch.int32)
+    n_seg = -(-N_NODES // READOUT_SIZE)
+    runs = []
+    for tile in USER_NNZ_TILES:
+        for op in ("mean", "max"):
+            sched = Schedule("eb", nnz_tile=tile, group_size=USER_GROUP)
+            for k in counters.values():
+                k.launches = 0
+            got = segment_reduce(seg, h, n_seg, sched.replace(
+                strategy="seg-generic"), op=op, device=h.device)
+            counts = {n: k.launches for n, k in counters.items()}
+            want = segment_reduce(seg, h, n_seg, sched, op=op,
+                                  device=h.device)
+            label = f"user readout {op} tile {tile}"
+            if op == "max":
+                checker.record("user_combine", label, got, want, exact=True)
+            else:
+                terms = segment_reduce(seg, h.abs(), n_seg, sched, op=op,
+                                       device=h.device)
+                checker.record_terms("user_combine", label, got, want, terms)
+            runs.append((counts, label, ("user_combine",)))
+    return runs
+
+
+def user_kernel_rows(adj, x, model):
+    """The two kernels' rows of the ``{"kernels": [...]}`` line, on the
+    work of one social forward at nnz tile 4096, replayed without the
+    user's code between launches: the partials kernel over both layers'
+    windows (CUDA events around back-to-back launches, each a few tenths
+    of a millisecond), the combine over every tile's span at both widths
+    under add (device time under the profiler, ``device_ms``: a launch
+    takes microseconds on the card and far longer on the host; the
+    CUDA-event window printed beside it), each beside the same work
+    through its plain version, with the bytes and operations of that
+    work; the combine also beside ``acc.add_(tile)`` over the same
+    spans (``library_ms``), which the port never calls."""
+    import torch
+    from repro_torch.core import MONOIDS
+    from repro_torch.kernels import common, eb_partials
+
+    g = adj.grouped(USER_NNZ_TILES[0])
+    b256 = x @ model.w1
+    b40 = torch.relu(b256) @ model.w2
+    lanes = g.vals.shape[0]
+    nbytes = flops = 0
+    calls = []
+    for b in (b256, b40):
+        n = b.shape[1]
+        nbytes += lanes * 8 + b.numel() * 4 + lanes * n * 4
+        flops += lanes * n
+        calls += [(g.rows[t0:t1], g.cols[t0:t1], g.vals[t0:t1], b)
+                  for t0, t1 in user_windows(g, n)]
+
+    def partials(fn, **kw):
+        for c in calls:
+            fn(*c, **kw)
+
+    rows = {"eb_partials": dict(
+        ms=cuda_ms(lambda: partials(eb_partials.eb_partials,
+                                    n_rows=adj.shape[0]), 3, 1),
+        plain_ms=cuda_ms(lambda: partials(eb_partials.eb_partials_plain),
+                         3, 1),
+        bytes=nbytes, flops=flops, library_ms=None, launches=len(calls))}
+    spans = tile_spans(g)
+    widest = max(hi - lo + 1 for lo, hi in spans)
+    accs = [(torch.zeros(N_NODES, n, device=x.device),
+             torch.ones(widest, n, device=x.device))
+            for n in (HIDDEN, N_CLASS)]
+    cbytes = sum(3 * (hi - lo + 1) * acc.shape[1] * 4
+                 for acc, _ in accs for lo, hi in spans)
+    cflops = sum((hi - lo + 1) * acc.shape[1]
+                 for acc, _ in accs for lo, hi in spans)
+
+    def combines(fn):
+        for acc, buf in accs:
+            for lo, hi in spans:
+                fn(acc[lo:hi + 1], buf[:hi - lo + 1], MONOIDS["add"])
+
+    kernel = lambda: combines(eb_partials.combine)  # noqa: E731
+    plain = lambda: combines(common.combine_plain)  # noqa: E731
+    # the add combine is one PyTorch call a span: the yardstick
+    library = lambda: combines(  # noqa: E731
+        lambda acc, tile, _: acc.add_(tile))
+    rows["user_combine"] = dict(
+        ms=sum(device_ms(kernel, 2, 2).values()),
+        plain_ms=sum(device_ms(plain, 2, 2).values()),
+        library_ms=sum(device_ms(library, 2, 2).values()),
+        window_ms=cuda_ms(kernel, 2, 1), bytes=cbytes, flops=cflops,
+        launches=2 * len(spans))
+    for name, r in rows.items():
+        print(f"user kernel {name}: one social forward's {r['launches']} "
+              f"launches {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+              + (f", torch add_ {r['library_ms']:.4f} ms"
+                 if r["library_ms"] is not None else "")
+              + (f" (device time; the CUDA-event window of the launches "
+                 f"{r['window_ms']:.4f} ms)" if "window_ms" in r else "")
+              + f", bound {bound(r['bytes'], r['flops'])[0]:.4f} ms",
+              flush=True)
+    return rows
+
+
+def user_phase(graphs, x, model, counters):
+    """User-defined reduction strategies on the card (the paper's
+    challenge 2): the partials and combine kernels against their plain
+    versions (:func:`user_check_kernels`), the GCN served under
+    quickstart's strategy and a spec alone (:func:`user_serve`), one
+    training step (:func:`user_train`), EB under a max and a callable
+    combine (:func:`user_max_spmm`) and the readout
+    (:func:`user_readout`).  Returns the runs (counts, path, the kernels
+    it must launch), the worst errors and the kernels' timing rows."""
+    import torch
+
+    t0 = time.perf_counter()
+    user_strategies()
+    checker = Checker(("eb_partials", "user_combine"))
+    social = graphs["social"][0]
+    with torch.no_grad():
+        user_check_kernels(graphs, x, model, checker)
+        torch.cuda.empty_cache()
+        runs, rows = user_serve(graphs, x, model, counters, checker)
+    runs.append((user_train(social, x, model, counters), "user train social",
+                 ("eb_partials", "epilogue")))
+    with torch.no_grad():
+        runs += user_max_spmm(graphs, x, model, counters, checker)
+        runs += user_readout(x, model, social, counters, checker)
+        results = user_kernel_rows(social, x, model)
+    worst = checker.done()
+    for name, strategy, tile, ms, ms_builtin, n_tiles in rows:
+        print(f"user forward {name} {strategy} nnz_tile {tile}: {ms:.4f} ms "
+              f"({'CUDA events, mean of 2' if tile == USER_NNZ_TILES[0] else 'host clock, one request'}); "
+              f"built-in segment {ms_builtin:.4f} ms; {n_tiles} tiles walked,"
+              f" {ms / n_tiles * 1e3:.2f} us a tile", flush=True)
+    print(f"user: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return {"runs": runs, "worst": worst, "results": results}
+
+
 def main() -> None:
     import torch
 
@@ -3723,6 +4190,7 @@ def main() -> None:
         from repro_torch.core import Schedule
         from repro_torch.kernels import (
             build,
+            eb_partials,
             fused_attention,
             grouped_matmul,
             sddmm,
@@ -3776,7 +4244,9 @@ def main() -> None:
                 "fused_attention_fwd": fused_attention.FWD_KERNEL,
                 "fused_attention_bwd": fused_attention.BWD_KERNEL,
                 "segment_reduce": segment_reduce.KERNEL,
-                "grouped_matmul": grouped_matmul.KERNEL}
+                "grouped_matmul": grouped_matmul.KERNEL,
+                "eb_partials": eb_partials.KERNEL,
+                "user_combine": eb_partials.COMBINE}
     runs, expected = [], []  # each path's counts; the kernels it must use
     with torch.no_grad():  # serving
         for name, model in (("social", social_model),
@@ -3858,6 +4328,16 @@ def main() -> None:
                          else ("fused_attention_fwd", "fused_attention_bwd")))
     for k, v in narrow["worst"].items():
         worst[k] = max(worst.get(k, 0.0), v)
+
+    # user-defined reduction strategies: EB and segment reduce through the
+    # partials and combine kernels around the user's code
+    user = user_phase(graphs, x, social_model, counters)
+    for counts, label, kernels in user["runs"]:
+        runs.append(counts)
+        expected.append((label, kernels))
+    for k, v in user["worst"].items():
+        worst[k] = max(worst.get(k, 0.0), v)
+    results.update(user["results"])
 
     # MoE serving at full width, 4 layers
     with torch.no_grad():

@@ -3,10 +3,22 @@
 * the reduction-strategy registry: a strategy is a name, a spec (the
   plain-PyTorch contract in ``core.segment_group``) and a kernel
   realization slot.  The slot holds the plain PyTorch realization that
-  ``kernels/common.py`` attaches for the built-ins; the CUDA EB kernel
-  realizes the three built-ins by name.  A user strategy registered with
-  only a spec runs on CPU tensors through the spec, and raises on CUDA
-  tensors until a CUDA realization slot exists;
+  ``kernels/common.py`` attaches for the built-ins; the CUDA EB and
+  segment-reduce kernels realize the three built-ins by name.  A user
+  strategy runs on both devices tile by tile
+  (``kernels/common.py::run_user_strategy``): its realization, or its
+  spec, in torch on the device of the tile's f32 partials (on the card
+  the partials kernel writes them, and the combine kernel folds a spec's
+  result in under the strategy's monoid).  It sees each nnz tile's ids
+  offset by the tile's lowest id ``lo``: ``seg_ids - lo``,
+  ``num_segments = hi - lo + 1`` for the highest id ``hi``, and, for a
+  realization, ``out`` the rows ``lo..hi`` of the accumulator, a view
+  written in place.  The reference passes global ids and the whole
+  output block; offsets keep every relation between ids and every group
+  boundary, so a spec or realization that depends on ids only through
+  those gives the same result, and a one-hot costs the tile's span, not
+  the output's height; one that reads an id's value (a per-row table, a
+  normalisation by ``num_segments``) gives another answer than there;
 * :class:`Epilogue` and :data:`ACTIVATIONS` (``gelu`` is the tanh
   approximation, as ``jax.nn.gelu`` defaults to);
 * :class:`Schedule` with the reference's fields and validation, plus one

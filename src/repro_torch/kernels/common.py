@@ -76,19 +76,25 @@ CUDA_VALUE_PAIRS = ((torch.float32, torch.float32),
                     (torch.float8_e4m3fn, torch.float8_e4m3fn),
                     (torch.int8, torch.bfloat16))
 
+#: Monoid codes of ``csrc/segment_reduce.cu`` and of the combine kernel of
+#: ``csrc/eb_partials.cu``.
+CUDA_OPS = {"add": 0, "max": 1, "min": 2}
+
 #: Threads an SpMM worker takes at least: a warp holds at most 8 workers
 #: (``csrc/spmm.cuh``, ``kMaxWorkersPerWarp``).
 MIN_WORKER_THREADS = 4
 
 
-def _combine_into(out, monoid: Monoid, tile):
-    out.copy_(monoid.combine(out, tile))
+def combine_plain(acc, tile, monoid: Monoid) -> None:
+    """``acc = monoid.combine(acc, tile)`` in place: the plain version of
+    the combine kernel (``eb_partials.combine``).  Runs on any device."""
+    acc.copy_(monoid.combine(acc, tile))
 
 
 def _plain_accumulate(rows, partial, out, group_size: int, *,
                       monoid: Monoid = _ADD):
     del group_size
-    _combine_into(out, monoid, monoid.seg_reduce(partial, rows, out.shape[0]))
+    combine_plain(out, monoid.seg_reduce(partial, rows, out.shape[0]), monoid)
 
 
 def _plain_parallel(rows, partial, out, group_size: int, *,
@@ -97,7 +103,7 @@ def _plain_parallel(rows, partial, out, group_size: int, *,
     G = group_size
     tot = monoid.reduce(partial.reshape(T // G, G, C), 1)
     leaders = rows.reshape(T // G, G)[:, 0]
-    _combine_into(out, monoid, monoid.seg_reduce(tot, leaders, out.shape[0]))
+    combine_plain(out, monoid.seg_reduce(tot, leaders, out.shape[0]), monoid)
 
 
 def _plain_segment(rows, partial, out, group_size: int, *,
@@ -111,18 +117,91 @@ def _plain_segment(rows, partial, out, group_size: int, *,
     run_id = torch.cumsum(starts, 0) - 1
     n_runs = int(run_id[-1]) + 1 if run_id.numel() else 0
     run_tot = monoid.seg_reduce(partial, run_id, n_runs)
-    _combine_into(out, monoid,
-                  monoid.seg_reduce(run_tot, rows[starts], out.shape[0]))
+    combine_plain(out, monoid.seg_reduce(run_tot, rows[starts],
+                                         out.shape[0]), monoid)
+
+
+#: Bytes of f32 lane partials a window of :func:`run_user_strategy` holds
+#: at most: whole nnz tiles, so that a larger graph's partials (3.12 GB
+#: on the social graph at N = 256) never need to exist at once.
+WINDOW_BYTES = 1 << 30
+
+
+def window_tiles(nnz_tile: int, n_cols: int) -> int:
+    """Whole nnz tiles a window of :func:`run_user_strategy` holds: as
+    many as fit :data:`WINDOW_BYTES` of f32 partials ``n_cols`` wide, at
+    least one."""
+    return max(1, WINDOW_BYTES // (nnz_tile * n_cols * 4))
+
+
+def run_user_strategy(entry, rows, acc, *, group_size: int, nnz_tile: int,
+                      partials, combine) -> None:
+    """Reduce the lanes of ``rows`` (T,) into ``acc`` (R, C) in place
+    under the user strategy ``entry``, one nnz tile at a time, as the
+    reference's kernels do: the realization (``kernel_fn``) runs on each
+    tile, or, lacking one, the spec, whose result ``combine(view, result,
+    monoid)`` folds into ``acc`` under the strategy's monoid.
+
+    ``partials(t0, t1)`` gives the (t1 - t0, C) f32 partials of lanes
+    [t0, t1); it is asked for windows of whole tiles of at most
+    :data:`WINDOW_BYTES`.  The same walk runs on both devices: CPU callers
+    hand it plain partials and a plain combine, CUDA callers the kernels
+    of ``eb_partials.py``.
+
+    The user's code sees each tile's rows offset by the tile's lowest
+    row ``lo``: ids ``rows - lo``, ``num_segments = hi - lo + 1`` (``hi``
+    the highest row), and, for a realization, ``out = acc[lo:hi + 1]``, a
+    view written in place; a spec's (span, C) result combines into the
+    same view.  Offsets keep every relation between ids and every group
+    boundary (a tile starts at a multiple of ``nnz_tile``, so of G)."""
+    T = rows.numel()
+    if T % nnz_tile or nnz_tile % group_size:
+        raise ValueError(f"T={T} is not a multiple of nnz_tile={nnz_tile}, "
+                         f"or nnz_tile of group_size={group_size}")
+    n_tiles = T // nnz_tile
+    if not n_tiles:
+        return
+    tiles = rows.reshape(n_tiles, nnz_tile)
+    bounds = torch.stack([tiles.amin(1), tiles.amax(1)], 1).tolist()
+    if min(lo for lo, _ in bounds) < 0 or max(
+            hi for _, hi in bounds) >= acc.shape[0]:
+        raise ValueError(f"row ids outside [0, {acc.shape[0]})")
+    per_window = window_tiles(nnz_tile, acc.shape[1])
+    takes_monoid = entry.kernel_fn is not None and accepts_monoid(
+        entry.kernel_fn)
+    for w0 in range(0, n_tiles, per_window):
+        w1 = min(n_tiles, w0 + per_window)
+        p = partials(w0 * nnz_tile, w1 * nnz_tile)
+        for k in range(w0, w1):
+            lo, hi = bounds[k]
+            ids = tiles[k] - lo
+            part = p[(k - w0) * nnz_tile:(k - w0 + 1) * nnz_tile]
+            out = acc[lo:hi + 1]
+            if entry.kernel_fn is None:
+                res = call_spec_fn(entry, part, ids, hi - lo + 1, group_size)
+                if tuple(res.shape) != tuple(out.shape):
+                    raise ValueError(
+                        f"strategy {entry.name!r}: its spec gave "
+                        f"{tuple(res.shape)} for a tile spanning "
+                        f"{tuple(out.shape)}")
+                combine(out, res, entry.monoid)
+            elif takes_monoid:
+                entry.kernel_fn(ids, part, out, group_size,
+                                monoid=entry.monoid)
+            else:
+                entry.kernel_fn(ids, part, out, group_size)
 
 
 def group_reduce_scatter(rows, partial, out, group_size: int,
                          strategy: str = "segment", *,
-                         nnz_tile: int, op=None) -> None:
+                         nnz_tile: int, op=None,
+                         combine=combine_plain) -> None:
     """Reduce ``partial`` (T, C) by ``rows`` (T,) into ``out`` (R, C) in
     place with the registered strategy under the monoid ``op`` names
     ('add' by default, 'max', 'min').  Built-ins are group-local and run
-    over the whole stream at once; a user strategy runs tile by tile,
-    through its realization or, lacking one, through its spec."""
+    over the whole stream at once; a user strategy runs tile by tile
+    through :func:`run_user_strategy`, its spec's results folded in by
+    ``combine`` (the plain combine, or the combine kernel's wrapper)."""
     T = partial.shape[0]
     if T % group_size or T % nnz_tile:
         raise ValueError(f"T={T} is not a multiple of group_size="
@@ -131,15 +210,10 @@ def group_reduce_scatter(rows, partial, out, group_size: int,
     if entry.builtin:
         entry.kernel_fn(rows, partial, out, group_size, monoid=entry.monoid)
         return
-    for t0 in range(0, T, nnz_tile):
-        r, p = rows[t0:t0 + nnz_tile], partial[t0:t0 + nnz_tile]
-        if entry.kernel_fn is None:
-            _combine_into(out, entry.monoid, call_spec_fn(
-                entry, p, r, out.shape[0], group_size))
-        elif accepts_monoid(entry.kernel_fn):
-            entry.kernel_fn(r, p, out, group_size, monoid=entry.monoid)
-        else:
-            entry.kernel_fn(r, p, out, group_size)
+    run_user_strategy(entry, rows, out, group_size=group_size,
+                      nnz_tile=nnz_tile,
+                      partials=lambda t0, t1: partial[t0:t1],
+                      combine=combine)
 
 
 def apply_epilogue_plain(acc, epilogue: Epilogue, bias=None, residual=None):

@@ -18,7 +18,7 @@ import torch
 
 from ..core.device import check_on, resolve_device
 from ..core.dtypes import cast, operand_dtype, storage_dtype
-from ..core.schedule import Epilogue, Schedule, get_strategy
+from ..core.schedule import Epilogue, Schedule
 from ..sparse.formats import (
     CSR,
     ELL,
@@ -41,20 +41,18 @@ def schedule_fits_card(sched: Schedule, *, n_rows: int,
     entries: False exactly where they refuse it.  The tuner filters its
     candidates with it, so no point it measures raises.
 
-    Every ``value_dtype`` runs wherever float32 does.  Refused: on 'eb',
-    an ``nnz_tile`` above ``MAX_NNZ_TILE`` or a strategy the CUDA kernel
-    does not realize (a user strategy, or one with its own combine); on
-    'rb', an ELL layout above ``ELL_MAX_BYTES`` (every row padded to
-    ``row_max``; 4 index bytes and the value bytes of the CSR it is built
-    from: int8 codes, f32 otherwise, since narrow floats cast the ELL's
-    stream).  The kernels' shared memory and registers are fixed when
-    they are built (a warp's staging window, not a tile, sizes them), so
-    no schedule exceeds a block's budget, and the matrix's column count
-    sets no limit."""
+    Every ``value_dtype`` runs wherever float32 does, and every
+    registered strategy on 'eb' (a user's through the partials and
+    combine kernels around its code).  Refused: on 'eb', an ``nnz_tile``
+    above ``MAX_NNZ_TILE``; on 'rb', an ELL layout above
+    ``ELL_MAX_BYTES`` (every row padded to ``row_max``; 4 index bytes
+    and the value bytes of the CSR it is built from: int8 codes, f32
+    otherwise, since narrow floats cast the ELL's stream).  The kernels'
+    shared memory and registers are fixed when they are built (a warp's
+    staging window, not a tile, sizes them), so no schedule exceeds a
+    block's budget, and the matrix's column count sets no limit."""
     if sched.kernel == "eb":
-        entry = get_strategy(sched.strategy)
-        return (sched.nnz_tile <= MAX_NNZ_TILE and entry.builtin
-                and entry.monoid.name == "add")
+        return sched.nnz_tile <= MAX_NNZ_TILE
     n_pad = round_up(max(n_rows, 1), sched.row_tile)
     entry_bytes = 4 + (1 if sched.value_dtype == "int8" else 4)
     return n_pad * max(row_max, 1) * entry_bytes <= ELL_MAX_BYTES

@@ -32,6 +32,13 @@ lane_rows`: its own segment, or its group's first lane's under
 ``parallel``) and all three reduce in registers.  A stream out of order
 runs the column-parallel walk at any width, each run closed by one
 atomic into an identity-filled output.
+
+A strategy the kernel does not realize (one a user registered, with its
+own combine or not) runs as the plain version does
+(``common.run_user_strategy``), on the card: the data, in f32, are its
+partials, the user's code runs on each tile in torch, and the combine
+kernel of ``csrc/eb_partials.cu`` folds a spec's result into the
+segments the tile spans.
 """
 from __future__ import annotations
 
@@ -42,12 +49,19 @@ import torch
 
 from ..core.schedule import get_strategy
 from .build import CudaKernel, ptr
-from .common import carry_plan, group_reduce_scatter, lane_rows, rows_sorted
+from .common import (
+    CUDA_OPS,
+    carry_plan,
+    combine_plain,
+    group_reduce_scatter,
+    lane_rows,
+    rows_sorted,
+)
+from .eb_partials import combine
 
-#: Strategy and monoid codes of ``csrc/segment_reduce.cu``: the
-#: built-ins it realizes.
+#: Strategy codes of ``csrc/segment_reduce.cu``: the built-ins it
+#: realizes (its monoid codes are ``common.CUDA_OPS``).
 CUDA_STRATEGIES = {"segment": 0, "parallel": 1, "accumulate": 2}
-CUDA_OPS = {"add": 0, "max": 1, "min": 2}
 
 #: Output widths up to this run lane-parallel (a thread holds its lanes'
 #: rows); wider ones column-parallel.  At most 8.
@@ -125,17 +139,12 @@ def _with_counts(data, count_column):
     return data
 
 
-def segment_reduce_plain(seg_ids, data, *, num_segments: int,
-                         tile: int = 256, group_size: int = 32,
-                         strategy: str = "segment", op: str = "add",
-                         count_column: bool = False):
-    """Plain version of the kernel, as the reference computes it: the
-    stream is extended to a ``tile`` multiple with lanes of segment
-    ``num_segments - 1`` carrying the identity, the output starts at the
-    identity, and the strategy's plain realization (built-ins over the
-    whole stream, a user strategy tile by tile) reduces into it.  With
-    ``count_column`` the data gains a column of ones.  Runs on any
-    device."""
+def _reduce(seg_ids, data, *, num_segments, tile, group_size, strategy,
+            op, count_column, combine):
+    """The reference's reduction: the stream extended to a ``tile``
+    multiple with lanes of segment ``num_segments - 1`` carrying the
+    identity, the output at the identity, and the strategy reducing into
+    it (a user's spec's results folded in by ``combine``)."""
     monoid = get_strategy(strategy, op=op).monoid
     data = _with_counts(data, count_column)
     t, c = data.shape
@@ -147,8 +156,24 @@ def segment_reduce_plain(seg_ids, data, *, num_segments: int,
     out = torch.full((num_segments, c), monoid.identity,
                      dtype=torch.float32, device=data.device)
     group_reduce_scatter(seg_ids, data, out, group_size, strategy,
-                         nnz_tile=tile, op=op)
+                         nnz_tile=tile, op=op, combine=combine)
     return out
+
+
+def segment_reduce_plain(seg_ids, data, *, num_segments: int,
+                         tile: int = 256, group_size: int = 32,
+                         strategy: str = "segment", op: str = "add",
+                         count_column: bool = False):
+    """Plain version of the kernel, as the reference computes it: the
+    stream is extended to a ``tile`` multiple with lanes of segment
+    ``num_segments - 1`` carrying the identity, the output starts at the
+    identity, and the strategy's plain realization (built-ins over the
+    whole stream, a user strategy tile by tile) reduces into it.  With
+    ``count_column`` the data gains a column of ones.  Runs on any
+    device."""
+    return _reduce(seg_ids, data, num_segments=num_segments, tile=tile,
+                   group_size=group_size, strategy=strategy, op=op,
+                   count_column=count_column, combine=combine_plain)
 
 
 def segment_reduce_chunked_plain(seg_ids, data, *, num_segments: int,
@@ -269,10 +294,12 @@ def segment_reduce(seg_ids, data, *, num_segments: int, tile: int = 256,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (and, for ids in order over more than one chunk, its finishing
-    launch), or raise for what it does not take (a user strategy, or a
-    strategy registered with its own combine).  An empty stream launches
-    nothing.  ``tile`` shapes only the plain version's padding: the
-    built-ins are group-local.
+    launch).  A user strategy runs on CUDA tensors as the plain version
+    runs it, over ``tile``-lane tiles, its spec's results folded in by
+    the combine kernel; for the built-ins ``tile`` shapes only the plain
+    version's padding (they are group-local).  A
+    built-in under a monoid other than add, max and min raises.  An
+    empty stream launches nothing.
     """
     _check(seg_ids, data, num_segments, tile, group_size)
     if data.device.type == "cpu":
@@ -285,11 +312,10 @@ def segment_reduce(seg_ids, data, *, num_segments: int, tile: int = 256,
         raise ValueError(f"no segment-reduce kernel for device "
                          f"{data.device}")
     entry = get_strategy(strategy, op=op)
-    if not entry.builtin or entry.monoid.name not in CUDA_OPS:
+    if entry.builtin and entry.monoid.name not in CUDA_OPS:
         raise NotImplementedError(
-            f"strategy {strategy!r} under op {op!r} has no CUDA "
-            f"realization; the CUDA kernel realizes "
-            f"{sorted(CUDA_STRATEGIES)} under {sorted(CUDA_OPS)}")
+            f"the CUDA kernel reduces the built-in strategies under "
+            f"{sorted(CUDA_OPS)}, not {entry.monoid.name!r}")
     if seg_ids.device != data.device:
         raise ValueError(f"seg_ids lie on {seg_ids.device}, data on "
                          f"{data.device}")
@@ -297,6 +323,11 @@ def segment_reduce(seg_ids, data, *, num_segments: int, tile: int = 256,
         return torch.full((num_segments, data.shape[1] + int(count_column)),
                           entry.monoid.identity, dtype=torch.float32,
                           device=data.device)
+    if not entry.builtin:
+        return _reduce(seg_ids.to(torch.int32), data,
+                       num_segments=num_segments, tile=tile,
+                       group_size=group_size, strategy=entry.name, op=op,
+                       count_column=count_column, combine=combine)
     return _launch(seg_ids.to(torch.int32).contiguous(),
                    data.to(torch.float32).contiguous(),
                    num_segments=num_segments, group_size=group_size,

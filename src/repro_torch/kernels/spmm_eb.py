@@ -28,6 +28,13 @@ per-row f32 ``scales`` on a bf16 B.  The kernel gathers B at its stored
 width and converts every value to f32 in registers (exactly), and an
 int8 code is dequantized with its own row's scale as its lane is staged,
 before the reduction; sums, carries and the finishing launch stay f32.
+
+A strategy the kernel does not realize (one a user registered) runs
+through :func:`spmm_eb_user`: the lane partials kernel of
+``csrc/eb_partials.cu`` writes windows of whole nnz tiles, the user's
+realization or spec runs on each tile in torch on the card, the combine
+kernel folds a spec's result into the rows the tile spans, and the
+finishing launch applies the epilogue once.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ import ctypes
 
 import torch
 
-from ..core.schedule import Epilogue, get_strategy
+from ..core.schedule import MONOIDS, Epilogue, get_strategy
 from .build import CudaKernel, ptr
 from .common import (
     apply_epilogue_plain,
@@ -46,9 +53,11 @@ from .common import (
     group_reduce_scatter,
     lane_rows,
     rows_sorted,
+    run_user_strategy,
     vec_width,
     worker_geometry,
 )
+from .eb_partials import combine, eb_partials, eb_partials_plain
 
 _NOOP = Epilogue()
 
@@ -77,13 +86,6 @@ FINISH = CudaKernel(
     "spmm_eb", "spmm_eb_finish_launch",
     [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 8,
     name="spmm_eb_finish")
-
-def lane_values(vals, rows, scales=None):
-    """The f32 value of each lane: the stored value upcast (exact), times
-    its own row's scale for int8 codes, as the kernel stages it."""
-    v = vals.to(torch.float32)
-    return v if scales is None else v * scales[rows.long()]
-
 
 def _check(rows, cols, vals, b, n_rows, nnz_tile, group_size, heavy_tiles):
     nnz_pad = vals.shape[0]
@@ -147,8 +149,7 @@ def spmm_eb_chunked_plain(rows, cols, vals, b, *, n_rows: int,
     chunk = chunk or eb_geometry(rows.numel(), nnz_tile, b.shape[1], 4)[2]
     a = lane_rows(rows, group_size=group_size, strategy=strategy,
                   heavy_tiles=heavy_tiles, nnz_tile=nnz_tile).long()
-    partial = lane_values(vals, rows, scales)[:, None] * b.to(
-        torch.float32)[cols.long()]
+    partial = eb_partials_plain(rows, cols, vals, b, scales)
     plan = eb_carry_plan(rows, chunk=chunk, group_size=group_size,
                          strategy=strategy, heavy_tiles=heavy_tiles,
                          nnz_tile=nnz_tile).tolist()
@@ -191,8 +192,7 @@ def spmm_eb_plain(rows, cols, vals, b, *, n_rows: int, nnz_tile: int = 256,
     dequantized per lane with ``scales``), then the strategy's plain
     realization (``parallel`` on the leading ``heavy_tiles``) and the
     epilogue.  Runs on any device."""
-    partial = lane_values(vals, rows, scales)[:, None] * b.to(
-        torch.float32)[cols.long()]
+    partial = eb_partials_plain(rows, cols, vals, b, scales)
     out = torch.zeros((n_rows, b.shape[1]), dtype=torch.float32,
                       device=b.device)
     split = heavy_tiles * nnz_tile
@@ -243,6 +243,57 @@ def _launch(rows, cols, vals, b, *, n_rows, nnz_tile, group_size, strategy,
     return out, carry_row, chunk
 
 
+def _finish(acc, epilogue: Epilogue, bias, residual):
+    """``epilogue(acc)`` of an f32 accumulator, once: EB's finishing
+    launch in its mode for streams out of order on CUDA tensors (in place
+    for an f32 output), the plain epilogue on CPU tensors."""
+    if acc.device.type == "cpu":
+        return apply_epilogue_plain(acc, epilogue, bias, residual)
+    bias_c, res_c, act, out_dtype, out_code = cuda_epilogue_args(
+        epilogue, bias, residual, acc.device)
+    if epilogue.is_noop:
+        return acc
+    out = acc if out_dtype == torch.float32 else torch.empty(
+        acc.shape, dtype=out_dtype, device=acc.device)
+    n_rows, n = acc.shape
+    FINISH.launch(acc.device, ptr(acc), None, None, ptr(bias_c), ptr(res_c),
+                  ptr(out), n_rows * n, 0, n, 1, 32, 32, act, out_code, 1)
+    return out
+
+
+def spmm_eb_user(rows, cols, vals, b, *, n_rows: int, nnz_tile: int = 256,
+                 group_size: int = 32, strategy: str, heavy_tiles: int = 0,
+                 epilogue: Epilogue = _NOOP, scales=None, bias=None,
+                 residual=None):
+    """The EB SpMM under a user strategy (one the kernel does not
+    realize), on either device, as the reference's kernel computes it:
+    an f32 accumulator starts at 0; the leading ``heavy_tiles`` run the
+    built-in ``parallel`` (:func:`spmm_eb`) and add into it through the
+    combine; the other tiles go through
+    :func:`~.common.run_user_strategy` on windows of lane partials
+    (:func:`~.eb_partials.eb_partials`), the user's code per tile, a
+    spec's result folded in by the combine under the strategy's monoid;
+    then :func:`_finish` applies the epilogue once.  Each piece launches
+    its kernel on CUDA tensors and runs its plain version on CPU
+    tensors."""
+    entry = get_strategy(strategy)
+    acc = torch.zeros((n_rows, b.shape[1]), dtype=torch.float32,
+                      device=b.device)
+    split = heavy_tiles * nnz_tile
+    if split:
+        combine(acc, spmm_eb(rows[:split], cols[:split], vals[:split], b,
+                             n_rows=n_rows, nnz_tile=nnz_tile,
+                             group_size=group_size, strategy="parallel",
+                             scales=scales), MONOIDS["add"])
+    r, c, v = rows[split:], cols[split:], vals[split:]
+    run_user_strategy(
+        entry, r, acc, group_size=group_size, nnz_tile=nnz_tile,
+        partials=lambda t0, t1: eb_partials(r[t0:t1], c[t0:t1], v[t0:t1], b,
+                                            n_rows=n_rows, scales=scales),
+        combine=combine)
+    return _finish(acc, epilogue, bias, residual)
+
+
 def spmm_eb(rows, cols, vals, b, *, n_rows: int, nnz_tile: int = 256,
             col_tile: int = 128, group_size: int = 32,
             strategy: str = "segment", heavy_tiles: int = 0,
@@ -261,9 +312,11 @@ def spmm_eb(rows, cols, vals, b, *, n_rows: int, nnz_tile: int = 256,
     ``residual`` is (n_rows, N), as the epilogue declares.  ``col_tile``
     is the TPU kernel's column block: the CUDA kernel's workers cover up
     to 512 columns each and take no column tile.  CPU tensors run the
-    plain version; CUDA tensors launch the kernel, or raise for what it
-    does not take (a user strategy, a (values, B) storage pair other than
-    those above).
+    plain version.  CUDA tensors launch the kernel, a user strategy
+    through :func:`spmm_eb_user` (the partials and combine kernels
+    around the user's code), or raise for what no kernel takes (a
+    (values, B) storage pair other than those above, an ``nnz_tile``
+    above ``MAX_NNZ_TILE``).
     """
     del col_tile
     _check(rows, cols, vals, b, n_rows, nnz_tile, group_size, heavy_tiles)
@@ -276,11 +329,6 @@ def spmm_eb(rows, cols, vals, b, *, n_rows: int, nnz_tile: int = 256,
                              residual=residual)
     if b.device.type != "cuda":
         raise ValueError(f"no EB kernel for device {b.device}")
-    entry = get_strategy(strategy)
-    if not entry.builtin or entry.monoid.name != "add":
-        raise NotImplementedError(
-            f"strategy {strategy!r} has no CUDA realization; the CUDA EB "
-            f"kernel realizes {sorted(CUDA_STRATEGIES)} under 'add'")
     if nnz_tile > MAX_NNZ_TILE:
         raise ValueError(f"nnz_tile {nnz_tile} > {MAX_NNZ_TILE}")
     for name, t, dt in (("rows", rows, torch.int32),
@@ -289,6 +337,12 @@ def spmm_eb(rows, cols, vals, b, *, n_rows: int, nnz_tile: int = 256,
         if t.device != b.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dt} tensor on "
                              f"{b.device}, got {t.dtype} on {t.device}")
+    if not get_strategy(strategy).builtin:
+        return spmm_eb_user(rows, cols, vals, b, n_rows=n_rows,
+                            nnz_tile=nnz_tile, group_size=group_size,
+                            strategy=strategy, heavy_tiles=heavy_tiles,
+                            epilogue=epilogue, scales=scales, bias=bias,
+                            residual=residual)
     return _launch(rows, cols, vals, b, n_rows=n_rows, nnz_tile=nnz_tile,
                    group_size=group_size, strategy=strategy,
                    heavy_tiles=heavy_tiles, epilogue=epilogue, bias=bias,

@@ -266,7 +266,7 @@ def test_eb_kernel_narrow_matches_plain(dev, vd, strategy, skew, n_dense):
     lanes take their own row's scale under 'parallel') against the plain
     version on the same stored inputs, which upcast exactly, so the f32
     bound holds unchanged."""
-    from repro_torch.kernels import spmm_eb
+    from repro_torch.kernels import eb_partials, spmm_eb
 
     c, scales, b = _stored(_matrix(dev), vd,
                            _dense(dev, (300, n_dense), 1))
@@ -281,7 +281,7 @@ def test_eb_kernel_narrow_matches_plain(dev, vd, strategy, skew, n_dense):
     assert spmm_eb.KERNEL.launches == before + 1
     want = spmm_eb.spmm_eb_plain(g.rows, g.cols, g.vals, b, scales=scales,
                                  **args)
-    v32 = spmm_eb.lane_values(g.vals, g.rows, scales)
+    v32 = eb_partials.lane_values(g.vals, g.rows, scales)
     _assert_within_terms(got, want, _terms(spmm_eb.spmm_eb_plain, g.rows,
                                            g.cols, v32, b.float(), **args))
 
@@ -292,7 +292,7 @@ def test_eb_kernel_narrow_carry_walk(dev, vd, n_dense):
     """Narrow storage over a hub row and a row across chunk boundaries:
     carry rows as ``eb_carry_plan``, the same bits over two launches, and
     the output against the plain version and its carry walk."""
-    from repro_torch.kernels import spmm_eb
+    from repro_torch.kernels import eb_partials, spmm_eb
 
     a = _hub_matrix(dev)
     c, scales, b = _stored(a, vd, _dense(dev, (a.shape[1], n_dense), 2))
@@ -313,7 +313,7 @@ def test_eb_kernel_narrow_carry_walk(dev, vd, n_dense):
         g.rows, chunk=chunk, group_size=32, strategy="segment",
         nnz_tile=128))
     assert torch.equal(got, again)
-    v32 = spmm_eb.lane_values(g.vals, g.rows, scales)
+    v32 = eb_partials.lane_values(g.vals, g.rows, scales)
     terms = _terms(spmm_eb.spmm_eb_plain, g.rows, g.cols, v32, b.float(),
                    **kw)
     _assert_within_terms(got, spmm_eb.spmm_eb_plain(
@@ -407,15 +407,166 @@ def test_narrow_spmm_and_quantization_on_cuda_match_cpu(dev, schedule, vd):
 
 
 def test_user_strategy_raises_on_cuda(dev):
+    """A spec-only user strategy runs on the card through the partials
+    and combine kernels, within K_TERMS of the CPU walk; the wrapper
+    raises only for what no kernel takes (an nnz tile above
+    ``MAX_NNZ_TILE``)."""
     import repro_torch.sparse as ts
     from repro_torch.core import Schedule, register_strategy, spec_segment
+    from repro_torch.kernels import eb_partials, spmm_eb
 
     register_strategy("t_cuda_user", spec_segment, overwrite=True)
     a = _matrix(dev)
-    with pytest.raises(NotImplementedError, match="no CUDA realization"):
-        ts.spmm(a, _dense(dev, (a.shape[1], 8), 8),
-                schedule=Schedule(nnz_tile=64, group_size=8,
-                                  strategy="t_cuda_user"))
+    b = _dense(dev, (a.shape[1], 8), 8)
+    sched = Schedule(nnz_tile=64, group_size=8, strategy="t_cuda_user")
+    before = (eb_partials.KERNEL.launches, eb_partials.COMBINE.launches)
+    got = ts.spmm(a, b, schedule=sched)
+    assert eb_partials.KERNEL.launches > before[0]
+    assert eb_partials.COMBINE.launches > before[1]
+    a_cpu = _matrix("cpu")
+    want = ts.spmm(a_cpu, b.cpu(), schedule=sched, device="cpu")
+    g = a_cpu.grouped(64)
+    _assert_within_terms(got.cpu(), want, _terms(
+        spmm_eb.spmm_eb_plain, g.rows, g.cols, g.vals, b.cpu(),
+        n_rows=a.shape[0], nnz_tile=64, group_size=8))
+    with pytest.raises(ValueError, match="nnz_tile"):
+        ts.spmm(a, b, schedule=sched.replace(
+            nnz_tile=2 * spmm_eb.MAX_NNZ_TILE))
+
+
+@pytest.mark.parametrize("vd", ("float32",) + VALUE_DTYPES)
+@pytest.mark.parametrize("n_dense", [40, 256])
+def test_eb_partials_kernel_matches_plain_bit_for_bit(dev, vd, n_dense):
+    """The lane partials of ragged windows of a stream (and of a B one
+    element off its alignment, which takes element loads) at every
+    storage pair: each partial the plain version's single product."""
+    from repro_torch.kernels import eb_partials
+
+    a = _hub_matrix(dev, n=1000, hub_len=2000, long_len=300)
+    dense = _dense(dev, (a.shape[1], n_dense), 3)
+    if vd == "float32":
+        c, scales, b = a, None, dense
+    else:
+        c, scales, b = _stored(a, vd, dense)
+    g = c.grouped(128)
+    off = torch.empty(b.numel() + 1, dtype=b.dtype, device=dev)[1:]
+    b_off = off.view(b.shape).copy_(b)
+    assert eb_partials.partials_vec(b_off) == 1
+    for bb in (b, b_off):
+        for t0, t1 in ((0, 1000), (1000, 1337), (1337, g.vals.shape[0])):
+            r, k, v = g.rows[t0:t1], g.cols[t0:t1], g.vals[t0:t1]
+            before = eb_partials.KERNEL.launches
+            got = eb_partials.eb_partials(r, k, v, bb, n_rows=a.shape[0],
+                                          scales=scales)
+            assert eb_partials.KERNEL.launches == before + 1
+            want = eb_partials.eb_partials_plain(r, k, v, bb, scales)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+def test_user_combine_kernel_matches_plain(dev, op):
+    """The combine on a span of an accumulator's rows, in place: add the
+    same f32 sums, max and min bit for bit with signed zeros and NaN; the
+    rows outside the span stay as they were."""
+    from repro_torch.core import MONOIDS
+    from repro_torch.kernels import common, eb_partials
+
+    g = torch.Generator().manual_seed(11)
+    acc = torch.randn(40, 33, generator=g)
+    tile = torch.randn(17, 33, generator=g)
+    for t in (acc, tile):  # zeros of both signs, NaN, infinities
+        flat = t.view(-1)
+        flat[::7], flat[3::11], flat[5::13] = 0.0, -0.0, float("nan")
+        flat[2::17] = float("inf")
+    want = acc.clone()
+    common.combine_plain(want[9:26], tile, MONOIDS[op])
+    got = acc.to(dev)
+    before = eb_partials.COMBINE.launches
+    eb_partials.combine(got[9:26], tile.to(dev), MONOIDS[op])
+    assert eb_partials.COMBINE.launches == before + 1
+    if op == "add":
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got.cpu()), nan)
+        assert torch.equal(got.cpu()[~nan], want[~nan])
+    else:
+        _assert_segred_same(got.cpu(), want, op)
+    with pytest.raises(ValueError, match="tile result"):
+        eb_partials.combine(got[9:26], tile[:, :5].to(dev), MONOIDS[op])
+
+
+def _cuda_user_strategies():
+    """Quickstart's one-hot (spec and realization), the one-hot spec
+    alone, a segment max registered with ``combine="max"`` and one with
+    a callable combine: each creates its tensors on the partials'
+    device."""
+    from repro_torch.core import register_strategy
+
+    def onehot(ids, n, dtype):
+        return (ids[:, None] == torch.arange(n, device=ids.device)).to(dtype)
+
+    def spec(p, ids, n, group_size):
+        return onehot(ids, n, p.dtype).T @ p
+
+    def kernel(ids, p, out, group_size):
+        out += onehot(ids, out.shape[0], p.dtype).T @ p
+
+    def seg_max(p, ids, n, group_size):
+        return torch.full((n, p.shape[1]), -float("inf"),
+                          device=p.device).scatter_reduce_(
+            0, ids.long()[:, None].expand_as(p), p, "amax")
+
+    register_strategy("t_cuda_onehot", spec, kernel, overwrite=True)
+    register_strategy("t_cuda_spec", spec, overwrite=True)
+    register_strategy("t_cuda_max", seg_max, combine="max", overwrite=True)
+    register_strategy("t_cuda_callable", seg_max, combine=torch.maximum,
+                      identity=-float("inf"), overwrite=True)
+
+
+@pytest.mark.parametrize("strategy,ep", [
+    ("t_cuda_onehot", None), ("t_cuda_onehot", "relu"),
+    ("t_cuda_onehot", "float16"), ("t_cuda_spec", None),
+    ("t_cuda_max", None), ("t_cuda_callable", None)])
+@pytest.mark.parametrize("skew", [None, (16, 0)])
+def test_user_strategy_on_cuda_matches_the_cpu_walk(dev, strategy, ep,
+                                                      skew, monkeypatch):
+    """EB under a user strategy on the card (partials in windows of one
+    and of many tiles, the user's code per tile, the combine, the
+    finishing launch's epilogue) against the same walk on the CPU: add
+    within K_TERMS, max and the callable exact (as values) where no
+    epilogue follows."""
+    from repro_torch.core import Epilogue
+    from repro_torch.kernels import common, eb_partials, spmm_eb
+
+    _cuda_user_strategies()
+    a = _hub_matrix(dev, n=1200, hub_len=3000, long_len=500)
+    kw = {} if skew is None else dict(group_size=8, split_threshold=skew[0],
+                                      merge_threshold=skew[1])
+    g = a.grouped(128, **kw)
+    b = _dense(dev, (a.shape[1], 40), 5)
+    bias = _dense(dev, (40,), 6)
+    epilogue = {None: Epilogue(), "relu": Epilogue("relu", bias=True),
+                "float16": Epilogue(out_dtype="float16")}[ep]
+    args = dict(n_rows=a.shape[0], nnz_tile=128, group_size=8,
+                strategy=strategy, heavy_tiles=g.heavy_tiles,
+                epilogue=epilogue, bias=bias if epilogue.bias else None)
+    before = eb_partials.KERNEL.launches
+    got = spmm_eb.spmm_eb(g.rows, g.cols, g.vals, b, **args)
+    assert eb_partials.KERNEL.launches == before + 1
+    with monkeypatch.context() as m:
+        m.setattr(common, "WINDOW_BYTES", 128 * 40 * 4)
+        windows = spmm_eb.spmm_eb_user(g.rows, g.cols, g.vals, b, **args)
+    assert eb_partials.KERNEL.launches > before + 2
+    cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in args.items()}
+    want = spmm_eb.spmm_eb_user(g.rows.cpu(), g.cols.cpu(), g.vals.cpu(),
+                                b.cpu(), **cpu)
+    for out in (got, windows):
+        if strategy in ("t_cuda_max", "t_cuda_callable") and skew is None:
+            assert torch.equal(out.cpu(), want)
+        else:
+            _assert_within_terms(out.cpu(), want, _terms(
+                spmm_eb.spmm_eb_plain, g.rows.cpu(), g.cols.cpu(),
+                g.vals.cpu(), b.cpu(), **{**cpu, "strategy": "accumulate",
+                                          "epilogue": Epilogue()}))
 
 
 @pytest.mark.parametrize("schedule", ["auto", "RB+PR"])
@@ -933,10 +1084,14 @@ def test_segment_reduce_op_on_cuda_matches_cpu(dev):
         _assert_segred_same(got.cpu(), want, op)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.segment_reduce(seg.to(dev), data.to(dev).requires_grad_(), 50)
+    # a user strategy: the combine kernel folds its spec's results in
     register_strategy("t_cuda_segred_user", spec_segment, overwrite=True)
-    with pytest.raises(NotImplementedError, match="no CUDA realization"):
-        ts.segment_reduce(seg.to(dev), data.to(dev), 50,
-                          schedule=Schedule(strategy="t_cuda_segred_user"))
+    sched = Schedule(strategy="t_cuda_segred_user", nnz_tile=128,
+                     group_size=8)
+    for op in ("sum", "max", "min", "mean"):
+        want = ts.segment_reduce(seg, data, 50, sched, op=op, device="cpu")
+        got = ts.segment_reduce(seg.to(dev), data.to(dev), 50, sched, op=op)
+        _assert_segred_same(got.cpu(), want, op)
 
 
 @pytest.mark.parametrize("schedule", ["eb", "rb"])
@@ -1277,7 +1432,7 @@ def test_tuned_spmm_matches_plain_per_element(tuner_env):
     feed (the grouping of the sums is the schedule's), per element."""
     import repro_torch.sparse as ts
     from repro_torch.core import Epilogue
-    from repro_torch.kernels import spmm_eb, spmm_rb
+    from repro_torch.kernels import eb_partials, spmm_eb, spmm_rb
     from repro_torch.tune import tune_schedule
 
     a = _matrix(tuner_env, n=2000)
@@ -1300,7 +1455,8 @@ def test_tuned_spmm_matches_plain_per_element(tuner_env):
         plain = spmm_eb.spmm_eb_plain
         args = (g.rows, g.cols, g.vals, bq)
         terms_args = (g.rows, g.cols,
-                      spmm_eb.lane_values(g.vals, g.rows, scales), bq.float())
+                      eb_partials.lane_values(g.vals, g.rows, scales),
+                      bq.float())
         kw = dict(n_rows=a.shape[0], nnz_tile=s.nnz_tile,
                   group_size=s.group_size, strategy=s.strategy,
                   heavy_tiles=g.heavy_tiles)
@@ -1323,6 +1479,8 @@ def test_schedule_fits_card_refuses_what_the_cuda_wrappers_refuse(tuner_env):
     from repro_torch.kernels import spmm_eb
 
     register_strategy("t_fits_user", spec_segment, overwrite=True)
+    register_strategy("t_fits_max", spec_segment, combine="max",
+                      overwrite=True)
     a = _matrix(tuner_env)
     b = _dense(tuner_env, (a.shape[1], 8), 8)
     st = ts.matrix_stats(a)
@@ -1330,6 +1488,9 @@ def test_schedule_fits_card_refuses_what_the_cuda_wrappers_refuse(tuner_env):
              Schedule(nnz_tile=spmm_eb.MAX_NNZ_TILE, group_size=32),
              Schedule(nnz_tile=2 * spmm_eb.MAX_NNZ_TILE, group_size=32),
              Schedule(nnz_tile=64, group_size=8, strategy="t_fits_user"),
+             Schedule(nnz_tile=64, group_size=8, strategy="t_fits_max"),
+             Schedule(nnz_tile=2 * spmm_eb.MAX_NNZ_TILE, group_size=32,
+                      strategy="t_fits_user"),
              Schedule(nnz_tile=64, group_size=8, value_dtype="bf16"),
              Schedule("rb", row_tile=8, strategy="parallel")]
     narrow = [Schedule(nnz_tile=64, group_size=8, value_dtype=vd)

@@ -433,7 +433,7 @@ def test_schedule_fits_card_refuses_what_the_wrappers_refuse(monkeypatch):
     tc.register_strategy("t_tune_max", tc.spec_accumulate, combine="max",
                          overwrite=True)
     for name in ("t_tune_user", "t_tune_max"):
-        assert not fits(tc.Schedule(strategy=name))
+        assert fits(tc.Schedule(strategy=name))
     # narrow storage runs on the CPU path too; an ELL too large is refused
     a = ts.random_csr(100, 100, density=0.1, seed=0, device="cpu")
     b = torch.ones(100, 4)
