@@ -120,17 +120,37 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   ``combine="max"`` and with a callable combine, a spec generic in the
   monoid): the partials kernel against its plain version bit for bit on
   both graphs' streams at N = 256 and 40, window by window, and the
-  combine under add, max and min; the GCN served under the one-hot
-  strategy and its spec at nnz tile 4096 (3 requests against the
-  built-in ``segment`` forward, each layer against f64 within K_TERMS)
-  and at 256 (one request, for the record), each forward timed beside
-  the built-in's with the tiles it walks; one training step under the
-  one-hot strategy (gradients against the built-in step within
-  GRAD_RTOL; its backward must launch the partials kernel); EB under the
-  max and the callable combine on both graphs against the plain walk
-  on the card bit for bit; the readout (mean, max) under the generic
-  spec against the built-in kernel (max bit for bit, mean within
-  K_TERMS); and the two kernels timed on one social forward's work.
+  combine under add, max and min on the whole (n_rows, 256) block; the
+  user's code handed global ids and the whole block, as the reference
+  hands them, so a one-hot costs 4096 x 169,343 a tile: the GCN served
+  at nnz tile 4096 under the one-hot strategy (one request on social)
+  and under the generic spec (3 requests on both graphs, each layer
+  against f64 within K_TERMS), each against the built-in ``segment``
+  forward and timed beside it with the tiles it walks; one training
+  step under the generic spec (gradients against the built-in step
+  within GRAD_RTOL; its backward must launch the partials kernel); EB
+  under the max and the callable combine on both graphs against the
+  plain walk on the card bit for bit; the readout (mean, max) under the
+  generic spec at nnz tiles 4096 and 256 against the built-in kernel
+  (max bit for bit, mean within K_TERMS); and the two kernels timed on
+  one social forward's work.
+- a user strategy inside the fused attention (``attn_user``, after
+  ``user``): ``csrc/attn_user.cu``'s kernels against their plain
+  versions on both graphs' streams at 4 heads x 64 and nnz tile 4096
+  (``attn_lanes``' scores and dw within K_TERMS of their terms on
+  zero-mean operands, w within its score's error through exp plus
+  EXP_ULPS, ds bit for bit; ``attn_rescale`` within EXP_ULPS, its
+  finish bit for bit; the partials kernel's f32 values on bf16, fp16
+  and e4m3 V bit for bit); ``sparse_attention`` forward and backward
+  under the generic spec on both graphs against the built-in kernels
+  (out within F32_TOL of its largest magnitude, gradients within
+  GRAD_RTOL relative L2), timed beside them (host clock) with the tiles
+  walked; the forward under ``seg-max`` against the same walk with the
+  plain versions on the card, and ``seg-max-callable`` raising at the
+  max scatter; quickstart's one-hot, spec and realization, on one
+  roadnet head (its one-hot is 4096 x 169,343 f32 for each of three
+  scatters a tile: the script prints why, and what social would take);
+  and the two kernels timed on one social pass.
 
 It prints kernel, forward, training-step, attention, readout, tuning,
 prefill and decode times, EB, RB and ``torch.sparse.mm`` at N = 64 and 128 on both
@@ -214,6 +234,8 @@ TRAIN_STEPS = 5
 LR = 0.5
 #: Graph attention: HEADS x HEAD_DIM = 256, the GCN's hidden width.
 HEADS, HEAD_DIM = 4, 64
+#: The attention's masked-score floor (``kernels/fused_attention.NEG_INF``).
+NEG_INF_F32 = -1e30
 #: Graph readout: the nodes pooled in contiguous segments of 26, the mean
 #: graph size of OGB's ogbg-molpcba (a batch of graphs is a node range).
 READOUT_SIZE = 26
@@ -275,6 +297,13 @@ KERNEL_META = {
                     "src/repro/kernels/spmm_eb.py:44"),
     "user_combine": ("src/repro_torch/kernels/csrc/eb_partials.cu",
                      "src/repro/kernels/common.py:167"),
+    # a user strategy inside the fused attention: the lane passes of both
+    # bodies (the forward's scores; the backward's w, dw and ds at :333,
+    # :340, :343, :360) and the forward's rescale and p (:194-211)
+    "attn_lanes": ("src/repro_torch/kernels/csrc/attn_user.cu",
+                   "src/repro/kernels/fused_attention.py:184"),
+    "attn_rescale": ("src/repro_torch/kernels/csrc/attn_user.cu",
+                     "src/repro/kernels/fused_attention.py:194"),
 }
 
 
@@ -3749,12 +3778,16 @@ def narrow_moe(cfg, params, dev, counters):
                      (b["counts"], "narrow serve fp16")]}
 
 
-#: The user phase: EB's nnz tiles (the kernel's largest, and the default
-#: for the record, where the per-tile loop of the user's code dominates),
-#: its group size, and the strategies the GCN is served under.
+#: The user phase: EB's nnz tiles (the kernel's largest, and the default,
+#: where the per-tile loop of the user's code dominates; the readout runs
+#: at both, the served GCN at the first), its group size, and the
+#: strategies the GCN is served under: quickstart's one-hot (``T x
+#: n_rows`` a tile under the reference's contract, several seconds a
+#: social forward, so one request on social) and a spec generic in the
+#: monoid.
 USER_NNZ_TILES = (4096, 256)
 USER_GROUP = 32
-USER_SERVED = ("onehot-tile", "onehot-spec")
+USER_SERVED = ("onehot-tile", "seg-generic")
 
 
 def user_strategies():
@@ -3807,20 +3840,12 @@ def user_windows(g, n_cols):
     return [(t0, min(n, t0 + per)) for t0 in range(0, n, per)]
 
 
-def tile_spans(g):
-    """(lo, hi) of the rows each nnz tile of ``g`` spans."""
-    import torch
-
-    t = g.rows.reshape(-1, g.nnz_tile)
-    return torch.stack([t.amin(1), t.amax(1)], 1).tolist()
-
-
 def user_check_kernels(graphs, x, model, checker):
     """The partials kernel against its plain version, bit for bit, on each
     graph's stream at the served widths (B = X W1, N = 256, and
     relu(X W1) W2, N = 40) window by window, as the main path cuts them;
     the combine kernel against its plain version under add, max and min
-    on spans of the accumulator's rows the social graph's tiles give."""
+    on the whole (n_rows, 256) accumulator, as each tile combines it."""
     import torch
     from repro_torch.core import MONOIDS
     from repro_torch.kernels import common, eb_partials
@@ -3839,20 +3864,18 @@ def user_check_kernels(graphs, x, model, checker):
                                f"{name} N={b.shape[1]} lanes {t0}-{t1}",
                                got, want, exact=True)
                 del got, want
-    spans = tile_spans(graphs["social"][0].grouped(USER_NNZ_TILES[0]))
-    widest = max(spans, key=lambda s: s[1] - s[0])
     gen = torch.Generator(device="cpu").manual_seed(SEED + 25)
     acc = torch.randn(N_NODES, HIDDEN, generator=gen).to(x.device)
     acc.view(-1)[::97] = -0.0
-    for lo, hi in (widest, spans[len(spans) // 2]):
-        tile = torch.randn(hi - lo + 1, HIDDEN, generator=gen).to(x.device)
-        tile.view(-1)[::89] = 0.0
-        for op in ("add", "max", "min"):
-            got, want = acc.clone(), acc.clone()
-            eb_partials.combine(got[lo:hi + 1], tile, MONOIDS[op])
-            common.combine_plain(want[lo:hi + 1], tile, MONOIDS[op])
-            checker.record("user_combine", f"{op} rows {lo}-{hi}", got,
-                           want, exact=True)
+    tile = torch.randn(N_NODES, HIDDEN, generator=gen).to(x.device)
+    tile.view(-1)[::89] = 0.0
+    for op in ("add", "max", "min"):
+        got, want = acc.clone(), acc.clone()
+        eb_partials.combine(got, tile, MONOIDS[op])
+        common.combine_plain(want, tile, MONOIDS[op])
+        checker.record("user_combine", f"{op} the whole ({N_NODES}, "
+                       f"{HIDDEN}) block", got, want, exact=True)
+        del got, want
 
 
 def user_twin(model, strategy, tile):
@@ -3901,73 +3924,80 @@ def user_layers_k(adj, x, model, tile, strategy):
 
 
 def user_serve(graphs, x, model, counters, checker):
-    """The GCN served under ``onehot-tile`` and ``onehot-spec`` on both
-    graphs: at nnz tile 4096, REQUESTS forwards with the counts zeroed
-    just before and read just after, each against the built-in
-    ``segment`` forward at the same tile (F32_TOL of its largest
-    magnitude), every layer against f64 within K_TERMS, and the forward
-    timed beside the built-in's (CUDA events); at nnz tile 256 one
-    forward checked and one timed, for the record.  Returns the runs and
-    the timing rows."""
+    """The GCN served under a user strategy at nnz tile 4096, each
+    forward against the built-in ``segment`` forward at the same tile
+    (F32_TOL of its largest magnitude), and each layer against f64: under
+    quickstart's ``onehot-tile`` one request on the social graph (the
+    one-hot is 4096 x 169,343 a tile under the reference's contract,
+    several seconds a forward; host clock), its layers within K_TERMS;
+    under ``seg-generic`` REQUESTS requests on both graphs, timed beside
+    the built-in's (CUDA events), its layers' k printed for the record:
+    its spec sums with torch's ``index_add_`` in f32, like the plain
+    version, which reads k 20-33 on this served data (ROADMAP section 3
+    item 8), so K_TERMS does not bound it.  The counts are zeroed just
+    before each strategy's requests and read just after.  Returns the
+    runs and the timing rows."""
     import torch
 
+    tile = USER_NNZ_TILES[0]
     runs, rows = [], []
     for name, (adj, _) in graphs.items():
-        for tile in USER_NNZ_TILES:
-            builtin = user_twin(model, "segment", tile)
-            want = builtin(adj, x)
-            ms_builtin = cuda_ms(lambda: builtin(adj, x), 5, 1)
-            n_tiles = 2 * adj.grouped(tile).vals.shape[0] // tile
-            for strategy in USER_SERVED:
-                m = user_twin(model, strategy, tile)
-                for k in counters.values():
-                    k.launches = 0
-                reqs = REQUESTS if tile == USER_NNZ_TILES[0] else 1
-                host = []
-                for i in range(reqs):
-                    t0 = time.perf_counter()
-                    got = m(adj, x)
-                    torch.cuda.synchronize()
-                    host.append((time.perf_counter() - t0) * 1e3)
-                    err, tol, ok = compare(got, want)
-                    if not ok:
-                        checker.failures.append(
-                            f"user serve {name} {strategy} tile {tile} "
-                            f"request {i}: {err:.3e} above {tol}")
-                counts = {n: k.launches for n, k in counters.items()}
-                label = f"user serve {name} {strategy} tile {tile}"
-                kernels = ("eb_partials", "epilogue") + (
-                    ("user_combine",) if strategy == "onehot-spec" else ())
-                runs.append((counts, label, kernels))
-                ms = (cuda_ms(lambda: m(adj, x), 2, 1)
-                      if tile == USER_NNZ_TILES[0] else host[-1])
-                print(f"{label}: request ms "
-                      + ", ".join(f"{t:.1f}" for t in host)
-                      + f"; against the built-in forward max_abs_err "
-                      f"{err:.3e} (tol {tol}); launches {counts}",
-                      flush=True)
-                if tile == USER_NNZ_TILES[0]:
-                    for layer, k_user, k_builtin in user_layers_k(
-                            adj, x, model, tile, strategy):
-                        ok = k_user <= K_TERMS
-                        print(f"  {label} layer {layer} against f64: k "
-                              f"{k_user:.3f} (built-in segment {k_builtin:.3f};"
-                              f" tol K_TERMS {K_TERMS}) "
-                              f"{'ok' if ok else 'FAIL'}", flush=True)
-                        if not ok:
-                            checker.failures.append(
-                                f"{label} layer {layer}: k {k_user:.3f} "
-                                "against f64")
-                rows.append((name, strategy, tile, ms, ms_builtin, n_tiles))
-                del got, m
-            del builtin, want
-            torch.cuda.empty_cache()
+        builtin = user_twin(model, "segment", tile)
+        want = builtin(adj, x)
+        ms_builtin = cuda_ms(lambda: builtin(adj, x), 5, 1)
+        n_tiles = 2 * adj.grouped(tile).vals.shape[0] // tile
+        for strategy in USER_SERVED:
+            onehot = strategy == "onehot-tile"
+            if onehot and name != "social":
+                continue
+            m = user_twin(model, strategy, tile)
+            for k in counters.values():
+                k.launches = 0
+            host = []
+            for i in range(1 if onehot else REQUESTS):
+                t0 = time.perf_counter()
+                got = m(adj, x)
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+                err, tol, ok = compare(got, want)
+                if not ok:
+                    checker.failures.append(
+                        f"user serve {name} {strategy} tile {tile} "
+                        f"request {i}: {err:.3e} above {tol}")
+            counts = {n: k.launches for n, k in counters.items()}
+            label = f"user serve {name} {strategy} tile {tile}"
+            kernels = ("eb_partials", "epilogue") + (
+                () if onehot else ("user_combine",))
+            runs.append((counts, label, kernels))
+            ms = host[-1] if onehot else cuda_ms(lambda: m(adj, x), 2, 1)
+            print(f"{label}: request ms "
+                  + ", ".join(f"{t:.1f}" for t in host)
+                  + f"; against the built-in forward max_abs_err "
+                  f"{err:.3e} (tol {tol}); launches {counts}", flush=True)
+            for layer, k_user, k_builtin in user_layers_k(
+                    adj, x, model, tile, strategy):
+                ok = k_user <= K_TERMS or not onehot
+                print(f"  {label} layer {layer} against f64: k "
+                      f"{k_user:.3f} (built-in segment {k_builtin:.3f}; "
+                      + (f"tol K_TERMS {K_TERMS}) {'ok' if ok else 'FAIL'}"
+                         if onehot else "for the record: torch's "
+                         "index_add_ sums the spec)"), flush=True)
+                if not ok:
+                    checker.failures.append(
+                        f"{label} layer {layer}: k {k_user:.3f} "
+                        "against f64")
+            rows.append((name, strategy, tile, ms, ms_builtin, n_tiles,
+                         "host clock, one request" if onehot
+                         else "CUDA events, mean of 2"))
+            del got, m
+        del builtin, want
+        torch.cuda.empty_cache()
     return runs, rows
 
 
 def user_train(adj, x, model, counters):
     """One training step of the GCN (layer 1's bias and relu fused) under
-    ``onehot-tile`` at nnz tile 4096 on ``adj``: the weights' gradients
+    ``seg-generic`` at nnz tile 4096 on ``adj``: the weights' gradients
     against the built-in ``segment`` step's within GRAD_RTOL relative L2;
     the backward recomputes layer 1's pre-activation under the same
     schedule, so the partials kernel must launch in the backward too.
@@ -3977,7 +4007,7 @@ def user_train(adj, x, model, counters):
     gen = torch.Generator(device="cpu").manual_seed(SEED + 26)
     labels = torch.randint(0, N_CLASS, (N_NODES,), generator=gen).to(x.device)
     grads, counts = {}, None
-    for strategy in ("segment", "onehot-tile"):
+    for strategy in ("segment", "seg-generic"):
         m = user_twin(model, strategy, USER_NNZ_TILES[0])
         loss = torch.nn.functional.cross_entropy(m(adj, x), labels)
         for k in counters.values():
@@ -3985,9 +4015,9 @@ def user_train(adj, x, model, counters):
         grads[strategy] = torch.autograd.grad(loss, (m.w1, m.b1, m.w2))
         if strategy != "segment":
             counts = {n: k.launches for n, k in counters.items()}
-    errs = [rel_l2(g, w) for g, w in zip(grads["onehot-tile"],
+    errs = [rel_l2(g, w) for g, w in zip(grads["seg-generic"],
                                          grads["segment"])]
-    print("user train social onehot-tile: gradients of w1, b1, w2 against "
+    print("user train social seg-generic: gradients of w1, b1, w2 against "
           "the built-in segment step, relative L2 "
           + ", ".join(f"{e:.3e}" for e in errs)
           + f" (tol {GRAD_RTOL}); backward launches {counts}", flush=True)
@@ -4072,13 +4102,13 @@ def user_kernel_rows(adj, x, model):
     work of one social forward at nnz tile 4096, replayed without the
     user's code between launches: the partials kernel over both layers'
     windows (CUDA events around back-to-back launches, each a few tenths
-    of a millisecond), the combine over every tile's span at both widths
-    under add (device time under the profiler, ``device_ms``: a launch
-    takes microseconds on the card and far longer on the host; the
-    CUDA-event window printed beside it), each beside the same work
-    through its plain version, with the bytes and operations of that
-    work; the combine also beside ``acc.add_(tile)`` over the same
-    spans (``library_ms``), which the port never calls."""
+    of a millisecond), the combine of every tile's spec result into the
+    whole (n_rows, N) accumulator at both widths under add (device time
+    under the profiler, ``device_ms``; the CUDA-event window printed
+    beside it), each beside the same work through its plain version,
+    with the bytes and operations of that work; the combine also beside
+    ``acc.add_(tile)`` over the same blocks (``library_ms``), which the
+    port never calls."""
     import torch
     from repro_torch.core import MONOIDS
     from repro_torch.kernels import common, eb_partials
@@ -4106,20 +4136,17 @@ def user_kernel_rows(adj, x, model):
         plain_ms=cuda_ms(lambda: partials(eb_partials.eb_partials_plain),
                          3, 1),
         bytes=nbytes, flops=flops, library_ms=None, launches=len(calls))}
-    spans = tile_spans(g)
-    widest = max(hi - lo + 1 for lo, hi in spans)
+    n_tiles = lanes // g.nnz_tile
     accs = [(torch.zeros(N_NODES, n, device=x.device),
-             torch.ones(widest, n, device=x.device))
+             torch.ones(N_NODES, n, device=x.device))
             for n in (HIDDEN, N_CLASS)]
-    cbytes = sum(3 * (hi - lo + 1) * acc.shape[1] * 4
-                 for acc, _ in accs for lo, hi in spans)
-    cflops = sum((hi - lo + 1) * acc.shape[1]
-                 for acc, _ in accs for lo, hi in spans)
+    cbytes = sum(3 * acc.numel() * 4 * n_tiles for acc, _ in accs)
+    cflops = sum(acc.numel() * n_tiles for acc, _ in accs)
 
     def combines(fn):
         for acc, buf in accs:
-            for lo, hi in spans:
-                fn(acc[lo:hi + 1], buf[:hi - lo + 1], MONOIDS["add"])
+            for _ in range(n_tiles):
+                fn(acc, buf, MONOIDS["add"])
 
     kernel = lambda: combines(eb_partials.combine)  # noqa: E731
     plain = lambda: combines(common.combine_plain)  # noqa: E731
@@ -4127,11 +4154,11 @@ def user_kernel_rows(adj, x, model):
     library = lambda: combines(  # noqa: E731
         lambda acc, tile, _: acc.add_(tile))
     rows["user_combine"] = dict(
-        ms=sum(device_ms(kernel, 2, 2).values()),
-        plain_ms=sum(device_ms(plain, 2, 2).values()),
-        library_ms=sum(device_ms(library, 2, 2).values()),
+        ms=sum(device_ms(kernel, 1, 2).values()),
+        plain_ms=sum(device_ms(plain, 1, 2).values()),
+        library_ms=sum(device_ms(library, 1, 2).values()),
         window_ms=cuda_ms(kernel, 2, 1), bytes=cbytes, flops=cflops,
-        launches=2 * len(spans))
+        launches=2 * n_tiles)
     for name, r in rows.items():
         print(f"user kernel {name}: one social forward's {r['launches']} "
               f"launches {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
@@ -4148,7 +4175,7 @@ def user_phase(graphs, x, model, counters):
     """User-defined reduction strategies on the card (the paper's
     challenge 2): the partials and combine kernels against their plain
     versions (:func:`user_check_kernels`), the GCN served under
-    quickstart's strategy and a spec alone (:func:`user_serve`), one
+    quickstart's strategy and a generic spec (:func:`user_serve`), one
     training step (:func:`user_train`), EB under a max and a callable
     combine (:func:`user_max_spmm`) and the readout
     (:func:`user_readout`).  Returns the runs (counts, path, the kernels
@@ -4170,12 +4197,461 @@ def user_phase(graphs, x, model, counters):
         runs += user_readout(x, model, social, counters, checker)
         results = user_kernel_rows(social, x, model)
     worst = checker.done()
-    for name, strategy, tile, ms, ms_builtin, n_tiles in rows:
+    for name, strategy, tile, ms, ms_builtin, n_tiles, clock in rows:
         print(f"user forward {name} {strategy} nnz_tile {tile}: {ms:.4f} ms "
-              f"({'CUDA events, mean of 2' if tile == USER_NNZ_TILES[0] else 'host clock, one request'}); "
-              f"built-in segment {ms_builtin:.4f} ms; {n_tiles} tiles walked,"
-              f" {ms / n_tiles * 1e3:.2f} us a tile", flush=True)
+              f"({clock}); built-in segment {ms_builtin:.4f} ms; {n_tiles} "
+              f"tiles walked, {ms / n_tiles * 1e3:.2f} us a tile", flush=True)
     print(f"user: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return {"runs": runs, "worst": worst, "results": results}
+
+
+#: The attn_user phase: the nnz tile the walk runs at (EB's largest, the
+#: user phase's), and where quickstart's one-hot runs: its one-hot is
+#: 4096 x 169,343 f32 (2.77 GB) for each of the forward's three scatters a
+#: tile, so it runs one head's forward on the graph with fewer tiles.
+ATTN_USER_TILE = 4096
+ONEHOT_GRAPH, ONEHOT_HEADS = "roadnet", 1
+#: ulps within which an exp-derived value of ``attn_user.cu`` (expf) may
+#: differ from the plain version's (torch.exp on the card): each is within
+#: 2 ulp of exp.
+EXP_ULPS = 4
+
+
+def attn_stream(adj, tile):
+    """(nnz, rows, cols, bias) of ``adj``'s lanes as the user walk takes
+    them, padded as the reference pads them: whole tiles of ``tile``, the
+    pad lanes at row 0 and column 0 with bias 0."""
+    import torch
+    from repro_torch.kernels.fused_attention import rows_of
+
+    nnz = adj.indices.numel()
+    z = torch.zeros(-(-nnz // tile) * tile - nnz, dtype=torch.int32,
+                    device=adj.device)
+    return (nnz, torch.cat([rows_of(adj.indptr).to(torch.int32), z]),
+            torch.cat([adj.indices, z]),
+            torch.cat([adj.vals.float(), z.float()]))
+
+
+def ulps(got, want) -> float:
+    """Largest distance in f32 ulps of ``want`` between two tensors; inf
+    unless NaN and the infinities stand at the same places."""
+    import torch
+
+    nan, fin = torch.isnan(want), torch.isfinite(want)
+    if not (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~fin & ~nan], want[~fin & ~nan])):
+        return float("inf")
+    g, w = got[fin].double(), want[fin].double()
+    unit = w.abs().clamp_min(2.0 ** -126) * 2.0 ** -23
+    return float(((g - w).abs() / unit).max()) if w.numel() else 0.0
+
+
+def record_within(checker, kernel, label, err, ok, tol):
+    """Record a check the Checker's own comparisons do not cover."""
+    checker.worst[kernel] = max(checker.worst[kernel], err)
+    print(f"  {kernel:19s} {label:48s} max_abs_err {err:.3e} tol {tol} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        checker.failures.append(f"{kernel} {label}")
+
+
+def attn_user_check_kernels(graphs, checker):
+    """The walk's kernels against their plain versions on each graph's
+    stream at the attention path's shapes (4 heads x 64, zero-mean
+    operands, the adjacency's values as bias): ``attn_lanes``' scores
+    and dw within K_TERMS of the terms entering them, w within its
+    score's error carried through exp plus EXP_ULPS, ds bit for bit;
+    ``attn_rescale`` on a mid-stream tile (alpha 0, 1 and moving rows)
+    within EXP_ULPS, its finish bit for bit; the partials kernel's f32
+    values on bf16, fp16 and e4m3 V bit for bit."""
+    import torch
+    from repro_torch.kernels import attn_user as au
+    from repro_torch.kernels import eb_partials
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 27)
+    scale = HEAD_DIM ** -0.5
+    for name, (adj, _) in graphs.items():
+        dev = adj.device
+        nnz, rows, cols, bias = attn_stream(adj, ATTN_USER_TILE)
+        r, c = rows.long(), cols.long()
+        q, k, v, do = (head_major(t) for t in attention_operands(
+            adj, gen, dev))
+        print(f"check: attn_user kernels on the {name} graph's stream "
+              f"({rows.numel()} lanes, {nnz} of the pattern)", flush=True)
+        for h in range(HEADS):
+            s = au.attn_scores(rows, cols, q[h], k[h], nnz=nnz, scale=scale,
+                               bias=bias)
+            want_s = au.attn_scores_plain(rows, cols, q[h], k[h], nnz=nnz,
+                                          scale=scale, bias=bias)
+            terms_s = (q[h][r] * k[h][c]).abs().sum(-1) * scale + bias.abs()
+            checker.record_terms("attn_lanes", f"{name} head {h} scores", s,
+                                 want_s, terms_s)
+            m = torch.full((adj.shape[0],), NEG_INF_F32,
+                           device=dev).scatter_reduce(0, r[:nnz],
+                                                      want_s[:nnz], "amax")
+            l = torch.zeros(adj.shape[0], device=dev).index_add_(
+                0, r[:nnz], torch.exp(want_s[:nnz] - m[r[:nnz]]))
+            got = au.attn_weights(rows, cols, q[h], k[h], v[h], do[h], m, l,
+                                  nnz=nnz, scale=scale, bias=bias)
+            want = au.attn_weights_plain(rows, cols, q[h], k[h], v[h], do[h],
+                                         m, l, nnz=nnz, scale=scale,
+                                         bias=bias)
+            checker.record_terms("attn_lanes", f"{name} head {h} dw",
+                                 got[1], want[1],
+                                 (do[h][r] * v[h][c]).abs().sum(-1))
+            bound_w = (K_TERMS * 2.0 ** -24 * (terms_s + want_s.abs())
+                       + EXP_ULPS * 2.0 ** -23) * want[0]
+            err = (got[0] - want[0]).abs()
+            record_within(checker, "attn_lanes", f"{name} head {h} w",
+                          float(err.max()), bool((err <= bound_w).all())
+                          and bool((got[0][nnz:] == 0).all()),
+                          f"w (K_TERMS 2^-24 terms(s) + {EXP_ULPS} ulp)")
+            delta = torch.randn(adj.shape[0], generator=gen).to(dev)
+            checker.record("attn_lanes", f"{name} head {h} ds",
+                           au.attn_ds(rows, want[0], want[1], delta,
+                                      scale=scale),
+                           au.attn_ds_plain(rows, want[0], want[1], delta,
+                                            scale=scale), exact=True)
+            del s, got, want, terms_s
+        # the rescale on the tile in the middle of the stream, head 0
+        t0 = (rows.numel() // ATTN_USER_TILE // 2) * ATTN_USER_TILE
+        t1 = t0 + ATTN_USER_TILE
+        s = au.attn_scores_plain(rows, cols, q[0], k[0], nnz=nnz,
+                                 scale=scale, bias=bias)
+        n = adj.shape[0]
+        m_new = torch.full((n,), NEG_INF_F32, device=dev).scatter_reduce(
+            0, r[:nnz], s[:nnz], "amax")[:, None]
+        m_old = m_new - torch.rand(n, 1, generator=gen).to(dev)
+        m_old[::5] = m_new[::5]
+        m_old[1::7] = NEG_INF_F32
+        l = torch.rand(n, 1, generator=gen).to(dev) * 10
+        acc = torch.randn(1, n, HEAD_DIM, generator=gen).to(dev)
+        want = (l.clone(), acc.clone())
+        p_want = au.attn_rescale_plain(m_old, m_new, *want, s[t0:t1],
+                                       rows[t0:t1], n_valid=nnz - t0)
+        p = au.attn_rescale(m_old, m_new, l, acc, s[t0:t1], rows[t0:t1],
+                            n_valid=nnz - t0)
+        for label, g_, w_ in (("p", p, p_want), ("l", l, want[0]),
+                              ("acc", acc, want[1])):
+            u = ulps(g_, w_)
+            record_within(checker, "attn_rescale",
+                          f"{name} tile {t0 // ATTN_USER_TILE} {label}",
+                          float((g_ - w_).abs().max()), u <= EXP_ULPS,
+                          f"{EXP_ULPS} ulp (observed {u:.1f})")
+        l.copy_(want[0])  # the finish on the same inputs
+        acc.copy_(want[1])
+        au.attn_finish_plain(want[1], want[0])
+        au.attn_finish(acc, l)
+        checker.record("attn_rescale", f"{name} finish out / max(l, 1e-30)",
+                       acc, want[1], exact=True)
+        vals = torch.randn(rows.numel(), generator=gen).to(dev)
+        for dt in (torch.bfloat16, torch.float16, torch.float8_e4m3fn):
+            vb = v[0].to(dt)
+            checker.record("eb_partials", f"{name} f32 values on {dt} V",
+                           eb_partials.eb_partials(cols, cols, vals, vb,
+                                                   n_rows=vb.shape[0]),
+                           eb_partials.eb_partials_plain(cols, cols, vals,
+                                                         vb), exact=True)
+        del q, k, v, do, s, acc, want, vals
+        torch.cuda.empty_cache()
+
+
+def attn_user_run(name, adj, counters, builtin):
+    """Graph attention through ``sparse_attention`` under ``seg-generic``
+    at nnz tile ATTN_USER_TILE, forward and backward, with the counts
+    zeroed just before and read just after (host clock, each ending in a
+    synchronise); out against the built-in fused kernels within F32_TOL
+    of its largest magnitude, the q, k, v gradients within GRAD_RTOL
+    relative L2.  ``builtin`` holds the attend phase's forward and
+    backward ms on the same operands.  Returns (counts, timing row)."""
+    import torch
+    from repro_torch.core import Schedule
+    from repro_torch.sparse import sparse_attention
+
+    dev = adj.device
+    gen = torch.Generator().manual_seed(SEED + 4)  # the attend phase's
+    q, k, v, cot = attention_operands(adj, gen, dev, grad=True)
+    sched = Schedule("eb", nnz_tile=ATTN_USER_TILE, group_size=USER_GROUP,
+                     strategy="seg-generic")
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = sparse_attention(adj, q, k, v, schedule=sched, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(out, (q, k, v), cot)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = {n: c.launches for n, c in counters.items()}
+    out_b = sparse_attention(adj, q, k, v, device=dev)
+    want = torch.autograd.grad(out_b, (q, k, v), cot)
+    err, tol, ok = compare(out, out_b)
+    errs = [rel_l2(g, w) for g, w in zip(grads, want)]
+    print(f"attn_user {name} seg-generic: out max_abs_err {err:.3e} tol "
+          f"{tol} against the built-in kernels; dq, dk, dv relative L2 "
+          + ", ".join(f"{e:.3e}" for e in errs)
+          + f" (tol {GRAD_RTOL}); launches {counts}", flush=True)
+    if not ok or max(errs) > GRAD_RTOL:
+        fail(f"attn_user {name}: the user walk disagrees with the built-in "
+             "kernels")
+    tiles = HEADS * -(-adj.indices.numel() // ATTN_USER_TILE)
+    row = (name, tiles, (t1 - t0) * 1e3, (t2 - t1) * 1e3, builtin["fwd_ms"],
+           builtin["bwd_ms"])
+    del out, grads, out_b, want
+    torch.cuda.empty_cache()
+    return counts, row
+
+
+def attn_user_max(name, adj, counters):
+    """The forward walk under ``seg-max`` (``combine="max"``: l and out
+    reduced under max, the reference's non-softmax answer) against the
+    same walk with the plain versions on the card: out within F32_TOL of
+    its largest magnitude, m and l per element (F32_TOL of each plus
+    STAT_ATOL); ``seg-max-callable`` raises at the max scatter, as the
+    reference does.  Returns the counts of the kernel walk."""
+    import torch
+    from repro_torch.core import Schedule
+    from repro_torch.kernels import attn_user as au
+    from repro_torch.sparse import sparse_attention
+
+    dev = adj.device
+    gen = torch.Generator().manual_seed(SEED + 4)
+    q, k, v, _ = (head_major(t) for t in attention_operands(adj, gen, dev))
+    nnz, rows, cols, bias = attn_stream(adj, ATTN_USER_TILE)
+    kw = dict(n_rows=adj.shape[0], nnz=nnz, nnz_tile=ATTN_USER_TILE,
+              group_size=USER_GROUP, strategy="seg-max",
+              scale=HEAD_DIM ** -0.5, bias=bias)
+    for c in counters.values():
+        c.launches = 0
+    got = au.fused_sparse_attention_user(rows, cols, q, k, v, **kw)
+    torch.cuda.synchronize()
+    counts = {n: c.launches for n, c in counters.items()}
+    want = au.fused_sparse_attention_user_plain(rows, cols, q, k, v, **kw)
+    for label, g, w in zip(("out", "m", "l"), got, want):
+        err, tol, ok = compare(g, w, per_element=label != "out")
+        print(f"attn_user {name} seg-max: {label} max_abs_err {err:.3e} tol "
+              f"{tol} against the plain walk on the card "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"attn_user {name} seg-max: {label} disagrees with the "
+                 "plain walk")
+    try:
+        sparse_attention(adj, q[:1].movedim(0, 1), k[:1].movedim(0, 1),
+                         v[:1].movedim(0, 1), device=dev, schedule=Schedule(
+                             "eb", nnz_tile=ATTN_USER_TILE,
+                             group_size=USER_GROUP,
+                             strategy="seg-max-callable"))
+        fail("attn_user: a callable combine ran under op='max'")
+    except ValueError as e:
+        print(f"attn_user {name} seg-max-callable raises as the reference "
+              f"does: {e}", flush=True)
+    del got, want
+    torch.cuda.empty_cache()
+    return counts
+
+
+def attn_user_onehot(graphs, counters):
+    """Quickstart's one-hot strategies through ``sparse_attention`` on
+    ONEHOT_GRAPH at ONEHOT_HEADS head of HEAD_DIM, forward only:
+    ``onehot-spec`` against the built-in kernels (F32_TOL of out's
+    largest magnitude: the row max is a sum of scores there, but m only
+    stabilises the softmax), ``onehot-tile`` NaN everywhere (its
+    4-argument realization sums scores into m, which stays at NEG_INF, and
+    the one-hot product's 0 * inf reaches every row: the reference's
+    answer, held against the JAX package on the CPU by
+    tests/test_torch_attn_user.py).  Returns the runs."""
+    import torch
+    from repro_torch.core import Schedule
+    from repro_torch.sparse import sparse_attention
+
+    adj = graphs[ONEHOT_GRAPH][0]
+    dev = adj.device
+    gen = torch.Generator().manual_seed(SEED + 4)
+    q, k, v, _ = (t[:, :ONEHOT_HEADS].contiguous()
+                  for t in attention_operands(adj, gen, dev))
+    want = sparse_attention(adj, q, k, v, device=dev)
+    tiles = ONEHOT_HEADS * -(-adj.indices.numel() // ATTN_USER_TILE)
+    social_tiles = HEADS * -(-graphs["social"][0].indices.numel()
+                             // ATTN_USER_TILE)
+    runs = []
+    for strategy in ("onehot-spec", "onehot-tile"):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = sparse_attention(adj, q, k, v, device=dev, schedule=Schedule(
+            "eb", nnz_tile=ATTN_USER_TILE, group_size=USER_GROUP,
+            strategy=strategy))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {n: c.launches for n, c in counters.items()}
+        if strategy == "onehot-spec":
+            err, tol, ok = compare(out, want)
+            verdict = (f"max_abs_err {err:.3e} tol {tol} against the "
+                       "built-in kernels")
+        else:
+            ok = bool(torch.isnan(out).all())
+            verdict = "NaN everywhere, as the reference"
+        print(f"attn_user onehot {strategy}: {ONEHOT_GRAPH}, {ONEHOT_HEADS} "
+              f"head of {HEAD_DIM}, nnz tile {ATTN_USER_TILE}, forward; "
+              f"{verdict} {'ok' if ok else 'FAIL'}; {ms:.1f} ms (host "
+              f"clock), {tiles} tiles, {ms / tiles * 1e3:.1f} us a tile; "
+              f"why here: its one-hot is {ATTN_USER_TILE} x {adj.shape[0]} "
+              f"f32 ({ATTN_USER_TILE * adj.shape[0] * 4 / 1e9:.2f} GB) for "
+              f"each of 3 scatters a tile, so social at {HEADS} heads "
+              f"({social_tiles} tiles) would take about "
+              f"{ms / tiles * social_tiles / 1e3:.0f} s a forward at this "
+              f"rate, and the backward's 4 more a tile; launches {counts}",
+              flush=True)
+        if not ok:
+            fail(f"attn_user onehot {strategy}: not the reference's answer")
+        kernels = ("attn_lanes", "attn_rescale", "eb_partials") + (
+            ("user_combine",) if strategy == "onehot-spec" else ())
+        runs.append((counts, f"attn_user onehot {strategy}", kernels))
+        del out
+        torch.cuda.empty_cache()
+    return runs
+
+
+def attn_user_kernel_rows(adj):
+    """The two kernels' rows of the ``{"kernels": [...]}`` line on one
+    social pass at 4 heads x 64 and nnz tile ATTN_USER_TILE.
+    ``attn_lanes``: its launches of a forward and backward (scores,
+    weights, ds: 3 a head) back to back, CUDA events, beside their plain
+    versions; bytes each input once and each output once, 2 d operations
+    a dot.  ``attn_rescale``: head 0's forward under ``seg-generic``
+    recorded tile by tile (m before and after each max scatter), then
+    its 1 + tiles launches replayed on fresh l and accumulator, device
+    time under the profiler (``device_ms``), beside the plain version's;
+    bytes m_old, m_new, the tile's s, rows and p, and l and the
+    accumulator read and written on the rows whose alpha is not 1 in
+    this run.  Neither has a single PyTorch call that computes it."""
+    import torch
+    from repro_torch.kernels import attn_user as au
+    from repro_torch.kernels import fused_attention as fa
+
+    dev = adj.device
+    gen = torch.Generator().manual_seed(SEED + 4)
+    q, k, v, do = (head_major(t) for t in attention_operands(adj, gen, dev))
+    nnz, rows, cols, bias = attn_stream(adj, ATTN_USER_TILE)
+    scale = HEAD_DIM ** -0.5
+    _, m, l = fa.fused_sparse_attention(adj.indptr, adj.indices, q, k, v,
+                                        scale=scale, bias=adj.vals)
+    delta = torch.zeros_like(m)
+    n, t, d = adj.shape[0], rows.numel(), HEAD_DIM
+
+    def lanes(scores, weights, ds):
+        for h in range(HEADS):
+            scores(rows, cols, q[h], k[h], nnz=nnz, scale=scale, bias=bias)
+            w, dw, _ = weights(rows, cols, q[h], k[h], v[h], do[h], m[h],
+                               l[h], nnz=nnz, scale=scale, bias=bias)
+            ds(rows, w, dw, delta[h], scale=scale)
+
+    qk = 2 * n * d * 4  # q and k of a head (n_kv = n_rows)
+    lane_bytes = HEADS * (
+        (3 * t * 4 + qk + t * 4)  # scores: rows, cols, bias, q, k; s
+        + (3 * t * 4 + 2 * qk + 2 * n * 4 + 3 * t * 4)  # + v, dout, m, l
+        + (3 * t * 4 + n * 4 + t * 4))  # ds: rows, w, dw, delta; ds
+    lane_flops = HEADS * (2 * t * d + 2 * (2 * t * d) + 3 * t)
+    rows_out = {"attn_lanes": dict(
+        ms=cuda_ms(lambda: lanes(au.attn_scores, au.attn_weights,
+                                 au.attn_ds), 3, 1),
+        plain_ms=cuda_ms(lambda: lanes(au.attn_scores_plain,
+                                       au.attn_weights_plain,
+                                       au.attn_ds_plain), 2, 1),
+        bytes=lane_bytes, flops=lane_flops, library_ms=None,
+        launches=3 * HEADS)}
+    recorded = []
+
+    def record(m_old, m_new, l_, acc, s, r, *, n_valid):
+        recorded.append((m_old.clone(), m_new.clone(), s, r, n_valid))
+        return au.attn_rescale(m_old, m_new, l_, acc, s, r, n_valid=n_valid)
+
+    ops = au.KERNEL_OPS
+    au.KERNEL_OPS = ops._replace(rescale=record)
+    try:
+        au.fused_sparse_attention_user(rows, cols, q[:1], k[:1], v[:1],
+                                       n_rows=n, nnz=nnz,
+                                       nnz_tile=ATTN_USER_TILE,
+                                       group_size=USER_GROUP,
+                                       strategy="seg-generic", scale=scale,
+                                       bias=bias)
+    finally:
+        au.KERNEL_OPS = ops
+    l_r = torch.zeros(n, 1, device=dev)
+    acc_r = torch.zeros(1, n, d, device=dev)
+    moved = sum(int((torch.where(mo <= fa.NEG_INF / 2, 0.0,
+                                 torch.exp(mo - mn)) != 1).sum())
+                for mo, mn, *_ in recorded)
+
+    def replay(rescale, finish):
+        for mo, mn, s, r, nv in recorded:
+            rescale(mo, mn, l_r, acc_r, s, r, n_valid=nv)
+        finish(acc_r, l_r)
+
+    kernel = lambda: replay(au.attn_rescale, au.attn_finish)  # noqa: E731
+    plain = lambda: replay(au.attn_rescale_plain,  # noqa: E731
+                           au.attn_finish_plain)
+    tile = ATTN_USER_TILE
+    rows_out["attn_rescale"] = dict(
+        ms=sum(device_ms(kernel, 1, 2).values()),
+        plain_ms=sum(device_ms(plain, 1, 2).values()),
+        window_ms=cuda_ms(kernel, 2, 1),
+        bytes=len(recorded) * (2 * n * 4 + 3 * tile * 4)
+        + moved * (2 * 4 + 2 * d * 4) + 2 * n * d * 4 + n * 4,
+        flops=len(recorded) * (n + tile) + moved * (d + 1) + n * d,
+        library_ms=None, launches=len(recorded) + 1, moved=moved)
+    for name, r in rows_out.items():
+        print(f"attn_user kernel {name}: {r['launches']} launches of one "
+              f"social pass{' (head 0, forward)' if 'moved' in r else ''}"
+              f" {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+              + (f" (device time; the CUDA-event window {r['window_ms']:.4f}"
+                 f" ms; {r['moved']} rows rescaled over the tiles, of "
+                 f"{len(recorded) * n})" if "moved" in r else "")
+              + f", bound {bound(r['bytes'], r['flops'])[0]:.4f} ms",
+              flush=True)
+    del recorded
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def attn_user_phase(graphs, counters, attended):
+    """A user strategy inside the fused attention (the reference's seven
+    scatters through the user's code): the walk's kernels against their
+    plain versions (:func:`attn_user_check_kernels`), forward and
+    backward under ``seg-generic`` on both graphs against the built-in
+    kernels (:func:`attn_user_run`), the forward under ``seg-max``
+    against the plain walk (:func:`attn_user_max`), quickstart's one-hot
+    strategies (:func:`attn_user_onehot`) and the two kernels' timing
+    rows.  Returns the runs (counts, path, the kernels it must launch),
+    the worst errors and the timing rows."""
+    import torch
+
+    t0 = time.perf_counter()
+    user_strategies()
+    checker = Checker(("attn_lanes", "attn_rescale", "eb_partials"))
+    must = ("attn_lanes", "attn_rescale", "eb_partials", "user_combine")
+    runs, rows = [], []
+    with torch.no_grad():
+        attn_user_check_kernels(graphs, checker)
+    for name, (adj, _) in graphs.items():
+        counts, row = attn_user_run(name, adj, counters, attended[name])
+        runs.append((counts, f"attn_user {name} seg-generic", must))
+        rows.append(row)
+    with torch.no_grad():
+        for name, (adj, _) in graphs.items():
+            runs.append((attn_user_max(name, adj, counters),
+                         f"attn_user {name} seg-max", must))
+        runs += attn_user_onehot(graphs, counters)
+        results = attn_user_kernel_rows(graphs["social"][0])
+    worst = checker.done()
+    for name, tiles, fwd, bwd, b_fwd, b_bwd in rows:
+        print(f"attn_user forward {name} seg-generic: {fwd:.4f} ms, backward "
+              f"{bwd:.4f} ms (host clock, one pass each); built-in kernels "
+              f"{b_fwd:.4f} and {b_bwd:.4f} ms; {tiles} tiles walked a pass "
+              f"({HEADS} heads), {fwd / tiles * 1e3:.2f} us a tile forward, "
+              f"{bwd / tiles * 1e3:.2f} backward", flush=True)
+    print(f"attn_user: phase {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
     return {"runs": runs, "worst": worst, "results": results}
 
@@ -4189,6 +4665,7 @@ def main() -> None:
     try:
         from repro_torch.core import Schedule
         from repro_torch.kernels import (
+            attn_user,
             build,
             eb_partials,
             fused_attention,
@@ -4246,7 +4723,9 @@ def main() -> None:
                 "segment_reduce": segment_reduce.KERNEL,
                 "grouped_matmul": grouped_matmul.KERNEL,
                 "eb_partials": eb_partials.KERNEL,
-                "user_combine": eb_partials.COMBINE}
+                "user_combine": eb_partials.COMBINE,
+                "attn_lanes": attn_user.LANES,
+                "attn_rescale": attn_user.RESCALE}
     runs, expected = [], []  # each path's counts; the kernels it must use
     with torch.no_grad():  # serving
         for name, model in (("social", social_model),
@@ -4338,6 +4817,15 @@ def main() -> None:
     for k, v in user["worst"].items():
         worst[k] = max(worst.get(k, 0.0), v)
     results.update(user["results"])
+
+    # a user strategy inside the fused attention, forward and backward
+    attn_u = attn_user_phase(graphs, counters, attended)
+    for counts, label, kernels in attn_u["runs"]:
+        runs.append(counts)
+        expected.append((label, kernels))
+    for k, v in attn_u["worst"].items():
+        worst[k] = max(worst.get(k, 0.0), v)
+    results.update(attn_u["results"])
 
     # MoE serving at full width, 4 layers
     with torch.no_grad():

@@ -9,16 +9,12 @@
   (``kernels/common.py::run_user_strategy``): its realization, or its
   spec, in torch on the device of the tile's f32 partials (on the card
   the partials kernel writes them, and the combine kernel folds a spec's
-  result in under the strategy's monoid).  It sees each nnz tile's ids
-  offset by the tile's lowest id ``lo``: ``seg_ids - lo``,
-  ``num_segments = hi - lo + 1`` for the highest id ``hi``, and, for a
-  realization, ``out`` the rows ``lo..hi`` of the accumulator, a view
-  written in place.  The reference passes global ids and the whole
-  output block; offsets keep every relation between ids and every group
-  boundary, so a spec or realization that depends on ids only through
-  those gives the same result, and a one-hot costs the tile's span, not
-  the output's height; one that reads an id's value (a per-row table, a
-  normalisation by ``num_segments``) gives another answer than there;
+  result in under the strategy's monoid).  It sees what the reference
+  hands it: each nnz tile's global ids, ``num_segments`` = the
+  accumulator's height, and, for a realization, ``out`` the whole
+  accumulator, written in place; a spec's (height, C) result is combined
+  into every row.  So a one-hot costs ``T x height`` a tile, as on the
+  TPU;
 * :class:`Epilogue` and :data:`ACTIVATIONS` (``gelu`` is the tanh
   approximation, as ``jax.nn.gelu`` defaults to);
 * :class:`Schedule` with the reference's fields and validation, plus one

@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 #: One library per source.
 SOURCES = ("spmm_eb", "spmm_rb", "sddmm", "fused_attention_fwd",
            "fused_attention_bwd", "segment_reduce", "grouped_matmul",
-           "eb_partials")
+           "eb_partials", "attn_user")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",

@@ -134,26 +134,45 @@ def window_tiles(nnz_tile: int, n_cols: int) -> int:
     return max(1, WINDOW_BYTES // (nnz_tile * n_cols * 4))
 
 
+def apply_user_tile(entry, ids, part, acc, group_size: int,
+                    combine) -> None:
+    """One nnz tile of the user strategy ``entry`` under the reference's
+    contract (``src/repro/kernels/common.py:167-196``): a realization
+    (``kernel_fn``) gets the tile's global ids (T,), its partials (T, C)
+    and the whole accumulator ``acc`` (R, C), which it writes in place,
+    with the strategy's monoid where it takes one; lacking a realization,
+    the spec gets the ids, the partials and ``num_segments = R``, and its
+    (R, C) result folds into all of ``acc`` by ``combine(acc, result,
+    monoid)``.  Every row of ``acc`` is combined, as the reference's
+    ``spec_fallback_pallas`` combines the whole block: a spec may write
+    rows the ids do not reach."""
+    if entry.kernel_fn is None:
+        res = call_spec_fn(entry, part, ids, acc.shape[0], group_size)
+        if tuple(res.shape) != tuple(acc.shape):
+            raise ValueError(
+                f"strategy {entry.name!r}: its spec gave "
+                f"{tuple(res.shape)} for a block of {tuple(acc.shape)}")
+        combine(acc, res, entry.monoid)
+    elif accepts_monoid(entry.kernel_fn):
+        entry.kernel_fn(ids, part, acc, group_size, monoid=entry.monoid)
+    else:
+        entry.kernel_fn(ids, part, acc, group_size)
+
+
 def run_user_strategy(entry, rows, acc, *, group_size: int, nnz_tile: int,
                       partials, combine) -> None:
     """Reduce the lanes of ``rows`` (T,) into ``acc`` (R, C) in place
-    under the user strategy ``entry``, one nnz tile at a time, as the
-    reference's kernels do: the realization (``kernel_fn``) runs on each
-    tile, or, lacking one, the spec, whose result ``combine(view, result,
-    monoid)`` folds into ``acc`` under the strategy's monoid.
+    under the user strategy ``entry``, one nnz tile at a time in order,
+    as the reference's kernels do: :func:`apply_user_tile` on each tile,
+    which hands the user's code the tile's global ids, ``num_segments =
+    R`` and the whole accumulator.
 
     ``partials(t0, t1)`` gives the (t1 - t0, C) f32 partials of lanes
     [t0, t1); it is asked for windows of whole tiles of at most
     :data:`WINDOW_BYTES`.  The same walk runs on both devices: CPU callers
     hand it plain partials and a plain combine, CUDA callers the kernels
-    of ``eb_partials.py``.
-
-    The user's code sees each tile's rows offset by the tile's lowest
-    row ``lo``: ids ``rows - lo``, ``num_segments = hi - lo + 1`` (``hi``
-    the highest row), and, for a realization, ``out = acc[lo:hi + 1]``, a
-    view written in place; a spec's (span, C) result combines into the
-    same view.  Offsets keep every relation between ids and every group
-    boundary (a tile starts at a multiple of ``nnz_tile``, so of G)."""
+    of ``eb_partials.py``.  Ids need no order (the attention's transpose
+    scatters pass columns); they must lie in ``[0, R)``."""
     T = rows.numel()
     if T % nnz_tile or nnz_tile % group_size:
         raise ValueError(f"T={T} is not a multiple of nnz_tile={nnz_tile}, "
@@ -161,35 +180,19 @@ def run_user_strategy(entry, rows, acc, *, group_size: int, nnz_tile: int,
     n_tiles = T // nnz_tile
     if not n_tiles:
         return
-    tiles = rows.reshape(n_tiles, nnz_tile)
-    bounds = torch.stack([tiles.amin(1), tiles.amax(1)], 1).tolist()
-    if min(lo for lo, _ in bounds) < 0 or max(
-            hi for _, hi in bounds) >= acc.shape[0]:
+    lo, hi = torch.stack(torch.aminmax(rows)).tolist()
+    if lo < 0 or hi >= acc.shape[0]:
         raise ValueError(f"row ids outside [0, {acc.shape[0]})")
+    tiles = rows.reshape(n_tiles, nnz_tile)
     per_window = window_tiles(nnz_tile, acc.shape[1])
-    takes_monoid = entry.kernel_fn is not None and accepts_monoid(
-        entry.kernel_fn)
     for w0 in range(0, n_tiles, per_window):
         w1 = min(n_tiles, w0 + per_window)
         p = partials(w0 * nnz_tile, w1 * nnz_tile)
         for k in range(w0, w1):
-            lo, hi = bounds[k]
-            ids = tiles[k] - lo
-            part = p[(k - w0) * nnz_tile:(k - w0 + 1) * nnz_tile]
-            out = acc[lo:hi + 1]
-            if entry.kernel_fn is None:
-                res = call_spec_fn(entry, part, ids, hi - lo + 1, group_size)
-                if tuple(res.shape) != tuple(out.shape):
-                    raise ValueError(
-                        f"strategy {entry.name!r}: its spec gave "
-                        f"{tuple(res.shape)} for a tile spanning "
-                        f"{tuple(out.shape)}")
-                combine(out, res, entry.monoid)
-            elif takes_monoid:
-                entry.kernel_fn(ids, part, out, group_size,
-                                monoid=entry.monoid)
-            else:
-                entry.kernel_fn(ids, part, out, group_size)
+            apply_user_tile(
+                entry, tiles[k],
+                p[(k - w0) * nnz_tile:(k - w0 + 1) * nnz_tile], acc,
+                group_size, combine)
 
 
 def group_reduce_scatter(rows, partial, out, group_size: int,

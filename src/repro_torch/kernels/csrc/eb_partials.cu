@@ -12,9 +12,15 @@
 // Python spec or realization cannot run inside a CUDA kernel, so the port
 // splits the tile in three (kernels/common.py::run_user_strategy): this
 // file's eb_partials_kernel writes the f32 partials of a window of whole
-// nnz tiles, the user's code runs per tile in torch on the card, and
-// user_combine_kernel folds a spec's (span, C) result into the rows of the
-// accumulator the tile spans, under add, max or min.
+// nnz tiles, the user's code runs per tile in torch on the card (handed
+// the tile's global ids and the whole accumulator, as the reference
+// hands them), and user_combine_kernel folds a spec's (height, C) result
+// into the whole accumulator, under add, max or min.
+//
+// The user walk of the fused attention (kernels/attn_user.py) forms its
+// value partials with the same kernel: f32 lane values (p, w, ds) times
+// rows of V, dout, K or Q, so besides EB's storage pairs it takes f32
+// values on a bf16, fp16 or e4m3 B, converted in registers as ever.
 //
 // What bounds it on the H100: bytes.  The partials it writes dominate:
 // 3,043,805 lanes x 256 columns x 4 B = 3.12 GB on the social graph at
@@ -29,10 +35,11 @@
 // kernels/eb_partials.py::lane_values and spmm.cuh do it, so every
 // partial is the same single product as the plain version's, bit for bit.
 //
-// The combine runs on the accumulator's rows in place, a grid-stride loop
-// over the span's elements: add as the f32 sum, max and min ordering
-// -0.0 below +0.0 with NaN propagated, as the monoids of
-// core/segment_group.py (and jnp.maximum, jnp.minimum) do.
+// The combine runs on the accumulator in place, a grid-stride loop over
+// its elements, bound by their bytes (read twice, written once): add as
+// the f32 sum, max and min ordering -0.0 below +0.0 with NaN propagated,
+// as the monoids of core/segment_group.py (and jnp.maximum, jnp.minimum)
+// do.
 #include "epilogue.cuh"
 #include "spmm.cuh"
 
@@ -115,8 +122,8 @@ __device__ __forceinline__ float combine(float a, float b) {
   return first ? a : b;
 }
 
-// acc[i] = combine(acc[i], tile[i]) over the n elements of a span of the
-// accumulator's rows.
+// acc[i] = combine(acc[i], tile[i]) over the n elements of the
+// accumulator.
 template <int OP>
 __global__ void __launch_bounds__(256)
     user_combine_kernel(float* __restrict__ acc,
@@ -133,11 +140,51 @@ static dim3 grid_for(long long items) {
   return dim3((unsigned)(blocks < 1 ? 1 : blocks));
 }
 
-// the (values, B) type pairs of kernels/common.py::CUDA_VALUE_PAIRS
+// the (values, B) type pairs of kernels/common.py::CUDA_VALUE_PAIRS and
+// kernels/eb_partials.py::F32_VALUE_PAIRS (f32 values on a narrow B)
 static bool bad_types(int val_type, int b_type, const float* scales) {
   if (val_type == DT_I8) return b_type != DT_BF16 || scales == nullptr;
+  if (val_type == DT_F32)
+    return b_type < DT_F32 || b_type > DT_E4M3 || scales != nullptr;
   return val_type < DT_F32 || val_type > DT_E4M3 || b_type != val_type ||
          scales != nullptr;
+}
+
+// f32 lane values on a B of b_type: the vector widths that fill 16 bytes
+// of it, 4 or 1 elements.
+static int launch_f32_values(const int* rows, const int* cols,
+                             const void* vals, const void* b,
+                             const float* scales, float* out,
+                             long long n_lanes, int n_cols, int vec,
+                             int b_type, dim3 grid, dim3 block,
+                             cudaStream_t stream) {
+  switch (b_type) {
+    case DT_F32:
+      if (vec != 4 && vec != 1) return (int)cudaErrorInvalidValue;
+      launch_partials<float, float>(rows, cols, vals, b, scales, out,
+                                    n_lanes, n_cols, vec, grid, block,
+                                    stream);
+      break;
+    case DT_BF16:
+      if (vec != 8 && vec != 4 && vec != 1) return (int)cudaErrorInvalidValue;
+      launch_partials<float, __nv_bfloat16>(rows, cols, vals, b, scales,
+                                            out, n_lanes, n_cols, vec, grid,
+                                            block, stream);
+      break;
+    case DT_F16:
+      if (vec != 8 && vec != 4 && vec != 1) return (int)cudaErrorInvalidValue;
+      launch_partials<float, __half>(rows, cols, vals, b, scales, out,
+                                     n_lanes, n_cols, vec, grid, block,
+                                     stream);
+      break;
+    default:  // e4m3
+      if (vec != 16 && vec != 4 && vec != 1)
+        return (int)cudaErrorInvalidValue;
+      launch_partials<float, __nv_fp8_e4m3>(rows, cols, vals, b, scales,
+                                            out, n_lanes, n_cols, vec, grid,
+                                            block, stream);
+  }
+  return 0;
 }
 
 extern "C" int eb_partials_launch(const int* rows, const int* cols,
@@ -156,12 +203,13 @@ extern "C" int eb_partials_launch(const int* rows, const int* cols,
   const dim3 grid = grid_for(n_lanes * (n_cols / vec));
   const dim3 block(256);
   switch (val_type) {
-    case DT_F32:
-      if (vec != 4 && vec != 1) return (int)cudaErrorInvalidValue;
-      launch_partials<float, float>(rows, cols, vals, b, scales, out,
-                                    n_lanes, n_cols, vec, grid, block,
-                                    stream);
+    case DT_F32: {
+      const int bad = launch_f32_values(rows, cols, vals, b, scales, out,
+                                        n_lanes, n_cols, vec, b_type, grid,
+                                        block, stream);
+      if (bad) return bad;
       break;
+    }
     case DT_BF16:
       if (vec != 8 && vec != 4 && vec != 1) return (int)cudaErrorInvalidValue;
       launch_partials<__nv_bfloat16, __nv_bfloat16>(

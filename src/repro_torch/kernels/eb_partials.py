@@ -15,16 +15,23 @@ partials ``value(t) * B[cols[t]]``) and the combine of
 user's spec or realization is traced into the Pallas body; a Python
 function cannot run inside a CUDA kernel, so here the kernel writes the
 f32 partials of a window of whole nnz tiles to device memory, the
-user's code runs on each tile in torch on the card, and the combine
-kernel folds a spec's result into the rows the tile spans.  The
-partials kernel is bound by the bytes it writes (3.12 GB on the social
-graph at N = 256): a thread forms one 16-byte vector of a lane's B row
-(4 f32, 8 bf16 or fp16, 16 e4m3 elements), converted to f32 in
-registers, and writes the products with 16-byte stores; each partial is
-the plain version's single product, bit for bit.  The combine is an
-elementwise pass over the span's rows.  A monoid registered with a
-callable ``combine=`` has no kernel: that callable is the user's own
-code, and runs on the two device tensors as it is.
+user's code runs on each tile in torch on the card with the
+reference's contract (global ids, the whole block), and the combine
+kernel folds a spec's result into the whole accumulator.  The partials
+kernel is bound by the bytes it writes (3.12 GB on the social graph at
+N = 256): a thread forms one 16-byte vector of a lane's B row (4 f32, 8
+bf16 or fp16, 16 e4m3 elements), converted to f32 in registers, and
+writes the products with 16-byte stores; each partial is the plain
+version's single product, bit for bit.  The combine is an elementwise
+pass over the accumulator, bound by its bytes (a (169,343, 256) f32
+block is 173 MB, read twice and written once a tile).  A monoid
+registered with a callable ``combine=`` has no kernel: that callable is
+the user's own code, and runs on the two device tensors as it is.
+
+The fused attention's user walk (``attn_user.py``) forms its value
+partials here too: ``p * V[cols]``, ``w * dout[rows]``, ``ds * K[cols]``
+and ``ds * Q[rows]``, f32 lane values on a B of the attention operands'
+type (:data:`F32_VALUE_PAIRS`, beside the EB storage pairs).
 """
 from __future__ import annotations
 
@@ -34,13 +41,19 @@ import torch
 
 from ..core.segment_group import MONOIDS, Monoid
 from .build import CudaKernel, ptr
-from .common import CUDA_OPS, check_value_operands, combine_plain
+from .common import CUDA_OPS, DTYPE_CODES, check_value_operands, combine_plain
 
 KERNEL = CudaKernel(
     "eb_partials", "eb_partials_launch",
     [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 4)
 
-#: The combine of a tile's result into the accumulator's rows.
+#: The (values, B) pairs the partials kernel takes beside EB's storage
+#: pairs (``common.CUDA_VALUE_PAIRS``): f32 lane values on a narrow B, the
+#: attention's value partials.
+F32_VALUE_PAIRS = tuple((torch.float32, t) for t in (
+    torch.bfloat16, torch.float16, torch.float8_e4m3fn))
+
+#: The combine of a tile's result into the accumulator.
 COMBINE = CudaKernel(
     "eb_partials", "user_combine_launch",
     [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int],
@@ -75,7 +88,8 @@ def partials_vec(b) -> int:
 
 def eb_partials(rows, cols, vals, b, *, n_rows: int, scales=None):
     """(T, N) f32 partials ``value(t) * B[cols[t]]`` of a stream of lanes
-    (the values and B stored as one of ``common.CUDA_VALUE_PAIRS``: int8
+    (the values and B stored as one of ``common.CUDA_VALUE_PAIRS`` or
+    :data:`F32_VALUE_PAIRS`: int8
     codes come with ``scales`` of at least ``n_rows`` rows, each lane's
     code dequantized with its own row's scale).  CPU tensors run the
     plain version; CUDA tensors launch the kernel."""
@@ -88,8 +102,13 @@ def eb_partials(rows, cols, vals, b, *, n_rows: int, scales=None):
         return eb_partials_plain(rows, cols, vals, b, scales)
     if b.device.type != "cuda":
         raise ValueError(f"no partials kernel for device {b.device}")
-    val_code, b_code = check_value_operands(vals, b, scales, n_scales=n_rows,
-                                            kernel="partials")
+    if (vals.dtype, b.dtype) in F32_VALUE_PAIRS:
+        if scales is not None:
+            raise ValueError("scales come exactly with int8 codes")
+        val_code, b_code = DTYPE_CODES[vals.dtype], DTYPE_CODES[b.dtype]
+    else:
+        val_code, b_code = check_value_operands(
+            vals, b, scales, n_scales=n_rows, kernel="partials")
     for name, t, dt in (("rows", rows, torch.int32),
                         ("cols", cols, torch.int32),
                         ("vals", vals, vals.dtype), ("B", b, b.dtype)):
@@ -105,8 +124,8 @@ def eb_partials(rows, cols, vals, b, *, n_rows: int, scales=None):
 
 
 def combine(acc, tile, monoid: Monoid) -> None:
-    """``acc = monoid.combine(acc, tile)`` in place, for ``acc`` a span of
-    an f32 accumulator's rows and ``tile`` a result of its shape.  CPU
+    """``acc = monoid.combine(acc, tile)`` in place, for ``acc`` an f32
+    accumulator and ``tile`` a result of its shape.  CPU
     tensors run the plain version.  On CUDA tensors add, max and min
     launch the kernel; a monoid registered with its own callable runs
     that callable on the two device tensors."""
@@ -121,7 +140,7 @@ def combine(acc, tile, monoid: Monoid) -> None:
         acc.copy_(monoid.combine(acc, tile))  # the user's own combine
         return
     if acc.dtype != torch.float32 or not acc.is_contiguous():
-        raise ValueError("the accumulator must be a contiguous f32 span")
+        raise ValueError("the accumulator must be contiguous f32")
     tile = tile.to(torch.float32).contiguous()
     COMBINE.launch(acc.device, ptr(acc), ptr(tile), acc.numel(),
                    CUDA_OPS[monoid.name])

@@ -36,9 +36,10 @@ atomic into an identity-filled output.
 A strategy the kernel does not realize (one a user registered, with its
 own combine or not) runs as the plain version does
 (``common.run_user_strategy``), on the card: the data, in f32, are its
-partials, the user's code runs on each tile in torch, and the combine
-kernel of ``csrc/eb_partials.cu`` folds a spec's result into the
-segments the tile spans.
+partials, the user's code runs on each tile in torch with the tile's
+global segment ids and the whole (num_segments, C) output, and the
+combine kernel of ``csrc/eb_partials.cu`` folds a spec's result into
+that output.
 """
 from __future__ import annotations
 

@@ -32,9 +32,11 @@ before the reduction; sums, carries and the finishing launch stay f32.
 A strategy the kernel does not realize (one a user registered) runs
 through :func:`spmm_eb_user`: the lane partials kernel of
 ``csrc/eb_partials.cu`` writes windows of whole nnz tiles, the user's
-realization or spec runs on each tile in torch on the card, the combine
-kernel folds a spec's result into the rows the tile spans, and the
-finishing launch applies the epilogue once.
+realization or spec runs on each tile in torch on the card, handed the
+tile's global row ids and the whole (n_rows, N) accumulator as the
+reference hands them, the combine kernel folds a spec's (n_rows, N)
+result into the accumulator, and the finishing launch applies the
+epilogue once.
 """
 from __future__ import annotations
 

@@ -10,7 +10,8 @@ view.  Under a narrow ``value_dtype`` the forward moves the cast storage
 and the backward runs in f32 (straight through the cast); the int8 path
 (``value_dtype="int8"`` or a ``QuantizedCSR``) is differentiable in B,
 bias and residual, its backward on the dequantized f32 values.
-``sparse_attention``'s backward is the fused backward kernel.
+``sparse_attention``'s backward is the fused backward kernel, or, under
+a user strategy, the user walk's backward (``kernels/attn_user.py``).
 """
 from __future__ import annotations
 
@@ -20,7 +21,14 @@ import torch
 
 from ..core.device import check_on, resolve_device
 from ..core.dtypes import storage_dtype
-from ..core.schedule import ACTIVATIONS, Epilogue, Schedule, as_schedule
+from ..core.schedule import (
+    ACTIVATIONS,
+    Epilogue,
+    Schedule,
+    as_schedule,
+    get_strategy,
+)
+from ..kernels import attn_user as au
 from ..kernels import fused_attention as fa
 from ..kernels import ops as kops
 from ..kernels import segment_reduce as kseg
@@ -407,8 +415,14 @@ def sparse_attention(adj, q, k, v, *, schedule=None,
     schedule  validated as the reference does: 'parallel' is refused.
               'tune' runs or replays the forward's tuner
               (``repro_torch.tune.tune_sparse_attention``, keyed by
-              pattern, head count and direction).  Its tiles, group and
-              strategy do not change the kernels' results.
+              pattern, head count and direction) over the built-in
+              strategies.  Under a built-in strategy (``segment``,
+              ``accumulate``) the tiles, group and strategy do not change
+              the result, and the fused kernels run.  Under any other
+              registered strategy the reference's result depends on them,
+              and the user walk of ``kernels/attn_user.py`` runs in both
+              directions: the user's code at the reference's seven
+              scatters, tile by tile, handed global ids and whole blocks.
     impl      'kernel' (the fused kernels, both directions) or 'ref'
               (the spec oracle per head, differentiated by autograd).
     device    as for :func:`spmm`.
@@ -450,30 +464,55 @@ def sparse_attention(adj, q, k, v, *, schedule=None,
                 "single-writeback contract does not hold for attention "
                 "rows")
         out = _SparseAttention.apply(qh, kh, vh, indptr, cols, bias,
-                                     float(scale))
+                                     float(scale), sched)
     else:
         raise ValueError(f"impl must be 'kernel' or 'ref', got {impl!r}")
     return out.movedim(0, 1) if multi else out[0]
 
 
 class _SparseAttention(torch.autograd.Function):
-    """The fused kernels over head-major (H, n, ·) operands (port of
+    """The attention over head-major (H, n, ·) operands (port of
     ``_sparse_attention_diff``): the forward saves ``(q, k, v, m, l)``,
-    the O(H·n_rows) row statistics, and the backward kernel recomputes
-    the probabilities from them."""
+    the O(H·n_rows) row statistics, and the backward recomputes the
+    probabilities from them.  A built-in strategy runs the fused kernels;
+    a user strategy the walks of ``kernels/attn_user.py`` over the
+    stream cut into the schedule's nnz tiles, padded as the reference
+    pads it (row 0, column 0, bias 0)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, indptr, cols, bias, scale):
-        out, m, l = fa.fused_sparse_attention(indptr, cols, q, k, v,
-                                              scale=scale, bias=bias)
-        ctx.save_for_backward(q, k, v, m, l, indptr, cols, bias)
+    def forward(ctx, q, k, v, indptr, cols, bias, scale, sched):
         ctx.scale = scale
+        ctx.user = not get_strategy(sched.strategy).builtin
+        if not ctx.user:
+            out, m, l = fa.fused_sparse_attention(indptr, cols, q, k, v,
+                                                  scale=scale, bias=bias)
+            ctx.save_for_backward(q, k, v, m, l, indptr, cols, bias)
+            return out
+        nnz = cols.numel()
+        pad = max(-(-max(nnz, 1) // sched.nnz_tile),
+                  1) * sched.nnz_tile - nnz
+        rows_p = torch.cat([fa.rows_of(indptr).to(torch.int32),
+                            cols.new_zeros(pad, dtype=torch.int32)])
+        cols_p = torch.cat([cols.to(torch.int32),
+                            cols.new_zeros(pad, dtype=torch.int32)])
+        bias_p = None if bias is None else torch.cat(
+            [bias.to(torch.float32), bias.new_zeros(pad, dtype=torch.float32)])
+        ctx.walk = dict(n_rows=q.shape[1], nnz=nnz, nnz_tile=sched.nnz_tile,
+                        group_size=sched.group_size,
+                        strategy=sched.strategy, scale=scale)
+        out, m, l = au.fused_sparse_attention_user(
+            rows_p, cols_p, q, k, v, bias=bias_p, **ctx.walk)
+        ctx.save_for_backward(q, k, v, m, l, rows_p, cols_p, bias_p)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, m, l, indptr, cols, bias = ctx.saved_tensors
-        dq, dk, dv = fa.fused_sparse_attention_bwd(
-            indptr, cols, q, k, v, dout, m, l, scale=ctx.scale, bias=bias)
+        q, k, v, m, l, a, b, bias = ctx.saved_tensors
+        if ctx.user:
+            dq, dk, dv = au.fused_sparse_attention_bwd_user(
+                a, b, q, k, v, dout, m, l, bias=bias, **ctx.walk)
+        else:
+            dq, dk, dv = fa.fused_sparse_attention_bwd(
+                a, b, q, k, v, dout, m, l, scale=ctx.scale, bias=bias)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
-                None, None)
+                None, None, None)

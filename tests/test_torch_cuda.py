@@ -852,6 +852,210 @@ def test_graph_attention_grads_on_cuda_match_cpu(dev):
         torch.testing.assert_close(g_cuda, g_cpu, rtol=1e-4, atol=1e-4)
 
 
+# --- attention under a user strategy (kernels/attn_user.py) ---------------
+
+#: ulps within which an exp-derived value of the attention's user kernels
+#: (expf) may differ from the plain version's (torch.exp on the card): each
+#: is within 2 ulp of exp, so they stay within 4 of each other.
+EXP_ULPS = 4
+
+
+def _ulps(got, want):
+    """Largest distance in f32 ulps (of ``want``) between two tensors,
+    NaN and infinities required at the same places with the same
+    values."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    fin = torch.isfinite(want)
+    assert torch.equal(got[~fin & ~nan], want[~fin & ~nan])
+    g, w = got[fin].double(), want[fin].double()
+    ulp = torch.abs(w).clamp(min=2.0 ** -126) * 2.0 ** -23
+    return float(((g - w).abs() / ulp).max()) if w.numel() else 0.0
+
+
+def _attn_stream(dev, n_rows, n_kv, heads, d, dv, seed, tile):
+    """A padded stream of ``_attention_case``'s pattern (pad lanes at row
+    0 and column 0, bias 0) in whole tiles of ``tile``, and its
+    operands."""
+    from repro_torch.kernels.fused_attention import rows_of
+
+    indptr, cols, q, k, v, do, bias = _attention_case(dev, n_rows, n_kv,
+                                                      heads, d, dv, seed)
+    nnz = cols.numel()
+    pad = -(-nnz // tile) * tile - nnz
+    z = torch.zeros(pad, dtype=torch.int32, device=dev)
+    rows = torch.cat([rows_of(indptr).to(torch.int32), z])
+    return (nnz, rows, torch.cat([cols, z]), q, k, v, do,
+            torch.cat([bias, z.float()]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float8_e4m3fn])
+@pytest.mark.parametrize("d,dv", [(64, 64), (37, 20)])
+def test_attn_lanes_kernel_matches_plain(dev, dtype, d, dv):
+    """``attn_lanes``' three modes against their plain versions: the
+    scores and dw per lane within K_TERMS units of 2^-24 of the terms
+    entering them (zero-mean operands), w within that error of its score
+    carried through exp plus EXP_ULPS, NEG_INF and 0 on the pad lanes,
+    and ds (from the same w, dw, delta) bit for bit."""
+    from repro_torch.kernels import attn_user as au
+
+    nnz, rows, cols, q, k, v, do, bias = _attn_stream(dev, 90, 70, 1, d, dv,
+                                                      d + dv, 128)
+    q, k, v = (x[0].to(dtype) for x in (q, k, v))
+    do = do[0]
+    scale = d ** -0.5
+    before = au.LANES.launches
+    s = au.attn_scores(rows, cols, q, k, nnz=nnz, scale=scale, bias=bias)
+    want_s = au.attn_scores_plain(rows, cols, q, k, nnz=nnz, scale=scale,
+                                  bias=bias)
+    r, c = rows.long(), cols.long()
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    terms_s = (qf[r] * kf[c]).abs().sum(-1) * scale + bias.abs()
+    _assert_within_terms(s, want_s, terms_s)
+    assert bool((s[nnz:] == au.NEG_INF).all())
+    m = torch.full((90,), au.NEG_INF, device=dev).scatter_reduce(
+        0, r[:nnz], want_s[:nnz], "amax")
+    l = torch.zeros(90, device=dev).index_add_(
+        0, r[:nnz], torch.exp(want_s[:nnz] - m[r[:nnz]]))
+    got = au.attn_weights(rows, cols, q, k, v, do, m, l, nnz=nnz,
+                          scale=scale, bias=bias)
+    want = au.attn_weights_plain(rows, cols, q, k, v, do, m, l, nnz=nnz,
+                                 scale=scale, bias=bias)
+    _assert_within_terms(got[1], want[1],
+                         (do[r] * vf[c]).abs().sum(-1))
+    err_w = K_TERMS * 2.0 ** -24 * (terms_s + want_s.abs()) * want[0]
+    assert bool(((got[0] - want[0]).abs()
+                 <= err_w + EXP_ULPS * 2.0 ** -23 * want[0]).all())
+    assert bool((got[0][nnz:] == 0).all())
+    delta = torch.randn(90, generator=torch.Generator().manual_seed(3)).to(
+        dev)
+    ds = au.attn_ds(rows, want[0], want[1], delta, scale=scale)
+    assert torch.equal(ds, au.attn_ds_plain(rows, want[0], want[1], delta,
+                                            scale=scale))
+    assert au.LANES.launches == before + 3
+
+
+def test_attn_rescale_kernel_matches_plain(dev):
+    """``attn_rescale`` against its plain version: alpha 0 where m_old is
+    NEG_INF, 1 where m did not move, a NaN m; l, the accumulator's two dv
+    tiles and p within EXP_ULPS, p 0 on pads; the finishing mode's
+    division bit for bit (a NaN l too)."""
+    from repro_torch.kernels import attn_user as au
+
+    g = torch.Generator().manual_seed(21)
+    n_rows, tile = 500, 256
+    m_new = torch.randn(n_rows, 1, generator=g)
+    m_old = m_new - torch.rand(n_rows, 1, generator=g)
+    m_old[::5] = m_new[::5]
+    m_old[1::7] = au.NEG_INF
+    m_new[2::97] = m_old[2::97] = float("nan")
+    l = torch.rand(n_rows, 1, generator=g) * 10
+    acc = torch.randn(2, n_rows, 24, generator=g)
+    rows = torch.randint(0, n_rows, (tile,), generator=g, dtype=torch.int32)
+    s = torch.randn(tile, generator=g)
+    want = (m_old, m_new, l.clone(), acc.clone(), s, rows)
+    p_want = au.attn_rescale_plain(*want, n_valid=200)
+    got = [x.to(dev) for x in (m_old, m_new, l, acc, s, rows)]
+    before = au.RESCALE.launches
+    p = au.attn_rescale(*got, n_valid=200)
+    assert au.RESCALE.launches == before + 1
+    for a, b in ((p, p_want), (got[2], want[2]), (got[3], want[3])):
+        assert _ulps(a.cpu(), b) <= EXP_ULPS
+    assert bool((p[200:] == 0).all())
+    want[2][3] = float("nan")
+    got[2].copy_(want[2])  # the finish on the same inputs
+    got[3].copy_(want[3])
+    au.attn_finish_plain(want[3], want[2])
+    au.attn_finish(got[3], got[2])
+    assert au.RESCALE.launches == before + 2
+    _assert_segred_same(got[3].cpu(), want[3], "max")
+
+
+@pytest.mark.parametrize("b_dtype", [torch.bfloat16, torch.float16,
+                                     torch.float8_e4m3fn])
+@pytest.mark.parametrize("n_dense", [64, 24, 20])
+def test_eb_partials_f32_values_on_a_narrow_b(dev, b_dtype, n_dense):
+    """The attention's value partials: f32 lane values on a bf16, fp16 or
+    e4m3 B, bit for bit with the plain version at 16-byte, 4-element and
+    element loads (B one element off its alignment too)."""
+    from repro_torch.kernels import eb_partials
+
+    g = torch.Generator().manual_seed(n_dense)
+    b = torch.randn(70, n_dense, generator=g).to(b_dtype).to(dev)
+    vals = torch.randn(3000, generator=g).to(dev)
+    idx = torch.randint(0, 70, (3000,), generator=g,
+                        dtype=torch.int32).to(dev)
+    off = torch.empty(b.numel() + 1, dtype=b.dtype, device=dev)[1:]
+    b_off = off.view(b.shape).copy_(b)
+    for bb in (b, b_off):
+        before = eb_partials.KERNEL.launches
+        got = eb_partials.eb_partials(idx, idx, vals, bb, n_rows=70)
+        assert eb_partials.KERNEL.launches == before + 1
+        want = eb_partials.eb_partials_plain(idx, idx, vals, bb)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(ValueError, match="int8"):
+        eb_partials.eb_partials(idx, idx, vals, b, n_rows=70,
+                                scales=torch.ones(70, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_user_attention_on_cuda_matches_the_builtin_kernels(dev, dtype):
+    """``sparse_attention`` under a spec that computes the segment
+    reduction under any monoid (a user strategy; ``spec_segment`` would
+    not do: it assumes ids in order, and dV and dK scatter by column) on
+    the card: the walk's kernels all launch, out within RTOL of the
+    built-in fused kernels' and the q, k, v gradients within 1e-4; a spec
+    under ``combine="max"`` against the same walk with the plain versions
+    on the card."""
+    import repro_torch.sparse as ts
+    from repro_torch.core import Schedule, register_strategy
+    from repro_torch.kernels import attn_user as au
+    from repro_torch.kernels import eb_partials
+
+    def generic(p, ids, n, group_size, monoid):
+        return monoid.seg_reduce(p, ids, n)
+
+    _cuda_user_strategies()
+    register_strategy("t_cuda_seg", generic, overwrite=True)
+    a = _hub_matrix(dev, n=900, hub_len=1500, long_len=300)
+    outs, grads = {}, {}
+    counters = (au.LANES, au.RESCALE, eb_partials.KERNEL,
+                eb_partials.COMBINE)
+    for strategy in ("segment", "t_cuda_seg"):
+        q, k, v = (_dense(dev, (900, 2, 32), s).to(dtype).requires_grad_()
+                   for s in (31, 32, 33))
+        before = [c.launches for c in counters]
+        out = ts.sparse_attention(a, q, k, v, schedule=Schedule(
+            nnz_tile=256, group_size=32, strategy=strategy))
+        out.backward(_dense(dev, tuple(out.shape), 34))
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        assert (all(launched) if strategy != "segment"
+                else not any(launched))
+        outs[strategy] = out.detach()
+        grads[strategy] = [t.grad.float() for t in (q, k, v)]
+    torch.testing.assert_close(outs["t_cuda_seg"], outs["segment"],
+                               rtol=RTOL, atol=RTOL)
+    for got, want in zip(grads["t_cuda_seg"], grads["segment"]):
+        tol = 1e-4 if dtype == torch.float32 else 1e-4 + 2.0 ** -7
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    from repro_torch.kernels.fused_attention import rows_of
+
+    nnz = a.indices.numel()
+    pad = -(-nnz // 256) * 256 - nnz
+    z = torch.zeros(pad, dtype=torch.int32, device=dev)
+    rows = torch.cat([rows_of(a.indptr).to(torch.int32), z])
+    cols = torch.cat([a.indices, z])
+    bias = torch.cat([a.vals, z.float()])
+    q, k, v = (_dense(dev, (2, 900, 32), s) for s in (41, 42, 43))
+    kw = dict(n_rows=900, nnz=nnz, nnz_tile=256, group_size=32,
+              strategy="t_cuda_max", scale=32 ** -0.5, bias=bias)
+    got = au.fused_sparse_attention_user(rows, cols, q, k, v, **kw)
+    want = au.fused_sparse_attention_user_plain(rows, cols, q, k, v, **kw)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=RTOL, atol=RTOL)
+
+
 # --- segment reduce, the planner's GCN and readout -------------------------
 
 

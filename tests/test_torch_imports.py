@@ -40,7 +40,7 @@ def test_port_has_its_kernel_sources():
     assert {p.stem for p in csrc.glob("*.cu")} == set(build.SOURCES) == {
         "spmm_eb", "spmm_rb", "sddmm", "fused_attention_fwd",
         "fused_attention_bwd", "segment_reduce", "grouped_matmul",
-        "eb_partials"}
+        "eb_partials", "attn_user"}
     # the epilogue is fused into the kernels; the headers they share
     assert {p.name for p in csrc.glob("*.cuh")} == {
         "attention.cuh", "epilogue.cuh", "spmm.cuh"}
@@ -63,8 +63,8 @@ def test_the_scan_covers_the_fuse_package_and_every_kernel_module():
 
     assert {f"kernels/{s}.py" for s in ("spmm_eb", "spmm_rb", "sddmm",
                                         "segment_reduce", "grouped_matmul",
-                                        "eb_partials")} <= scanned
-    assert len(build.SOURCES) == 8
+                                        "eb_partials", "attn_user")} <= scanned
+    assert len(build.SOURCES) == 9
 
 
 def test_importing_every_port_module_loads_no_jax():

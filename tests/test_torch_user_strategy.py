@@ -5,8 +5,8 @@ under strategies registered in both packages with the same semantics
 callable combine with its identity), the JAX kernels in interpret mode,
 inputs built by numpy from a seed; and the tile walk the card runs
 (``kernels/common.py::run_user_strategy``: windows of whole tiles, the
-offset-id contract) with the partials and combine wrappers' plain
-versions.
+reference's contract of global ids and whole blocks) with the partials
+and combine wrappers' plain versions.
 
 Tolerances: f32 results of add 1e-5 relative (and 1e-5 absolute): the
 one-hot product and the segment sums add the same terms in other
@@ -319,10 +319,12 @@ def test_gcn_under_a_user_strategy_matches_reference_and_jax_grad():
 
 
 def test_run_user_strategy_hands_offset_ids_and_row_views(monkeypatch):
-    """The offset-id contract: each tile's realization gets ``rows - lo``,
-    ``out`` = rows lo..hi of the accumulator (a view, written in place),
-    and the spec ``num_segments = hi - lo + 1``; windows of whole tiles
-    no larger than ``WINDOW_BYTES`` give the one-window result."""
+    """The reference's contract (the name is kept from the offset
+    contract it once pinned): each tile's realization gets the tile's
+    global row ids and ``out`` = the whole accumulator (written in
+    place), and the spec ``num_segments`` = the accumulator's height;
+    windows of whole tiles no larger than ``WINDOW_BYTES`` give the
+    one-window result."""
     rng = np.random.default_rng(5)
     tile, c, n_rows = 16, 3, 50
     rows = torch.from_numpy(np.sort(rng.integers(3, n_rows, 6 * tile))
@@ -355,12 +357,10 @@ def test_run_user_strategy_hands_offset_ids_and_row_views(monkeypatch):
     assert windows == [(0, 32), (32, 64), (64, 96)]
     assert len(seen) == 6
     for k, (ids, part, shape, addr) in enumerate(seen):
-        r = rows[k * tile:(k + 1) * tile]
-        lo, hi = int(r.min()), int(r.max())
-        assert torch.equal(ids, r - lo) and int(ids.min()) == 0
+        assert torch.equal(ids, rows[k * tile:(k + 1) * tile])
         assert torch.equal(part, partial[k * tile:(k + 1) * tile])
-        assert shape == (hi - lo + 1, c)
-        assert addr == acc.data_ptr() + lo * c * acc.element_size()
+        assert shape == (n_rows, c)
+        assert addr == acc.data_ptr()
     want = torch.zeros(n_rows, c).index_add_(0, rows.long(), partial)
     torch.testing.assert_close(acc, want, rtol=RTOL, atol=ATOL)
 
@@ -369,7 +369,8 @@ def test_run_user_strategy_hands_offset_ids_and_row_views(monkeypatch):
                               group_size=8, nnz_tile=tile,
                               partials=lambda t0, t1: partial[t0:t1],
                               combine=tpart.combine)
-    assert [int(n) for _, n in specs] == [s[2][0] for s in seen]
+    assert [int(n) for _, n in specs] == [n_rows] * 6
+    assert all(torch.equal(ids, s[0]) for (ids, _), s in zip(specs, seen))
     torch.testing.assert_close(acc2, acc, rtol=0, atol=0)
     with pytest.raises(ValueError, match="outside"):
         tcommon.run_user_strategy(get_strategy("t_us_record"), rows,
@@ -418,15 +419,13 @@ def _t_idweight_kernel(rows, partial, out, group_size):
 @pytest.mark.parametrize("with_realization", [False, True],
                          ids=["spec", "realization"])
 def test_id_dependent_strategy_pins_the_offset_divergence(with_realization):
-    """Where the port's contract departs from the reference's: the JAX
-    package hands a strategy global row ids and ``n_rows``, the port
-    ids offset by each tile's lowest row ``lo`` and ``hi - lo + 1``.  A
-    spec or realization weighting each partial by its id then gives
-    ``out[r] = r * S[r]`` in the JAX package and ``out[r] = sum over
-    tiles k of (r - lo_k) * S_k[r]`` in the port (``S_k`` the plain sums
-    of tile k's partials): the two differ by ``sum_k lo_k * S_k[r]``.
-    Both sides are pinned to those formulas, within 1e-5 of the largest
-    magnitude (the weights reach 95)."""
+    """A strategy that reads an id's value gives the reference's answer
+    (the name is kept from the offset contract it once pinned): both
+    packages hand it global row ids and ``num_segments = n_rows`` (the
+    realization the whole (n_rows, N) block), so weighting each partial
+    by its id gives ``out[r] = r * S[r]`` on both sides (``S`` the plain
+    sums of row r's partials), within 1e-5 of the largest magnitude (the
+    weights reach 95)."""
     name = "t_us_idweight" + ("_rz" if with_realization else "")
     j_register(name, spec_fn=_j_idweight_spec, overwrite=True,
                **({"pallas_fn": _j_idweight_pallas}
@@ -440,26 +439,17 @@ def test_id_dependent_strategy_pins_the_offset_divergence(with_realization):
     got = got.numpy()
     g = a_t.grouped(kw["nnz_tile"], group_size=kw["group_size"])
     rows = g.rows.long()
-    lo = rows.reshape(-1, kw["nnz_tile"]).amin(1)
-    hi = rows.reshape(-1, kw["nnz_tile"]).amax(1)
-    lane_lo = lo.repeat_interleave(kw["nnz_tile"])
     part = tpart.eb_partials_plain(g.rows, g.cols, g.vals,
                                    torch.from_numpy(b)).double()
     n = a_t.shape[0]
-
-    def by_row(w):
-        return torch.zeros(n, b.shape[1], dtype=torch.float64).index_add_(
-            0, rows, part * w[:, None].double()).numpy()
-
-    global_w, offset_w = by_row(rows), by_row(rows - lane_lo)
+    global_w = torch.zeros(n, b.shape[1], dtype=torch.float64).index_add_(
+        0, rows, part * rows[:, None].double()).numpy()
     tol = 1e-5 * np.abs(global_w).max()
     np.testing.assert_allclose(want, global_w, rtol=0, atol=tol)
-    np.testing.assert_allclose(got, offset_w, rtol=0, atol=tol)
-    np.testing.assert_allclose(got + by_row(lane_lo), want, rtol=0,
-                               atol=tol)
-    assert np.abs(got - want).max() > 100 * tol
+    np.testing.assert_allclose(got, global_w, rtol=0, atol=tol)
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
     assert set(_ID_NS["jax"]) == {n}
-    assert _ID_NS["torch"] == (hi - lo + 1).tolist()
+    assert _ID_NS["torch"] == [n] * (rows.numel() // kw["nnz_tile"])
 
 
 def test_partials_and_combine_take_their_plain_versions_on_the_cpu():
