@@ -133,7 +133,10 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   plain walk on the card bit for bit; the readout (mean, max) under the
   generic spec at nnz tiles 4096 and 256 against the built-in kernel
   (max bit for bit, mean within K_TERMS); and the two kernels timed on
-  one social forward's work.
+  one social forward's work: the combine on a dense replay (a tile of
+  ones, every element changing) and on the walk's own seg-generic
+  results, each beside ``acc.add_``, the latter with the bytes those
+  results need.
 - a user strategy inside the fused attention (``attn_user``, after
   ``user``): ``csrc/attn_user.cu``'s kernels against their plain
   versions on both graphs' streams at 4 heads x 64 and nnz tile 4096
@@ -150,7 +153,8 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   max scatter; quickstart's one-hot, spec and realization, on one
   roadnet head (its one-hot is 4096 x 169,343 f32 for each of three
   scatters a tile: the script prints why, and what social would take);
-  and the two kernels timed on one social pass.
+  and the two kernels timed on one social pass, ``attn_lanes`` also by
+  mode, its scores beside ``torch.sparse.sampled_addmm``.
 
 It prints kernel, forward, training-step, attention, readout, tuning,
 prefill and decode times, EB, RB and ``torch.sparse.mm`` at N = 64 and 128 on both
@@ -4159,6 +4163,10 @@ def user_kernel_rows(adj, x, model):
         library_ms=sum(device_ms(library, 1, 2).values()),
         window_ms=cuda_ms(kernel, 2, 1), bytes=cbytes, flops=cflops,
         launches=2 * n_tiles)
+    del accs
+    torch.cuda.empty_cache()
+    rows["user_combine"]["detail"] = {"walk": user_combine_walk(adj, x,
+                                                                model)}
     for name, r in rows.items():
         print(f"user kernel {name}: one social forward's {r['launches']} "
               f"launches {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
@@ -4169,6 +4177,78 @@ def user_kernel_rows(adj, x, model):
               + f", bound {bound(r['bytes'], r['flops'])[0]:.4f} ms",
               flush=True)
     return rows
+
+
+def user_combine_walk(adj, x, model):
+    """The combine on the walk's own results: one social forward under
+    ``seg-generic`` at nnz tile 4096, both layers' ``run_user_strategy``
+    over the partials kernel (layer 2 on the built-in layer 1's output),
+    the combine kernel's device time by its kernel name (``device_ms``)
+    beside the same walk with the combine doing ``acc.add_(res)``, whose
+    kernels the kernel's walk does not launch are its library time; the
+    bytes these inputs need, counted on a third walk: each tile result
+    read once, the accumulator read where the result's element is not
+    the monoid's bitwise no-op (-0.0 under add) and written where its
+    bits change.  Returns the numbers for the ``kernels`` line."""
+    import torch
+    from repro_torch.core import MONOIDS, get_strategy
+    from repro_torch.kernels import common, eb_partials
+    from repro_torch.sparse import spmm
+
+    tile = USER_NNZ_TILES[0]
+    g = adj.grouped(tile)
+    entry = get_strategy("seg-generic")
+    n_rows = adj.shape[0]
+    b256 = x @ model.w1
+    h = torch.relu(spmm(adj, b256, device=x.device) + model.b1)
+    layers = (b256, h @ model.w2)
+    del h
+
+    def walk(combine):
+        for b in layers:
+            acc = torch.zeros(n_rows, b.shape[1], device=x.device)
+            common.run_user_strategy(
+                entry, g.rows, acc, group_size=USER_GROUP, nnz_tile=tile,
+                partials=lambda t0, t1, b=b: eb_partials.eb_partials(
+                    g.rows[t0:t1], g.cols[t0:t1], g.vals[t0:t1], b,
+                    n_rows=n_rows),
+                combine=combine)
+
+    need = {"tiles": 0, "read": 0, "acc_read": 0, "written": 0}
+    noop = torch.tensor(-0.0, device=x.device).view(torch.int32)
+
+    def counting(acc, res, monoid):
+        if monoid is not MONOIDS["add"]:
+            fail(f"seg-generic combined under {monoid.name}, not add")
+        new = acc + res
+        need["tiles"] += 1
+        need["read"] += res.numel()
+        need["acc_read"] += int((res.view(torch.int32) != noop).sum())
+        need["written"] += int((new.view(torch.int32)
+                                != acc.view(torch.int32)).sum())
+        acc.copy_(new)
+
+    walk(counting)
+    nbytes = 4 * (need["read"] + need["acc_read"] + need["written"])
+    flops = need["acc_read"]
+    kernel_ms = device_ms(lambda: walk(eb_partials.combine), 1, 2)
+    add_ms = device_ms(lambda: walk(lambda a, r, _: a.add_(r)), 1, 2)
+    ms = sum(v for k, v in kernel_ms.items() if "user_combine" in k)
+    library = [k for k in add_ms if k not in kernel_ms]
+    lib_ms = sum(add_ms[k] for k in library) if library else None
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"user combine on the walk's own results (one social forward "
+          f"under seg-generic, nnz tile {tile}): {need['tiles']} combines "
+          f"{ms:.4f} ms on the device, acc.add_(res) "
+          + ("none found" if lib_ms is None else f"{lib_ms:.4f} ms")
+          + f" ({library}); bound {bound_ms:.4f} ms by {bound_by}: "
+          f"{nbytes} bytes needed (results {4 * need['read']}, the "
+          f"accumulator read {4 * need['acc_read']}, written "
+          f"{4 * need['written']})", flush=True)
+    return {"ms": ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes,
+            "combines": need["tiles"],
+            "written_bytes": 4 * need["written"]}
 
 
 def user_phase(graphs, x, model, counters):
@@ -4548,11 +4628,15 @@ def attn_user_kernel_rows(adj):
             ds(rows, w, dw, delta[h], scale=scale)
 
     qk = 2 * n * d * 4  # q and k of a head (n_kv = n_rows)
-    lane_bytes = HEADS * (
-        (3 * t * 4 + qk + t * 4)  # scores: rows, cols, bias, q, k; s
-        + (3 * t * 4 + 2 * qk + 2 * n * 4 + 3 * t * 4)  # + v, dout, m, l
-        + (3 * t * 4 + n * 4 + t * 4))  # ds: rows, w, dw, delta; ds
-    lane_flops = HEADS * (2 * t * d + 2 * (2 * t * d) + 3 * t)
+    mode_bytes = {  # a head's
+        "scores": 3 * t * 4 + qk + t * 4,  # rows, cols, bias, q, k; s
+        "weights": 3 * t * 4 + 2 * qk + 2 * n * 4 + 3 * t * 4,  # + v,
+        # dout, m, l; w, dw, w dw
+        "ds": 3 * t * 4 + n * 4 + t * 4}  # rows, w, dw, delta; ds
+    mode_flops = {"scores": 2 * t * d, "weights": 2 * (2 * t * d),
+                  "ds": 3 * t}
+    lane_bytes = HEADS * sum(mode_bytes.values())
+    lane_flops = HEADS * sum(mode_flops.values())
     rows_out = {"attn_lanes": dict(
         ms=cuda_ms(lambda: lanes(au.attn_scores, au.attn_weights,
                                  au.attn_ds), 3, 1),
@@ -4561,6 +4645,8 @@ def attn_user_kernel_rows(adj):
                                        au.attn_ds_plain), 2, 1),
         bytes=lane_bytes, flops=lane_flops, library_ms=None,
         launches=3 * HEADS)}
+    rows_out["attn_lanes"]["detail"] = {"modes": attn_lanes_modes(
+        adj, q, k, v, do, m, l, delta, mode_bytes, mode_flops)}
     recorded = []
 
     def record(m_old, m_new, l_, acc, s, r, *, n_valid):
@@ -4613,6 +4699,66 @@ def attn_user_kernel_rows(adj):
     del recorded
     torch.cuda.empty_cache()
     return rows_out
+
+
+def attn_lanes_modes(adj, q, k, v, do, m, l, delta, mode_bytes,
+                     mode_flops):
+    """``attn_lanes``' three modes timed apart over one social pass (4
+    heads each; medians of CUDA-event windows, ``cuda_ms_median``: a ds
+    launch is shorter than the host's call, so its window times the
+    host), each beside its bound; the scores mode also beside
+    ``torch.sparse.sampled_addmm`` (bias + scale Q K^T at the pattern)
+    over the same head's nnz lanes, the one PyTorch call that computes
+    it (cuSPARSE's SDDMM), which the port never calls (K^T made
+    contiguous before the timing, as the SDDMM row does).  The
+    profiler's device time (``device_ms``) recorded 13 of a window's 20
+    launches at this point of a whole run, in every try (NVIDIA H100
+    80GB HBM3, 700 W)."""
+    import torch
+    from repro_torch.kernels import attn_user as au
+
+    nnz, rows, cols, bias = attn_stream(adj, ATTN_USER_TILE)
+    scale = HEAD_DIM ** -0.5
+    w, dw, _ = au.attn_weights(rows, cols, q[0], k[0], v[0], do[0], m[0],
+                               l[0], nnz=nnz, scale=scale, bias=bias)
+    calls = {
+        "scores": lambda h: au.attn_scores(rows, cols, q[h], k[h], nnz=nnz,
+                                           scale=scale, bias=bias),
+        "weights": lambda h: au.attn_weights(
+            rows, cols, q[h], k[h], v[h], do[h], m[h], l[h], nnz=nnz,
+            scale=scale, bias=bias),
+        "ds": lambda h: au.attn_ds(rows, w, dw, delta[h], scale=scale)}
+    out = {}
+    for mode, call in calls.items():
+        ms = cuda_ms_median(lambda call=call: [call(h)
+                                               for h in range(HEADS)])
+        b_ms, b_by = bound(HEADS * mode_bytes[mode],
+                           HEADS * mode_flops[mode])
+        out[mode] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None}
+    csr = library_csr(adj)
+    kt = [k[h].t().contiguous() for h in range(HEADS)]
+    try:
+        got = torch.sparse.sampled_addmm(csr, q[0], kt[0], alpha=scale)
+        err = float((got.values() - au.attn_scores(
+            rows, cols, q[0], k[0], nnz=nnz, scale=scale,
+            bias=bias)[:nnz]).abs().max())
+        out["scores"]["library_ms"] = cuda_ms_median(lambda: [
+            torch.sparse.sampled_addmm(csr, q[h], kt[h], alpha=scale)
+            for h in range(HEADS)])
+        print(f"library attn scores: sampled_addmm agrees with attn_lanes "
+              f"to max_abs_err {err:.3e}", flush=True)
+    except RuntimeError as e:
+        print(f"library attn scores: torch.sparse.sampled_addmm refused: "
+              f"{e}", flush=True)
+    for mode, r in out.items():
+        lib = r["library_ms"]
+        print(f"attn_user kernel attn_lanes mode {mode}: {HEADS} launches "
+              f"of one social pass {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}"
+              + ("" if lib is None else f", sampled_addmm {lib:.4f} ms"),
+              flush=True)
+    return out
 
 
 def attn_user_phase(graphs, counters, attended):
@@ -4913,7 +5059,8 @@ def main() -> None:
             "tune_launches": tune_launches[name],
             "max_abs_err": worst[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": r["library_ms"]})
+            "bound_by": bound_by, "library_ms": r["library_ms"],
+            **r.get("detail", {})})
         lib = ("null" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
         gathers = (f"; gathers requested {r['gather_bytes']} bytes"

@@ -87,12 +87,14 @@ __all__ = [
     "fused_sparse_attention_bwd_user_plain",
     "fused_sparse_attention_user",
     "fused_sparse_attention_user_plain",
+    "lanes_geometry",
 ]
 
 LANES = CudaKernel(
     "attn_user", "attn_lanes_launch",
     [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 2
-    + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int],
+    + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 3
+    + [ctypes.c_longlong],
     name="attn_lanes")
 RESCALE = CudaKernel(
     "attn_user", "attn_rescale_launch",
@@ -101,6 +103,51 @@ RESCALE = CudaKernel(
 
 #: ``attn_lanes_launch``'s modes.
 SCORES, WEIGHTS, DS = 0, 1, 2
+
+#: Warps ``attn_lanes`` aims to launch over a stream, each walking a
+#: chunk of consecutive lanes: several waves of the warps the H100's SMs
+#: hold at once, so a warp that finishes early is replaced and the walk
+#: ends evenly (chunks of 64 lanes on the social graph's stream, the
+#: fastest of 32 to 2,976 in ``probes/sweep_attn_lanes.py`` on an NVIDIA
+#: H100 80GB HBM3 at 700 W).
+LANES_TARGET_WARPS = 65536
+
+
+class LanesGeometry(NamedTuple):
+    """``attn_lanes``' geometry: ``vec`` elements a load, groups of
+    ``group`` threads a lane, ``chunk`` lanes a warp."""
+
+    vec: int
+    group: int
+    chunk: int
+
+
+def lanes_geometry(n_lanes: int, d: int, dv: int, itemsize: int,
+                   aligned: bool) -> LanesGeometry:
+    """The geometry of ``attn_lanes`` modes 0 (``dv`` 0) and 1 over
+    ``n_lanes`` lanes of rows ``d`` (and ``dv``) elements of ``itemsize``
+    bytes wide.  ``vec``: 16 bytes of a row (4 f32, 8 bf16 or fp16, 16
+    e4m3) where ``aligned`` (every operand on 16 bytes) and the widths
+    allow, else 4 elements, else 1.  ``group``: the fewest threads, a
+    power of two up to 32, that hold the wider row one vector a thread (a
+    wider row loops).  ``chunk``: a multiple of 32 lanes, for at most
+    :data:`LANES_TARGET_WARPS` warps."""
+    if d < 1 or dv < 0 or n_lanes < 0:
+        raise ValueError(f"need d >= 1, dv >= 0, n_lanes >= 0, got {d}, "
+                         f"{dv}, {n_lanes}")
+    widths = (d, dv) if dv else (d,)
+    vec = next((v for v in (16 // itemsize, 4)
+                if aligned and all(w % v == 0 for w in widths)), 1)
+    vectors = max(w // vec for w in widths)
+    group = min(32, 1 << (vectors - 1).bit_length())
+    chunk = 32 * max(1, -(-n_lanes // (LANES_TARGET_WARPS * 32)))
+    return LanesGeometry(vec, group, chunk)
+
+
+def _lanes_geometry(rows, d, dv, *operands):
+    aligned = all(t.data_ptr() % 16 == 0 for t in operands)
+    return lanes_geometry(rows.numel(), d, dv, operands[0].element_size(),
+                          aligned)
 
 
 def dv_tiling(dv: int):
@@ -234,7 +281,8 @@ def attn_scores(rows, cols, q, k, *, nnz: int, scale: float, bias=None):
     LANES.launch(q.device, SCORES, ptr(rows), ptr(cols), ptr(bias), ptr(q),
                  ptr(k), None, None, None, None, ptr(s), None, None,
                  rows.numel(), nnz, q.shape[1], 0, scale,
-                 DTYPE_CODES[q.dtype])
+                 DTYPE_CODES[q.dtype],
+                 *_lanes_geometry(rows, q.shape[1], 0, q, k))
     return s
 
 
@@ -260,7 +308,9 @@ def attn_weights(rows, cols, q, k, v, dout, m, l, *, nnz: int, scale: float,
     LANES.launch(q.device, WEIGHTS, ptr(rows), ptr(cols), ptr(bias), ptr(q),
                  ptr(k), ptr(v), ptr(dout), ptr(m), ptr(l), ptr(out[0]),
                  ptr(out[1]), ptr(out[2]), n, nnz, q.shape[1], v.shape[1],
-                 scale, DTYPE_CODES[q.dtype])
+                 scale, DTYPE_CODES[q.dtype],
+                 *_lanes_geometry(rows, q.shape[1], v.shape[1], q, k, v,
+                                  dout))
     return out[0], out[1], out[2]
 
 
@@ -275,7 +325,7 @@ def attn_ds(rows, w, dw, delta, *, scale: float):
     # mode 2 takes w, dw and delta in the slots of m, l and dout
     LANES.launch(w.device, DS, ptr(rows), None, None, None, None, None,
                  ptr(delta), ptr(w), ptr(dw), ptr(ds), None, None,
-                 rows.numel(), 0, 0, 0, scale, 0)
+                 rows.numel(), 0, 0, 0, scale, 0, 1, 1, 32)
     return ds
 
 

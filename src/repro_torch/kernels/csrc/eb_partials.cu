@@ -35,13 +35,39 @@
 // kernels/eb_partials.py::lane_values and spmm.cuh do it, so every
 // partial is the same single product as the plain version's, bit for bit.
 //
-// The combine runs on the accumulator in place, a grid-stride loop over
-// its elements, bound by their bytes (read twice, written once): add as
-// the f32 sum, max and min ordering -0.0 below +0.0 with NaN propagated,
-// as the monoids of core/segment_group.py (and jnp.maximum, jnp.minimum)
-// do.
+// The combine (user_combine_kernel) runs on the accumulator in place:
+// add as the f32 sum, max and min ordering -0.0 below +0.0 with NaN
+// propagated, as the monoids of core/segment_group.py (and jnp.maximum,
+// jnp.minimum) do.  What bounds it: bytes, and which of them the answer
+// needs.  The reference's contract makes a spec's result as tall as the
+// whole block (173 MB at N = 256 on the social graph), but a tile of 4,096
+// lanes reaches at most 4,096 of its rows: everywhere else the result is
+// the monoid's empty value (+0.0 under add, -inf under max).  Reading the
+// tile, reading the accumulator and writing it back moves the block three
+// times a tile.  So:
+//   - the tile and the accumulator move in 16-byte vectors, COMBINE_UNROLL
+//     of each in flight a thread, in one pass of the grid (a persistent
+//     grid of the blocks the SMs hold at once, a thread requesting the
+//     tile's next vectors before the accumulator's current ones, took 3 %
+//     longer on a 173 MB block; NVIDIA H100 80GB HBM3, 700 W); the tile is
+//     read once with a streaming load (__ldcs), so the accumulator keeps
+//     its place in the L2 (a 27 MB block's combine then beats acc.add_);
+//     where the accumulator does not start on 16 bytes, a scalar head and
+//     tail cover the elements before its first and after its last whole
+//     vector (kernels/eb_partials.py::combine_geometry picks the width);
+//   - a vector is written back only where the combined bits differ from
+//     the accumulator's;
+//   - the accumulator is not read for a vector of the tile whose every
+//     element leaves any float unchanged: -inf under max, +inf under min,
+//     -0.0 under add.  +0.0 under add does not qualify (-0.0 + +0.0 is
+//     +0.0), so add still reads the accumulator, and writes only the
+//     vectors that change.
+// The result is, element for element, the plain version's
+// (common.combine_plain): signed zeros, NaN and the infinities included.
 #include "epilogue.cuh"
 #include "spmm.cuh"
+
+#include <stdint.h>
 
 #define OP_ADD 0
 #define OP_MAX 1
@@ -114,7 +140,7 @@ __device__ __forceinline__ int order_key(float x) {
 
 template <int OP>
 __device__ __forceinline__ float combine(float a, float b) {
-  if (OP == OP_ADD) return a + b;
+  if (OP == OP_ADD) return __fadd_rn(a, b);
   if (a != a) return a;  // NaN propagates
   if (b != b) return b;
   const bool first = OP == OP_MAX ? order_key(a) >= order_key(b)
@@ -122,21 +148,137 @@ __device__ __forceinline__ float combine(float a, float b) {
   return first ? a : b;
 }
 
-// acc[i] = combine(acc[i], tile[i]) over the n elements of the
-// accumulator.
+// Whether x leaves every float unchanged under OP, bits included: -0.0
+// under add, -inf under max, +inf under min.
 template <int OP>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ bool leaves_unchanged(float x) {
+  const unsigned b = __float_as_uint(x);
+  if (OP == OP_ADD) return b == 0x80000000u;
+  return b == (OP == OP_MAX ? 0xff800000u : 0x7f800000u);
+}
+
+// Vectors of the tile and of the accumulator a thread keeps in flight,
+// and the threads of a block (probes/sweep_combine.py sets them).
+#ifndef COMBINE_UNROLL
+#define COMBINE_UNROLL 2
+#endif
+#ifndef COMBINE_THREADS
+#define COMBINE_THREADS 256
+#endif
+
+template <int VEC>
+__device__ __forceinline__ void load_streaming(const float* p,
+                                               float (&x)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+    x[0] = t.x;
+    x[1] = t.y;
+    x[2] = t.z;
+    x[3] = t.w;
+  } else {
+    x[0] = __ldcs(p);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_acc(const float* p, float (&x)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x;
+    x[1] = t.y;
+    x[2] = t.z;
+    x[3] = t.w;
+  } else {
+    x[0] = *p;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_acc(float* p, const float (&x)[VEC]) {
+  if constexpr (VEC == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  else
+    *p = x[0];
+}
+
+// The accumulator's vectors of VEC elements at i0, i0 + step, ... (the
+// COMBINE_UNROLL of them below n) against the tile's: the tile's read
+// with streaming loads; the accumulator's read (all issued before any is
+// combined) unless every tile element leaves it unchanged; each written
+// back only if a bit changed.
+template <int OP, int VEC>
+__device__ __forceinline__ void combine_vectors(float* a, const float* t,
+                                                long long i0, long long n,
+                                                long long step) {
+  float tv[COMBINE_UNROLL][VEC], av[COMBINE_UNROLL][VEC];
+  bool need[COMBINE_UNROLL];
+#pragma unroll
+  for (int u = 0; u < COMBINE_UNROLL; ++u) {
+    const long long i = i0 + u * step;
+    need[u] = i < n;
+    if (need[u]) load_streaming<VEC>(t + i * VEC, tv[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < COMBINE_UNROLL; ++u) {
+    if (need[u]) {
+      bool all = true;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k)
+        all = all && leaves_unchanged<OP>(tv[u][k]);
+      need[u] = !all;
+    }
+    if (need[u]) load_acc<VEC>(a + (i0 + u * step) * VEC, av[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < COMBINE_UNROLL; ++u) {
+    if (!need[u]) continue;
+    float r[VEC];
+    bool moved = false;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      r[k] = combine<OP>(av[u][k], tv[u][k]);
+      moved = moved || __float_as_uint(r[k]) != __float_as_uint(av[u][k]);
+    }
+    if (moved) store_acc<VEC>(a + (i0 + u * step) * VEC, r);
+  }
+}
+
+// acc[i] = combine(acc[i], tile[i]) over the n elements of the
+// accumulator, one pass of the grid: the `head` elements before acc +
+// head (16-byte aligned, as tile + head is, where VEC is 4) and the tail
+// after the last whole vector one at a time, the rest in vectors of VEC,
+// COMBINE_UNROLL a thread.
+template <int OP, int VEC>
+__global__ void __launch_bounds__(COMBINE_THREADS)
     user_combine_kernel(float* __restrict__ acc,
-                        const float* __restrict__ tile, long long n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    acc[i] = combine<OP>(acc[i], tile[i]);
+                        const float* __restrict__ tile, long long n,
+                        int head) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long items = (n - head) / VEC;
+  if (VEC > 1) {
+    // one element a thread: a step past the span leaves u = 0 alone
+    const long long tail = head + items * VEC;
+    if (tid < head) combine_vectors<OP, 1>(acc, tile, tid, head, head);
+    if (tid < n - tail)
+      combine_vectors<OP, 1>(acc + tail, tile + tail, tid, n - tail,
+                             n - tail);
+  }
+  combine_vectors<OP, VEC>(
+      acc + head, tile + head,
+      (long long)blockIdx.x * blockDim.x * COMBINE_UNROLL + threadIdx.x,
+      items, blockDim.x);
 }
 
 static dim3 grid_for(long long items) {
   long long blocks = (items + 255) / 256;
   if (blocks > 132LL * 32) blocks = 132LL * 32;
+  return dim3((unsigned)(blocks < 1 ? 1 : blocks));
+}
+
+// The combine's grid: one pass over `items` vectors.
+static dim3 combine_grid(long long items) {
+  const long long per_block = (long long)COMBINE_THREADS * COMBINE_UNROLL;
+  const long long blocks = (items + per_block - 1) / per_block;
   return dim3((unsigned)(blocks < 1 ? 1 : blocks));
 }
 
@@ -238,20 +380,40 @@ extern "C" int eb_partials_launch(const int* rows, const int* cols,
   return (int)cudaGetLastError();
 }
 
+template <int OP>
+static void launch_combine(float* acc, const float* tile, long long n,
+                           int vec, int head, cudaStream_t stream) {
+  if (vec == 4)
+    user_combine_kernel<OP, 4>
+        <<<combine_grid((n - head) / 4), COMBINE_THREADS, 0, stream>>>(
+            acc, tile, n, head);
+  else
+    user_combine_kernel<OP, 1>
+        <<<combine_grid(n), COMBINE_THREADS, 0, stream>>>(acc, tile, n, 0);
+}
+
+// acc = combine(acc, tile) under op over n elements; vec 4 takes the
+// `head` elements before acc + head and tile + head (both 16-byte
+// aligned, head < 4) one at a time and the rest in 16-byte vectors, vec 1
+// takes every element alone (head 0).
 extern "C" int user_combine_launch(float* acc, const float* tile,
-                                   long long n, int op, int device,
-                                   cudaStream_t stream) {
+                                   long long n, int op, int vec, int head,
+                                   int device, cudaStream_t stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   if (n <= 0) return 0;
-  const dim3 grid = grid_for(n);
-  const dim3 block(256);
+  const bool ok_vec =
+      vec == 1 ? head == 0
+               : vec == 4 && head >= 0 && head < 4 && head <= n &&
+                     (uintptr_t)(acc + head) % 16 == 0 &&
+                     (uintptr_t)(tile + head) % 16 == 0;
+  if (!ok_vec) return (int)cudaErrorInvalidValue;
   if (op == OP_ADD)
-    user_combine_kernel<OP_ADD><<<grid, block, 0, stream>>>(acc, tile, n);
+    launch_combine<OP_ADD>(acc, tile, n, vec, head, stream);
   else if (op == OP_MAX)
-    user_combine_kernel<OP_MAX><<<grid, block, 0, stream>>>(acc, tile, n);
+    launch_combine<OP_MAX>(acc, tile, n, vec, head, stream);
   else if (op == OP_MIN)
-    user_combine_kernel<OP_MIN><<<grid, block, 0, stream>>>(acc, tile, n);
+    launch_combine<OP_MIN>(acc, tile, n, vec, head, stream);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -23,10 +23,15 @@ N = 256): a thread forms one 16-byte vector of a lane's B row (4 f32, 8
 bf16 or fp16, 16 e4m3 elements), converted to f32 in registers, and
 writes the products with 16-byte stores; each partial is the plain
 version's single product, bit for bit.  The combine is an elementwise
-pass over the accumulator, bound by its bytes (a (169,343, 256) f32
-block is 173 MB, read twice and written once a tile).  A monoid
-registered with a callable ``combine=`` has no kernel: that callable is
-the user's own code, and runs on the two device tensors as it is.
+pass over the accumulator, bound by the bytes its answer needs (a
+(169,343, 256) f32 block is 173 MB, and a tile of 4,096 lanes changes at
+most 4,096 of its rows): it moves 16-byte vectors
+(:func:`combine_geometry`), skips the accumulator's read where the
+tile's vector is the monoid's bitwise no-op (-0.0 under add, -inf under
+max, +inf under min) and writes back only the vectors whose bits
+changed.  A monoid registered with a callable ``combine=`` has no
+kernel: that callable is the user's own code, and runs on the two device
+tensors as it is.
 
 The fused attention's user walk (``attn_user.py``) forms its value
 partials here too: ``p * V[cols]``, ``w * dout[rows]``, ``ds * K[cols]``
@@ -56,7 +61,7 @@ F32_VALUE_PAIRS = tuple((torch.float32, t) for t in (
 #: The combine of a tile's result into the accumulator.
 COMBINE = CudaKernel(
     "eb_partials", "user_combine_launch",
-    [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int],
+    [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 3,
     name="user_combine")
 
 
@@ -123,6 +128,19 @@ def eb_partials(rows, cols, vals, b, *, n_rows: int, scales=None):
     return out
 
 
+def combine_geometry(acc, tile) -> tuple[int, int]:
+    """(vec, head) of the combine kernel over f32 ``acc`` and ``tile``:
+    16-byte vectors (vec 4) where the two sit at the same offset from a
+    16-byte boundary, the ``head`` elements before ``acc``'s first
+    boundary (and the tail after its last whole vector) one at a time;
+    else every element alone, (1, 0)."""
+    a, t, n = acc.data_ptr(), tile.data_ptr(), acc.numel()
+    head = (-a % 16) // 4
+    if a % 4 or (a - t) % 16 or head > n:
+        return 1, 0
+    return 4, head
+
+
 def combine(acc, tile, monoid: Monoid) -> None:
     """``acc = monoid.combine(acc, tile)`` in place, for ``acc`` an f32
     accumulator and ``tile`` a result of its shape.  CPU
@@ -143,4 +161,4 @@ def combine(acc, tile, monoid: Monoid) -> None:
         raise ValueError("the accumulator must be contiguous f32")
     tile = tile.to(torch.float32).contiguous()
     COMBINE.launch(acc.device, ptr(acc), ptr(tile), acc.numel(),
-                   CUDA_OPS[monoid.name])
+                   CUDA_OPS[monoid.name], *combine_geometry(acc, tile))

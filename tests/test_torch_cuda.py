@@ -494,6 +494,67 @@ def test_user_combine_kernel_matches_plain(dev, op):
         eb_partials.combine(got[9:26], tile[:, :5].to(dev), MONOIDS[op])
 
 
+def _mostly(value, n, gen):
+    """n f32 values, all ``value`` but a ninth of them scattered: ordinary
+    values, zeros of both signs, NaN and the infinities."""
+    t = torch.full((n,), value)
+    idx = torch.randperm(n, generator=gen)[:max(1, n // 9)]
+    t[idx] = torch.randn(idx.numel(), generator=gen)
+    special = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                            -float("inf")])
+    t[idx[:5]] = special[:min(5, idx.numel())]
+    return t
+
+
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+@pytest.mark.parametrize("empty", [-0.0, 0.0, -float("inf"), float("inf")])
+@pytest.mark.parametrize("n,acc_off,tile_off", [
+    (1027, 0, 0), (1027, 1, 1), (1026, 1, 0), (4099, 2, 2), (7, 3, 3),
+    (2, 1, 1), (5_000_003, 1, 1)])
+def test_user_combine_kernel_vectors_and_skips(dev, op, empty, n, acc_off,
+                                               tile_off):
+    """The combine's 16-byte vectors, scalar head and tail and skips:
+    sizes that are no multiple of 4, an accumulator one or more elements
+    off 16 bytes (with a tile at the same offset, vectors; at another,
+    element by element), tiles mostly -0.0, +0.0, -inf or +inf with
+    scattered changes, against accumulators holding zeros of both signs,
+    NaN and the infinities.  Every element equals ``combine_plain``'s bit
+    for bit (a NaN a NaN), and nothing outside the accumulator moves."""
+    from repro_torch.core import MONOIDS
+    from repro_torch.kernels import common, eb_partials
+
+    g = torch.Generator().manual_seed(n + acc_off + 7 * tile_off)
+    acc = torch.randn(n, generator=g)
+    acc[::3] = _mostly(-0.0, n, g)[::3]
+    acc[1::5] = float("nan")
+    acc[2::7] = float("inf")
+    acc[4::11] = -float("inf")
+    tile = _mostly(empty, n, g)
+    want = acc.clone()
+    common.combine_plain(want, tile, MONOIDS[op])
+    acc_buf = torch.full((n + 8,), 7.0, device=dev)
+    tile_buf = torch.full((n + 8,), 5.0, device=dev)
+    got = acc_buf[acc_off:acc_off + n]
+    got.copy_(acc)
+    tile_d = tile_buf[tile_off:tile_off + n]
+    tile_d.copy_(tile)
+    vec, head = eb_partials.combine_geometry(got, tile_d)
+    assert vec == (4 if (acc_off - tile_off) % 4 == 0
+                   and (-acc_off) % 4 <= n else 1)
+    before = eb_partials.COMBINE.launches
+    eb_partials.combine(got, tile_d, MONOIDS[op])
+    assert eb_partials.COMBINE.launches == before + 1
+    out = got.cpu()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(out), nan)
+    assert torch.equal(out[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+    rest = torch.cat([acc_buf[:acc_off], acc_buf[acc_off + n:]])
+    assert bool((rest == 7.0).all())
+    assert torch.equal(tile_d.cpu().view(torch.int32),
+                       tile.view(torch.int32))
+
+
 def _cuda_user_strategies():
     """Quickstart's one-hot (spec and realization), the one-hot spec
     alone, a segment max registered with ``combine="max"`` and one with
@@ -934,6 +995,97 @@ def test_attn_lanes_kernel_matches_plain(dev, dtype, d, dv):
     assert torch.equal(ds, au.attn_ds_plain(rows, want[0], want[1], delta,
                                             scale=scale))
     assert au.LANES.launches == before + 3
+
+
+def _check_attn_lanes(rows, cols, nnz, q, k, v, do, bias, n_rows):
+    """``attn_lanes`` modes 0 and 1 over a stream against their plain
+    versions, as ``test_attn_lanes_kernel_matches_plain`` holds them."""
+    from repro_torch.kernels import attn_user as au
+
+    dev = q.device
+    scale = q.shape[1] ** -0.5
+    before = au.LANES.launches
+    s = au.attn_scores(rows, cols, q, k, nnz=nnz, scale=scale, bias=bias)
+    want_s = au.attn_scores_plain(rows, cols, q, k, nnz=nnz, scale=scale,
+                                  bias=bias)
+    r, c = rows.long(), cols.long()
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    terms_s = (qf[r] * kf[c]).abs().sum(-1) * scale
+    if bias is not None:
+        terms_s = terms_s + bias.abs()
+    _assert_within_terms(s, want_s, terms_s)
+    assert bool((s[nnz:] == au.NEG_INF).all())
+    m = torch.full((n_rows,), au.NEG_INF, device=dev).scatter_reduce(
+        0, r[:nnz], want_s[:nnz], "amax")
+    l = torch.zeros(n_rows, device=dev).index_add_(
+        0, r[:nnz], torch.exp(want_s[:nnz] - m[r[:nnz]]))
+    got = au.attn_weights(rows, cols, q, k, v, do, m, l, nnz=nnz,
+                          scale=scale, bias=bias)
+    want = au.attn_weights_plain(rows, cols, q, k, v, do, m, l, nnz=nnz,
+                                 scale=scale, bias=bias)
+    _assert_within_terms(got[1], want[1], (do[r] * vf[c]).abs().sum(-1))
+    err_w = K_TERMS * 2.0 ** -24 * (terms_s + want_s.abs()) * want[0]
+    assert bool(((got[0] - want[0]).abs()
+                 <= err_w + EXP_ULPS * 2.0 ** -23 * want[0]).all())
+    assert bool((got[0][nnz:] == 0).all())
+    assert torch.equal(got[2], got[0] * got[1])
+    assert au.LANES.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("d", [1, 20, 37, 64, 320, 512])
+def test_attn_lanes_kernel_widths(dev, dtype, d):
+    """Modes 0 and 1 at every vector width and group a head width takes
+    (16-byte vectors, 4 elements, single elements; one step or several),
+    at each type of q, k and v."""
+    nnz, rows, cols, q, k, v, do, bias = _attn_stream(dev, 90, 70, 1, d, d,
+                                                      d + 5, 128)
+    q, k, v = (x[0].to(dtype) for x in (q, k, v))
+    _check_attn_lanes(rows, cols, nnz, q, k, v, do[0], bias, 90)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["unsorted", "hub", "hub-long-chunks",
+                                  "pads"])
+def test_attn_lanes_kernel_streams(dev, monkeypatch, dtype, case):
+    """Modes 0 and 1 on streams the row cache must survive: rows in no
+    order (no bias), a hub row of 5,000 lanes crossing chunks of one
+    window and, with few warps, chunks of many windows, and pad lanes
+    returning to row 0 after the last row."""
+    from repro_torch.kernels import attn_user as au
+
+    n_rows, n_kv, d = 300, 200, 64
+    rng = np.random.default_rng(17)
+    g = torch.Generator().manual_seed(17)
+    bias = None
+    if case == "pads":
+        nnz, rows, cols, q, k, v, do, bias = _attn_stream(
+            dev, n_rows, n_kv, 1, d, d, 3, 512)
+        q, k, v, do = q[0], k[0], v[0], do[0]
+        assert rows.numel() - nnz > 100 and int(rows[nnz - 1]) > 0
+    else:
+        lengths = rng.integers(0, 9, n_rows)
+        if case != "unsorted":
+            lengths[7] = 5000
+            monkeypatch.setattr(au, "LANES_TARGET_WARPS",
+                                4 if case == "hub-long-chunks" else 8192)
+        rows_np = np.repeat(np.arange(n_rows), lengths)
+        if case == "unsorted":
+            rows_np = rng.permutation(rows_np)
+        nnz = rows_np.size
+        rows = torch.from_numpy(rows_np.astype(np.int32)).to(dev)
+        cols = torch.from_numpy(rng.integers(0, n_kv, nnz).astype(
+            np.int32)).to(dev)
+        q, k, v, do = (torch.randn(n, d, generator=g).to(dev)
+                       for n in (n_rows, n_kv, n_kv, n_rows))
+        if case != "unsorted":
+            bias = torch.randn(nnz, generator=g).to(dev)
+    geo = au.lanes_geometry(rows.numel(), d, d, 4, True)
+    if case == "hub-long-chunks":
+        assert geo.chunk > 32 * 8 and 5000 > 2 * geo.chunk
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    _check_attn_lanes(rows, cols, nnz, q, k, v, do, bias, n_rows)
 
 
 def test_attn_rescale_kernel_matches_plain(dev):
