@@ -156,6 +156,23 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   and the two kernels timed on one social pass, ``attn_lanes`` also by
   mode, its scores beside ``torch.sparse.sampled_addmm``.
 
+- LM training (``lm_train``, last): Qwen3-MoE at full width cut to one
+  layer by memory (its AdamW state is 37.3 GB; the script prints the
+  reckoning), launch/train.py's batch of 8 x 256 tokens.  (a) The grouped
+  matmul's backward kernels against their plain versions at f32 on 8
+  experts of the full D and F, per element within K_TERMS: dx = dz .
+  W[e]^T on the forward kernel reading the weights transposed, dW and db
+  on ``grouped_matmul_dw``, on a sorted map and an unsorted one with an
+  expert that owns no tile, each kernel's bf16 store against its f32
+  sums rounded; both timed at the training shapes beside their plain
+  versions and ``torch.bmm`` in f32.  (b) One step's loss and every
+  leaf's gradient on the kernel path against the einsum path
+  (LM_LOSS_REL, LM_GRAD_REL_L2).  (c) ``Trainer`` for 8 steps at lr 1e-3
+  (printed) and at that rate scaled to the width (the losses must fall;
+  the launches counted, step ms by CUDA events, peak memory, the new
+  launches' ms, one step profiled), and a checkpoint save and restore at
+  smoke size.
+
 It prints kernel, forward, training-step, attention, readout, tuning,
 prefill and decode times, EB, RB and ``torch.sparse.mm`` at N = 64 and 128 on both
 graphs, the launch counts of each path, a ``{"kernels": [...]}``
@@ -262,6 +279,33 @@ LOGIT_REL_L2 = 2.0 ** -5
 #: least TUNE_MIN_AUTO_MS (shorter calls are host-bound: their schedules
 #: differ by less than their noise).
 TUNE_WINDOWS, TUNE_SLACK, TUNE_MIN_AUTO_MS = 5, 0.10, 0.1
+#: LM training (``lm_train``): Qwen3-MoE at full width cut to LM_LAYERS
+#: layers by memory (AdamW holds LM_BYTES_PER_PARAM bytes a parameter),
+#: launch/train.py's default batch, LM_STEPS steps of the reference's
+#: trainer test at constant learning rate LM_LR; the backward kernels
+#: checked on LM_CHECK_EXPERTS experts; tiles of LM_TILE rows (the MoE
+#: path's at this batch: capacity 160, cap_pad 256).
+LM_LAYERS, LM_BATCH, LM_SEQ, LM_STEPS, LM_LR = 1, 8, 256, 8, 1e-3
+LM_BYTES_PER_PARAM, LM_CHECK_EXPERTS, LM_TILE = 12, 8, 128
+#: The width of the reference's smoke config, at which its trainer test
+#: takes LM_LR.  AdamW's first steps move every weight by about the
+#: learning rate, so a hidden product's output moves by about lr x its
+#: fan-in: at d_model 4096 a rate of 1e-3 moves each layer's outputs by
+#: several times their size (on the H100 the first step took the loss
+#: from 13.04 to 36.44).  The trained run takes LM_LR x 64 / d_model,
+#: the same move relative to the outputs as the reference's test makes.
+LM_REFERENCE_WIDTH = 64
+#: The kernel path's gradients against the einsum path's, relative L2
+#: per leaf, and the loss's relative error.  Both paths compute the same
+#: function but round to bf16 in other places (the einsum path rounds
+#: each expert projection and its gradients to bf16, the kernel path
+#: keeps the products' sums in f32), and every bf16 gradient is rounded
+#: once more when it is stored.  On the H100 at full width the leaves'
+#: gradients differed by 0.13 to 0.52 % of their norms and the losses by
+#: 3.4e-6: 2^-5 leaves a margin of 6x on the gradients and 2^-10 one of
+#: 280x on the loss, where a routing, tiling or transposition fault moves
+#: a gradient by tens of percent.
+LM_GRAD_REL_L2, LM_LOSS_REL = 2.0 ** -5, 2.0 ** -10
 #: The grouped matmul's plain version runs over at most this many tiles
 #: at a time (it gathers each tile's expert weights in f32).
 GMM_PLAIN_TILES = 128
@@ -295,6 +339,13 @@ KERNEL_META = {
                        "src/repro/kernels/segment_reduce.py:50"),
     "grouped_matmul": ("src/repro_torch/kernels/csrc/grouped_matmul.cu",
                        "src/repro/kernels/grouped_matmul.py:79"),
+    # the grouped matmul's backward (src/repro/kernels/ops.py:304-325, the
+    # custom VJP of the Pallas kernel): dx on the forward kernel with the
+    # weights read transposed, dW and db on their own kernel
+    "grouped_matmul_dx": ("src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                          "src/repro/kernels/grouped_matmul.py:79"),
+    "grouped_matmul_dw": ("src/repro_torch/kernels/csrc/grouped_matmul_dw.cu",
+                          "src/repro/kernels/grouped_matmul.py:79"),
     # a user strategy on EB: the lane partials (the front of the EB body,
     # before group_reduce_scatter) and the combine of spec_fallback_pallas
     "eb_partials": ("src/repro_torch/kernels/csrc/eb_partials.cu",
@@ -2600,6 +2651,7 @@ def moe_model(dev):
     (kernel, einsum) over the same parameters."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
     from repro_torch.models import get_model
 
     cfg = get_config(MOE_ARCH).scaled(n_layers=MOE_LAYERS)
@@ -2609,7 +2661,7 @@ def moe_model(dev):
     params = api.init(torch.Generator(device=dev).manual_seed(SEED),
                       device=dev)
     torch.cuda.synchronize()
-    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     print(f"moe_serve: {cfg.name} at full width (d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads x {cfg.d_head} over {cfg.n_kv_heads} kv, "
           f"{cfg.n_experts} experts top-{cfg.experts_per_token} of width "
@@ -2619,17 +2671,6 @@ def moe_model(dev):
           flush=True)
     einsum = get_model(cfg.scaled(moe_kernel_dispatch=False))
     return cfg, api, einsum, params
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def gmm_role_cases(moe, gen, label, tile, cap_pad):
@@ -4802,6 +4843,451 @@ def attn_user_phase(graphs, counters, attended):
     return {"runs": runs, "worst": worst, "results": results}
 
 
+# ---------------------------------------------------------------------------
+# LM training (lm_train): the grouped matmul's backward and the trainer
+# ---------------------------------------------------------------------------
+
+
+def one_host(trainer):
+    """``trainer`` with its straggler check off: with one host it holds
+    the host's latest step times against its own median, and a few noisy
+    host-bound steps could end a run early with an elastic plan."""
+    trainer.monitor.straggler_factor = math.inf
+    return trainer
+
+
+def lm_config():
+    """Qwen3-MoE at full width cut to LM_LAYERS layers, and the byte
+    reckoning of the cut: AdamW keeps bf16 parameters and gradients and
+    f32 mu and nu, 12 bytes a parameter."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH).scaled(n_layers=LM_LAYERS)
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    attn = d * cfg.attn_dim + 2 * d * cfg.kv_dim + cfg.attn_dim * d \
+        + 2 * cfg.d_head + 2 * d
+    layer = attn + d * e + 3 * e * d * f
+    embed = cfg.vocab_size * d + d
+    reckon = "; ".join(
+        f"{n} layer{'s' if n > 1 else ''}: "
+        f"{(n * layer + embed) * LM_BYTES_PER_PARAM / 1e9:.1f} GB"
+        for n in (1, 2))
+    print(f"lm_train: {cfg.name} at full width (d_model {d}, {cfg.n_heads} "
+          f"heads x {cfg.d_head} over {cfg.n_kv_heads} kv, qk_norm "
+          f"{cfg.qk_norm}, {e} experts top-{cfg.experts_per_token} of width "
+          f"{f}, vocab {cfg.vocab_size}, {cfg.param_dtype}), cut from 94 "
+          f"layers to {LM_LAYERS} by memory: a layer holds "
+          f"{layer / 1e9:.3f} B parameters (attention {attn / 1e6:.1f} M, "
+          f"router {d * e / 1e6:.1f} M, wg, wi, wo {e * d * f / 1e6:.1f} M "
+          f"each), the tied embedding {embed / 1e6:.1f} M; under AdamW "
+          f"({LM_BYTES_PER_PARAM} bytes a parameter: bf16 parameters and "
+          f"gradients, f32 mu and nu) {reckon} of the card's 80 GB, and "
+          "two layers leave too little for the update's per-leaf f32 "
+          "temporaries (3.2 GB an expert tensor, several alive at once) "
+          f"and the activations and logits; batch {LM_BATCH} x seq "
+          f"{LM_SEQ} (launch/train.py's defaults)", flush=True)
+    return cfg
+
+
+def gmm_backward_operands(cfg, dev, n_experts, tiles_per_expert, gen):
+    """The backward's operands at the expert width on ``n_experts``
+    experts: bf16 weights (E, D, F) like wg and wi and (E, F, D) like wo,
+    bf16 tokens x (T, D) and (T, F), zero-mean f32 gradients dz (T, F) and
+    (T, D), and the sorted map of ``tiles_per_expert`` tiles of LM_TILE
+    rows an expert."""
+    import torch
+
+    d, f = cfg.d_model, cfg.moe_d_ff
+    t = n_experts * tiles_per_expert * LM_TILE
+    te = torch.arange(n_experts, dtype=torch.int32,
+                      device=dev).repeat_interleave(tiles_per_expert)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    return {"te": te,
+            "w_up": rnd(n_experts, d, f, scale=d ** -0.5,
+                        dtype=torch.bfloat16),
+            "w_down": rnd(n_experts, f, d, scale=f ** -0.5,
+                          dtype=torch.bfloat16),
+            "x_d": rnd(t, d, dtype=torch.bfloat16),
+            "x_f": rnd(t, f, dtype=torch.bfloat16),
+            "dz_f": rnd(t, f), "dz_d": rnd(t, d)}
+
+
+def check_gmm_backward(cfg, dev):
+    """(a) The backward's two kernels against their plain versions at f32
+    on LM_CHECK_EXPERTS experts of the full D and F (two tiles of LM_TILE
+    rows an expert, as the training batch gives them), per element within
+    K_TERMS units of 2^-24 of the terms entering each output: ``dx = dz .
+    W[e]^T`` on the forward kernel with the weights read transposed, for
+    the up (E, D, F) and down (E, F, D) weights; ``dW`` and ``db`` on
+    ``grouped_matmul_dw``, on the sorted map and on an unsorted map in
+    which one expert owns no tile (its dW must be 0); each kernel's bf16
+    store against its own f32 sums rounded, bit for bit."""
+    import torch
+    from repro_torch.core import Epilogue
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import grouped_matmul_dw as gmd
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    e = LM_CHECK_EXPERTS
+    ops = gmm_backward_operands(cfg, dev, e, 2, gen)
+    te = ops["te"]
+    empty = e // 2 + 1
+    others = [i for i in range(e) if i != empty]
+    pick = torch.randint(len(others), (te.numel(),), generator=gen,
+                         device=dev)
+    shuffled = torch.tensor(others, dtype=torch.int32, device=dev)[pick]
+    checker = Checker(("grouped_matmul_dx", "grouped_matmul_dw"))
+    tt = LM_TILE
+
+    def bits(name, label, got, f32):
+        ok = torch.equal(got, f32.to(got.dtype))
+        print(f"  {name:19s} {label:48s} {'same bits' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            checker.failures.append(f"{name} {label}")
+
+    for wname, w, dz in (("up", ops["w_up"], ops["dz_f"]),
+                         ("down", ops["w_down"], ops["dz_d"])):
+        n, k = w.shape[1], w.shape[2]
+        for mname, m in (("sorted", te), ("unsorted", shuffled)):
+            kw = dict(token_tile=tt, f_tile=n, d_tile=k, w_trans=True)
+            got = gm.grouped_matmul(dz, m, w, **kw)
+            want = gm.grouped_matmul_plain(dz, m, w, token_tile=tt,
+                                           w_trans=True)
+            terms = gm.grouped_matmul_plain(dz.abs(), m, w.abs(),
+                                            token_tile=tt, w_trans=True)
+            label = f"dx {wname} {mname} ({dz.shape[0]} x {k} -> {n})"
+            checker.record_terms("grouped_matmul_dx", label, got, want,
+                                 terms)
+            bits("grouped_matmul_dx", f"dx {wname} {mname} bf16 store",
+                 gm.grouped_matmul(
+                     dz, m, w, epilogue=Epilogue(out_dtype="bfloat16"),
+                     **kw), got)
+            del got, want, terms
+    for wname, x, dz in (("up", ops["x_d"], ops["dz_f"]),
+                         ("down", ops["x_f"], ops["dz_d"])):
+        for mname, m in (("sorted", te), ("unsorted", shuffled)):
+            kw = dict(token_tile=tt, bias_dtype=torch.float32)
+            got, gdb = gmd.grouped_matmul_dw(x, dz, m, e,
+                                             w_dtype=torch.float32, **kw)
+            want, wdb = gmd.grouped_matmul_dw_plain(
+                x, dz, m, e, w_dtype=torch.float32, **kw)
+            terms, tdb = gmd.grouped_matmul_dw_plain(
+                x.abs(), dz.abs(), m, e, w_dtype=torch.float32, **kw)
+            label = (f"dW {wname} {mname} ({x.shape[1]} x {dz.shape[1]}, "
+                     f"{x.shape[0]} rows)")
+            checker.record_terms("grouped_matmul_dw", label, got, want,
+                                 terms)
+            checker.record_terms("grouped_matmul_dw", f"db {wname} {mname}",
+                                 gdb, wdb, tdb)
+            g16, _ = gmd.grouped_matmul_dw(x, dz, m, e,
+                                           w_dtype=torch.bfloat16,
+                                           token_tile=tt)
+            bits("grouped_matmul_dw", f"dW {wname} {mname} bf16 store", g16,
+                 got)
+            if mname == "unsorted":
+                zero = (not bool(got[empty].any())
+                        and not bool(gdb[empty].any()))
+                print(f"  {'grouped_matmul_dw':19s} expert {empty} owns no "
+                      f"tile: dW and db all 0 {'ok' if zero else 'FAIL'}",
+                      flush=True)
+                if not zero:
+                    checker.failures.append("grouped_matmul_dw empty expert")
+            del got, want, terms, g16
+    del ops
+    torch.cuda.empty_cache()
+    return checker.done()
+
+
+def time_gmm_backward(cfg, dev):
+    """Row 7b at the training batch's shapes (every expert, cap_pad 2 x
+    LM_TILE rows, T_pad 32,768): one layer's backward launches, dx for
+    wg, wi (up) and wo (down) and dW for the same three, each kernel's
+    ms (CUDA events) beside its plain version's and the library
+    yardstick's, ``torch.bmm`` in f32 over the weights transposed (dx)
+    and over the equal-run (E, cap_pad, .) view of the tokens (dW), on
+    f32 copies made before the clock starts (the port calls neither).
+    Bytes: each input read once, the output written once; operations at
+    the f32 peak (dz is f32, so are the products)."""
+    import torch
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import grouped_matmul_dw as gmd
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    e = cfg.n_experts
+    ops = gmm_backward_operands(cfg, dev, e, 2, gen)
+    te, tt = ops["te"], LM_TILE
+    rows = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                   "bytes": 0, "flops": 0, "flop_per_s": F32_FLOP_PER_S}
+            for name in ("grouped_matmul_dx", "grouped_matmul_dw")}
+
+    def add(name, label, times, count, nbytes, flops):
+        ms, plain, lib = times
+        b_ms, by = bound(nbytes, flops)
+        print(f"{name} {label} (x{count} a layer): {ms:.4f} ms (bound "
+              f"{b_ms:.4f} ms by {by}: {nbytes} bytes, {flops} operations; "
+              f"{flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+              f"torch.bmm f32 {lib:.4f} ms", flush=True)
+        r = rows[name]
+        for key, v in zip(("ms", "plain_ms", "library_ms", "bytes", "flops"),
+                          (ms, plain, lib, nbytes, flops)):
+            r[key] += count * v
+
+    for label, w, dz, count in (("up (wg, wi)", ops["w_up"], ops["dz_f"], 2),
+                                ("down (wo)", ops["w_down"], ops["dz_d"], 1)):
+        n, k = w.shape[1], w.shape[2]
+        t = dz.shape[0]
+        ms = cuda_ms(lambda: gm.grouped_matmul(
+            dz, te, w, token_tile=tt, f_tile=n, d_tile=k, w_trans=True), 5, 1)
+        plain = cuda_ms(lambda: plain_gmm(dz, te, w, token_tile=tt,
+                                          w_trans=True), 2, 1)
+        w32 = w.float().transpose(1, 2)
+        dzb = dz.view(e, -1, k)
+        lib = cuda_ms(lambda: torch.bmm(dzb, w32), 5, 1)
+        del w32
+        torch.cuda.empty_cache()
+        add("grouped_matmul_dx", f"dx {label} ({t} x {k} -> {n})",
+            (ms, plain, lib), count,
+            dz.numel() * 4 + w.numel() * 2 + t * n * 2, 2 * t * n * k)
+    for label, x, dz, count in (("up (wg, wi)", ops["x_d"], ops["dz_f"], 2),
+                                ("down (wo)", ops["x_f"], ops["dz_d"], 1)):
+        t, d = x.shape
+        f = dz.shape[1]
+        kw = dict(token_tile=tt, w_dtype=torch.bfloat16)
+        ms = cuda_ms(lambda: gmd.grouped_matmul_dw(x, dz, te, e, **kw), 5, 1)
+        plain = cuda_ms(lambda: gmd.grouped_matmul_dw_plain(x, dz, te, e,
+                                                            **kw), 2, 1)
+        xb = x.float().view(e, -1, d).transpose(1, 2)
+        dzb = dz.view(e, -1, f)
+        lib = cuda_ms(lambda: torch.bmm(xb, dzb), 5, 1)
+        del xb
+        torch.cuda.empty_cache()
+        add("grouped_matmul_dw", f"dW {label} ({t} rows, {d} x {f})",
+            (ms, plain, lib), count,
+            x.numel() * 2 + dz.numel() * 4 + e * d * f * 2, 2 * t * d * f)
+    del ops
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _param_leaves(params):
+    from repro_torch.core.tree import key_str, tree_leaves_with_path
+
+    return [(key_str(p), t) for p, t in tree_leaves_with_path(params)]
+
+
+def lm_batch(cfg, dev):
+    """The first batch of the trainer's token stream (seed SEED)."""
+    import torch
+    from repro_torch.data.synthetic import ShardedTokenStream
+
+    tokens = next(ShardedTokenStream(cfg.vocab_size, LM_SEQ, LM_BATCH,
+                                     seed=SEED))["tokens"]
+    return {"tokens": torch.as_tensor(tokens, device=dev)}
+
+
+def lm_grad_check(cfg, dev):
+    """(b) One step's loss and every leaf's gradient on the kernel path
+    against the einsum path (``moe_kernel_dispatch=False``) on the card,
+    at full width and LM_LAYERS layers, on the trainer's first batch:
+    loss within LM_LOSS_REL relative, each gradient within
+    LM_GRAD_REL_L2 relative L2.  Returns the kernel path's loss."""
+    import torch
+    from repro_torch.models import get_model
+
+    api = get_model(cfg)
+    einsum = get_model(cfg.scaled(moe_kernel_dispatch=False))
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED),
+                      device=dev)
+    batch = lm_batch(cfg, dev)
+    named = _param_leaves(params)
+    leaves = [t for _, t in named]
+    out = {}
+    for label, a in (("kernel", api), ("einsum", einsum)):
+        for p in leaves:
+            p.requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = a.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        for p in leaves:
+            p.requires_grad_(False)
+        out[label] = (float(loss.detach()), grads, time.perf_counter() - t0)
+    (lk, gk, sk), (le, ge, se) = out["kernel"], out["einsum"]
+    loss_err = abs(lk - le) / abs(le)
+    print(f"lm_train: loss on the kernel path {lk:.6f} ({sk:.2f} s forward "
+          f"and backward, host clock), einsum path {le:.6f} ({se:.2f} s): "
+          f"relative error {loss_err:.3e} (tol {LM_LOSS_REL:.3e})",
+          flush=True)
+    bad = [] if loss_err <= LM_LOSS_REL else ["loss"]
+    for (name, p), a, b in zip(named, gk, ge):
+        err = rel_l2(a, b)
+        ok = err <= LM_GRAD_REL_L2
+        print(f"  gradient {name:28s} {tuple(p.shape)} {dtype_name(a)}: "
+              f"relative L2 {err:.3e} (tol {LM_GRAD_REL_L2:.3e}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append(name)
+    del params, leaves, named, gk, ge, out
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"lm_train: the kernel path's loss or gradients disagree with "
+             f"the einsum path: {bad}")
+    return lk
+
+
+def lm_trainer(cfg, dev, counters, first_loss, lr, must_fall):
+    """(c) ``Trainer`` for LM_STEPS steps at constant learning rate ``lr``
+    and weight decay 0 on the token stream, with no checkpoint (37 GB at
+    this width); the kernels' counts zeroed just before the run and read
+    just after; step ms by CUDA events around each step, the new launches'
+    ms by events around each launch (``LaunchTimer``), the peak of
+    ``torch.cuda.max_memory_allocated``.  The losses must be finite, and
+    with ``must_fall`` fall (the last below the first, the mean of the
+    last three below that of the first three)."""
+    import tempfile
+
+    import torch
+    from repro_torch.data.synthetic import ShardedTokenStream
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import AdamW, constant_schedule
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    api = get_model(cfg)
+    data = ShardedTokenStream(cfg.vocab_size, LM_SEQ, LM_BATCH, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckpt:
+        tr = one_host(Trainer(
+            api, AdamW(lr=constant_schedule(lr), weight_decay=0.0),
+            iter(data), ckpt_dir=ckpt,
+            tcfg=TrainerConfig(total_steps=LM_STEPS, ckpt_every=LM_STEPS + 1,
+                               log_every=1), device=dev))
+        state = tr.init_or_restore(torch.Generator(device=dev).manual_seed(
+            SEED))
+        events, step_fn = [], tr.step_fn
+
+        def timed(st, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step_fn(st, batch)
+            end.record()
+            events.append((start, end))
+            return out
+
+        tr.step_fn = timed
+        for k in counters.values():
+            k.launches = 0
+        with LaunchTimer() as lt:
+            state = tr.run(state)
+        counts = {n: k.launches for n, k in counters.items()}
+        launch_ms = lt.ms()
+    torch.cuda.synchronize()
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    peak = torch.cuda.max_memory_allocated()
+    losses = tr.losses()
+    if must_fall:  # where the step's time goes, two steps more
+        batch = next(data)
+        profile_step(f"lm_train step (lr {lr:.4g})",
+                     lambda: step_fn(state, batch))
+    del state, tr
+    torch.cuda.empty_cache()
+    per_step = {n: c / LM_STEPS for n, c in counts.items() if c}
+    new = {n: launch_ms.get(n, 0.0) / LM_STEPS
+           for n in ("grouped_matmul", "grouped_matmul_dx",
+                     "grouped_matmul_dw")}
+    print(f"lm_train: {LM_STEPS} steps at lr {lr:.4g}, losses "
+          + ", ".join(f"{v:.6f}" for v in losses)
+          + f" (step 1 against check (b)'s kernel-path loss {first_loss:.6f})"
+          f"; step ms (CUDA events) " + ", ".join(f"{v:.4f}" for v in step_ms)
+          + f", mean of steps 2-{LM_STEPS} "
+          f"{sum(step_ms[1:]) / (len(step_ms) - 1):.4f} ms; peak "
+          f"max_memory_allocated {peak / 1e9:.2f} GB; launches a step "
+          f"{per_step}; grouped-matmul ms a step (events around each "
+          "launch): " + ", ".join(f"{n} {v:.4f}" for n, v in new.items())
+          + f"; {card_line()}", flush=True)
+    falls = (losses[-3:].mean() < losses[:3].mean()
+             and losses[-1] < losses[0])
+    if not (len(losses) == LM_STEPS and all(map(math.isfinite, losses))
+            and (falls or not must_fall)):
+        fail(f"lm_train: the losses at lr {lr:.4g} are not finite or do not "
+             f"fall over {LM_STEPS} steps: {list(losses)}")
+    return {"counts": counts, "step_ms": step_ms, "peak": peak,
+            "losses": losses, "lr": lr}
+
+
+def lm_checkpoint(dev):
+    """(c) A save and restore round trip at smoke size on the card: a
+    trainer saves at steps 2 and 4 of 4, a second one restores step 4
+    (every leaf bit for bit) and runs to step 6."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.synthetic import ShardedTokenStream
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import AdamW, constant_schedule
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = smoke_config(get_config(MOE_ARCH))
+    api = get_model(cfg)
+    opt = AdamW(lr=constant_schedule(LM_LR), weight_decay=0.0)
+    with tempfile.TemporaryDirectory() as ckpt:
+        def trainer(steps):
+            return one_host(Trainer(api, opt, iter(ShardedTokenStream(
+                cfg.vocab_size, 32, 8, seed=SEED)), ckpt_dir=ckpt,
+                tcfg=TrainerConfig(total_steps=steps, ckpt_every=2,
+                                   log_every=100), device=dev))
+
+        tr = trainer(4)
+        state = tr.run(tr.init_or_restore(
+            torch.Generator(device=dev).manual_seed(SEED)))
+        saved = [t.clone() for t in tree_leaves(state)]
+        steps = tr.ckpt.all_steps()
+        tr2 = trainer(6)
+        restored = tr2.init_or_restore(
+            torch.Generator(device=dev).manual_seed(SEED + 1))
+        same = all(a.device == b.device and torch.equal(a, b)
+                   for a, b in zip(tree_leaves(restored), saved))
+        at = int(restored.opt.step)
+        final = tr2.run(restored)
+        end = int(final.opt.step)
+    ok = steps == [2, 4] and same and at == 4 and end == 6 and all(
+        map(math.isfinite, tr2.losses()))
+    print(f"lm_train: checkpoint round trip at smoke size ({cfg.name} "
+          f"smoke config): saved steps {steps}, restored step {at} "
+          f"{'bit for bit' if same else 'DIFFERS'} on {dev}, continued to "
+          f"step {end} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("lm_train: the checkpoint round trip failed")
+
+
+def lm_train_phase(dev, counters):
+    """The ``lm_train`` phase: (a) the backward kernels against their
+    plain versions and timed (row 7b), (b) the kernel path's loss and
+    gradients against the einsum path at full width, (c) the trainer
+    for LM_STEPS steps at LM_LR (printed; at this width its first step
+    raises the loss) and at LM_LR scaled from LM_REFERENCE_WIDTH to the
+    model's (the losses must fall; the main path, its launches counted),
+    and the checkpoint round trip at smoke size."""
+    cfg = lm_config()
+    worst = check_gmm_backward(cfg, dev)
+    rows = time_gmm_backward(cfg, dev)
+    first_loss = lm_grad_check(cfg, dev)
+    lm_trainer(cfg, dev, counters, first_loss, LM_LR, must_fall=False)
+    trained = lm_trainer(cfg, dev, counters, first_loss,
+                         LM_LR * LM_REFERENCE_WIDTH / cfg.d_model,
+                         must_fall=True)
+    lm_checkpoint(dev)
+    return {"worst": worst, "results": rows, **trained}
+
+
 def main() -> None:
     import torch
 
@@ -4816,6 +5302,7 @@ def main() -> None:
             eb_partials,
             fused_attention,
             grouped_matmul,
+            grouped_matmul_dw,
             sddmm,
             segment_reduce,
             spmm_eb,
@@ -4868,6 +5355,8 @@ def main() -> None:
                 "fused_attention_bwd": fused_attention.BWD_KERNEL,
                 "segment_reduce": segment_reduce.KERNEL,
                 "grouped_matmul": grouped_matmul.KERNEL,
+                "grouped_matmul_dx": grouped_matmul.TRANS,
+                "grouped_matmul_dw": grouped_matmul_dw.KERNEL,
                 "eb_partials": eb_partials.KERNEL,
                 "user_combine": eb_partials.COMBINE,
                 "attn_lanes": attn_user.LANES,
@@ -5000,6 +5489,14 @@ def main() -> None:
                                       narrow_m["worst"]["grouped_matmul"])
     del moe_params
     torch.cuda.empty_cache()
+
+    # LM training at full width, one layer: the grouped matmul's backward
+    lm = lm_train_phase(dev, counters)
+    runs.append(lm["counts"])
+    expected.append(("lm_train", ("grouped_matmul", "grouped_matmul_dx",
+                                  "grouped_matmul_dw")))
+    worst.update(lm["worst"])
+    results.update(lm["results"])
     for (path, kernels), counts in zip(expected, runs):
         for n in kernels:
             if counts[n] == 0:
@@ -5042,6 +5539,11 @@ def main() -> None:
         print(f"narrow serve {label}: prefill {srv['prefill_ms']:.4f} ms, "
               f"decode step {srv['decode_ms']:.4f} ms, "
               f"{srv['tokens_per_s']:.1f} tokens/s", flush=True)
+    step_ms = sum(lm["step_ms"][1:]) / (LM_STEPS - 1)
+    print(f"lm_train: {LM_STEPS} trainer steps at lr {lm['lr']:.4g}, mean "
+          f"step {step_ms:.4f} ms (CUDA events, "
+          f"steps 2-{LM_STEPS}), peak memory {lm['peak'] / 1e9:.2f} GB, loss "
+          f"{lm['losses'][0]:.4f} -> {lm['losses'][-1]:.4f}", flush=True)
     print("moe_tune: tuned / default re-timed in turns "
           + ", ".join(f"{label} {h['ratio']:.4f}"
                       for label, h in moe_tuned["hists"].items())

@@ -73,7 +73,7 @@ def build_variants():
         if proc.returncode:
             cs.fail(f"nvcc {key}:\n{report}")
         fn = ctypes.CDLL(str(lib)).grouped_matmul_launch
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         libs[key] = fn
@@ -120,7 +120,7 @@ def main():
                                                        device=dev))
                 err = libs[key](x.data_ptr(), te.data_ptr(), w.data_ptr(),
                                 None, out.data_ptr(), e, tile, e, dd, ff, 1,
-                                1, 0, 0, 1, index, stream)
+                                1, 0, 0, 1, 0, index, stream)
                 if err:
                     cs.fail(f"grouped_matmul_launch {key}: cudaError_t {err}")
 

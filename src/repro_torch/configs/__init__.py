@@ -26,7 +26,7 @@ NOT_PORTED = {"mamba2-2.7b": "ssm", "hymba-1.5b": "hybrid",
 def not_ported(family: str) -> NotImplementedError:
     return NotImplementedError(
         f"family {family!r} is not ported yet; the port runs {FAMILIES} "
-        "(ROADMAP.md, queue 1 item 12)")
+        "(ROADMAP.md, queue 1 item 6)")
 
 
 def get_config(name: str) -> ModelConfig:

@@ -62,12 +62,19 @@
 // tensor cores would round f32 operands and break parity with the plain
 // version.
 //
+// The backward's dx = dz . W[e]^T (kernels/ops.py::grouped_matmul, after
+// src/repro/kernels/ops.py:316) runs here with the launch flag w_trans:
+// route "fma" with each W[e] read as its transpose in place, as a tiled
+// f32 product (namespace transposed): dz is f32, as the reference's f32
+// einsum.
+//
 // A tile whose expert id lies outside [0, E) writes NaN on both routes.
 //
 // kernels/build.py compiles this file as PARTS["grouped_matmul"] objects
 // at once (-DKERNEL_PART=k): part 0 holds the entry point, route "mma" at
 // bf16 on bf16 and route "fma" at f32 x; part 1 the other "mma" pairs;
-// part 2 "fma" at bf16 and fp16 x; part 3 "fma" at e4m3 x.  Built as one
+// part 2 "fma" at bf16 and fp16 x; part 3 "fma" at e4m3 x and the
+// transposed read (w_trans, below) at f32 x.  Built as one
 // unit (no KERNEL_PART), the file holds all.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -650,6 +657,148 @@ cudaError_t launch_x(const GmmArgs& a, int w_type, cudaStream_t stream) {
 
 }  // namespace cuda_core
 
+// ---------------------------------------------------------------------------
+// Route "fma" with the weights read as their transpose (w_trans): dx
+// ---------------------------------------------------------------------------
+//
+// out[i] = epilogue(x[i] @ W[e]^T), W stored (E, F, D): the backward's
+// dx = dz . W[e]^T with W read in place, no transposed copy.  dz is f32
+// (the MoE path's products come out in f32), so the products are FMAs on
+// the CUDA cores, as the reference's f32 einsum.  A block owns a BM x BN
+// tile of one token tile's output (rows of the tile, output columns) and
+// walks the contraction (D) in chunks of BK, both operands staged in
+// shared memory (double-buffered, the next chunk held in registers while
+// the current one is used); each of the 256 threads keeps 8 x 8 f32 sums
+// (rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, columns likewise by tx), so
+// every staged value serves 8 products.  A weight row W[e][n] is
+// contiguous along the contraction, so a thread copies 4 consecutive
+// elements of one row and the staging transposes them.  Each output is
+// one sequential sum over D: the same bits run to run.
+namespace transposed {
+
+constexpr int BM = 128;  // rows of a token tile a block owns
+constexpr int BN = 128;  // output columns a block owns
+constexpr int BK = 8;    // contraction a stage holds
+constexpr int THREADS = 256;
+constexpr int PAD = 4;  // staged rows padded: copies land on distinct banks
+
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(THREADS)
+    gmm_fma_t_kernel(const TX* __restrict__ x,
+                     const int* __restrict__ tile_experts,
+                     const TW* __restrict__ w,
+                     const float* __restrict__ bias, void* __restrict__ out,
+                     int n_experts, int K, int N, int token_tile, int act,
+                     int out_type) {
+  __shared__ __align__(16) float as[2][BK][BM + PAD];
+  __shared__ __align__(16) float bs[2][BK][BN + PAD];
+
+  const int t = threadIdx.x;
+  const int tx = t & 15, ty = t >> 4;
+  const int tile = blockIdx.z;
+  const int r0 = blockIdx.y * BM;
+  const int nrows = min(BM, token_tile - r0);
+  const long long row0 = (long long)tile * token_tile + r0;
+  const int n0 = blockIdx.x * BN;
+  const int e = __ldg(tile_experts + tile);
+  const bool valid = e >= 0 && e < n_experts;
+
+  // this thread's copies: 4 consecutive k of one row of x (row lr) and of
+  // one weight row (column ln of the output)
+  const int lr = t >> 1, lk = (t & 1) * 4;
+  const bool x_ok = valid && lr < nrows;
+  const bool w_ok = valid && n0 + lr < N;
+  const TX* xp = x + (row0 + lr) * K;
+  const TW* wp = w + ((long long)(valid ? e : 0) * N + n0 + lr) * K;
+
+  float xr[4], wr[4];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + lk + i;
+      xr[i] = (x_ok && k < K) ? to_f32(xp[k]) : 0.f;
+      wr[i] = (w_ok && k < K) ? to_f32(wp[k]) : 0.f;
+    }
+  };
+  auto stage = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      as[buf][lk + i][lr] = xr[i];
+      bs[buf][lk + i][lr] = wr[i];
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+
+  const int chunks = valid ? (K + BK - 1) / BK : 0;
+  if (chunks > 0) {
+    fetch(0);
+    stage(0);
+  }
+  __syncthreads();
+  for (int c = 0; c < chunks; ++c) {
+    const int buf = c & 1;
+    if (c + 1 < chunks) fetch((c + 1) * BK);
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      float a[8], b[8];
+      const float4 a0 = *reinterpret_cast<const float4*>(&as[buf][k][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&as[buf][k][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&bs[buf][k][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&bs[buf][k][64 + tx * 4]);
+      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+    // the other buffer was last read before the previous barrier
+    if (c + 1 < chunks) stage(buf ^ 1);
+    __syncthreads();
+  }
+
+  const float* be = (bias != nullptr && valid) ? bias + (long long)e * N
+                                               : nullptr;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
+    if (r >= nrows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
+      if (col >= N) continue;
+      const float v = valid ? epilogue_value(acc[i][j], be, nullptr, 0, col,
+                                             N, act)
+                            : __int_as_float(0x7fc00000);  // NaN
+      store_out(out, (row0 + r) * N + col, v, out_type);
+    }
+  }
+}
+
+template <typename TW>
+cudaError_t launch(const GmmArgs& a, cudaStream_t stream) {
+  const dim3 grid((a.F + BN - 1) / BN, (a.token_tile + BM - 1) / BM,
+                  a.n_tiles);
+  gmm_fma_t_kernel<float, TW><<<grid, THREADS, 0, stream>>>(
+      static_cast<const float*>(a.x), a.tile_experts,
+      static_cast<const TW*>(a.w), a.bias, a.out, a.n_experts, a.D, a.F,
+      a.token_tile, a.act, a.out_type);
+  return cudaGetLastError();
+}
+
+}  // namespace transposed
+
 }  // namespace
 
 // Each part's launches (see the top of the file).
@@ -660,6 +809,7 @@ cudaError_t gmm_fma_f32(const GmmArgs& a, int w_type, cudaStream_t stream);
 cudaError_t gmm_fma_16(const GmmArgs& a, int x_type, int w_type,
                        cudaStream_t stream);
 cudaError_t gmm_fma_e4m3(const GmmArgs& a, int w_type, cudaStream_t stream);
+cudaError_t gmm_fma_t(const GmmArgs& a, int w_type, cudaStream_t stream);
 
 #if IN_PART(0)
 cudaError_t gmm_mma_bf16(const GmmArgs& a, int xv, cudaStream_t stream) {
@@ -704,6 +854,19 @@ cudaError_t gmm_fma_16(const GmmArgs& a, int x_type, int w_type,
 cudaError_t gmm_fma_e4m3(const GmmArgs& a, int w_type, cudaStream_t stream) {
   return cuda_core::launch_x<__nv_fp8_e4m3>(a, w_type, stream);
 }
+// f32 x on transposed weights of any type
+cudaError_t gmm_fma_t(const GmmArgs& a, int w_type, cudaStream_t stream) {
+  switch (w_type) {
+    case DT_F32:
+      return transposed::launch<float>(a, stream);
+    case DT_BF16:
+      return transposed::launch<__nv_bfloat16>(a, stream);
+    case DT_F16:
+      return transposed::launch<__half>(a, stream);
+    default:
+      return transposed::launch<__nv_fp8_e4m3>(a, stream);
+  }
+}
 #endif
 
 #if IN_PART(0)
@@ -716,13 +879,15 @@ cudaError_t gmm_fma_e4m3(const GmmArgs& a, int w_type, cudaStream_t stream) {
 // aligned; bf16 on bf16 with F % 8 == 0 and x rows whole 16-byte (D % 8
 // == 0, x aligned) or 4-byte (D % 2 == 0) copies; fp16 on fp16, a 16-bit
 // x on e4m3 W, or e4m3 on e4m3, with F % 8 == 0 (16 for e4m3 W) and x
-// rows whole 16-byte copies.
+// rows whole 16-byte copies.  w_trans 1 reads w as (n_experts, F, D),
+// each W[e] transposed in place (out[i] = x[i] @ W[e]^T): route "fma",
+// f32 x only.
 extern "C" int grouped_matmul_launch(const void* x, const int* tile_experts,
                                      const void* w, const float* bias,
                                      void* out, int n_tiles, int token_tile,
                                      int n_experts, int D, int F, int x_type,
                                      int w_type, int act, int out_type,
-                                     int route, int device,
+                                     int route, int w_trans, int device,
                                      cudaStream_t stream) {
   // this library links its own CUDA runtime: make the tensors' device
   // current in it before launching
@@ -739,7 +904,13 @@ extern "C" int grouped_matmul_launch(const void* x, const int* tile_experts,
   const auto xa = reinterpret_cast<uintptr_t>(x);
   const bool w16 = reinterpret_cast<uintptr_t>(w) % 16 == 0;
   cudaError_t err;
-  if (route == 1) {
+  if (w_trans) {
+    if (route != 0 || x_type != DT_F32 ||
+        token_tile / transposed::BM >= 65535) {
+      return (int)cudaErrorInvalidValue;
+    }
+    err = gmm_fma_t(a, w_type, stream);
+  } else if (route == 1) {
     const int x_size = x_type == DT_E4M3 ? 1 : 2;
     const bool bf16 = x_type == DT_BF16 && w_type == DT_BF16;
     const bool narrow =

@@ -28,6 +28,12 @@ would round f32 operands).  :func:`gmm_route` picks the route;
 ``ROUTE_LAUNCHES`` counts the launches of each.  ``d_tile`` and
 ``f_tile`` do not change the function, and are checked as the reference
 asserts them.
+
+``w_trans=True`` reads each ``weights[e]``, stored (F, D), as its
+transpose in place: ``out[i] = epilogue(x[i] @ weights[e].T)``.  It is
+the backward's ``dx = dz . W[e]^T`` (``kernels/ops.py``): route
+``"fma"`` on f32 x, a tiled product of its own in the same source,
+counted by ``TRANS`` (``KERNEL`` counts the forward's launches).
 """
 from __future__ import annotations
 
@@ -51,9 +57,11 @@ _BF16, _F16, _E4M3 = torch.bfloat16, torch.float16, torch.float8_e4m3fn
 MMA_NARROW_PAIRS = ((_F16, _F16), (_BF16, _E4M3), (_F16, _E4M3),
                     (_E4M3, _E4M3))
 
-KERNEL = CudaKernel(
-    "grouped_matmul", "grouped_matmul_launch",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10)
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+KERNEL = CudaKernel("grouped_matmul", "grouped_matmul_launch", _ARGTYPES)
+#: The same entry point with the weights read transposed (``w_trans``).
+TRANS = CudaKernel("grouped_matmul", "grouped_matmul_launch", _ARGTYPES,
+                   name="grouped_matmul_dx")
 
 #: The kernel's routes, by the code its C entry point takes.
 ROUTES = {"fma": 0, "mma": 1}
@@ -93,13 +101,15 @@ def fit_tile(n: int, tile: int) -> int:
 
 
 def _check(x, tile_experts, weights, bias, epilogue, token_tile, f_tile,
-           d_tile):
+           d_tile, w_trans=False):
     """Raise ValueError for what the reference asserts."""
     if x.dim() != 2 or weights.dim() != 3:
         raise ValueError(f"need x (T_pad, D) and weights (E, D, F), got "
                          f"{tuple(x.shape)} and {tuple(weights.shape)}")
     t_pad, d = x.shape
     e, dw, f = weights.shape
+    if w_trans:
+        e, f, dw = weights.shape
     if dw != d or token_tile < 1 or t_pad % token_tile:
         raise ValueError(f"x {tuple(x.shape)} against weights "
                          f"{tuple(weights.shape)}: need D equal and T_pad a "
@@ -122,39 +132,48 @@ def _check(x, tile_experts, weights, bias, epilogue, token_tile, f_tile,
 
 
 def grouped_matmul_plain(x, tile_experts, weights, *, bias=None,
-                         epilogue: Epilogue = _NOOP, token_tile: int = 128):
+                         epilogue: Epilogue = _NOOP, token_tile: int = 128,
+                         w_trans: bool = False):
     """Plain version of the kernel, as the reference's
     ``grouped_matmul_ref`` computes it: every tile's expert block gathered
-    and upcast to f32, one batched product, the epilogue spec on the f32
-    sums.  Runs on any device; it materializes ``weights[tile_experts]``
-    in f32, so it is a check, never the serving path."""
+    and upcast to f32 (transposed under ``w_trans``), one batched product,
+    the epilogue spec on the f32 sums.  Runs on any device; it
+    materializes ``weights[tile_experts]`` in f32, so it is a check, never
+    the serving path."""
     t_pad, d = x.shape
     xt = x.reshape(-1, token_tile, d).to(torch.float32)
     te = tile_experts.long()
-    z = torch.bmm(xt, weights[te].to(torch.float32))  # (NT, tt, F)
+    wt = weights[te].to(torch.float32)
+    if w_trans:
+        wt = wt.transpose(1, 2)
+    z = torch.bmm(xt, wt)  # (NT, tt, F)
     b = None if bias is None else bias[te][:, None, :].to(torch.float32)
     return epilogue.apply(z, bias=b).reshape(t_pad, -1)
 
 
 def grouped_matmul(x, tile_experts, weights, *, bias=None,
                    epilogue: Epilogue = _NOOP, token_tile: int = 128,
-                   f_tile: int = 128, d_tile: int = 128):
+                   f_tile: int = 128, d_tile: int = 128,
+                   w_trans: bool = False):
     """x (T_pad, D) expert-sorted tokens, T_pad % token_tile == 0;
     tile_experts (T_pad // token_tile,) int expert of each tile; weights
-    (E, D, F); bias (E, F) per expert, given exactly when
-    ``epilogue.bias``.  Returns (T_pad, F) in ``epilogue.out_dtype`` (f32
-    by default) with the epilogue applied to the f32 sums.
+    (E, D, F), or (E, F, D) read transposed under ``w_trans``; bias (E, F)
+    per expert, given exactly when ``epilogue.bias``.  Returns (T_pad, F)
+    in ``epilogue.out_dtype`` (f32 by default) with the epilogue applied
+    to the f32 sums.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
-    the route :func:`gmm_route` picks, or raise for what it does not take
-    (operands other than f32, bf16, fp16 and float8_e4m3fn, an output
-    type other than those of ``CUDA_OUT_DTYPES``: the same four).
+    the route :func:`gmm_route` picks (``"fma"`` under ``w_trans``), or
+    raise for what it does not take (operands other than f32, bf16, fp16
+    and float8_e4m3fn, x other than f32 under ``w_trans``, an output type
+    other than those of ``CUDA_OUT_DTYPES``: the same four).
     """
     _check(x, tile_experts, weights, bias, epilogue, token_tile, f_tile,
-           d_tile)
+           d_tile, w_trans)
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, tile_experts, weights, bias=bias,
-                                    epilogue=epilogue, token_tile=token_tile)
+                                    epilogue=epilogue, token_tile=token_tile,
+                                    w_trans=w_trans)
     if x.device.type != "cuda":
         raise ValueError(f"no grouped-matmul kernel for device {x.device}")
     for name, t in (("tile_experts", tile_experts), ("weights", weights),
@@ -166,6 +185,9 @@ def grouped_matmul(x, tile_experts, weights, *, bias=None,
             raise NotImplementedError(
                 f"{name} is {t.dtype}; the CUDA kernel loads "
                 f"{CUDA_IN_DTYPES}")
+    if w_trans and x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"x is {x.dtype}; the transposed read (w_trans) takes f32 x")
     out_dtype = torch_dtype(epilogue.out_dtype or "float32")
     if out_dtype not in CUDA_OUT_DTYPES:
         raise NotImplementedError(
@@ -175,12 +197,18 @@ def grouped_matmul(x, tile_experts, weights, *, bias=None,
     te = tile_experts.to(torch.int32).contiguous()
     bias_c = (None if bias is None
               else bias.to(torch.float32).contiguous())
-    e, d, f = wc.shape
-    route = gmm_route(xc.dtype, wc.dtype, d, f, xc.data_ptr(), wc.data_ptr())
+    if w_trans:
+        e, f, d = wc.shape
+        route = "fma"
+    else:
+        e, d, f = wc.shape
+        route = gmm_route(xc.dtype, wc.dtype, d, f, xc.data_ptr(),
+                          wc.data_ptr())
     out = torch.empty((x.shape[0], f), dtype=out_dtype, device=x.device)
-    KERNEL.launch(x.device, ptr(xc), ptr(te), ptr(wc), ptr(bias_c), ptr(out),
-                  te.numel(), token_tile, e, d, f, DTYPE_CODES[xc.dtype],
-                  DTYPE_CODES[wc.dtype], ACT_CODES[epilogue.activation],
-                  DTYPE_CODES[out_dtype], ROUTES[route])
+    (TRANS if w_trans else KERNEL).launch(
+        x.device, ptr(xc), ptr(te), ptr(wc), ptr(bias_c), ptr(out),
+        te.numel(), token_tile, e, d, f, DTYPE_CODES[xc.dtype],
+        DTYPE_CODES[wc.dtype], ACT_CODES[epilogue.activation],
+        DTYPE_CODES[out_dtype], ROUTES[route], int(w_trans))
     ROUTE_LAUNCHES[route] += 1
     return out

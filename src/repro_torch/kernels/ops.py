@@ -7,7 +7,8 @@ codes and per-row scales), passes the epilogue operands and runs the EB
 or RB kernel wrapper.  The kernels mask the ragged column edge themselves,
 so B is not padded to the column tile as the reference pads it; nor is
 ``sddmm``'s stream padded to its nnz tile.  ``grouped_matmul`` is the
-MoE expert GEMM on its kernel, forward only.  ``schedule_fits_card`` is
+MoE expert GEMM on its kernel, differentiable in x, the weights and the
+bias (the reference's custom VJP on the kernels).  ``schedule_fits_card`` is
 the tuner's feasibility predicate: the schedules the wrappers and kernels
 take on the card.
 """
@@ -18,7 +19,7 @@ import torch
 
 from ..core.device import check_on, resolve_device
 from ..core.dtypes import cast, operand_dtype, storage_dtype
-from ..core.schedule import Epilogue, Schedule
+from ..core.schedule import ACTIVATIONS, Epilogue, Schedule
 from ..sparse.formats import (
     CSR,
     ELL,
@@ -30,6 +31,7 @@ from ..sparse.formats import (
 )
 from . import ref
 from .grouped_matmul import grouped_matmul as _gmm_kernel
+from .grouped_matmul_dw import grouped_matmul_dw
 from .sddmm import sddmm as _sddmm_kernel
 from .spmm_eb import MAX_NNZ_TILE, spmm_eb
 from .spmm_rb import spmm_rb
@@ -187,6 +189,51 @@ def expert_tile_map(group_sizes: np.ndarray, token_tile: int) -> np.ndarray:
     return np.asarray(tiles, np.int32)
 
 
+class _GroupedMatmul(torch.autograd.Function):
+    """The reference's custom VJP (``src/repro/kernels/ops.py:304-325``)
+    on the kernels: with an activation, ``z`` is recomputed on the forward
+    kernel (bias fused, no activation) and the activation's VJP applied;
+    ``dx = dz . W[e]^T`` runs on the forward kernel with the weights read
+    transposed in place, stored in x's type; ``dW`` and ``db`` on the
+    gradient kernel (``kernels/grouped_matmul_dw.py``), in the weights'
+    and the bias's types.  CPU tensors take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, weights, bias, tile_experts, epilogue, token_tile,
+                f_tile, d_tile):
+        ctx.save_for_backward(x, weights, bias, tile_experts)
+        ctx.meta = (epilogue, token_tile, f_tile, d_tile)
+        return _gmm_kernel(x, tile_experts, weights, bias=bias,
+                           epilogue=epilogue, token_tile=token_tile,
+                           f_tile=f_tile, d_tile=d_tile)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, weights, bias, te = ctx.saved_tensors
+        epilogue, tt, f_tile, d_tile = ctx.meta
+        dz = dout.to(torch.float32)
+        if epilogue.activation is not None:
+            z = _gmm_kernel(x, te, weights, bias=bias,
+                            epilogue=Epilogue(bias=epilogue.bias),
+                            token_tile=tt, f_tile=f_tile, d_tile=d_tile)
+            with torch.enable_grad():
+                z.requires_grad_(True)
+                a = ACTIVATIONS[epilogue.activation](z)
+                dz, = torch.autograd.grad(a, z, dz)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _gmm_kernel(
+                dz, te, weights,
+                epilogue=Epilogue(out_dtype=str(x.dtype).split(".")[-1]),
+                token_tile=tt, f_tile=d_tile, d_tile=f_tile, w_trans=True)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw, db = grouped_matmul_dw(
+                x, dz, te, weights.shape[0], token_tile=tt,
+                w_dtype=weights.dtype,
+                bias_dtype=None if bias is None else bias.dtype)
+        return dx, dw, db, None, None, None, None, None
+
+
 def grouped_matmul(x, tile_experts, weights, *, bias=None,
                    epilogue: Epilogue = Epilogue(), token_tile: int = 128,
                    f_tile: int = 128, d_tile: int = 128, device=None):
@@ -199,18 +246,15 @@ def grouped_matmul(x, tile_experts, weights, *, bias=None,
     ``epilogue.bias``.  ``device``: None means 'cuda' (raises without a
     card), 'cpu' runs the kernel's plain version.
 
-    Forward only: the reference's custom VJP comes with LM training
-    (ROADMAP.md, queue 1 item 9), so operands that require a gradient are
-    refused.
+    Differentiable in x, weights and bias (``tile_experts`` is routing
+    data), through the reference's custom VJP on the kernels
+    (:class:`_GroupedMatmul`).
     """
     dev = resolve_device(device)
     check_on(dev, x=x, tile_experts=tile_experts, weights=weights, bias=bias)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, weights, bias)):
-        raise NotImplementedError(
-            "grouped_matmul has no backward in the port yet (the "
-            "reference's custom VJP comes with LM training; see ROADMAP.md, "
-            "queue 1 item 9).  Run under torch.no_grad() or detach the "
-            "operands.")
+        return _GroupedMatmul.apply(x, weights, bias, tile_experts, epilogue,
+                                    token_tile, f_tile, d_tile)
     return _gmm_kernel(x, tile_experts, weights, bias=bias, epilogue=epilogue,
                        token_tile=token_tile, f_tile=f_tile, d_tile=d_tile)

@@ -172,3 +172,30 @@ def embed(table, tokens):
 def unembed(table, x):
     """Logits against the tied embedding, in x's type."""
     return x @ table.t()
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Mean token NLL; logits (..., V) upcast to f32, labels int."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return _masked_mean(logz - gold, mask)
+
+
+def _masked_mean(nll, mask):
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(torch.float32)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def lm_loss_from_features(table, x, labels, mask=None):
+    """The LM loss from final features, as the reference computes it: the
+    log-partition over the tied embedding's logits (in x's type, upcast to
+    f32), and the gold logit as ``<x, E[label]>`` in f32, a gather of the
+    label's row of the table rather than of the logits' column."""
+    logits = unembed(table, x).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)  # (B, S)
+    gold_emb = embed(table, labels)  # (B, S, D)
+    gold = (x.to(torch.float32) * gold_emb.to(torch.float32)).sum(-1)
+    return _masked_mean(logz - gold, mask)

@@ -1,15 +1,14 @@
 """Model registry (port of ``repro/models/registry.py``): family ->
-(init, prefill, decode_step, init_cache), one functional API for the
-server::
+(init, loss, prefill, decode_step, init_cache), one functional API for
+the trainer and the server::
 
     api = get_model(cfg)
     params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    loss   = api.loss(params, batch)          # batch: dict of tensors
     logits, cache = api.prefill(params, batch, max_len)
     logits, cache = api.decode_step(params, cache, tokens)
 
-The port runs the ``dense`` and ``moe`` families (``models.transformer``);
-the reference's ``loss`` entry waits for LM training (ROADMAP.md, queue 1
-item 9).
+The port runs the ``dense`` and ``moe`` families (``models.transformer``).
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ from . import transformer
 class ModelApi:
     cfg: object
     init: Callable
+    loss: Callable
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
@@ -40,6 +40,7 @@ def get_model(cfg) -> ModelApi:
     return ModelApi(
         cfg=cfg,
         init=functools.partial(transformer.init_params, cfg),
+        loss=functools.partial(transformer.loss_fn, cfg),
         prefill=functools.partial(_lm_prefill, cfg),
         decode_step=functools.partial(transformer.decode_step, cfg),
         init_cache=functools.partial(transformer.init_cache, cfg),

@@ -9,8 +9,9 @@ The KV cache keeps the reference's layout, ``k`` and ``v`` of shape
 (L, B, max_len, KH, Dh) and the position ``pos`` (an int here).
 ``decode_step`` writes the new keys and values into the cache's tensors
 in place, where the reference returns new caches, and returns the cache
-with ``pos + 1``.  The LM loss waits for LM training (ROADMAP.md, queue
-1 item 9).
+with ``pos + 1``.  ``loss_fn`` is the reference's LM loss (next-token NLL
+from the final features against the tied embedding, plus ``AUX_WEIGHT``
+times the MoE load-balance loss), differentiable with torch autograd.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.schedule import torch_dtype
+from ..core.tree import tree_map
 from .attention import decode_attention, flash_attention
 from .layers import (
     apply_dense,
@@ -30,10 +32,14 @@ from .layers import (
     init_embedding,
     init_mlp,
     init_norm,
+    lm_loss_from_features,
     rmsnorm,
     unembed,
 )
 from .moe import apply_moe, init_moe
+
+#: Weight of the MoE load-balance loss in the training loss.
+AUX_WEIGHT = 0.01
 
 # ------------------------------------------------------------------ init
 
@@ -94,12 +100,6 @@ def _to_torch(a, device):
     return torch.from_numpy(a).to(device)
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def params_from_jax(cfg, tree, device=None):
     """The port's parameters from the reference's tree (numpy or JAX
     arrays, layers stacked on a leading L axis), so both packages compute
@@ -107,10 +107,10 @@ def params_from_jax(cfg, tree, device=None):
     float8_e4m3fn (e.g. e4m3 expert weights) bit for bit."""
     dev = resolve_device(device)
     return {"embed": _to_torch(tree["embed"], dev),
-            "layers": [_tree_map(lambda a, i=i: _to_torch(a[i], dev),
+            "layers": [tree_map(lambda a, i=i: _to_torch(a[i], dev),
                                  tree["layers"])
                        for i in range(cfg.n_layers)],
-            "final_norm": _tree_map(lambda a: _to_torch(a, dev),
+            "final_norm": tree_map(lambda a: _to_torch(a, dev),
                                     tree["final_norm"])}
 
 
@@ -173,6 +173,17 @@ def forward(cfg, params, tokens, ctx=None):
     """tokens (B, S) -> (logits (B, S, V), aux loss)."""
     x, aux = forward_features(cfg, params, tokens, ctx)
     return unembed(params["embed"], x), aux
+
+
+def loss_fn(cfg, params, batch, ctx=None):
+    """The training loss of ``batch["tokens"]`` (B, S): mean next-token
+    NLL (masked by ``batch["mask"]`` (B, S - 1) when given) plus
+    ``AUX_WEIGHT`` times the summed aux loss."""
+    tokens = batch["tokens"]
+    x, aux = forward_features(cfg, params, tokens, ctx)
+    loss = lm_loss_from_features(params["embed"], x[:, :-1], tokens[:, 1:],
+                                 batch.get("mask"))
+    return loss + AUX_WEIGHT * aux
 
 
 # --------------------------------------------------------------- serving

@@ -310,16 +310,17 @@ def segment_reduce(seg_ids, data, num_segments: int, schedule=None, *,
     ``jax.ops.segment_max`` does.  'mean' reduces a column of ones beside
     the data in the same kernel pass (the kernel's ``count_column``, a
     virtual column: no copy of the data is made) and divides by
-    ``max(count, 1)``, so empty segments give 0.  Forward only, like the reference: data that
-    requires a gradient is refused.
+    ``max(count, 1)``, so empty segments give 0.  Forward only, like the
+    reference: data that requires a gradient is refused.
     """
     dev = resolve_device(device)
     check_on(dev, seg_ids=seg_ids, data=data)
     if torch.is_grad_enabled() and data.requires_grad:
         raise NotImplementedError(
-            "segment_reduce has no backward, as in the reference (jax.grad "
-            "through it fails); see ROADMAP.md, queue 1 item 5.  Run under "
-            "torch.no_grad() or detach the data.")
+            "segment_reduce has no backward: the reference has none "
+            "(jax.grad through it fails), so it stays unported (ROADMAP.md, "
+            "queue 1 item 4).  Run under torch.no_grad() or detach the "
+            "data.")
     if op not in ("sum", "max", "min", "mean"):
         raise ValueError(f"segment_reduce op {op!r}; one of "
                          "sum/max/min/mean")

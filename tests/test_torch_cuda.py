@@ -1699,6 +1699,140 @@ def test_grouped_matmul_tensor_core_route_is_deterministic(dev):
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16,
+                                    torch.float8_e4m3fn])
+@pytest.mark.parametrize("tile,n_tiles,e,d,f", [(4, 7, 5, 72, 40),
+                                               (10, 5, 6, 300, 20),
+                                               (128, 3, 4, 64, 136),
+                                               (130, 2, 3, 40, 24)])
+def test_grouped_matmul_transposed_read_matches_plain(dev, tile, n_tiles, e,
+                                                      d, f, wdtype):
+    """``w_trans``: x f32 (T, D) on weights (E, F, D) read transposed in
+    place, ``out = x . W[e]^T``, per element within K_TERMS of the plain
+    version; ragged slabs, tiles above the block's 128 rows, an unsorted
+    map with an expert missing and an id outside [0, E) (NaN), bias and
+    SiLU, a bf16 store equal to the f32 sums rounded.  Counted by
+    ``TRANS``, not ``KERNEL``."""
+    from repro_torch.core import Epilogue
+    from repro_torch.kernels import grouped_matmul as gm
+
+    g = torch.Generator().manual_seed(tile + d)
+    x = torch.randn(n_tiles * tile, d, generator=g).to(dev)
+    w = (torch.randn(e, f, d, generator=g) * d ** -0.5).to(wdtype).to(dev)
+    b = torch.randn(e, f, generator=g).to(dev)
+    te = torch.randint(1, e, (n_tiles,), generator=g,
+                       dtype=torch.int32).to(dev)
+    for ep, bias in ((Epilogue(), None), (Epilogue("silu", bias=True), b)):
+        kw = dict(bias=bias, epilogue=ep, token_tile=tile, w_trans=True)
+        before, fwd = gm.TRANS.launches, gm.KERNEL.launches
+        got = gm.grouped_matmul(x, te, w, f_tile=f, d_tile=d, **kw)
+        assert (gm.TRANS.launches, gm.KERNEL.launches) == (before + 1, fwd)
+        want = gm.grouped_matmul_plain(x, te, w, **kw)
+        terms = _terms(gm.grouped_matmul_plain, x, te, w.float(),
+                       token_tile=tile, w_trans=True)
+        if bias is not None:  # each tile's expert's bias row
+            terms = terms + bias[te.long()].abs().repeat_interleave(tile, 0)
+        _assert_within_terms(got, want, terms)
+    f32 = gm.grouped_matmul(x, te, w, f_tile=f, d_tile=d, token_tile=tile,
+                            w_trans=True)
+    b16 = gm.grouped_matmul(x, te, w, f_tile=f, d_tile=d, token_tile=tile,
+                            w_trans=True,
+                            epilogue=Epilogue(out_dtype="bfloat16"))
+    assert torch.equal(b16, f32.to(torch.bfloat16))
+    bad = te.clone()
+    bad[0] = e
+    out = gm.grouped_matmul(x, bad, w, f_tile=f, d_tile=d, token_tile=tile,
+                            w_trans=True)
+    assert bool(torch.isnan(out[:tile]).all())
+    torch.testing.assert_close(out[tile:], f32[tile:], rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="f32 x"):
+        gm.grouped_matmul(x.bfloat16(), te, w, f_tile=f, d_tile=d,
+                          token_tile=tile, w_trans=True)
+
+
+@pytest.mark.parametrize("xdtype,wdtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float16, torch.float32), (torch.float8_e4m3fn, torch.bfloat16)])
+@pytest.mark.parametrize("tile,te_list,e,d,f", [
+    (4, [2, 0, 2, 5, 0, 2], 6, 72, 40),       # unsorted, experts 1, 3, 4 empty
+    (128, [0, 0, 1, 1], 2, 136, 264),         # ragged slabs, 2 tiles each
+    (10, [3, 1, -1, 7, 1], 4, 300, 20)])      # ids outside [0, E) dropped
+def test_grouped_matmul_dw_matches_plain(dev, tile, te_list, e, d, f, xdtype,
+                                         wdtype):
+    """dW and db per element within K_TERMS of the plain version (dW in
+    the weights' type: a narrow store one step more), experts with no
+    tile 0, ids outside [0, E) adding to no expert, as the reference's
+    scatter drops them; the kernel's bf16 store equal to its f32 sums
+    rounded; one launch each."""
+    from repro_torch.kernels import grouped_matmul_dw as gmd
+
+    g = torch.Generator().manual_seed(tile + d + f)
+    te = torch.tensor(te_list, dtype=torch.int32, device=dev)
+    t = len(te_list) * tile
+    x = torch.randn(t, d, generator=g).to(xdtype).to(dev)
+    dz = torch.randn(t, f, generator=g).to(dev)
+    kw = dict(token_tile=tile, w_dtype=wdtype, bias_dtype=torch.float32)
+    before = gmd.KERNEL.launches
+    dw, db = gmd.grouped_matmul_dw(x, dz, te, e, **kw)
+    assert gmd.KERNEL.launches == before + 1
+    want_w, want_b = gmd.grouped_matmul_dw_plain(x, dz, te, e, **kw)
+    tw, tb = gmd.grouped_matmul_dw_plain(x.float().abs(), dz.abs(), te, e,
+                                         **{**kw, "w_dtype": torch.float32})
+    _assert_within_terms(dw, want_w, tw)
+    _assert_within_terms(db, want_b, tb)
+    owned = set(v for v in te_list if 0 <= v < e)
+    for i in set(range(e)) - owned:
+        assert not bool(dw[i].float().any()) and not bool(db[i].any())
+    if wdtype == torch.float32:
+        d16, none = gmd.grouped_matmul_dw(x, dz, te, e, token_tile=tile,
+                                          w_dtype=torch.bfloat16)
+        assert none is None and torch.equal(d16, dw.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("activation,bias", [(None, False), ("silu", True),
+                                             ("gelu", False)])
+def test_grouped_matmul_gradients_on_cuda_match_cpu(dev, activation, bias):
+    """``kernels.ops.grouped_matmul`` under autograd on the card (dx on
+    the transposed read, dW and db on the gradient kernel, z recomputed
+    on the forward kernel) against the CPU's plain backward, 1e-4
+    relative; bf16 x and weights keep their types in their gradients."""
+    from repro_torch.core import Epilogue
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import grouped_matmul_dw as gmd
+    from repro_torch.kernels import ops
+
+    g = torch.Generator().manual_seed(7)
+    e, d, f, tile = 5, 96, 48, 8
+    te = torch.tensor([3, 0, 3, 1, 0, 3], dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16):
+        x0 = torch.randn(len(te) * tile, d, generator=g).to(dtype)
+        w0 = (torch.randn(e, d, f, generator=g) * d ** -0.5).to(dtype)
+        b0 = torch.randn(e, f, generator=g)
+        go = torch.randn(len(te) * tile, f, generator=g)
+        ep = Epilogue(activation, bias=bias)
+        grads = []
+        for where in ("cpu", dev):
+            x, w = (t.detach().to(where).requires_grad_() for t in (x0, w0))
+            b = b0.detach().to(where).requires_grad_() if bias else None
+            counts = (gm.KERNEL.launches, gm.TRANS.launches,
+                      gmd.KERNEL.launches)
+            y = ops.grouped_matmul(x, te.to(where), w, bias=b, epilogue=ep,
+                                   token_tile=tile, f_tile=f, d_tile=d,
+                                   device=where)
+            (y * go.to(where)).sum().backward()
+            if where != "cpu":
+                fwd = 2 if activation else 1
+                assert (gm.KERNEL.launches - counts[0],
+                        gm.TRANS.launches - counts[1],
+                        gmd.KERNEL.launches - counts[2]) == (fwd, 1, 1)
+            grads.append([t.grad for t in (x, w, b) if t is not None])
+        for c, k in zip(*grads):
+            assert k.dtype == c.dtype and k.device.type == "cuda"
+            c, k = c.float(), k.float().cpu()
+            err = float((k - c).norm() / c.norm())
+            assert err <= (1e-4 if dtype == torch.float32 else 2 ** -7), err
+
+
 def test_moe_and_decode_step_launches(dev):
     """``apply_moe`` on the kernel path is 3 grouped-matmul launches and
     matches the einsum path and the CPU; a decode step of the 2-layer

@@ -40,7 +40,7 @@ def test_port_has_its_kernel_sources():
     assert {p.stem for p in csrc.glob("*.cu")} == set(build.SOURCES) == {
         "spmm_eb", "spmm_rb", "sddmm", "fused_attention_fwd",
         "fused_attention_bwd", "segment_reduce", "grouped_matmul",
-        "eb_partials", "attn_user"}
+        "eb_partials", "attn_user", "grouped_matmul_dw"}
     # the epilogue is fused into the kernels; the headers they share
     assert {p.name for p in csrc.glob("*.cuh")} == {
         "attention.cuh", "epilogue.cuh", "spmm.cuh"}
@@ -55,7 +55,11 @@ def test_the_scan_covers_the_fuse_package_and_every_kernel_module():
             "configs/base.py", "configs/qwen3_moe_235b.py",
             "models/moe.py", "models/transformer.py",
             "models/registry.py", "serve/engine.py",
-            "launch/serve.py", "launch/hillclimb.py"} <= scanned
+            "launch/serve.py", "launch/hillclimb.py", "launch/train.py",
+            "train/optimizer.py", "train/train_step.py", "train/trainer.py",
+            "checkpoint/manager.py", "data/synthetic.py",
+            "distributed/collectives.py", "distributed/fault_tolerance.py",
+            "core/tree.py"} <= scanned
     assert {f"tune/{m}.py" for m in (
         "__init__", "measure", "cache", "space", "driver", "search",
         "attention", "calibrate")} <= scanned
@@ -63,8 +67,9 @@ def test_the_scan_covers_the_fuse_package_and_every_kernel_module():
 
     assert {f"kernels/{s}.py" for s in ("spmm_eb", "spmm_rb", "sddmm",
                                         "segment_reduce", "grouped_matmul",
-                                        "eb_partials", "attn_user")} <= scanned
-    assert len(build.SOURCES) == 9
+                                        "eb_partials", "attn_user",
+                                        "grouped_matmul_dw")} <= scanned
+    assert len(build.SOURCES) == 10
 
 
 def test_importing_every_port_module_loads_no_jax():
