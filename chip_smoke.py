@@ -159,18 +159,22 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
 - LM training (``lm_train``, last): Qwen3-MoE at full width cut to one
   layer by memory (its AdamW state is 37.3 GB; the script prints the
   reckoning), launch/train.py's batch of 8 x 256 tokens.  (a) The grouped
-  matmul's backward kernels against their plain versions at f32 on 8
-  experts of the full D and F, per element within K_TERMS: dx = dz .
-  W[e]^T on the forward kernel reading the weights transposed, dW and db
-  on ``grouped_matmul_dw``, on a sorted map and an unsorted one with an
-  expert that owns no tile, each kernel's bf16 store against its f32
-  sums rounded; both timed at the training shapes beside their plain
-  versions and ``torch.bmm`` in f32.  (b) One step's loss and every
+  matmul's backward kernels on 8 experts of the full D and F, on both
+  routes (bf16 and e4m3 partners on the tensor cores, dz split into three
+  bf16 parts; f32 and fp16 on the CUDA cores; the route counted), per
+  element within K_TERMS of their plain versions and of the f64 product:
+  dx = dz . W[e]^T on the forward kernel reading the weights transposed,
+  dW and db on ``grouped_matmul_dw``, on a sorted map and an unsorted one
+  with an expert that owns no tile, each kernel's bf16 store against its
+  f32 sums rounded; both timed at the training shapes beside their plain
+  versions and ``torch.bmm`` in f32, with the bound of three bf16 passes
+  and the f32 product's beside it.  (b) One step's loss and every
   leaf's gradient on the kernel path against the einsum path
   (LM_LOSS_REL, LM_GRAD_REL_L2).  (c) ``Trainer`` for 8 steps at lr 1e-3
   (printed) and at that rate scaled to the width (the losses must fall;
-  the launches counted, step ms by CUDA events, peak memory, the new
-  launches' ms, one step profiled), and a checkpoint save and restore at
+  the launches counted, all on the tensor cores, step ms by CUDA events,
+  peak memory, the new launches' ms, one step profiled), and a
+  checkpoint save and restore at
   smoke size.
 
 It prints kernel, forward, training-step, attention, readout, tuning,
@@ -4916,32 +4920,77 @@ def gmm_backward_operands(cfg, dev, n_experts, tiles_per_expert, gen):
             "dz_f": rnd(t, f), "dz_d": rnd(t, d)}
 
 
+#: The backward's partner types and the route each takes (kernels/
+#: grouped_matmul.py::gmm_bwd_route): bf16 and e4m3 values are exactly
+#: bf16, so f32 dz splits into three exact bf16 products on the tensor
+#: cores; f32 and fp16 values do not, and keep the CUDA cores.
+GMM_BWD_PARTNERS = (("bfloat16", "mma"), ("float8_e4m3fn", "mma"),
+                    ("float32", "fma"), ("float16", "fma"))
+
+
+def f64_gmm_t(dz, te, w, tt):
+    """dx = dz . W[e]^T per tile, in f64 (every id valid)."""
+    k = dz.shape[1]
+    xt = dz.double().reshape(-1, tt, k)
+    return (xt @ w[te.long()].double().transpose(1, 2)).reshape(
+        dz.shape[0], -1)
+
+
+def f64_dw(x, dz, te, n_experts, tt):
+    """(dW, db) per expert over its tiles, in f64."""
+    import torch
+    from repro_torch.kernels import grouped_matmul_dw as gmd
+
+    offsets, order = gmd.tile_csr(te, n_experts)
+    offsets = offsets.tolist()
+    rows = (order.long()[:, None] * tt + torch.arange(
+        tt, device=x.device)).reshape(-1)
+    dw = torch.zeros(n_experts, x.shape[1], dz.shape[1], dtype=torch.float64,
+                     device=x.device)
+    db = torch.zeros(n_experts, dz.shape[1], dtype=torch.float64,
+                     device=x.device)
+    for ex in range(n_experts):
+        r = rows[offsets[ex] * tt: offsets[ex + 1] * tt]
+        if r.numel():
+            dw[ex] = x[r].double().t() @ dz[r].double()
+            db[ex] = dz[r].double().sum(0)
+    return dw, db
+
+
 def check_gmm_backward(cfg, dev):
-    """(a) The backward's two kernels against their plain versions at f32
-    on LM_CHECK_EXPERTS experts of the full D and F (two tiles of LM_TILE
-    rows an expert, as the training batch gives them), per element within
-    K_TERMS units of 2^-24 of the terms entering each output: ``dx = dz .
-    W[e]^T`` on the forward kernel with the weights read transposed, for
-    the up (E, D, F) and down (E, F, D) weights; ``dW`` and ``db`` on
+    """(a) The backward's two kernels on both routes (GMM_BWD_PARTNERS:
+    bf16 and e4m3 partners on the tensor cores, f32 and fp16 on the CUDA
+    cores; the route taken is counted and must be the one the type
+    fixes) on LM_CHECK_EXPERTS experts of the full D and F (two tiles of
+    LM_TILE rows an expert, as the training batch gives them), per
+    element within K_TERMS units of 2^-24 of the terms entering each
+    output, against the plain version (f32) and against the f64 product
+    of the same operands (k printed for both): ``dx = dz . W[e]^T`` on the
+    forward kernel with the weights read transposed, for the up (E, D, F)
+    and down (E, F, D) weights; ``dW`` and ``db`` on
     ``grouped_matmul_dw``, on the sorted map and on an unsorted map in
-    which one expert owns no tile (its dW must be 0); each kernel's bf16
-    store against its own f32 sums rounded, bit for bit."""
+    which one expert owns no tile (its dW and db must be 0); each
+    kernel's bf16 store against its own f32 sums rounded, bit for bit."""
     import torch
     from repro_torch.core import Epilogue
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import grouped_matmul_dw as gmd
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
-    e = LM_CHECK_EXPERTS
-    ops = gmm_backward_operands(cfg, dev, e, 2, gen)
-    te = ops["te"]
+    e, tt = LM_CHECK_EXPERTS, LM_TILE
+    d, f = cfg.d_model, cfg.moe_d_ff
+    t = e * 2 * tt
+    te = torch.arange(e, dtype=torch.int32, device=dev).repeat_interleave(2)
     empty = e // 2 + 1
     others = [i for i in range(e) if i != empty]
     pick = torch.randint(len(others), (te.numel(),), generator=gen,
                          device=dev)
     shuffled = torch.tensor(others, dtype=torch.int32, device=dev)[pick]
+    maps = (("sorted", te), ("unsorted", shuffled))
     checker = Checker(("grouped_matmul_dx", "grouped_matmul_dw"))
-    tt = LM_TILE
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
 
     def bits(name, label, got, f32):
         ok = torch.equal(got, f32.to(got.dtype))
@@ -4950,69 +4999,106 @@ def check_gmm_backward(cfg, dev):
         if not ok:
             checker.failures.append(f"{name} {label}")
 
-    for wname, w, dz in (("up", ops["w_up"], ops["dz_f"]),
-                         ("down", ops["w_down"], ops["dz_d"])):
-        n, k = w.shape[1], w.shape[2]
-        for mname, m in (("sorted", te), ("unsorted", shuffled)):
-            kw = dict(token_tile=tt, f_tile=n, d_tile=k, w_trans=True)
-            got = gm.grouped_matmul(dz, m, w, **kw)
-            want = gm.grouped_matmul_plain(dz, m, w, token_tile=tt,
-                                           w_trans=True)
-            terms = gm.grouped_matmul_plain(dz.abs(), m, w.abs(),
-                                            token_tile=tt, w_trans=True)
-            label = f"dx {wname} {mname} ({dz.shape[0]} x {k} -> {n})"
-            checker.record_terms("grouped_matmul_dx", label, got, want,
-                                 terms)
-            bits("grouped_matmul_dx", f"dx {wname} {mname} bf16 store",
-                 gm.grouped_matmul(
-                     dz, m, w, epilogue=Epilogue(out_dtype="bfloat16"),
-                     **kw), got)
-            del got, want, terms
-    for wname, x, dz in (("up", ops["x_d"], ops["dz_f"]),
-                         ("down", ops["x_f"], ops["dz_d"])):
-        for mname, m in (("sorted", te), ("unsorted", shuffled)):
-            kw = dict(token_tile=tt, bias_dtype=torch.float32)
-            got, gdb = gmd.grouped_matmul_dw(x, dz, m, e,
-                                             w_dtype=torch.float32, **kw)
-            want, wdb = gmd.grouped_matmul_dw_plain(
-                x, dz, m, e, w_dtype=torch.float32, **kw)
-            terms, tdb = gmd.grouped_matmul_dw_plain(
-                x.abs(), dz.abs(), m, e, w_dtype=torch.float32, **kw)
-            label = (f"dW {wname} {mname} ({x.shape[1]} x {dz.shape[1]}, "
-                     f"{x.shape[0]} rows)")
-            checker.record_terms("grouped_matmul_dw", label, got, want,
-                                 terms)
-            checker.record_terms("grouped_matmul_dw", f"db {wname} {mname}",
-                                 gdb, wdb, tdb)
-            g16, _ = gmd.grouped_matmul_dw(x, dz, m, e,
-                                           w_dtype=torch.bfloat16,
-                                           token_tile=tt)
-            bits("grouped_matmul_dw", f"dW {wname} {mname} bf16 store", g16,
-                 got)
-            if mname == "unsorted":
-                zero = (not bool(got[empty].any())
-                        and not bool(gdb[empty].any()))
-                print(f"  {'grouped_matmul_dw':19s} expert {empty} owns no "
-                      f"tile: dW and db all 0 {'ok' if zero else 'FAIL'}",
-                      flush=True)
-                if not zero:
-                    checker.failures.append("grouped_matmul_dw empty expert")
-            del got, want, terms, g16
-    del ops
+    def routed(name, label, counts, before, want):
+        took = {r: n - before[r] for r, n in counts.items() if n != before[r]}
+        if took != {want: 1}:
+            print(f"  {name:19s} {label}: routes {took}, want {want} FAIL",
+                  flush=True)
+            checker.failures.append(f"{name} {label} route {took}")
+
+    dz_f, dz_d = rnd(t, f), rnd(t, d)
+    w32 = {"up": rnd(e, d, f, scale=d ** -0.5),
+           "down": rnd(e, f, d, scale=f ** -0.5)}
+    x32 = {"up": rnd(t, d), "down": rnd(t, f)}
+    for tname, route in GMM_BWD_PARTNERS:
+        dtype = getattr(torch, tname)
+        print(f"  partner {tname}: route {route}", flush=True)
+        for wname, dz in (("up", dz_f), ("down", dz_d)):
+            w = w32[wname].to(dtype)
+            n, k = w.shape[1], w.shape[2]
+            for mname, m in maps:
+                kw = dict(token_tile=tt, f_tile=n, d_tile=k, w_trans=True)
+                before = dict(gm.ROUTE_LAUNCHES)
+                got = gm.grouped_matmul(dz, m, w, **kw)
+                routed("grouped_matmul_dx", f"dx {wname} {mname} {tname}",
+                       gm.ROUTE_LAUNCHES, before, route)
+                want = gm.grouped_matmul_plain(dz, m, w, token_tile=tt,
+                                               w_trans=True)
+                terms = gm.grouped_matmul_plain(dz.abs(), m, w.float().abs(),
+                                                token_tile=tt, w_trans=True)
+                label = f"dx {wname} {mname} {tname} ({t} x {k} -> {n})"
+                checker.record_terms("grouped_matmul_dx", label, got, want,
+                                     terms)
+                checker.record_terms("grouped_matmul_dx", f"{label} f64",
+                                     got, f64_gmm_t(dz, m, w, tt).float(),
+                                     terms)
+                bits("grouped_matmul_dx", f"dx {wname} {mname} {tname} "
+                     "bf16 store", gm.grouped_matmul(
+                         dz, m, w, epilogue=Epilogue(out_dtype="bfloat16"),
+                         **kw), got)
+                del got, want, terms
+            del w
+        for wname, dz in (("up", dz_f), ("down", dz_d)):
+            x = x32[wname].to(dtype)
+            for mname, m in maps:
+                kw = dict(token_tile=tt, bias_dtype=torch.float32)
+                before = dict(gmd.ROUTE_LAUNCHES)
+                got, gdb = gmd.grouped_matmul_dw(x, dz, m, e,
+                                                 w_dtype=torch.float32, **kw)
+                routed("grouped_matmul_dw", f"dW {wname} {mname} {tname}",
+                       gmd.ROUTE_LAUNCHES, before, route)
+                want, wdb = gmd.grouped_matmul_dw_plain(
+                    x, dz, m, e, w_dtype=torch.float32, **kw)
+                terms, tdb = gmd.grouped_matmul_dw_plain(
+                    x.float().abs(), dz.abs(), m, e, w_dtype=torch.float32,
+                    **kw)
+                w64, b64 = f64_dw(x, dz, m, e, tt)
+                label = (f"dW {wname} {mname} {tname} ({x.shape[1]} x "
+                         f"{dz.shape[1]}, {x.shape[0]} rows)")
+                checker.record_terms("grouped_matmul_dw", label, got, want,
+                                     terms)
+                checker.record_terms("grouped_matmul_dw", f"{label} f64",
+                                     got, w64.float(), terms)
+                checker.record_terms("grouped_matmul_dw",
+                                     f"db {wname} {mname} {tname}", gdb, wdb,
+                                     tdb)
+                checker.record_terms("grouped_matmul_dw",
+                                     f"db {wname} {mname} {tname} f64", gdb,
+                                     b64.float(), tdb)
+                g16, _ = gmd.grouped_matmul_dw(x, dz, m, e,
+                                               w_dtype=torch.bfloat16,
+                                               token_tile=tt)
+                bits("grouped_matmul_dw", f"dW {wname} {mname} {tname} bf16 "
+                     "store", g16, got)
+                if mname == "unsorted":
+                    zero = (not bool(got[empty].any())
+                            and not bool(gdb[empty].any()))
+                    print(f"  {'grouped_matmul_dw':19s} expert {empty} owns "
+                          f"no tile: dW and db all 0 "
+                          f"{'ok' if zero else 'FAIL'}", flush=True)
+                    if not zero:
+                        checker.failures.append(
+                            f"grouped_matmul_dw empty expert {tname}")
+                del got, want, terms, g16, w64
+            del x
+    del dz_f, dz_d, w32, x32
     torch.cuda.empty_cache()
     return checker.done()
 
 
 def time_gmm_backward(cfg, dev):
     """Row 7b at the training batch's shapes (every expert, cap_pad 2 x
-    LM_TILE rows, T_pad 32,768): one layer's backward launches, dx for
-    wg, wi (up) and wo (down) and dW for the same three, each kernel's
-    ms (CUDA events) beside its plain version's and the library
-    yardstick's, ``torch.bmm`` in f32 over the weights transposed (dx)
-    and over the equal-run (E, cap_pad, .) view of the tokens (dW), on
-    f32 copies made before the clock starts (the port calls neither).
-    Bytes: each input read once, the output written once; operations at
-    the f32 peak (dz is f32, so are the products)."""
+    LM_TILE rows, T_pad 32,768, bf16 weights and tokens: the tensor-core
+    route): one layer's backward launches, dx for wg, wi (up) and wo
+    (down) and dW for the same three, each kernel's ms (CUDA events)
+    beside its plain version's and the library yardstick's, ``torch.bmm``
+    in f32 over the weights transposed (dx) and over the equal-run (E,
+    cap_pad, .) view of the tokens (dW), on f32 copies made before the
+    clock starts (the port calls neither).  Bytes: each input read once,
+    the output written once.  Operations: the route's, three bf16 passes
+    (3 x 2 T N K) at the bf16 peak; the f32 product's bound at the f32
+    CUDA-core peak (the "fma" route's, and row 7b's before the split)
+    printed beside it."""
     import torch
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import grouped_matmul_dw as gmd
@@ -5022,25 +5108,34 @@ def time_gmm_backward(cfg, dev):
     ops = gmm_backward_operands(cfg, dev, e, 2, gen)
     te, tt = ops["te"], LM_TILE
     rows = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                   "bytes": 0, "flops": 0, "flop_per_s": F32_FLOP_PER_S}
+                   "bytes": 0, "flops": 0, "flop_per_s": BF16_FLOP_PER_S,
+                   "detail": {"bound_f32_ms": 0.0}}
             for name in ("grouped_matmul_dx", "grouped_matmul_dw")}
 
-    def add(name, label, times, count, nbytes, flops):
+    def add(name, label, route, times, count, nbytes, flops):
         ms, plain, lib = times
-        b_ms, by = bound(nbytes, flops)
-        print(f"{name} {label} (x{count} a layer): {ms:.4f} ms (bound "
-              f"{b_ms:.4f} ms by {by}: {nbytes} bytes, {flops} operations; "
-              f"{flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
-              f"torch.bmm f32 {lib:.4f} ms", flush=True)
+        if route != "mma":
+            fail(f"{name} {label}: the bf16 operands took route {route}")
+        b_ms, by = bound(nbytes, 3 * flops, BF16_FLOP_PER_S)
+        f_ms, f_by = bound(nbytes, flops)
+        print(f"{name} {label} (x{count} a layer, route {route}): "
+              f"{ms:.4f} ms (bound {b_ms:.4f} ms by {by}: {nbytes} bytes, "
+              f"3 x {flops} bf16 operations, {3 * flops / ms / 1e9:.1f} "
+              f"TFLOP/s; the f32 product's bound {f_ms:.4f} ms by {f_by}, "
+              f"{flops / ms / 1e9:.1f} f32-equivalent TFLOP/s), plain "
+              f"{plain:.4f} ms, torch.bmm f32 {lib:.4f} ms "
+              f"({ms / lib:.3f}x)", flush=True)
         r = rows[name]
         for key, v in zip(("ms", "plain_ms", "library_ms", "bytes", "flops"),
-                          (ms, plain, lib, nbytes, flops)):
+                          (ms, plain, lib, nbytes, 3 * flops)):
             r[key] += count * v
+        r["detail"]["bound_f32_ms"] += count * f_ms
 
     for label, w, dz, count in (("up (wg, wi)", ops["w_up"], ops["dz_f"], 2),
                                 ("down (wo)", ops["w_down"], ops["dz_d"], 1)):
         n, k = w.shape[1], w.shape[2]
         t = dz.shape[0]
+        route = gm.gmm_bwd_route(w.dtype, k, k, w.data_ptr(), dz.data_ptr())
         ms = cuda_ms(lambda: gm.grouped_matmul(
             dz, te, w, token_tile=tt, f_tile=n, d_tile=k, w_trans=True), 5, 1)
         plain = cuda_ms(lambda: plain_gmm(dz, te, w, token_tile=tt,
@@ -5050,13 +5145,14 @@ def time_gmm_backward(cfg, dev):
         lib = cuda_ms(lambda: torch.bmm(dzb, w32), 5, 1)
         del w32
         torch.cuda.empty_cache()
-        add("grouped_matmul_dx", f"dx {label} ({t} x {k} -> {n})",
+        add("grouped_matmul_dx", f"dx {label} ({t} x {k} -> {n})", route,
             (ms, plain, lib), count,
             dz.numel() * 4 + w.numel() * 2 + t * n * 2, 2 * t * n * k)
     for label, x, dz, count in (("up (wg, wi)", ops["x_d"], ops["dz_f"], 2),
                                 ("down (wo)", ops["x_f"], ops["dz_d"], 1)):
         t, d = x.shape
         f = dz.shape[1]
+        route = gm.gmm_bwd_route(x.dtype, d, f, x.data_ptr(), dz.data_ptr())
         kw = dict(token_tile=tt, w_dtype=torch.bfloat16)
         ms = cuda_ms(lambda: gmd.grouped_matmul_dw(x, dz, te, e, **kw), 5, 1)
         plain = cuda_ms(lambda: gmd.grouped_matmul_dw_plain(x, dz, te, e,
@@ -5066,7 +5162,7 @@ def time_gmm_backward(cfg, dev):
         lib = cuda_ms(lambda: torch.bmm(xb, dzb), 5, 1)
         del xb
         torch.cuda.empty_cache()
-        add("grouped_matmul_dw", f"dW {label} ({t} rows, {d} x {f})",
+        add("grouped_matmul_dw", f"dW {label} ({t} rows, {d} x {f})", route,
             (ms, plain, lib), count,
             x.numel() * 2 + dz.numel() * 4 + e * d * f * 2, 2 * t * d * f)
     del ops
@@ -5154,6 +5250,8 @@ def lm_trainer(cfg, dev, counters, first_loss, lr, must_fall):
 
     import torch
     from repro_torch.data.synthetic import ShardedTokenStream
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import grouped_matmul_dw as gmd
     from repro_torch.models import get_model
     from repro_torch.train.optimizer import AdamW, constant_schedule
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -5183,9 +5281,16 @@ def lm_trainer(cfg, dev, counters, first_loss, lr, must_fall):
         tr.step_fn = timed
         for k in counters.values():
             k.launches = 0
+        before = (dict(gm.ROUTE_LAUNCHES), dict(gmd.ROUTE_LAUNCHES))
         with LaunchTimer() as lt:
             state = tr.run(state)
         counts = {n: k.launches for n, k in counters.items()}
+        routes = {f"{name} {r}": n - b[r]
+                  for name, now, b in (("grouped_matmul", gm.ROUTE_LAUNCHES,
+                                        before[0]),
+                                       ("grouped_matmul_dw",
+                                        gmd.ROUTE_LAUNCHES, before[1]))
+                  for r, n in now.items()}
         launch_ms = lt.ms()
     torch.cuda.synchronize()
     step_ms = [s.elapsed_time(e) for s, e in events]
@@ -5208,11 +5313,15 @@ def lm_trainer(cfg, dev, counters, first_loss, lr, must_fall):
           + f", mean of steps 2-{LM_STEPS} "
           f"{sum(step_ms[1:]) / (len(step_ms) - 1):.4f} ms; peak "
           f"max_memory_allocated {peak / 1e9:.2f} GB; launches a step "
-          f"{per_step}; grouped-matmul ms a step (events around each "
+          f"{per_step}; grouped-matmul routes {routes}; grouped-matmul "
+          "ms a step (events around each "
           "launch): " + ", ".join(f"{n} {v:.4f}" for n, v in new.items())
           + f"; {card_line()}", flush=True)
     falls = (losses[-3:].mean() < losses[:3].mean()
              and losses[-1] < losses[0])
+    if routes["grouped_matmul fma"] or routes["grouped_matmul_dw fma"]:
+        fail(f"lm_train: a grouped-matmul launch of the bf16 model left "
+             f"the tensor cores: {routes}")
     if not (len(losses) == LM_STEPS and all(map(math.isfinite, losses))
             and (falls or not must_fall)):
         fail(f"lm_train: the losses at lr {lr:.4g} are not finite or do not "

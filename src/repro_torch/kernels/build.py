@@ -38,8 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: (values, B) storage pairs at two vector widths), about 90 s of nvcc
 #: in one unit on the H100's host; ``sddmm.cu`` holds one part per type
 #: of B (seven (A, B) pairs, each at up to ten geometries);
-#: ``grouped_matmul.cu`` splits its routes' operand types four ways.
-PARTS = {"spmm_eb": 5, "sddmm": 4, "grouped_matmul": 4}
+#: ``grouped_matmul.cu`` splits its routes' operand types four ways and
+#: holds the transposed read's tensor-core kernel as a fifth part.
+PARTS = {"spmm_eb": 5, "sddmm": 4, "grouped_matmul": 5}
 
 
 def _nvcc() -> str:

@@ -99,6 +99,42 @@ __device__ __forceinline__ void store_out(void* out, long long idx, float v,
     store_narrow(out, idx, v, out_type);
 }
 
+// One output as store_out stores it, every type inline: a kernel with no
+// call in it (the grouped matmul backward's wgmma kernels, whose products
+// ptxas serializes in a function that calls out) stores through this and
+// store_pair.
+__device__ __forceinline__ void store_one(void* out, long long idx, float v,
+                                          int out_type) {
+  if (out_type == DT_F32)
+    reinterpret_cast<float*>(out)[idx] = v;
+  else if (out_type == DT_BF16)
+    reinterpret_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(v);
+  else if (out_type == DT_F16)
+    reinterpret_cast<__half*>(out)[idx] = __float2half_rn(v);
+  else
+    reinterpret_cast<unsigned char*>(out)[idx] = to_e4m3(v);
+}
+
+// Two neighbouring outputs (idx even, so the pair is aligned) in type code
+// out_type, rounded to nearest even as store_out rounds them.
+__device__ __forceinline__ void store_pair(void* out, long long idx, float y0,
+                                           float y1, int out_type) {
+  if (out_type == DT_F32) {
+    *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + idx) =
+        make_float2(y0, y1);
+  } else if (out_type == DT_BF16) {
+    *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) +
+                                       idx) = __floats2bfloat162_rn(y0, y1);
+  } else if (out_type == DT_F16) {
+    *reinterpret_cast<__half2*>(reinterpret_cast<__half*>(out) + idx) =
+        __floats2half2_rn(y0, y1);
+  } else {
+    *reinterpret_cast<unsigned short*>(reinterpret_cast<unsigned char*>(out) +
+                                       idx) =
+        (unsigned short)(to_e4m3(y0) | (to_e4m3(y1) << 8));
+  }
+}
+
 // VEC consecutive outputs of row `row` from column `col`, each finished
 // with epilogue_value and stored with one vector store when VEC is 4
 // (16 bytes f32, 8 bytes bf16 or fp16, 4 bytes e4m3); the caller

@@ -63,19 +63,24 @@
 // version.
 //
 // The backward's dx = dz . W[e]^T (kernels/ops.py::grouped_matmul, after
-// src/repro/kernels/ops.py:316) runs here with the launch flag w_trans:
-// route "fma" with each W[e] read as its transpose in place, as a tiled
-// f32 product (namespace transposed): dz is f32, as the reference's f32
-// einsum.
+// src/repro/kernels/ops.py:316) runs here with the launch flag w_trans,
+// each W[e] read as its transpose in place; dz is f32, as the reference's
+// f32 einsum.  Route "mma" (W bf16 or e4m3, exactly bf16 values) splits
+// dz into three bf16 parts whose products are exact and sums them on the
+// tensor cores (namespace transposed_split); route "fma" (W f32 or fp16,
+// whose values do not split so) is a tiled f32 product on the CUDA cores
+// (namespace transposed).  kernels/grouped_matmul.py::gmm_bwd_route
+// picks the route by W's type before the launch.
 //
-// A tile whose expert id lies outside [0, E) writes NaN on both routes.
+// A tile whose expert id lies outside [0, E) writes NaN on every route.
 //
 // kernels/build.py compiles this file as PARTS["grouped_matmul"] objects
 // at once (-DKERNEL_PART=k): part 0 holds the entry point, route "mma" at
 // bf16 on bf16 and route "fma" at f32 x; part 1 the other "mma" pairs;
 // part 2 "fma" at bf16 and fp16 x; part 3 "fma" at e4m3 x and the
-// transposed read (w_trans, below) at f32 x.  Built as one
-// unit (no KERNEL_PART), the file holds all.
+// transposed read's route "fma" (w_trans, below); part 4 the transposed
+// read's route "mma".  Built as one unit (no KERNEL_PART), the file holds
+// all.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -799,6 +804,249 @@ cudaError_t launch(const GmmArgs& a, cudaStream_t stream) {
 
 }  // namespace transposed
 
+// ---------------------------------------------------------------------------
+// Route "mma" with the weights read as their transpose (w_trans): dx on
+// the tensor cores, dz split into three bf16 parts
+// ---------------------------------------------------------------------------
+//
+// out[i] = epilogue(dz[i] @ W[e]^T), dz f32 (T, K), W (E, N, K) bf16 or
+// e4m3: the backward's dx when the weights are exactly bf16.  dz is split
+// into h, m and l in registers (spmm.cuh, namespace split_mma), so every
+// output is a sum of exact bf16 products on the tensor cores (989 TFLOP/s
+// dense) where the route "fma" kernel above runs f32 FMAs on the CUDA
+// cores (67).  Bound: three bf16 passes over the contraction, 3 x 2 T N K
+// operations, against the bytes of dz, W and the output (at Qwen3-MoE's
+// training batch 1.25 ms a launch at the bf16 peak against 0.62-0.67 ms
+// of bytes).
+//
+//   grid   (N / BN, token_tile / BM, n_tiles): a block owns BM = 64 WGS
+//          rows of a token tile and BN = 128 output columns, and walks
+//          all of K;
+//   block  WGS warpgroups, each on 64 rows x the 128 columns: wgmma
+//          m64n128k16 with A = this warp's 16 rows of a plane of dz in
+//          registers and B = W's stage in shared memory;
+//   ring   STAGES stages of BK = 64 of the contraction, filled by
+//          cp.async 16-byte copies STAGES - 1 chunks ahead (rows past the
+//          tile, columns past N and K past its end zero-filled by the
+//          copies): dz's raw f32 rows (16-byte chunks XOR-swizzled by row,
+//          so the A fragments' 8-byte reads hit distinct banks) and W's
+//          rows, K contiguous: the K-major B of wgmma as stored, in the
+//          hardware's 128-byte swizzle (e4m3 rows are widened into a bf16
+//          stage of that layout after they land);
+//   split  per k16 step each thread reads its A fragment's 8 f32 of dz,
+//          splits them into the l, m and h fragments and issues the three
+//          products, while the previous step's run; each chunk's products
+//          are summed from zero and added to the running sums after it.
+//
+// A tile whose expert id lies outside [0, E) writes NaN.  Each output is
+// summed in a fixed order: the same bits run to run.
+namespace transposed_split {
+
+constexpr int WGS = 2;  // warpgroups a block
+constexpr int STAGES = 4;
+constexpr int BM = 64 * WGS;
+constexpr int BN = 128;
+constexpr int BK = 64;
+constexpr int THREADS = WGS * 128;
+constexpr int A_RAW = BM * BK * 4;  // a stage of dz: f32 rows of 256 bytes
+constexpr int B16 = BN * BK * 2;    // a bf16 stage of W: rows of 128 bytes
+
+template <typename TW>
+constexpr int smem_bytes() {  // + 1 KB to align the stages to 1024 bytes
+  return 1024 + STAGES * (A_RAW + BN * BK * (int)sizeof(TW)) +
+         (sizeof(TW) == 1 ? 2 * B16 : 0);
+}
+
+// byte offset of f32 column k of row r in dz's stage: 16-byte chunks
+// XOR-swizzled by twice the row's low three bits, so that the 8-byte
+// reads of an A fragment (rows g, columns 2 tq) hit 32 distinct banks
+__device__ __forceinline__ uint32_t a_off(int r, int k) {
+  return r * (BK * 4) + ((((k >> 2) ^ ((r & 7) << 1))) << 4) + (k & 3) * 4;
+}
+
+// EPI: bias or activation given (a function call in the epilogue, such
+// as the IEEE division's slow path, makes ptxas serialize the products:
+// the backward's dx launches take EPI false)
+template <typename TW, bool EPI>
+__global__ void __launch_bounds__(THREADS, 1)
+    gmm_split_t_kernel(const float* __restrict__ dz,
+                       const int* __restrict__ tile_experts,
+                       const TW* __restrict__ w,
+                       const float* __restrict__ bias, void* __restrict__ out,
+                       int n_experts, int K, int N, int token_tile, int act,
+                       int out_type) {
+  using namespace split_mma;
+  constexpr bool kCvt = sizeof(TW) == 1;
+  constexpr int B_RAW = BN * BK * sizeof(TW);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* b_raw = smem;                    // 1024-byte aligned
+  unsigned char* b_cvt = b_raw + STAGES * B_RAW;  // [2] (e4m3 W)
+  unsigned char* a_raw = b_cvt + (kCvt ? 2 * B16 : 0);
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wrow = warp * 16;  // this warp's rows (its warpgroup's 64)
+  const int tile = blockIdx.z;
+  const int r0 = blockIdx.y * BM;
+  const int nrows = min(BM, token_tile - r0);
+  const long long row0 = (long long)tile * token_tile + r0;
+  const int n0 = blockIdx.x * BN;
+  const int e = __ldg(tile_experts + tile);
+  const bool valid = e >= 0 && e < n_experts;
+  const TW* we = w + (long long)(valid ? e : 0) * N * K;
+  const int n_chunks = valid ? (K + BK - 1) / BK : 0;
+
+  // chunk kc (k0 .. k0 + BK) of dz and W into ring stage s
+  auto load = [&](int kc, int s) {
+    const int k0 = kc * BK;
+    const uint32_t as = smem_u32(a_raw + s * A_RAW);
+#pragma unroll
+    for (int it = 0; it < BM * (BK / 4) / THREADS; ++it) {
+      const int i = t + it * THREADS, r = i / (BK / 4), c = i % (BK / 4);
+      const int k = k0 + c * 4;
+      const bool in = r < nrows && k < K;  // K % 4 == 0
+      cp_async16(as + a_off(r, c * 4),
+                 in ? (const void*)(dz + (row0 + r) * K + k) : (const void*)dz,
+                 in ? 16 : 0);
+    }
+    const uint32_t bs = smem_u32(b_raw + s * B_RAW);
+    constexpr int PER = 16 / sizeof(TW);  // elements a copy
+    constexpr int CPR = BK / PER;         // copies a row
+#pragma unroll
+    for (int it = 0; it < BN * CPR / THREADS; ++it) {
+      const int i = t + it * THREADS, r = i / CPR, c = i % CPR;
+      const int k = k0 + c * PER;
+      const bool in = n0 + r < N && k < K;  // K % PER == 0
+      cp_async16(kCvt ? bs + r * BK + c * 16 : bs + swz<128>(r, c),
+                 in ? (const void*)(we + (long long)(n0 + r) * K + k)
+                    : (const void*)w,
+                 in ? 16 : 0);
+    }
+  };
+
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+
+  if (n_chunks > 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < n_chunks) load(s, s);
+      cp_async_commit();
+    }
+    for (int kc = 0; kc < n_chunks; ++kc) {
+      cp_async_wait<STAGES - 2>();  // chunk kc has landed (this thread)
+      fence_async_smem();
+      __syncthreads();  // ... for all; chunk kc - 1's stage is free
+      if (kc + STAGES - 1 < n_chunks) {
+        load(kc + STAGES - 1, (kc + STAGES - 1) % STAGES);
+      }
+      cp_async_commit();
+      const int s = kc % STAGES;
+      uint32_t bs = smem_u32(b_raw + s * B_RAW);
+      if constexpr (kCvt) {  // W's e4m3 stage into a bf16 one
+        const unsigned char* raw = b_raw + s * B_RAW;
+        unsigned char* cvt = b_cvt + (kc & 1) * B16;
+#pragma unroll
+        for (int it = 0; it < BN * (BK / 16) / THREADS; ++it) {
+          const int i = t + it * THREADS, r = i / (BK / 16);
+          const int c = i % (BK / 16);
+          e4m3x16_to_bf16(raw + r * BK + c * 16, cvt + swz<128>(r, 2 * c),
+                          cvt + swz<128>(r, 2 * c + 1));
+        }
+        fence_async_smem();
+        __syncthreads();
+        bs = smem_u32(cvt);
+      }
+      const unsigned char* as = a_raw + s * A_RAW;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // A fragment: (row g, k 2 tq), (g + 8, k), (g, k + 8), (g + 8,
+        // k + 8), two f32 each
+        uint32_t h[4], m[4], l[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              as + a_off(wrow + g + 8 * (q & 1), kk * 16 + 2 * tq +
+                                                     8 * (q >> 1)));
+          split2(v.x, v.y, h[q], m[q], l[q]);
+        }
+        const uint64_t b = desc_k128(bs + kk * 32);
+        wgmma_fence();
+        if (kk == 0) {
+          wgmma_n128<true>(part, l, b);
+        } else {
+          wgmma_n128<false>(part, l, b);
+        }
+        wgmma_n128<false>(part, m, b);
+        wgmma_n128<false>(part, h, b);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    }
+    cp_async_wait<0>();
+  }
+
+  // acc[4 j + v]: row g (g + 8 for v >= 2), column 8 j + 2 tq + (v & 1)
+  const float* be = (bias != nullptr && valid) ? bias + (long long)e * N
+                                               : nullptr;
+  const bool pairs = (N & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wrow + g + 8 * h;
+      const int col = n0 + 8 * j + 2 * tq;
+      if (r >= nrows || col >= N) continue;
+      float y[2];
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        y[v] = acc[4 * j + 2 * h + v];
+        if constexpr (EPI) {
+          y[v] = epilogue_value(y[v], be, nullptr, 0, col + v, N, act);
+        }
+        if (!valid) y[v] = __int_as_float(0x7fc00000);  // NaN
+      }
+      const long long idx = (row0 + r) * N + col;
+      if (pairs) {
+        store_pair(out, idx, y[0], y[1], out_type);
+      } else {
+        store_one(out, idx, y[0], out_type);
+        if (col + 1 < N) store_one(out, idx + 1, y[1], out_type);
+      }
+    }
+}
+
+template <typename TW, bool EPI>
+cudaError_t launch_epi(const GmmArgs& a, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<TW>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      gmm_split_t_kernel<TW, EPI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.F + BN - 1) / BN, (a.token_tile + BM - 1) / BM,
+                  a.n_tiles);
+  gmm_split_t_kernel<TW, EPI><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(a.x), a.tile_experts,
+      static_cast<const TW*>(a.w), a.bias, a.out, a.n_experts, a.D, a.F,
+      a.token_tile, a.act, a.out_type);
+  return cudaGetLastError();
+}
+
+template <typename TW>
+cudaError_t launch(const GmmArgs& a, cudaStream_t stream) {
+  if (a.bias == nullptr && a.act == ACT_NONE) {
+    return launch_epi<TW, false>(a, stream);
+  }
+  return launch_epi<TW, true>(a, stream);
+}
+
+}  // namespace transposed_split
+
 }  // namespace
 
 // Each part's launches (see the top of the file).
@@ -810,6 +1058,7 @@ cudaError_t gmm_fma_16(const GmmArgs& a, int x_type, int w_type,
                        cudaStream_t stream);
 cudaError_t gmm_fma_e4m3(const GmmArgs& a, int w_type, cudaStream_t stream);
 cudaError_t gmm_fma_t(const GmmArgs& a, int w_type, cudaStream_t stream);
+cudaError_t gmm_split_t(const GmmArgs& a, int w_type, cudaStream_t stream);
 
 #if IN_PART(0)
 cudaError_t gmm_mma_bf16(const GmmArgs& a, int xv, cudaStream_t stream) {
@@ -868,6 +1117,15 @@ cudaError_t gmm_fma_t(const GmmArgs& a, int w_type, cudaStream_t stream) {
   }
 }
 #endif
+#if IN_PART(4)
+// f32 dz on transposed bf16 or e4m3 weights, dz split on the tensor cores
+cudaError_t gmm_split_t(const GmmArgs& a, int w_type, cudaStream_t stream) {
+  if (w_type == DT_BF16) {
+    return transposed_split::launch<__nv_bfloat16>(a, stream);
+  }
+  return transposed_split::launch<__nv_fp8_e4m3>(a, stream);
+}
+#endif
 
 #if IN_PART(0)
 // x (n_tiles * token_tile, D) and w (n_experts, D, F) of type codes x_type
@@ -880,8 +1138,10 @@ cudaError_t gmm_fma_t(const GmmArgs& a, int w_type, cudaStream_t stream) {
 // == 0, x aligned) or 4-byte (D % 2 == 0) copies; fp16 on fp16, a 16-bit
 // x on e4m3 W, or e4m3 on e4m3, with F % 8 == 0 (16 for e4m3 W) and x
 // rows whole 16-byte copies.  w_trans 1 reads w as (n_experts, F, D),
-// each W[e] transposed in place (out[i] = x[i] @ W[e]^T): route "fma",
-// f32 x only.
+// each W[e] transposed in place (out[i] = x[i] @ W[e]^T), f32 x only:
+// route 1 (kernels/grouped_matmul.py::gmm_bwd_route) for bf16 or e4m3 w
+// with rows of whole 16-byte copies (D % 8 == 0, 16 for e4m3) and x and
+// w 16-byte aligned, route 0 for any w.
 extern "C" int grouped_matmul_launch(const void* x, const int* tile_experts,
                                      const void* w, const float* bias,
                                      void* out, int n_tiles, int token_tile,
@@ -905,11 +1165,19 @@ extern "C" int grouped_matmul_launch(const void* x, const int* tile_experts,
   const bool w16 = reinterpret_cast<uintptr_t>(w) % 16 == 0;
   cudaError_t err;
   if (w_trans) {
-    if (route != 0 || x_type != DT_F32 ||
-        token_tile / transposed::BM >= 65535) {
+    if (x_type != DT_F32 || token_tile / transposed::BM >= 65535 ||
+        token_tile / transposed_split::BM >= 65535) {
       return (int)cudaErrorInvalidValue;
     }
-    err = gmm_fma_t(a, w_type, stream);
+    if (route == 1) {
+      const bool split = (w_type == DT_BF16 || w_type == DT_E4M3) && w16 &&
+                         xa % 16 == 0 &&
+                         D % (w_type == DT_E4M3 ? 16 : 8) == 0;
+      if (!split) return (int)cudaErrorInvalidValue;
+      err = gmm_split_t(a, w_type, stream);
+    } else {
+      err = gmm_fma_t(a, w_type, stream);
+    }
   } else if (route == 1) {
     const int x_size = x_type == DT_E4M3 ? 1 : 2;
     const bool bf16 = x_type == DT_BF16 && w_type == DT_BF16;

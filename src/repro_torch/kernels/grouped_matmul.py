@@ -31,9 +31,14 @@ asserts them.
 
 ``w_trans=True`` reads each ``weights[e]``, stored (F, D), as its
 transpose in place: ``out[i] = epilogue(x[i] @ weights[e].T)``.  It is
-the backward's ``dx = dz . W[e]^T`` (``kernels/ops.py``): route
-``"fma"`` on f32 x, a tiled product of its own in the same source,
-counted by ``TRANS`` (``KERNEL`` counts the forward's launches).
+the backward's ``dx = dz . W[e]^T`` (``kernels/ops.py``) on f32 x,
+counted by ``TRANS`` (``KERNEL`` counts the forward's launches), on the
+route :func:`gmm_bwd_route` picks by the weights' type: ``"mma"`` for
+bf16 and e4m3 weights, whose values are exactly bf16, with x split into
+three bf16 parts (:func:`split_bf16x3`) whose products the tensor cores
+sum exactly; ``"fma"``, a tiled f32 product on the CUDA cores, for f32
+and fp16 weights.  The weight gradient (``grouped_matmul_dw``) takes
+the same route by the tokens' type.
 """
 from __future__ import annotations
 
@@ -89,6 +94,51 @@ def gmm_route(x_dtype, w_dtype, d: int, f: int, x_addr: int = 0,
             and x_addr % 16 == 0):
         return "mma"
     return "fma"
+
+
+#: Partner types of the backward's f32 gradient whose values are exactly
+#: bf16 (e4m3 widens to bf16 exactly): the backward's tensor-core route.
+SPLIT_PARTNERS = (_BF16, _E4M3)
+
+
+def gmm_bwd_route(partner_dtype, partner_row: int, dz_row: int,
+                  partner_addr: int = 0, dz_addr: int = 0) -> str:
+    """The route of the backward's two kernels, fixed by the type of the
+    operand the f32 gradient dz meets: the weights for dx (rows of K, the
+    contraction, as dz's), the tokens for dW (rows of D; dz's of F).
+    ``"mma"`` (tensor cores, dz split by :func:`split_bf16x3`) for a bf16
+    or e4m3 partner whose rows are whole 16-byte copies, dz's rows too
+    (``dz_row % 4 == 0``), both 16-byte aligned; ``"fma"`` (f32 FMAs on
+    the CUDA cores) for f32 and fp16 partners, whose values do not split
+    into exact bf16 products, and for rows the copies cannot take.  The
+    C entry points take the same route on the same test."""
+    if (partner_dtype in SPLIT_PARTNERS
+            and (partner_row * partner_dtype.itemsize) % 16 == 0
+            and dz_row % 4 == 0 and partner_addr % 16 == 0
+            and dz_addr % 16 == 0):
+        return "mma"
+    return "fma"
+
+
+def split_bf16x3(z):
+    """f32 ``z`` as three bf16 tensors ``(h, m, l)``: ``h = bf16(z)``,
+    ``m = bf16(z - h)``, ``l = bf16(z - h - m)``, each rounded to nearest
+    even, as the backward's tensor-core route splits dz in shared memory
+    (``csrc/spmm.cuh``, ``split_mma::split2``).  ``h + m + l == z``
+    exactly wherever ``|z|`` lies between about 2^-110 and bf16's largest
+    finite value: bf16 has f32's exponent range, z's 24 significant bits
+    fall into three parts of 8, and each remainder is exact in f32; below
+    that ``l`` loses bits under bf16's smallest subnormal (2^-133).  So a
+    product of a part with a bf16 value is exact in f32, and the three
+    products against one partner sum to z's.  Where ``h`` is not finite
+    (inf, NaN, beyond bf16's range) ``m`` and ``l`` are 0."""
+    z = z.to(torch.float32)
+    h = z.to(torch.bfloat16)
+    hf = h.to(torch.float32)
+    r = torch.where(hf.abs() <= torch.finfo(torch.float32).max, z - hf,
+                    torch.zeros_like(z))
+    m = r.to(torch.bfloat16)
+    return h, m, (r - m.to(torch.float32)).to(torch.bfloat16)
 
 
 def fit_tile(n: int, tile: int) -> int:
@@ -163,7 +213,8 @@ def grouped_matmul(x, tile_experts, weights, *, bias=None,
     to the f32 sums.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
-    the route :func:`gmm_route` picks (``"fma"`` under ``w_trans``), or
+    the route :func:`gmm_route` picks (:func:`gmm_bwd_route` under
+    ``w_trans``), or
     raise for what it does not take (operands other than f32, bf16, fp16
     and float8_e4m3fn, x other than f32 under ``w_trans``, an output type
     other than those of ``CUDA_OUT_DTYPES``: the same four).
@@ -199,7 +250,7 @@ def grouped_matmul(x, tile_experts, weights, *, bias=None,
               else bias.to(torch.float32).contiguous())
     if w_trans:
         e, f, d = wc.shape
-        route = "fma"
+        route = gmm_bwd_route(wc.dtype, d, d, wc.data_ptr(), xc.data_ptr())
     else:
         e, d, f = wc.shape
         route = gmm_route(xc.dtype, wc.dtype, d, f, xc.data_ptr(),

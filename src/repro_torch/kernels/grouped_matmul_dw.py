@@ -19,6 +19,13 @@ and no ``(NT, D, F)`` temporary.  Any tile map is taken: unsorted, with
 experts that own no tile (their gradient is 0), and with ids outside
 ``[0, E)``, whose tiles add to no expert, as the reference's scatter
 drops them.
+
+The route is fixed by the tokens' type before the launch
+(``grouped_matmul.gmm_bwd_route``): ``"mma"`` for bf16 and e4m3 tokens,
+whose values are exactly bf16, with dz split into three bf16 parts
+(``grouped_matmul.split_bf16x3``) whose products the tensor cores sum
+exactly; ``"fma"``, f32 FMAs on the CUDA cores, for f32 and fp16 tokens.
+``ROUTE_LAUNCHES`` counts the launches of each.
 """
 from __future__ import annotations
 
@@ -28,9 +35,13 @@ import torch
 
 from .build import CudaKernel, ptr
 from .common import CUDA_FLOAT_DTYPES, DTYPE_CODES
+from .grouped_matmul import gmm_bwd_route
 
 KERNEL = CudaKernel("grouped_matmul_dw", "grouped_matmul_dw_launch",
                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6)
+
+#: Launches of each route (``grouped_matmul.ROUTES``' names).
+ROUTE_LAUNCHES = {"fma": 0, "mma": 0}
 
 
 def tile_csr(tile_experts, n_experts: int):
@@ -96,7 +107,8 @@ def grouped_matmul_dw(x, dz, tile_experts, n_experts: int, *,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (x
     f32, bf16, fp16 or float8_e4m3fn; dz taken as f32; dW stored in any of
-    those four), or raise for what it does not take."""
+    those four) on the route ``gmm_bwd_route`` picks by x's type, or
+    raise for what it does not take."""
     _check(x, dz, tile_experts, n_experts, token_tile)
     if x.device.type == "cpu":
         return grouped_matmul_dw_plain(x, dz, tile_experts, n_experts,
@@ -119,7 +131,9 @@ def grouped_matmul_dw(x, dz, tile_experts, n_experts: int, *,
     dw = torch.empty((n_experts, d, f), dtype=w_dtype, device=x.device)
     db = (None if bias_dtype is None else torch.empty(
         (n_experts, f), dtype=torch.float32, device=x.device))
+    route = gmm_bwd_route(xc.dtype, d, f, xc.data_ptr(), zc.data_ptr())
     KERNEL.launch(x.device, ptr(xc), ptr(zc), ptr(offsets), ptr(order),
                   ptr(dw), ptr(db), n_experts, d, f, token_tile,
                   DTYPE_CODES[xc.dtype], DTYPE_CODES[w_dtype])
+    ROUTE_LAUNCHES[route] += 1
     return dw, None if db is None else db.to(bias_dtype)

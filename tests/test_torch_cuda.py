@@ -1700,17 +1700,25 @@ def test_grouped_matmul_tensor_core_route_is_deterministic(dev):
 
 
 @pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16,
-                                    torch.float8_e4m3fn])
+                                    torch.float8_e4m3fn, torch.float16])
 @pytest.mark.parametrize("tile,n_tiles,e,d,f", [(4, 7, 5, 72, 40),
                                                (10, 5, 6, 300, 20),
                                                (128, 3, 4, 64, 136),
-                                               (130, 2, 3, 40, 24)])
+                                               (130, 2, 3, 40, 24),
+                                               (10, 5, 4, 80, 72),
+                                               (4, 6, 3, 48, 20),
+                                               (128, 2, 2, 1536, 200)])
 def test_grouped_matmul_transposed_read_matches_plain(dev, tile, n_tiles, e,
                                                       d, f, wdtype):
     """``w_trans``: x f32 (T, D) on weights (E, F, D) read transposed in
     place, ``out = x . W[e]^T``, per element within K_TERMS of the plain
-    version; ragged slabs, tiles above the block's 128 rows, an unsorted
-    map with an expert missing and an id outside [0, E) (NaN), bias and
+    version, on the route ``gmm_bwd_route`` fixes: the tensor cores
+    (``mma``, x split into three bf16 parts) for bf16 and e4m3 weights
+    whose rows are whole 16-byte copies (D 72, 64, 40 in bf16; 80, 64,
+    48, 1536 in both), the CUDA cores (``fma``) for f32 and fp16 weights
+    and the other D; token tiles of 4, 10, 128 and 130 (above a block's
+    rows), D and F not multiples of 64, ragged slabs, an unsorted map
+    with an expert missing and an id outside [0, E) (NaN), bias and
     SiLU, a bf16 store equal to the f32 sums rounded.  Counted by
     ``TRANS``, not ``KERNEL``."""
     from repro_torch.core import Epilogue
@@ -1722,11 +1730,16 @@ def test_grouped_matmul_transposed_read_matches_plain(dev, tile, n_tiles, e,
     b = torch.randn(e, f, generator=g).to(dev)
     te = torch.randint(1, e, (n_tiles,), generator=g,
                        dtype=torch.int32).to(dev)
+    route = gm.gmm_bwd_route(w.dtype, d, d, w.data_ptr(), x.data_ptr())
+    assert route == ("mma" if wdtype in gm.SPLIT_PARTNERS and d % (
+        16 if wdtype == torch.float8_e4m3fn else 8) == 0 else "fma")
     for ep, bias in ((Epilogue(), None), (Epilogue("silu", bias=True), b)):
         kw = dict(bias=bias, epilogue=ep, token_tile=tile, w_trans=True)
         before, fwd = gm.TRANS.launches, gm.KERNEL.launches
+        routes = dict(gm.ROUTE_LAUNCHES)
         got = gm.grouped_matmul(x, te, w, f_tile=f, d_tile=d, **kw)
         assert (gm.TRANS.launches, gm.KERNEL.launches) == (before + 1, fwd)
+        assert gm.ROUTE_LAUNCHES[route] == routes[route] + 1
         want = gm.grouped_matmul_plain(x, te, w, **kw)
         terms = _terms(gm.grouped_matmul_plain, x, te, w.float(),
                        token_tile=tile, w_trans=True)
@@ -1752,18 +1765,28 @@ def test_grouped_matmul_transposed_read_matches_plain(dev, tile, n_tiles, e,
 
 @pytest.mark.parametrize("xdtype,wdtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-    (torch.float16, torch.float32), (torch.float8_e4m3fn, torch.bfloat16)])
+    (torch.float16, torch.float32), (torch.float8_e4m3fn, torch.bfloat16),
+    (torch.float16, torch.float16), (torch.float8_e4m3fn, torch.float32),
+    (torch.bfloat16, torch.float8_e4m3fn)])
 @pytest.mark.parametrize("tile,te_list,e,d,f", [
     (4, [2, 0, 2, 5, 0, 2], 6, 72, 40),       # unsorted, experts 1, 3, 4 empty
     (128, [0, 0, 1, 1], 2, 136, 264),         # ragged slabs, 2 tiles each
-    (10, [3, 1, -1, 7, 1], 4, 300, 20)])      # ids outside [0, E) dropped
+    (10, [3, 1, -1, 7, 1], 4, 300, 20),       # ids outside [0, E) dropped
+    (10, [1, 3, 1, -2, 0, 1], 5, 80, 36),     # e4m3 rows of whole copies
+    (4, [0, 2, 2, 9], 3, 48, 100),
+    (128, [1, 0, 1, 0, 1], 3, 1536, 200)])    # many slabs a block walks
 def test_grouped_matmul_dw_matches_plain(dev, tile, te_list, e, d, f, xdtype,
                                          wdtype):
     """dW and db per element within K_TERMS of the plain version (dW in
-    the weights' type: a narrow store one step more), experts with no
-    tile 0, ids outside [0, E) adding to no expert, as the reference's
+    the weights' type: a narrow store one step more) on the route
+    ``gmm_bwd_route`` fixes (the tensor cores, dz split into three bf16
+    parts, for bf16 and e4m3 tokens whose rows are whole 16-byte copies;
+    the CUDA cores for f32 and fp16 tokens and the other D), token tiles
+    of 4, 10 and 128, D and F not multiples of 64, experts with no tile
+    0, ids outside [0, E) adding to no expert, as the reference's
     scatter drops them; the kernel's bf16 store equal to its f32 sums
     rounded; one launch each."""
+    from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import grouped_matmul_dw as gmd
 
     g = torch.Generator().manual_seed(tile + d + f)
@@ -1772,9 +1795,13 @@ def test_grouped_matmul_dw_matches_plain(dev, tile, te_list, e, d, f, xdtype,
     x = torch.randn(t, d, generator=g).to(xdtype).to(dev)
     dz = torch.randn(t, f, generator=g).to(dev)
     kw = dict(token_tile=tile, w_dtype=wdtype, bias_dtype=torch.float32)
-    before = gmd.KERNEL.launches
+    route = gm.gmm_bwd_route(x.dtype, d, f, x.data_ptr(), dz.data_ptr())
+    assert route == ("mma" if xdtype in gm.SPLIT_PARTNERS and d % (
+        16 if xdtype == torch.float8_e4m3fn else 8) == 0 else "fma")
+    before, routes = gmd.KERNEL.launches, dict(gmd.ROUTE_LAUNCHES)
     dw, db = gmd.grouped_matmul_dw(x, dz, te, e, **kw)
     assert gmd.KERNEL.launches == before + 1
+    assert gmd.ROUTE_LAUNCHES[route] == routes[route] + 1
     want_w, want_b = gmd.grouped_matmul_dw_plain(x, dz, te, e, **kw)
     tw, tb = gmd.grouped_matmul_dw_plain(x.float().abs(), dz.abs(), te, e,
                                          **{**kw, "w_dtype": torch.float32})
