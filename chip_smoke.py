@@ -156,6 +156,34 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   and the two kernels timed on one social pass, ``attn_lanes`` also by
   mode, its scores beside ``torch.sparse.sampled_addmm``.
 
+- the reduction strategies at the collective level (``dist``, after
+  ``attn_user``): worlds of 2 and 4 rank processes on the one card
+  (``chip_smoke.py --dist-rank``), each on ``cuda:0`` in a gloo group
+  meeting at a ``FileStore`` (NCCL refuses two ranks on one GPU), on
+  both graphs at 169,344 nodes (4 x 42,336, so that every mode is
+  feasible).  ``spmm_shard_map`` under row, nnz_ar and nnz_rs at N = 256
+  with ``Schedule.auto``'s EB tiling, each rank's part held per element
+  within K_TERMS against the single-device EB kernel on a zero-mean B;
+  ``dist_spmm`` at bf16 and fp16 storage against the single-device
+  narrow EB (LOWPREC_TOL); ``dist_attention_shard_map`` (4 heads x 64,
+  the adjacency's values as bias) under the three modes against the
+  single-device ``sparse_attention`` within F32_TOL of its largest
+  magnitude; at ogbn-arxiv's 169,343 nodes ``_feasible_collectives``
+  must give nnz_ar alone and ``dist_spmm`` under it holds; in the
+  2-rank world ``tune_dist_spmm`` on social (each measured point
+  printed), whose second call and ``ServeEngine.prepare_dist`` replay
+  with no measurement on every rank, every rank picking the same, and
+  ``dist_spmm(schedule="tune")`` against the single-device kernel.  Per
+  graph, mode and world it prints the step ms (CUDA events, the largest
+  over the ranks, a barrier before each window; gloo's collectives run
+  on the host), the shard-local kernel ms, the ``shard_nnz`` counts, the
+  bytes handed to each collective (counted by ``ByteSpy``) against
+  ``predict_collective_bytes`` and ``predict_attention_collective_bytes``
+  (they must be equal) and the devices of the tensors handed over (gloo
+  takes CUDA tensors; nothing is staged through the host).  The ranks'
+  EB and attention launches join the main paths' counts; a rank that
+  fails or outlasts DIST_TIMEOUT fails the phase.
+
 - LM training (``lm_train``, last): Qwen3-MoE at full width cut to one
   layer by memory (its AdamW state is 37.3 GB; the script prints the
   reckoning), launch/train.py's batch of 8 x 256 tokens.  (a) The grouped
@@ -5397,6 +5425,441 @@ def lm_train_phase(dev, counters):
     return {"worst": worst, "results": rows, **trained}
 
 
+# ---------------------------------------------------------------------------
+# dist: the reduction strategies at the collective level, ranks on one card
+# ---------------------------------------------------------------------------
+
+#: The dist phase's graphs: ogbn-arxiv's size rounded up to 169,344 =
+#: 4 x 42,336, so that 2 and 4 ranks divide the rows and all three modes
+#: are feasible (at 169,343 only nnz_ar is, which DIST_ARXIV checks).
+DIST_NODES, DIST_WORLDS, DIST_N = 169_344, (2, 4), 256
+#: Ranks a world, each on cuda:0 in a gloo group (NCCL refuses two ranks
+#: on one GPU); a world that outlasts this many seconds fails the phase.
+DIST_TIMEOUT = 240
+#: Timed calls of each SPMD window (after one warm-up), and the tuner's.
+DIST_ITERS, DIST_TUNE_ITERS = 5, 3
+DIST_KERNELS = ("spmm_eb", "epilogue", "fused_attention_fwd")
+
+
+class ByteSpy:
+    """While active, counts the bytes of each collective's result handed
+    to ``torch.distributed`` (``all_reduce``: its tensor;
+    ``reduce_scatter_tensor``: its output), by op, and the devices of the
+    tensors handed over."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._dist = dist
+        self._orig = (dist.all_reduce, dist.reduce_scatter_tensor)
+        self.bytes = {"all_reduce": 0, "reduce_scatter": 0}
+        self.devices = set()
+
+        def all_reduce(t, *a, **kw):
+            self.bytes["all_reduce"] += t.numel() * t.element_size()
+            self.devices.add(str(t.device))
+            return self._orig[0](t, *a, **kw)
+
+        def reduce_scatter_tensor(out, inp, *a, **kw):
+            self.bytes["reduce_scatter"] += out.numel() * out.element_size()
+            self.devices.update((str(out.device), str(inp.device)))
+            return self._orig[1](out, inp, *a, **kw)
+
+        dist.all_reduce, dist.reduce_scatter_tensor = (all_reduce,
+                                                       reduce_scatter_tensor)
+        return self
+
+    def __exit__(self, *exc):
+        self._dist.all_reduce, self._dist.reduce_scatter_tensor = self._orig
+
+    @property
+    def total(self) -> int:
+        return sum(self.bytes.values())
+
+
+def dist_graphs(tmp, social_343):
+    """The two graphs at DIST_NODES, normalized on the host, and the
+    social graph at N_NODES, saved for the ranks as host tensors."""
+    import torch
+    from repro_torch.models import normalized_adjacency
+    from repro_torch.sparse import graph_pattern_csr
+
+    saved = {}
+    for name in ("social", "roadnet"):
+        t0 = time.perf_counter()
+        adj = normalized_adjacency(graph_pattern_csr(name, DIST_NODES,
+                                                     seed=SEED, device="cpu"),
+                                   device="cpu")
+        print(f"dist graph {name}: {DIST_NODES} nodes, nnz {adj.nnz}; built "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        saved[name] = (adj.indptr, adj.indices, adj.vals, adj.shape)
+    saved["social_343"] = (social_343.indptr.cpu(), social_343.indices.cpu(),
+                           social_343.vals.cpu(), social_343.shape)
+    torch.save(saved, Path(tmp) / "graphs.pt")
+
+
+def dist_rank_main(rank: int, world: int, tmp: str) -> None:
+    """One rank of a dist world (``chip_smoke.py --dist-rank R P DIR``):
+    the SpMM and attention modes on both graphs, the narrow storage, the
+    169,343-node case and, in the 2-rank world, the tuner; each check
+    against the single-device kernels on the same card.  Writes its
+    results to ``DIR/rank<R>.json``; exits 1 on a failed check."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import Schedule
+    from repro_torch.kernels import fused_attention, ops as kops, ref, spmm_eb
+    from repro_torch.launch.mesh import make_reduction_mesh
+    from repro_torch.roofline import (predict_attention_collective_bytes,
+                                      predict_collective_bytes)
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sparse import (CSR, dist_attention_shard_map, dist_spmm,
+                                    matrix_stats, partition_nnz_coo,
+                                    partition_rows_coo, shard_nnz_counts,
+                                    sparse_attention, spmm_shard_map)
+    from repro_torch.sparse.distributed import _local_attention, _local_spmm
+    from repro_torch.tune import (ScheduleCache, make_dist_runner,
+                                  schedule_key, spmd_time, tune_dist_spmm)
+    from repro_torch.tune.search import _feasible_collectives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), world), rank=rank, world_size=world)
+    mesh = make_reduction_mesh(device=dev)
+    ax = mesh.axis("shards")
+    lead = ax.index == 0
+    counters = {"spmm_eb": spmm_eb.KERNEL, "epilogue": spmm_eb.FINISH,
+                "fused_attention_fwd": fused_attention.FWD_KERNEL}
+    main_counts = dict.fromkeys(counters, 0)
+    checker = Checker(["spmm_eb", "fused_attention_fwd"])
+    res = {"rank": rank, "world": world, "spmm": [], "attn": [],
+           "lowprec": [], "bytes_bad": [], "devices": []}
+
+    def counted(fn):
+        """fn() with its launches added to the main path's counts."""
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        for n, c in counters.items():
+            main_counts[n] += c.launches
+        return out
+
+    def mine(t, mode, dim=0):
+        """This rank's part of a full-height result under ``mode``."""
+        if mode == "nnz_ar":
+            return t
+        block = t.shape[dim] // world
+        return t.narrow(dim, ax.index * block, block)
+
+    def ms(fn, *args, iters=DIST_ITERS):
+        return spmd_time(fn, *args, axis=ax, device=dev, warmup=1,
+                         iters=iters) * 1e3
+
+    saved = torch.load(Path(tmp) / "graphs.pt")
+    hosts = {n: CSR(*saved[n]) for n in saved}
+    gen = torch.Generator().manual_seed(SEED + 7)
+    for name in ("social", "roadnet"):
+        host = hosts[name]
+        n_rows = host.shape[0]
+        adj = CSR(host.indptr.to(dev), host.indices.to(dev),
+                  host.vals.to(dev), host.shape)
+        b = torch.randn(host.shape[1], DIST_N, generator=gen).to(dev)
+        auto = Schedule.auto(matrix_stats(host), DIST_N)
+        local = (auto if auto.kernel == "eb"
+                 else Schedule("eb", col_tile=auto.col_tile))
+        want = kops.spmm(adj, b, local)
+        terms = ref.spmm_coo_ref(adj.tocoo().rows, adj.tocoo().cols,
+                                 adj.vals.abs(), b.abs(), n_rows)
+        for mode in ("row", "nnz_ar", "nnz_rs"):
+            sched = auto.replace(collective=mode)
+            part = partition_rows_coo if mode == "row" else partition_nnz_coo
+            r, c, v, _ = part(host, world, local.nnz_tile)
+            with ByteSpy() as spy:
+                out = counted(lambda: spmm_shard_map(
+                    r, c, v, b, n_rows=n_rows, mesh=mesh, axis="shards",
+                    schedule=sched))
+            checker.record_terms("spmm_eb", f"dist {name} {mode} P={world}",
+                                 out, mine(want, mode), mine(terms, mode))
+            pred = predict_collective_bytes(mode, (n_rows, DIST_N),
+                                            axis_size=world)
+            if spy.total != pred:
+                res["bytes_bad"].append(f"spmm {name} {mode}: {spy.bytes} "
+                                        f"against {pred}")
+            res["devices"] = sorted(set(res["devices"]) | spy.devices)
+            fn, args = make_dist_runner(host, DIST_N, sched, mesh=mesh,
+                                        axis="shards")
+            step = ms(fn, *args)
+            n_local = n_rows // world if mode == "row" else n_rows
+            kernel = ms(lambda: _local_spmm(*args[:3], args[3], n_local,
+                                            sched))
+            res["spmm"].append({
+                "graph": name, "mode": mode, "step_ms": step,
+                "local_ms": kernel, "shard_nnz": shard_nnz_counts(
+                    host, world, mode), "bytes": spy.bytes,
+                "predicted": pred, "schedule": str(local)})
+            del out, fn, args
+        # narrow storage: the tuner's value dtypes against the
+        # single-device narrow EB
+        for vd in ("bfloat16", "float16"):
+            sched = local.replace(value_dtype=vd, collective="nnz_rs")
+            out = counted(lambda: dist_spmm(host, b, mesh=mesh,
+                                            axis="shards", schedule=sched))
+            narrow = kops.spmm(adj, b, local.replace(value_dtype=vd))
+            err = rel_l2(out, mine(narrow, "nnz_rs"))
+            ok = err <= LOWPREC_TOL[vd]
+            print(f"  dist {name} {vd} nnz_rs P={world}: rel L2 {err:.3e} "
+                  f"against the single-device narrow EB (tol "
+                  f"{LOWPREC_TOL[vd]}) {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                checker.failures.append(f"dist {name} {vd}")
+            res["lowprec"].append({"graph": name, "dtype": vd, "rel_l2": err})
+        del want, terms
+        # attention: 4 heads x 64, the adjacency's values as the bias
+        q, k, v = (torch.randn(HEADS, n_rows, HEAD_DIM, generator=gen)
+                   .to(dev) for _ in range(3))
+        with torch.no_grad():
+            want = sparse_attention(adj, q.transpose(0, 1),
+                                    k.transpose(0, 1), v.transpose(0, 1),
+                                    device=dev).transpose(0, 1)
+        for mode in ("row", "nnz_ar", "nnz_rs"):
+            part = partition_rows_coo if mode == "row" else partition_nnz_coo
+            r, c, bias, _ = part(host, world, 256, phantom_row=True)
+            kw = dict(n_rows=n_rows, mesh=mesh, axis="shards", mode=mode,
+                      scale=HEAD_DIM ** -0.5)
+            with ByteSpy() as spy:
+                out = counted(lambda: dist_attention_shard_map(
+                    r, c, q, k, v, bias=bias, **kw))
+            got_w = mine(want, mode, dim=1)
+            scale = max(1.0, float(want.abs().max()))
+            err = float((out - got_w).abs().max())
+            ok = (out.shape == got_w.shape and err <= F32_TOL * scale)
+            print(f"  fused_attention_fwd dist {name} {mode} P={world}: "
+                  f"max_abs_err {err:.3e} tol {F32_TOL * scale:.2e} against "
+                  f"the single-device sparse_attention "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                checker.failures.append(f"dist attention {name} {mode}")
+            checker.worst["fused_attention_fwd"] = max(
+                checker.worst["fused_attention_fwd"], err)
+            pred = predict_attention_collective_bytes(
+                mode, n_heads=HEADS, n_rows=n_rows, dv_pad=HEAD_DIM,
+                axis_size=world)
+            if spy.total != pred:
+                res["bytes_bad"].append(f"attention {name} {mode}: "
+                                        f"{spy.bytes} against {pred}")
+            res["devices"] = sorted(set(res["devices"]) | spy.devices)
+            streams = tuple(t.to(dev) for t in (r, c, bias))
+            step = ms(lambda: dist_attention_shard_map(
+                streams[0], streams[1], q, k, v, bias=streams[2], **kw))
+            block = n_rows // world
+            lo = ax.index * (r.shape[0] // world)
+            shard = tuple(t[lo:lo + r.shape[0] // world] for t in streams)
+            qq = (q[:, ax.index * block:(ax.index + 1) * block]
+                  if mode == "row" else q)
+            kernel = ms(lambda: _local_attention(
+                shard[0], shard[1], qq, k, v,
+                n_rows=block if mode == "row" else n_rows,
+                scale=HEAD_DIM ** -0.5, bias=shard[2]))
+            res["attn"].append({"graph": name, "mode": mode,
+                                "step_ms": step, "local_ms": kernel,
+                                "bytes": spy.bytes, "predicted": pred})
+            del out, streams, shard
+        del q, k, v, want, adj
+        torch.cuda.empty_cache()
+
+    # ogbn-arxiv's own 169,343 rows: only nnz_ar is feasible
+    host = hosts["social_343"]
+    adj = CSR(host.indptr.to(dev), host.indices.to(dev), host.vals.to(dev),
+              host.shape)
+    modes = _feasible_collectives(matrix_stats(host), world)
+    if modes != ["nnz_ar"]:
+        checker.failures.append(f"169,343 rows on {world} ranks: feasible "
+                                f"{modes}")
+    b = torch.randn(host.shape[1], DIST_N, generator=gen).to(dev)
+    sched = Schedule.auto(matrix_stats(host), DIST_N)
+    out = counted(lambda: dist_spmm(host, b, mesh=mesh, axis="shards",
+                                    schedule=sched.replace(
+                                        collective="nnz_ar")))
+    coo = adj.tocoo()
+    checker.record_terms(
+        "spmm_eb", f"dist social 169343 nnz_ar P={world}", out,
+        kops.spmm(adj, b, sched),
+        ref.spmm_coo_ref(coo.rows, coo.cols, adj.vals.abs(), b.abs(),
+                         host.shape[0]))
+    res["arxiv_modes"] = modes
+    del out, adj, b
+
+    # the tuner, in the 2-rank world: social at N = 256
+    tune_counts = dict.fromkeys(counters, 0)
+    if world == 2:
+        host = hosts["social"]
+        adj = CSR(host.indptr.to(dev), host.indices.to(dev),
+                  host.vals.to(dev), host.shape)
+        path = os.path.join(tmp, "dist_tune.json")
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        tuned = tune_dist_spmm(adj, DIST_N, mesh=mesh, axis="shards",
+                               cache=ScheduleCache(path), warmup=1,
+                               iters=DIST_TUNE_ITERS)
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+        for n, c in counters.items():
+            tune_counts[n] = c.launches
+
+        def boom(_s):
+            raise RuntimeError("a replay measured")
+
+        again = tune_dist_spmm(adj, DIST_N, mesh=mesh, axis="shards",
+                               cache=ScheduleCache(path), measure=boom)
+        b = torch.randn(host.shape[1], DIST_N, generator=gen).to(dev)
+        out = counted(lambda: dist_spmm(adj, b, mesh=mesh, axis="shards",
+                                        schedule="tune",
+                                        cache=ScheduleCache(path)))
+        pick = tuned.schedule
+        mode = pick.collective
+        single = kops.spmm(adj, b, pick.replace(collective=None))
+        if pick.value_dtype is None:
+            coo = adj.tocoo()
+            checker.record_terms(
+                "spmm_eb", f"dist tuned social {mode} P={world}", out,
+                mine(single, mode), mine(ref.spmm_coo_ref(
+                    coo.rows, coo.cols, adj.vals.abs(), b.abs(),
+                    host.shape[0]), mode))
+        else:
+            err = rel_l2(out, mine(single, mode))
+            if err > LOWPREC_TOL[pick.value_dtype]:
+                checker.failures.append(f"dist tuned social: rel L2 {err}")
+        eng = ServeEngine(types.SimpleNamespace(
+            init_cache=lambda *a, **kw: {}),
+            {"embed": torch.zeros(1, device=dev)}, slots=1, device=dev,
+            tuner_cache=ScheduleCache(path))
+        served = eng.prepare_dist(adj, DIST_N, mesh=mesh, axis="shards")
+        res["tune"] = {
+            "pick": schedule_key(pick), "us": tuned.us_per_call,
+            "measured": tuned.measured, "n_measurements":
+            tuned.n_measurements, "seconds": tune_s,
+            "replay": [again.from_cache, again.n_measurements,
+                       schedule_key(again.schedule)],
+            "engine": schedule_key(served)}
+        del out, adj
+    res.update(counts=main_counts, tune_counts=tune_counts,
+               worst=checker.worst, failures=checker.failures,
+               backend=str(dist.get_backend()))
+    (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+    if checker.failures or res["bytes_bad"]:
+        sys.exit(1)
+
+
+def dist_world(world: int, tmp: str) -> list:
+    """Start ``world`` rank processes on the card, wait for all within
+    DIST_TIMEOUT (killing every one at the first failure), and return
+    their results."""
+    import os
+
+    env = dict(os.environ, REPRO_TUNE_CACHE=str(Path(tmp) / "tune.json"))
+    (Path(tmp) / "store").unlink(missing_ok=True)
+    logs = [open(Path(tmp) / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--dist-rank", str(r), str(world), tmp],
+                              stdout=logs[r], stderr=subprocess.STDOUT,
+                              env=env) for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            late = time.perf_counter() - t0 > DIST_TIMEOUT
+            if bad or late or all(c == 0 for c in codes):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    print(f"dist: {world} ranks took {time.perf_counter() - t0:.1f} s; rank 0 "
+          "printed:", flush=True)
+    print((Path(tmp) / "rank0.log").read_text().rstrip(), flush=True)
+    if bad or late:
+        r = bad[0] if bad else 0
+        tail = (Path(tmp) / f"rank{r}.log").read_text()[-3000:]
+        fail(f"dist: rank {r} of {world} "
+             f"{'exited ' + str(codes[r]) if bad else 'outlasted the limit'}"
+             f":\n{tail}")
+    return [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def dist_phase(social_343, counters):
+    """The ``dist`` phase: 2 and 4 gloo ranks on cuda:0 (see the module
+    docstring).  Returns the ranks' launches of the main path and of the
+    tuner, summed over ranks, and the worst error per kernel."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    counts = dict.fromkeys(counters, 0)
+    tune_counts = dict.fromkeys(counters, 0)
+    worst = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        dist_graphs(tmp, social_343)
+        for world in DIST_WORLDS:
+            ranks = dist_world(world, tmp)
+            for r in ranks:
+                for n in DIST_KERNELS:
+                    counts[n] += r["counts"][n]
+                    tune_counts[n] += r["tune_counts"][n]
+                for n, e in r["worst"].items():
+                    worst[n] = max(worst.get(n, 0.0), e)
+            lead = ranks[0]
+            for row in lead["spmm"]:
+                print(f"dist spmm {row['graph']} {row['mode']} P={world}: "
+                      f"step {row['step_ms']:.4f} ms, shard-local EB "
+                      f"{row['local_ms']:.4f} ms (CUDA events, the largest "
+                      f"over the ranks, a barrier before each window); "
+                      f"shard_nnz {row['shard_nnz']}; collective bytes "
+                      f"{row['bytes']} = predict_collective_bytes "
+                      f"{row['predicted']}; {row['schedule']}", flush=True)
+            for row in lead["attn"]:
+                print(f"dist attention {row['graph']} {row['mode']} "
+                      f"P={world}: step {row['step_ms']:.4f} ms, shard-local "
+                      f"forward {row['local_ms']:.4f} ms; collective bytes "
+                      f"{row['bytes']} = predict_attention_collective_bytes "
+                      f"{row['predicted']}", flush=True)
+            devices = sorted({d for r in ranks for d in r["devices"]})
+            print(f"dist P={world}: backend {lead['backend']}, the "
+                  f"collectives handed tensors on {devices} (none staged "
+                  f"through the host); 169,343 rows: feasible "
+                  f"{lead['arxiv_modes']}", flush=True)
+            if world == 2:
+                t = lead["tune"]
+                for key, us in t["measured"].items():
+                    print(f"  dist tune point {key}: {us:.1f} us", flush=True)
+                print(f"dist tune social P=2: {t['n_measurements']} points "
+                      f"in {t['seconds']:.1f} s, pick {t['pick']} at "
+                      f"{t['us']:.1f} us; replay {t['replay']}; "
+                      f"prepare_dist {t['engine']}", flush=True)
+                for r in ranks:
+                    rt = r["tune"]
+                    if (rt["pick"] != t["pick"] or rt["engine"] != t["pick"]
+                            or rt["replay"] != [True, 0, t["pick"]]):
+                        fail(f"dist tune: rank {r['rank']} picked "
+                             f"{rt['pick']}, replayed {rt['replay']}, "
+                             f"engine {rt['engine']}; rank 0 {t['pick']}")
+    print(f"dist: phase {time.perf_counter() - t0:.1f} s; launches over the "
+          f"ranks {counts}, tuner {tune_counts}", flush=True)
+    return {"counts": counts, "tune_counts": tune_counts, "worst": worst}
+
+
 def main() -> None:
     import torch
 
@@ -5571,6 +6034,15 @@ def main() -> None:
         worst[k] = max(worst.get(k, 0.0), v)
     results.update(attn_u["results"])
 
+    # the reduction strategies at the collective level: 2 and 4 gloo ranks
+    # sharing the card, each on the shard-local EB and attention kernels
+    with torch.no_grad():
+        dist_r = dist_phase(graphs["social"][0], counters)
+    runs.append(dist_r["counts"])
+    expected.append(("dist", ("spmm_eb", "fused_attention_fwd")))
+    runs.append(dist_r["tune_counts"])  # held apart, as the tune phase's
+    expected.append(("dist tune", ("spmm_eb",)))
+
     # MoE serving at full width, 4 layers
     with torch.no_grad():
         cfg, api, einsum, moe_params = moe_model(dev)
@@ -5612,7 +6084,7 @@ def main() -> None:
                 fail(f"the {n} kernel was not launched on the {path} path")
     # the tuners' launches follow how many points their timing visits
     tuner_runs = (tuned["counts"], moe_tuned["counts"],
-                  lowprec["tune_counts"])
+                  lowprec["tune_counts"], dist_r["tune_counts"])
     launches = {n: sum(c[n] for c in runs
                        if not any(c is t for t in tuner_runs))
                 for n in counters}
@@ -5689,4 +6161,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-rank"]:
+        dist_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

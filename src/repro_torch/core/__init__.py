@@ -12,6 +12,7 @@ from .dtypes import (  # noqa: F401
 )
 from .schedule import (  # noqa: F401
     ACTIVATIONS,
+    COLLECTIVES,
     Epilogue,
     ReductionStrategy,
     Schedule,
@@ -35,10 +36,13 @@ from .segment_group import (  # noqa: F401
     spec_segment,
 )
 from .selector import (  # noqa: F401
+    WIRE_COST_WEIGHT,
     candidate_schedules,
+    collective_cost_terms,
     cost_terms,
     get_cost_weights,
     predict_cost,
+    predict_dist_cost,
     select_schedule,
     set_cost_weights,
 )

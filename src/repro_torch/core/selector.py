@@ -17,10 +17,13 @@ from .segment_group import group_waste_fraction
 __all__ = [
     "COST_TERM_NAMES",
     "DEFAULT_COST_WEIGHTS",
+    "WIRE_COST_WEIGHT",
     "candidate_schedules",
+    "collective_cost_terms",
     "cost_terms",
     "get_cost_weights",
     "predict_cost",
+    "predict_dist_cost",
     "select_schedule",
     "set_cost_weights",
 ]
@@ -151,6 +154,50 @@ def predict_cost(stats: Dict, sched: Schedule, n_dense_cols: int,
     terms = cost_terms(stats, sched, n_dense_cols)
     return (w[0] * terms[0] + w[1] * terms[1]
             + w[2] * terms[2] + w[3] * terms[3])
+
+
+#: Relative weight of one wire element against one local element op in
+#: :func:`predict_dist_cost` (the reference's): a ranking prior, which the
+#: distributed tuner's measurements decide.
+WIRE_COST_WEIGHT = 8.0
+
+
+def collective_cost_terms(collective, *, n_rows: int, n_dense_cols: int,
+                          axis_size: int,
+                          shard_nnz: "Sequence[int] | None" = None,
+                          ) -> Tuple[float, float]:
+    """``(wire_elems, imbalance)`` of a collective mode: the per-rank
+    collective result elements ('nnz_ar' the full ``n_rows * N`` partial,
+    'nnz_rs' its 1/P row slice, 'row' nothing) and the straggler factor
+    max/mean of ``shard_nnz`` (>= 1.0)."""
+    if axis_size <= 1 or collective in (None, "row"):
+        wire = 0.0
+    else:
+        wire = float(n_rows * n_dense_cols)
+        if collective == "nnz_rs":
+            wire /= axis_size
+        elif collective != "nnz_ar":
+            raise ValueError(f"unknown collective {collective!r}")
+    imbalance = 1.0
+    if shard_nnz:
+        mean = sum(shard_nnz) / len(shard_nnz)
+        if mean > 0:
+            imbalance = max(shard_nnz) / mean
+    return wire, imbalance
+
+
+def predict_dist_cost(stats: Dict, sched: Schedule, n_dense_cols: int, *,
+                      axis_size: int,
+                      shard_nnz: "Sequence[int] | None" = None) -> float:
+    """Relative cost of a distributed schedule point: the local cost
+    model over P ranks scaled by the slowest shard, plus
+    ``WIRE_COST_WEIGHT`` per wire element."""
+    wire, imbalance = collective_cost_terms(
+        sched.collective, n_rows=stats["n_rows"],
+        n_dense_cols=n_dense_cols, axis_size=axis_size,
+        shard_nnz=shard_nnz)
+    local = predict_cost(stats, sched, n_dense_cols) / max(axis_size, 1)
+    return local * imbalance + WIRE_COST_WEIGHT * wire
 
 
 def select_schedule(stats: Dict, n_dense_cols: int) -> Schedule:

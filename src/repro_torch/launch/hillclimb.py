@@ -1,11 +1,13 @@
 """Tuner launcher: pre-warm the tuner's cache on the card (port of the
-``--spmm``, ``--moe`` and ``--attention`` modes of
+``--spmm``, ``--moe``, ``--attention`` and ``--dist`` modes of
 ``repro/launch/hillclimb.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.hillclimb --spmm \\
         [--n-dense 4] [--full] [--device cuda]
     PYTHONPATH=src python -m repro_torch.launch.hillclimb --moe
     PYTHONPATH=src python -m repro_torch.launch.hillclimb --attention
+    torchrun --nproc-per-node 4 -m repro_torch.launch.hillclimb --dist \\
+        --backend gloo
 
 ``--spmm`` runs the empirical tuner (``repro_torch.tune``) over the
 synthetic matrix suite, timing the port's kernels on ``--device``
@@ -19,12 +21,17 @@ experts top-2, 512 tokens; ``--full`` adds D 256, F 512 and 2048
 tokens) and prints the default against the pick; those calls last tens
 of microseconds on the card, so they measure the host's launches as
 much as the kernel.  ``--attention`` tunes the fused attention kernels,
-forward and backward, for a uniform and a skewed pattern.  ``--full``
-runs the larger suite.
+forward and backward, for a uniform and a skewed pattern.  ``--dist``
+tunes the sharded SpMM (``tune_dist_spmm``: local tiling x collective
+mode x value dtype) of two random matrices on a reduction mesh over the
+whole world, every rank running this command: in a world its caller
+initialised, or one this command initialises from torchrun's
+environment with the backend named by ``--backend`` (``gloo`` where
+ranks share a GPU; with none, the world is this process alone).
+``--full`` runs the larger suite.
 
-``--cell`` (the roofline mode, which needs ``launch/dryrun.py``) and
-``--dist`` (the distributed tuner) are not ported yet and exit with the
-ROADMAP item that ports them.
+``--cell`` (the roofline mode, which needs ``launch/dryrun.py``) is not
+ported yet and exits with the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -40,8 +47,6 @@ from ..core.device import resolve_device
 NOT_PORTED = {
     "cell": "the roofline mode needs launch/dryrun.py (ROADMAP queue 1 "
             "item 6)",
-    "dist": "distributed tuning needs the distributed port (ROADMAP queue "
-            "1 item 5)",
 }
 
 
@@ -148,6 +153,55 @@ def attention_hillclimb(quick: bool = True, device=None):
     print(f"({len(cache)} records in {cache.path})")
 
 
+def dist_hillclimb(n_dense: int = 4, quick: bool = True, device=None):
+    """Joint collective x tiling x value-dtype tuning of the sharded SpMM
+    on a reduction mesh over the world, through the device's persistent
+    cache that ``dist_spmm(..., schedule="tune")`` and
+    ``ServeEngine.prepare_dist`` replay from.  Every rank calls it; the
+    rank at index 0 prints."""
+    from ..sparse import random_csr
+    from ..tune import default_cache, tune_dist_spmm
+    from .mesh import make_reduction_mesh
+
+    dev = resolve_device(device)
+    cache = default_cache(dev)
+    mesh = make_reduction_mesh(device=dev)
+    axis_size = int(mesh.shape["shards"])
+    lead = mesh.axis("shards").index == 0
+    n = 512 if quick else 2048
+    for d in (0.002, 0.01):
+        csr = random_csr(n, n, density=d, seed=7, device="cpu")
+        res = tune_dist_spmm(csr, n_dense, mesh=mesh, axis="shards",
+                             cache=cache)
+        src = "cache" if res.from_cache else f"{res.n_measurements} meas"
+        if lead:
+            print(f"--- dist {n}x{n} d={d} mesh={axis_size} [{src}] ---")
+            print(f"  tuned {res.schedule}: {res.us_per_call:9.1f} us "
+                  f"(collective={res.schedule.collective}, "
+                  f"value_dtype={res.schedule.value_dtype})")
+    if lead:
+        print(f"({len(cache)} records in {cache.path})")
+
+
+def _join_world(backend):
+    """Initialise the world from torchrun's environment (``WORLD_SIZE``,
+    ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) under ``backend``, where
+    the caller has not initialised one; with several GPUs a rank takes
+    the one of its ``LOCAL_RANK``."""
+    import os
+
+    import torch.distributed as dist
+
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return
+    if backend is None:
+        sys.exit("--dist under torchrun needs --backend (gloo where ranks "
+                 "share a GPU, nccl for one GPU a rank)")
+    if torch.cuda.is_available() and torch.cuda.device_count() > 1:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group(backend=backend)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--spmm", action="store_true",
@@ -159,7 +213,12 @@ def main(argv=None):
                     help="arch:shape:tag (not ported)")
     ap.add_argument("--moe", action="store_true",
                     help="tune the MoE dispatch on the grouped-matmul kernel")
-    ap.add_argument("--dist", action="store_true", help="(not ported)")
+    ap.add_argument("--dist", action="store_true",
+                    help="joint collective x dtype tuning of the sharded "
+                         "SpMM on a mesh over the world")
+    ap.add_argument("--backend", default=None,
+                    help="--dist under torchrun: the process group's "
+                         "backend (gloo, nccl)")
     ap.add_argument("--n-dense", type=int, default=4)
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--device", default="cuda")
@@ -175,8 +234,11 @@ def main(argv=None):
         moe_hillclimb(quick=not args.full, device=args.device)
     elif args.attention:
         attention_hillclimb(quick=not args.full, device=args.device)
+    elif args.dist:
+        _join_world(args.backend)
+        dist_hillclimb(args.n_dense, quick=not args.full, device=args.device)
     else:
-        sys.exit("pick a mode: --spmm, --moe or --attention "
+        sys.exit("pick a mode: --spmm, --moe, --attention or --dist "
                  f"({NOT_PORTED['cell']})")
 
 

@@ -247,8 +247,8 @@ def moe_tune_collective(cfg, params, x2d, ctx, **kw):
     """Tuning the expert-parallel writeback collective waits for the
     distributed port."""
     raise NotImplementedError(
-        "moe_tune_collective measures apply_moe under a mesh, which the "
-        "port does not have yet (ROADMAP.md, queue 1 item 5)")
+        "moe_tune_collective measures the expert-parallel apply_moe, which "
+        "the port does not have yet (ROADMAP.md, queue 1 item 5)")
 
 
 def moe_dispatch_schedule(cfg, t_tokens: int, *, expert_lengths=None,

@@ -13,8 +13,9 @@ from the engine's memo, then the persistent tuner cache
 (``repro_torch.tune``), else the static default, and never measure on
 the request path.  Tuning happens ahead of time in
 :meth:`ServeEngine.prepare_sparse` and :meth:`ServeEngine.prepare_moe`
-(or ``launch.hillclimb --spmm`` / ``--moe``).  ``prepare_dist`` waits
-for the distributed port (ROADMAP.md, queue 1 item 5).
+(or ``launch.hillclimb --spmm`` / ``--moe``), and for a sharded operand
+in :meth:`ServeEngine.prepare_dist` (or ``launch.hillclimb --dist``),
+which ``dist_spmm(schedule="tune")`` replays.
 
 Kept from the reference as it is, for parity: the cache has one
 position ``pos`` for all slots, set by the last prefill, so prompts of
@@ -96,11 +97,25 @@ class ServeEngine:
         return sched
 
     def prepare_dist(self, csr, n_dense_cols: int, *, mesh, axis: str,
-                     value_dtypes=None, interpret: bool = True):
-        """Tuning a sharded operand waits for the distributed port."""
-        raise NotImplementedError(
-            "prepare_dist tunes the sharded SpMM, which the port does not "
-            "have yet (ROADMAP.md, queue 1 item 5)")
+                     value_dtypes=None):
+        """Ahead-of-time tuning of a sharded sparse operand: one search
+        over local tiling x collective mode x value dtype
+        (``tune_dist_spmm``, every rank of the mesh calling it alike),
+        persisted under the mesh-extent key so ``dist_spmm(...,
+        schedule="tune")`` replays it for free.  ``value_dtypes=()`` pins
+        f32 storage."""
+        from ..tune import cache_key, tune_dist_spmm
+
+        kw = {}
+        if value_dtypes is not None:
+            kw["value_dtypes"] = value_dtypes
+        res = tune_dist_spmm(csr, n_dense_cols, mesh=mesh, axis=axis,
+                             cache=self.tuner_cache, **kw)
+        axis_size = int(mesh.shape[axis])
+        self._sched_memo[
+            f"dist:{cache_key(csr, n_dense_cols)}|mesh:{axis_size}"
+        ] = res.schedule
+        return res.schedule
 
     def prepare_moe(self, cfg, t_tokens: int, expert_lengths=None):
         """Ahead-of-time tuning of the MoE dispatch this engine will run:

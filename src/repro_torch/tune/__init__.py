@@ -15,11 +15,10 @@ over one search framework: ``tune.space`` declares the axes and
 ``tune.driver.drive`` runs the one budgeted loop.  ``tune_moe_dispatch``
 tunes the MoE grouped-matmul dispatch on the kernel, keyed by the
 expert-segment histogram; ``moe_cached_or_default`` is its serving
-resolver.
-
-Not ported yet: the distributed search (``tune_dist_spmm``,
-``make_dist_runner``, ``measure_dist_schedule`` raise; ROADMAP queue 1
-item 5).
+resolver.  ``tune_dist_spmm`` tunes a sharded SpMM over a mesh of
+ranks: the local tiling, the collective mode and the value storage in
+one search, the same pick on every rank (``dist_spmm(schedule="tune")``
+and ``ServeEngine.prepare_dist`` route here).
 """
 from .cache import (  # noqa: F401
     MIGRATIONS,
@@ -51,10 +50,13 @@ from .calibrate import (  # noqa: F401
 )
 from .measure import (  # noqa: F401
     bench_iters,
+    make_dist_runner,
     make_eb_runner,
     make_rb_runner,
     make_runner,
+    measure_dist_schedule,
     measure_schedule,
+    spmd_time,
     time_fn,
 )
 from .moe import (  # noqa: F401
@@ -87,8 +89,10 @@ from .space import (  # noqa: F401
 )
 from .search import (  # noqa: F401
     DEFAULT_VALUE_DTYPES,
+    DIST_VALUE_DTYPES,
     cached_or_auto,
     schedule_key,
+    tune_dist_spmm,
     tune_schedule,
     tune_segment_reduce,
 )

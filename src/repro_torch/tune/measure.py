@@ -19,6 +19,12 @@ as they do on a serving path.  A ``value_dtype`` narrows what is fed:
 narrow floats the value stream and B, int8 the CSR's codes and per-row
 scales (its memoized ``quantized()``) on a bf16 B, so the dtype axis
 measures the narrow kernels, not a relabelled f32 run.
+
+The distributed objective (``measure_dist_schedule``) times one rank's
+program of ``sparse/distributed.py::spmm_shard_map``, the shard-local EB
+kernel and the collective, with :func:`spmd_time`: a barrier before each
+window, and the largest median over the ranks, so every rank gets the
+same number.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ __all__ = [
     "make_dist_runner",
     "measure_schedule",
     "measure_dist_schedule",
+    "spmd_time",
 ]
 
 
@@ -63,6 +70,20 @@ def _device_of(args):
     return torch.device("cpu")
 
 
+def _counts(warmup, iters, cap_env=True):
+    """(warmup, iters) of a measurement: the environment's defaults,
+    which also cap explicit counts unless ``cap_env`` is False."""
+    if warmup is None:
+        warmup = bench_warmup()
+    elif cap_env and "REPRO_BENCH_WARMUP" in os.environ:
+        warmup = min(warmup, bench_warmup())
+    if iters is None:
+        iters = bench_iters()
+    elif cap_env and "REPRO_BENCH_ITERS" in os.environ:
+        iters = max(1, min(iters, bench_iters()))
+    return warmup, iters
+
+
 def time_fn(fn, *args, warmup: int | None = None,
             iters: int | None = None, cap_env: bool = True) -> float:
     """Median seconds per call of ``fn(*args)``.
@@ -73,14 +94,7 @@ def time_fn(fn, *args, warmup: int | None = None,
     ``time.perf_counter``.  ``REPRO_BENCH_ITERS`` / ``REPRO_BENCH_WARMUP``
     supply the defaults and cap explicit arguments; ``cap_env=False``
     exempts a measurement from the caps."""
-    if warmup is None:
-        warmup = bench_warmup()
-    elif cap_env and "REPRO_BENCH_WARMUP" in os.environ:
-        warmup = min(warmup, bench_warmup())
-    if iters is None:
-        iters = bench_iters()
-    elif cap_env and "REPRO_BENCH_ITERS" in os.environ:
-        iters = max(1, min(iters, bench_iters()))
+    warmup, iters = _counts(warmup, iters, cap_env)
     dev = _device_of(args)
     if dev.type == "cuda":
         with torch.cuda.device(dev):
@@ -217,19 +231,89 @@ def measure_schedule(csr, n_dense: int, sched: Schedule, *,
     return time_fn(fn, *args, warmup=warmup, iters=iters)
 
 
+def _storage_feed(vals, b, value_dtype):
+    """(vals, b) as a ``value_dtype`` stores them: narrow floats cast the
+    value stream to the storage type and B to the operand type (both
+    after the fp8 fallback of B's device); ``int8`` casts B alone (its
+    codes are quantized by the caller)."""
+    if value_dtype is None:
+        return vals, b
+    if value_dtype != "int8":
+        vals = cast(vals, storage_dtype(value_dtype, b.device))
+    return vals, cast(b, operand_dtype(value_dtype, b.device))
+
+
 def make_dist_runner(csr, n_dense: int, sched: Schedule, *, mesh,
-                     axis: str, interpret: bool = True):
-    """The distributed runner waits for the distributed port."""
-    raise NotImplementedError(
-        "make_dist_runner times the sharded SpMM, which the port does not "
-        "have yet (ROADMAP queue 1 item 5)")
+                     axis: str):
+    """(fn, args) running one rank's program of ``spmm_shard_map`` under
+    ``sched`` on ``mesh``: the shard-local EB kernel and the collective
+    of ``sched.collective``.  No cheaper stand-in observes the wire mode,
+    so the objective is the program itself.  The partition (host side),
+    the rank's slices moved to ``mesh.device`` and a narrow
+    ``value_dtype``'s feed are made here, outside the timed region."""
+    from ..sparse.distributed import (_check_rows, _resolve_collective,
+                                      _shard, _spmm_on_shard,
+                                      partition_nnz_coo, partition_rows_coo)
+
+    ax = mesh.axis(axis)
+    mode = _resolve_collective(None, sched)
+    _check_rows(mode, csr.shape[0], ax.size)
+    part = partition_rows_coo if mode == "row" else partition_nnz_coo
+    rows, cols, vals, _ = part(csr, ax.size, sched.nnz_tile)
+    dev = mesh.device
+    vals, b = _storage_feed(_shard(vals, ax, dev),
+                            _dense_b(csr, n_dense).to(dev), sched.value_dtype)
+
+    def run(r, c, v, bb):
+        return _spmm_on_shard(r, c, v, bb, n_rows=csr.shape[0], axis=ax,
+                              mode=mode, sched=sched)
+
+    return run, (_shard(rows, ax, dev), _shard(cols, ax, dev), vals, b)
+
+
+def spmd_time(fn, *args, axis, device, warmup: int | None = None,
+              iters: int | None = None) -> float:
+    """Seconds per call of one SPMD program ``fn(*args)`` that every rank
+    of ``axis`` runs: each call's window opens after the device is idle
+    and the ranks pass a barrier, and closes after the call (on CUDA a
+    pair of CUDA events read after a synchronize, on the CPU
+    ``time.perf_counter``); the median over the calls, then the largest
+    over the ranks (``pmax``), so every rank returns the same number.
+    The counts are ``time_fn``'s; every rank must run the same."""
+    from ..distributed import collectives as coll
+
+    warmup, iters = _counts(warmup, iters)
+    device = torch.device(device)
+    for _ in range(warmup):
+        fn(*args)
+    ts = []
+    for _ in range(iters):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        coll.barrier(axis)
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args)
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end) * 1e-3)
+        else:
+            t0 = time.perf_counter()
+            fn(*args)
+            ts.append(time.perf_counter() - t0)
+    t = torch.tensor([float(np.median(ts))], dtype=torch.float64,
+                     device=device)
+    return float(coll.pmax(t, axis))
 
 
 def measure_dist_schedule(csr, n_dense: int, sched: Schedule, *, mesh,
                           axis: str, warmup: int | None = None,
-                          iters: int | None = None,
-                          interpret: bool = True) -> float:
-    """The distributed objective waits for the distributed port."""
-    raise NotImplementedError(
-        "measure_dist_schedule times the sharded SpMM, which the port does "
-        "not have yet (ROADMAP queue 1 item 5)")
+                          iters: int | None = None) -> float:
+    """Seconds per call of the distributed schedule point (local tiling
+    and wire mode), ``tune_dist_spmm``'s objective: the SPMD program's
+    time by :func:`spmd_time`, the same number on every rank."""
+    fn, args = make_dist_runner(csr, n_dense, sched, mesh=mesh, axis=axis)
+    return spmd_time(fn, *args, axis=mesh.axis(axis), device=mesh.device,
+                     warmup=warmup, iters=iters)

@@ -34,15 +34,17 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.dtypes import cast, operand_dtype, storage_dtype
-from ..core.schedule import Schedule
-from ..core.selector import candidate_schedules, predict_cost, select_schedule
+from ..core.schedule import COLLECTIVES, Schedule
+from ..core.selector import (candidate_schedules, predict_cost,
+                             predict_dist_cost, select_schedule)
 from ..kernels.ops import schedule_fits_card
 from ..sparse.random import matrix_stats
 from .cache import ScheduleCache, cache_key, default_cache
 from .driver import TuneResult, _replay, drive
 from .measure import measure_schedule, time_fn
-from .space import (EpilogueAxis, SearchContext, SearchSpace, SkewAxis,
-                    StrategyAxis, TilingAxis, ValueDtypeAxis, schedule_key)
+from .space import (CollectiveAxis, EpilogueAxis, SearchContext, SearchSpace,
+                    SkewAxis, StrategyAxis, TilingAxis, ValueDtypeAxis,
+                    schedule_key)
 
 __all__ = [
     "DEFAULT_VALUE_DTYPES",
@@ -269,8 +271,123 @@ def tune_segment_reduce(
                  measure=measure, ranked=pool)
 
 
-def tune_dist_spmm(csr, n_dense_cols: int, *, mesh, axis: str, **kw):
-    """The distributed search waits for the distributed port."""
-    raise NotImplementedError(
-        "tune_dist_spmm searches the sharded SpMM, which the port does not "
-        "have yet (ROADMAP queue 1 item 5)")
+# ---------------------------------------------------------------------------
+# Distributed tuning: one search over (local tiling x collective x dtype)
+# ---------------------------------------------------------------------------
+
+
+def _feasible_collectives(stats: dict, axis_size: int) -> List[str]:
+    """The modes the mesh and shape admit: 'nnz_ar' always; 'row' and
+    'nnz_rs' finalize a row block per rank, so they need ``n_rows %
+    axis_size == 0``."""
+    modes = ["nnz_ar"]
+    if axis_size <= 1 or stats["n_rows"] % axis_size == 0:
+        modes += ["nnz_rs", "row"]
+    return modes
+
+
+def _agreed(value: float, axis, device) -> float:
+    """The largest ``value`` over the ranks of ``axis``: one number every
+    rank sees, so every rank ranks and picks alike."""
+    from ..distributed import collectives as coll
+
+    return float(coll.pmax(torch.tensor([float(value)], dtype=torch.float64,
+                                        device=device), axis))
+
+
+def tune_dist_spmm(
+    csr,
+    n_dense_cols: int,
+    *,
+    mesh,
+    axis: str,
+    cache: Optional[ScheduleCache] = None,
+    top_k: int = 2,
+    hill_steps: int = 2,
+    measure: Optional[Callable[[Schedule], float]] = None,
+    warmup: Optional[int] = None,
+    iters: Optional[int] = None,
+    backend=None,
+    value_dtypes: Optional[tuple] = None,
+    error_budget: float = 0.05,
+) -> TuneResult:
+    """One search over (local EB tiling x collective mode x value dtype)
+    for a sharded ``csr @ B`` on ``mesh``, the reference's: the top-ranked
+    local EB tilings (the shard-local kernel is EB) crossed with every
+    feasible mode, ranked by :func:`~repro_torch.core.predict_dist_cost`
+    (the local cost over P ranks, the ``shard_nnz`` straggler factor and
+    the wire term), then measured; the parity-gated narrow dtypes
+    (:data:`DIST_VALUE_DTYPES`; ``()`` disables the axis) are measured as
+    variants of the pool winner, and a short hillclimb refines its local
+    axes with the mode held.  The key is ``dist:<fingerprint>|mesh:<P>``.
+
+    Every rank of the axis calls it alike and picks alike: each
+    measurement (``measure_dist_schedule`` by default, or the injected
+    ``measure``) and each parity error is taken as its largest over the
+    ranks, and a cache hit replays only where every rank has it.  The
+    record goes into every rank's ``cache``; the rank at index 0 writes
+    the file, then all ranks pass a barrier, so a later call on any rank
+    replays with zero measurements.  ``backend`` names the cache
+    namespace's device (default ``mesh.device``).
+    """
+    from ..distributed import collectives as coll
+    from ..sparse.distributed import shard_nnz_counts
+    from .measure import measure_dist_schedule
+
+    ax = mesh.axis(axis)
+    dev = mesh.device
+    axis_size = ax.size
+    cache = _cache_for(cache, backend, dev)
+    key = f"dist:{cache_key(csr, n_dense_cols)}|mesh:{axis_size}"
+    hit = _replay(cache, key)
+    if _agreed(hit is None, ax, dev) == 0.0:
+        return hit
+
+    stats = matrix_stats(csr)
+    if measure is None:
+        def measure(s: Schedule) -> float:
+            return measure_dist_schedule(csr, n_dense_cols, s, mesh=mesh,
+                                         axis=axis, warmup=warmup,
+                                         iters=iters)
+
+    def objective(s: Schedule) -> float:
+        return _agreed(measure(s), ax, dev)
+
+    def parity(ctx: SearchContext, vd: str) -> float:
+        return _agreed(_storage_parity(ctx, vd), ax, dev)
+
+    if value_dtypes is None:
+        value_dtypes = DIST_VALUE_DTYPES
+    modes = _feasible_collectives(stats, axis_size)
+    # no skew axis: _local_spmm strips skew from shard-local schedules
+    space = SearchSpace(
+        (StrategyAxis(), TilingAxis(), CollectiveAxis(modes),
+         ValueDtypeAxis(value_dtypes, error_budget=error_budget,
+                        parity=parity),
+         EpilogueAxis()),
+        key_fn=schedule_key,
+        neighbor_filter=lambda c, cands: [
+            s for s in _feasible(cands, c.stats)
+            if s.collective in COLLECTIVES],
+    )
+    ctx = SearchContext(stats=stats, n_dense_cols=n_dense_cols,
+                        axis_size=axis_size, workload=csr)
+
+    eb = [s for s in _feasible(candidate_schedules(n_dense_cols), stats)
+          if s.kernel == "eb"]
+    eb.sort(key=lambda s: predict_cost(stats, s, n_dense_cols))
+    auto = select_schedule(stats, n_dense_cols)
+    seeds = ([auto] if auto.kernel == "eb" else []) + eb[:max(1, top_k)]
+    pool = space.rank(ctx, space.cross(ctx, seeds),
+                      lambda s: predict_dist_cost(
+                          stats, s, n_dense_cols, axis_size=axis_size,
+                          shard_nnz=shard_nnz_counts(csr, axis_size,
+                                                     s.collective)))
+    scratch = ScheduleCache(path=None)
+    res = drive(space, ctx, cache=scratch, key=key, measure=objective,
+                ranked=pool, hill_steps=hill_steps)
+    cache.put(key, scratch.get(key))
+    if ax.index == 0:
+        cache.save()
+    coll.barrier(ax)
+    return res

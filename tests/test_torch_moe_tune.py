@@ -566,10 +566,19 @@ def test_engine_moe_histogram_from_gates_on_its_device(tuner_env):
 
 
 def test_engine_prepare_dist_raises_naming_its_item(tuner_env):
-    teng, _ = _engines()
+    """``prepare_dist`` is ported: on a one-member mesh it tunes, memoizes
+    under the reference's key and replays (four ranks in
+    ``test_torch_dist_ranks.py``)."""
+    from repro_torch.launch.mesh import make_reduction_mesh
+    from repro_torch.tune import cache_key
+
+    teng, _ = _engines(tuner_cache=tt.ScheduleCache(None))
     a = ts.random_csr(20, 20, density=0.2, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        teng.prepare_dist(a, 4, mesh=None, axis="x")
+    mesh = make_reduction_mesh(device="cpu")
+    sched = teng.prepare_dist(a, 4, mesh=mesh, axis="shards")
+    assert sched.collective in ("row", "nnz_ar", "nnz_rs")
+    assert teng._sched_memo == {f"dist:{cache_key(a, 4)}|mesh:1": sched}
+    assert teng.prepare_dist(a, 4, mesh=mesh, axis="shards") == sched
 
 
 def test_hillclimb_moe_second_run_replays_every_cell(tuner_env, capsys):

@@ -477,21 +477,31 @@ def test_value_dtype_axis_admits_what_fits_the_budget():
         None, tc.Schedule(value_dtype="int8"))  # no gate: admitted
 
 
-def test_not_ported_parts_raise_naming_their_item(tuner_env):
+def test_not_ported_parts_raise_naming_their_item(tuner_env, capsys):
+    """The distributed tuner is ported (a one-member mesh here; four
+    ranks in ``test_torch_dist_ranks.py``); the roofline mode still
+    raises naming its item."""
+    from repro_torch.launch.mesh import make_reduction_mesh
     from repro_torch.tune import measure, search
 
     a = ts.random_csr(20, 20, density=0.2, seed=0, device="cpu")
-    for call in (lambda: search.tune_dist_spmm(a, 4, mesh=None, axis="x"),
-                 lambda: measure.make_dist_runner(a, 4, tc.Schedule(),
-                                                  mesh=None, axis="x"),
-                 lambda: measure.measure_dist_schedule(
-                     a, 4, tc.Schedule(), mesh=None, axis="x")):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            call()
-    for mode, item in (("--dist", "item 5"), ("--cell", "item 6")):
-        argv = [mode, "x:y:z"] if mode == "--cell" else [mode]
-        with pytest.raises(SystemExit, match=item):
-            hillclimb.main(argv)
+    mesh = make_reduction_mesh(device="cpu")
+    sched = tc.Schedule(nnz_tile=32, group_size=8, collective="nnz_rs")
+    res = search.tune_dist_spmm(a, 4, mesh=mesh, axis="shards",
+                                cache=tt.ScheduleCache(None),
+                                measure=lambda s: 1.0, top_k=1,
+                                hill_steps=0)
+    assert res.key.endswith("|mesh:1") and res.n_measurements > 0
+    fn, args = measure.make_dist_runner(a, 4, sched, mesh=mesh,
+                                        axis="shards")
+    torch.testing.assert_close(fn(*args),
+                               ts.spmm(a, args[3], device="cpu"))
+    assert measure.measure_dist_schedule(a, 4, sched, mesh=mesh,
+                                         axis="shards") > 0.0
+    hillclimb.main(["--dist", "--device", "cpu"])
+    assert capsys.readouterr().out.count("mesh=1 [") == 2
+    with pytest.raises(SystemExit, match="item 6"):
+        hillclimb.main(["--cell", "x:y:z"])
 
 
 def test_hillclimb_spmm_second_run_replays_every_cell(tuner_env, capsys):
