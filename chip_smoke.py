@@ -27,7 +27,9 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   steps, with the adjacency's values trainable too, so the backward runs
   SDDMM and the transpose SpMM; step 0's gradients are held against the
   plain path (``impl="ref"`` under torch autograd) and the loss must
-  fall;
+  fall; and the port of the example itself, ``repro_torch.examples.
+  gcn_spmm``, once as a user runs it (256 nodes, 40 steps, its kernel
+  check against the oracle, "gcn_spmm complete");
 - ``make_spmm``: the pattern-closed differentiable SpMM over the social
   graph's stream, forward and backward, against ``impl="ref"``;
 - graph attention: 4 heads of width 64 over the normalized adjacency
@@ -183,6 +185,38 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   takes CUDA tensors; nothing is staged through the host).  The ranks'
   EB and attention launches join the main paths' counts; a rank that
   fails or outlasts DIST_TIMEOUT fails the phase.
+
+- expert parallelism and data parallelism (``dist moe``, after the MoE
+  phases, once the parent freed its MoE model): the same kind of gloo
+  worlds (``--dist-rank R P DIR moe`` and ``... train``).  Right after
+  ``moe_serve`` the parent saves the one-rank answer at a no-drop
+  dispatch (capacity factor E / k): a prefill of MOE_SLOTS prompts and
+  DIST_MOE_DECODE greedy decode steps.  Each rank of worlds 2 and 4
+  draws the moe_serve model from SEED one leaf at a time and keeps its
+  expert block (``init_params(mesh=)``), on (data, model) meshes (1, 2),
+  (1, 4) and (2, 2), prints what it holds and its peak memory; holds the
+  grouped matmul (row 7) against its plain version on its first layer;
+  holds layer 0's MoE on the prompts' input to the one-rank layer per
+  element; prefills and decodes the global batch (its data block out)
+  under nnz_ar and nnz_rs, on a model axis of 2 each step's logits
+  within LOGIT_REL_L2 of the one-rank answer computed as the mesh
+  computes it (the combine in rank order, each data block a batch;
+  ``RankOrderCombine``: at full width an f32 reordering of the combine
+  flips the top-8 of a few tokens, so the plain answer, printed beside,
+  is no yardstick) and its greedy tokens equal; counts the bytes handed
+  to the combine (T_loc x D x 4 a layer, 1/M of that under nnz_rs); and
+  times prefill and a decode step at the default dispatch.
+  ``moe_tune_collective`` runs on (1, 2) and (2, 2): every rank the same
+  pick, a replay measuring nothing.  Then the data-parallel ``Trainer``
+  at full width cut to one layer and 16 experts (the reckoning printed):
+  the parent's one-process run on the whole batch, then worlds on (2, 2)
+  and (2, 1), each rank's first-step gradients (reduced over the data
+  axis) within LM_GRAD_REL_L2 of the one-process run's, row 7b on its
+  expert block, DIST_TRAIN_STEPS steps whose losses are within
+  LM_LOSS_REL of the one-process run's; the (2, 2) world writes a whole
+  checkpoint that the parent restores and holds to its own parameters.
+  The ranks' grouped-matmul launches join the main paths' counts (the
+  tuner's apart).
 
 - LM training (``lm_train``, last): Qwen3-MoE at full width cut to one
   layer by memory (its AdamW state is 37.3 GB; the script prints the
@@ -2675,6 +2709,34 @@ def lowprec_phase(graphs, x, models, counters):
           f"{out['tune_counts']}", flush=True)
     torch.cuda.empty_cache()
     return out
+
+
+def gcn_example(counters):
+    """The port of ``examples/gcn_spmm.py`` (``repro_torch.examples.
+    gcn_spmm``) run once on the card as a user runs it: its kernel check
+    against the oracle, 40 SGD steps (the loss must fall by 0.1) and its
+    completion line; the counts zeroed just before, read just after, and
+    its aggregations must launch a sparse kernel."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import gcn_spmm
+
+    for k in counters.values():
+        k.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        losses = gcn_spmm.main(["--device", "cuda"])
+    counts = {n: k.launches for n, k in counters.items()}
+    print("examples/gcn_spmm: " + "; ".join(buf.getvalue().split("\n")[:-1])
+          + f" ({time.perf_counter() - t0:.1f} s, host clock; launches "
+          f"{ {n: c for n, c in counts.items() if c} })", flush=True)
+    if "gcn_spmm complete" not in buf.getvalue() or not (
+            counts["spmm_eb"] + counts["spmm_rb"]) or not (
+            losses[-1] < losses[0] - 0.1):
+        fail("examples/gcn_spmm did not run to its end on the kernels")
+    return counts
 
 
 def moe_model(dev):
@@ -5498,13 +5560,19 @@ def dist_graphs(tmp, social_343):
     torch.save(saved, Path(tmp) / "graphs.pt")
 
 
-def dist_rank_main(rank: int, world: int, tmp: str) -> None:
-    """One rank of a dist world (``chip_smoke.py --dist-rank R P DIR``):
-    the SpMM and attention modes on both graphs, the narrow storage, the
-    169,343-node case and, in the 2-rank world, the tuner; each check
-    against the single-device kernels on the same card.  Writes its
+def dist_rank_main(rank: int, world: int, tmp: str,
+                   job: str = "spmm") -> None:
+    """One rank of a dist world (``chip_smoke.py --dist-rank R P DIR
+    [JOB]``): under job 'spmm' the SpMM and attention modes on both
+    graphs, the narrow storage, the 169,343-node case and, in the 2-rank
+    world, the tuner; each check against the single-device kernels on
+    the same card.  Jobs 'moe' and 'train' run the expert-parallel MoE
+    and the data-parallel trainer (:func:`dist_ep_rank`).  Writes its
     results to ``DIR/rank<R>.json``; exits 1 on a failed check."""
     import os
+
+    if job != "spmm":
+        return dist_ep_rank(job, rank, world, tmp)
 
     import torch
     import torch.distributed as dist
@@ -5758,17 +5826,20 @@ def dist_rank_main(rank: int, world: int, tmp: str) -> None:
         sys.exit(1)
 
 
-def dist_world(world: int, tmp: str) -> list:
-    """Start ``world`` rank processes on the card, wait for all within
-    DIST_TIMEOUT (killing every one at the first failure), and return
-    their results."""
+def dist_world(world: int, tmp: str, job: str = "spmm") -> list:
+    """Start ``world`` rank processes of ``job`` on the card, wait for all
+    within DIST_TIMEOUT (killing every one at the first failure), and
+    return their results."""
     import os
 
     env = dict(os.environ, REPRO_TUNE_CACHE=str(Path(tmp) / "tune.json"))
+    if job != "spmm":  # four ranks' full-width models share the card
+        env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     (Path(tmp) / "store").unlink(missing_ok=True)
     logs = [open(Path(tmp) / f"rank{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                               "--dist-rank", str(r), str(world), tmp],
+                               "--dist-rank", str(r), str(world), tmp,
+                               job],
                               stdout=logs[r], stderr=subprocess.STDOUT,
                               env=env) for r in range(world)]
     t0 = time.perf_counter()
@@ -5787,8 +5858,8 @@ def dist_world(world: int, tmp: str) -> list:
             p.wait()
         for f in logs:
             f.close()
-    print(f"dist: {world} ranks took {time.perf_counter() - t0:.1f} s; rank 0 "
-          "printed:", flush=True)
+    print(f"dist: {world} ranks of job {job} took "
+          f"{time.perf_counter() - t0:.1f} s; rank 0 printed:", flush=True)
     print((Path(tmp) / "rank0.log").read_text().rstrip(), flush=True)
     if bad or late:
         r = bad[0] if bad else 0
@@ -5860,7 +5931,809 @@ def dist_phase(social_343, counters):
     return {"counts": counts, "tune_counts": tune_counts, "worst": worst}
 
 
+# ---------------------------------------------------------------------------
+# Expert parallelism and data parallelism over gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: The expert-parallel worlds: ranks -> the model-parallel sizes of the
+#: (data, model) meshes the world serves on, in turn: (1, 2); then (1, 4)
+#: and (2, 2).  The collective tuner runs on the meshes of DIST_MOE_TUNE.
+DIST_MOE_WORLDS = {2: (2,), 4: (4, 2)}
+DIST_MOE_TUNE = ((1, 2), (2, 2))
+#: Decode steps after each prefill, fed the one-rank model's greedy tokens.
+DIST_MOE_DECODE = 3
+#: The model-axis sizes whose combine one process can reproduce: gloo
+#: adds two partials alike in either order, four in an order of its own.
+#: Meshes with these hold their end-to-end logits to the one-rank answer
+#: in their arithmetic; every mesh holds its MoE layer alone.
+DIST_MOE_EXACT_AXES = (2,)
+#: The data-parallel trainer's worlds: ranks -> model-parallel size, (2, 2)
+#: then (2, 1); the first writes a whole checkpoint.  Its cut (PERF.md §4):
+#: full width, LM_LAYERS layers, DIST_TRAIN_EXPERTS experts (top-8 kept)
+#: at a no-drop capacity; batch DIST_TRAIN_BATCH x DIST_TRAIN_SEQ.
+DIST_TRAIN_WORLDS = {4: 2, 2: 1}
+DIST_TRAIN_EXPERTS, DIST_TRAIN_BATCH, DIST_TRAIN_SEQ = 16, 4, 256
+DIST_TRAIN_STEPS, DIST_TRAIN_CKPT = 3, 4
+#: Width overrides of both configurations, for a rehearsal on the CPU
+#: only; empty on the card.
+DIST_MOE_CUT = {}
+
+
+def dist_moe_config():
+    """Qwen3-MoE at full width cut to MOE_LAYERS layers: the moe_serve
+    phase's model."""
+    from repro_torch.configs import get_config
+
+    return get_config(MOE_ARCH).scaled(n_layers=MOE_LAYERS, **DIST_MOE_CUT)
+
+
+def dist_train_config():
+    """The data-parallel trainer's model: full width, LM_LAYERS layers,
+    DIST_TRAIN_EXPERTS experts, capacity E / k (no token dropped)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH).scaled(**DIST_MOE_CUT).scaled(
+        n_layers=LM_LAYERS, n_experts=DIST_TRAIN_EXPERTS)
+    return cfg.scaled(capacity_factor=cfg.n_experts / cfg.experts_per_token)
+
+
+def param_reckoning(cfg, mp) -> tuple:
+    """(expert bytes a rank holds on a model axis of ``mp``, the rest's
+    bytes, the embedding's, the attention's): bf16 weights, an f32
+    router."""
+    d, f, e, n = cfg.d_model, cfg.moe_d_ff, cfg.n_experts, cfg.n_layers
+    experts = n * 3 * e * d * f * 2 // mp
+    embed = cfg.vocab_size * d * 2
+    attn = n * (2 * d * cfg.attn_dim + 2 * d * cfg.kv_dim) * 2
+    rest = embed + attn + n * d * e * 4
+    return experts, rest, embed, attn
+
+
+def world_ms(fn, iters: int = DIST_ITERS) -> float:
+    """ms of one call of ``fn`` that every rank of the world makes
+    (``tune.measure.spmd_time`` over the world: a barrier before each
+    window, CUDA events on the card, the median of ``iters`` windows
+    after one warm-up call, the largest over the ranks)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import MeshAxis
+    from repro_torch.tune import spmd_time
+
+    world = MeshAxis("world", dist.get_world_size(), dist.get_rank(),
+                     dist.group.WORLD)
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    return spmd_time(fn, axis=world, device=dev, warmup=1, iters=iters) * 1e3
+
+
+class RankOrderCombine:
+    """While active, the MoE layers of one process sum their combine as
+    the expert-parallel ranks of a model axis of ``m`` do: each of the m
+    blocks of E / m experts combined alone in f32, the partials added in
+    rank order (``models.moe._expert_ffn`` wrapped).  The math is the
+    single-shard model's; only the f32 order of each token's sum over its
+    experts moves, which at full width flips the top-8 of tokens whose
+    8th and 9th gates are within that rounding, so the expert-parallel
+    ranks' logits are held to this answer (:func:`dist_moe_reference`)
+    and its distance from the plain one-rank answer is printed beside."""
+
+    def __init__(self, m: int):
+        self.m = m
+
+    def __enter__(self):
+        from repro_torch.models import moe as tmoe
+
+        self._mod, self._orig = tmoe, tmoe._expert_ffn
+        orig, m = self._orig, self.m
+
+        def ffn(cfg, x, wg, wi, wo, gates, cap, use_kernel, dispatch=None,
+                combine="sum"):
+            e = wg.shape[0] // m
+            total = None
+            for i in range(m):
+                sl = slice(i * e, (i + 1) * e)
+                part = orig(cfg, x, wg[sl], wi[sl], wo[sl], gates[:, sl],
+                            cap, use_kernel, dispatch, combine)
+                total = part if total is None else total + part
+            return total
+
+        tmoe._expert_ffn = ffn
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._expert_ffn = self._orig
+
+
+def dist_moe_shapes() -> list:
+    """The (data, model) meshes the expert-parallel worlds serve on."""
+    return [(world // mp, mp) for world, mps in sorted(
+        DIST_MOE_WORLDS.items()) for mp in mps]
+
+
+def dist_moe_reference(cfg, params, dev, tmp):
+    """The one-rank answers the expert-parallel ranks are held to, saved
+    to ``tmp/moe_ref.pt``, all of the moe_serve model (its parameters
+    ``params``) under a no-drop dispatch (capacity factor E / k, so
+    every expert takes every token routed to it):
+
+    - layer 0's MoE on the prompts' layer-0 MoE input, plain: every
+      mesh's MoE layer is held to it per element;
+    - a prefill of MOE_SLOTS of the phase's prompts and DIST_MOE_DECODE
+      greedy decode steps, plain, and for each mesh the same computed as
+      its ranks compute it in one process: its combine in the rank order
+      of its model axis (:class:`RankOrderCombine`) and each data block
+      of prompts a batch of its own, fed the plain answer's greedy
+      tokens.  The logits (f32, on the host), the tokens each decode step
+      was fed and the greedy tokens.
+
+    Prints how far each mesh's answer lies from the plain one and how
+    many tokens took another top-8 in each MoE call."""
+    import numpy as np
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.models import moe as tmoe
+
+    nodrop = cfg.scaled(capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    api = get_model(nodrop)
+    prompts = moe_prompts(cfg)[:MOE_SLOTS]
+    tokens = torch.as_tensor(np.stack(prompts), dtype=torch.int64,
+                             device=dev)
+    x0 = layer0_moe_input(cfg, params, prompts, dev)
+    out0, _ = tmoe.apply_moe(nodrop, params["layers"][0]["moe"], x0,
+                             device=dev)
+    route, routes = tmoe._route, []
+
+    def recorded(cfg_, x, router):
+        gates, probs = route(cfg_, x, router)
+        routes.append((gates > 0).cpu())
+        return gates, probs
+
+    def answer(rows, feed=None):
+        routes.clear()
+        logits, cache = api.prefill(params, {"tokens": tokens[rows]},
+                                    MOE_MAX_LEN)
+        out = {"logits": [logits.float().cpu()],
+               "next": [logits.argmax(-1).cpu()], "fed": []}
+        for i in range(DIST_MOE_DECODE):
+            step = out["next"][-1] if feed is None else feed["next"][i][rows]
+            out["fed"].append(step)
+            logits, cache = api.decode_step(params, cache, step.to(dev))
+            out["logits"].append(logits.float().cpu())
+            out["next"].append(logits.argmax(-1).cpu())
+        out["routes"] = list(routes)
+        return out
+
+    def joined(parts):
+        return {k: [torch.cat(v) for v in zip(*(p[k] for p in parts))]
+                for k in parts[0]}
+
+    tmoe._route = recorded
+    try:
+        plain = answer(slice(None))
+        refs = {}
+        for nd, mp in dist_moe_shapes():
+            b = tokens.shape[0] // nd
+            with RankOrderCombine(mp):
+                refs[(nd, mp)] = joined([answer(slice(i * b, (i + 1) * b),
+                                                plain) for i in range(nd)])
+    finally:
+        tmoe._route = route
+    for shape, r in refs.items():
+        errs = [rel_l2(a, b) for a, b in zip(r["logits"], plain["logits"])]
+        flips = [int((a != b).any(-1).sum())
+                 for a, b in zip(r["routes"], plain["routes"])]
+        same = [bool(torch.equal(a, b)) for a, b in zip(r["next"],
+                                                        plain["next"])]
+        print(f"dist moe: the one-rank answer as mesh {shape} computes it "
+              f"(combine in rank order of {shape[1]}, {shape[0]} data "
+              "block(s)) against the plain one-rank answer: logits relative "
+              "L2 " + ", ".join(f"{e:.3e}" for e in errs)
+              + f"; greedy tokens equal {same}; tokens with another top-8, "
+              f"per MoE call {flips}", flush=True)
+    for r in [plain, *refs.values()]:
+        r.pop("routes")
+    torch.save({"tokens": tokens.cpu(), "plain": plain, "meshes": refs,
+                "x0": x0.cpu(), "out0": out0.cpu()},
+               Path(tmp) / "moe_ref.pt")
+    print(f"dist moe: the one-rank answers at capacity factor "
+          f"{nodrop.capacity_factor:g} (no drop): layer 0's MoE on "
+          f"{tuple(x0.shape)} tokens, a prefill of {tuple(tokens.shape)} "
+          f"and {DIST_MOE_DECODE} greedy decode steps saved for the ranks",
+          flush=True)
+    del x0, out0
+    torch.cuda.empty_cache()
+
+
+def dist_moe_rank(rank, world, tmp, dev, counters, res):
+    """One rank of an expert-parallel world (job 'moe'): on each of its
+    meshes it draws the moe_serve model from SEED, leaf by leaf, keeping
+    its expert block (``init_params(mesh=)``); checks the grouped matmul
+    (row 7) on its first layer at its prefill's capacity; prefills the
+    reference's prompts and decodes DIST_MOE_DECODE steps on its token
+    block (the global batch in, the rank's block out) under 'nnz_ar' and
+    'nnz_rs' at the no-drop dispatch, each step's logits within
+    LOGIT_REL_L2 of the one-rank model's and its greedy tokens equal,
+    and the bytes handed to the combine equal to T_loc x D x 4 (1/M of
+    that under 'nnz_rs') a layer; times prefill and a decode step at the
+    default dispatch; on DIST_MOE_TUNE's meshes runs
+    ``moe_tune_collective`` and its replay."""
+    import torch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.moe import (ShardingCtx, _capacity,
+                                        moe_tune_collective)
+    from repro_torch.tune import ScheduleCache
+    from repro_torch.tune.moe import MoeDispatchSchedule, moe_schedule_key
+
+    cfg = dist_moe_config()
+    api = get_model(cfg)
+    refs = torch.load(Path(tmp) / "moe_ref.pt")
+    tokens = refs["tokens"].to(dev)
+    x0, out0 = refs["x0"].to(dev), refs["out0"].to(dev)
+    nodrop = cfg.n_experts / cfg.experts_per_token
+    res.update(meshes=[], worst={"grouped_matmul": 0.0})
+
+    def counted(key, fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        for n, c in counters.items():
+            res[key][n] += c.launches
+        return out
+
+    for mp in DIST_MOE_WORLDS[world]:
+        mesh = make_local_mesh(mp, device=dev)
+        shape = (world // mp, mp)
+        d_ax, m_ax = mesh.axis("data"), mesh.axis("model")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = api.init(torch.Generator(device=dev).manual_seed(SEED),
+                          device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        row = {"mesh": list(shape), "draw_s": time.perf_counter() - t0,
+               "held": sum(t.numel() * t.element_size()
+                           for t in tree_leaves(params)), "modes": []}
+        print(f"rank {rank} mesh {shape}: coordinates (data {d_ax.index}, "
+              f"model {m_ax.index}), {row['held'] / 1e9:.2f} GB held, "
+              f"drawn in {row['draw_s']:.1f} s", flush=True)
+        b_loc = tokens.shape[0] // shape[0]
+        t_loc = b_loc * tokens.shape[1]
+        gen = torch.Generator(device=dev).manual_seed(SEED + 8 + rank)
+        tile = min(_capacity(cfg, t_loc), 128)
+        worst = check_grouped_matmul(gmm_role_cases(
+            params["layers"][0]["moe"], gen, f"rank {rank} {shape} prefill",
+            tile, tile))
+        res["worst"]["grouped_matmul"] = max(res["worst"]["grouped_matmul"],
+                                             worst["grouped_matmul"])
+        mine = slice(d_ax.index * b_loc, (d_ax.index + 1) * b_loc)
+        ref, plain_ref = refs["meshes"][shape], refs["plain"]
+        held = mp in DIST_MOE_EXACT_AXES
+        for mode in ("nnz_ar", "nnz_rs"):
+            def ctx_at(cf, mode=mode):
+                return ShardingCtx(mesh=mesh, data_axes=("data",),
+                                   model_axis="model",
+                                   moe_dispatch=MoeDispatchSchedule(
+                                       capacity_factor=cf, collective=mode))
+
+            ctx = ctx_at(nodrop)
+            # the MoE layer alone on layer 0's input: the rank's block of
+            # tokens (its slice of them under nnz_rs) against the one-rank
+            # layer, per element
+            t0_loc = x0.shape[0] // shape[0]
+            x_blk = x0[d_ax.index * t0_loc:(d_ax.index + 1) * t0_loc]
+            want0 = out0[d_ax.index * t0_loc:(d_ax.index + 1) * t0_loc]
+            if mode == "nnz_rs":
+                n = t0_loc // mp
+                want0 = want0[m_ax.index * n:(m_ax.index + 1) * n]
+            got0, _ = tmoe.apply_moe(cfg, params["layers"][0]["moe"], x_blk,
+                                     ctx, dispatch=ctx.moe_dispatch,
+                                     device=dev)
+            layer_err, layer_tol, layer_ok = compare(got0, want0)
+            del got0
+            with ByteSpy() as spy:
+                logits, cache = counted("counts", lambda: api.prefill(
+                    params, {"tokens": tokens}, MOE_MAX_LEN, ctx))
+            got = [logits]
+            for i in range(DIST_MOE_DECODE):
+                logits, cache = counted("counts", lambda: api.decode_step(
+                    params, cache, ref["fed"][i].to(dev), ctx))
+                got.append(logits)
+            errs = [rel_l2(g, ref["logits"][i][mine].to(dev))
+                    for i, g in enumerate(got)]
+            same = all(torch.equal(g.argmax(-1).cpu(), ref["next"][i][mine])
+                       for i, g in enumerate(got))
+            bits = all(torch.equal(g.float().cpu(), ref["logits"][i][mine])
+                       for i, g in enumerate(got))
+            plain = [rel_l2(g, plain_ref["logits"][i][mine].to(dev))
+                     for i, g in enumerate(got)]
+            combine = (cfg.n_layers * t_loc * cfg.d_model * 4
+                       // (mp if mode == "nnz_rs" else 1))
+            aux = 4 * cfg.n_layers * sum(ax.size > 1 for ax in (d_ax, m_ax))
+            handed = (spy.bytes["reduce_scatter"] if mode == "nnz_rs"
+                      else spy.bytes["all_reduce"] - aux)
+            bytes_ok = handed == combine and spy.bytes["all_reduce"] == (
+                aux + (combine if mode == "nnz_ar" else 0))
+            del got, cache
+            ctx_d = ctx_at(cfg.capacity_factor)
+            prefill_ms = world_ms(lambda: api.prefill(
+                params, {"tokens": tokens}, MOE_MAX_LEN, ctx_d))
+            _, cache_d = api.prefill(params, {"tokens": tokens}, MOE_MAX_LEN,
+                                     ctx_d)
+            step = ref["fed"][0].to(dev)
+            decode_ms = world_ms(lambda: api.decode_step(params, cache_d, step,
+                                                         ctx_d))
+            del cache_d
+            ok = layer_ok and bytes_ok and (
+                not held or (max(errs) <= LOGIT_REL_L2 and same))
+            row["modes"].append({
+                "mode": mode, "rel_l2": errs, "tokens_equal": same,
+                "bits": bits, "plain_rel_l2": plain, "held": held,
+                "layer_err": layer_err, "layer_tol": layer_tol,
+                "combine_bytes": handed, "predicted": combine,
+                "spy": dict(spy.bytes), "prefill_ms": prefill_ms,
+                "decode_ms": decode_ms, "t_loc": t_loc, "ok": ok})
+            print(f"rank {rank} mesh {shape} {mode}: layer 0's MoE against "
+                  f"the one-rank layer max_abs_err {layer_err:.3e} (tol "
+                  f"{layer_tol}); logits ({'held' if held else 'printed'}) "
+                  f"against the one-rank answer as this mesh computes it: "
+                  "relative L2 "
+                  + ", ".join(f"{e:.3e}" for e in errs)
+                  + f" (tol {LOGIT_REL_L2:.3e}), bit for bit {bits}, greedy "
+                  f"tokens equal {same}; against the plain one-rank answer "
+                  + ", ".join(f"{e:.3e}" for e in plain) + "; "
+                  f"combine bytes {handed} (predicted {combine}; spy "
+                  f"{dict(spy.bytes)}); prefill {prefill_ms:.4f} ms, "
+                  f"decode step {decode_ms:.4f} ms at capacity factor "
+                  f"{cfg.capacity_factor:g}", flush=True)
+            if not ok:
+                res["failures"].append(f"moe {shape} {mode}")
+        if shape in DIST_MOE_TUNE:
+            x = torch.randn(t_loc, cfg.d_model, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            ctx_t = ShardingCtx(mesh=mesh, data_axes=("data",),
+                                model_axis="model")
+            path = Path(tmp) / f"moe_tune_{shape[0]}x{shape[1]}.json"
+            t0 = time.perf_counter()
+            tuned = counted("tune_counts", lambda: moe_tune_collective(
+                cfg, params["layers"][0]["moe"], x, ctx_t,
+                cache=ScheduleCache(path), warmup=1, iters=DIST_TUNE_ITERS))
+            seconds = time.perf_counter() - t0
+
+            def boom(s):
+                raise AssertionError("a replay measured")
+
+            again = moe_tune_collective(cfg, params["layers"][0]["moe"], x,
+                                        ctx_t, cache=ScheduleCache(path),
+                                        measure=boom)
+            row["tune"] = {"pick": moe_schedule_key(tuned.schedule),
+                           "key": tuned.key, "measured": tuned.measured,
+                           "seconds": seconds,
+                           "replay": [again.from_cache, again.n_measurements,
+                                      moe_schedule_key(again.schedule)]}
+        row["peak"] = torch.cuda.max_memory_allocated()
+        res["meshes"].append(row)
+        del params
+        torch.cuda.empty_cache()
+
+
+def dist_train_batches(cfg):
+    """The trainer's first DIST_TRAIN_STEPS global batches of the token
+    stream (seed SEED), the same on every rank."""
+    from repro_torch.data.synthetic import ShardedTokenStream
+
+    it = iter(ShardedTokenStream(cfg.vocab_size, DIST_TRAIN_SEQ,
+                                 DIST_TRAIN_BATCH, seed=SEED))
+    return [next(it) for _ in range(DIST_TRAIN_STEPS)]
+
+
+def dist_train_lr(cfg) -> float:
+    return LM_LR * LM_REFERENCE_WIDTH / cfg.d_model
+
+
+def first_step_grads(api, params, batch, ctx, dev):
+    """The loss and every gradient (by path) of one batch, as the
+    data-parallel step takes them: under ``ctx`` each rank's gradient of
+    its block averaged over the data axis (``reduce_grads``)."""
+    import torch
+    from repro_torch.core.tree import tree_leaves, tree_unflatten
+    from repro_torch.train.train_step import reduce_grads
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    loss = api.loss(params, batch, ctx)
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    grads = tree_unflatten(params, list(grads))
+    if ctx is not None:
+        grads = reduce_grads(ctx, grads)
+    return float(loss.detach()), _param_leaves(grads)
+
+
+def rank_gmm_backward_check(moe, dev, label):
+    """Row 7b on a rank's expert block: dx through the transposed read of
+    wg and dW of its tokens, on up to four of the block's experts at two
+    tiles of LM_TILE rows each, against the plain versions per element
+    within K_TERMS units of 2^-24 of the terms entering each output."""
+    import torch
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import grouped_matmul_dw as gmd
+
+    checker = Checker(("grouped_matmul_dx", "grouped_matmul_dw"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    w = moe["wg"][:4]
+    e, tt = w.shape[0], LM_TILE
+    te = torch.arange(e, dtype=torch.int32, device=dev).repeat_interleave(2)
+    dz = torch.randn(e * 2 * tt, w.shape[2], generator=gen, device=dev)
+    got = gm.grouped_matmul(dz, te, w, token_tile=tt, f_tile=w.shape[1],
+                            d_tile=w.shape[2], w_trans=True)
+    checker.record_terms(
+        "grouped_matmul_dx", f"{label} dx wg ({dz.shape[0]} rows)", got,
+        gm.grouped_matmul_plain(dz, te, w, token_tile=tt, w_trans=True),
+        gm.grouped_matmul_plain(dz.abs(), te, w.float().abs(),
+                                token_tile=tt, w_trans=True))
+    x = torch.randn(dz.shape[0], w.shape[1], generator=gen,
+                    device=dev).to(torch.bfloat16)
+    kw = dict(w_dtype=torch.float32, token_tile=tt,
+              bias_dtype=torch.float32)
+    got, _ = gmd.grouped_matmul_dw(x, dz, te, e, **kw)
+    want, _ = gmd.grouped_matmul_dw_plain(x, dz, te, e, **kw)
+    terms, _ = gmd.grouped_matmul_dw_plain(x.float().abs(), dz.abs(), te, e,
+                                           **kw)
+    checker.record_terms("grouped_matmul_dw",
+                         f"{label} dW wg ({dz.shape[0]} rows)", got, want,
+                         terms)
+    return checker.done()
+
+
+def dist_train_reference(dev, tmp):
+    """The one-process run the data-parallel ranks are held to, at the
+    trainer's cut on the whole batch: the first batch's loss and every
+    gradient (saved to ``tmp/train_grads.pt`` for the ranks), then
+    DIST_TRAIN_STEPS ``Trainer`` steps; returns the losses, the step ms
+    and the final parameters on the host."""
+    import tempfile
+
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import AdamW, constant_schedule
+    from repro_torch.train.train_step import TrainState
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dist_train_config()
+    api = get_model(cfg)
+    batches = dist_train_batches(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED),
+                      device=dev)
+    loss0, grads = first_step_grads(api, params, batches[0], None, dev)
+    torch.save({n: g.cpu() for n, g in grads}, Path(tmp) / "train_grads.pt")
+    del grads
+    opt = AdamW(lr=constant_schedule(dist_train_lr(cfg)), weight_decay=0.0)
+    with tempfile.TemporaryDirectory() as ckpt:
+        tr = one_host(Trainer(api, opt, iter(batches), ckpt_dir=ckpt,
+                              tcfg=TrainerConfig(
+                                  total_steps=DIST_TRAIN_STEPS,
+                                  ckpt_every=DIST_TRAIN_STEPS + 1,
+                                  log_every=DIST_TRAIN_STEPS + 1),
+                              device=dev))
+        state = tr.run(TrainState(params=params, opt=opt.init(params)))
+    out = {"losses": tr.losses().tolist(), "loss0": loss0,
+           "step_ms": [h["dt_s"] * 1e3 for h in tr.history],
+           "params": {n: t.cpu() for n, t in _param_leaves(state.params)},
+           "peak": torch.cuda.max_memory_allocated()}
+    del state, params, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_train_rank(rank, world, tmp, dev, counters, res):
+    """One rank of a data-parallel world (job 'train'): the trainer's cut
+    on a (2, world / 2) mesh drawn from SEED (its expert block kept); the
+    first batch's gradients, reduced over the data axis, against the
+    one-process run's within LM_GRAD_REL_L2 relative L2 (an expert leaf
+    against its block); row 7b on its expert block; then
+    DIST_TRAIN_STEPS ``Trainer`` steps on the global batches (the counts
+    zeroed just before, read just after), the DIST_TRAIN_CKPT world
+    writing a whole checkpoint at the end."""
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models.moe import ShardingCtx
+    from repro_torch.train.optimizer import AdamW, constant_schedule
+    from repro_torch.train.train_step import TrainState
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dist_train_config()
+    api = get_model(cfg)
+    mp = DIST_TRAIN_WORLDS[world]
+    mesh = make_local_mesh(mp, device=dev)
+    ctx = ShardingCtx(mesh=mesh, data_axes=("data",), model_axis="model")
+    m = mesh.axis("model").index
+    batches = dist_train_batches(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED),
+                      device=dev, mesh=mesh)
+    loss0, grads = first_step_grads(api, params, batches[0], ctx, dev)
+    want = torch.load(Path(tmp) / "train_grads.pt")
+    errs = {}
+    for name, g in grads:
+        w = want[name]
+        if "/moe/w" in name:
+            n = w.shape[0] // mp
+            w = w[m * n:(m + 1) * n]
+        errs[name] = rel_l2(g, w.to(dev))
+    del grads, want
+    torch.cuda.empty_cache()
+    worst = max(errs.values())
+    print(f"rank {rank} mesh {(world // mp, mp)}: first-step loss {loss0:.6f}"
+          f"; gradients against the one-process run: worst relative L2 "
+          f"{worst:.3e} at {max(errs, key=errs.get)} (tol "
+          f"{LM_GRAD_REL_L2:.3e})", flush=True)
+    if not worst <= LM_GRAD_REL_L2:
+        res["failures"].append(f"train gradients {errs}")
+    res["worst"] = rank_gmm_backward_check(params["layers"][0]["moe"], dev,
+                                           f"rank {rank}")
+    opt = AdamW(lr=constant_schedule(dist_train_lr(cfg)), weight_decay=0.0)
+    every = (DIST_TRAIN_STEPS if world == DIST_TRAIN_CKPT
+             else DIST_TRAIN_STEPS + 1)
+    tr = one_host(Trainer(api, opt, iter(batches),
+                          ckpt_dir=Path(tmp) / "ckpt",
+                          tcfg=TrainerConfig(total_steps=DIST_TRAIN_STEPS,
+                                             ckpt_every=every, log_every=1),
+                          ctx=ctx, device=dev))
+    step_fn, step_ms = tr.step_fn, []
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    tr.step_fn = timed
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    state = tr.run(TrainState(params=params, opt=opt.init(params)))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    res["counts"] = {n: c.launches for n, c in counters.items()}
+    res["crc"] = {n: block_crc(t) for n, t in _param_leaves(state.params)}
+    res.update(losses=tr.losses().tolist(), loss0=loss0, step_ms=step_ms,
+               model_index=m,
+               run_s=run_s, grad_rel_l2=worst,
+               peak=torch.cuda.max_memory_allocated(),
+               mesh=[world // mp, mp],
+               expert_block=list(state.params["layers"][0]["moe"][
+                   "wg"].shape))
+    del state, params
+
+
+def block_crc(t) -> int:
+    """crc32 of a tensor's bytes (its bits, whatever its type)."""
+    import zlib
+
+    import torch
+
+    t = t.detach().contiguous().cpu()
+    return zlib.crc32(t.view(torch.uint8).numpy().tobytes() if t.numel()
+                      else b"")
+
+
+def dist_ep_rank(job, rank, world, tmp):
+    """A rank of an expert-parallel ('moe') or data-parallel ('train')
+    world on the card's gloo group; writes ``tmp/rank<R>.json``, exits 1
+    on a failed check."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import grouped_matmul_dw as gmd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), world), rank=rank, world_size=world)
+    counters = {"grouped_matmul": gm.KERNEL, "grouped_matmul_dx": gm.TRANS,
+                "grouped_matmul_dw": gmd.KERNEL}
+    res = {"rank": rank, "world": world, "job": job, "failures": [],
+           "counts": dict.fromkeys(counters, 0),
+           "tune_counts": dict.fromkeys(counters, 0)}
+    (dist_moe_rank if job == "moe" else dist_train_rank)(
+        rank, world, tmp, dev, counters, res)
+    (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+    if res["failures"]:
+        print(f"rank {rank}: failed {res['failures']}", flush=True)
+        sys.exit(1)
+
+
+def dist_moe_phase(tmp, counters, dev):
+    """Expert parallelism and data parallelism on gloo ranks sharing the
+    card (after the parent freed its MoE model): the serving worlds of
+    DIST_MOE_WORLDS against ``tmp/moe_ref.pt``, the collective tuner on
+    DIST_MOE_TUNE's meshes (every rank the same pick, a replay measuring
+    nothing), then the one-process trainer run and the trainer worlds of
+    DIST_TRAIN_WORLDS against it (losses within LM_LOSS_REL relative),
+    and the whole checkpoint the (2, 2) world wrote restored here.
+    Returns the ranks' launches (serving, training, tuner) and worst
+    errors."""
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.train.optimizer import AdamState
+    from repro_torch.train.train_step import TrainState
+
+    t0 = time.perf_counter()
+    out = {k: dict.fromkeys(counters, 0) for k in ("serve", "tune", "train")}
+    worst = {}
+    cfg = dist_moe_config()
+    draw = cfg.n_experts * cfg.d_model * cfg.moe_d_ff * 4
+    for mp in sorted({mp for mps in DIST_MOE_WORLDS.values() for mp in mps}):
+        experts, rest, embed, attn = param_reckoning(cfg, mp)
+        print(f"dist moe: {cfg.name} at full width, {cfg.n_layers} layers, "
+              f"model axis {mp}: a rank holds experts "
+              f"{experts / 1e9:.2f} GB (of {experts * mp / 1e9:.2f}) and the "
+              f"replicated rest {rest / 1e9:.2f} GB (embedding "
+              f"{embed / 1e9:.3f}, attention {attn / 1e9:.3f}), "
+              f"{(experts + rest) / 1e9:.2f} GB, plus one f32 draw of an "
+              f"expert leaf ({draw / 1e9:.2f} GB) while it is drawn",
+              flush=True)
+    for world in sorted(DIST_MOE_WORLDS):
+        ranks = dist_world(world, tmp, "moe")
+        for r in ranks:  # the ranks count the grouped matmul's kernels
+            for n, c in r["counts"].items():
+                out["serve"][n] += c
+            for n, c in r["tune_counts"].items():
+                out["tune"][n] += c
+            for n, e in r["worst"].items():
+                worst[n] = max(worst.get(n, 0.0), e)
+        for i, row in enumerate(ranks[0]["meshes"]):
+            shape = tuple(row["mesh"])
+            peaks = [r["meshes"][i]["peak"] / 1e9 for r in ranks]
+            held = [r["meshes"][i]["held"] / 1e9 for r in ranks]
+            print(f"dist moe mesh {shape}: held per rank "
+                  + ", ".join(f"{h:.2f}" for h in held)
+                  + " GB, max_memory_allocated per rank "
+                  + ", ".join(f"{p:.2f}" for p in peaks) + " GB", flush=True)
+            for j, mrow in enumerate(row["modes"]):
+                modes = [r["meshes"][i]["modes"][j] for r in ranks]
+                errs = max(e for mm in modes for e in mm["rel_l2"])
+                plain = max(e for mm in modes for e in mm["plain_rel_l2"])
+                layer = max(mm["layer_err"] for mm in modes)
+                print(f"dist moe mesh {shape} {mrow['mode']}: prefill "
+                      f"{mrow['prefill_ms']:.4f} ms, decode step "
+                      f"{mrow['decode_ms']:.4f} ms (CUDA events, the largest "
+                      f"over the ranks, a barrier before each window; "
+                      f"capacity factor {cfg.capacity_factor:g}); combine "
+                      f"bytes a prefill {mrow['combine_bytes']} (T_loc "
+                      f"{mrow['t_loc']} x D x 4 x {cfg.n_layers} layers"
+                      f"{' / M' if mrow['mode'] == 'nnz_rs' else ''}); at no "
+                      f"drop layer 0's MoE within {layer:.3e} of the one-rank "
+                      f"layer ({mrow['layer_tol']}) on every rank; logits "
+                      f"within {errs:.3e} relative L2 of the one-rank answer "
+                      f"as this mesh computes it ("
+                      + ("held: tol " + f"{LOGIT_REL_L2:.3e}, greedy tokens "
+                         "equal, bit for bit "
+                         f"{all(mm['bits'] for mm in modes)}"
+                         if mrow["held"] else "printed: gloo sums four "
+                         "partials in an order of its own")
+                      + f"), {plain:.3e} of the plain one-rank answer",
+                      flush=True)
+            if "tune" in row:
+                t = row["tune"]
+                for key, us in t["measured"].items():
+                    print(f"  dist moe tune point {key}: {us:.1f} us",
+                          flush=True)
+                print(f"dist moe tune {shape}: {t['key']}: pick {t['pick']} "
+                      f"in {t['seconds']:.1f} s; replay {t['replay']}",
+                      flush=True)
+                for r in ranks:
+                    rt = r["meshes"][i]["tune"]
+                    if rt["pick"] != t["pick"] or rt["replay"] != [
+                            True, 0, t["pick"]]:
+                        fail(f"dist moe tune {shape}: rank {r['rank']} "
+                             f"picked {rt['pick']}, replayed {rt['replay']}; "
+                             f"rank 0 {t['pick']}")
+    t1 = time.perf_counter()
+    cfg_t = dist_train_config()
+    ref = dist_train_reference(dev, tmp)
+    full = param_reckoning(cfg_t.scaled(n_experts=cfg.n_experts), 2)
+    cut = param_reckoning(cfg_t, 2)
+    print(f"dist train: {cfg_t.name} at full width, {cfg_t.n_layers} layer, "
+          f"cut from {cfg.n_experts} to {cfg_t.n_experts} experts (top-"
+          f"{cfg_t.experts_per_token} kept) at capacity factor "
+          f"{cfg_t.capacity_factor:g}: at {cfg.n_experts} experts a rank of "
+          f"(2, 2) would hold {sum(full[:2]) / 2 / 1e9:.2f} G parameters, "
+          f"{sum(full[:2]) / 2 * 14 / 1e9:.1f} GB at 14 bytes a parameter, "
+          f"{sum(full[:2]) / 2 * 14 * 4 / 1e9:.1f} GB for four ranks on one "
+          f"card; at {cfg_t.n_experts} {sum(cut[:2]) / 2 / 1e9:.2f} G; batch "
+          f"{DIST_TRAIN_BATCH} x {DIST_TRAIN_SEQ}, lr "
+          f"{dist_train_lr(cfg_t):.4g}; one process: losses "
+          + ", ".join(f"{x:.6f}" for x in ref["losses"])
+          + ", steps " + ", ".join(f"{x:.1f}" for x in ref["step_ms"])
+          + f" ms (host clock), peak {ref['peak'] / 1e9:.2f} GB; the parent "
+          f"holds {torch.cuda.memory_allocated() / 1e9:.2f} GB while the "
+          "ranks run", flush=True)
+    for world in sorted(DIST_TRAIN_WORLDS, reverse=True):
+        ranks = dist_world(world, tmp, "train")
+        rel = 0.0
+        for r in ranks:
+            for n, c in r["counts"].items():
+                out["train"][n] += c
+            for n, e in r["worst"].items():
+                worst[n] = max(worst.get(n, 0.0), e)
+            rel = max([rel] + [abs(a - b) / abs(b) for a, b in
+                               zip(r["losses"], ref["losses"])])
+            if not rel <= LM_LOSS_REL:
+                fail(f"dist train: rank {r['rank']} of {world} losses "
+                     f"{r['losses']} against one process {ref['losses']}")
+        lead = ranks[0]
+        step_ms = [max(r["step_ms"][i] for r in ranks)
+                   for i in range(DIST_TRAIN_STEPS)]
+        print(f"dist train mesh {tuple(lead['mesh'])}: losses "
+              + ", ".join(f"{x:.6f}" for x in lead["losses"])
+              + f" (within {rel:.3e} of one process, tol {LM_LOSS_REL:.3e}); "
+              "steps " + ", ".join(f"{x:.1f}" for x in step_ms)
+              + " ms (host clock after a synchronize, the largest over the "
+              "ranks; the gradients' all-reduce runs through gloo on the "
+              f"host); first-step gradients worst relative L2 "
+              f"{max(r['grad_rel_l2'] for r in ranks):.3e}; expert block "
+              f"{lead['expert_block']}; max_memory_allocated per rank "
+              + ", ".join(f"{r['peak'] / 1e9:.2f}" for r in ranks)
+              + f" GB; launches {out['train']}", flush=True)
+        if world == DIST_TRAIN_CKPT:
+            writers = ranks
+    like = ref["params"]  # by path: the keys the checkpoint's tree gives
+    state, step = CheckpointManager(Path(tmp) / "ckpt").restore(TrainState(
+        params=like, opt=AdamState(step=torch.zeros((), dtype=torch.int32),
+                                   mu=like, nu=like)))
+    shapes = all(tuple(state.params[n].shape) == tuple(w.shape)
+                 for n, w in ref["params"].items())
+    mp = DIST_TRAIN_WORLDS[DIST_TRAIN_CKPT]
+    differ = []
+    for r in writers:  # each rank's blocks of the whole leaves, bit for bit
+        for n, t in state.params.items():
+            if "/moe/w" in n:
+                k = t.shape[0] // mp
+                t = t[r["model_index"] * k:(r["model_index"] + 1) * k]
+            if block_crc(t) != r["crc"][n]:
+                differ.append(f"rank {r['rank']} {n}")
+    same = not differ
+    whole = rel_l2(torch.cat([t.float().reshape(-1)
+                              for t in state.params.values()]),
+                   torch.cat([w.float().reshape(-1)
+                              for w in ref["params"].values()]))
+    print(f"dist train: the (2, 2) world's whole checkpoint (step {step}) "
+          f"restored in one process: every leaf whole {shapes}, each "
+          f"rank's blocks bit for bit {same}; the parameters within "
+          f"{whole:.3e} relative L2 of the one-process run's (tol "
+          f"{LM_GRAD_REL_L2:.3e}); trainer worlds "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    if not (shapes and same and step == DIST_TRAIN_STEPS
+            and whole <= LM_GRAD_REL_L2):
+        fail(f"dist train: the restored checkpoint disagrees with the ranks "
+             f"({differ[:8]}) or with the one-process run")
+    print(f"dist moe: phase {time.perf_counter() - t0:.1f} s; launches over "
+          f"the ranks: serving {out['serve']}, training {out['train']}, "
+          f"tuner {out['tune']}", flush=True)
+    return {"counts": out["serve"], "train_counts": out["train"],
+            "tune_counts": out["tune"], "worst": worst}
+
+
 def main() -> None:
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -5951,6 +6824,8 @@ def main() -> None:
                          else ("spmm_rb", "spmm_eb", "sddmm")))
     runs.append(differentiate(graphs["social"][0], counters))
     expected.append(("make_spmm social", ("spmm_eb", "sddmm")))
+    runs.append(gcn_example(counters))
+    expected.append(("examples/gcn_spmm", ("spmm_eb",)))
     attended = {}
     for name, (adj, _) in graphs.items():
         attended[name] = attend(name, adj, counters)
@@ -6052,6 +6927,8 @@ def main() -> None:
         moe = moe_serve(cfg, api, einsum, moe_params, dev, counters)
         runs.append(moe["counts"])
         expected.append(("moe_serve", ("grouped_matmul",)))
+        ep_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ep_")
+        dist_moe_reference(cfg, moe_params, dev, ep_tmp.name)
         results["grouped_matmul"] = time_grouped_matmul(cases)
         del cases
         torch.cuda.empty_cache()
@@ -6071,12 +6948,27 @@ def main() -> None:
     del moe_params
     torch.cuda.empty_cache()
 
+    # expert parallelism (serving, the collective tuner) and data
+    # parallelism (the trainer) on gloo ranks sharing the card
+    ep = dist_moe_phase(ep_tmp.name, counters, dev)
+    ep_tmp.cleanup()
+    runs.append(ep["counts"])
+    expected.append(("dist moe", ("grouped_matmul",)))
+    runs.append(ep["train_counts"])
+    expected.append(("dist train", ("grouped_matmul", "grouped_matmul_dx",
+                                    "grouped_matmul_dw")))
+    runs.append(ep["tune_counts"])  # held apart, as the tune phase's
+    expected.append(("dist moe tune", ("grouped_matmul",)))
+    for k, v in ep["worst"].items():
+        worst[k] = max(worst.get(k, 0.0), v)
+
     # LM training at full width, one layer: the grouped matmul's backward
     lm = lm_train_phase(dev, counters)
     runs.append(lm["counts"])
     expected.append(("lm_train", ("grouped_matmul", "grouped_matmul_dx",
                                   "grouped_matmul_dw")))
-    worst.update(lm["worst"])
+    for k, v in lm["worst"].items():
+        worst[k] = max(worst.get(k, 0.0), v)
     results.update(lm["results"])
     for (path, kernels), counts in zip(expected, runs):
         for n in kernels:
@@ -6084,7 +6976,8 @@ def main() -> None:
                 fail(f"the {n} kernel was not launched on the {path} path")
     # the tuners' launches follow how many points their timing visits
     tuner_runs = (tuned["counts"], moe_tuned["counts"],
-                  lowprec["tune_counts"], dist_r["tune_counts"])
+                  lowprec["tune_counts"], dist_r["tune_counts"],
+                  ep["tune_counts"])
     launches = {n: sum(c[n] for c in runs
                        if not any(c is t for t in tuner_runs))
                 for n in counters}
@@ -6162,6 +7055,7 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:
-        dist_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        dist_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                       *sys.argv[5:6])
     else:
         main()

@@ -8,11 +8,13 @@ For each world size it starts that many rank processes on ``cuda:0``
 meeting at a ``FileStore`` in a temporary directory, and each rank tries
 ``all_reduce`` (SUM, MAX), ``reduce_scatter_tensor``, ``reduce_scatter``
 (a list of blocks) and ``all_gather_into_tensor`` on CUDA tensors and on
-CPU tensors: whether the call is taken, whether its result is right, and
-its time (host clock, after a barrier; the largest over the ranks) on a
-(rows, 256) f32 tensor, the size of a distributed SpMM's partial.  This
-is the probe behind ``distributed/collectives.py`` handing CUDA tensors to
-gloo for every op it calls.
+CPU tensors, in f32 and in bf16: whether the call is taken, whether its
+result is right, and its time (host clock, after a barrier; the largest
+over the ranks) on a (rows, 256) tensor, the size of a distributed
+SpMM's partial.  This is the probe behind ``distributed/collectives.py``
+handing CUDA tensors to gloo for every op it calls, in their own type
+(the expert-parallel MoE's all-gather and the trainer's bf16 gradients
+included).
 """
 import argparse
 import json
@@ -31,11 +33,13 @@ rank, world, store_path, rows = (int(sys.argv[1]), int(sys.argv[2]),
 dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
                         rank=rank, world_size=world)
 out = {}
-for dev in ("cuda", "cpu"):
+for dev, dt in (("cuda", torch.float32), ("cpu", torch.float32),
+                ("cuda", torch.bfloat16), ("cpu", torch.bfloat16)):
     for op in ("all_reduce_sum", "all_reduce_max", "reduce_scatter_tensor",
                "reduce_scatter", "all_gather_into_tensor"):
         try:
-            x = torch.full((rows, 256), float(rank + 1), device=dev)
+            x = torch.full((rows, 256), float(rank + 1), device=dev,
+                           dtype=dt)
             dist.barrier()
             t0 = time.perf_counter()
             if op == "all_reduce_sum":
@@ -45,15 +49,15 @@ for dev in ("cuda", "cpu"):
                 dist.all_reduce(x, op=dist.ReduceOp.MAX)
                 y, want = x, world
             elif op == "reduce_scatter_tensor":
-                y = torch.empty((rows // world, 256), device=dev)
+                y = torch.empty((rows // world, 256), device=dev, dtype=dt)
                 dist.reduce_scatter_tensor(y, x)
                 want = sum(range(1, world + 1))
             elif op == "reduce_scatter":
-                y = torch.empty((rows // world, 256), device=dev)
+                y = torch.empty((rows // world, 256), device=dev, dtype=dt)
                 dist.reduce_scatter(y, list(x.chunk(world)))
                 want = sum(range(1, world + 1))
             else:
-                y = torch.empty((rows * world, 256), device=dev)
+                y = torch.empty((rows * world, 256), device=dev, dtype=dt)
                 dist.all_gather_into_tensor(y, x)
                 want = None
             if dev == "cuda":
@@ -61,16 +65,17 @@ for dev in ("cuda", "cpu"):
             s = time.perf_counter() - t0
             if want is None:
                 ok = bool(torch.equal(
-                    y.view(world, rows, 256)[:, 0, 0].cpu(),
+                    y.view(world, rows, 256)[:, 0, 0].float().cpu(),
                     torch.arange(1, world + 1, dtype=torch.float32)))
             else:
                 ok = bool((y == want).all())
             t = torch.tensor([s])
             dist.all_reduce(t, op=dist.ReduceOp.MAX)
-            out[f"{dev} {op}"] = {"taken": True, "right": ok,
+            name = f"{dev} {str(dt)[6:]} {op}"
+            out[name] = {"taken": True, "right": ok,
                                   "ms": float(t) * 1e3}
         except Exception as e:  # the probe's question is whether it raises
-            out[f"{dev} {op}"] = {"taken": False,
+            out[f"{dev} {str(dt)[6:]} {op}"] = {"taken": False,
                                   "error": f"{type(e).__name__}: {e}"[:300]}
 if rank == 0:
     print(json.dumps(out))

@@ -1,5 +1,7 @@
-"""The distributed stack: the collectives over a mesh axis and gradient
-compression (``collectives``) and fault tolerance (``fault_tolerance``);
-the meshes are ``repro_torch.launch.mesh``.  Still to port (ROADMAP.md,
-queue 1 item 5): ``sharding.py`` (the expert-parallel MoE) and the
-data-parallel gradient all-reduce."""
+"""The distributed stack: the collectives over a mesh axis, their
+differentiable forms and gradient compression (``collectives``), the
+sharding rules and their application on a rank (``sharding``) and fault
+tolerance (``fault_tolerance``); the meshes are
+``repro_torch.launch.mesh``.  The expert-parallel MoE is
+``models/moe.py`` under a ``ShardingCtx``, the data-parallel gradient
+all-reduce ``train/train_step.py``."""

@@ -1,7 +1,8 @@
 """The collectives of the distributed port over one mesh axis (port of
-``jax.lax.psum``, ``pmax`` and ``psum_scatter`` as
-``repro/sparse/distributed.py`` calls them under ``shard_map``), and
-gradient compression (port of ``compress_tree`` and ``decompress_tree``
+``jax.lax.psum``, ``pmax``, ``psum_scatter`` and ``all_gather`` as
+``repro/sparse/distributed.py`` and ``repro/models/moe.py`` call them
+under ``shard_map``), their differentiable forms, and gradient
+compression (port of ``compress_tree`` and ``decompress_tree``
 of ``repro/distributed/collectives.py``): a gradient tree quantized
 before a data-parallel all-reduce would move it, bf16 (2x fewer bytes
 than f32) or int8 with one f32 scale a tensor (4x).
@@ -12,7 +13,33 @@ no call, as the reference's compiled program drops such collectives.
 Tensors are handed to ``torch.distributed`` on their own device: NCCL and
 gloo take CUDA tensors for ``all_reduce`` and ``reduce_scatter_tensor``
 (gloo with several ranks on one GPU included: probes/gloo_cuda_ops.py on
-an H100 under torch 2.11), gloo running the reduction on the host.
+an H100 under torch 2.11), gloo running the reduction on the host
+(probes/gloo_cuda_ops.py: f32 and bf16, ``all_gather_into_tensor``
+included).
+
+The differentiable forms serve a model that is replicated over an axis
+outside one sharded region, as the expert-parallel MoE is over the model
+axis (Megatron's f and g operators).  Each rank's loss reads the
+region's replicated result, so the cotangent that reaches the region's
+end is the same on every rank; their adjoints follow from that, where a
+literal adjoint (the ``psum`` of the cotangents) would count each
+gradient once a rank:
+
+copy_to              identity forward; ``psum`` of the cotangents
+                     backward: an input every rank reads whole and
+                     each rank's share of the region differentiates in
+                     part (the tokens and gates entering the experts).
+reduce_from          ``psum`` forward; the cotangent unchanged backward
+                     (the ``nnz_ar`` combine).
+reduce_scatter_from  ``psum_scatter`` forward; the all-gather of the
+                     cotangent blocks backward (the ``nnz_rs`` combine).
+gather_from          ``all_gather`` forward; the rank's block of the
+                     cotangent backward (the block handed back whole).
+mean_from            the mean over the ranks forward; the cotangent
+                     unchanged backward: a value each rank computes of
+                     its own data (the aux loss, a loss over data
+                     blocks), whose gradient on each rank is that of its
+                     own term; the data-parallel step averages them.
 """
 from __future__ import annotations
 
@@ -22,12 +49,19 @@ import torch.distributed as dist
 from ..core.tree import tree_map
 
 __all__ = [
+    "all_gather",
     "barrier",
     "compress_tree",
+    "copy_to",
     "decompress_tree",
+    "gather_from",
+    "mean_from",
     "pmax",
+    "pmean",
     "psum",
     "psum_scatter",
+    "reduce_from",
+    "reduce_scatter_from",
 ]
 
 
@@ -70,6 +104,116 @@ def psum_scatter(x: torch.Tensor, axis,
                       dtype=x.dtype, device=x.device)
     dist.reduce_scatter_tensor(out, front, group=axis.group)
     return out.movedim(0, dim)
+
+
+def pmean(x: torch.Tensor, axis) -> torch.Tensor:
+    """Mean of ``x`` over the ranks of ``axis``, on every rank."""
+    if axis.size == 1:
+        return x
+    return psum(x, axis) / axis.size
+
+
+def all_gather(x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order, on every
+    rank, as ``jax.lax.all_gather(..., tiled=True)`` gives it (torch's
+    form gathers along dimension 0: the dimension is brought to the
+    front and back)."""
+    if axis.size == 1:
+        return x
+    dim = dim % x.dim()
+    front = x.movedim(dim, 0).contiguous()
+    out = torch.empty((front.shape[0] * axis.size,) + tuple(front.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, front, group=axis.group)
+    return out.movedim(0, dim)
+
+
+def _block(x, axis, dim):
+    n = x.shape[dim] // axis.size
+    return x.narrow(dim, axis.index * n, n)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.axis), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return psum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ReduceScatterFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return psum_scatter(x, axis, scatter_dimension=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.axis, ctx.dim), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.axis, ctx.dim).contiguous(), None, None
+
+
+class _MeanFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return pmean(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` itself; its gradient is the ``psum`` of the ranks' (see the
+    module docstring)."""
+    return x if axis.size == 1 else _CopyTo.apply(x, axis)
+
+
+def reduce_from(x: torch.Tensor, axis) -> torch.Tensor:
+    """:func:`psum`, whose gradient is the cotangent itself."""
+    return x if axis.size == 1 else _ReduceFrom.apply(x, axis)
+
+
+def reduce_scatter_from(x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
+    """:func:`psum_scatter`, whose gradient is the all-gather of the
+    cotangent blocks."""
+    if axis.size == 1:
+        return psum_scatter(x, axis, dim)
+    return _ReduceScatterFrom.apply(x, axis, dim % x.dim())
+
+
+def gather_from(x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
+    """:func:`all_gather`, whose gradient is the rank's block of the
+    cotangent."""
+    return x if axis.size == 1 else _GatherFrom.apply(x, axis, dim % x.dim())
+
+
+def mean_from(x: torch.Tensor, axis) -> torch.Tensor:
+    """:func:`pmean`, whose gradient is the cotangent itself."""
+    return x if axis.size == 1 else _MeanFrom.apply(x, axis)
 
 
 def barrier(axis) -> None:

@@ -1,0 +1,293 @@
+"""Sharding rules: logical parameter and activation axes -> mesh axes (port
+of ``repro/distributed/sharding.py``), and their application on a rank.
+
+Mesh axes: ``("pod", "data", "model")`` multi-pod or ``("data",
+"model")``.  The rules are the reference's (Megatron-style tensor and data
+parallelism): attention weights FSDP-sharded over the data axes; MLP
+``wi``/``wg`` column-, ``wo`` row-parallel on ``model``; MoE experts
+expert-parallel on ``model`` (the E dim); mamba projections on
+``model``; embeddings vocab-sharded on ``model``; norms and scalars
+replicated; the batch over ``(pod, data)``; decode KV caches with the
+sequence over ``model``.  A sharded dim that does not divide its axis
+falls back to replication for that dim (``_fit``).
+
+A spec is a tuple with one entry per dimension: None (replicated), an
+axis name, or a tuple of axis names (the dim split over their product,
+the first the slowest); ``()`` is a replicated scalar.  torch has no
+``PartitionSpec``.  The port's parameter tree keeps its layers in a
+list, where the reference stacks them on a leading L axis, so the rules
+address the trailing dims and pad on the left, as the reference's do,
+and a layer leaf's spec is the reference's without its leading None.
+
+What the port applies.  The reference hands these specs to XLA, whose
+partitioner inserts every collective the sharded program needs.  The
+port has no such partitioner: a rank's code consumes a sharded leaf only
+where it was written to.  In this port that is the expert rule alone,
+``moe/{wg,wi,wo}`` on ``model`` along E (``models/moe.py`` under a
+``ShardingCtx``), and the batch rule (the entry points slice the rank's
+data block, :func:`data_block`).  The specs computed but not yet applied
+are the vocab-sharded embedding, the FSDP attention weights, the dense
+MLP's column and row split, the mamba rules and the sequence-sharded KV
+cache (``cache_shardings``); :func:`shard_params` keeps such leaves
+whole (replicated) on every rank.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core.tree import key_str, tree_leaves_with_path, tree_unflatten
+from . import collectives as coll
+
+__all__ = [
+    "DATA",
+    "MODEL_AXIS",
+    "applied_spec",
+    "batch_shardings",
+    "cache_shardings",
+    "data_axes",
+    "data_block",
+    "gather_leaf",
+    "gather_params",
+    "param_shardings",
+    "replicated",
+    "shard_leaf",
+    "shard_params",
+    "sharded_axes",
+]
+
+MODEL_AXIS = "model"
+DATA = "__data__"  # sentinel resolved to the mesh's data axes
+
+#: The parameter rules the port's model code consumes (see the module
+#: docstring): the experts' E dim on ``model``.
+APPLIED = tuple(f"moe/{n}" for n in ("wg", "wi", "wo"))
+
+
+def data_axes(mesh) -> tuple:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _axes_of(entry) -> tuple:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _fit(mesh, spec: tuple, shape) -> tuple:
+    """Drop sharding on dims that don't divide the assigned axis size."""
+    fixed = []
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            fixed.append(None)
+            continue
+        size = math.prod(mesh.shape[a] for a in _axes_of(axes))
+        fixed.append(axes if shape[dim] % size == 0 else None)
+    return tuple(fixed)
+
+
+def _param_spec(path: str, ndim: int) -> tuple:
+    """The reference's rule table over a leaf's path and rank; rules
+    address the trailing dims and are left-padded with None."""
+
+    def pad(spec_tail):
+        return tuple([None] * (ndim - len(spec_tail)) + list(spec_tail))
+
+    if path.endswith("embed"):
+        return pad([MODEL_AXIS, None])
+    if "router" in path:
+        return pad([None, None])
+    if any(f"moe/{n}" in path for n in ("wg", "wi", "wo")):
+        return pad([MODEL_AXIS, None, None])
+    if "attn/" in path:
+        if path.endswith("/w"):
+            return pad([DATA, None])
+        return (None,) * ndim
+    if path.endswith(("wi", "wg")):
+        return pad([None, MODEL_AXIS])
+    if path.endswith("wo"):
+        return pad([MODEL_AXIS, None])
+    if path.endswith(("z_proj", "x_proj")):
+        return pad([None, MODEL_AXIS])
+    if path.endswith("dt_proj"):
+        return pad([None, MODEL_AXIS])
+    if path.endswith("bc_proj"):
+        return (None,) * ndim
+    if path.endswith(("conv_x_w",)):
+        return pad([None, MODEL_AXIS])
+    if path.endswith(("conv_x_b",)):
+        return pad([MODEL_AXIS])
+    if "mixer" in path and path.endswith("norm"):
+        return pad([MODEL_AXIS])
+    if path.endswith(("A_log", "D", "dt_bias")):
+        return pad([MODEL_AXIS])
+    if path.endswith("out_proj"):
+        return pad([MODEL_AXIS, None])
+    return (None,) * ndim
+
+
+def _shape(leaf) -> tuple:
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def _leaf_spec(mesh, path: str, leaf) -> tuple:
+    dp = data_axes(mesh)
+    shape = _shape(leaf)
+    spec = _param_spec(path, len(shape))
+    return _fit(mesh, tuple(dp if a == DATA else a for a in spec), shape)
+
+
+def param_shardings(mesh, params) -> dict:
+    """The spec of every leaf of ``params`` (tensors, or anything with a
+    ``shape``) by its path (``core.tree.key_str``, e.g.
+    ``layers/0/moe/wg``): a spec is itself a tuple, which the port's tree
+    functions would walk into, so the specs come as a flat dict where
+    the reference's come as a tree."""
+    return {key_str(p): _leaf_spec(mesh, key_str(p), v)
+            for p, v in tree_leaves_with_path(params)}
+
+
+def batch_shardings(mesh, specs: dict) -> dict:
+    """Each batch entry's spec: dim 0 over the data axes."""
+    dp = data_axes(mesh)
+    return {name: _fit(mesh, (dp,) + (None,) * (len(_shape(leaf)) - 1),
+                       _shape(leaf))
+            for name, leaf in specs.items()}
+
+
+def cache_shardings(mesh, cfg, cache):
+    """Serve-cache specs, the reference's: KV caches (L, B, S, K, dh)
+    batch over the data axes and sequence over ``model``; cross-attention
+    caches head_dim over ``model``; SSM state heads and conv state
+    channels over ``model``; ``pos`` replicated; by path, as
+    :func:`param_shardings`.  Computed, not applied:
+    a port cache holds the rank's slots whole along the sequence."""
+    dp = data_axes(mesh)
+
+    def rule(name, leaf):
+        shape = _shape(leaf)
+        nd = len(shape)
+        if name.endswith("pos"):
+            spec = ()
+        elif name in ("k", "v"):
+            spec = (None, dp, MODEL_AXIS, None, None)
+        elif name in ("ck", "cv"):
+            spec = (None, dp, None, None, MODEL_AXIS)
+        elif "ssm" in name:
+            spec = (None, dp, MODEL_AXIS, None, None)[:nd]
+        elif "conv" in name:
+            spec = (None, dp, None, MODEL_AXIS)[:nd]
+        else:
+            spec = (None,) * nd
+        return _fit(mesh, spec, shape)
+
+    return {key_str(p): rule(key_str(p), v)
+            for p, v in tree_leaves_with_path(cache)}
+
+
+def replicated(mesh) -> tuple:
+    return ()
+
+
+# ---------------------------------------------------------------------------
+# Applying a spec on a rank
+# ---------------------------------------------------------------------------
+
+
+def applied_spec(mesh, path: str, leaf) -> tuple:
+    """The spec this port applies to the leaf at ``path`` (a whole leaf
+    or a rank's block of it): the rule's for the expert leaves
+    (:data:`APPLIED`), replicated for every other.  Unlike the
+    reference's rules it never falls back to replication: a rank's block
+    of an expert leaf is what the model code expects, so a dim that does
+    not divide is an error (:func:`shard_leaf`), and a block's spec is
+    the whole's."""
+    ndim = len(_shape(leaf))
+    if any(a in path for a in APPLIED):
+        dp = data_axes(mesh)
+        return tuple(dp if a == DATA else a
+                     for a in _param_spec(path, ndim))
+    return (None,) * ndim
+
+
+def _coords(mesh, entry) -> tuple:
+    """(block index, block count) of this rank along a dim split over
+    ``entry``'s axes, the first the slowest."""
+    index, count = 0, 1
+    for a in _axes_of(entry):
+        ax = mesh.axis(a)
+        index, count = index * ax.size + ax.index, count * ax.size
+    return index, count
+
+
+def shard_leaf(mesh, path: str, t: torch.Tensor) -> torch.Tensor:
+    """This rank's block of the whole leaf ``t`` at ``path`` under
+    :func:`applied_spec`: a new tensor (the whole one may be freed), or
+    ``t`` itself where the leaf stays replicated."""
+    spec = applied_spec(mesh, path, t)
+    if not isinstance(t, torch.Tensor) or all(e is None for e in spec):
+        return t
+    out = t
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            i, n = _coords(mesh, entry)
+            if out.shape[dim] % n:
+                raise ValueError(f"{path}: dim {dim} of size "
+                                 f"{out.shape[dim]} does not split over "
+                                 f"{n} ranks of {entry}")
+            size = out.shape[dim] // n
+            out = out.narrow(dim, i * size, size)
+    return out.clone()
+
+
+def shard_params(mesh, params):
+    """Each leaf's block for this rank's mesh coordinates: the port's
+    counterpart of ``jax.device_put(params, param_shardings(...))`` for
+    the specs it applies (:func:`applied_spec`; every other leaf stays
+    whole).  ``params`` may be any tree (a ``TrainState`` included: the
+    optimizer's moments share their parameter's path suffix, so they
+    shard alike)."""
+    leaves = tree_leaves_with_path(params)
+    return tree_unflatten(params, [shard_leaf(mesh, key_str(p), v)
+                                   for p, v in leaves])
+
+
+def gather_leaf(mesh, path: str, v):
+    """The whole leaf at ``path`` from every rank's block of it, by an
+    all-gather over each axis its applied spec splits it over (the
+    innermost first); ``v`` itself where it is replicated."""
+    if not isinstance(v, torch.Tensor):
+        return v
+    for dim, entry in enumerate(applied_spec(mesh, path, v)):
+        for a in reversed(_axes_of(entry) if entry else ()):
+            v = coll.all_gather(v, mesh.axis(a), dim)
+    return v
+
+
+def gather_params(mesh, params):
+    """The whole leaves back from every rank's blocks
+    (:func:`gather_leaf`): the port's counterpart of reading a global
+    array (``np.asarray`` of a sharded ``jax.Array``).  Every rank of the
+    mesh must call it alike; each gets the whole tree."""
+    leaves = tree_leaves_with_path(params)
+    return tree_unflatten(params, [gather_leaf(mesh, key_str(p), v)
+                                   for p, v in leaves])
+
+
+def sharded_axes(mesh, path: str, leaf) -> tuple:
+    """The mesh axes the applied spec splits the leaf at ``path`` over."""
+    return tuple(a for e in applied_spec(mesh, path, leaf) if e
+                 for a in _axes_of(e))
+
+
+def data_block(mesh, axes, x, dim: int = 0):
+    """This rank's block of ``x`` along ``dim`` over the data ``axes``
+    (row-major over them): the global batch in, the rank's block out.
+    The dim must split evenly."""
+    if not axes:
+        return x
+    i, n = _coords(mesh, tuple(axes))
+    if x.shape[dim] % n:
+        raise ValueError(f"a batch of {x.shape[dim]} does not split over "
+                         f"{n} data ranks")
+    size = x.shape[dim] // n
+    return x.narrow(dim, i * size, size)

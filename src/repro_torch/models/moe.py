@@ -25,8 +25,15 @@ Two paths with the same math, chosen by ``cfg.moe_kernel_dispatch``:
 ``moe_dispatch_schedule`` replays it with no measurement) sets the token
 tile, the capacity factor and the checked ``(d_tile, f_tile)``.
 
-The expert-parallel path under a mesh (``ShardingCtx`` with a mesh) and
-``moe_tune_collective`` are not ported yet (ROADMAP.md, queue 1 item 5).
+Expert parallelism: under a ``ShardingCtx`` with a mesh and a model axis
+the experts are sharded over the model axis (``distributed/sharding.py``)
+and the tokens over the data axes; each rank routes its token block over
+all E experts, runs its E/M experts on the kernel, and the partials
+combine by ``psum`` ('nnz_ar') or ``psum_scatter`` ('nnz_rs'), the
+paper's atomic and segment strategies at the collective level, chosen by
+``MoeDispatchSchedule.collective`` (``moe_tune_collective`` measures
+both).  A rank holds and returns blocks, where the reference's
+``shard_map`` takes and returns global arrays.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import torch.nn.functional as F
 
 from ..core.device import check_on, resolve_device
 from ..core.schedule import Epilogue
+from ..distributed import collectives as coll
 from ..fuse.execute import moe_combine
 from ..kernels.grouped_matmul import fit_tile
 from ..kernels.ops import grouped_matmul
@@ -46,23 +54,41 @@ from .layers import init_normal
 
 @dataclasses.dataclass(frozen=True)
 class ShardingCtx:
-    """How the MoE layer would see a mesh.  Only single-shard execution
-    (no mesh) is ported."""
+    """How the model's sharded regions see the mesh (a
+    ``launch.mesh.Mesh``): the data axes the batch is split over and the
+    model axis the experts are split over.  ``None`` (or no mesh or no
+    model axis) means single-shard execution.  ``moe_dispatch`` is the
+    dispatch the model's MoE layers run under (e.g.
+    ``moe_tune_collective``'s pick, whose ``collective`` picks the
+    combine); None keeps the config's static point and 'nnz_ar'.  The
+    reference's transformer passes no dispatch to its MoE layers."""
 
     mesh: object = None
     data_axes: tuple = ()
     model_axis: str | None = None
+    moe_dispatch: object = None
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None and self.model_axis is not None
 
 
-def init_moe(cfg, gen):
+def init_moe(cfg, gen, keep=None):
     """Router (D, E) in f32; expert weights wg, wi (E, D, F) and wo
-    (E, F, D) in ``cfg.param_dtype``, drawn from ``gen`` on its device."""
+    (E, F, D) in ``cfg.param_dtype``, drawn from ``gen`` on its device.
+    ``keep(name, tensor)``, when given, takes each expert leaf as soon as
+    it is drawn and returns what to hold (a rank's block: the whole leaf
+    is then freed before the next is drawn)."""
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    keep = keep or (lambda name, t: t)
     return {
         "router": init_normal(gen, (d, e), d ** -0.5, "float32"),
-        "wg": init_normal(gen, (e, d, f), d ** -0.5, cfg.param_dtype),
-        "wi": init_normal(gen, (e, d, f), d ** -0.5, cfg.param_dtype),
-        "wo": init_normal(gen, (e, f, d), f ** -0.5, cfg.param_dtype),
+        "wg": keep("moe/wg", init_normal(gen, (e, d, f), d ** -0.5,
+                                         cfg.param_dtype)),
+        "wi": keep("moe/wi", init_normal(gen, (e, d, f), d ** -0.5,
+                                         cfg.param_dtype)),
+        "wo": keep("moe/wo", init_normal(gen, (e, f, d), f ** -0.5,
+                                         cfg.param_dtype)),
     }
 
 
@@ -162,21 +188,78 @@ def apply_moe(cfg, p, x2d, ctx: ShardingCtx | None = None, *,
     picks the expert -> token writeback monoid ('sum', or 'min' / 'mean':
     the same gate-weighted scatter under those monoids,
     ``fuse.moe_combine``).  ``device``: None means 'cuda' (raises without
-    a card); 'cpu' runs the kernel's plain version.  A ``ctx`` with a
-    mesh raises: the expert-parallel path is not ported yet."""
-    if ctx is not None and ctx.mesh is not None and ctx.model_axis is not None:
-        raise NotImplementedError(
-            "expert-parallel MoE under a mesh is not ported yet (ROADMAP.md, "
-            "queue 1 item 5); pass ctx=None")
+    a card); 'cpu' runs the kernel's plain version.
+
+    Under a ``ctx`` with a mesh and a model axis this is the reference's
+    ``shard_map`` body: every rank of the mesh calls it with its blocks
+    and gets its blocks back (the one difference of signature: the
+    reference takes and returns global arrays).  ``x2d`` is the rank's
+    token block (T_loc, D); ``p["wg"]``, ``p["wi"]``, ``p["wo"]`` its
+    expert block (E/M, ., .), as ``distributed.sharding.shard_params``
+    gives it; the router is whole.  The output is (T_loc, D) under
+    'nnz_ar' (the default, also when ``dispatch.collective`` is None)
+    and the rank's (T_loc / M, D) slice of it under 'nnz_rs'; the aux
+    loss is the mean over the data and model axes.  Differentiable:
+    gradients of x, the router and the expert blocks are those of the
+    single-shard math on the rank's block (``distributed/collectives.py``,
+    Megatron's f and g)."""
     dev = resolve_device(device)
     check_on(dev, x2d=x2d, router=p["router"], wg=p["wg"])
+    cap_factor = dispatch.capacity_factor if dispatch is not None else None
+    if ctx is not None and ctx.sharded:
+        return _apply_sharded(cfg, p, x2d, ctx, dispatch, combine,
+                              cap_factor)
     gates, probs = _route(cfg, x2d, p["router"])
-    cap = _capacity(cfg, x2d.shape[0],
-                    dispatch.capacity_factor if dispatch is not None
-                    else None)
+    cap = _capacity(cfg, x2d.shape[0], cap_factor)
     out = _expert_ffn(cfg, x2d, p["wg"], p["wi"], p["wo"], gates, cap,
                       cfg.moe_kernel_dispatch, dispatch, combine)
     return out.to(x2d.dtype), _aux_loss(cfg, gates, probs)
+
+
+def _apply_sharded(cfg, p, x2d, ctx, dispatch, combine, cap_factor):
+    """The expert-parallel ``apply_moe`` on one rank (its docstring)."""
+    if combine != "sum":
+        raise ValueError(
+            f"combine={combine!r} requires single-shard execution: the "
+            "expert-parallel psum writeback only composes additive "
+            "partials")
+    mesh = ctx.mesh
+    max_ = mesh.axis(ctx.model_axis)
+    m_size = max_.size
+    if cfg.n_experts % m_size:
+        raise ValueError(f"{cfg.n_experts} experts do not split over a "
+                         f"model axis of {m_size}")
+    e_loc = cfg.n_experts // m_size
+    for name in ("wg", "wi", "wo"):
+        if p[name].shape[0] != e_loc:
+            raise ValueError(
+                f"{name} holds {p[name].shape[0]} experts; a rank of a "
+                f"model axis of {m_size} holds its block of {e_loc} "
+                "(distributed.sharding.shard_params)")
+    t_loc = x2d.shape[0]
+    cap = _capacity(cfg, t_loc, cap_factor)
+    mode = (dispatch.collective if dispatch is not None else None) or "nnz_ar"
+    if mode == "nnz_rs" and t_loc % m_size:
+        raise ValueError(
+            f"collective='nnz_rs' needs the local token count ({t_loc}) "
+            f"divisible by the model axis ({m_size})")
+    gates, probs = _route(cfg, x2d, p["router"])  # (T_loc, E) all experts
+    # each rank's experts differentiate the tokens and gates in part: the
+    # psum of the ranks' shares, where the aux loss's path enters once
+    xe = coll.copy_to(x2d, max_)
+    sl = max_.index * e_loc
+    gates_loc = coll.copy_to(gates, max_)[:, sl:sl + e_loc]
+    part = _expert_ffn(cfg, xe, p["wg"], p["wi"], p["wo"], gates_loc, cap,
+                       cfg.moe_kernel_dispatch, dispatch)
+    if mode == "nnz_rs":
+        out = coll.reduce_scatter_from(part, max_, 0)
+    else:
+        out = coll.reduce_from(part, max_)  # the atomic collective writeback
+    aux = _aux_loss(cfg, gates, probs)
+    for a in ctx.data_axes:
+        aux = coll.mean_from(aux, mesh.axis(a))
+    aux = coll.mean_from(aux, max_)
+    return out.to(x2d.dtype), aux
 
 
 # ---------------------------------------------------------------------------
@@ -243,12 +326,89 @@ def moe_tune_dispatch(cfg, t_tokens: int, *, expert_lengths=None,
                  backend=backend, device=device, **kw)
 
 
-def moe_tune_collective(cfg, params, x2d, ctx, **kw):
-    """Tuning the expert-parallel writeback collective waits for the
-    distributed port."""
-    raise NotImplementedError(
-        "moe_tune_collective measures the expert-parallel apply_moe, which "
-        "the port does not have yet (ROADMAP.md, queue 1 item 5)")
+def moe_tune_collective(cfg, params, x2d, ctx, *, dispatch=None,
+                        cache=None, measure=None, warmup=None, iters=None,
+                        backend=None):
+    """Tune the expert-parallel writeback collective on a mesh (the
+    reference's search): ``apply_moe`` end to end under each feasible
+    mode ('nnz_ar' psum, and 'nnz_rs' psum_scatter when the rank's token
+    count divides the model axis), the winner persisted as a
+    ``MoeDispatchSchedule`` carrying ``collective`` under the key
+    ``moedist:<fp>|F<moe_d_ff>|<moe_schedule_key>|mesh:<M>``, so a replay
+    measures nothing and another mesh re-tunes.  ``dispatch`` seeds the
+    GEMM tiling (default: the config's static point); only the
+    collective axis is searched here.
+
+    ``params`` are the rank's (its expert block) and ``x2d`` its token
+    block (T_loc, D); the key is of the global token count, T_loc times
+    the data ranks, as the reference's.  Every rank of the mesh calls it
+    alike and picks alike: each measurement (``apply_moe`` timed as one
+    SPMD program, or the injected ``measure``) is taken as its largest
+    over the ranks, a hit replays only where every rank has it, and the
+    record goes into every rank's ``cache``; data-rank 0, model-rank 0
+    writes the file, then all ranks pass a barrier."""
+    from ..tune.cache import ScheduleCache, fingerprint_from_lengths
+    from ..tune.driver import _replay, drive
+    from ..tune.measure import spmd_time
+    from ..tune.moe import moe_schedule_key
+    from ..tune.search import _agreed, _cache_for
+    from ..tune.space import CollectiveAxis, SearchContext, SearchSpace
+
+    if ctx is None or not ctx.sharded:
+        raise ValueError("moe_tune_collective needs a sharded ctx "
+                         "(mesh + model_axis)")
+    mesh = ctx.mesh
+    dev = x2d.device
+    axes = (ctx.model_axis,) + tuple(ctx.data_axes)
+    cache = _cache_for(cache, backend, dev)
+    base = (dispatch or default_dispatch(cfg)).replace(collective=None)
+    max_ = mesh.axis(ctx.model_axis)
+    m_size = max_.size
+    t_local = int(x2d.shape[0])
+    d_size = 1
+    for a in ctx.data_axes:
+        d_size *= mesh.axis(a).size
+    t = t_local * d_size
+
+    lengths = balanced_expert_lengths(cfg, t)
+    fp = fingerprint_from_lengths(lengths, (cfg.n_experts, cfg.d_model), t)
+    key = (f"moedist:{fp}|F{cfg.moe_d_ff}|{moe_schedule_key(base)}"
+           f"|mesh:{m_size}")
+
+    def agreed(value: float) -> float:
+        """The largest ``value`` over every rank of the mesh."""
+        for a in axes:
+            value = _agreed(value, mesh.axis(a), dev)
+        return value
+
+    hit = _replay(cache, key)
+    if agreed(hit is None) == 0.0:
+        return hit
+
+    if measure is None:
+        def measure(s):
+            def fn(xx):
+                with torch.no_grad():
+                    return apply_moe(cfg, params, xx, ctx, dispatch=s,
+                                     device=dev)[0]
+            return spmd_time(fn, x2d, axis=max_, device=dev, warmup=warmup,
+                             iters=iters)
+
+    def objective(s) -> float:
+        return agreed(measure(s))
+
+    modes = ["nnz_ar"] + (["nnz_rs"] if t_local % m_size == 0 else [])
+    space = SearchSpace((CollectiveAxis(modes),), key_fn=moe_schedule_key)
+    ctx_s = SearchContext(axis_size=m_size, workload=lengths)
+    scratch = ScheduleCache(path=None)
+    res = drive(space, ctx_s, cache=scratch, key=key, measure=objective,
+                ranked=space.cross(ctx_s, [base]))
+    cache.put(key, scratch.get(key))
+    if all(mesh.axis(a).index == 0 for a in axes):
+        cache.save()
+    for a in axes:
+        coll.barrier(mesh.axis(a))
+    return res
 
 
 def moe_dispatch_schedule(cfg, t_tokens: int, *, expert_lengths=None,

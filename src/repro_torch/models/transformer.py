@@ -12,8 +12,22 @@ in place, where the reference returns new caches, and returns the cache
 with ``pos + 1``.  ``loss_fn`` is the reference's LM loss (next-token NLL
 from the final features against the tied embedding, plus ``AUX_WEIGHT``
 times the MoE load-balance loss), differentiable with torch autograd.
+
+Under a ``ShardingCtx`` with a mesh (``models.moe.ShardingCtx``) every
+rank of the mesh calls the entry points (``forward``, ``loss_fn``,
+``prefill``, ``decode_step``) alike with the **global** batch and takes
+its data block by its data coordinate (``distributed.sharding.
+data_block``): the rank's block of logits out, a cache of the rank's
+slots, and ``loss_fn`` the global mean on every rank.  The MoE layers run
+expert-parallel over the model axis (the parameters hold the rank's
+expert block, ``sharding.shard_params``); everything else is replicated
+over it.  An 'nnz_rs' combine leaves each model rank a slice of the
+token block, which ``ffn_block`` all-gathers back, as XLA does in the
+reference where the next layer needs the whole block.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -21,6 +35,8 @@ import torch
 from ..core.device import resolve_device
 from ..core.schedule import torch_dtype
 from ..core.tree import tree_map
+from ..distributed import collectives as coll
+from ..distributed import sharding
 from .attention import decode_attention, flash_attention
 from .layers import (
     apply_dense,
@@ -59,29 +75,35 @@ def init_attn(cfg, gen):
     return p
 
 
-def init_layer(cfg, gen):
+def init_layer(cfg, gen, keep=None):
     p = {"ln1": init_norm(cfg, cfg.d_model, gen.device),
          "attn": init_attn(cfg, gen),
          "ln2": init_norm(cfg, cfg.d_model, gen.device)}
     if cfg.family == "moe":
-        p["moe"] = init_moe(cfg, gen)
+        p["moe"] = init_moe(cfg, gen, keep)
     else:
         p["mlp"] = init_mlp(cfg, gen)
     return p
 
 
-def init_params(cfg, generator: torch.Generator, device=None):
+def init_params(cfg, generator: torch.Generator, device=None, mesh=None):
     """Random parameters drawn from ``generator``, which must live on
     ``device`` (None means 'cuda' and raises without a card).  Weights
     are drawn in f32 a tensor at a time and cast to ``cfg.param_dtype``,
-    so no f32 copy of the model is ever held."""
+    so no f32 copy of the model is ever held.  With ``mesh`` (a rank's
+    ``launch.mesh.Mesh``) every rank draws the whole model, the same
+    numbers as one process, one leaf at a time, and keeps its block of
+    each (``distributed.sharding.shard_leaf``): the expert blocks of its
+    model coordinate, every other leaf whole."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"the generator lies on {generator.device}; make "
                          f"it with torch.Generator(device={dev.type!r})")
+    keep = (None if mesh is None else
+            lambda path, t: sharding.shard_leaf(mesh, path, t))
     return {"embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
                                     cfg.param_dtype),
-            "layers": [init_layer(cfg, generator)
+            "layers": [init_layer(cfg, generator, keep)
                        for _ in range(cfg.n_layers)],
             "final_norm": init_norm(cfg, cfg.d_model, dev)}
 
@@ -140,8 +162,11 @@ def attn_block(cfg, p, x, positions):
 def ffn_block(cfg, p, x, ctx=None):
     if cfg.family == "moe":
         b, s, d = x.shape
+        dispatch = None if ctx is None else ctx.moe_dispatch
         out, aux = apply_moe(cfg, p["moe"], x.reshape(b * s, d), ctx,
-                             device=x.device)
+                             dispatch=dispatch, device=x.device)
+        if out.shape[0] != b * s:  # an 'nnz_rs' slice of the token block
+            out = coll.gather_from(out, ctx.mesh.axis(ctx.model_axis), 0)
         return out.reshape(b, s, d), aux
     return apply_mlp(cfg, p["mlp"], x), torch.zeros((), device=x.device)
 
@@ -169,20 +194,46 @@ def forward_features(cfg, params, tokens, ctx=None):
     return apply_norm(cfg, params["final_norm"], x), aux
 
 
+def _block(ctx, t):
+    """The rank's data block of a global batch tensor under ``ctx``."""
+    if t is None or ctx is None or ctx.mesh is None:
+        return t
+    return sharding.data_block(ctx.mesh, ctx.data_axes, t)
+
+
 def forward(cfg, params, tokens, ctx=None):
-    """tokens (B, S) -> (logits (B, S, V), aux loss)."""
-    x, aux = forward_features(cfg, params, tokens, ctx)
+    """tokens (B, S) -> (logits (B, S, V), aux loss); under a ctx the
+    rank's block of the logits."""
+    x, aux = forward_features(cfg, params, _block(ctx, tokens), ctx)
     return unembed(params["embed"], x), aux
 
 
 def loss_fn(cfg, params, batch, ctx=None):
     """The training loss of ``batch["tokens"]`` (B, S): mean next-token
     NLL (masked by ``batch["mask"]`` (B, S - 1) when given) plus
-    ``AUX_WEIGHT`` times the summed aux loss."""
-    tokens = batch["tokens"]
+    ``AUX_WEIGHT`` times the summed aux loss.
+
+    Under a ctx with a mesh it is the mean over the global batch, the
+    same on every rank, from the rank's block: the block's mean weighted
+    by its share of the counted tokens, averaged over the data axes with
+    the cotangent passed through (``collectives.mean_from``), so each
+    rank's gradient is its block's weighted share and the data-parallel
+    step's mean over the ranks is the global batch's gradient."""
+    tokens, mask = _block(ctx, batch["tokens"]), _block(ctx, batch.get("mask"))
     x, aux = forward_features(cfg, params, tokens, ctx)
     loss = lm_loss_from_features(params["embed"], x[:, :-1], tokens[:, 1:],
-                                 batch.get("mask"))
+                                 mask)
+    if ctx is not None and ctx.mesh is not None and ctx.data_axes:
+        axes = [ctx.mesh.axis(a) for a in ctx.data_axes]
+        if mask is not None:
+            count = mask.to(torch.float32).sum()
+            total = count
+            for ax in axes:
+                total = coll.psum(total, ax)
+            share = count * math.prod(ax.size for ax in axes)
+            loss = loss * (share / torch.clamp(total, min=1.0))
+        for ax in axes:
+            loss = coll.mean_from(loss, ax)
     return loss + AUX_WEIGHT * aux
 
 
@@ -199,8 +250,9 @@ def init_cache(cfg, batch_size, max_len, device=None):
 
 def prefill(cfg, params, tokens, max_len, ctx=None):
     """Run the whole prompt; return (last-token logits (B, V), a cache of
-    ``max_len`` positions holding the prompt's keys and values)."""
-    x = _embed_input(cfg, params, tokens)
+    ``max_len`` positions holding the prompt's keys and values).  Under a
+    ctx: the rank's block of the logits and a cache of its slots."""
+    x = _embed_input(cfg, params, _block(ctx, tokens))
     b, s = x.shape[:2]
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
@@ -222,13 +274,14 @@ def prefill(cfg, params, tokens, max_len, ctx=None):
 def decode_step(cfg, params, cache, tokens, ctx=None):
     """One decode step.  tokens (B,); cache from ``init_cache`` or
     ``prefill``, written in place at ``pos``.  Returns (logits (B, V), the
-    cache with ``pos + 1``)."""
+    cache with ``pos + 1``).  Under a ctx ``tokens`` is the global batch
+    and the cache holds the rank's slots; the logits are the rank's."""
     pos = int(cache["pos"])
     max_len = cache["k"].shape[2]
     if not 0 <= pos < max_len:
         raise ValueError(f"decode_step at pos {pos} is outside the cache's "
                          f"max_len {max_len}")
-    x = _embed_input(cfg, params, tokens)[:, None, :]
+    x = _embed_input(cfg, params, _block(ctx, tokens))[:, None, :]
     b = x.shape[0]
     positions = torch.full((b, 1), float(pos), dtype=torch.float32,
                            device=x.device)

@@ -37,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.schedule import COLLECTIVES, Schedule
+from ..core.schedule import COLLECTIVES, Schedule, get_strategy
 from ..distributed import collectives as coll
 from ..kernels import ops as kops
 from ..kernels.fused_attention import NEG_INF, fused_sparse_attention
@@ -171,20 +171,29 @@ def _local_spmm(rows, cols, vals, b, n_rows, schedule: Schedule):
     schedule's epilogue is applied here, to each rank's partial, as the
     reference applies it (ROADMAP §3 item 11).
 
-    The kernel runs over the rows the slice covers, ``rows[0]`` to
-    ``rows[-1]``, and its result is placed in the full ``n_rows``-high
-    output, whose other rows hold the epilogue of an empty row: an nnz
-    slice covers a fraction of the rows, and the EB kernel stores every
-    row a worker steps over, so at full height the first and last
-    workers would write the rows before and after the slice alone."""
+    Under a built-in strategy the kernel runs over the rows the slice
+    covers, ``rows[0]`` to ``rows[-1]``, and its result is placed in the
+    full ``n_rows``-high output, whose other rows hold the epilogue of an
+    empty row: an nnz slice covers a fraction of the rows, and the EB
+    kernel stores every row a worker steps over, so at full height the
+    first and last workers would write the rows before and after the
+    slice alone.  A registered user strategy runs at full height, as the
+    reference does: its code is handed the global row ids, the whole
+    ``n_rows``-high block and ``num_segments = n_rows`` (the contract of
+    ``kernels/common.py::apply_user_tile``), which a rebased window would
+    break for any strategy that reads an id's value."""
     s = schedule
     if s.is_skew:
         s = s.replace(split_threshold=None, merge_threshold=None)
     if s.kernel != "eb":
         s = Schedule("eb", col_tile=s.col_tile)
     nnz_local = int(rows.shape[0])
-    lo, hi = (torch.stack([rows[0], rows[-1]]).tolist() if nnz_local
-              else (n_rows - 1, n_rows - 1))
+    if not get_strategy(s.strategy).builtin:
+        lo, hi = 0, n_rows - 1
+    elif nnz_local:
+        lo, hi = torch.stack([rows[0], rows[-1]]).tolist()
+    else:
+        lo, hi = n_rows - 1, n_rows - 1
     height = hi - lo + 1
     pad = round_up(max(nnz_local, 1), s.nnz_tile) - nnz_local
     if lo:

@@ -4,9 +4,10 @@
 The math is the reference's: f32 moments ``mu`` and ``nu`` shaped like
 the parameters, the gradients upcast to f32 and clipped to a global
 norm, bias-corrected moments, decoupled weight decay, the new parameters
-cast back to their type.  ``update`` works leaf by leaf and in place (the
-moments and the parameters), so at most a few f32 temporaries of one
-leaf are alive, never an f32 copy of the whole gradient tree.  The step
+cast back to their type.  ``update`` works leaf by leaf, a stretch of
+UPDATE_CHUNK elements at a time, and in place (the moments and the
+parameters), so at most a few f32 temporaries of one stretch are alive,
+never an f32 copy of a whole leaf or of the gradient tree.  The step
 is an explicit int32 tensor and the learning rate a function of it.
 """
 from __future__ import annotations
@@ -18,6 +19,11 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..core.tree import tree_leaves, tree_map
+
+#: Elements of a leaf updated at a time: the update's f32 temporaries
+#: stay a few times 256 MB however large a leaf (the tied embedding at
+#: full width is 622 M elements).
+UPDATE_CHUNK = 1 << 26
 
 
 class AdamState(NamedTuple):
@@ -52,11 +58,14 @@ class AdamW:
                           device=step.device)
 
     @torch.no_grad()
-    def update(self, grads, state: AdamState, params):
+    def update(self, grads, state: AdamState, params, gnorm=None):
         """One step: ``params`` and the state's moments updated in place.
         Returns ``(params, AdamState(step + 1, mu, nu), grad_norm)``;
-        ``grad_norm`` is the global norm before clipping."""
-        gnorm = global_norm(grads)
+        ``grad_norm`` is the global norm before clipping, the norm of
+        ``grads`` unless the caller hands it in (a data-parallel step
+        whose ``grads`` are a rank's blocks of the whole tree)."""
+        if gnorm is None:
+            gnorm = global_norm(grads)
         scale = (None if self.clip_norm is None else torch.clamp(
             self.clip_norm / (gnorm + 1e-9), max=1.0))
         step = state.step + 1
@@ -67,21 +76,30 @@ class AdamW:
         lr = self._lr(step)
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(state.mu), tree_leaves(state.nu)):
-            g = g.to(torch.float32, copy=True)
-            if scale is not None:
-                g.mul_(scale)
-            m.mul_(b1).add_(g * (1 - b1))
-            t = g * (1 - b2)
-            v.mul_(b2).add_(t.mul_(g))
-            del g, t
-            delta = m / bc1
-            den = v / bc2
-            delta.div_(den.sqrt_().add_(self.eps))
-            del den
-            if self.weight_decay:
-                delta.add_(p.to(torch.float32) * self.weight_decay)
-            p.copy_(p.to(torch.float32) - delta.mul_(lr))
+            flat = (p.view(-1), g.reshape(-1), m.view(-1), v.view(-1))
+            for i in range(0, max(p.numel(), 1), UPDATE_CHUNK):
+                self._update_chunk(*(t[i:i + UPDATE_CHUNK] for t in flat),
+                                   scale, bc1, bc2, lr)
         return params, AdamState(step=step, mu=state.mu, nu=state.nu), gnorm
+
+    def _update_chunk(self, p, g, m, v, scale, bc1, bc2, lr):
+        """The update of one stretch of a leaf, in place (elementwise, so
+        a leaf's result is the same however it is cut)."""
+        b1, b2 = self.b1, self.b2
+        g = g.to(torch.float32, copy=True)
+        if scale is not None:
+            g.mul_(scale)
+        m.mul_(b1).add_(g * (1 - b1))
+        t = g * (1 - b2)
+        v.mul_(b2).add_(t.mul_(g))
+        del g, t
+        delta = m / bc1
+        den = v / bc2
+        delta.div_(den.sqrt_().add_(self.eps))
+        del den
+        if self.weight_decay:
+            delta.add_(p.to(torch.float32) * self.weight_decay)
+        p.copy_(p.to(torch.float32) - delta.mul_(lr))
 
 
 def global_norm(tree) -> torch.Tensor:

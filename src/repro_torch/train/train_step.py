@@ -9,6 +9,18 @@ kernels), and the optimizer updates the parameters in place.  With
 summed in f32 over a loop, the reference's ``lax.scan``, with the same
 mean.  ``TrainState`` is a named tuple of the parameter tree and the
 optimizer state.
+
+Data parallelism: under a ``ShardingCtx`` with a mesh every rank runs the
+step alike on the **global** batch.  Each microbatch is a slice of the
+global batch (the reference's reshape), of which the loss takes the
+rank's data block; the step all-reduces every gradient as a mean over
+the data axes (the all-reduce XLA inserts inside the reference's
+``value_and_grad``), and a leaf replicated over the model axis over that
+axis too (the expert leaves, already whole per rank's expert block, over
+the data axes only; ``reduce_grads``), then compresses and decompresses them
+as the reference does after that all-reduce, then clips by the norm of
+the whole tree (the expert blocks' squares summed over the model axis)
+and runs AdamW on the rank's leaves.
 """
 from __future__ import annotations
 
@@ -17,7 +29,10 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.tree import tree_leaves, tree_map, tree_unflatten
+from ..core.tree import (key_str, tree_leaves, tree_leaves_with_path,
+                         tree_map, tree_unflatten)
+from ..distributed import collectives as coll
+from ..distributed import sharding
 from ..distributed.collectives import compress_tree, decompress_tree
 from .optimizer import AdamState, AdamW
 
@@ -28,11 +43,47 @@ class TrainState(NamedTuple):
 
 
 def init_state(api, optimizer: AdamW, generator: torch.Generator,
-               device=None) -> TrainState:
+               device=None, mesh=None) -> TrainState:
     """Parameters drawn from ``generator`` (on ``device``: None means
-    'cuda') and the optimizer's zero state."""
-    params = api.init(generator, device=device)
+    'cuda') and the optimizer's zero state; with ``mesh``, the rank's
+    blocks of them (``transformer.init_params``)."""
+    params = (api.init(generator, device=device) if mesh is None
+              else api.init(generator, device=device, mesh=mesh))
     return TrainState(params=params, opt=optimizer.init(params))
+
+
+def reduce_grads(ctx, grads):
+    """Each gradient's mean over the data axes of ``ctx``'s mesh (in its
+    own type), on every rank; a leaf replicated over the model axis also
+    over that axis, whose ranks computed it alike in math but not
+    always in bits (atomic sums on the card): so its copies stay the
+    same bits on every rank, as one replicated array is in the
+    reference.  An expert leaf, split over the model axis, is reduced
+    over the data axes only."""
+    mesh = ctx.mesh
+    out = []
+    for path, g in tree_leaves_with_path(grads):
+        split = sharding.sharded_axes(mesh, key_str(path), g)
+        for a in tuple(ctx.data_axes) + (
+                (ctx.model_axis,) if ctx.model_axis else ()):
+            if a not in split:
+                g = coll.pmean(g, mesh.axis(a))
+        out.append(g)
+    return tree_unflatten(grads, out)
+
+
+def sharded_global_norm(mesh, grads) -> torch.Tensor:
+    """The global norm of the whole gradient tree from a rank's blocks of
+    it: each leaf's sum of squares in f32, summed over the axes its block
+    is split over, then over the leaves."""
+    total = None
+    for path, g in tree_leaves_with_path(grads):
+        gf = g.to(torch.float32)
+        sq = (gf * gf).sum()
+        for a in sharding.sharded_axes(mesh, key_str(path), g):
+            sq = coll.psum(sq, mesh.axis(a))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 def _on(batch, device):
@@ -49,8 +100,10 @@ def make_train_step(api, optimizer: AdamW, ctx=None, *,
     gradients in f32; ``grad_compression`` in {None, 'bf16', 'int8'}
     compresses them and decompresses them before the update, as the
     reference does before its data-parallel all-reduce
-    (``distributed/collectives.py``)."""
+    (``distributed/collectives.py``).  Under a ``ctx`` with a mesh the
+    step is data-parallel (see the module docstring)."""
     loss_fn = functools.partial(api.loss, ctx=ctx)
+    mesh = None if ctx is None else ctx.mesh
 
     def grads_of(params, batch):
         leaves = tree_leaves(params)
@@ -86,11 +139,14 @@ def make_train_step(api, optimizer: AdamW, ctx=None, *,
         else:
             loss, grads = grads_of(state.params, batch)
 
+        if mesh is not None:
+            grads = reduce_grads(ctx, grads)
         if grad_compression:
             grads = decompress_tree(compress_tree(grads, grad_compression))
 
         new_params, new_opt, gnorm = optimizer.update(
-            grads, state.opt, state.params)
+            grads, state.opt, state.params,
+            gnorm=None if mesh is None else sharded_global_norm(mesh, grads))
         metrics = {"loss": loss.to(torch.float32), "grad_norm": gnorm,
                    "step": new_opt.step}
         return TrainState(params=new_params, opt=new_opt), metrics

@@ -1,6 +1,16 @@
 """Training loop (port of ``repro/train/trainer.py``): the eager step,
 checkpoint and restart, heartbeat and straggler hooks and the elastic
-restart plan.  Runs on the card unless ``device='cpu'`` is given."""
+restart plan.  Runs on the card unless ``device='cpu'`` is given.
+
+With a ``ctx`` holding a mesh every rank of it runs a ``Trainer`` alike
+on the same token stream (the global batch, from one seed): the step is
+data-parallel (``train_step.py``) and the parameters are the rank's
+blocks.  Checkpoints are whole, as the reference's global arrays are:
+the expert leaves are gathered over the model axis, leaf by leaf, and
+data-rank 0, model-rank 0 writes them; every rank restores the whole
+tree and keeps its blocks, so a checkpoint written on one mesh restores
+on another, or in one process.  The ranks must share the checkpoint
+directory."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +21,9 @@ import torch
 
 from ..checkpoint.manager import CheckpointManager
 from ..core.device import resolve_device
+from ..core.tree import key_str, tree_leaves_with_path, tree_unflatten
+from ..distributed import collectives as coll
+from ..distributed import sharding
 from ..distributed.fault_tolerance import HeartbeatMonitor, make_elastic_plan
 from .optimizer import AdamW
 from .train_step import TrainState, init_state, make_train_step
@@ -36,6 +49,7 @@ class Trainer:
         self.data = data_iter
         self.tcfg = tcfg
         self.device = resolve_device(device)
+        self.mesh = None if ctx is None else ctx.mesh
         self.ckpt = CheckpointManager(ckpt_dir, keep=tcfg.keep_ckpts)
         self.monitor = HeartbeatMonitor(hosts)
         self.host = hosts[host_index]
@@ -48,12 +62,33 @@ class Trainer:
         """A fresh state drawn from ``generator`` (on the trainer's
         device), or the latest checkpoint restored into it."""
         state = init_state(self.api, self.optimizer, generator,
-                           device=self.device)
+                           device=self.device, mesh=self.mesh)
         latest = self.ckpt.latest_step()
         if latest is not None:
             state, step = self.ckpt.restore(state)
+            if self.mesh is not None:
+                state = sharding.shard_params(self.mesh, state)
             print(f"[trainer] restored checkpoint step {step}")
         return state
+
+    def _axes(self):
+        return [self.mesh.axis(a) for a in self.mesh.axis_names]
+
+    def save(self, step: int, state: TrainState) -> None:
+        """A whole checkpoint of ``state``; under a mesh every rank calls
+        it, each leaf is gathered whole and copied to the host on the
+        writing rank (data-rank 0, model-rank 0) alone."""
+        if self.mesh is None:
+            self.ckpt.save(step, state)
+            return
+        writer = all(ax.index == 0 for ax in self._axes())
+        leaves = []
+        for path, v in tree_leaves_with_path(state):
+            whole = sharding.gather_leaf(self.mesh, key_str(path), v)
+            if writer:
+                leaves.append(whole.cpu())
+        if writer:
+            self.ckpt.save(step, tree_unflatten(state, leaves))
 
     def run(self, state: TrainState) -> TrainState:
         t = self.tcfg
@@ -72,13 +107,16 @@ class Trainer:
                 print(f"[trainer] step {step + 1} loss {loss:.4f} "
                       f"gnorm {float(metrics['grad_norm']):.3f} {dt:.3f}s")
             if (step + 1) % t.ckpt_every == 0:
-                self.ckpt.save(step + 1, state)
+                self.save(step + 1, state)
             plan = make_elastic_plan(self.monitor, self.ckpt.all_steps(),
                                      global_batch=len(batch["tokens"]))
             if plan is not None:
                 print(f"[trainer] ELASTIC RESTART NEEDED: {plan.note}")
                 break
         self.ckpt.wait()
+        if self.mesh is not None:  # the writer's checkpoint is committed
+            for ax in self._axes():
+                coll.barrier(ax)
         return state
 
     def losses(self) -> np.ndarray:

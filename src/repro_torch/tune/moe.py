@@ -90,10 +90,9 @@ class MoeDispatchSchedule:
                      checked to divide them (the CUDA kernel takes all
                      of D in one block).
     collective       expert-parallel writeback mode: None (the default,
-                     'nnz_ar'), 'nnz_ar' or 'nnz_rs'.  Part of the
-                     record so records compare; the expert-parallel path
-                     waits for the distributed port (ROADMAP queue 1
-                     item 5).
+                     'nnz_ar'), 'nnz_ar' or 'nnz_rs': the combine
+                     ``apply_moe`` runs under a mesh, which
+                     ``models.moe.moe_tune_collective`` tunes.
     """
 
     token_tile: int = 128

@@ -188,6 +188,30 @@ def _example_setup():
     return norm, feats, labels, params
 
 
+def test_gcn_example_script_starts_at_the_reference_loss(capsys):
+    """``python -m repro_torch.examples.gcn_spmm --device cpu`` (the port
+    of ``examples/gcn_spmm.py``) runs its 40 steps to "gcn_spmm
+    complete", and its first loss is the reference example's (the same
+    graph, seeds and schedule; the reference's loss in interpret mode)
+    within TRAIN_TOL."""
+    from repro_torch.examples import gcn_spmm as example
+
+    losses = example.main(["--device", "cpu"])
+    assert "gcn_spmm complete" in capsys.readouterr().out
+    assert len(losses) == example.STEPS and losses[-1] < losses[0] - 0.1
+    norm, feats, labels, params = _example_setup()
+    a_j = js.CSR.fromdense(norm)
+    sched_j = JS.auto(js.matrix_stats(a_j), feats.shape[1])
+    h = jax_gcn_layer(a_j, jnp.asarray(feats), jnp.asarray(params["w1"]),
+                      jnp.asarray(params["b1"]), activation="relu",
+                      schedule=sched_j)
+    logits = js.spmm(a_j, h @ jnp.asarray(params["w2"]), schedule=sched_j)
+    want = -jnp.mean(jax.nn.log_softmax(logits)[jnp.arange(len(labels)),
+                                                jnp.asarray(labels)])
+    np.testing.assert_allclose(losses[0], float(want), rtol=TRAIN_TOL,
+                               atol=TRAIN_TOL)
+
+
 def test_gcn_example_trains_like_reference():
     norm, feats, labels, params = _example_setup()
     steps, lr = 3, 0.5

@@ -455,3 +455,179 @@ def test_hillclimb_dist_under_torchrun_needs_a_backend(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit, match="needs --backend"):
         hillclimb.main(["--dist", "--device", "cpu"])
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules (distributed/sharding.py) against the reference's
+# ---------------------------------------------------------------------------
+
+
+class _ShapeMesh:
+    """What the rule functions read of a mesh: its axes and their sizes."""
+
+    def __init__(self, shape, names):
+        self.shape = dict(zip(names, shape))
+        self.axis_names = tuple(names)
+
+
+class _RankMesh(_ShapeMesh):
+    """A (data, model) mesh seen from one rank's coordinates, with no
+    process group (``shard_params`` reads only ``axis(name).index``)."""
+
+    def __init__(self, shape, coords):
+        super().__init__(shape, ("data", "model"))
+        self._axes = {n: tmesh.MeshAxis(n, s, i, None)
+                      for n, s, i in zip(self.axis_names, shape, coords)}
+
+    def axis(self, name):
+        return self._axes[name]
+
+
+def _canon(spec):
+    """A spec as a tuple, one-axis tuples as their axis (PartitionSpec
+    prints and compares them so)."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                 for e in spec)
+
+
+SHARDING_MESHES = [((2, 4), ("data", "model")), ((16, 16), ("data", "model")),
+                   ((2, 2, 2), ("pod", "data", "model")), ((1, 1),
+                                                           ("data", "model"))]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "qwen2-7b"])
+@pytest.mark.parametrize("shape,names", SHARDING_MESHES)
+def test_param_shardings_match_reference(arch, shape, names):
+    """Every leaf's spec equals the reference's on its parameter paths:
+    ``_param_spec`` on the reference's own paths and ranks (the stacked L
+    axis included), and ``param_shardings`` on the port's tree, whose
+    layer leaves carry no L axis (the reference's spec without its
+    leading None); ``_fit`` drops every dim that does not divide."""
+    from jax.sharding import AbstractMesh
+
+    import repro.configs as jcfgs
+    import repro.distributed.sharding as jsh
+    import repro.models as jmodels
+    import repro_torch.configs as tcfgs
+    import repro_torch.distributed.sharding as tsh
+    from repro_torch.core.tree import key_str, tree_leaves_with_path
+    from repro_torch.models.transformer import params_from_jax
+
+    cfg_j = jcfgs.smoke_config(jcfgs.ARCHS[arch])
+    cfg_t = tcfgs.smoke_config(tcfgs.ARCHS[arch])
+    jmesh, tmesh_ = AbstractMesh(shape, names), _ShapeMesh(shape, names)
+    jshape = jax.eval_shape(jmodels.get_model(cfg_j).init,
+                            jax.random.PRNGKey(0))
+    leaves = {jsh._path_str(p): v
+              for p, v in jax.tree_util.tree_flatten_with_path(jshape)[0]}
+    for p, leaf in leaves.items():
+        want = [tsh.DATA if e == jsh.DATA else e
+                for e in jsh._param_spec(p, leaf.ndim)]
+        assert _canon(tsh._param_spec(p, leaf.ndim)) == _canon(want), p
+    params = params_from_jax(cfg_t, jax.tree.map(
+        lambda s: np.zeros(s.shape, np.float32), jshape), device="cpu")
+    got = tsh.param_shardings(tmesh_, params)
+    assert list(got) == [key_str(p) for p, _ in tree_leaves_with_path(
+        params)]
+    want = jsh.param_shardings(jmesh, jshape)
+    for path, sh in jax.tree_util.tree_flatten_with_path(
+            want, is_leaf=lambda x: hasattr(x, "spec"))[0]:
+        p = jsh._path_str(path)
+        full = _canon(tuple(sh.spec))
+        full += (None,) * (leaves[p].ndim - len(full))
+        if p.startswith("layers/"):
+            for i in range(cfg_t.n_layers):
+                q = p.replace("layers/", f"layers/{i}/", 1)
+                assert _canon(got[q]) == full[1:], (q, got[q], full)
+        else:
+            assert _canon(got[p]) == full, (p, got[p], full)
+
+
+@pytest.mark.parametrize("shape,names", SHARDING_MESHES)
+def test_batch_and_cache_shardings_match_reference(shape, names):
+    from jax.sharding import AbstractMesh
+
+    import repro.distributed.sharding as jsh
+    import repro_torch.distributed.sharding as tsh
+
+    jmesh, tmesh_ = AbstractMesh(shape, names), _ShapeMesh(shape, names)
+    batch = {"tokens": (8, 16), "mask": (8, 15), "odd": (3, 5)}
+    want = jsh.batch_shardings(jmesh, {
+        k: jax.ShapeDtypeStruct(s, jnp.int32) for k, s in batch.items()})
+    got = tsh.batch_shardings(tmesh_, {k: torch.zeros(s)
+                                       for k, s in batch.items()})
+    for k in batch:
+        assert _canon(got[k]) == _canon(tuple(want[k].spec)), k
+    cache = {"k": (2, 8, 32, 4, 16), "v": (2, 8, 32, 4, 16),
+             "ck": (2, 8, 1500, 20, 64), "ssm": (2, 8, 16, 4, 8),
+             "conv": (2, 8, 3, 32), "other": (3,)}
+    want = jsh.cache_shardings(jmesh, None, {
+        **{k: jax.ShapeDtypeStruct(s, jnp.float32) for k, s in cache.items()},
+        "pos": jax.ShapeDtypeStruct((), jnp.int32)})
+    got = tsh.cache_shardings(tmesh_, None, {
+        **{k: torch.zeros(s) for k, s in cache.items()}, "pos": 7})
+    for k in list(cache) + ["pos"]:
+        assert _canon(got[k]) == _canon(tuple(want[k].spec)), k
+    assert tsh.replicated(tmesh_) == tuple(jsh.replicated(jmesh).spec)
+    assert tsh.data_axes(tmesh_) == jsh.data_axes(jmesh)
+
+
+def test_fit_matches_reference():
+    import repro.distributed.sharding as jsh
+    import repro_torch.distributed.sharding as tsh
+    from jax.sharding import PartitionSpec as P
+
+    mesh = _ShapeMesh((2, 4, 2), ("pod", "data", "model"))
+    cases = [(("model", None), (6, 3)), ((("pod", "data"), None), (8, 3)),
+             ((("pod", "data"), "model"), (12, 6)), ((None, "data"), (5, 6)),
+             (("model", "data", None), (7, 8, 9))]
+    for spec, shape in cases:
+        assert _canon(tsh._fit(mesh, spec, shape)) == _canon(
+            tuple(jsh._fit(mesh, P(*spec), shape)))
+
+
+def test_shard_params_blocks_tile_the_whole_and_init_draws_them():
+    """Over every coordinate of a (2, 2) mesh the expert blocks tile each
+    expert leaf along E in model order, every other leaf stays whole (the
+    specs the port does not apply yet), a data block of a batch is its
+    rows in data order, and ``init_params(mesh=)`` holds the same bits as
+    the whole draw's blocks; on a one-member mesh ``gather_params`` is the
+    identity."""
+    import repro_torch.configs as tcfgs
+    import repro_torch.distributed.sharding as tsh
+    from repro_torch.core.tree import key_str, tree_leaves_with_path
+    from repro_torch.models import get_model
+
+    cfg = tcfgs.smoke_config(tcfgs.ARCHS["qwen3-moe-235b-a22b"])
+    api = get_model(cfg)
+    whole = api.init(torch.Generator().manual_seed(0), device="cpu")
+    wl = tree_leaves_with_path(whole)
+    blocks = {}
+    for d in range(2):
+        for m in range(2):
+            mesh = _RankMesh((2, 2), (d, m))
+            got = tree_leaves_with_path(tsh.shard_params(mesh, whole))
+            drawn = tree_leaves_with_path(api.init(
+                torch.Generator().manual_seed(0), device="cpu", mesh=mesh))
+            for (p, a), (_, b) in zip(got, drawn):
+                assert torch.equal(a, b), key_str(p)
+            blocks[(d, m)] = got
+            x = torch.arange(8 * 3).reshape(8, 3)
+            assert torch.equal(tsh.data_block(mesh, ("data",), x),
+                               x[4 * d:4 * d + 4])
+    for i, (path, leaf) in enumerate(wl):
+        name = key_str(path)
+        for d in range(2):
+            parts = [blocks[(d, m)][i][1] for m in range(2)]
+            if "/moe/w" in name:
+                assert parts[0].shape[0] == leaf.shape[0] // 2
+                assert torch.equal(torch.cat(parts), leaf), name
+            else:
+                assert all(torch.equal(p_, leaf) for p_ in parts), name
+    one = tmesh.make_local_mesh(1, device="cpu")
+    for (p, a), (_, b) in zip(wl, tree_leaves_with_path(
+            tsh.gather_params(one, tsh.shard_params(one, whole)))):
+        assert torch.equal(a, b), key_str(p)
+    with pytest.raises(ValueError, match="does not split"):
+        tsh.data_block(_RankMesh((3, 1), (0, 0)), ("data",),
+                       torch.zeros(8))

@@ -267,7 +267,23 @@ def test_apply_moe_paths_agree_and_mesh_raises():
     torch.testing.assert_close(k, e, rtol=RTOL, atol=ATOL)
     for t in (1, 4, 10, 40, 128, 4096):
         assert tmoe._capacity(tcfg, t) == jmoe._capacity(tcfg, t)
-    ctx = tmoe.ShardingCtx(mesh=object(), data_axes=("data",),
-                           model_axis="model")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tmoe.apply_moe(tcfg, tp, xt, ctx, device="cpu")
+    # under a mesh the layer runs expert-parallel; on a one-member mesh
+    # (no process group) that is the single-shard result, and a non-sum
+    # combine raises, as the reference's shard_map path does
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.tune.moe import MoeDispatchSchedule
+
+    ctx = tmoe.ShardingCtx(mesh=make_local_mesh(1, device="cpu"),
+                           data_axes=("data",), model_axis="model")
+    for mode in (None, "nnz_ar", "nnz_rs"):
+        got, aux = tmoe.apply_moe(
+            tcfg, tp, xt, ctx, device="cpu",
+            dispatch=MoeDispatchSchedule(collective=mode))
+        want, want_aux = tmoe.apply_moe(tcfg, tp, xt, device="cpu")
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(aux, want_aux, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="single-shard"):
+        tmoe.apply_moe(tcfg, tp, xt, ctx, combine="min", device="cpu")
+    half = {**tp, "wg": tp["wg"][:2]}
+    with pytest.raises(ValueError, match="holds 2 experts"):
+        tmoe.apply_moe(tcfg, half, xt, ctx, device="cpu")

@@ -440,8 +440,37 @@ def test_model_level_helpers_match_jax(tuner_env):
         assert jm.moe_schedule_key(jmoe.moe_dispatch_schedule(
             jcfg, 256, expert_lengths=obs, cache=cache_j)) == (
             jm.moe_schedule_key(want.schedule))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tmoe.moe_tune_collective(tcfg, None, None, None)
+    # the collective tuner: a sharded ctx or a ValueError, as the
+    # reference; on a one-member mesh (no process group) the reference's
+    # key, modes and pick under one objective, then a replay
+    from repro_torch.launch.mesh import make_local_mesh
+
+    x = np.random.default_rng(4).normal(size=(24, tcfg.d_model)).astype(
+        np.float32)
+    with pytest.raises(ValueError, match="sharded ctx"):
+        tmoe.moe_tune_collective(tcfg, None, torch.from_numpy(x), None)
+    with pytest.raises(ValueError, match="sharded ctx"):
+        jmoe.moe_tune_collective(jcfg, None, jnp.asarray(x), None)
+    jmesh = jax.make_mesh((1, 1), ("data", "model"))
+    jctx = jmoe.ShardingCtx(mesh=jmesh, data_axes=("data",),
+                            model_axis="model")
+    tctx = tmoe.ShardingCtx(mesh=make_local_mesh(1, device="cpu"),
+                            data_axes=("data",), model_axis="model")
+    (jmeas, jcalls), (tmeas, tcalls) = _fake_measure(), _fake_measure()
+    want = jmoe.moe_tune_collective(jcfg, None, jnp.asarray(x), jctx,
+                                    cache=cache_j, measure=jmeas)
+    got = tmoe.moe_tune_collective(tcfg, None, torch.from_numpy(x), tctx,
+                                   cache=cache_t, measure=tmeas)
+    assert got.key == want.key and got.key.endswith("|mesh:1")
+    assert got.key.startswith("moedist:")
+    assert [tm.moe_schedule_key(s) for s in tcalls] == [
+        jm.moe_schedule_key(s) for s in jcalls]
+    assert tm.moe_schedule_key(got.schedule) == jm.moe_schedule_key(
+        want.schedule)
+    again = tmoe.moe_tune_collective(tcfg, None, torch.from_numpy(x), tctx,
+                                     cache=cache_t,
+                                     measure=_fake_measure()[0])
+    assert again.from_cache and again.n_measurements == 0
 
 
 # ---------------------------------------------------------------------------

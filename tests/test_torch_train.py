@@ -262,6 +262,35 @@ def test_adamw_keeps_bf16_params_and_f32_moments():
                                   np.asarray(jp["w"], np.float32))
 
 
+def test_adamw_update_in_stretches_is_the_whole_leaf_update(monkeypatch):
+    """``update`` cuts a leaf into stretches of UPDATE_CHUNK elements (to
+    bound its f32 temporaries); the update is elementwise, so any cut
+    gives the same bits as the whole leaf, bf16 leaves, a scalar and a
+    leaf shorter than a stretch included."""
+    rng = np.random.default_rng(3)
+    params = {"w": torch.from_numpy(rng.standard_normal((7, 13)).astype(
+                  np.float32)).to(torch.bfloat16),
+              "b": torch.from_numpy(rng.standard_normal(5).astype(
+                  np.float32)),
+              "s": torch.tensor(0.5)}
+    grads = {k: torch.from_numpy(rng.standard_normal(tuple(v.shape)).astype(
+        np.float32)).to(v.dtype) for k, v in params.items()}
+    o = topt.AdamW(lr=1e-2)
+    out = {}
+    for chunk in (1 << 26, 8):
+        monkeypatch.setattr(topt, "UPDATE_CHUNK", chunk)
+        p = {k: v.clone() for k, v in params.items()}
+        st = o.init(p)
+        for _ in range(2):
+            p, st, _ = o.update(grads, st, p)
+        out[chunk] = (p, st)
+    (pa, sa), (pb, sb) = out[1 << 26], out[8]
+    for k in params:
+        for a, b in ((pa[k], pb[k]), (sa.mu[k], sb.mu[k]),
+                     (sa.nu[k], sb.nu[k])):
+            assert torch.equal(a, b), k
+
+
 def test_adamw_converges_quadratic():
     o = topt.AdamW(lr=0.1, weight_decay=0.0, clip_norm=None)
     params = {"w": torch.tensor([5.0, -3.0])}

@@ -452,6 +452,53 @@ def test_id_dependent_strategy_pins_the_offset_divergence(with_realization):
     assert _ID_NS["torch"] == [n] * (rows.numel() // kw["nnz_tile"])
 
 
+@pytest.mark.parametrize("strategy", ["segment", "t_us_idweight",
+                                      "t_us_idweight_rz"])
+def test_local_spmm_hands_a_user_strategy_global_ids(strategy):
+    """Each rank's shard-local SpMM of an nnz split (P = 2, nnz tile 64)
+    under the id-weighting strategy equals the reference's
+    ``_local_spmm``: the user's code is handed the global row ids and
+    ``num_segments = n_rows`` on every rank (the port once rebased both
+    to the rows a slice covers and missed by 14.68 and 1607.2).  Under
+    the built-in ``segment`` the port's narrow row window gives the
+    reference's bits."""
+    import repro.sparse.distributed as jd
+    import repro_torch.sparse.distributed as td
+
+    if strategy != "segment":
+        rz = strategy.endswith("_rz")
+        j_register(strategy, spec_fn=_j_idweight_spec, overwrite=True,
+                   **({"pallas_fn": _j_idweight_pallas} if rz else {}))
+        t_register(strategy, _t_idweight_spec,
+                   _t_idweight_kernel if rz else None, overwrite=True)
+    for v in _ID_NS.values():
+        v.clear()
+    a_j, a_t = _matrix(seed=0)
+    n = a_t.shape[0]
+    b = np.random.default_rng(7).standard_normal(
+        (a_t.shape[1], N_DENSE)).astype(np.float32)
+    kw = dict(kernel="eb", nnz_tile=64, col_tile=8, group_size=8,
+              strategy=strategy)
+    rj, cj, vj, _ = jd.partition_nnz_coo(a_j, 2, 64)
+    rt, ct, vt, _ = td.partition_nnz_coo(a_t, 2, 64)
+    half = rt.shape[0] // 2
+    for lo in (0, half):
+        want = np.asarray(jd._local_spmm(
+            rj[lo:lo + half], cj[lo:lo + half], vj[lo:lo + half],
+            jnp.asarray(b), n, JS(**kw), interpret=True))
+        got = td._local_spmm(rt[lo:lo + half], ct[lo:lo + half],
+                             vt[lo:lo + half], torch.from_numpy(b), n,
+                             TS(**kw)).numpy()
+        if strategy == "segment":
+            _assert_bits(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=1e-5 * np.abs(want).max())
+    if strategy != "segment":
+        assert set(_ID_NS["jax"]) == {n}
+        assert set(_ID_NS["torch"]) == {n}
+
+
 def test_partials_and_combine_take_their_plain_versions_on_the_cpu():
     """``eb_partials`` is ``eb_partials_plain`` on CPU tensors (bf16 and
     int8 codes with their rows' scales, as the EB kernel's lanes), and
