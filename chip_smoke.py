@@ -239,6 +239,31 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   checkpoint save and restore at
   smoke size.
 
+- the other model families (``families``, after ``lm_train``):
+  mamba2-2.7b (ssm), hymba-1.5b (hybrid), whisper-large-v3 (encdec) and
+  paligemma-3b (vlm) at full width and full depth in bf16, random
+  weights from SEED drawn on the card, one at a time, each freed before
+  the next.  Serving: a prefill of 4 prompts of 128 tokens (PaliGemma's
+  256 patch embeddings, Whisper's 1500 encoder frames, seeded) and 8
+  greedy decode steps, the logits finite; teacher forcing (the decode of
+  the last prompt token after a prefill of the others against the
+  prefill of all, within LOGIT_REL_L2: for the SSM, its token-by-token
+  recurrence against its chunked scan); the bf16 logits against the same
+  weights in f32, gated on a copy cut to 4 layers and printed at full
+  depth; the state models through ``ServeEngine`` (4 slots, 8 requests
+  of one length).  Training: ``Trainer`` for 6 steps of 2 x 256 tokens
+  at full depth (the memory reckoning printed), Whisper's frames and
+  PaliGemma's patches from a seeded stream; every gradient of step 0
+  finite (the SSD masks before its exponential) and the loss falling;
+  the SSD's share of a mamba2 step.  Prefill, decode-step and step ms,
+  tokens/s and peak memory are printed beside the card's name and power
+  limit.  These paths reach no kernel of the port (SSD, the causal conv
+  and their attention are torch built-ins, XLA ops in the reference).
+- the examples (``examples``, last): the ports of ``quickstart``
+  (sections 1-9: its spmm, segment-reduce and tuner calls on the
+  kernels), ``serve_lm`` and ``train_lm`` (25 steps of 4 x 128), each
+  run once as a user runs it, each printing its completion string.
+
 It prints kernel, forward, training-step, attention, readout, tuning,
 prefill and decode times, EB, RB and ``torch.sparse.mm`` at N = 64 and 128 on both
 graphs, the launch counts of each path, a ``{"kernels": [...]}``
@@ -5488,6 +5513,447 @@ def lm_train_phase(dev, counters):
 
 
 # ---------------------------------------------------------------------------
+# families: the four other model families at full width, and the examples
+# ---------------------------------------------------------------------------
+
+#: The families phase: each architecture at full width and full depth in
+#: bf16, random weights drawn on the card from SEED.  Serving: a prefill
+#: of FAMILY_SLOTS prompts of FAMILY_PROMPT tokens (PaliGemma's 256 patch
+#: embeddings and Whisper's 1500 encoder frames beside them, seeded), then
+#: FAMILY_NEW greedy decode steps; the state models also through
+#: ServeEngine (FAMILY_SLOTS slots, FAMILY_REQUESTS prompts of one
+#: length).  Teacher forcing is gated at full depth in f32 and on a copy
+#: cut to FAMILY_CHECK_LAYERS layers in bf16, the bf16 logits against the
+#: same weights in f32 on the cut: at full depth bf16's drift grows with
+#: the depth (on the H100 mamba2's 64 layers put its bf16 logits 0.25
+#: relative L2 from f32's and its teacher-forced decode 3.6e-2 from its
+#: prefill; 4 layers 2.3e-2), so those figures are printed.
+#: Training: Trainer with AdamW for FAMILY_STEPS steps on batches of
+#: FAMILY_BATCH x FAMILY_SEQ tokens, at full depth (the reckoning
+#: printed: AdamW holds LM_BYTES_PER_PARAM bytes a parameter).
+FAMILY_ARCHS = ("mamba2-2.7b", "hymba-1.5b", "whisper-large-v3",
+                "paligemma-3b")
+FAMILY_SLOTS, FAMILY_PROMPT, FAMILY_NEW, FAMILY_REQUESTS = 4, 128, 8, 8
+FAMILY_CHECK_LAYERS = 4
+FAMILY_BATCH, FAMILY_SEQ, FAMILY_STEPS = 2, 256, 6
+#: Families the serving engine takes (their batches are tokens alone).
+FAMILY_ENGINE = ("ssm", "hybrid")
+#: The card's memory, for the training reckoning.
+CARD_BYTES = 80e9
+
+
+def family_batch(cfg, dev, n, seq, seed):
+    """A batch of ``n`` sequences of ``seq`` tokens drawn on the card from
+    ``seed``, with the family's frames (encdec: (n, encoder_seq, D)) or
+    patches (vlm: (n, n_vision_tokens, D)), standard normal f32."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (n, seq),
+                                     generator=gen, device=dev)}
+    if cfg.family == "encdec":
+        batch["encoder_embeds"] = torch.randn(
+            n, cfg.encoder_seq, cfg.d_model, generator=gen, device=dev)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            n, cfg.n_vision_tokens, cfg.d_model, generator=gen, device=dev)
+    return batch
+
+
+def family_prefix(cfg) -> int:
+    """Positions of the cache that precede the prompt's tokens."""
+    return cfg.n_vision_tokens if cfg.family == "vlm" else 0
+
+
+def family_cut(cfg, params, n_layers):
+    """The first ``n_layers`` layers of the model (the same tensors), for
+    both stacks of the encoder-decoder."""
+    if cfg.family == "encdec":
+        return (cfg.scaled(n_layers=n_layers, n_encoder_layers=n_layers),
+                {**params, "enc_layers": params["enc_layers"][:n_layers],
+                 "dec_layers": params["dec_layers"][:n_layers]})
+    return cfg.scaled(n_layers=n_layers), {
+        **params, "layers": params["layers"][:n_layers]}
+
+
+def family_f32(cfg, params):
+    """The same weights upcast to f32, computed in f32."""
+    from repro_torch.core.tree import tree_map
+
+    return (cfg.scaled(param_dtype="float32", compute_dtype="float32"),
+            tree_map(lambda t: t.float(), params))
+
+
+def family_logits(cfg, params, batch, max_len, tok):
+    """In f32: the prefill's logits, the logits of a decode step fed
+    ``tok`` after it, and the teacher-forced logits (the decode of the
+    last prompt token after a prefill of the others)."""
+    from repro_torch.models import get_model
+
+    api = get_model(cfg)
+    logits, cache = api.prefill(params, batch, max_len)
+    step, _ = api.decode_step(params, cache, tok)
+    del cache
+    short = dict(batch, tokens=batch["tokens"][:, :-1])
+    _, cache = api.prefill(params, short, max_len)
+    forced, _ = api.decode_step(params, cache, batch["tokens"][:, -1])
+    return logits.float(), step.float(), forced.float()
+
+
+def family_checks(cfg, params, batch, max_len, tok):
+    """Teacher forcing and precision at full depth and on the
+    FAMILY_CHECK_LAYERS cut, each in bf16 and in f32 (the same weights
+    upcast; every decode fed the bf16 run's greedy tokens ``tok``, since
+    a near tie may pick another): {(depth, type): relative L2 of the
+    teacher-forced logits against the prefill's}, and {depth: relative L2
+    of the bf16 prefill and decode logits against f32's}."""
+    import torch
+
+    forced, precision = {}, {}
+    for depth, (c, p) in (("full", (cfg, params)), (
+            "cut", family_cut(cfg, params, FAMILY_CHECK_LAYERS))):
+        lo = family_logits(c, p, batch, max_len, tok)
+        c32, p32 = family_f32(c, p)
+        hi = family_logits(c32, p32, batch, max_len, tok)
+        del p32
+        torch.cuda.empty_cache()
+        for kind, (logits, _, tf) in (("bf16", lo), ("f32", hi)):
+            forced[(depth, kind)] = rel_l2(tf, logits)
+        precision[depth] = max(rel_l2(lo[i], hi[i]) for i in (0, 1))
+    return forced, precision
+
+
+def family_engine(cfg, api, params, dev):
+    """ServeEngine over FAMILY_REQUESTS prompts of FAMILY_PROMPT tokens
+    (one length: the engine keeps one position for all slots); returns
+    (tokens a second, host clock, synchronized; the results)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import Request, ServeEngine
+
+    rng = np.random.default_rng(SEED)
+    engine = ServeEngine(api, params, slots=FAMILY_SLOTS,
+                         max_len=FAMILY_PROMPT + FAMILY_NEW, device=dev)
+    for rid in range(FAMILY_REQUESTS):
+        engine.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab_size, FAMILY_PROMPT, dtype=np.int32),
+            max_new_tokens=FAMILY_NEW))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.run_to_completion()
+    torch.cuda.synchronize()
+    n_tok = sum(len(v) for v in results.values())
+    return n_tok / (time.perf_counter() - t0), results
+
+
+def family_serve(cfg, dev):
+    """Serving at full width and depth: prefill ms (CUDA events, mean of 3
+    after one warm-up), FAMILY_NEW greedy decode steps (ms by events, the
+    mean of steps 2 on), the logits finite; teacher forcing (the decode
+    of the last prompt token after a prefill of the others against the
+    prefill of all: the SSM's recurrence against its chunked scan); bf16
+    against f32; the engine for the state models."""
+    import torch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import get_model
+
+    api = get_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED),
+                      device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"families: {cfg.name} ({cfg.family}) at full width and depth "
+          f"(d_model {cfg.d_model}, {cfg.n_layers} layers"
+          + (f" + {cfg.n_encoder_layers} encoder layers over "
+             f"{cfg.encoder_seq} frames" if cfg.family == "encdec" else "")
+          + (f", {cfg.n_heads} heads x {cfg.d_head} over {cfg.n_kv_heads} "
+             "kv" if cfg.n_heads else "")
+          + (f", SSM {cfg.ssm_heads} heads x {cfg.ssm_head_dim} state "
+             f"{cfg.ssm_state} chunk {cfg.ssm_chunk}"
+             if cfg.family in FAMILY_ENGINE else "")
+          + (f", {cfg.n_vision_tokens} patches" if cfg.family == "vlm"
+             else "")
+          + f", vocab {cfg.vocab_size}, {cfg.param_dtype}): "
+          f"{n_params / 1e9:.3f} B parameters, {n_bytes / 1e9:.2f} GB drawn "
+          f"on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    batch = family_batch(cfg, dev, FAMILY_SLOTS, FAMILY_PROMPT, SEED + 1)
+    max_len = family_prefix(cfg) + FAMILY_PROMPT + FAMILY_NEW
+    with torch.no_grad():
+        prefill_ms = cuda_ms(lambda: api.prefill(params, batch, max_len), 3,
+                             1)
+        logits, cache = api.prefill(params, batch, max_len)
+        finite = bool(torch.isfinite(logits).all())
+        events, tok = [], logits.argmax(-1)
+        for _ in range(FAMILY_NEW):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step, cache = api.decode_step(params, cache, tok)
+            end.record()
+            events.append((start, end))
+            finite = finite and bool(torch.isfinite(step).all())
+            tok = step.argmax(-1)
+        torch.cuda.synchronize()
+        decode = [s.elapsed_time(e) for s, e in events]
+        del cache
+        forced, precision = family_checks(cfg, params, batch, max_len,
+                                          logits.argmax(-1))
+        tok_s = results = None
+        if cfg.family in FAMILY_ENGINE:
+            tok_s, results = family_engine(cfg, api, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    served = results is None or (
+        len(results) == FAMILY_REQUESTS
+        and all(len(v) == FAMILY_NEW for v in results.values()))
+    print(f"families: {cfg.name} serving: prefill of {FAMILY_SLOTS} x "
+          f"{FAMILY_PROMPT} tokens {prefill_ms:.4f} ms, decode step "
+          f"{sum(decode[1:]) / (len(decode) - 1):.4f} ms (CUDA events, "
+          f"steps 2-{FAMILY_NEW}: " + ", ".join(f"{v:.4f}" for v in decode)
+          + f"); logits finite {finite}; relative L2 (limit "
+          f"{LOGIT_REL_L2:.4g}) of the teacher-forced decode against the "
+          f"prefill at full depth in f32 {forced[('full', 'f32')]:.3e}, "
+          f"in bf16 {forced[('full', 'bf16')]:.3e} (printed), on "
+          f"{FAMILY_CHECK_LAYERS} layers in bf16 "
+          f"{forced[('cut', 'bf16')]:.3e} (f32 "
+          f"{forced[('cut', 'f32')]:.3e}); bf16 against f32 at full depth "
+          f"{precision['full']:.3e} (printed), on {FAMILY_CHECK_LAYERS} "
+          f"layers {precision['cut']:.3e}"
+          + (f"; ServeEngine {FAMILY_REQUESTS} requests x {FAMILY_NEW} "
+             f"tokens over {FAMILY_SLOTS} slots: {tok_s:.1f} tokens/s "
+             "(host clock)" if tok_s is not None else "")
+          + f"; {card_line()}", flush=True)
+    gated = [forced[("full", "f32")], forced[("cut", "bf16")],
+             forced[("cut", "f32")], precision["cut"]]
+    if not (finite and served and max(gated) < LOGIT_REL_L2):
+        fail(f"families: {cfg.name}'s serving checks failed (finite "
+             f"{finite}, served {served}, teacher forcing {forced}, bf16 "
+             f"against f32 {precision})")
+    return {"prefill_ms": prefill_ms, "decode_ms": decode,
+            "tokens_per_s": tok_s, "forced": forced,
+            "precision": precision, "n_params": n_params}
+
+
+class FirstStepCheck:
+    """AdamW whose first update records the gradient leaves that are not
+    finite (by their path)."""
+
+    def __init__(self, opt):
+        self.opt, self.bad, self.checked = opt, None, False
+
+    def __getattr__(self, name):
+        return getattr(self.opt, name)
+
+    def update(self, grads, state, params, gnorm=None):
+        import torch
+        from repro_torch.core.tree import key_str, tree_leaves_with_path
+
+        if not self.checked:
+            self.checked = True
+            self.bad = [key_str(p) for p, g in tree_leaves_with_path(grads)
+                        if not bool(torch.isfinite(g).all())]
+        return self.opt.update(grads, state, params, gnorm=gnorm)
+
+
+def ssd_share(cfg, dev, step_ms):
+    """The SSD scan's forward and backward at one layer's training shapes
+    (CUDA events), times the layers, against a training step."""
+    import torch
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, s, h, p = FAMILY_BATCH, FAMILY_SEQ, cfg.ssm_heads, cfg.ssm_head_dim
+    g, n = cfg.ssm_groups, cfg.ssm_state
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            dtype).requires_grad_(True)
+
+    x, bi, ci = rand(b, s, h, p), rand(b, s, g, n), rand(b, s, g, n)
+    dt = torch.nn.functional.softplus(rand(b, s, h, dtype=torch.float32)
+                                      .detach()).requires_grad_(True)
+    a = -torch.ones(h, device=dev)
+    d = torch.ones(h, device=dev)
+    gy = torch.randn(b, s, h, p, generator=gen, device=dev).bfloat16()
+
+    def fwd_bwd():
+        y, _ = ssd_chunked(x, dt, a, bi, ci, cfg.ssm_chunk, d)
+        torch.autograd.grad(y, (x, dt, bi, ci), gy)
+
+    ms = cuda_ms(fwd_bwd, 5, 1)
+    print(f"families: {cfg.name} SSD scan forward and backward at one "
+          f"layer's training shapes (B {b}, S {s}, H {h}, P {p}, N {n}, "
+          f"chunk {cfg.ssm_chunk}) {ms:.4f} ms (CUDA events), x "
+          f"{cfg.n_layers} layers {ms * cfg.n_layers:.4f} ms: "
+          f"{ms * cfg.n_layers / step_ms:.3f} of a training step", flush=True)
+    return ms
+
+
+def family_train(cfg, dev, n_params):
+    """Trainer for FAMILY_STEPS steps at full depth (the reckoning
+    printed), AdamW at LM_LR scaled from LM_REFERENCE_WIDTH to the width,
+    weight decay 0; step ms by CUDA events around each step, the peak of
+    ``max_memory_allocated``; step 0's gradients must all be finite and
+    the losses finite and falling."""
+    import tempfile
+
+    import torch
+    from repro_torch.data.synthetic import ModelInputs, ShardedTokenStream
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import AdamW, constant_schedule
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    need = n_params * LM_BYTES_PER_PARAM
+    print(f"families: {cfg.name} training at full depth: {n_params / 1e9:.3f}"
+          f" B parameters x {LM_BYTES_PER_PARAM} bytes (bf16 parameters and "
+          f"gradients, f32 AdamW mu and nu) = {need / 1e9:.1f} GB of the "
+          f"card's {CARD_BYTES / 1e9:.0f} GB, the rest for the activations "
+          f"of {FAMILY_BATCH} x {FAMILY_SEQ} tokens", flush=True)
+    if need > CARD_BYTES:
+        fail(f"families: {cfg.name} does not fit the card at full depth")
+    api = get_model(cfg)
+    lr = LM_LR * LM_REFERENCE_WIDTH / cfg.d_model
+    opt = FirstStepCheck(AdamW(lr=constant_schedule(lr), weight_decay=0.0))
+    data = ModelInputs(cfg, ShardedTokenStream(cfg.vocab_size, FAMILY_SEQ,
+                                               FAMILY_BATCH, seed=SEED),
+                       seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckpt:
+        tr = one_host(Trainer(
+            api, opt, data, ckpt_dir=ckpt,
+            tcfg=TrainerConfig(total_steps=FAMILY_STEPS,
+                               ckpt_every=FAMILY_STEPS + 1, log_every=100),
+            device=dev))
+        state = tr.init_or_restore(torch.Generator(device=dev).manual_seed(
+            SEED))
+        events, step_fn = [], tr.step_fn
+
+        def timed(st, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step_fn(st, batch)
+            end.record()
+            events.append((start, end))
+            return out
+
+        tr.step_fn = timed
+        state = tr.run(state)
+    torch.cuda.synchronize()
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    peak = torch.cuda.max_memory_allocated()
+    losses = tr.losses()
+    mean_ms = sum(step_ms[1:]) / (len(step_ms) - 1)
+    if cfg.family == "ssm":
+        batch = next(data)
+        profile_step(f"families {cfg.name} training step",
+                     lambda: step_fn(state, batch))
+    del state, tr
+    torch.cuda.empty_cache()
+    share = ssd_share(cfg, dev, mean_ms) if cfg.family == "ssm" else None
+    falls = losses[-1] < losses[0] and losses[-3:].mean() < losses[:3].mean()
+    print(f"families: {cfg.name} training: {FAMILY_STEPS} steps of "
+          f"{FAMILY_BATCH} x {FAMILY_SEQ} tokens at lr {lr:.4g}, losses "
+          + ", ".join(f"{v:.6f}" for v in losses)
+          + "; step ms (CUDA events) " + ", ".join(f"{v:.4f}" for v in step_ms)
+          + f", mean of steps 2-{FAMILY_STEPS} {mean_ms:.4f} ms; peak "
+          f"max_memory_allocated {peak / 1e9:.2f} GB; step-0 gradients not "
+          f"finite: {opt.bad}; {card_line()}", flush=True)
+    if opt.bad or not (len(losses) == FAMILY_STEPS
+                       and all(map(math.isfinite, losses)) and falls):
+        fail(f"families: {cfg.name}'s training failed (non-finite step-0 "
+             f"gradients {opt.bad}, losses {list(losses)})")
+    return {"step_ms": step_ms, "mean_ms": mean_ms, "peak": peak,
+            "losses": losses, "ssd_ms": share}
+
+
+def families_phase(dev, counters):
+    """The ``families`` phase: the four architectures one at a time, each
+    served and trained, its memory freed before the next; the kernels'
+    counts zeroed just before and read just after (these paths reach no
+    kernel of the port: SSD, the causal conv and their attention are
+    torch built-ins, as they are XLA ops in the reference)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        served = family_serve(cfg, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = {**served, **family_train(cfg, dev, served["n_params"])}
+    counts = {n: k.launches for n, k in counters.items()}
+    print(f"families: phase {time.perf_counter() - t0:.1f} s (host clock); "
+          f"kernel launches {({n: c for n, c in counts.items() if c})}",
+          flush=True)
+    return {"counts": counts, "families": out}
+
+
+#: The port's examples, each run once on the card as a user runs it: its
+#: module, arguments, completion string and the kernels its path must
+#: launch.
+EXAMPLES = (
+    ("quickstart", [], "done", ("spmm_eb", "spmm_rb", "segment_reduce")),
+    ("serve_lm", [], "serve_lm complete", ()),
+    ("train_lm", ["--steps", "25", "--batch", "4", "--seq", "128"],
+     "train_lm complete", ()),
+)
+
+
+def examples_phase(counters):
+    """Each example's ``main`` on the card, its output captured and its
+    first and last lines printed, the counts zeroed just before and read
+    just after; the trainer's straggler check off (one host: its noisy
+    few-ms steps against their own median could end the run early)."""
+    import contextlib
+    import functools
+    import importlib
+    import io
+    import tempfile
+
+    from repro_torch.distributed.fault_tolerance import HeartbeatMonitor
+    from repro_torch.train import trainer
+
+    runs = []
+    steady = functools.partial(HeartbeatMonitor, straggler_factor=math.inf)
+    for name, argv, marker, kernels in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        for k in counters.values():
+            k.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(buf):
+            was, trainer.HeartbeatMonitor = trainer.HeartbeatMonitor, steady
+            try:
+                mod.main(argv + (["--ckpt-dir", tmp] if name == "train_lm"
+                                 else []) + ["--device", "cuda"])
+            finally:
+                trainer.HeartbeatMonitor = was
+        counts = {n: k.launches for n, k in counters.items()}
+        lines = buf.getvalue().rstrip().split("\n")
+        print(f"examples/{name}: " + "; ".join(lines[:2] + ["..."]
+                                              + lines[-2:])
+              + f" ({time.perf_counter() - t0:.1f} s, host clock; launches "
+              f"{ {n: c for n, c in counts.items() if c} })", flush=True)
+        if marker not in lines[-1]:
+            fail(f"examples/{name} did not print {marker!r} at its end")
+        runs.append((counts, f"examples/{name}", kernels))
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # dist: the reduction strategies at the collective level, ranks on one card
 # ---------------------------------------------------------------------------
 
@@ -6970,6 +7436,15 @@ def main() -> None:
     for k, v in lm["worst"].items():
         worst[k] = max(worst.get(k, 0.0), v)
     results.update(lm["results"])
+
+    # the four other model families at full width, served and trained;
+    # then the examples as a user runs them
+    fam = families_phase(dev, counters)
+    runs.append(fam["counts"])
+    expected.append(("families", ()))
+    for counts, label, kernels in examples_phase(counters):
+        runs.append(counts)
+        expected.append((label, kernels))
     for (path, kernels), counts in zip(expected, runs):
         for n in kernels:
             if counts[n] == 0:
@@ -7018,6 +7493,14 @@ def main() -> None:
           f"step {step_ms:.4f} ms (CUDA events, "
           f"steps 2-{LM_STEPS}), peak memory {lm['peak'] / 1e9:.2f} GB, loss "
           f"{lm['losses'][0]:.4f} -> {lm['losses'][-1]:.4f}", flush=True)
+    for arch, f in fam["families"].items():
+        print(f"families {arch}: prefill {f['prefill_ms']:.4f} ms, decode "
+              f"step {sum(f['decode_ms'][1:]) / (FAMILY_NEW - 1):.4f} ms"
+              + (f", engine {f['tokens_per_s']:.1f} tokens/s"
+                 if f["tokens_per_s"] is not None else "")
+              + f", training step {f['mean_ms']:.4f} ms (peak "
+              f"{f['peak'] / 1e9:.2f} GB), loss {f['losses'][0]:.4f} -> "
+              f"{f['losses'][-1]:.4f}", flush=True)
     print("moe_tune: tuned / default re-timed in turns "
           + ", ".join(f"{label} {h['ratio']:.4f}"
                       for label, h in moe_tuned["hists"].items())

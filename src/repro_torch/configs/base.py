@@ -68,6 +68,24 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.d_head
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True for the state models (ssm, hybrid), whose decode cache does
+        not grow with the sequence."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def has_decode(self) -> bool:
+        return True  # every architecture of the catalog decodes
+
     def scaled(self, **overrides) -> "ModelConfig":
         """Copy with some fields replaced (smoke sizes, a depth cut)."""
         return dataclasses.replace(self, **overrides)

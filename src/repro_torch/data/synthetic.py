@@ -44,3 +44,30 @@ class ShardedTokenStream:
     def restore(self, state: dict):
         self._step = state["step"]
         self.rng.bit_generator.state = state["bit_generator"]
+
+
+class ModelInputs:
+    """A token stream's batches with the inputs a model family reads
+    beside the tokens (the port's; the reference's stream gives tokens
+    alone): frame embeddings ``encoder_embeds`` (B, encoder_seq, D) for
+    ``encdec`` and patch embeddings ``patch_embeds`` (B, n_vision_tokens,
+    D) for ``vlm``, standard normal f32 from a seeded stream of their own.
+    Other families' batches pass through unchanged."""
+
+    def __init__(self, cfg, tokens, seed: int = 0):
+        self.cfg, self.tokens = cfg, tokens
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        batch = dict(next(self.tokens))
+        b, cfg = len(batch["tokens"]), self.cfg
+        if cfg.family == "encdec":
+            batch["encoder_embeds"] = self.rng.standard_normal(
+                (b, cfg.encoder_seq, cfg.d_model), dtype=np.float32)
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = self.rng.standard_normal(
+                (b, cfg.n_vision_tokens, cfg.d_model), dtype=np.float32)
+        return batch

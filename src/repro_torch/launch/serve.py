@@ -3,8 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
         [--requests 16] [--slots 4] [--max-new 16] [--device cuda]
 
-The flags of ``repro.launch.serve``, plus ``--device`` (default
-``cuda``; ``cpu`` runs the kernels' plain versions).
+The LM families (dense, moe, and the state models ssm and hybrid);
+``encdec`` and ``vlm`` are refused, being served through ``prefill`` and
+``decode_step``.  The flags of ``repro.launch.serve``, plus
+``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
+versions).
 """
 from __future__ import annotations
 
@@ -19,6 +22,9 @@ from ..core.device import resolve_device
 from ..models import get_model
 from ..serve.engine import Request, ServeEngine
 
+#: The families the engine serves: those whose batches are tokens alone.
+ENGINE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -32,8 +38,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = ARCHS[args.arch]
+    if cfg.family not in ENGINE_FAMILIES:
+        raise SystemExit(
+            f"{args.arch}: the {cfg.family} family is served through "
+            "prefill and decode_step (its batches carry frames or patches "
+            "beside the tokens); the engine feeds tokens only")
+    dev = resolve_device(args.device)
     if args.scale == "smoke":
         cfg = smoke_config(cfg)
     api = get_model(cfg)

@@ -4,7 +4,10 @@
         [--scale smoke] [--steps 100] [--ckpt-dir DIR] \\
         [--microbatches 8] [--compress bf16] [--device cuda]
 
-The flags of ``repro.launch.train``, plus ``--device`` (default
+Every architecture of the catalog; ``encdec`` and ``vlm`` batches carry
+seeded frame or patch embeddings beside the tokens
+(``data.synthetic.ModelInputs``).  The flags of ``repro.launch.train``,
+plus ``--device`` (default
 ``cuda``; ``cpu`` runs the kernels' plain versions).  ``--ckpt-dir``
 defaults to a directory under the temporary directory.
 """
@@ -18,7 +21,7 @@ import torch
 
 from ..configs import ARCHS, smoke_config
 from ..core.device import resolve_device
-from ..data.synthetic import ShardedTokenStream
+from ..data.synthetic import ModelInputs, ShardedTokenStream
 from ..models import get_model
 from ..train.optimizer import AdamW, cosine_schedule
 from ..train.trainer import Trainer, TrainerConfig
@@ -46,7 +49,8 @@ def main(argv=None):
         cfg = smoke_config(cfg)
     api = get_model(cfg)
 
-    data = ShardedTokenStream(cfg.vocab_size, args.seq, args.batch)
+    data = ModelInputs(cfg, ShardedTokenStream(cfg.vocab_size, args.seq,
+                                               args.batch))
     opt = AdamW(lr=cosine_schedule(args.lr, warmup=min(100, args.steps // 10
                                                        or 1),
                                    total=args.steps))

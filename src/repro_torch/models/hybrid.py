@@ -1,0 +1,169 @@
+"""Hymba-style hybrid LM (port of ``repro/models/hybrid.py``,
+arXiv:2411.13676): attention and the Mamba-2 mixer run side by side on
+the same normed input, their outputs fused by Hymba's normalized
+weighted sum (each branch RMS-normed with a zero scale, weighted by a
+learned per-layer scalar, the sum halved), then an MLP block.
+Meta-tokens and the sliding-window mix are not modelled, as in the
+reference.
+
+Parameters as the transformer's, a layer ``{"ln1", "attn", "mixer",
+"beta_attn", "beta_ssm", "ln2", "mlp"}``.  The cache is ``{"k", "v",
+"mixer", "pos"}``: the keys and values (L, B, max_len, KH, Dh) and the
+mixer's ``{"ssm", "conv_x", "conv_bc"}`` (L, B, ...), written in place by
+``decode_step``.  Decode passes RoPE float positions, as the reference
+does.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.schedule import torch_dtype
+from .attention import decode_attention
+from .layers import (
+    apply_dense,
+    apply_mlp,
+    apply_norm,
+    embed,
+    init_embedding,
+    init_mlp,
+    init_norm,
+    lm_loss_from_features,
+    rmsnorm,
+    unembed,
+)
+from .mamba2 import init_mixer, mixer_decode, mixer_fwd
+from .ssm_lm import stack_layers, stacked_mixer_cache, write_layer
+from .transformer import (  # noqa: F401
+    _qkv,
+    attn_block,
+    check_generator,
+    check_pos,
+    init_attn,
+    params_from_jax,
+)
+
+
+def init_layer(cfg, gen):
+    dev = gen.device
+    return {
+        "ln1": init_norm(cfg, cfg.d_model, dev),
+        "attn": init_attn(cfg, gen),
+        "mixer": init_mixer(cfg, gen),
+        "beta_attn": torch.ones((), dtype=torch.float32, device=dev),
+        "beta_ssm": torch.ones((), dtype=torch.float32, device=dev),
+        "ln2": init_norm(cfg, cfg.d_model, dev),
+        "mlp": init_mlp(cfg, gen),
+    }
+
+
+def init_params(cfg, generator: torch.Generator, device=None):
+    """Random parameters drawn from ``generator`` on ``device`` (None
+    means 'cuda'), as ``transformer.init_params``."""
+    dev = check_generator(generator, device)
+    return {"embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
+                                    cfg.param_dtype),
+            "layers": [init_layer(cfg, generator)
+                       for _ in range(cfg.n_layers)],
+            "final_norm": init_norm(cfg, cfg.d_model, dev)}
+
+
+def _fuse(p_l, a, m):
+    af = rmsnorm(a, a.new_zeros(a.shape[-1]))
+    mf = rmsnorm(m, m.new_zeros(m.shape[-1]))
+    return 0.5 * (p_l["beta_attn"] * af.to(torch.float32)
+                  + p_l["beta_ssm"] * mf.to(torch.float32)).to(a.dtype)
+
+
+def _embed(cfg, params, tokens):
+    return embed(params["embed"], tokens).to(torch_dtype(cfg.compute_dtype))
+
+
+def _layer(cfg, p_l, x, positions, return_state=False):
+    """One layer over the whole sequence; with ``return_state`` also its
+    (k, v) and the mixer's cache."""
+    h = apply_norm(cfg, p_l["ln1"], x)
+    a, kv = attn_block(cfg, p_l["attn"], h, positions)
+    m = mixer_fwd(cfg, p_l["mixer"], h, return_state=return_state)
+    m, st = m if return_state else (m, None)
+    x = x + _fuse(p_l, a, m)
+    x = x + apply_mlp(cfg, p_l["mlp"], apply_norm(cfg, p_l["ln2"], x))
+    return x, kv, st
+
+
+def forward_features(cfg, params, tokens, ctx=None):
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for p_l in params["layers"]:
+        x = _layer(cfg, p_l, x, positions)[0]
+    return apply_norm(cfg, params["final_norm"], x)
+
+
+def forward(cfg, params, tokens, ctx=None):
+    """tokens (B, S) -> (logits (B, S, V), a zero aux loss)."""
+    x = forward_features(cfg, params, tokens, ctx)
+    return unembed(params["embed"], x), torch.zeros((), device=x.device)
+
+
+def loss_fn(cfg, params, batch, ctx=None):
+    x = forward_features(cfg, params, batch["tokens"], ctx)
+    return lm_loss_from_features(params["embed"], x[:, :-1],
+                                 batch["tokens"][:, 1:], batch.get("mask"))
+
+
+def init_cache(cfg, batch_size, max_len, device=None):
+    kv = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.d_head)
+    dt = torch_dtype(cfg.compute_dtype)
+    mix = stacked_mixer_cache(cfg, batch_size, device)
+    dev = mix["ssm"].device
+    return {"k": torch.zeros(kv, dtype=dt, device=dev),
+            "v": torch.zeros(kv, dtype=dt, device=dev),
+            "mixer": mix, "pos": 0}
+
+
+def prefill(cfg, params, tokens, max_len, ctx=None):
+    """Run the whole prompt; return (last-token logits (B, V), a cache of
+    ``max_len`` positions holding its keys and values, and the mixer's
+    state after it)."""
+    x = _embed(cfg, params, tokens)
+    b, s = x.shape[:2]
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
+    positions = torch.arange(s, device=x.device)
+    kv = (cfg.n_layers, b, max_len, cfg.n_kv_heads, cfg.d_head)
+    cache = {"k": x.new_zeros(kv), "v": x.new_zeros(kv)}
+    states = []
+    for i, p_l in enumerate(params["layers"]):
+        x, (k, v), st = _layer(cfg, p_l, x, positions, return_state=True)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+        states.append(st)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return unembed(params["embed"], x[:, -1]), {
+        **cache, "mixer": stack_layers(states), "pos": s}
+
+
+def decode_step(cfg, params, cache, tokens, ctx=None):
+    """One token a sequence.  tokens (B,) -> (logits (B, V), the cache,
+    written in place at ``pos``, with ``pos + 1``)."""
+    pos = check_pos(cache)
+    x = _embed(cfg, params, tokens)[:, None, :]
+    b = x.shape[0]
+    positions = torch.full((b, 1), float(pos), dtype=torch.float32,
+                           device=x.device)
+    mix = cache["mixer"]
+    for i, p_l in enumerate(params["layers"]):
+        h = apply_norm(cfg, p_l["ln1"], x)
+        q, k, v = _qkv(cfg, p_l["attn"], h, positions)
+        k_c, v_c = cache["k"][i], cache["v"][i]
+        k_c[:, pos] = k[:, 0]
+        v_c[:, pos] = v[:, 0]
+        o = decode_attention(q[:, 0], k_c, v_c, pos)
+        a = apply_dense(p_l["attn"]["wo"],
+                        o.reshape(b, cfg.attn_dim))[:, None, :]
+        m, new = mixer_decode(cfg, p_l["mixer"],
+                              {k_: t[i] for k_, t in mix.items()}, h[:, 0])
+        write_layer(mix, i, new)
+        x = x + _fuse(p_l, a, m[:, None, :])
+        x = x + apply_mlp(cfg, p_l["mlp"], apply_norm(cfg, p_l["ln2"], x))
+    x = apply_norm(cfg, params["final_norm"], x)
+    return unembed(params["embed"], x[:, 0]), {**cache, "pos": pos + 1}

@@ -8,7 +8,12 @@ the trainer and the server::
     logits, cache = api.prefill(params, batch, max_len)
     logits, cache = api.decode_step(params, cache, tokens)
 
-The port runs the ``dense`` and ``moe`` families (``models.transformer``).
+Every family of the reference: ``dense`` and ``moe``
+(``models.transformer``), ``ssm`` (``models.ssm_lm``), ``hybrid``
+(``models.hybrid``), ``encdec`` (``models.encdec``) and ``vlm``
+(``models.vlm``).  The LM families' ``prefill`` reads the batch's
+``tokens``; ``encdec`` and ``vlm`` take the whole batch dict (frames or
+patches beside the tokens).
 """
 from __future__ import annotations
 
@@ -16,8 +21,11 @@ import dataclasses
 import functools
 from typing import Callable
 
-from ..configs import FAMILIES, not_ported
-from . import transformer
+from . import encdec, hybrid, ssm_lm, transformer, vlm
+
+#: The module of each family.
+MODULES = {"dense": transformer, "moe": transformer, "ssm": ssm_lm,
+           "hybrid": hybrid, "encdec": encdec, "vlm": vlm}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,18 +38,29 @@ class ModelApi:
     init_cache: Callable
 
 
-def _lm_prefill(cfg, params, batch, max_len, ctx=None):
-    return transformer.prefill(cfg, params, batch["tokens"], max_len, ctx)
+def _lm_prefill(mod, cfg, params, batch, max_len, ctx=None):
+    return mod.prefill(cfg, params, batch["tokens"], max_len, ctx)
 
 
 def get_model(cfg) -> ModelApi:
-    if cfg.family not in FAMILIES:
-        raise not_ported(cfg.family)
+    mod = MODULES.get(cfg.family)
+    if mod is None:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.family in ("encdec", "vlm"):
+        prefill = functools.partial(mod.prefill, cfg)
+    else:
+        prefill = functools.partial(_lm_prefill, mod, cfg)
     return ModelApi(
         cfg=cfg,
-        init=functools.partial(transformer.init_params, cfg),
-        loss=functools.partial(transformer.loss_fn, cfg),
-        prefill=functools.partial(_lm_prefill, cfg),
-        decode_step=functools.partial(transformer.decode_step, cfg),
-        init_cache=functools.partial(transformer.init_cache, cfg),
+        init=functools.partial(mod.init_params, cfg),
+        loss=functools.partial(mod.loss_fn, cfg),
+        prefill=prefill,
+        decode_step=functools.partial(mod.decode_step, cfg),
+        init_cache=functools.partial(mod.init_cache, cfg),
     )
+
+
+def params_from_jax(cfg, tree, device=None):
+    """The port's parameters of ``cfg``'s family from the reference's
+    tree (``<family module>.params_from_jax``)."""
+    return MODULES[cfg.family].params_from_jax(cfg, tree, device)

@@ -1,0 +1,120 @@
+"""Mamba-2 language model, attention-free (port of
+``repro/models/ssm_lm.py``): ``x += mixer(norm(x))`` per layer.
+
+Parameters as the transformer's: ``{"embed", "layers", "final_norm"}``
+with one dict ``{"ln", "mixer"}`` a layer.  The cache is ``{"layers":
+{"ssm", "conv_x", "conv_bc"}, "pos"}``, each leaf stacked on a leading L
+axis, (L, B, ...); it does not grow with the sequence, so ``max_len`` is
+ignored.  ``decode_step`` writes the new states into the cache's tensors
+in place and returns the cache with ``pos + 1``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.device import resolve_device
+from ..core.schedule import torch_dtype
+from .layers import (
+    apply_norm,
+    embed,
+    init_embedding,
+    init_norm,
+    lm_loss_from_features,
+    unembed,
+)
+from .mamba2 import init_mixer, init_mixer_cache, mixer_decode, mixer_fwd
+from .transformer import check_generator, params_from_jax  # noqa: F401
+
+
+def init_layer(cfg, gen):
+    return {"ln": init_norm(cfg, cfg.d_model, gen.device),
+            "mixer": init_mixer(cfg, gen)}
+
+
+def init_params(cfg, generator: torch.Generator, device=None):
+    """Random parameters drawn from ``generator`` on ``device`` (None
+    means 'cuda'), as ``transformer.init_params``."""
+    dev = check_generator(generator, device)
+    return {"embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
+                                    cfg.param_dtype),
+            "layers": [init_layer(cfg, generator)
+                       for _ in range(cfg.n_layers)],
+            "final_norm": init_norm(cfg, cfg.d_model, dev)}
+
+
+def _embed(cfg, params, tokens):
+    return embed(params["embed"], tokens).to(torch_dtype(cfg.compute_dtype))
+
+
+def forward_features(cfg, params, tokens, ctx=None):
+    x = _embed(cfg, params, tokens)
+    for p_l in params["layers"]:
+        x = x + mixer_fwd(cfg, p_l["mixer"], apply_norm(cfg, p_l["ln"], x))
+    return apply_norm(cfg, params["final_norm"], x)
+
+
+def forward(cfg, params, tokens, ctx=None):
+    """tokens (B, S) -> (logits (B, S, V), a zero aux loss)."""
+    x = forward_features(cfg, params, tokens, ctx)
+    return unembed(params["embed"], x), torch.zeros((), device=x.device)
+
+
+def loss_fn(cfg, params, batch, ctx=None):
+    x = forward_features(cfg, params, batch["tokens"], ctx)
+    return lm_loss_from_features(params["embed"], x[:, :-1],
+                                 batch["tokens"][:, 1:], batch.get("mask"))
+
+
+def stack_layers(states):
+    """[{name: (B, ...)}] a layer -> {name: (L, B, ...)}."""
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+def stacked_mixer_cache(cfg, batch_size, device=None):
+    """Every layer's zero mixer cache, {name: (L, B, ...)}."""
+    one = init_mixer_cache(cfg, batch_size, device=resolve_device(device))
+    return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
+            for k, v in one.items()}
+
+
+def init_cache(cfg, batch_size, max_len, device=None):
+    del max_len  # a state model's cache does not grow
+    return {"layers": stacked_mixer_cache(cfg, batch_size, device), "pos": 0}
+
+
+def prefill(cfg, params, tokens, max_len, ctx=None):
+    """Run the whole prompt; return (last-token logits (B, V), the cache
+    after it)."""
+    x = _embed(cfg, params, tokens)
+    states = []
+    for p_l in params["layers"]:
+        out, st = mixer_fwd(cfg, p_l["mixer"], apply_norm(cfg, p_l["ln"], x),
+                            return_state=True)
+        x = x + out
+        states.append(st)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return unembed(params["embed"], x[:, -1]), {
+        "layers": stack_layers(states), "pos": tokens.shape[1]}
+
+
+def write_layer(stacked, i, new):
+    """Write one layer's new cache ``new`` at index ``i`` of the stacked
+    cache ``stacked``, in place."""
+    for k, v in new.items():
+        stacked[k][i] = v
+
+
+def decode_step(cfg, params, cache, tokens, ctx=None):
+    """One token a sequence.  tokens (B,) -> (logits (B, V), the cache,
+    written in place, with ``pos + 1``)."""
+    x = _embed(cfg, params, tokens)  # (B, D)
+    layers = cache["layers"]
+    for i, p_l in enumerate(params["layers"]):
+        out, new = mixer_decode(cfg, p_l["mixer"],
+                                {k: v[i] for k, v in layers.items()},
+                                apply_norm(cfg, p_l["ln"], x))
+        write_layer(layers, i, new)
+        x = x + out
+    x = apply_norm(cfg, params["final_norm"], x)
+    return unembed(params["embed"], x), {**cache,
+                                         "pos": int(cache["pos"]) + 1}

@@ -24,6 +24,11 @@ expert block, ``sharding.shard_params``); everything else is replicated
 over it.  An 'nnz_rs' combine leaves each model rank a slice of the
 token block, which ``ffn_block`` all-gathers back, as XLA does in the
 reference where the next layer needs the whole block.
+
+The other families build on it: ``_qkv``, ``attn_block`` and
+``init_attn`` serve ``models.hybrid`` and ``models.encdec``;
+``inputs_embeds`` (in ``forward_features``, ``forward`` and ``prefill``)
+takes the VLM's patches and tokens in place of the tokens' embeddings.
 """
 from __future__ import annotations
 
@@ -86,6 +91,16 @@ def init_layer(cfg, gen, keep=None):
     return p
 
 
+def check_generator(generator: torch.Generator, device=None):
+    """The device an ``init_params`` draws on (None means 'cuda'); raises
+    unless ``generator`` lies on it."""
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"the generator lies on {generator.device}; make "
+                         f"it with torch.Generator(device={dev.type!r})")
+    return dev
+
+
 def init_params(cfg, generator: torch.Generator, device=None, mesh=None):
     """Random parameters drawn from ``generator``, which must live on
     ``device`` (None means 'cuda' and raises without a card).  Weights
@@ -95,10 +110,7 @@ def init_params(cfg, generator: torch.Generator, device=None, mesh=None):
     numbers as one process, one leaf at a time, and keeps its block of
     each (``distributed.sharding.shard_leaf``): the expert blocks of its
     model coordinate, every other leaf whole."""
-    dev = resolve_device(device)
-    if generator.device.type != dev.type:
-        raise ValueError(f"the generator lies on {generator.device}; make "
-                         f"it with torch.Generator(device={dev.type!r})")
+    dev = check_generator(generator, device)
     keep = (None if mesh is None else
             lambda path, t: sharding.shard_leaf(mesh, path, t))
     return {"embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
@@ -122,18 +134,28 @@ def _to_torch(a, device):
     return torch.from_numpy(a).to(device)
 
 
+def unstack_from_jax(tree, n_layers, device):
+    """The reference's layers stacked on a leading L axis -> a list of
+    ``n_layers`` per-layer trees of tensors on ``device``."""
+    return [tree_map(lambda a, i=i: _to_torch(a[i], device), tree)
+            for i in range(n_layers)]
+
+
+def tree_from_jax(tree, device):
+    """A tree of the reference's arrays -> the same tree of tensors."""
+    return tree_map(lambda a: _to_torch(a, device), tree)
+
+
 def params_from_jax(cfg, tree, device=None):
     """The port's parameters from the reference's tree (numpy or JAX
     arrays, layers stacked on a leading L axis), so both packages compute
     the same function.  Every array keeps its type, bf16 and
-    float8_e4m3fn (e.g. e4m3 expert weights) bit for bit."""
+    float8_e4m3fn (e.g. e4m3 expert weights) bit for bit.  The ssm,
+    hybrid and vlm families share this layout and this function."""
     dev = resolve_device(device)
     return {"embed": _to_torch(tree["embed"], dev),
-            "layers": [tree_map(lambda a, i=i: _to_torch(a[i], dev),
-                                 tree["layers"])
-                       for i in range(cfg.n_layers)],
-            "final_norm": tree_map(lambda a: _to_torch(a, dev),
-                                    tree["final_norm"])}
+            "layers": unstack_from_jax(tree["layers"], cfg.n_layers, dev),
+            "final_norm": tree_from_jax(tree["final_norm"], dev)}
 
 
 # -------------------------------------------------------------- forward
@@ -179,13 +201,18 @@ def layer_fwd(cfg, p, x, positions, ctx=None):
     return x + f, aux
 
 
-def _embed_input(cfg, params, tokens):
-    return embed(params["embed"], tokens).to(torch_dtype(cfg.compute_dtype))
+def _embed_input(cfg, params, tokens, inputs_embeds=None):
+    """The first layer's input: the tokens' embeddings, or
+    ``inputs_embeds`` (B, S, D) in their place, in the compute type."""
+    x = embed(params["embed"], tokens) if inputs_embeds is None \
+        else inputs_embeds
+    return x.to(torch_dtype(cfg.compute_dtype))
 
 
-def forward_features(cfg, params, tokens, ctx=None):
-    """tokens (B, S) -> (final features (B, S, D), summed aux loss)."""
-    x = _embed_input(cfg, params, tokens)
+def forward_features(cfg, params, tokens, ctx=None, inputs_embeds=None):
+    """tokens (B, S), or ``inputs_embeds`` (B, S, D) in their place ->
+    (final features (B, S, D), summed aux loss)."""
+    x = _embed_input(cfg, params, tokens, inputs_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), device=x.device)
     for p_l in params["layers"]:
@@ -201,10 +228,12 @@ def _block(ctx, t):
     return sharding.data_block(ctx.mesh, ctx.data_axes, t)
 
 
-def forward(cfg, params, tokens, ctx=None):
+def forward(cfg, params, tokens, ctx=None, inputs_embeds=None):
     """tokens (B, S) -> (logits (B, S, V), aux loss); under a ctx the
-    rank's block of the logits."""
-    x, aux = forward_features(cfg, params, _block(ctx, tokens), ctx)
+    rank's block of the logits.  ``inputs_embeds`` (B, S, D) takes the
+    place of the tokens' embeddings."""
+    x, aux = forward_features(cfg, params, _block(ctx, tokens), ctx,
+                              _block(ctx, inputs_embeds))
     return unembed(params["embed"], x), aux
 
 
@@ -248,11 +277,14 @@ def init_cache(cfg, batch_size, max_len, device=None):
             "v": torch.zeros(shape, dtype=dt, device=dev), "pos": 0}
 
 
-def prefill(cfg, params, tokens, max_len, ctx=None):
+def prefill(cfg, params, tokens, max_len, ctx=None, inputs_embeds=None):
     """Run the whole prompt; return (last-token logits (B, V), a cache of
     ``max_len`` positions holding the prompt's keys and values).  Under a
-    ctx: the rank's block of the logits and a cache of its slots."""
-    x = _embed_input(cfg, params, _block(ctx, tokens))
+    ctx: the rank's block of the logits and a cache of its slots.
+    ``inputs_embeds`` (B, S, D) takes the place of the tokens'
+    embeddings."""
+    x = _embed_input(cfg, params, _block(ctx, tokens),
+                     _block(ctx, inputs_embeds))
     b, s = x.shape[:2]
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
@@ -271,16 +303,22 @@ def prefill(cfg, params, tokens, max_len, ctx=None):
     return unembed(params["embed"], x[:, -1]), cache
 
 
-def decode_step(cfg, params, cache, tokens, ctx=None):
-    """One decode step.  tokens (B,); cache from ``init_cache`` or
-    ``prefill``, written in place at ``pos``.  Returns (logits (B, V), the
-    cache with ``pos + 1``).  Under a ctx ``tokens`` is the global batch
-    and the cache holds the rank's slots; the logits are the rank's."""
+def check_pos(cache) -> int:
+    """The cache's ``pos``; raises unless it is a position of its ``k``."""
     pos = int(cache["pos"])
     max_len = cache["k"].shape[2]
     if not 0 <= pos < max_len:
         raise ValueError(f"decode_step at pos {pos} is outside the cache's "
                          f"max_len {max_len}")
+    return pos
+
+
+def decode_step(cfg, params, cache, tokens, ctx=None):
+    """One decode step.  tokens (B,); cache from ``init_cache`` or
+    ``prefill``, written in place at ``pos``.  Returns (logits (B, V), the
+    cache with ``pos + 1``).  Under a ctx ``tokens`` is the global batch
+    and the cache holds the rank's slots; the logits are the rank's."""
+    pos = check_pos(cache)
     x = _embed_input(cfg, params, _block(ctx, tokens))[:, None, :]
     b = x.shape[0]
     positions = torch.full((b, 1), float(pos), dtype=torch.float32,

@@ -1,0 +1,53 @@
+"""PaliGemma-style VLM backbone (port of ``repro/models/vlm.py``,
+arXiv:2407.07726): a SigLIP patch stub and the Gemma text decoder.
+
+The vision front end is a stub, as in the reference: the batch hands
+post-projection patch embeddings ``patch_embeds`` (B, n_vision_tokens,
+D), concatenated before the token embeddings.  The decoder is the shared
+transformer; the prefix attends causally and the loss covers the text
+positions only, as in the reference.  ``mlp_type="geglu"`` runs the
+reference's plain-gelu MLP (``models/layers.py``: it has no gate).
+``prefill``'s ``pos`` counts the patches.
+
+This family takes the batch dict in ``prefill`` and is served through
+``prefill`` and ``decode_step``: the serving engine feeds tokens only,
+as the reference's does.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.schedule import torch_dtype
+from . import transformer
+from .layers import embed, lm_loss_from_features
+
+init_params = transformer.init_params
+init_cache = transformer.init_cache
+decode_step = transformer.decode_step
+params_from_jax = transformer.params_from_jax
+
+
+def _embeds(cfg, params, batch):
+    dt = torch_dtype(cfg.compute_dtype)
+    tok = embed(params["embed"], batch["tokens"]).to(dt)
+    return torch.cat([batch["patch_embeds"].to(dt), tok], dim=1)
+
+
+def forward(cfg, params, batch, ctx=None):
+    """batch {"tokens" (B, S), "patch_embeds" (B, P, D)} -> (logits (B, P +
+    S, V), aux loss)."""
+    return transformer.forward(cfg, params, None, ctx,
+                               inputs_embeds=_embeds(cfg, params, batch))
+
+
+def loss_fn(cfg, params, batch, ctx=None):
+    x, _ = transformer.forward_features(
+        cfg, params, None, ctx, inputs_embeds=_embeds(cfg, params, batch))
+    text_x = x[:, batch["patch_embeds"].shape[1]:]
+    return lm_loss_from_features(params["embed"], text_x[:, :-1],
+                                 batch["tokens"][:, 1:], batch.get("mask"))
+
+
+def prefill(cfg, params, batch, max_len, ctx=None):
+    return transformer.prefill(cfg, params, None, max_len, ctx,
+                               inputs_embeds=_embeds(cfg, params, batch))

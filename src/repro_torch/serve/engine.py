@@ -2,7 +2,11 @@
 batching over a fixed-slot KV cache.
 
 Slots hold independent sequences; ``step`` decodes one token for every
-active slot with one ``decode_step`` over the whole slot batch.  Finished
+active slot with one ``decode_step`` over the whole slot batch.  The
+engine feeds tokens only: it serves the LM families (dense, moe, and the
+state models ssm and hybrid, whose cache it splices leaf by leaf);
+``encdec`` and ``vlm`` are served through ``prefill`` and
+``decode_step``, as in the reference.  Finished
 slots are refilled from the request queue by per-slot prefill; sampling
 is greedy or by temperature.
 
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core.device import check_on, resolve_device
+from ..core.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -174,13 +179,20 @@ class ServeEngine:
 
     def _slot_prefill(self, slot: int, req: Request):
         """Prefill one slot: run the prompt batched by 1 and splice its
-        keys and values into the shared cache."""
+        cache into the shared one by the reference's rule: every leaf of
+        the cache tree whose slot axis (axis 1) has one entry is written
+        at the slot's index (keys and values; a state model's states)."""
         tokens = torch.as_tensor(np.asarray(req.prompt)[None, :],
                                  dtype=torch.int64, device=self.device)
         logits, cache1 = self.api.prefill(self.params, {"tokens": tokens},
                                           self.max_len)
-        self.cache["k"][:, slot] = cache1["k"][:, 0]
-        self.cache["v"][:, slot] = cache1["v"][:, 0]
+
+        def splice(full, one):
+            if torch.is_tensor(one) and one.dim() >= 2 and one.shape[1] == 1:
+                full[:, slot] = one[:, 0].to(full.dtype)
+            return full
+
+        tree_map(splice, self.cache, cache1)
         # NOTE: per-slot positions would need a vector 'pos'; as in the
         # reference, one wave's prompts share their length
         self.cache["pos"] = cache1["pos"]

@@ -61,7 +61,13 @@ def test_the_scan_covers_the_fuse_package_and_every_kernel_module():
             "distributed/collectives.py", "distributed/fault_tolerance.py",
             "core/tree.py", "sparse/distributed.py",
             "launch/mesh.py", "distributed/sharding.py",
-            "examples/gcn_spmm.py"} <= scanned
+            "examples/gcn_spmm.py", "examples/quickstart.py",
+            "examples/serve_lm.py", "examples/train_lm.py",
+            "models/mamba2.py", "models/ssm_lm.py", "models/hybrid.py",
+            "models/encdec.py", "models/vlm.py",
+            "configs/mamba2_2p7b.py", "configs/hymba_1p5b.py",
+            "configs/whisper_large_v3.py",
+            "configs/paligemma_3b.py"} <= scanned
     assert {f"tune/{m}.py" for m in (
         "__init__", "measure", "cache", "space", "driver", "search",
         "attention", "calibrate")} <= scanned

@@ -25,6 +25,17 @@ N_SEG = 60
 HUB = 23
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread for this module: its hundreds of small walks
+    ran 25 times slower under the suite's parallel workers, whose
+    processes' thread pools each spanned every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _stream(t, c, seed):
     """Ids in order over N_SEG segments: the first three and the last
     four empty, others of 0 to 4 lanes (some empty between), segment
