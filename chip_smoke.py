@@ -259,10 +259,25 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   tokens/s and peak memory are printed beside the card's name and power
   limit.  These paths reach no kernel of the port (SSD, the causal conv
   and their attention are torch built-ins, XLA ops in the reference).
-- the examples (``examples``, last): the ports of ``quickstart``
+- the examples (``examples``): the ports of ``quickstart``
   (sections 1-9: its spmm, segment-reduce and tuner calls on the
   kernels), ``serve_lm`` and ``train_lm`` (25 steps of 4 x 128), each
   run once as a user runs it, each printing its completion string.
+- the dry run (``dryrun``, last): ``launch.backend.backend_info`` (the
+  card's name and power limit), then every cell of the ten
+  architectures x four shapes on the (16, 16) mesh counted on ``meta``
+  (``launch/dryrun.py``, one rank's program, the L=1/L=2 ladder) and
+  the report's tables (roofline terms under the H100 constants, the
+  counted detail, a rank's memory against 80 GB); then three cells cut
+  in depth and batch to one rank on the card (``DRY_CHECKS``: qwen2-7b
+  prefill 4 layers at 1 x 4096, Qwen3-MoE decode 4 layers at 8 x 4096
+  cached tokens on the einsum path, mamba2-2.7b training 16 layers at
+  2 x 256), each counted on the card and on meta (FLOPs and bytes
+  equal, exactly), its counted peak against the growth of
+  ``max_memory_allocated`` (``DRY_PEAK_BAND``), and its roofline floor,
+  max(compute, memory) under the H100 constants, at most its CUDA-event
+  time; the floor over the time is printed as the cell's roofline
+  fraction.  It reaches no kernel of the port.
 
 It prints kernel, forward, training-step, attention, readout, tuning,
 prefill and decode times, EB, RB and ``torch.sparse.mm`` at N = 64 and 128 on both
@@ -5911,6 +5926,128 @@ EXAMPLES = (
 )
 
 
+#: The dry run's cells held to the card: (arch, kind, overrides, batch,
+#: sequence), each cut in depth and batch to fit one H100 as one rank
+#: (a (1, 1) mesh), the MoE on its einsum path as the dry run counts it.
+DRY_CHECKS = (
+    ("qwen2-7b", "prefill", {"n_layers": 4}, 1, 4096),
+    ("qwen3-moe-235b-a22b", "decode", {"n_layers": 4}, 8, 4096),
+    ("mamba2-2.7b", "train", {"n_layers": 16}, 2, 256),
+)
+#: The growth of ``max_memory_allocated`` over the step against the
+#: counter's peak: the caching allocator rounds each block up to 512
+#: bytes and the fused attention and cuBLAS take workspaces the counter
+#: does not see, so the card may hold a little more; it never holds
+#: less than the storages the step's ops return.
+DRY_PEAK_BAND = (0.9, 1.25)
+DRY_PEAK_SLACK = 64 << 20
+DRY_ITERS = 5
+
+
+def dryrun_cards(arch, kind, overrides, batch, seq, dev):
+    """One cut cell counted on meta and on the card (the same program,
+    counts equal), its peak against ``max_memory_allocated`` and its
+    roofline floor under the H100 constants against its CUDA-event
+    time."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.roofline.analysis import H100, count_costs
+
+    shape = ShapeConfig(f"{kind}_{batch}x{seq}", seq_len=seq,
+                        global_batch=batch, kind=kind)
+    kw = dict(overrides=overrides, microbatches=1)
+    print(f"dryrun check {arch} {kind}: cut to {overrides}, batch {batch} "
+          f"x {seq} tokens, one rank (mesh 1x1), MoE einsum path",
+          flush=True)
+    prog, _ = dryrun.lower_cell(
+        arch, shape, mesh=make_dry_mesh((1, 1), ("data", "model")), **kw)
+    with count_costs() as on_meta:
+        prog.run()
+    del prog
+    prog, _ = dryrun.lower_cell(
+        arch, shape, mesh=make_dry_mesh((1, 1), ("data", "model"),
+                                        device=dev),
+        device=dev, seed=SEED, **kw)
+    prog.run()  # warm-up: workspaces, the first call of each op
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with count_costs() as on_card:
+        out = prog.run()
+    torch.cuda.synchronize()
+    held = torch.cuda.max_memory_allocated() - base
+    del out
+    ms = cuda_ms(prog.run, DRY_ITERS, 1)
+    del prog
+    torch.cuda.empty_cache()
+    card = (on_card.flops, on_card.bytes)
+    print(f"  counted on the card: {on_card.flops} FLOPs, {on_card.bytes} "
+          f"bytes, peak {on_card.peak_bytes} bytes; on meta: "
+          f"{on_meta.flops} FLOPs, {on_meta.bytes} bytes, peak "
+          f"{on_meta.peak_bytes} bytes", flush=True)
+    if card != (on_meta.flops, on_meta.bytes):
+        for op, fb in sorted(on_card.by_op.items()):
+            if on_meta.by_op.get(op) != fb:
+                print(f"  differs: {op} card {fb} meta "
+                      f"{on_meta.by_op.get(op)}")
+        fail(f"dryrun {arch} {kind}: the count on the card differs from "
+             "the count on meta")
+    ratio = held / max(on_card.peak_bytes, 1)
+    lo, hi = DRY_PEAK_BAND
+    print(f"  peak: max_memory_allocated grew {held} bytes, counted "
+          f"{on_card.peak_bytes} ({ratio:.4f}; band {lo}-{hi} plus "
+          f"{DRY_PEAK_SLACK >> 20} MiB)", flush=True)
+    if not (lo * on_card.peak_bytes - DRY_PEAK_SLACK <= held
+            <= hi * on_card.peak_bytes + DRY_PEAK_SLACK):
+        fail(f"dryrun {arch} {kind}: the counted peak "
+             f"{on_card.peak_bytes} is off the card's {held}")
+    compute = on_card.flops / H100.peak_flops * 1e3
+    memory = on_card.bytes / H100.hbm_bw * 1e3
+    floor = max(compute, memory)
+    print(f"  roofline floor {floor:.4f} ms (compute {compute:.4f}, memory "
+          f"{memory:.4f}: {H100.name} constants) against {ms:.4f} ms "
+          f"measured (CUDA events, mean of {DRY_ITERS}): roofline fraction "
+          f"{floor / ms:.4f}", flush=True)
+    if floor > ms:
+        fail(f"dryrun {arch} {kind}: the floor {floor:.4f} ms exceeds the "
+             f"measured {ms:.4f} ms: the count is too high")
+    return {"flops": on_card.flops, "bytes": on_card.bytes,
+            "peak": on_card.peak_bytes, "held": held, "ms": ms,
+            "floor_ms": floor}
+
+
+def dryrun_phase(dev):
+    """The dry run (``launch/dryrun.py``): ``backend_info``, every cell of
+    the ten architectures on the (16, 16) mesh counted on meta (the
+    L=1/L=2 ladder) with the report's tables, then DRY_CHECKS on the
+    card."""
+    import tempfile
+
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch import backend, dryrun
+    from repro_torch.roofline import report
+
+    t0 = time.perf_counter()
+    print(f"dryrun: backend_info {json.dumps(backend.backend_info(dev))}",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out:
+        for arch in ARCHS:
+            for shape in SHAPES:
+                dryrun.run_cell(arch, shape, ladder=True, out_dir=out)
+        recs = report.load(Path(out))
+    t_cells = time.perf_counter() - t0
+    print(f"\ndryrun: {len(recs)} records in {t_cells:.1f} s", flush=True)
+    print(report.roofline_table(recs, "16x16"))
+    print(report.dryrun_table(recs, "16x16"))
+    print(report.fits_table(recs, "16x16"), flush=True)
+    checked = {f"{arch} {kind}": dryrun_cards(arch, kind, ov, b, s, dev)
+               for arch, kind, ov, b, s in DRY_CHECKS}
+    print(f"dryrun: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return checked
+
+
 def examples_phase(counters):
     """Each example's ``main`` on the card, its output captured and its
     first and last lines printed, the counts zeroed just before and read
@@ -7445,6 +7582,10 @@ def main() -> None:
     for counts, label, kernels in examples_phase(counters):
         runs.append(counts)
         expected.append((label, kernels))
+    # the dry run: every cell of the production mesh counted on meta,
+    # three cuts of it counted on the card and timed (no kernel of the
+    # port: the dry run counts the MoE's einsum path)
+    dry = dryrun_phase(dev)
     for (path, kernels), counts in zip(expected, runs):
         for n in kernels:
             if counts[n] == 0:
@@ -7529,6 +7670,11 @@ def main() -> None:
               f"operations{gathers}), plain {r['plain_ms']:.4f} ms, library "
               f"{lib} ms, launches {launches[name]} (tune and moe_tune "
               f"phases {tune_launches[name]})", flush=True)
+    for label, d in dry.items():
+        print(f"dryrun {label}: {d['ms']:.4f} ms measured, floor "
+              f"{d['floor_ms']:.4f} ms, roofline fraction "
+              f"{d['floor_ms'] / d['ms']:.4f}, peak {d['held']} bytes held "
+              f"({d['peak']} counted)", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

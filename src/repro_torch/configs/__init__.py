@@ -1,6 +1,7 @@
 """Architecture catalog of the port (port of ``repro/configs/__init__.py``):
-the reference's ten configs, all six families, and their reduced smoke
-variants."""
+the reference's ten configs, all six families, their reduced smoke
+variants, and the four assigned shapes with the dry run's input specs
+(``configs/shapes.py``)."""
 from __future__ import annotations
 
 from .base import ModelConfig, ShapeConfig  # noqa: F401
@@ -11,6 +12,13 @@ from .mamba2_2p7b import CONFIG as _mamba2
 from .paligemma_3b import CONFIG as _paligemma
 from .qwen2_7b import CONFIG as _qwen2
 from .qwen3_moe_235b import CONFIG as _qwen3moe
+from .shapes import (  # noqa: F401
+    SHAPES,
+    batch_from_specs,
+    cell_is_runnable,
+    decode_specs,
+    train_batch_specs,
+)
 from .starcoder2_7b import CONFIG as _starcoder2
 from .whisper_large_v3 import CONFIG as _whisper
 from .yi_34b import CONFIG as _yi

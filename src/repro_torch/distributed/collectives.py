@@ -10,6 +10,24 @@ than f32) or int8 with one f32 scale a tensor (4x).
 An axis is a :class:`~repro_torch.launch.mesh.MeshAxis` (``mesh.axis(
 name)``).  On a one-member axis each collective is the identity and makes
 no call, as the reference's compiled program drops such collectives.
+
+Every collective on an axis of more than one member reports the bytes of
+its result (``all_reduce``: the tensor; ``reduce_scatter``: the rank's
+block; ``all_gather``: the gathered tensor), under the reference's HLO op
+names ('all-reduce', 'reduce-scatter', 'all-gather'), to each active
+recorder (``roofline.analysis.CostCounter``): the bytes the reference's
+``collective_bytes`` reads from the compiled module.
+
+A dry axis (:data:`DRY` as its group, ``launch.mesh.make_dry_mesh``) is
+one rank's view of a mesh that no process group backs: this process
+plays one rank's coordinates.  There each collective runs the same
+torch ops as on a real axis and reports its bytes, but calls no
+``torch.distributed`` function: the result has its shape and type, and
+its values are not the collective's (a sum holds this rank's own term, a
+block or a gathered tensor is uninitialised).  The dry run
+(``launch/dryrun.py``) counts a rank's program on ``meta`` this way.
+Without a dry axis, a collective on an axis of more than one member
+needs a process group.
 Tensors are handed to ``torch.distributed`` on their own device: NCCL and
 gloo take CUDA tensors for ``all_reduce`` and ``reduce_scatter_tensor``
 (gloo with several ranks on one GPU included: probes/gloo_cuda_ops.py on
@@ -49,6 +67,8 @@ import torch.distributed as dist
 from ..core.tree import tree_map
 
 __all__ = [
+    "DRY",
+    "add_recorder",
     "all_gather",
     "barrier",
     "compress_tree",
@@ -62,14 +82,50 @@ __all__ = [
     "psum_scatter",
     "reduce_from",
     "reduce_scatter_from",
+    "remove_recorder",
 ]
+
+
+class _DryGroup:
+    """The group of a dry axis: no process group stands behind it."""
+
+    def __repr__(self) -> str:
+        return "DRY"
+
+
+#: The group of every axis of more than one member on a dry mesh.
+DRY = _DryGroup()
+
+#: The recorders the collectives report their bytes to.
+_RECORDERS: list = []
+
+
+def add_recorder(recorder) -> None:
+    """Report every collective's ``(op, bytes)`` to ``recorder`` (an
+    object with ``record_collective(op, nbytes)``) until removed."""
+    _RECORDERS.append(recorder)
+
+
+def remove_recorder(recorder) -> None:
+    """Stop reporting to ``recorder``."""
+    _RECORDERS.remove(recorder)
+
+
+def _report(axis, op: str, t: torch.Tensor) -> bool:
+    """Report the result ``t`` of collective ``op``; True where the call
+    is to be made (a real axis), False on a dry one."""
+    nbytes = t.numel() * t.element_size()
+    for r in _RECORDERS:
+        r.record_collective(op, nbytes)
+    return axis.group is not DRY
 
 
 def _all_reduce(x, axis, op):
     if axis.size == 1:
         return x
     out = x.contiguous().clone()
-    dist.all_reduce(out, op=op, group=axis.group)
+    if _report(axis, "all-reduce", out):
+        dist.all_reduce(out, op=op, group=axis.group)
     return out
 
 
@@ -102,7 +158,8 @@ def psum_scatter(x: torch.Tensor, axis,
     front = x.movedim(dim, 0).contiguous()
     out = torch.empty((n // axis.size,) + tuple(front.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    dist.reduce_scatter_tensor(out, front, group=axis.group)
+    if _report(axis, "reduce-scatter", out):
+        dist.reduce_scatter_tensor(out, front, group=axis.group)
     return out.movedim(0, dim)
 
 
@@ -124,7 +181,8 @@ def all_gather(x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
     front = x.movedim(dim, 0).contiguous()
     out = torch.empty((front.shape[0] * axis.size,) + tuple(front.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, front, group=axis.group)
+    if _report(axis, "all-gather", out):
+        dist.all_gather_into_tensor(out, front, group=axis.group)
     return out.movedim(0, dim)
 
 
@@ -218,7 +276,7 @@ def mean_from(x: torch.Tensor, axis) -> torch.Tensor:
 
 def barrier(axis) -> None:
     """Wait for every rank of ``axis`` (none on a one-member axis)."""
-    if axis.size > 1:
+    if axis.size > 1 and axis.group is not DRY:
         dist.barrier(group=axis.group)
 
 

@@ -1,1 +1,3 @@
-"""Command-line launchers of the port."""
+"""Command-line launchers of the port (serve, train, the hillclimb and
+tuners, the dry run) with the meshes they run on and the backend
+record (``backend``)."""

@@ -1,7 +1,9 @@
-"""Tuner launcher: pre-warm the tuner's cache on the card (port of the
-``--spmm``, ``--moe``, ``--attention`` and ``--dist`` modes of
-``repro/launch/hillclimb.py``).
+"""Hillclimb launcher (port of ``repro/launch/hillclimb.py``): the
+roofline mode over the dry run's cells, and the tuners pre-warming their
+cache on the card.
 
+    PYTHONPATH=src python -m repro_torch.launch.hillclimb \\
+        [--cell arch:shape:tag] [--out DIR] [--smoke]
     PYTHONPATH=src python -m repro_torch.launch.hillclimb --spmm \\
         [--n-dense 4] [--full] [--device cuda]
     PYTHONPATH=src python -m repro_torch.launch.hillclimb --moe
@@ -30,28 +32,114 @@ environment with the backend named by ``--backend`` (``gloo`` where
 ranks share a GPU; with none, the world is this process alone).
 ``--full`` runs the larger suite.
 
-``--cell`` (the roofline mode, which needs ``launch/dryrun.py``) is not
-ported yet and exits with the ROADMAP item that ports it.
+``--cell arch:shape:tag`` is the roofline mode: it counts the cell under
+the variant ``tag`` with the dry run (``launch/dryrun.py``, one rank's
+program on ``meta``), counts the baseline too where its record is
+missing, and prints the roofline terms before and after; with no
+``--cell`` and no other mode it runs :data:`DEFAULT_PLAN`.  ``--out``
+names the record directory (default ``experiments/dryrun_torch``),
+``--smoke`` counts the arch's smoke config.  The variants are the
+knobs the port has (:data:`VARIANTS`); the reference's ``sp``, ``sp_*``
+and ``inplace`` steer XLA fields that ``configs/base.py`` leaves out,
+and asking for them raises (:data:`XLA_ONLY`).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import pathlib
 import sys
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from . import dryrun
 
-#: Modes of the reference still to port, and the ROADMAP item of each.
-NOT_PORTED = {
-    "cell": "the roofline mode needs launch/dryrun.py (ROADMAP queue 1 "
-            "item 6)",
+#: The roofline mode's variants: cfg-level knobs the port has.
+VARIANTS = {
+    "gc_bf16": {"grad_compression": "bf16"},
+    "mb16": {"microbatches": 16},
+    "kv2048": {"overrides": {"kv_chunk": 2048}},
 }
+
+#: The reference's variants that steer XLA alone, and why the port has
+#: none of them.
+_SP = ("seq_parallel_attn (Megatron-SP attention) is an XLA sharding "
+       "field, which configs/base.py leaves out")
+_INPLACE = ("decode_inplace_cache is an XLA buffer field, which "
+            "configs/base.py leaves out: the port's decode step writes its "
+            "cache in place anyway")
+XLA_ONLY = {"sp": _SP, "sp_gc": _SP, "sp_mb4": _SP, "inplace": _INPLACE,
+            "sp_inplace": _SP}
+
+#: The reference's hillclimbed cells with the tags the port has.
+DEFAULT_PLAN = [
+    ("deepseek-coder-33b", "prefill_32k", ["kv2048"]),
+    ("qwen2-7b", "train_4k", ["gc_bf16"]),
+]
 
 
 def _geomean(xs) -> float:
     return float(np.exp(np.mean(np.log(np.maximum(xs, 1e-9)))))
+
+
+def variant(tag: str) -> dict:
+    """The knobs of variant ``tag``; an XLA-only or unknown tag raises."""
+    if tag in XLA_ONLY:
+        raise ValueError(f"variant {tag!r} is not in the port: "
+                         f"{XLA_ONLY[tag]}")
+    if tag not in VARIANTS:
+        raise ValueError(f"unknown variant {tag!r}; the port has "
+                         f"{sorted(VARIANTS)}")
+    return VARIANTS[tag]
+
+
+def compare(arch, shape, tag, out_dir=None):
+    """Print the baseline's and variant ``tag``'s roofline terms."""
+    d = pathlib.Path(out_dir) if out_dir is not None else dryrun.OUT_DIR
+    base = json.loads((d / f"{arch}__{shape}__16x16.json").read_text())
+    opt = json.loads((d / f"{arch}__{shape}__16x16__{tag}.json").read_text())
+    print(f"--- {arch} × {shape} [{tag}] ---")
+    for key in ("compute", "memory", "collective"):
+        b, o = base["terms_s"][key], opt["terms_s"][key]
+        print(f"  {key:10s} {b * 1e3:9.1f} ms -> {o * 1e3:9.1f} ms "
+              f"({b / max(o, 1e-12):.2f}x)")
+    tb = base["per_chip"]["temp_bytes"] / 1e9
+    to = opt["per_chip"]["temp_bytes"] / 1e9
+    print(f"  temp       {tb:9.2f} GB -> {to:9.2f} GB")
+    print(f"  frac       {base['roofline_fraction']:.4f} -> "
+          f"{opt['roofline_fraction']:.4f}")
+
+
+def _smoke_overrides(arch) -> dict:
+    """The fields the arch's smoke config changes."""
+    from ..configs import get_config, smoke_config
+
+    cfg = get_config(arch)
+    small = smoke_config(cfg)
+    return {f.name: getattr(small, f.name)
+            for f in dataclasses.fields(cfg)
+            if getattr(small, f.name) != getattr(cfg, f.name)}
+
+
+def cell_hillclimb(plan, out_dir=None, smoke: bool = False):
+    """Count each (arch, shape, tags) of ``plan`` under each variant (and
+    the baseline where its record is missing) and compare."""
+    d = pathlib.Path(out_dir) if out_dir is not None else dryrun.OUT_DIR
+    for arch, shape, tags in plan:
+        knobs = [variant(t) for t in tags]  # raise before any count
+        base_ov = _smoke_overrides(arch) if smoke else None
+        if not (d / f"{arch}__{shape}__16x16.json").exists():
+            dryrun.run_cell(arch, shape, overrides=base_ov, out_dir=d)
+        for tag, v in zip(tags, knobs):
+            ov = dict(base_ov or {}, **v.get("overrides", {})) or None
+            dryrun.run_cell(arch, shape, overrides=ov, tag=tag,
+                            microbatches=v.get("microbatches", 8),
+                            grad_compression=v.get("grad_compression"),
+                            out_dir=d)
+            compare(arch, shape, tag, d)
 
 
 def spmm_hillclimb(n_dense: int = 4, quick: bool = True, device=None):
@@ -203,6 +291,7 @@ def _join_world(backend):
 
 
 def main(argv=None):
+    """Run the mode the flags name (the roofline mode by default)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--spmm", action="store_true",
                     help="tune sparse schedules on the kernels (populates "
@@ -210,7 +299,12 @@ def main(argv=None):
     ap.add_argument("--attention", action="store_true",
                     help="tune the fused attention kernels (fwd and bwd)")
     ap.add_argument("--cell", action="append", default=None,
-                    help="arch:shape:tag (not ported)")
+                    help="arch:shape:tag: the roofline mode on one cell "
+                         f"(tags {sorted(VARIANTS)})")
+    ap.add_argument("--out", default=None,
+                    help="--cell: the record directory")
+    ap.add_argument("--smoke", action="store_true",
+                    help="--cell: count the arch's smoke config")
     ap.add_argument("--moe", action="store_true",
                     help="tune the MoE dispatch on the grouped-matmul kernel")
     ap.add_argument("--dist", action="store_true",
@@ -224,9 +318,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    for mode, why in NOT_PORTED.items():
-        if getattr(args, mode):
-            sys.exit(f"--{mode} is not ported: {why}")
     if args.spmm:
         spmm_hillclimb(args.n_dense, quick=not args.full,
                        device=args.device)
@@ -238,8 +329,13 @@ def main(argv=None):
         _join_world(args.backend)
         dist_hillclimb(args.n_dense, quick=not args.full, device=args.device)
     else:
-        sys.exit("pick a mode: --spmm, --moe, --attention or --dist "
-                 f"({NOT_PORTED['cell']})")
+        plan = DEFAULT_PLAN
+        if args.cell:
+            plan = []
+            for c in args.cell:
+                arch, shape, tag = c.split(":")
+                plan.append((arch, shape, [tag]))
+        cell_hillclimb(plan, out_dir=args.out, smoke=args.smoke)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,13 @@ NCCL refuses; ``nccl`` for one GPU a rank), and no function here picks
 one.  Every rank must build the same meshes in the same order, as
 ``torch.distributed.new_group`` requires.  With no process group
 initialised the world is this one process.
+
+A dry mesh (:func:`make_dry_mesh`, ``make_production_mesh(dry=True)``)
+has the shape of a mesh of many ranks in one process with no process
+group: the process plays the rank at ``coords``, each axis of more than
+one member has ``collectives.DRY`` as its group, and the collectives
+report their bytes and hand nothing over (``distributed/collectives.py``).
+The dry run counts one rank's program of the production meshes on it.
 """
 from __future__ import annotations
 
@@ -27,10 +34,12 @@ import torch
 import torch.distributed as dist
 
 from ..core.device import resolve_device
+from ..distributed.collectives import DRY
 
 __all__ = [
     "Mesh",
     "MeshAxis",
+    "make_dry_mesh",
     "make_local_mesh",
     "make_production_mesh",
     "make_reduction_mesh",
@@ -130,10 +139,31 @@ def make_local_mesh(model_parallel: int = 1, *, device=None) -> Mesh:
                  ("data", "model"), device)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+def make_dry_mesh(shape, axis_names, coords=None, *,
+                  device="meta") -> Mesh:
+    """A mesh of ``shape`` over ``axis_names`` in this one process, which
+    plays the rank at ``coords`` (default all zero) and needs no process
+    group (see the module docstring); ``device`` is the rank's device
+    (default ``meta``)."""
+    coords = tuple(coords) if coords is not None else (0,) * len(shape)
+    if len(coords) != len(shape) or not all(
+            0 <= c < n for c, n in zip(coords, shape)):
+        raise ValueError(f"coordinates {coords} lie outside a mesh of "
+                         f"shape {tuple(shape)}")
+    axes = [MeshAxis(name, int(n), int(c), DRY if n > 1 else None)
+            for name, n, c in zip(axis_names, shape, coords)]
+    return Mesh(shape, axis_names, axes=axes, device=torch.device(device))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         dry: bool = False) -> Mesh:
     """The reference's production meshes: (data 16, model 16), or (pod 2,
     data 16, model 16) with ``multi_pod``; the world must hold 256 or 512
-    ranks."""
+    ranks.  ``dry`` makes it in this one process instead, as the rank at
+    its first coordinates (:func:`make_dry_mesh`, ``device`` then
+    defaulting to ``meta``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if dry:
+        return make_dry_mesh(shape, axes, device=device or "meta")
     return _mesh(shape, axes, device)

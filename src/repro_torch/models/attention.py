@@ -5,7 +5,8 @@ Layout as in the reference: q (B, Sq, H, Dh), k and v (B, Skv, KH, Dh)
 with H = KH * G; query head ``h`` reads kv head ``h // G``.
 ``flash_attention`` is plain jnp in the reference (a chunked online
 softmax in f32, no Pallas), so the port computes the same function with
-``scaled_dot_product_attention`` on f32 operands.
+``scaled_dot_product_attention`` on f32 operands (on ``meta``, the
+memory-efficient op it runs on the card: ``_sdpa``).
 """
 from __future__ import annotations
 
@@ -43,10 +44,24 @@ def flash_attention(q, k, v, causal: bool = True):
     The causal mask keeps key positions ``<=`` the query's (both counted
     from 0)."""
     g = q.shape[2] // k.shape[2]
-    o = F.scaled_dot_product_attention(
-        _heads_first(q), _heads_first(k, g), _heads_first(v, g),
-        is_causal=causal)
+    o = _sdpa(_heads_first(q), _heads_first(k, g), _heads_first(v, g),
+              causal)
     return o.transpose(1, 2).to(q.dtype)
+
+
+def _sdpa(q, k, v, causal):
+    """``scaled_dot_product_attention`` on (B, H, S, Dh) operands.  On
+    ``meta``, which stands for the card in the dry run, it runs the op
+    that ``scaled_dot_product_attention`` runs on the card for f32
+    operands, the memory-efficient attention, with the log-sum-exp kept
+    where autograd needs it, as there (on ``meta`` PyTorch would run its
+    math path, which writes the (S, S) scores)."""
+    if q.device.type != "meta":
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+    lse = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return torch.ops.aten._scaled_dot_product_efficient_attention(
+        q, k, v, None, lse, is_causal=causal)[0]
 
 
 def attention_ref(q, k, v, causal=True):

@@ -12,7 +12,8 @@ output (L, B, enc_len, KH, Dh), computed once by ``prefill``.
 
 This family takes the batch dict in ``prefill`` and is served through
 ``prefill`` and ``decode_step``: the serving engine feeds tokens only,
-as the reference's does.
+as the reference's does.  Under a ctx with a mesh the entry points take
+the rank's data block of the global batch (``transformer.data_blocks``).
 """
 from __future__ import annotations
 
@@ -35,9 +36,12 @@ from .layers import (
     unembed,
 )
 from .transformer import (
+    _block,
     _to_torch,
-    check_generator,
     check_pos,
+    data_blocks,
+    draw_source,
+    global_mean,
     init_attn,
     tree_from_jax,
     unstack_from_jax,
@@ -89,8 +93,9 @@ def init_dec_layer(cfg, gen):
 
 def init_params(cfg, generator: torch.Generator, device=None):
     """Random parameters drawn from ``generator`` on ``device`` (None
-    means 'cuda'), as ``transformer.init_params``."""
-    dev = check_generator(generator, device)
+    means 'cuda'; 'meta' the shapes alone), as
+    ``transformer.init_params``."""
+    dev, generator = draw_source(generator, device)
     return {
         "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
                                 cfg.param_dtype),
@@ -152,16 +157,19 @@ def decode_train(cfg, params, tokens, enc_out):
 def forward(cfg, params, batch, ctx=None):
     """batch {"tokens" (B, S), "encoder_embeds" (B, S_enc, D)} -> logits
     (B, S, V), as the reference's (no aux loss)."""
+    batch = data_blocks(ctx, batch)
     enc_out = encode(cfg, params, batch["encoder_embeds"])
     x = decode_train(cfg, params, batch["tokens"], enc_out)
     return unembed(params["embed"], x)
 
 
 def loss_fn(cfg, params, batch, ctx=None):
+    batch = data_blocks(ctx, batch)
     enc_out = encode(cfg, params, batch["encoder_embeds"])
     x = decode_train(cfg, params, batch["tokens"], enc_out)
-    return lm_loss_from_features(params["embed"], x[:, :-1],
+    loss = lm_loss_from_features(params["embed"], x[:, :-1],
                                  batch["tokens"][:, 1:], batch.get("mask"))
+    return global_mean(ctx, loss, batch.get("mask"))
 
 
 def init_cache(cfg, batch_size, max_len, device=None):
@@ -180,6 +188,7 @@ def prefill(cfg, params, batch, max_len, ctx=None):
     """Encode the frames, cache the cross-attention's keys and values and
     run the prompt tokens.  Returns (last-token logits (B, V), the
     cache)."""
+    batch = data_blocks(ctx, batch)
     enc_out = encode(cfg, params, batch["encoder_embeds"])
     x = _embed(cfg, params, batch["tokens"])
     b, s = x.shape[:2]
@@ -217,6 +226,7 @@ def decode_step(cfg, params, cache, tokens, ctx=None):
     row ``pos`` of a table of the cache's ``max_len``; cross-attention
     reads every encoder position."""
     pos = check_pos(cache)
+    tokens = _block(ctx, tokens)
     b = tokens.shape[0]
     x = embed(params["embed"], tokens)[:, None, :].to(
         torch_dtype(cfg.compute_dtype))

@@ -11,7 +11,8 @@ Parameters as the transformer's, a layer ``{"ln1", "attn", "mixer",
 "mixer", "pos"}``: the keys and values (L, B, max_len, KH, Dh) and the
 mixer's ``{"ssm", "conv_x", "conv_bc"}`` (L, B, ...), written in place by
 ``decode_step``.  Decode passes RoPE float positions, as the reference
-does.
+does.  Under a ctx with a mesh the entry points take the rank's data
+block of the global batch (``transformer.data_blocks``).
 """
 from __future__ import annotations
 
@@ -34,10 +35,13 @@ from .layers import (
 from .mamba2 import init_mixer, mixer_decode, mixer_fwd
 from .ssm_lm import stack_layers, stacked_mixer_cache, write_layer
 from .transformer import (  # noqa: F401
+    _block,
     _qkv,
     attn_block,
-    check_generator,
     check_pos,
+    data_blocks,
+    draw_source,
+    global_mean,
     init_attn,
     params_from_jax,
 )
@@ -58,8 +62,9 @@ def init_layer(cfg, gen):
 
 def init_params(cfg, generator: torch.Generator, device=None):
     """Random parameters drawn from ``generator`` on ``device`` (None
-    means 'cuda'), as ``transformer.init_params``."""
-    dev = check_generator(generator, device)
+    means 'cuda'; 'meta' the shapes alone), as
+    ``transformer.init_params``."""
+    dev, generator = draw_source(generator, device)
     return {"embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
                                     cfg.param_dtype),
             "layers": [init_layer(cfg, generator)
@@ -100,14 +105,16 @@ def forward_features(cfg, params, tokens, ctx=None):
 
 def forward(cfg, params, tokens, ctx=None):
     """tokens (B, S) -> (logits (B, S, V), a zero aux loss)."""
-    x = forward_features(cfg, params, tokens, ctx)
+    x = forward_features(cfg, params, _block(ctx, tokens), ctx)
     return unembed(params["embed"], x), torch.zeros((), device=x.device)
 
 
 def loss_fn(cfg, params, batch, ctx=None):
+    batch = data_blocks(ctx, batch)
     x = forward_features(cfg, params, batch["tokens"], ctx)
-    return lm_loss_from_features(params["embed"], x[:, :-1],
+    loss = lm_loss_from_features(params["embed"], x[:, :-1],
                                  batch["tokens"][:, 1:], batch.get("mask"))
+    return global_mean(ctx, loss, batch.get("mask"))
 
 
 def init_cache(cfg, batch_size, max_len, device=None):
@@ -124,7 +131,7 @@ def prefill(cfg, params, tokens, max_len, ctx=None):
     """Run the whole prompt; return (last-token logits (B, V), a cache of
     ``max_len`` positions holding its keys and values, and the mixer's
     state after it)."""
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, _block(ctx, tokens))
     b, s = x.shape[:2]
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
@@ -146,7 +153,7 @@ def decode_step(cfg, params, cache, tokens, ctx=None):
     """One token a sequence.  tokens (B,) -> (logits (B, V), the cache,
     written in place at ``pos``, with ``pos + 1``)."""
     pos = check_pos(cache)
-    x = _embed(cfg, params, tokens)[:, None, :]
+    x = _embed(cfg, params, _block(ctx, tokens))[:, None, :]
     b = x.shape[0]
     positions = torch.full((b, 1), float(pos), dtype=torch.float32,
                            device=x.device)

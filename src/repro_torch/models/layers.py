@@ -53,15 +53,29 @@ def gcn_two_layer(adj, x, w0, w1, b0=None, b1=None, *, activation="relu",
 # The LM half (port of the norms, dense, rope, mlp and embedding of
 # ``repro/models/layers.py``).  Parameters are plain dicts of tensors; an
 # ``init_*`` function draws them from ``gen``, a ``torch.Generator`` on
-# the device the tensors are made on.  ``layer_scan``, ``seq_shard`` and
-# ``seq_unshard`` have no counterpart: layers run in a Python loop and
-# nothing is sharded.
+# the device the tensors are made on (or a ``ShapeOnly`` on meta).
+# ``layer_scan``, ``seq_shard`` and ``seq_unshard`` have no counterpart:
+# layers run in a Python loop and nothing is sharded.
 # ---------------------------------------------------------------------------
+
+
+class ShapeOnly:
+    """What the ``init_*`` functions draw from where an init is asked for
+    on ``device="meta"`` (``transformer.draw_source``): its ``device`` is
+    meta, so every leaf is made there, and :func:`init_normal` makes an
+    empty tensor of the leaf's shape and type, drawing nothing.  A shape
+    tree of any size takes no memory (the port's counterpart of
+    ``jax.eval_shape(api.init, key)``)."""
+
+    device = torch.device("meta")
 
 
 def init_normal(gen, shape, scale, dtype):
     """``normal(shape) * scale`` drawn in f32 and cast, as the reference's
-    ``(jax.random.normal(k, shape) * scale).astype(dtype)``."""
+    ``(jax.random.normal(k, shape) * scale).astype(dtype)``; from a
+    :class:`ShapeOnly` the empty meta tensor of that shape and type."""
+    if isinstance(gen, ShapeOnly):
+        return torch.empty(shape, dtype=torch_dtype(dtype), device=gen.device)
     t = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return t.mul_(scale).to(torch_dtype(dtype))

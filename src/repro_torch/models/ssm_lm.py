@@ -6,7 +6,9 @@ with one dict ``{"ln", "mixer"}`` a layer.  The cache is ``{"layers":
 {"ssm", "conv_x", "conv_bc"}, "pos"}``, each leaf stacked on a leading L
 axis, (L, B, ...); it does not grow with the sequence, so ``max_len`` is
 ignored.  ``decode_step`` writes the new states into the cache's tensors
-in place and returns the cache with ``pos + 1``.
+in place and returns the cache with ``pos + 1``.  Under a ctx with a
+mesh the entry points take the rank's data block of the global batch
+(``transformer.data_blocks``), as the transformer's do.
 """
 from __future__ import annotations
 
@@ -23,7 +25,13 @@ from .layers import (
     unembed,
 )
 from .mamba2 import init_mixer, init_mixer_cache, mixer_decode, mixer_fwd
-from .transformer import check_generator, params_from_jax  # noqa: F401
+from .transformer import (  # noqa: F401
+    _block,
+    data_blocks,
+    draw_source,
+    global_mean,
+    params_from_jax,
+)
 
 
 def init_layer(cfg, gen):
@@ -33,8 +41,9 @@ def init_layer(cfg, gen):
 
 def init_params(cfg, generator: torch.Generator, device=None):
     """Random parameters drawn from ``generator`` on ``device`` (None
-    means 'cuda'), as ``transformer.init_params``."""
-    dev = check_generator(generator, device)
+    means 'cuda'; 'meta' the shapes alone), as
+    ``transformer.init_params``."""
+    dev, generator = draw_source(generator, device)
     return {"embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
                                     cfg.param_dtype),
             "layers": [init_layer(cfg, generator)
@@ -55,14 +64,16 @@ def forward_features(cfg, params, tokens, ctx=None):
 
 def forward(cfg, params, tokens, ctx=None):
     """tokens (B, S) -> (logits (B, S, V), a zero aux loss)."""
-    x = forward_features(cfg, params, tokens, ctx)
+    x = forward_features(cfg, params, _block(ctx, tokens), ctx)
     return unembed(params["embed"], x), torch.zeros((), device=x.device)
 
 
 def loss_fn(cfg, params, batch, ctx=None):
+    batch = data_blocks(ctx, batch)
     x = forward_features(cfg, params, batch["tokens"], ctx)
-    return lm_loss_from_features(params["embed"], x[:, :-1],
+    loss = lm_loss_from_features(params["embed"], x[:, :-1],
                                  batch["tokens"][:, 1:], batch.get("mask"))
+    return global_mean(ctx, loss, batch.get("mask"))
 
 
 def stack_layers(states):
@@ -85,6 +96,7 @@ def init_cache(cfg, batch_size, max_len, device=None):
 def prefill(cfg, params, tokens, max_len, ctx=None):
     """Run the whole prompt; return (last-token logits (B, V), the cache
     after it)."""
+    tokens = _block(ctx, tokens)
     x = _embed(cfg, params, tokens)
     states = []
     for p_l in params["layers"]:
@@ -107,7 +119,7 @@ def write_layer(stacked, i, new):
 def decode_step(cfg, params, cache, tokens, ctx=None):
     """One token a sequence.  tokens (B,) -> (logits (B, V), the cache,
     written in place, with ``pos + 1``)."""
-    x = _embed(cfg, params, tokens)  # (B, D)
+    x = _embed(cfg, params, _block(ctx, tokens))  # (B, D)
     layers = cache["layers"]
     for i, p_l in enumerate(params["layers"]):
         out, new = mixer_decode(cfg, p_l["mixer"],

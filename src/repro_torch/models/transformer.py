@@ -27,6 +27,8 @@ reference where the next layer needs the whole block.
 
 The other families build on it: ``_qkv``, ``attn_block`` and
 ``init_attn`` serve ``models.hybrid`` and ``models.encdec``;
+``data_blocks`` and ``global_mean`` give every family's entry points
+their data block and global loss under a ctx, as here;
 ``inputs_embeds`` (in ``forward_features``, ``forward`` and ``prefill``)
 takes the VLM's patches and tokens in place of the tokens' embeddings.
 """
@@ -44,6 +46,7 @@ from ..distributed import collectives as coll
 from ..distributed import sharding
 from .attention import decode_attention, flash_attention
 from .layers import (
+    ShapeOnly,
     apply_dense,
     apply_mlp,
     apply_norm,
@@ -93,12 +96,24 @@ def init_layer(cfg, gen, keep=None):
 
 def check_generator(generator: torch.Generator, device=None):
     """The device an ``init_params`` draws on (None means 'cuda'); raises
-    unless ``generator`` lies on it."""
+    unless ``generator`` lies on it.  ``device="meta"`` takes any
+    generator (no generator lives on meta): its draws land nowhere."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return dev
     if generator.device.type != dev.type:
         raise ValueError(f"the generator lies on {generator.device}; make "
                          f"it with torch.Generator(device={dev.type!r})")
     return dev
+
+
+def draw_source(generator: torch.Generator, device=None):
+    """(device, what the ``init_*`` functions draw from): ``generator``
+    itself, or on ``device="meta"`` a ``layers.ShapeOnly``, so that the
+    init builds the tree of shapes and types alone, with no memory and
+    no draw (``generator`` is left as it was)."""
+    dev = check_generator(generator, device)
+    return dev, (ShapeOnly() if dev.type == "meta" else generator)
 
 
 def init_params(cfg, generator: torch.Generator, device=None, mesh=None):
@@ -109,8 +124,9 @@ def init_params(cfg, generator: torch.Generator, device=None, mesh=None):
     ``launch.mesh.Mesh``) every rank draws the whole model, the same
     numbers as one process, one leaf at a time, and keeps its block of
     each (``distributed.sharding.shard_leaf``): the expert blocks of its
-    model coordinate, every other leaf whole."""
-    dev = check_generator(generator, device)
+    model coordinate, every other leaf whole.  ``device="meta"`` takes
+    any generator and builds the shapes alone (``draw_source``)."""
+    dev, generator = draw_source(generator, device)
     keep = (None if mesh is None else
             lambda path, t: sharding.shard_leaf(mesh, path, t))
     return {"embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
@@ -252,18 +268,33 @@ def loss_fn(cfg, params, batch, ctx=None):
     x, aux = forward_features(cfg, params, tokens, ctx)
     loss = lm_loss_from_features(params["embed"], x[:, :-1], tokens[:, 1:],
                                  mask)
-    if ctx is not None and ctx.mesh is not None and ctx.data_axes:
-        axes = [ctx.mesh.axis(a) for a in ctx.data_axes]
-        if mask is not None:
-            count = mask.to(torch.float32).sum()
-            total = count
-            for ax in axes:
-                total = coll.psum(total, ax)
-            share = count * math.prod(ax.size for ax in axes)
-            loss = loss * (share / torch.clamp(total, min=1.0))
+    return global_mean(ctx, loss, mask) + AUX_WEIGHT * aux
+
+
+def data_blocks(ctx, batch: dict) -> dict:
+    """The rank's data block of every entry of a global ``batch`` under
+    ``ctx`` (the batch itself with no mesh): how the other families'
+    entry points take their block, as this module's do."""
+    return {k: _block(ctx, v) for k, v in batch.items()}
+
+
+def global_mean(ctx, loss, mask=None):
+    """The mean over the global batch, the same on every rank, from the
+    rank's block's mean ``loss`` and ``mask`` (see :func:`loss_fn`);
+    ``loss`` itself with no mesh or no data axes."""
+    if ctx is None or ctx.mesh is None or not ctx.data_axes:
+        return loss
+    axes = [ctx.mesh.axis(a) for a in ctx.data_axes]
+    if mask is not None:
+        count = mask.to(torch.float32).sum()
+        total = count
         for ax in axes:
-            loss = coll.mean_from(loss, ax)
-    return loss + AUX_WEIGHT * aux
+            total = coll.psum(total, ax)
+        share = count * math.prod(ax.size for ax in axes)
+        loss = loss * (share / torch.clamp(total, min=1.0))
+    for ax in axes:
+        loss = coll.mean_from(loss, ax)
+    return loss
 
 
 # --------------------------------------------------------------- serving

@@ -11,9 +11,12 @@ reference's plain-gelu MLP (``models/layers.py``: it has no gate).
 
 This family takes the batch dict in ``prefill`` and is served through
 ``prefill`` and ``decode_step``: the serving engine feeds tokens only,
-as the reference's does.
+as the reference's does.  Under a ctx with a mesh the entry points
+embed the rank's data block of the global batch alone.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -33,21 +36,35 @@ def _embeds(cfg, params, batch):
     return torch.cat([batch["patch_embeds"].to(dt), tok], dim=1)
 
 
+def _blocked(ctx, batch):
+    """(the rank's data block of ``batch``, a ctx that blocks nothing
+    more): the patches and tokens are embedded on the block alone."""
+    if ctx is None:
+        return batch, None
+    return (transformer.data_blocks(ctx, batch),
+            dataclasses.replace(ctx, data_axes=()))
+
+
 def forward(cfg, params, batch, ctx=None):
     """batch {"tokens" (B, S), "patch_embeds" (B, P, D)} -> (logits (B, P +
     S, V), aux loss)."""
-    return transformer.forward(cfg, params, None, ctx,
+    batch, inner = _blocked(ctx, batch)
+    return transformer.forward(cfg, params, None, inner,
                                inputs_embeds=_embeds(cfg, params, batch))
 
 
 def loss_fn(cfg, params, batch, ctx=None):
+    """The LM loss over the text positions (the patches are context)."""
+    batch = transformer.data_blocks(ctx, batch)
     x, _ = transformer.forward_features(
         cfg, params, None, ctx, inputs_embeds=_embeds(cfg, params, batch))
     text_x = x[:, batch["patch_embeds"].shape[1]:]
-    return lm_loss_from_features(params["embed"], text_x[:, :-1],
+    loss = lm_loss_from_features(params["embed"], text_x[:, :-1],
                                  batch["tokens"][:, 1:], batch.get("mask"))
+    return transformer.global_mean(ctx, loss, batch.get("mask"))
 
 
 def prefill(cfg, params, batch, max_len, ctx=None):
-    return transformer.prefill(cfg, params, None, max_len, ctx,
+    batch, inner = _blocked(ctx, batch)
+    return transformer.prefill(cfg, params, None, max_len, inner,
                                inputs_embeds=_embeds(cfg, params, batch))

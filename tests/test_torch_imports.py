@@ -67,7 +67,9 @@ def test_the_scan_covers_the_fuse_package_and_every_kernel_module():
             "models/encdec.py", "models/vlm.py",
             "configs/mamba2_2p7b.py", "configs/hymba_1p5b.py",
             "configs/whisper_large_v3.py",
-            "configs/paligemma_3b.py"} <= scanned
+            "configs/paligemma_3b.py", "configs/shapes.py",
+            "launch/dryrun.py", "launch/backend.py",
+            "roofline/analysis.py", "roofline/report.py"} <= scanned
     assert {f"tune/{m}.py" for m in (
         "__init__", "measure", "cache", "space", "driver", "search",
         "attention", "calibrate")} <= scanned

@@ -286,5 +286,10 @@ def test_lm_entry_points_raise_without_cuda(monkeypatch):
                  lambda: main(["--requests", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    # meta takes any generator and builds the shapes alone (the dry
+    # run's trees); a real device still needs the generator on it
+    meta = api.init(torch.Generator().manual_seed(0), device="meta")
+    assert meta["embed"].device.type == "meta"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="generator lies on"):
-        api.init(torch.Generator().manual_seed(0), device="meta")
+        api.init(torch.Generator().manual_seed(0), device="cuda")

@@ -477,10 +477,13 @@ def test_value_dtype_axis_admits_what_fits_the_budget():
         None, tc.Schedule(value_dtype="int8"))  # no gate: admitted
 
 
-def test_not_ported_parts_raise_naming_their_item(tuner_env, capsys):
-    """The distributed tuner is ported (a one-member mesh here; four
-    ranks in ``test_torch_dist_ranks.py``); the roofline mode still
-    raises naming its item."""
+def test_not_ported_parts_raise_naming_their_item(tuner_env, capsys,
+                                                  tmp_path):
+    """Every mode is ported: the distributed tuner (a one-member mesh
+    here; four ranks in ``test_torch_dist_ranks.py``) and the roofline
+    mode (``--cell``, on a smoke cell; ``test_torch_dryrun.py`` holds
+    it); only a variant of the reference's XLA fields raises, naming
+    why."""
     from repro_torch.launch.mesh import make_reduction_mesh
     from repro_torch.tune import measure, search
 
@@ -500,8 +503,13 @@ def test_not_ported_parts_raise_naming_their_item(tuner_env, capsys):
                                          axis="shards") > 0.0
     hillclimb.main(["--dist", "--device", "cpu"])
     assert capsys.readouterr().out.count("mesh=1 [") == 2
-    with pytest.raises(SystemExit, match="item 6"):
-        hillclimb.main(["--cell", "x:y:z"])
+    hillclimb.main(["--cell", "qwen2-7b:decode_32k:kv2048", "--smoke",
+                    "--out", str(tmp_path)])
+    assert "--- qwen2-7b × decode_32k [kv2048] ---" in \
+        capsys.readouterr().out
+    assert len(list(tmp_path.glob("qwen2-7b__*.json"))) == 2
+    with pytest.raises(ValueError, match="decode_inplace_cache"):
+        hillclimb.main(["--cell", "qwen2-7b:decode_32k:inplace"])
 
 
 def test_hillclimb_spmm_second_run_replays_every_cell(tuner_env, capsys):
