@@ -4,7 +4,7 @@ rank's program at full width on the ``meta`` device (port of
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b \\
         --shape train_4k [--multi-pod] [--out DIR]
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--jobs N]
 
 Where the reference lowers and compiles the global program for XLA's
 partitioner, the port has one program a rank (``distributed/sharding.py``
@@ -20,15 +20,18 @@ allocated and no kernel runs: the MoE runs its einsum path
 einsum path, since the grouped-matmul kernel's dispatch reads the
 routing's histogram.
 
-The layers run in a Python loop, so the count is the whole depth's; the
-reference's ladder (XLA counts a scan body once) is kept as an option
-for speed (``ladder=True``, one rung up: L=2 and L=3, see ``_ladder``:
-exact but for the peak of two cells), and its single-chunk attention
-pass is not needed: eager code counts every product.
+The layers run in a Python loop, so every cell is counted at its whole
+depth: the reference's L=1/L=2 ladder (XLA counts a scan body once) and
+its single-chunk attention pass are not needed, since eager code counts
+every layer and every product.  A line through two depths would also
+misread the peak wherever the phase that peaks changes with depth.
+``--jobs N`` counts the cells in N processes.
 
 Records land in ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``
-(``--out`` elsewhere) with the reference's keys, and ``fits``: whether
-the rank's arguments and its counted peak fit one card's memory.
+(``--out`` elsewhere) with the reference's keys, ``fits``: whether the
+rank's arguments and its counted peak fit one card's memory, and
+``overrides``: the config fields the cell was counted under ({} at the
+catalog's widths).
 ``roofline/report.py`` prints the tables.
 """
 from __future__ import annotations
@@ -37,9 +40,11 @@ import argparse
 import dataclasses
 import json
 import math
+import multiprocessing
 import pathlib
 import time
 import traceback
+from concurrent.futures import ProcessPoolExecutor
 
 import torch
 
@@ -51,8 +56,8 @@ from ..distributed.sharding import (_axes_of, cache_shardings, data_axes,
                                     param_shardings)
 from ..models import get_model
 from ..models.moe import ShardingCtx
-from ..roofline.analysis import (H100, analyze, combine_costs,
-                                 count_active_params, count_costs,
+from ..roofline.analysis import (H100, analyze, count_active_params,
+                                 count_costs,
                                  count_params, link_bw_for, tree_bytes)
 from ..train.optimizer import AdamW, cosine_schedule
 from ..train.train_step import TrainState, make_train_step
@@ -305,49 +310,10 @@ def count_program(program: Program):
     return c.costs(), c.memory(program.args, outputs), c
 
 
-def _ladder(arch, shape_name, n_layers, family, overrides=None, **kw):
-    """The reference's ladder, one rung up: count L=2 and L=3 and
-    extrapolate, total = cost(2) + (L-2)(cost(3) - cost(2)); the memory
-    of L layers likewise (its arguments exactly, its peak as the line
-    through the two).  From the second layer on each layer adds the same
-    work, so FLOPs, bytes, collectives and arguments are exact for the
-    catalog's homogeneous stacks of three or more layers; the first
-    layer does not (the embedding's output lives through it), which is
-    why the rungs start at 2.  The peak is the largest of the step's
-    phases, each growing by its own amount a layer: the line follows the
-    phase that peaks at L=3 and falls short where another one grows
-    faster with depth (deepseek-coder-33b and yi-34b train_4k: 420.8 and
-    428.4 GB against 464.7 and 476.2 counted directly, on the CPU).
-    ``tests/test_torch_dryrun.py`` holds it to the direct count on
-    4-layer cuts."""
-    per_l, mem = {}, {}
-    for l_val in (2, 3):
-        ov = dict(overrides or {}, n_layers=l_val)
-        if family == "encdec":
-            ov["n_encoder_layers"] = l_val
-        program, _ = lower_cell(arch, shape_name, overrides=ov, **kw)
-        per_l[l_val], mem[l_val], _ = count_program(program)
-    body = {
-        "flops": per_l[3]["flops"] - per_l[2]["flops"],
-        "bytes": per_l[3]["bytes"] - per_l[2]["bytes"],
-        "coll_bytes": per_l[3]["coll_bytes"] - per_l[2]["coll_bytes"],
-        "collectives": {
-            op: {k: per_l[3]["collectives"].get(op, {k: 0})[k]
-                 - per_l[2]["collectives"].get(op, {k: 0})[k]
-                 for k in ("count", "bytes")}
-            for op in set(per_l[3]["collectives"])
-            | set(per_l[2]["collectives"])},
-    }
-    extra = n_layers - 2
-    ma = type(mem[2])(*(a + extra * (b - a)
-                        for a, b in zip(mem[2], mem[3])))
-    return combine_costs(per_l[2], body, extra), ma
-
-
 def run_cell(arch, shape_name, *, multi_pod=False, zero1=True, save=True,
              overrides=None, tag=None, microbatches=8,
-             grad_compression=None, collective=None, ladder=False,
-             out_dir=None, mesh=None):
+             grad_compression=None, collective=None, out_dir=None,
+             mesh=None):
     """Count one cell and return its record (saved under ``out_dir``,
     default :data:`OUT_DIR`, with ``save``)."""
     t0 = time.time()
@@ -360,6 +326,7 @@ def run_cell(arch, shape_name, *, multi_pod=False, zero1=True, save=True,
                                collective=collective, mesh=mesh)
     if tag:
         meta["tag"] = tag
+    meta["overrides"] = dict(overrides or {})
     if program is None:
         print(f"SKIP {arch} × {shape_name}: {meta['skipped']}")
         if save:
@@ -367,15 +334,7 @@ def run_cell(arch, shape_name, *, multi_pod=False, zero1=True, save=True,
         return meta
     t_lower = time.time() - t0
     t0 = time.time()
-    cfg = get_config(arch).scaled(**(overrides or {}))
-    if ladder and cfg.n_layers >= 3:
-        costs, ma = _ladder(arch, shape_name, cfg.n_layers, cfg.family,
-                            multi_pod=multi_pod, zero1=zero1,
-                            overrides=overrides, microbatches=microbatches,
-                            grad_compression=grad_compression,
-                            collective=collective, mesh=mesh)
-    else:
-        costs, ma, _ = count_program(program)
+    costs, ma, _ = count_program(program)
     t_count = time.time() - t0
     del program
     hw = dataclasses.replace(H100,
@@ -389,7 +348,6 @@ def run_cell(arch, shape_name, *, multi_pod=False, zero1=True, save=True,
     res["hardware"] = {"name": hw.name, "peak_flops": hw.peak_flops,
                        "hbm_bw": hw.hbm_bw, "link_bw": hw.link_bw,
                        "hbm_bytes": hw.hbm_bytes}
-    res["ladder"] = bool(ladder and cfg.n_layers >= 3)
     res["t_lower_s"] = round(t_lower, 2)
     res["t_compile_s"] = round(t_count, 2)
     print(f"OK {arch} × {shape_name} × {res['mesh']}: "
@@ -411,6 +369,33 @@ def _save(res, out_dir=None):
     (d / name).write_text(json.dumps(res, indent=2, default=float))
 
 
+def _count_one(job):
+    """One cell of :func:`run_cells`: None, or the cell and its error."""
+    arch, shape, kw = job
+    try:
+        run_cell(arch, shape, **kw)
+    except Exception as e:  # noqa: BLE001
+        traceback.print_exc()
+        return arch, shape, repr(e)
+    return None
+
+
+def run_cells(cells, *, jobs: int = 1, **kw) -> list:
+    """:func:`run_cell` (``kw``, saving each record) on every (arch,
+    shape) of ``cells``, in ``jobs`` processes (spawned: a parent may hold
+    a CUDA context) where ``jobs`` > 1, the training cells first, as they
+    take longest.  Returns the failures as (arch, shape, error)."""
+    order = sorted(cells, key=lambda c: SHAPES[c[1]].kind != "train")
+    work = [(a, s, kw) for a, s in order]
+    if jobs <= 1:
+        results = [_count_one(w) for w in work]
+    else:
+        with ProcessPoolExecutor(
+                jobs, mp_context=multiprocessing.get_context("spawn")) as ex:
+            results = list(ex.map(_count_one, work))
+    return [r for r in results if r is not None]
+
+
 def main(argv=None):
     """Count ``--arch`` x ``--shape``, or every cell with ``--all``."""
     ap = argparse.ArgumentParser()
@@ -423,8 +408,8 @@ def main(argv=None):
                     default=None,
                     help="the MoE's expert-parallel combine (default "
                          "nnz_ar)")
-    ap.add_argument("--ladder", action="store_true",
-                    help="count L=1 and L=2 and extrapolate (faster)")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="count the cells in this many processes")
     ap.add_argument("--out", default=None,
                     help=f"record directory (default {OUT_DIR})")
     args = ap.parse_args(argv)
@@ -439,15 +424,9 @@ def main(argv=None):
             ap.error("--arch/--shape or --all")
         cells.append((args.arch, args.shape))
 
-    failures = []
-    for a, s in cells:
-        try:
-            run_cell(a, s, multi_pod=args.multi_pod,
-                     zero1=not args.no_zero1, ladder=args.ladder,
-                     collective=args.collective, out_dir=args.out)
-        except Exception as e:  # noqa: BLE001
-            traceback.print_exc()
-            failures.append((a, s, repr(e)))
+    failures = run_cells(cells, jobs=args.jobs, multi_pod=args.multi_pod,
+                         zero1=not args.no_zero1,
+                         collective=args.collective, out_dir=args.out)
     if failures:
         print("FAILURES:")
         for f in failures:

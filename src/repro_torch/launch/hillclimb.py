@@ -34,14 +34,16 @@ ranks share a GPU; with none, the world is this process alone).
 
 ``--cell arch:shape:tag`` is the roofline mode: it counts the cell under
 the variant ``tag`` with the dry run (``launch/dryrun.py``, one rank's
-program on ``meta``), counts the baseline too where its record is
-missing, and prints the roofline terms before and after; with no
-``--cell`` and no other mode it runs :data:`DEFAULT_PLAN`.  ``--out``
-names the record directory (default ``experiments/dryrun_torch``),
-``--smoke`` counts the arch's smoke config.  The variants are the
-knobs the port has (:data:`VARIANTS`); the reference's ``sp``, ``sp_*``
-and ``inplace`` steer XLA fields that ``configs/base.py`` leaves out,
-and asking for them raises (:data:`XLA_ONLY`).
+program on ``meta``), counts the baseline too where no record of it at
+the same widths exists, and prints the roofline terms before and after;
+with no ``--cell`` and no other mode it runs :data:`DEFAULT_PLAN`.
+``--out`` names the record directory (default
+``experiments/dryrun_torch``); ``--smoke`` counts the arch's smoke
+config, whose records go to the directory's ``smoke/``, apart from the
+full-width ones.  The variants are the knobs the port has
+(:data:`VARIANTS`); the reference's others (``sp``, ``sp_*``, ``inplace``,
+``kv2048``) steer what the port does not have, and asking for them
+raises, naming why (:data:`REFUSED`).
 """
 from __future__ import annotations
 
@@ -57,26 +59,30 @@ import torch
 from ..core.device import resolve_device
 from . import dryrun
 
-#: The roofline mode's variants: cfg-level knobs the port has.
+#: The roofline mode's variants: cfg-level knobs the port has.  The
+#: port's ``gc_bf16`` compresses the gradients after their data-parallel
+#: all-reduce (``train/train_step.py``), so its collective bytes equal
+#: the baseline's: it adds the casts' bytes and saves none on the wire
+#: until the step compresses before ``reduce_grads`` (ROADMAP).
 VARIANTS = {
     "gc_bf16": {"grad_compression": "bf16"},
     "mb16": {"microbatches": 16},
-    "kv2048": {"overrides": {"kv_chunk": 2048}},
 }
 
-#: The reference's variants that steer XLA alone, and why the port has
-#: none of them.
+#: The reference's variants that steer what the port does not have, and
+#: why.
 _SP = ("seq_parallel_attn (Megatron-SP attention) is an XLA sharding "
        "field, which configs/base.py leaves out")
 _INPLACE = ("decode_inplace_cache is an XLA buffer field, which "
             "configs/base.py leaves out: the port's decode step writes its "
             "cache in place anyway")
-XLA_ONLY = {"sp": _SP, "sp_gc": _SP, "sp_mb4": _SP, "inplace": _INPLACE,
-            "sp_inplace": _SP}
+_KV_CHUNK = ("kv_chunk sets the reference's chunked attention loop; the "
+             "port's attention is one fused SDPA call and reads no kv_chunk")
+REFUSED = {"sp": _SP, "sp_gc": _SP, "sp_mb4": _SP, "inplace": _INPLACE,
+           "sp_inplace": _SP, "kv2048": _KV_CHUNK}
 
 #: The reference's hillclimbed cells with the tags the port has.
 DEFAULT_PLAN = [
-    ("deepseek-coder-33b", "prefill_32k", ["kv2048"]),
     ("qwen2-7b", "train_4k", ["gc_bf16"]),
 ]
 
@@ -86,21 +92,30 @@ def _geomean(xs) -> float:
 
 
 def variant(tag: str) -> dict:
-    """The knobs of variant ``tag``; an XLA-only or unknown tag raises."""
-    if tag in XLA_ONLY:
+    """The knobs of variant ``tag``; a refused or unknown tag raises."""
+    if tag in REFUSED:
         raise ValueError(f"variant {tag!r} is not in the port: "
-                         f"{XLA_ONLY[tag]}")
+                         f"{REFUSED[tag]}")
     if tag not in VARIANTS:
         raise ValueError(f"unknown variant {tag!r}; the port has "
                          f"{sorted(VARIANTS)}")
     return VARIANTS[tag]
 
 
+def _record(path: pathlib.Path):
+    return json.loads(path.read_text()) if path.exists() else None
+
+
 def compare(arch, shape, tag, out_dir=None):
-    """Print the baseline's and variant ``tag``'s roofline terms."""
+    """Print the baseline's and variant ``tag``'s roofline terms; records
+    counted at different widths raise."""
     d = pathlib.Path(out_dir) if out_dir is not None else dryrun.OUT_DIR
     base = json.loads((d / f"{arch}__{shape}__16x16.json").read_text())
     opt = json.loads((d / f"{arch}__{shape}__16x16__{tag}.json").read_text())
+    if base.get("overrides") != opt.get("overrides"):
+        raise ValueError(f"{arch} × {shape}: the baseline was counted under "
+                         f"{base.get('overrides')}, [{tag}] under "
+                         f"{opt.get('overrides')}")
     print(f"--- {arch} × {shape} [{tag}] ---")
     for key in ("compute", "memory", "collective"):
         b, o = base["terms_s"][key], opt["terms_s"][key]
@@ -126,15 +141,19 @@ def _smoke_overrides(arch) -> dict:
 
 def cell_hillclimb(plan, out_dir=None, smoke: bool = False):
     """Count each (arch, shape, tags) of ``plan`` under each variant (and
-    the baseline where its record is missing) and compare."""
+    the baseline where no record of it at the same widths exists) and
+    compare.  ``smoke`` counts the arch's smoke config into ``smoke/`` of
+    the record directory."""
     d = pathlib.Path(out_dir) if out_dir is not None else dryrun.OUT_DIR
+    if smoke:
+        d = d / "smoke"
     for arch, shape, tags in plan:
         knobs = [variant(t) for t in tags]  # raise before any count
-        base_ov = _smoke_overrides(arch) if smoke else None
-        if not (d / f"{arch}__{shape}__16x16.json").exists():
-            dryrun.run_cell(arch, shape, overrides=base_ov, out_dir=d)
+        ov = _smoke_overrides(arch) if smoke else {}
+        base = _record(d / f"{arch}__{shape}__16x16.json")
+        if base is None or base.get("overrides") != ov:
+            dryrun.run_cell(arch, shape, overrides=ov, out_dir=d)
         for tag, v in zip(tags, knobs):
-            ov = dict(base_ov or {}, **v.get("overrides", {})) or None
             dryrun.run_cell(arch, shape, overrides=ov, tag=tag,
                             microbatches=v.get("microbatches", 8),
                             grad_compression=v.get("grad_compression"),

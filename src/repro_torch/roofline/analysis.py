@@ -36,7 +36,6 @@ from typing import NamedTuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
 from ..core.dtypes import operand_itemsize, value_itemsize
 from ..core.tree import key_str, tree_leaves, tree_leaves_with_path
@@ -366,11 +365,20 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 def _tensors(tree) -> list:
-    seen, out = set(), []
-    for x in tree_flatten(tree)[0]:
-        if isinstance(x, torch.Tensor) and id(x) not in seen:
-            seen.add(id(x))
-            out.append(x)
+    """The distinct tensors of an op's arguments or outputs (nested
+    tuples, lists and dicts), walked directly: the counter calls it on
+    every op, and ``tree_flatten`` took a fifth of a count's time."""
+    seen, out, stack = set(), [], [tree]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            if id(x) not in seen:
+                seen.add(id(x))
+                out.append(x)
+        elif isinstance(x, (tuple, list)):
+            stack.extend(x)
+        elif isinstance(x, dict):
+            stack.extend(x.values())
     return out
 
 

@@ -5,7 +5,9 @@ roofline arithmetic under the reference's constants, the report's
 tables character for character, the cost counter (meta against CPU
 tensors, matmul FLOPs against their closed form and against XLA's count
 of the reference's step), the dry collectives' bytes against the byte
-predictors, ``hillclimb --cell`` and ``backend_info``.
+predictors, ``hillclimb --cell`` (its refused variants, smoke and
+full-width records in one directory), counting in processes and
+``backend_info``.
 
 The JAX side never imports ``repro.launch.dryrun``: it sets
 ``XLA_FLAGS`` to 512 host devices at import, in a worker other test
@@ -13,6 +15,7 @@ files share.  Its pieces are imported one by one.
 """
 import functools
 import math
+import re
 
 import jax
 import numpy as np
@@ -208,9 +211,9 @@ def records(tmp_path_factory):
         dryrun.run_cell("qwen2-7b", shape, overrides=smoke, out_dir=out)
     dryrun.run_cell("qwen2-7b", "decode_32k", overrides=smoke, out_dir=out,
                     multi_pod=True)
-    dryrun.run_cell("qwen2-7b", "prefill_32k",
-                    overrides=dict(smoke, kv_chunk=2048), tag="kv2048",
-                    out_dir=out)
+    dryrun.run_cell("qwen2-7b", "train_4k", overrides=smoke, out_dir=out)
+    dryrun.run_cell("qwen2-7b", "train_4k", overrides=smoke,
+                    grad_compression="bf16", tag="gc_bf16", out_dir=out)
     dryrun.run_cell("mamba2-2.7b", "long_500k",
                     overrides=hillclimb._smoke_overrides("mamba2-2.7b"),
                     out_dir=out)
@@ -220,16 +223,16 @@ def records(tmp_path_factory):
 def test_report_tables_match_the_reference(records):
     recs = treport.load(records)
     assert recs == jreport.load(records)
-    assert len(recs) == 6 and ("qwen2-7b", "long_500k", "skip", "") in recs
+    assert len(recs) == 7 and ("qwen2-7b", "long_500k", "skip", "") in recs
     for mesh in ("16x16", "2x16x16"):
         assert treport.roofline_table(recs, mesh) == \
             jreport.roofline_table(recs, mesh)
         assert treport.dryrun_table(recs, mesh) == \
             jreport.dryrun_table(recs, mesh)
     assert treport.optimized_table(recs) == jreport.optimized_table(recs)
-    assert "kv2048" in treport.optimized_table(recs)
+    assert "gc_bf16" in treport.optimized_table(recs)
     fits = treport.fits_table(recs, "16x16")
-    assert len(fits.splitlines()) == 2 + 3 and "| yes |" in fits
+    assert len(fits.splitlines()) == 2 + 4 and "| yes |" in fits
     for fn in (treport.fmt_si, jreport.fmt_si):
         assert fn(1.5e12, "B") == "1.50TB"
 
@@ -333,24 +336,23 @@ def test_microbatches_keep_the_matmul_flops_of_a_dry_run_cell():
     assert flops[0] == flops[1] > 0
 
 
-@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
-def test_ladder_equals_the_direct_count_on_a_four_layer_cut(shape):
-    """The L=2/L=3 ladder against the whole depth's count (MoE smoke,
-    4 layers, on a (2, 2) dry mesh: its 4 experts do not split over the
-    production mesh's 16 model ranks; the collectives included): FLOPs,
-    bytes, collectives, arguments and the peak."""
-    ov = dict(hillclimb._smoke_overrides("qwen3-moe-235b-a22b"), n_layers=4)
-    kw = dict(multi_pod=False, overrides=ov, microbatches=1, save=False,
-              mesh=make_dry_mesh((2, 2), ("data", "model")))
-    direct = dryrun.run_cell("qwen3-moe-235b-a22b", shape, **kw)
-    ladder = dryrun.run_cell("qwen3-moe-235b-a22b", shape, ladder=True,
-                             **kw)
-    assert ladder["ladder"] and not direct["ladder"]
-    for key in ("hlo_flops", "hlo_bytes", "collective_bytes", "arg_bytes",
-                "temp_bytes", "out_bytes"):
-        assert ladder["per_chip"][key] == direct["per_chip"][key], key
-    assert ladder["collectives"] == direct["collectives"]
-    assert direct["collectives"]["all-reduce"]["bytes"] > 0
+def test_run_cells_in_processes_equal_the_serial_count(tmp_path):
+    """``--jobs``: two spawned processes write the records one process
+    writes, but for their timings."""
+    cells = [("qwen2-7b", "decode_32k"), ("qwen2-7b", "long_500k"),
+             ("qwen2-7b", "train_4k")]
+    smoke = hillclimb._smoke_overrides("qwen2-7b")
+    recs = []
+    for jobs in (1, 2):
+        out = tmp_path / str(jobs)
+        assert not dryrun.run_cells(cells, jobs=jobs, out_dir=out,
+                                    overrides=smoke)
+        recs.append(treport.load(out))
+    for rec in recs:
+        for r in rec.values():
+            r.pop("t_lower_s", None)
+            r.pop("t_compile_s", None)
+    assert len(recs[0]) == 3 and recs[0] == recs[1]
 
 
 # ---------------------------------------------------- dry collectives
@@ -420,18 +422,65 @@ def test_a_real_axis_still_needs_a_process_group():
 
 
 def test_hillclimb_cell_writes_base_and_variant(tmp_path, capsys):
-    hillclimb.main(["--cell", "qwen2-7b:prefill_32k:kv2048", "--smoke",
+    hillclimb.main(["--cell", "qwen2-7b:train_4k:gc_bf16", "--smoke",
                     "--out", str(tmp_path)])
     out = capsys.readouterr().out
-    assert {p.name for p in tmp_path.glob("*.json")} == {
-        "qwen2-7b__prefill_32k__16x16.json",
-        "qwen2-7b__prefill_32k__16x16__kv2048.json"}
-    assert "--- qwen2-7b × prefill_32k [kv2048] ---" in out
+    assert not list(tmp_path.glob("*.json"))
+    assert {p.name for p in (tmp_path / "smoke").glob("*.json")} == {
+        "qwen2-7b__train_4k__16x16.json",
+        "qwen2-7b__train_4k__16x16__gc_bf16.json"}
+    assert "--- qwen2-7b × train_4k [gc_bf16] ---" in out
     assert "frac" in out
+    recs = treport.load(tmp_path / "smoke")
+    base = recs[("qwen2-7b", "train_4k", "16x16", "")]
+    gc = recs[("qwen2-7b", "train_4k", "16x16", "gc_bf16")]
+    # the port compresses after the all-reduce: the wire moves the same
+    assert gc["collectives"] == base["collectives"]
+    assert gc["per_chip"]["hlo_bytes"] > base["per_chip"]["hlo_bytes"]
     with pytest.raises(ValueError, match="seq_parallel_attn"):
         hillclimb.main(["--cell", "qwen2-7b:train_4k:sp", "--smoke",
                         "--out", str(tmp_path)])
-    assert set(hillclimb.VARIANTS) == {"mb16", "gc_bf16", "kv2048"}
+    assert set(hillclimb.VARIANTS) == {"mb16", "gc_bf16"}
+
+
+@pytest.mark.parametrize("tag", sorted(hillclimb.REFUSED))
+def test_hillclimb_refuses_what_the_port_lacks(tag, tmp_path):
+    """Each refused tag raises with its reason before anything is
+    counted, and stays out of the default plan."""
+    with pytest.raises(ValueError, match=re.escape(hillclimb.REFUSED[tag])):
+        hillclimb.main(["--cell", f"qwen2-7b:decode_32k:{tag}", "--out",
+                        str(tmp_path)])
+    assert not list(tmp_path.rglob("*.json"))
+    assert all(tag not in tags for _, _, tags in hillclimb.DEFAULT_PLAN)
+
+
+def test_hillclimb_smoke_and_full_records_share_a_directory(tmp_path,
+                                                            capsys):
+    """A smoke run and a full-width run in one directory each compare
+    against the baseline of their own widths; a baseline of other widths
+    is counted again, and records of two widths do not compare."""
+    for flags in (["--smoke"], [], ["--smoke"]):
+        hillclimb.main(["--cell", "qwen2-7b:decode_32k:mb16", "--out",
+                        str(tmp_path)] + flags)
+    capsys.readouterr()
+    name = "qwen2-7b__decode_32k__16x16.json"
+    full = tmp_path / name
+    smoke = tmp_path / "smoke" / name
+    assert treport.load(tmp_path)[("qwen2-7b", "decode_32k", "16x16", "")][
+        "overrides"] == {}
+    assert treport.load(tmp_path / "smoke")[
+        ("qwen2-7b", "decode_32k", "16x16", "mb16")]["overrides"] == \
+        hillclimb._smoke_overrides("qwen2-7b")
+    # a smoke baseline left under the full-width name is not reused
+    full.write_text(smoke.read_text())
+    hillclimb.main(["--cell", "qwen2-7b:decode_32k:mb16", "--out",
+                    str(tmp_path)])
+    assert "--- qwen2-7b × decode_32k [mb16] ---" in capsys.readouterr().out
+    assert treport.load(tmp_path)[("qwen2-7b", "decode_32k", "16x16", "")][
+        "overrides"] == {}
+    full.write_text(smoke.read_text())
+    with pytest.raises(ValueError, match="counted under"):
+        hillclimb.compare("qwen2-7b", "decode_32k", "mb16", tmp_path)
 
 
 def test_dryrun_main_writes_a_record_and_a_skip(tmp_path, capsys):
@@ -444,7 +493,8 @@ def test_dryrun_main_writes_a_record_and_a_skip(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "SKIP qwen2-7b × long_500k" in out and "dry-run complete" in out
     assert res["fits"] and res["zero1_applied"] is False
-    assert res["dominant"] == "memory" and res["ladder"] is False
+    assert res["dominant"] == "memory"
+    assert res["overrides"] == {"n_layers": 1}
     pc = res["per_chip"]
     # the rank's weights (vocab 152,064 x 3,584 tied, one layer) and its
     # 8 slots of a 32k cache at bf16

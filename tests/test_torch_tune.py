@@ -503,11 +503,11 @@ def test_not_ported_parts_raise_naming_their_item(tuner_env, capsys,
                                          axis="shards") > 0.0
     hillclimb.main(["--dist", "--device", "cpu"])
     assert capsys.readouterr().out.count("mesh=1 [") == 2
-    hillclimb.main(["--cell", "qwen2-7b:decode_32k:kv2048", "--smoke",
+    hillclimb.main(["--cell", "qwen2-7b:decode_32k:mb16", "--smoke",
                     "--out", str(tmp_path)])
-    assert "--- qwen2-7b × decode_32k [kv2048] ---" in \
+    assert "--- qwen2-7b × decode_32k [mb16] ---" in \
         capsys.readouterr().out
-    assert len(list(tmp_path.glob("qwen2-7b__*.json"))) == 2
+    assert len(list((tmp_path / "smoke").glob("qwen2-7b__*.json"))) == 2
     with pytest.raises(ValueError, match="decode_inplace_cache"):
         hillclimb.main(["--cell", "qwen2-7b:decode_32k:inplace"])
 
