@@ -191,9 +191,11 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   worlds (``--dist-rank R P DIR moe`` and ``... train``).  Right after
   ``moe_serve`` the parent saves the one-rank answer at a no-drop
   dispatch (capacity factor E / k): a prefill of MOE_SLOTS prompts and
-  DIST_MOE_DECODE greedy decode steps.  Each rank of worlds 2 and 4
-  draws the moe_serve model from SEED one leaf at a time and keeps its
-  expert block (``init_params(mesh=)``), on (data, model) meshes (1, 2),
+  DIST_MOE_DECODE greedy decode steps, on the model's first
+  DIST_MOE_LAYERS layers.  Each rank of worlds 2 and 4
+  draws those layers from SEED one leaf at a time and keeps its blocks
+  (``init_params(mesh=)``: its experts, since PR 34 its vocabulary, FSDP
+  attention and cache blocks too), on (data, model) meshes (1, 2),
   (1, 4) and (2, 2), prints what it holds and its peak memory; holds the
   grouped matmul (row 7) against its plain version on its first layer;
   holds layer 0's MoE on the prompts' input to the one-rank layer per
@@ -209,9 +211,11 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   ``moe_tune_collective`` runs on (1, 2) and (2, 2): every rank the same
   pick, a replay measuring nothing.  Then the data-parallel ``Trainer``
   at full width cut to one layer and 16 experts (the reckoning printed):
-  the parent's one-process run on the whole batch, then worlds on (2, 2)
-  and (2, 1), each rank's first-step gradients (reduced over the data
-  axis) within LM_GRAD_REL_L2 of the one-process run's, row 7b on its
+  the parent's one-process run on the whole batch, then a world on (2,
+  2) (PR 34 dropped the (2, 1) world: the dist tp phase's (2, 2) world
+  takes the data-parallel mean too), each rank's first-step gradients
+  (reduced over the data axis) within LM_GRAD_REL_L2 of the one-process
+  run's, row 7b on its
   expert block, DIST_TRAIN_STEPS steps whose losses are within
   LM_LOSS_REL of the one-process run's; the (2, 2) world writes a whole
   checkpoint that the parent restores and holds to its own parameters.
@@ -251,7 +255,9 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   recurrence against its chunked scan); the bf16 logits against the same
   weights in f32, gated on a copy cut to 4 layers and printed at full
   depth; the state models through ``ServeEngine`` (4 slots, 8 requests
-  of one length).  Training: ``Trainer`` for 6 steps of 2 x 256 tokens
+  of one length).  Training: ``Trainer`` for 4 steps of 2 x 256 tokens
+  (6 before PR 34), under ``remat=True``, beside one step and 2 trainer
+  steps at ``remat=False``,
   at full depth (the memory reckoning printed), Whisper's frames and
   PaliGemma's patches from a seeded stream; every gradient of step 0
   finite (the SSD masks before its exponential) and the loss falling;
@@ -293,6 +299,7 @@ follow the points their timing visits and stand apart as
 failed phase exits non-zero without that line; so does a machine without
 CUDA.
 """
+import functools
 import json
 import math
 import subprocess
@@ -416,6 +423,9 @@ LM_REFERENCE_WIDTH = 64
 #: 280x on the loss, where a routing, tiling or transposition fault moves
 #: a gradient by tens of percent.
 LM_GRAD_REL_L2, LM_LOSS_REL = 2.0 ** -5, 2.0 ** -10
+#: The trainer steps run again at ``remat=False`` beside the recomputing
+#: run of lm_train and of each family (the same tolerances).
+REMAT_STEPS = 2
 #: The grouped matmul's plain version runs over at most this many tiles
 #: at a time (it gathers each tile's expert weights in f32).
 GMM_PLAIN_TILES = 128
@@ -5320,6 +5330,127 @@ def lm_batch(cfg, dev):
     return {"tokens": torch.as_tensor(tokens, device=dev)}
 
 
+def grad_errors(named, grads, want):
+    """Each leaf's gradient error against ``want``: its relative L2, but
+    for a key's bias (``.../wk/b``), whose gradient is zero in exact
+    arithmetic (the bias moves every score of a query alike, and the
+    softmax does not see it), so that both runs hold rounding noise alone
+    and noise against noise reads about sqrt(2): there the error's norm
+    over the leaf's share of the whole tree's norm (the tree's norm
+    times the square root of the leaf's share of its elements)."""
+    import torch
+
+    sq = sum(float(torch.linalg.vector_norm(w.float())) ** 2 for w in want)
+    n = sum(w.numel() for w in want)
+    out = {}
+    for (name, _), g, w in zip(named, grads, want):
+        if name.endswith("/wk/b"):
+            share = math.sqrt(sq * w.numel() / n)
+            out[name] = float(torch.linalg.vector_norm(
+                g.float() - w.float())) / max(share, 1e-30)
+        else:
+            out[name] = rel_l2(g, w)
+    return out
+
+
+def remat_step_check(label, cfg, batch, dev):
+    """One step's loss and gradients (forward and backward, no update) of
+    ``cfg`` drawn from SEED on ``batch`` at ``remat=False`` and
+    ``remat=True``, each twice in turns (False, False, True, True): the
+    loss at True bit for bit the loss at False (the same forward), every
+    gradient within LM_GRAD_REL_L2 relative L2 of False's (a key's bias
+    against its share of the tree's norm, :func:`grad_errors`); the
+    leaves
+    whose bits differ between True and False printed beside those that
+    differ between False's two runs (a backward op that reorders its sums
+    from run to run: atomics, SDPA's backward); each flag's second step
+    ms (CUDA events) and the growth of ``max_memory_allocated`` over the
+    parameters it held, which must fall under recomputation."""
+    import torch
+    from repro_torch.models import get_model
+
+    params = get_model(cfg).init(torch.Generator(device=dev).manual_seed(
+        SEED), device=dev)
+    named = _param_leaves(params)
+    leaves = [t for _, t in named]
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    first, runs = None, {}
+    for flag in (False, False, True, True):
+        api = get_model(cfg.scaled(remat=flag))
+        for p in leaves:
+            p.requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = api.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        end.record()
+        torch.cuda.synchronize()
+        for p in leaves:
+            p.requires_grad_(False)
+        row = {"ms": start.elapsed_time(end),
+               "growth": torch.cuda.max_memory_allocated() - base}
+        if first is None:
+            first = (loss.detach(), grads)
+        else:
+            row["loss_bits"] = bool(torch.equal(loss.detach(), first[0]))
+            row["rel"] = grad_errors(named, grads, first[1])
+            row["differ"] = [n for (n, _), g, f in zip(named, grads, first[1])
+                             if not torch.equal(g, f)]
+        runs.setdefault(flag, []).append(row)
+        del loss, grads
+    del params, named, leaves, first
+    torch.cuda.empty_cache()
+    plain, remat = runs[False][1], runs[True][1]
+    worst = max(max(r["rel"].values()) for r in runs[True])
+    ok = (all(r["loss_bits"] for r in runs[True]) and worst <= LM_GRAD_REL_L2
+          and remat["growth"] < plain["growth"])
+    print(f"{label}: one step (forward and backward) at remat=False "
+          f"{plain['ms']:.4f} ms, max_memory_allocated growth "
+          f"{plain['growth'] / 1e9:.3f} GB; at remat=True {remat['ms']:.4f} "
+          f"ms, {remat['growth'] / 1e9:.3f} GB (CUDA events, the second "
+          f"run of each); loss at remat=True bit for bit "
+          f"{[r['loss_bits'] for r in runs[True]]}; gradients worst relative "
+          f"L2 {worst:.3e} at {max(runs[True][0]['rel'], key=runs[True][0]['rel'].get)}"
+          f" (tol {LM_GRAD_REL_L2:.3e}; a key's bias against its share of "
+          f"the tree's norm), remat=False against itself "
+          f"{max(plain['rel'].values()):.3e}; leaves whose bits "
+          f"differ: remat=True against remat=False {runs[True][0]['differ']},"
+          f" remat=False against itself {plain['differ']}; {card_line()}",
+          flush=True)
+    if not ok:
+        fail(f"{label}: recomputation changed the loss or the gradients, or "
+             "did not lower the step's peak")
+    return {"ms": {False: plain["ms"], True: remat["ms"]},
+            "growth": {False: plain["growth"], True: remat["growth"]},
+            "worst": worst}
+
+
+def remat_losses_check(label, remat_run, plain_run):
+    """The trainer's losses at ``remat=True`` against ``remat=False``'s
+    over the steps both ran: the first bit for bit (the same forward on
+    the same parameters), the later within LM_LOSS_REL; with their step
+    ms and peaks."""
+    a, b = list(remat_run["losses"]), list(plain_run["losses"])
+    n = min(len(a), len(b))
+    later = max([abs(x - y) / abs(y) for x, y in zip(a[1:n], b[1:n])],
+                default=0.0)
+    print(f"{label}: trainer losses at remat=True "
+          + ", ".join(f"{x:.6f}" for x in a[:n]) + " against remat=False "
+          + ", ".join(f"{x:.6f}" for x in b[:n])
+          + f": the first bit for bit {a[0] == b[0]}, the "
+          f"later within {later:.3e} (tol {LM_LOSS_REL:.3e}); step 2 ms "
+          f"{remat_run['step_ms'][1]:.4f} against "
+          f"{plain_run['step_ms'][1]:.4f} (CUDA events); max_memory_allocated "
+          f"{remat_run['peak'] / 1e9:.2f} GB against "
+          f"{plain_run['peak'] / 1e9:.2f} GB", flush=True)
+    if not (a[0] == b[0] and later <= LM_LOSS_REL):
+        fail(f"{label}: the trainer's losses under recomputation differ")
+
+
 def lm_grad_check(cfg, dev):
     """(b) One step's loss and every leaf's gradient on the kernel path
     against the einsum path (``moe_kernel_dispatch=False``) on the card,
@@ -5371,7 +5502,8 @@ def lm_grad_check(cfg, dev):
     return lk
 
 
-def lm_trainer(cfg, dev, counters, first_loss, lr, must_fall):
+def lm_trainer(cfg, dev, counters, first_loss, lr, must_fall,
+               steps=LM_STEPS):
     """(c) ``Trainer`` for LM_STEPS steps at constant learning rate ``lr``
     and weight decay 0 on the token stream, with no checkpoint (37 GB at
     this width); the kernels' counts zeroed just before the run and read
@@ -5397,7 +5529,7 @@ def lm_trainer(cfg, dev, counters, first_loss, lr, must_fall):
         tr = one_host(Trainer(
             api, AdamW(lr=constant_schedule(lr), weight_decay=0.0),
             iter(data), ckpt_dir=ckpt,
-            tcfg=TrainerConfig(total_steps=LM_STEPS, ckpt_every=LM_STEPS + 1,
+            tcfg=TrainerConfig(total_steps=steps, ckpt_every=steps + 1,
                                log_every=1), device=dev))
         state = tr.init_or_restore(torch.Generator(device=dev).manual_seed(
             SEED))
@@ -5436,15 +5568,16 @@ def lm_trainer(cfg, dev, counters, first_loss, lr, must_fall):
                      lambda: step_fn(state, batch))
     del state, tr
     torch.cuda.empty_cache()
-    per_step = {n: c / LM_STEPS for n, c in counts.items() if c}
-    new = {n: launch_ms.get(n, 0.0) / LM_STEPS
+    per_step = {n: c / steps for n, c in counts.items() if c}
+    new = {n: launch_ms.get(n, 0.0) / steps
            for n in ("grouped_matmul", "grouped_matmul_dx",
                      "grouped_matmul_dw")}
-    print(f"lm_train: {LM_STEPS} steps at lr {lr:.4g}, losses "
+    print(f"lm_train: {steps} steps at lr {lr:.4g}, remat {cfg.remat}, "
+          "losses "
           + ", ".join(f"{v:.6f}" for v in losses)
           + f" (step 1 against check (b)'s kernel-path loss {first_loss:.6f})"
           f"; step ms (CUDA events) " + ", ".join(f"{v:.4f}" for v in step_ms)
-          + f", mean of steps 2-{LM_STEPS} "
+          + f", mean of steps 2-{steps} "
           f"{sum(step_ms[1:]) / (len(step_ms) - 1):.4f} ms; peak "
           f"max_memory_allocated {peak / 1e9:.2f} GB; launches a step "
           f"{per_step}; grouped-matmul routes {routes}; grouped-matmul "
@@ -5456,10 +5589,10 @@ def lm_trainer(cfg, dev, counters, first_loss, lr, must_fall):
     if routes["grouped_matmul fma"] or routes["grouped_matmul_dw fma"]:
         fail(f"lm_train: a grouped-matmul launch of the bf16 model left "
              f"the tensor cores: {routes}")
-    if not (len(losses) == LM_STEPS and all(map(math.isfinite, losses))
+    if not (len(losses) == steps and all(map(math.isfinite, losses))
             and (falls or not must_fall)):
         fail(f"lm_train: the losses at lr {lr:.4g} are not finite or do not "
-             f"fall over {LM_STEPS} steps: {list(losses)}")
+             f"fall over {steps} steps: {list(losses)}")
     return {"counts": counts, "step_ms": step_ms, "peak": peak,
             "losses": losses, "lr": lr}
 
@@ -5518,17 +5651,23 @@ def lm_train_phase(dev, counters):
     for LM_STEPS steps at LM_LR (printed; at this width its first step
     raises the loss) and at LM_LR scaled from LM_REFERENCE_WIDTH to the
     model's (the losses must fall; the main path, its launches counted),
-    and the checkpoint round trip at smoke size."""
+    all under the config's ``remat=True``; one step and REMAT_STEPS
+    trainer steps at ``remat=False`` beside it (:func:`remat_step_check`,
+    :func:`remat_losses_check`); and the checkpoint round trip at smoke
+    size."""
     cfg = lm_config()
     worst = check_gmm_backward(cfg, dev)
     rows = time_gmm_backward(cfg, dev)
     first_loss = lm_grad_check(cfg, dev)
+    remat = remat_step_check("lm_train", cfg, lm_batch(cfg, dev), dev)
     lm_trainer(cfg, dev, counters, first_loss, LM_LR, must_fall=False)
-    trained = lm_trainer(cfg, dev, counters, first_loss,
-                         LM_LR * LM_REFERENCE_WIDTH / cfg.d_model,
-                         must_fall=True)
+    lr = LM_LR * LM_REFERENCE_WIDTH / cfg.d_model
+    trained = lm_trainer(cfg, dev, counters, first_loss, lr, must_fall=True)
+    plain = lm_trainer(cfg.scaled(remat=False), dev, {}, first_loss, lr,
+                       must_fall=False, steps=REMAT_STEPS)
+    remat_losses_check("lm_train", trained, plain)
     lm_checkpoint(dev)
-    return {"worst": worst, "results": rows, **trained}
+    return {"worst": worst, "results": rows, "remat": remat, **trained}
 
 
 # ---------------------------------------------------------------------------
@@ -5554,7 +5693,7 @@ FAMILY_ARCHS = ("mamba2-2.7b", "hymba-1.5b", "whisper-large-v3",
                 "paligemma-3b")
 FAMILY_SLOTS, FAMILY_PROMPT, FAMILY_NEW, FAMILY_REQUESTS = 4, 128, 8, 8
 FAMILY_CHECK_LAYERS = 4
-FAMILY_BATCH, FAMILY_SEQ, FAMILY_STEPS = 2, 256, 6
+FAMILY_BATCH, FAMILY_SEQ, FAMILY_STEPS = 2, 256, 4
 #: Families the serving engine takes (their batches are tokens alone).
 FAMILY_ENGINE = ("ssm", "hybrid")
 #: The card's memory, for the training reckoning.
@@ -5811,16 +5950,25 @@ def ssd_share(cfg, dev, step_ms):
     return ms
 
 
-def family_train(cfg, dev, n_params):
-    """Trainer for FAMILY_STEPS steps at full depth (the reckoning
+def family_batches(cfg):
+    """The families' training stream: FAMILY_BATCH x FAMILY_SEQ tokens
+    (and the family's frames or patches) from SEED."""
+    from repro_torch.data.synthetic import ModelInputs, ShardedTokenStream
+
+    return ModelInputs(cfg, ShardedTokenStream(cfg.vocab_size, FAMILY_SEQ,
+                                               FAMILY_BATCH, seed=SEED),
+                       seed=SEED)
+
+
+def family_train(cfg, dev, n_params, steps=FAMILY_STEPS):
+    """Trainer for ``steps`` steps at full depth (the reckoning
     printed), AdamW at LM_LR scaled from LM_REFERENCE_WIDTH to the width,
     weight decay 0; step ms by CUDA events around each step, the peak of
     ``max_memory_allocated``; step 0's gradients must all be finite and
-    the losses finite and falling."""
+    the losses finite, and over FAMILY_STEPS falling."""
     import tempfile
 
     import torch
-    from repro_torch.data.synthetic import ModelInputs, ShardedTokenStream
     from repro_torch.models import get_model
     from repro_torch.train.optimizer import AdamW, constant_schedule
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -5836,15 +5984,13 @@ def family_train(cfg, dev, n_params):
     api = get_model(cfg)
     lr = LM_LR * LM_REFERENCE_WIDTH / cfg.d_model
     opt = FirstStepCheck(AdamW(lr=constant_schedule(lr), weight_decay=0.0))
-    data = ModelInputs(cfg, ShardedTokenStream(cfg.vocab_size, FAMILY_SEQ,
-                                               FAMILY_BATCH, seed=SEED),
-                       seed=SEED)
+    data = family_batches(cfg)
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as ckpt:
         tr = one_host(Trainer(
             api, opt, data, ckpt_dir=ckpt,
-            tcfg=TrainerConfig(total_steps=FAMILY_STEPS,
-                               ckpt_every=FAMILY_STEPS + 1, log_every=100),
+            tcfg=TrainerConfig(total_steps=steps, ckpt_every=steps + 1,
+                               log_every=100),
             device=dev))
         state = tr.init_or_restore(torch.Generator(device=dev).manual_seed(
             SEED))
@@ -5866,22 +6012,26 @@ def family_train(cfg, dev, n_params):
     peak = torch.cuda.max_memory_allocated()
     losses = tr.losses()
     mean_ms = sum(step_ms[1:]) / (len(step_ms) - 1)
-    if cfg.family == "ssm":
+    whole = steps == FAMILY_STEPS
+    if cfg.family == "ssm" and whole:
         batch = next(data)
         profile_step(f"families {cfg.name} training step",
                      lambda: step_fn(state, batch))
     del state, tr
     torch.cuda.empty_cache()
-    share = ssd_share(cfg, dev, mean_ms) if cfg.family == "ssm" else None
-    falls = losses[-1] < losses[0] and losses[-3:].mean() < losses[:3].mean()
-    print(f"families: {cfg.name} training: {FAMILY_STEPS} steps of "
+    share = (ssd_share(cfg, dev, mean_ms) if cfg.family == "ssm" and whole
+             else None)
+    falls = not whole or (losses[-1] < losses[0]
+                          and losses[-3:].mean() < losses[:3].mean())
+    print(f"families: {cfg.name} training (remat {cfg.remat}): {steps} "
+          f"steps of "
           f"{FAMILY_BATCH} x {FAMILY_SEQ} tokens at lr {lr:.4g}, losses "
           + ", ".join(f"{v:.6f}" for v in losses)
           + "; step ms (CUDA events) " + ", ".join(f"{v:.4f}" for v in step_ms)
-          + f", mean of steps 2-{FAMILY_STEPS} {mean_ms:.4f} ms; peak "
+          + f", mean of steps 2-{steps} {mean_ms:.4f} ms; peak "
           f"max_memory_allocated {peak / 1e9:.2f} GB; step-0 gradients not "
           f"finite: {opt.bad}; {card_line()}", flush=True)
-    if opt.bad or not (len(losses) == FAMILY_STEPS
+    if opt.bad or not (len(losses) == steps
                        and all(map(math.isfinite, losses)) and falls):
         fail(f"families: {cfg.name}'s training failed (non-finite step-0 "
              f"gradients {opt.bad}, losses {list(losses)})")
@@ -5891,7 +6041,9 @@ def family_train(cfg, dev, n_params):
 
 def families_phase(dev, counters):
     """The ``families`` phase: the four architectures one at a time, each
-    served and trained, its memory freed before the next; the kernels'
+    served and trained (under the configs' ``remat=True``; one step and
+    REMAT_STEPS trainer steps at ``remat=False`` beside it), its memory
+    freed before the next; the kernels'
     counts zeroed just before and read just after (these paths reach no
     kernel of the port: SSD, the causal conv and their attention are
     torch built-ins, as they are XLA ops in the reference)."""
@@ -5911,7 +6063,13 @@ def families_phase(dev, counters):
         served = family_serve(cfg, dev)
         gc.collect()
         torch.cuda.empty_cache()
-        out[arch] = {**served, **family_train(cfg, dev, served["n_params"])}
+        remat = remat_step_check(f"families {cfg.name}", cfg,
+                                 next(family_batches(cfg)), dev)
+        trained = family_train(cfg, dev, served["n_params"])
+        plain = family_train(cfg.scaled(remat=False), dev,
+                             served["n_params"], steps=REMAT_STEPS)
+        remat_losses_check(f"families {cfg.name}", trained, plain)
+        out[arch] = {**served, **trained, "remat": remat}
     counts = {n: k.launches for n, k in counters.items()}
     print(f"families: phase {time.perf_counter() - t0:.1f} s (host clock); "
           f"kernel launches {({n: c for n, c in counts.items() if c})}",
@@ -6610,23 +6768,28 @@ DIST_MOE_DECODE = 3
 #: in their arithmetic; every mesh holds its MoE layer alone.
 DIST_MOE_EXACT_AXES = (2,)
 #: The data-parallel trainer's worlds: ranks -> model-parallel size, (2, 2)
-#: then (2, 1); the first writes a whole checkpoint.  Its cut (PERF.md §4):
+#: (which writes a whole checkpoint).  Its cut (PERF.md §4):
 #: full width, LM_LAYERS layers, DIST_TRAIN_EXPERTS experts (top-8 kept)
 #: at a no-drop capacity; batch DIST_TRAIN_BATCH x DIST_TRAIN_SEQ.
-DIST_TRAIN_WORLDS = {4: 2, 2: 1}
+DIST_TRAIN_WORLDS = {4: 2}
 DIST_TRAIN_EXPERTS, DIST_TRAIN_BATCH, DIST_TRAIN_SEQ = 16, 4, 256
 DIST_TRAIN_STEPS, DIST_TRAIN_CKPT = 3, 4
 #: Width overrides of both configurations, for a rehearsal on the CPU
 #: only; empty on the card.
 DIST_MOE_CUT = {}
+#: The expert-parallel serving worlds' depth: the moe_serve model's first
+#: layers (MOE_LAYERS there), cut since the ranks all-gather each
+#: layer's FSDP attention weights through gloo on the host (PR 34).
+DIST_MOE_LAYERS = 2
 
 
 def dist_moe_config():
-    """Qwen3-MoE at full width cut to MOE_LAYERS layers: the moe_serve
-    phase's model."""
+    """Qwen3-MoE at full width cut to DIST_MOE_LAYERS layers: the first
+    layers of the moe_serve phase's model."""
     from repro_torch.configs import get_config
 
-    return get_config(MOE_ARCH).scaled(n_layers=MOE_LAYERS, **DIST_MOE_CUT)
+    return get_config(MOE_ARCH).scaled(n_layers=DIST_MOE_LAYERS,
+                                       **DIST_MOE_CUT)
 
 
 def dist_train_config():
@@ -6676,16 +6839,28 @@ class RankOrderCombine:
     experts moves, which at full width flips the top-8 of tokens whose
     8th and 9th gates are within that rounding, so the expert-parallel
     ranks' logits are held to this answer (:func:`dist_moe_reference`)
-    and its distance from the plain one-rank answer is printed beside."""
+    and its distance from the plain one-rank answer is printed beside.
+    The transformer's unembedding and decode attention run as the ranks
+    run them under the applied specs too (``transformer.unembed`` and
+    ``decode_attention`` wrapped): the logits a product per vocabulary
+    block, the attention over the m blocks of the sequence, its maxima
+    and sums combined in rank order."""
 
     def __init__(self, m: int):
         self.m = m
 
     def __enter__(self):
         from repro_torch.models import moe as tmoe
+        from repro_torch.models import transformer
 
         self._mod, self._orig = tmoe, tmoe._expert_ffn
+        self._tf = (transformer, transformer.unembed,
+                    transformer.decode_attention)
         orig, m = self._orig, self.m
+        if m > 1:
+            transformer.unembed = functools.partial(blocked_unembed, m=m)
+            transformer.decode_attention = functools.partial(
+                blocked_decode_attention, m=m)
 
         def ffn(cfg, x, wg, wi, wo, gates, cap, use_kernel, dispatch=None,
                 combine="sum"):
@@ -6703,6 +6878,53 @@ class RankOrderCombine:
 
     def __exit__(self, *exc):
         self._mod._expert_ffn = self._orig
+        tf, unembed, attend = self._tf
+        tf.unembed, tf.decode_attention = unembed, attend
+
+
+def blocked_unembed(table, x, axis=None, *, m):
+    """The logits as ``layers.unembed`` computes them over a model axis
+    of ``m``: one product per vocabulary block, concatenated."""
+    import torch
+
+    n = table.shape[0] // m
+    return torch.cat([x @ table[i * n:(i + 1) * n].t() for i in range(m)],
+                     dim=-1)
+
+
+def blocked_decode_attention(q, k_cache, v_cache, pos, axis=None, *, m):
+    """``attention.decode_attention`` as the ranks of a model axis of
+    ``m`` compute it over their blocks of the sequence, in one process:
+    each block's masked scores, the max of the blocks' maxima, the sum of
+    their sums of exponentials and of their P V in rank order."""
+    import torch
+    from repro_torch.kernels.fused_attention import NEG_INF
+
+    b, s, kh, dh = k_cache.shape
+    n = s // m
+    qi = q.reshape(b, kh, q.shape[1] // kh, dh).to(torch.float32)
+    scores = []
+    for i in range(m):
+        kb = k_cache[:, i * n:(i + 1) * n].contiguous()
+        sc = torch.einsum("bkgd,bskd->bkgs", qi,
+                          kb.to(torch.float32)) * dh ** -0.5
+        valid = torch.arange(i * n, (i + 1) * n, device=q.device) <= pos
+        scores.append(torch.where(valid, sc, torch.full_like(sc, NEG_INF)))
+    top = scores[0].amax(dim=-1, keepdim=True)
+    for sc in scores[1:]:
+        top = torch.maximum(top, sc.amax(dim=-1, keepdim=True))
+    es = [torch.exp(sc - top) for sc in scores]
+    total = es[0].sum(dim=-1, keepdim=True)
+    for e in es[1:]:
+        total = total + e.sum(dim=-1, keepdim=True)
+    o = None
+    for i, e in enumerate(es):
+        vb = v_cache[:, i * n:(i + 1) * n].contiguous()
+        part = torch.einsum("bkgs,bskd->bkgd",
+                            (e / total).to(v_cache.dtype).to(torch.float32),
+                            vb.to(torch.float32))
+        o = part if o is None else o + part
+    return o.reshape(b, q.shape[1], dh).to(q.dtype)
 
 
 def dist_moe_shapes() -> list:
@@ -6734,6 +6956,8 @@ def dist_moe_reference(cfg, params, dev, tmp):
     from repro_torch.models import get_model
     from repro_torch.models import moe as tmoe
 
+    cfg = cfg.scaled(n_layers=DIST_MOE_LAYERS)  # the ranks' first layers
+    params = {**params, "layers": params["layers"][:DIST_MOE_LAYERS]}
     nodrop = cfg.scaled(capacity_factor=cfg.n_experts / cfg.experts_per_token)
     api = get_model(nodrop)
     prompts = moe_prompts(cfg)[:MOE_SLOTS]
@@ -6815,7 +7039,9 @@ def dist_moe_rank(rank, world, tmp, dev, counters, res):
     'nnz_rs' at the no-drop dispatch, each step's logits within
     LOGIT_REL_L2 of the one-rank model's and its greedy tokens equal,
     and the bytes handed to the combine equal to T_loc x D x 4 (1/M of
-    that under 'nnz_rs') a layer; times prefill and a decode step at the
+    that under 'nnz_rs') a layer, beside the vocabulary-parallel lookup's
+    T_loc x D bf16 rows and the aux loss's means; times prefill and a
+    decode step at the
     default dispatch; on DIST_MOE_TUNE's meshes runs
     ``moe_tune_collective`` and its replay."""
     import torch
@@ -6914,10 +7140,13 @@ def dist_moe_rank(rank, world, tmp, dev, counters, res):
             combine = (cfg.n_layers * t_loc * cfg.d_model * 4
                        // (mp if mode == "nnz_rs" else 1))
             aux = 4 * cfg.n_layers * sum(ax.size > 1 for ax in (d_ax, m_ax))
+            # the vocabulary-parallel lookup's all-reduce of the rows
+            lookup = (t_loc * cfg.d_model * params["embed"].element_size()
+                      if params["embed"].shape[0] < cfg.vocab_size else 0)
             handed = (spy.bytes["reduce_scatter"] if mode == "nnz_rs"
-                      else spy.bytes["all_reduce"] - aux)
+                      else spy.bytes["all_reduce"] - aux - lookup)
             bytes_ok = handed == combine and spy.bytes["all_reduce"] == (
-                aux + (combine if mode == "nnz_ar" else 0))
+                aux + lookup + (combine if mode == "nnz_ar" else 0))
             del got, cache
             ctx_d = ctx_at(cfg.capacity_factor)
             prefill_ms = world_ms(lambda: api.prefill(
@@ -6999,8 +7228,16 @@ def first_step_grads(api, params, batch, ctx, dev):
     """The loss and every gradient (by path) of one batch, as the
     data-parallel step takes them: under ``ctx`` each rank's gradient of
     its block averaged over the data axis (``reduce_grads``)."""
+    loss, grads = step_grads(api, params, batch, ctx, dev)
+    return float(loss), grads
+
+
+def step_grads(api, params, batch, ctx, dev):
+    """:func:`first_step_grads` with the loss a tensor (on ``meta`` too,
+    where the dry run counts the same program)."""
     import torch
     from repro_torch.core.tree import tree_leaves, tree_unflatten
+    from repro_torch.distributed import sharding
     from repro_torch.train.train_step import reduce_grads
 
     leaves = tree_leaves(params)
@@ -7013,8 +7250,10 @@ def first_step_grads(api, params, batch, ctx, dev):
         p.requires_grad_(False)
     grads = tree_unflatten(params, list(grads))
     if ctx is not None:
-        grads = reduce_grads(ctx, grads)
-    return float(loss.detach()), _param_leaves(grads)
+        grads = reduce_grads(ctx, grads, sharding.applied_shardings(
+            ctx.mesh, api.init(torch.Generator(), device="meta"),
+            api.cfg.family))
+    return loss.detach(), _param_leaves(grads)
 
 
 def rank_gmm_backward_check(moe, dev, label):
@@ -7098,12 +7337,14 @@ def dist_train_rank(rank, world, tmp, dev, counters, res):
     """One rank of a data-parallel world (job 'train'): the trainer's cut
     on a (2, world / 2) mesh drawn from SEED (its expert block kept); the
     first batch's gradients, reduced over the data axis, against the
-    one-process run's within LM_GRAD_REL_L2 relative L2 (an expert leaf
-    against its block); row 7b on its expert block; then
+    one-process run's within LM_GRAD_REL_L2 relative L2 (a split leaf
+    against its block, ``sharding.shard_leaf``); row 7b on its expert
+    block; then
     DIST_TRAIN_STEPS ``Trainer`` steps on the global batches (the counts
     zeroed just before, read just after), the DIST_TRAIN_CKPT world
     writing a whole checkpoint at the end."""
     import torch
+    from repro_torch.distributed import sharding
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import get_model
     from repro_torch.models.moe import ShardingCtx
@@ -7125,10 +7366,7 @@ def dist_train_rank(rank, world, tmp, dev, counters, res):
     want = torch.load(Path(tmp) / "train_grads.pt")
     errs = {}
     for name, g in grads:
-        w = want[name]
-        if "/moe/w" in name:
-            n = w.shape[0] // mp
-            w = w[m * n:(m + 1) * n]
+        w = sharding.shard_leaf(mesh, name, want[name], cfg.family)
         errs[name] = rel_l2(g, w.to(dev))
     del grads, want
     torch.cuda.empty_cache()
@@ -7169,7 +7407,7 @@ def dist_train_rank(rank, world, tmp, dev, counters, res):
     res["counts"] = {n: c.launches for n, c in counters.items()}
     res["crc"] = {n: block_crc(t) for n, t in _param_leaves(state.params)}
     res.update(losses=tr.losses().tolist(), loss0=loss0, step_ms=step_ms,
-               model_index=m,
+               coords=[mesh.axis("data").index, m],
                run_s=run_s, grad_rel_l2=worst,
                peak=torch.cuda.max_memory_allocated(),
                mesh=[world // mp, mp],
@@ -7190,9 +7428,9 @@ def block_crc(t) -> int:
 
 
 def dist_ep_rank(job, rank, world, tmp):
-    """A rank of an expert-parallel ('moe') or data-parallel ('train')
-    world on the card's gloo group; writes ``tmp/rank<R>.json``, exits 1
-    on a failed check."""
+    """A rank of an expert-parallel ('moe'), data-parallel ('train') or
+    tensor-parallel ('tp') world on the card's gloo group; writes
+    ``tmp/rank<R>.json``, exits 1 on a failed check."""
     import os
 
     import torch
@@ -7212,8 +7450,8 @@ def dist_ep_rank(job, rank, world, tmp):
     res = {"rank": rank, "world": world, "job": job, "failures": [],
            "counts": dict.fromkeys(counters, 0),
            "tune_counts": dict.fromkeys(counters, 0)}
-    (dist_moe_rank if job == "moe" else dist_train_rank)(
-        rank, world, tmp, dev, counters, res)
+    {"moe": dist_moe_rank, "train": dist_train_rank,
+     "tp": dist_tp_rank}[job](rank, world, tmp, dev, counters, res)
     (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
     if res["failures"]:
@@ -7233,6 +7471,8 @@ def dist_moe_phase(tmp, counters, dev):
     errors."""
     import torch
     from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed.sharding import shard_leaf
+    from repro_torch.launch.mesh import make_dry_mesh
     from repro_torch.train.optimizer import AdamState
     from repro_torch.train.train_step import TrainState
 
@@ -7365,10 +7605,10 @@ def dist_moe_phase(tmp, counters, dev):
     mp = DIST_TRAIN_WORLDS[DIST_TRAIN_CKPT]
     differ = []
     for r in writers:  # each rank's blocks of the whole leaves, bit for bit
+        mesh = make_dry_mesh((DIST_TRAIN_CKPT // mp, mp), ("data", "model"),
+                             r["coords"], device="cpu")
         for n, t in state.params.items():
-            if "/moe/w" in n:
-                k = t.shape[0] // mp
-                t = t[r["model_index"] * k:(r["model_index"] + 1) * k]
+            t = shard_leaf(mesh, n, t, cfg_t.family)
             if block_crc(t) != r["crc"][n]:
                 differ.append(f"rank {r['rank']} {n}")
     same = not differ
@@ -7391,6 +7631,305 @@ def dist_moe_phase(tmp, counters, dev):
           f"tuner {out['tune']}", flush=True)
     return {"counts": out["serve"], "train_counts": out["train"],
             "tune_counts": out["tune"], "worst": worst}
+
+
+# ---------------------------------------------------------------------------
+# dist tp: the reference's tensor-parallel specs on gloo ranks
+# ---------------------------------------------------------------------------
+
+#: The tensor-parallel phase: qwen2-7b at full width cut to DIST_TP_LAYERS
+#: layers (PERF.md §4: four ranks and the one-process run share the
+#: card), on the (data, model) meshes of DIST_TP_MESHES of 4 gloo ranks.
+#: Serving in bf16: DIST_TP_PROMPTS prompts of DIST_TP_PROMPT tokens
+#: prefilled into a cache of DIST_TP_MAX_LEN positions, DIST_TP_DECODE
+#: decode steps fed the one-process run's greedy tokens.  Training in f32
+#: (bf16's rounding of the row-parallel partials alone moves a gradient
+#: by about 2^-8, so only f32 can hold the layout to DIST_TP_GRAD_REL_L2):
+#: the first batch's loss and gradients, then DIST_TP_STEPS ``Trainer``
+#: steps under AdamW on batches of DIST_TP_BATCH x DIST_TP_SEQ tokens.
+DIST_TP_ARCH, DIST_TP_LAYERS = "qwen2-7b", 4
+DIST_TP_MESHES = ((2, 2), (1, 4))
+DIST_TP_PROMPTS, DIST_TP_PROMPT, DIST_TP_MAX_LEN = 4, 128, 4096
+DIST_TP_DECODE = 8
+DIST_TP_BATCH, DIST_TP_SEQ, DIST_TP_STEPS = 4, 128, 2
+DIST_TP_GRAD_REL_L2 = 1e-4
+
+
+def dist_tp_configs():
+    """(the bf16 serving config, the f32 training config) of the phase."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DIST_TP_ARCH).scaled(n_layers=DIST_TP_LAYERS)
+    return cfg, cfg.scaled(param_dtype="float32", compute_dtype="float32")
+
+
+def dist_tp_inputs(cfg, dev):
+    """(the prompts (DIST_TP_PROMPTS, DIST_TP_PROMPT), the training
+    batches), seeded, the same on every rank."""
+    import torch
+    from repro_torch.data.synthetic import ShardedTokenStream
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 34)
+    prompts = torch.randint(0, cfg.vocab_size, (DIST_TP_PROMPTS,
+                                                DIST_TP_PROMPT),
+                            generator=gen).to(dev)
+    it = iter(ShardedTokenStream(cfg.vocab_size, DIST_TP_SEQ, DIST_TP_BATCH,
+                                 seed=SEED + 34))
+    return prompts, [next(it) for _ in range(DIST_TP_STEPS)]
+
+
+def dist_tp_trainer(api, batches, dev, ctx=None, ckpt=None):
+    """A ``Trainer`` of DIST_TP_STEPS steps under AdamW (constant rate,
+    no weight decay) on ``batches``, with no checkpoint."""
+    from repro_torch.train.optimizer import AdamW, constant_schedule
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    opt = AdamW(lr=constant_schedule(dist_train_lr(api.cfg)),
+                weight_decay=0.0)
+    return one_host(Trainer(api, opt, iter(batches), ckpt_dir=ckpt,
+                            tcfg=TrainerConfig(total_steps=DIST_TP_STEPS,
+                                               ckpt_every=DIST_TP_STEPS + 1,
+                                               log_every=DIST_TP_STEPS + 1),
+                            ctx=ctx, device=dev)), opt
+
+
+def dist_tp_reference(dev, tmp):
+    """The one-process run the tensor-parallel ranks are held to: the
+    bf16 prefill and greedy decode (logits and tokens saved to
+    ``tmp/tp_serve.pt``), the f32 first batch's loss and gradients
+    (``tmp/tp_grads.pt``, read leaf by leaf by the ranks) and
+    DIST_TP_STEPS ``Trainer`` steps; returns the losses, the peaks and
+    the seconds."""
+    import tempfile
+
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.train.train_step import TrainState
+
+    t0 = time.perf_counter()
+    cfg, cfg32 = dist_tp_configs()
+    prompts, batches = dist_tp_inputs(cfg, dev)
+    api = get_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED),
+                      device=dev)
+    with torch.no_grad():
+        logits, cache = api.prefill(params, {"tokens": prompts},
+                                    DIST_TP_MAX_LEN)
+        served, fed = [logits.float().cpu()], []
+        for _ in range(DIST_TP_DECODE):
+            fed.append(logits.argmax(-1))
+            logits, cache = api.decode_step(params, cache, fed[-1])
+            served.append(logits.float().cpu())
+    torch.save({"logits": served, "fed": [t.cpu() for t in fed]},
+               Path(tmp) / "tp_serve.pt")
+    serve_peak = torch.cuda.max_memory_allocated()
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    api32 = get_model(cfg32)
+    params = api32.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    loss0, grads = first_step_grads(api32, params, batches[0], None, dev)
+    torch.save({n: g.cpu() for n, g in grads}, Path(tmp) / "tp_grads.pt")
+    del grads
+    with tempfile.TemporaryDirectory() as ckpt:
+        tr, opt = dist_tp_trainer(api32, batches, dev, ckpt=ckpt)
+        state = tr.run(TrainState(params=params, opt=opt.init(params)))
+    out = {"loss0": loss0, "losses": tr.losses().tolist(),
+           "serve_peak": serve_peak,
+           "train_peak": torch.cuda.max_memory_allocated(),
+           "s": time.perf_counter() - t0}
+    del state, params, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_tp_rank(rank, world, tmp, dev, counters, res):
+    """One rank of the tensor-parallel world (job 'tp'): on each mesh of
+    DIST_TP_MESHES it draws the model from SEED keeping its blocks
+    (``init_params(mesh=)``: the embedding's vocabulary block, the
+    attention weights' FSDP blocks, the MLP's column and row blocks);
+    prefills the prompts (the global batch in, the rank's data block of
+    the logits out, over the whole vocabulary) into its block of the
+    sequence-sharded cache and decodes DIST_TP_DECODE steps fed the
+    one-process run's tokens, each step's logits within LOGIT_REL_L2;
+    in f32 takes the first batch's loss (within LM_LOSS_REL) and
+    gradients, reduced (``reduce_grads``) and gathered whole leaf by leaf
+    (``gather_leaf``, as ``gather_params`` does), each within
+    DIST_TP_GRAD_REL_L2 relative L2 of the one-process run's, the
+    collectives it reported beside the same program counted on a dry
+    mesh of its coordinates (``launch.mesh.make_dry_mesh`` on meta; equal
+    by op, count and bytes); then DIST_TP_STEPS ``Trainer`` steps, whose
+    losses are within LM_LOSS_REL of the one-process run's."""
+    import torch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_dry_mesh, make_local_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models.moe import ShardingCtx
+    from repro_torch.roofline.analysis import CostCounter, count_costs
+    from repro_torch.train.train_step import TrainState
+
+    cfg, cfg32 = dist_tp_configs()
+    api, api32 = get_model(cfg), get_model(cfg32)
+    prompts, batches = dist_tp_inputs(cfg, dev)
+    ref = torch.load(Path(tmp) / "tp_serve.pt")
+    want = torch.load(Path(tmp) / "tp_grads.pt", mmap=True)
+    losses = json.loads((Path(tmp) / "tp_losses.json").read_text())
+    res["meshes"] = []
+    for shape in DIST_TP_MESHES:
+        t0 = time.perf_counter()
+        mesh = make_local_mesh(shape[1], device=dev)
+        ctx = ShardingCtx(mesh=mesh, data_axes=("data",), model_axis="model")
+        coords = [mesh.axis("data").index, mesh.axis("model").index]
+        b_loc = DIST_TP_PROMPTS // shape[0]
+        mine = slice(coords[0] * b_loc, (coords[0] + 1) * b_loc)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = api.init(torch.Generator(device=dev).manual_seed(SEED),
+                          device=dev, mesh=mesh)
+        held = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        with torch.no_grad():
+            logits, cache = api.prefill(params, {"tokens": prompts},
+                                        DIST_TP_MAX_LEN, ctx)
+            cache_shape = list(cache["k"].shape)
+            errs = [rel_l2(logits, ref["logits"][0][mine].to(dev))]
+            for i in range(DIST_TP_DECODE):
+                logits, cache = api.decode_step(params, cache,
+                                                ref["fed"][i].to(dev), ctx)
+                errs.append(rel_l2(logits, ref["logits"][i + 1][mine]
+                                   .to(dev)))
+        serve_peak = torch.cuda.max_memory_allocated()
+        del params, cache, logits
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = api32.init(torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev, mesh=mesh)
+        log = CostCounter()  # a recorder of the collectives alone: not entered
+        coll.add_recorder(log)
+        try:
+            loss0, grads = first_step_grads(api32, params, batches[0], ctx,
+                                            dev)
+        finally:
+            coll.remove_recorder(log)
+        specs = sharding.applied_shardings(
+            mesh, api32.init(torch.Generator(), device="meta"), cfg.family)
+        grad_errs = {}
+        for name, g in grads:
+            whole = sharding.gather_leaf(mesh, specs[name], g)
+            grad_errs[name] = rel_l2(whole, want[name].to(dev))
+            del whole
+        del grads
+        tr, opt = dist_tp_trainer(api32, batches, dev, ctx=ctx,
+                                  ckpt=Path(tmp) / f"ckpt{rank}")
+        state = tr.run(TrainState(params=params, opt=opt.init(params)))
+        torch.cuda.synchronize()
+        train_peak = torch.cuda.max_memory_allocated()
+        step_losses = tr.losses().tolist()
+        del state, params, tr
+        torch.cuda.empty_cache()
+        # the same first-batch program counted on a dry mesh of this
+        # rank's coordinates, on meta
+        dry = make_dry_mesh(shape, ("data", "model"), coords)
+        dctx = ShardingCtx(mesh=dry, data_axes=("data",), model_axis="model")
+        mparams = api32.init(torch.Generator(), device="meta", mesh=dry)
+        with count_costs() as c:
+            step_grads(api32, mparams, batches[0], dctx, "meta")
+        counted = c.costs()["collectives"]
+        loss_err = abs(loss0 - losses["loss0"]) / abs(losses["loss0"])
+        step_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(step_losses, losses["losses"]))
+        worst = max(grad_errs.values())
+        ok = (max(errs) <= LOGIT_REL_L2 and loss_err <= LM_LOSS_REL
+              and step_err <= LM_LOSS_REL and worst <= DIST_TP_GRAD_REL_L2
+              and log.collectives == counted
+              and cache_shape[2] == DIST_TP_MAX_LEN // shape[1])
+        row = {"mesh": list(shape), "coords": coords, "held": held,
+               "cache": cache_shape, "logit_rel_l2": errs,
+               "loss0": loss0, "loss_err": loss_err, "losses": step_losses,
+               "step_err": step_err, "grad_worst": worst,
+               "grad_at": max(grad_errs, key=grad_errs.get),
+               "serve_peak": serve_peak, "train_peak": train_peak,
+               "collectives": log.collectives, "dry": counted,
+               "s": time.perf_counter() - t0, "ok": ok}
+        res["meshes"].append(row)
+        print(f"rank {rank} mesh {shape} at {tuple(coords)}: holds "
+              f"{held / 1e9:.3f} GB of bf16 blocks, cache {cache_shape}; "
+              f"logits relative L2 " + ", ".join(f"{e:.3e}" for e in errs)
+              + f" (tol {LOGIT_REL_L2:.3e}); f32 loss {loss0:.6f} (error "
+              f"{loss_err:.3e}), gradients worst {worst:.3e} at "
+              f"{row['grad_at']} (tol {DIST_TP_GRAD_REL_L2:.0e}); trainer "
+              f"losses {step_losses} (error {step_err:.3e}); collectives "
+              f"{log.collectives} (dry mesh {counted}); peaks serve "
+              f"{serve_peak / 1e9:.2f} GB, train {train_peak / 1e9:.2f} GB;"
+              f" {row['s']:.1f} s", flush=True)
+        if not ok:
+            res["failures"].append(f"tp {shape}")
+
+
+def dist_tp_phase(tmp, counters, dev):
+    """The ``dist tp`` phase: the one-process run, then the 4-rank world
+    on each mesh of DIST_TP_MESHES (:func:`dist_tp_rank`); prints every
+    rank's errors, peaks and collectives beside the one-process run's.
+    The dense model reaches no kernel of the port: the counts are zeroed
+    before and read after, as the families phase's."""
+    t0 = time.perf_counter()
+    cfg, cfg32 = dist_tp_configs()
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    layer = 2 * d * cfg.attn_dim + 2 * d * cfg.kv_dim + 3 * d * f
+    print(f"dist tp: {cfg.name} at full width (d_model {d}, F {f}, vocab "
+          f"{v}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv), cut from 28 "
+          f"layers to {cfg.n_layers}: {(cfg.n_layers * layer + v * d) / 1e9:.3f}"
+          f" B parameters, {16 * (cfg.n_layers * layer + v * d) / 1e9:.1f} GB "
+          "for the f32 trainer of one process (parameters, gradients, AdamW "
+          "mu and nu); four ranks and that run share the card; serving "
+          f"bf16, {DIST_TP_PROMPTS} prompts of {DIST_TP_PROMPT} into "
+          f"{DIST_TP_MAX_LEN} positions, {DIST_TP_DECODE} decode steps; "
+          f"training f32, {DIST_TP_STEPS} steps of {DIST_TP_BATCH} x "
+          f"{DIST_TP_SEQ}", flush=True)
+    for k in counters.values():
+        k.launches = 0
+    ref = dist_tp_reference(dev, tmp)
+    (Path(tmp) / "tp_losses.json").write_text(json.dumps(
+        {"loss0": ref["loss0"], "losses": ref["losses"]}))
+    print(f"dist tp: one process: f32 loss {ref['loss0']:.6f}, trainer "
+          f"losses {ref['losses']}; max_memory_allocated serve "
+          f"{ref['serve_peak'] / 1e9:.2f} GB, train "
+          f"{ref['train_peak'] / 1e9:.2f} GB; {ref['s']:.1f} s", flush=True)
+    ranks = dist_world(4, tmp, "tp")
+    counts = {n: k.launches for n, k in counters.items()}
+    for i, shape in enumerate(DIST_TP_MESHES):
+        rows = [r["meshes"][i] for r in ranks]
+        print(f"dist tp mesh {shape}: logits worst relative L2 "
+              f"{max(max(x['logit_rel_l2']) for x in rows):.3e} (tol "
+              f"{LOGIT_REL_L2:.3e}); f32 loss error "
+              f"{max(x['loss_err'] for x in rows):.3e}, trainer losses "
+              f"{rows[0]['losses']} (error "
+              f"{max(x['step_err'] for x in rows):.3e}, tol "
+              f"{LM_LOSS_REL:.3e}); gradients gathered whole, worst "
+              f"relative L2 {max(x['grad_worst'] for x in rows):.3e} (tol "
+              f"{DIST_TP_GRAD_REL_L2:.0e}); max_memory_allocated per rank "
+              "serve " + ", ".join(f"{x['serve_peak'] / 1e9:.2f}"
+                                   for x in rows)
+              + " GB, train " + ", ".join(f"{x['train_peak'] / 1e9:.2f}"
+                                         for x in rows)
+              + f" GB (one process {ref['serve_peak'] / 1e9:.2f} and "
+              f"{ref['train_peak'] / 1e9:.2f} GB); first-batch collective "
+              "bytes per rank " + "; ".join(
+                  ", ".join(f"{op} {c['bytes']}" for op, c in
+                            sorted(x["collectives"].items()))
+                  for x in rows)
+              + " (the dry run's count of the same program: "
+              + "; ".join(", ".join(f"{op} {c['bytes']}" for op, c in
+                                    sorted(x["dry"].items()))
+                          for x in rows) + ")", flush=True)
+    print(f"dist tp: phase {time.perf_counter() - t0:.1f} s; kernel "
+          f"launches {({n: c for n, c in counts.items() if c})}; "
+          f"{card_line()}", flush=True)
+    return {"counts": counts}
 
 
 def main() -> None:
@@ -7623,6 +8162,13 @@ def main() -> None:
     expected.append(("dist moe tune", ("grouped_matmul",)))
     for k, v in ep["worst"].items():
         worst[k] = max(worst.get(k, 0.0), v)
+
+    # the reference's tensor-parallel specs on gloo ranks sharing the card
+    tp_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tp_")
+    tp = dist_tp_phase(tp_tmp.name, counters, dev)
+    tp_tmp.cleanup()
+    runs.append(tp["counts"])
+    expected.append(("dist tp", ()))
 
     # LM training at full width, one layer: the grouped matmul's backward
     lm = lm_train_phase(dev, counters)

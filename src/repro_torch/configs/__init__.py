@@ -41,12 +41,12 @@ def get_config(name: str) -> ModelConfig:
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests: the reference's
-    sizes (2 layers, d_model 64, vocab 128, f32; 4 heads of 16; 4 experts
-    top-2 for MoE; SSM state 8, heads of 16, chunk 16; 2 encoder layers
-    over 24 frames; 8 vision tokens)."""
+    sizes (2 layers, d_model 64, vocab 128, f32, no recomputation; 4
+    heads of 16; 4 experts top-2 for MoE; SSM state 8, heads of 16, chunk
+    16; 2 encoder layers over 24 frames; 8 vision tokens)."""
     over = dict(n_layers=2, d_model=64, vocab_size=128,
                 param_dtype="float32", compute_dtype="float32",
-                q_chunk=32, kv_chunk=32)
+                remat=False, q_chunk=32, kv_chunk=32)
     if cfg.n_heads:
         over.update(n_heads=4, n_kv_heads=max(1, min(2, cfg.n_kv_heads)),
                     d_head=16)

@@ -6,10 +6,15 @@ Field for field the reference's dataclasses, with two changes:
   True: the MoE FFN runs the grouped-matmul kernel
   (``kernels/csrc/grouped_matmul.cu``); False selects the reference's
   einsum path.
-- The fields that only steer XLA are left out: ``remat``,
-  ``seq_parallel_attn``, ``scan_unroll``, ``ssd_unroll`` and
-  ``decode_inplace_cache``.  PyTorch runs eagerly, and the port's decode
-  step writes its cache in place anyway.
+- The fields that only steer XLA are left out: ``seq_parallel_attn``,
+  ``scan_unroll``, ``ssd_unroll`` and ``decode_inplace_cache``.  PyTorch
+  runs eagerly, and the port's decode step writes its cache in place
+  anyway.
+
+``remat`` is the reference's: True recomputes every layer of a training
+forward in the backward (``torch.utils.checkpoint``, saving each layer's
+inputs alone, as ``jax.checkpoint(..., policy=nothing_saveable)``
+does), so a step holds one input a layer and not its activations.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ class ModelConfig:
     # execution
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    remat: bool = True
     q_chunk: int = 512
     kv_chunk: int = 512
     # True: the MoE FFN runs the grouped-matmul kernel (its plain version

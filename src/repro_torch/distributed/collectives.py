@@ -58,6 +58,19 @@ mean_from            the mean over the ranks forward; the cotangent
                      its own data (the aux loss, a loss over data
                      blocks), whose gradient on each rank is that of its
                      own term; the data-parallel step averages them.
+
+FSDP's gather serves a leaf split over the data axes, which every rank
+reads whole (the attention weights): its ranks' cotangents are the
+gradients of their own loss terms, of which the global loss is the mean
+(``mean_from``, or every rank's whole-batch loss where the batch is not
+split), so the leaf's gradient is the mean of theirs:
+
+fsdp_gather          ``all_gather`` forward; backward the rank's block
+                     of the **sum** of the ranks' cotangents (a
+                     reduce-scatter) over their count, the block of the
+                     one-process gradient; the data-parallel step leaves
+                     the axes a leaf is split over alone
+                     (``train_step.reduce_grads``).
 """
 from __future__ import annotations
 
@@ -74,6 +87,7 @@ __all__ = [
     "compress_tree",
     "copy_to",
     "decompress_tree",
+    "fsdp_gather",
     "gather_from",
     "mean_from",
     "pmax",
@@ -234,6 +248,18 @@ class _GatherFrom(torch.autograd.Function):
         return _block(g, ctx.axis, ctx.dim).contiguous(), None, None
 
 
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        block = psum_scatter(g, ctx.axis, scatter_dimension=ctx.dim)
+        return block / ctx.axis.size, None, None
+
+
 class _MeanFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
@@ -267,6 +293,17 @@ def gather_from(x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
     """:func:`all_gather`, whose gradient is the rank's block of the
     cotangent."""
     return x if axis.size == 1 else _GatherFrom.apply(x, axis, dim % x.dim())
+
+
+def fsdp_gather(x: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+    """The whole leaf from the ranks' blocks ``x`` along ``dim`` over
+    ``axes`` (the first the slowest, as ``sharding.gather_leaf``
+    gathers); its gradient is the rank's block of the ranks' mean
+    gradient (see the module docstring)."""
+    for axis in reversed(tuple(axes)):
+        if axis.size > 1:
+            x = _FsdpGather.apply(x, axis, dim % x.dim())
+    return x
 
 
 def mean_from(x: torch.Tensor, axis) -> torch.Tensor:

@@ -22,14 +22,31 @@ and a layer leaf's spec is the reference's without its leading None.
 What the port applies.  The reference hands these specs to XLA, whose
 partitioner inserts every collective the sharded program needs.  The
 port has no such partitioner: a rank's code consumes a sharded leaf only
-where it was written to.  In this port that is the expert rule alone,
-``moe/{wg,wi,wo}`` on ``model`` along E (``models/moe.py`` under a
-``ShardingCtx``), and the batch rule (the entry points slice the rank's
-data block, :func:`data_block`).  The specs computed but not yet applied
-are the vocab-sharded embedding, the FSDP attention weights, the dense
-MLP's column and row split, the mamba rules and the sequence-sharded KV
-cache (``cache_shardings``); :func:`shard_params` keeps such leaves
-whole (replicated) on every rank.
+where it was written to, so :func:`applied_spec` applies a rule only in
+the families whose code consumes it (:data:`APPLIED`):
+
+- dense, moe and vlm (whose decoder is the transformer): the
+  vocab-sharded embedding (``embed`` on ``model``: each model rank looks
+  up and unembeds its vocabulary block, and the loss's log-partition is
+  a ``pmax`` and a ``psum`` over the blocks), the FSDP attention weights
+  (``attn/*/w`` over the data axes along their input dim, all-gathered
+  before each layer's use; the biases and norms stay whole), and the
+  dense MLP's split (``mlp/{wi,wg}`` column-, ``mlp/wo`` row-parallel on
+  ``model``, Megatron's f and g) or the experts' (``moe/{wg,wi,wo}`` on
+  ``model`` along E, ``models/moe.py``);
+- the transformer's KV cache (``cache_shardings``' rule): the sequence
+  over ``model``, each model rank holding ``max_len / model`` positions;
+- every family: the batch rule (the entry points slice the rank's data
+  block, :func:`data_block`).
+
+Not applied (every rank holds such a leaf whole): the mamba rules, the
+ssm, hybrid and encdec families' leaves, the mamba state over ``model``,
+and ZeRO-1's moments (``launch.dryrun.zero1_shardings``).  A dim that
+does not divide its axis falls back to replication, as the reference's
+``_fit`` does (e.g. a vocabulary of 130 over a model axis of 4); the
+model code reads each spec from :func:`applied_spec`, never from the
+rule, so a fallback leaf runs whole.  An expert leaf never falls back:
+a dim that does not divide is an error (:func:`shard_leaf`).
 """
 from __future__ import annotations
 
@@ -41,8 +58,10 @@ from ..core.tree import key_str, tree_leaves_with_path, tree_unflatten
 from . import collectives as coll
 
 __all__ = [
+    "APPLIED",
     "DATA",
     "MODEL_AXIS",
+    "applied_shardings",
     "applied_spec",
     "batch_shardings",
     "cache_shardings",
@@ -55,14 +74,27 @@ __all__ = [
     "shard_leaf",
     "shard_params",
     "sharded_axes",
+    "split_axes",
 ]
 
 MODEL_AXIS = "model"
 DATA = "__data__"  # sentinel resolved to the mesh's data axes
 
-#: The parameter rules the port's model code consumes (see the module
-#: docstring): the experts' E dim on ``model``.
-APPLIED = tuple(f"moe/{n}" for n in ("wg", "wi", "wo"))
+#: The groups of parameter rules, each a test of a leaf's path.
+GROUPS = {
+    "embed": lambda path: path.endswith("embed"),
+    "attention": lambda path: "attn/" in path and path.endswith("/w"),
+    "mlp": lambda path: any(path.endswith(f"mlp/{n}")
+                            for n in ("wi", "wg", "wo")),
+    "experts": lambda path: any(f"moe/{n}" in path
+                                for n in ("wg", "wi", "wo")),
+}
+
+#: The groups each family's code consumes (see the module docstring).
+APPLIED = {"dense": ("embed", "attention", "mlp"),
+           "moe": ("embed", "attention", "experts"),
+           "vlm": ("embed", "attention", "mlp"),
+           "ssm": (), "hybrid": (), "encdec": ()}
 
 
 def data_axes(mesh) -> tuple:
@@ -126,6 +158,9 @@ def _param_spec(path: str, ndim: int) -> tuple:
 
 
 def _shape(leaf) -> tuple:
+    """A leaf's shape; ``leaf`` may be a shape itself (a tuple)."""
+    if isinstance(leaf, tuple):
+        return tuple(leaf)
     return tuple(getattr(leaf, "shape", ()))
 
 
@@ -159,8 +194,10 @@ def cache_shardings(mesh, cfg, cache):
     batch over the data axes and sequence over ``model``; cross-attention
     caches head_dim over ``model``; SSM state heads and conv state
     channels over ``model``; ``pos`` replicated; by path, as
-    :func:`param_shardings`.  Computed, not applied:
-    a port cache holds the rank's slots whole along the sequence."""
+    :func:`param_shardings`.  The port applies the KV rule to the
+    transformer's cache (``models/transformer.py::init_cache``: the
+    rank's slots and its sequence block); the others are computed, not
+    applied."""
     dp = data_axes(mesh)
 
     def rule(name, leaf):
@@ -193,20 +230,42 @@ def replicated(mesh) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def applied_spec(mesh, path: str, leaf) -> tuple:
-    """The spec this port applies to the leaf at ``path`` (a whole leaf
-    or a rank's block of it): the rule's for the expert leaves
-    (:data:`APPLIED`), replicated for every other.  Unlike the
-    reference's rules it never falls back to replication: a rank's block
-    of an expert leaf is what the model code expects, so a dim that does
-    not divide is an error (:func:`shard_leaf`), and a block's spec is
-    the whole's."""
-    ndim = len(_shape(leaf))
-    if any(a in path for a in APPLIED):
-        dp = data_axes(mesh)
-        return tuple(dp if a == DATA else a
-                     for a in _param_spec(path, ndim))
-    return (None,) * ndim
+def applied_spec(mesh, path: str, leaf, family: str) -> tuple:
+    """The spec this port applies to the leaf at ``path`` of a ``family``
+    model: the reference's rule (``_param_spec``) where the leaf is in a
+    group of :data:`APPLIED` for the family, replicated otherwise.
+    ``leaf`` is the **whole** leaf, or its shape: a dim that does not
+    divide its axis falls back to replication (``_fit``), which only the
+    whole shape decides, so a rank holding blocks reads its specs from
+    :func:`applied_shardings` of the whole tree.  The expert rule does
+    not fall back (:func:`shard_leaf` raises)."""
+    shape = _shape(leaf)
+    groups = [g for g in APPLIED[family] if GROUPS[g](path)]
+    if not groups:
+        return (None,) * len(shape)
+    dp = data_axes(mesh)
+    spec = tuple(dp if a == DATA else a
+                 for a in _param_spec(path, len(shape)))
+    return spec if groups == ["experts"] else _fit(mesh, spec, shape)
+
+
+def applied_shardings(mesh, whole, family: str) -> dict:
+    """:func:`applied_spec` of every leaf of the whole tree ``whole``
+    (tensors, e.g. a ``device="meta"`` init, or anything with a
+    ``shape``), by path, as :func:`param_shardings` gives the
+    reference's: what a rank holding blocks hands :func:`gather_params`,
+    ``train_step.reduce_grads`` and ``sharded_global_norm``."""
+    return {key_str(p): applied_spec(mesh, key_str(p), v, family)
+            for p, v in tree_leaves_with_path(whole)}
+
+
+def split_axes(mesh, path: str, shape, family: str, dim: int) -> tuple:
+    """The mesh axes the applied spec splits dim ``dim`` of the whole
+    leaf of ``shape`` at ``path`` over (the first the slowest; () where
+    it is whole): what the model code reads before it consumes a
+    block."""
+    entry = applied_spec(mesh, path, tuple(shape), family)[dim]
+    return _axes_of(entry) if entry else ()
 
 
 def _coords(mesh, entry) -> tuple:
@@ -219,11 +278,11 @@ def _coords(mesh, entry) -> tuple:
     return index, count
 
 
-def shard_leaf(mesh, path: str, t: torch.Tensor) -> torch.Tensor:
+def shard_leaf(mesh, path: str, t: torch.Tensor, family: str):
     """This rank's block of the whole leaf ``t`` at ``path`` under
     :func:`applied_spec`: a new tensor (the whole one may be freed), or
     ``t`` itself where the leaf stays replicated."""
-    spec = applied_spec(mesh, path, t)
+    spec = applied_spec(mesh, path, t, family)
     if not isinstance(t, torch.Tensor) or all(e is None for e in spec):
         return t
     out = t
@@ -239,44 +298,46 @@ def shard_leaf(mesh, path: str, t: torch.Tensor) -> torch.Tensor:
     return out.clone()
 
 
-def shard_params(mesh, params):
+def shard_params(mesh, params, family: str):
     """Each leaf's block for this rank's mesh coordinates: the port's
     counterpart of ``jax.device_put(params, param_shardings(...))`` for
-    the specs it applies (:func:`applied_spec`; every other leaf stays
-    whole).  ``params`` may be any tree (a ``TrainState`` included: the
-    optimizer's moments share their parameter's path suffix, so they
-    shard alike)."""
+    the specs it applies to a ``family`` model (:func:`applied_spec`;
+    every other leaf stays whole).  ``params`` is a whole tree, of any
+    kind (a ``TrainState`` included: the optimizer's moments share their
+    parameter's path suffix, so they shard alike)."""
     leaves = tree_leaves_with_path(params)
-    return tree_unflatten(params, [shard_leaf(mesh, key_str(p), v)
+    return tree_unflatten(params, [shard_leaf(mesh, key_str(p), v, family)
                                    for p, v in leaves])
 
 
-def gather_leaf(mesh, path: str, v):
-    """The whole leaf at ``path`` from every rank's block of it, by an
-    all-gather over each axis its applied spec splits it over (the
-    innermost first); ``v`` itself where it is replicated."""
+def gather_leaf(mesh, spec: tuple, v):
+    """The whole leaf from every rank's block ``v`` of it under ``spec``
+    (its :func:`applied_spec`), by an all-gather over each axis the spec
+    splits it over (the innermost first); ``v`` itself where it is
+    replicated."""
     if not isinstance(v, torch.Tensor):
         return v
-    for dim, entry in enumerate(applied_spec(mesh, path, v)):
+    for dim, entry in enumerate(spec):
         for a in reversed(_axes_of(entry) if entry else ()):
             v = coll.all_gather(v, mesh.axis(a), dim)
     return v
 
 
-def gather_params(mesh, params):
+def gather_params(mesh, params, specs: dict):
     """The whole leaves back from every rank's blocks
-    (:func:`gather_leaf`): the port's counterpart of reading a global
-    array (``np.asarray`` of a sharded ``jax.Array``).  Every rank of the
-    mesh must call it alike; each gets the whole tree."""
+    (:func:`gather_leaf`, each leaf's spec from ``specs``,
+    :func:`applied_shardings` of the whole tree): the port's counterpart
+    of reading a global array (``np.asarray`` of a sharded
+    ``jax.Array``).  Every rank of the mesh must call it alike; each
+    gets the whole tree."""
     leaves = tree_leaves_with_path(params)
-    return tree_unflatten(params, [gather_leaf(mesh, key_str(p), v)
+    return tree_unflatten(params, [gather_leaf(mesh, specs[key_str(p)], v)
                                    for p, v in leaves])
 
 
-def sharded_axes(mesh, path: str, leaf) -> tuple:
-    """The mesh axes the applied spec splits the leaf at ``path`` over."""
-    return tuple(a for e in applied_spec(mesh, path, leaf) if e
-                 for a in _axes_of(e))
+def sharded_axes(spec: tuple) -> tuple:
+    """The mesh axes ``spec`` (an applied spec) splits its leaf over."""
+    return tuple(a for e in spec if e for a in _axes_of(e))
 
 
 def data_block(mesh, axes, x, dim: int = 0):

@@ -8,13 +8,19 @@ rank's program at full width on the ``meta`` device (port of
 
 Where the reference lowers and compiles the global program for XLA's
 partitioner, the port has one program a rank (``distributed/sharding.py``
-says which specs it applies: the experts over ``model`` and the batch
-over the data axes).  A cell here is the program of the rank at the
-mesh's first coordinates, on a dry mesh (``launch.mesh.make_dry_mesh``):
-its parameters (``init_params`` on ``meta``, the rank's expert blocks),
+says which specs it applies: in the dense, moe and vlm families the
+vocab-sharded embedding, the FSDP attention weights, the dense MLP's
+split or the experts over ``model``, and the sequence-sharded KV cache;
+the batch over the data axes in every family).  A cell here is the
+program of the rank at the mesh's first coordinates, on a dry mesh
+(``launch.mesh.make_dry_mesh``): its parameters (``init_params`` on
+``meta``, the rank's blocks),
 the global batch of which the entry points take the rank's block, and
 the step run eagerly under ``roofline.analysis.count_costs``, which
-counts its FLOPs, bytes, collective bytes and peak.  Nothing is
+counts its FLOPs, bytes, collective bytes (the FSDP all-gathers and
+their reduce-scatters, the tensor-parallel all-reduces, the vocabulary's
+and the cache's combines) and peak; a training step recomputes its
+layers under the configs' ``remat=True``, as the reference's.  Nothing is
 allocated and no kernel runs: the MoE runs its einsum path
 (``moe_kernel_dispatch=False``), as the reference's dry run lowers its
 einsum path, since the grouped-matmul kernel's dispatch reads the
@@ -29,9 +35,11 @@ misread the peak wherever the phase that peaks changes with depth.
 
 Records land in ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``
 (``--out`` elsewhere) with the reference's keys, ``fits``: whether the
-rank's arguments and its counted peak fit one card's memory, and
-``overrides``: the config fields the cell was counted under ({} at the
-catalog's widths).
+rank's arguments and its counted peak fit one card's memory,
+``applied``: the spec groups the rank's program applies, ``savings``:
+what each spec still unapplied would take off its arguments
+(:func:`unapplied_savings`), and ``overrides``: the config fields the
+cell was counted under ({} at the catalog's widths).
 ``roofline/report.py`` prints the tables.
 """
 from __future__ import annotations
@@ -66,11 +74,14 @@ from .mesh import make_production_mesh
 OUT_DIR = (pathlib.Path(__file__).resolve().parents[3] / "experiments"
            / "dryrun_torch")
 
-#: The unapplied specs whose savings a record lists, by leaf path.
+#: The parameter spec groups a record names (applied, or unapplied with
+#: their savings), by leaf path.
 SPEC_GROUPS = (("embed", "vocab-sharded embedding"),
                ("attn/", "FSDP attention"),
                ("mlp/", "dense MLP split"),
                ("mixer/", "mamba rules"))
+#: The name of the expert rule's group and of the KV cache's.
+EXPERT_GROUP, KV_GROUP = "expert-parallel MoE", "sequence-sharded KV cache"
 
 
 def _spec_count(mesh, spec) -> int:
@@ -109,11 +120,12 @@ def zero1_shardings(mesh, params_shape, pshard: dict) -> dict:
 
 def make_ctx(cfg, mesh, *, collective=None, block_batch: bool = True):
     """The rank's ``ShardingCtx`` on ``mesh``: the batch over the data
-    axes, the model axis (the experts over it; every other leaf
-    replicated, its gradient averaged over it too) and, for the MoE, the
-    combine ``collective`` (None: 'nnz_ar').  The reference's holds only
-    the MoE's: its partitioner shards the rest.  ``block_batch`` False
-    hands every rank the whole batch (one that does not split)."""
+    axes, the model axis (the applied specs' blocks over it and the data
+    axes; a replicated leaf's gradient averaged over it too) and, for
+    the MoE, the combine ``collective`` (None: 'nnz_ar').  The
+    reference's holds only the MoE's: its partitioner shards the rest.
+    ``block_batch`` False hands every rank the whole batch (one that
+    does not split)."""
     dispatch = None
     if cfg.family == "moe" and collective is not None:
         from ..tune.moe import MoeDispatchSchedule
@@ -130,9 +142,9 @@ def _dp_size(mesh) -> int:
 
 
 def _rank_params(api, cfg, mesh, device, seed):
-    """The rank's parameters: the expert blocks of its model coordinate,
-    every other leaf whole; on meta the shapes alone, on a real device
-    drawn from ``seed``."""
+    """The rank's parameters: its blocks under the applied specs (dense,
+    moe and vlm; every leaf whole in the other families); on meta the
+    shapes alone, on a real device drawn from ``seed``."""
     gen = (torch.Generator() if device.type == "meta" else
            torch.Generator(device=device).manual_seed(seed))
     if cfg.family in ("dense", "moe", "vlm"):
@@ -202,6 +214,7 @@ def lower_cell(arch: str, shape, *, multi_pod: bool = False,
                            if cfg.family == "moe" else None),
         "zero1": bool(zero1 and shape.kind == "train"),
         "zero1_applied": False,
+        "applied": applied_groups(mesh, cfg, whole, shape.kind),
     }
     block = shape.global_batch % dp == 0
     ctx = make_ctx(cfg, mesh, collective=collective, block_batch=block)
@@ -229,8 +242,11 @@ def lower_cell(arch: str, shape, *, multi_pod: bool = False,
 
         return Program(prefill, (params, _blocks(ctx, specs))), meta
 
-    # decode: one new token against a full cache of the rank's slots
-    cache = api.init_cache(b_loc, shape.seq_len, device=dev)
+    # decode: one new token against a full cache of the rank's slots (and
+    # its block of the sequence, where the family applies the KV rule)
+    cache = (api.init_cache(b_loc, shape.seq_len, device=dev, ctx=ctx)
+             if _kv_applied(cfg) else
+             api.init_cache(b_loc, shape.seq_len, device=dev))
     cache["pos"] = shape.seq_len - 1
     tokens = _inputs({"t": decode_specs(cfg, shape, api.init_cache)[
         "tokens"]}, dev, seed)["t"]
@@ -252,21 +268,52 @@ def _blocks(ctx, specs: dict) -> dict:
             for k, v in specs.items()}
 
 
+def _kv_applied(cfg) -> bool:
+    """Whether the family's cache holds the sequence over ``model``."""
+    return cfg.family in ("dense", "moe", "vlm")
+
+
+def _group_of(name: str):
+    return next((g for key, g in SPEC_GROUPS if key in name), None)
+
+
+def applied_groups(mesh, cfg, whole, kind: str) -> list:
+    """The spec groups the rank's program of a ``kind`` cell applies:
+    those of :data:`SPEC_GROUPS` (and the experts) with a leaf the rank
+    holds a block of, and the KV cache's sequence where a serving cell
+    of a family that splits it runs on a model axis of more than one."""
+    out = []
+    for path, leaf in tree_leaves_with_path(whole):
+        name = key_str(path)
+        spec = sharding.applied_spec(mesh, name, leaf, cfg.family)
+        if _spec_count(mesh, spec) > 1:
+            group = EXPERT_GROUP if "moe/" in name else _group_of(name)
+            if group not in out:
+                out.append(group)
+    if (kind != "train" and _kv_applied(cfg)
+            and mesh.shape.get("model", 1) > 1):
+        out.append(KV_GROUP)
+    return out
+
+
 def unapplied_savings(mesh, cfg, whole, pshard, *, kind, zero1=False,
                       cache=None) -> dict:
     """Bytes a rank's arguments would lose under each spec the port
     computes but does not apply (``distributed/sharding.py``), each
     alone from what the port holds now, largest first: by group of
-    parameter rules (:data:`SPEC_GROUPS`; a leaf split over n ranks
-    keeps 1/n of its parameter and, training, of its two f32 moments),
-    ZeRO-1 (``zero1``: the moments over the data axes on top of the
-    applied specs, :func:`zero1_shardings`), and the cache's split over
-    ``model`` (a KV cache's sequence, a mamba state's heads; its batch
-    split over the data axes is applied already).  The savings overlap
-    (the dense MLP's moments under its split and under ZeRO-1), so they
-    do not add.  The experts' split is applied already."""
+    parameter rules (:data:`SPEC_GROUPS`; a leaf the rank holds in
+    ``have`` blocks that the reference splits in ``n`` keeps ``have / n``
+    of its block, of its parameter and, training, of its two f32
+    moments), ZeRO-1 (``zero1``: the moments over the data axes on top of
+    the applied specs, :func:`zero1_shardings`), and the cache's split
+    over ``model`` where the family does not apply it (a KV cache's
+    sequence, a mamba state's heads; its batch split over the data axes
+    is applied already).  The savings overlap (the dense MLP's moments
+    under its split and under ZeRO-1), so they do not add.  An applied
+    group saves nothing more and is not listed."""
     out = {}
-    applied = {key_str(p): sharding.applied_spec(mesh, key_str(p), leaf)
+    applied = {key_str(p): sharding.applied_spec(mesh, key_str(p), leaf,
+                                                 cfg.family)
                for p, leaf in tree_leaves_with_path(whole)}
     moments = zero1_shardings(mesh, whole, applied) if zero1 else None
     for path, leaf in tree_leaves_with_path(whole):
@@ -281,23 +328,25 @@ def unapplied_savings(mesh, cfg, whole, pshard, *, kind, zero1=False,
                                          // (m * have))
         if "moe/" in name:
             continue
-        group = next((g for key, g in SPEC_GROUPS if key in name), None)
+        group = _group_of(name)
         n = _spec_count(mesh, pshard[name])
         per = leaf.element_size() + (8 if kind == "train" else 0)
-        if group and n > 1:
-            out[group] = out.get(group, 0) + elems * per * (n - 1) // n
+        if group and n > have:
+            out[group] = (out.get(group, 0)
+                          + elems * per * (n - have) // (n * have))
     if cache is not None:
         cspec = cache_shardings(mesh, cfg, cache)
         for path, leaf in tree_leaves_with_path(cache):
             if not isinstance(leaf, torch.Tensor):
                 continue
             name = key_str(path)
+            if name in ("k", "v") and _kv_applied(cfg):
+                continue  # the rank's cache holds its sequence block
             split = any("model" in _axes_of(e) for e in cspec[name] if e)
             n = mesh.shape["model"] if split else 1
             if n > 1:
                 group = ("mamba state over model"
-                         if "ssm" in name or "conv" in name
-                         else "sequence-sharded KV cache")
+                         if "ssm" in name or "conv" in name else KV_GROUP)
                 out[group] = (out.get(group, 0)
                               + tree_bytes(leaf) * (n - 1) // n)
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed import collectives as coll
 from ..kernels.fused_attention import NEG_INF
 from ..sparse.ops import sparse_attention
 
@@ -80,18 +81,35 @@ def attention_ref(q, k, v, causal=True):
     return o.reshape(b, sq, h, dh).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, pos: int):
+def decode_attention(q, k_cache, v_cache, pos: int, axis=None):
     """One decode token.  q (B, H, Dh); caches (B, S, KH, Dh); cache
     entries at index ``<= pos`` are valid.  Scores in f32; the
     probabilities are cast to the cache's type before the product with V,
-    as in the reference, which accumulates that product in f32."""
+    as in the reference, which accumulates that product in f32.
+
+    Over ``axis`` the caches are the rank's block of the sequence
+    (positions ``axis.index * S`` on), and the function is what XLA's
+    partitioner makes of the reference's over a sequence-sharded cache:
+    the local scores masked beyond ``pos``, a ``pmax`` of the row max, a
+    ``psum`` of the sum of exponentials, the probabilities normalised and
+    cast locally, the local P V in f32 and a ``psum``.  A rank whose
+    positions all lie beyond ``pos`` adds exponentials of ``NEG_INF``
+    less the global max, zeros."""
     b, s, kh, dh = k_cache.shape
     qi = q.reshape(b, kh, q.shape[1] // kh, dh).to(torch.float32)
     scores = torch.einsum("bkgd,bskd->bkgs", qi,
                           k_cache.to(torch.float32)) * dh ** -0.5
-    valid = torch.arange(s, device=q.device) <= pos
+    first = 0 if axis is None else axis.index * s
+    valid = torch.arange(first, first + s, device=q.device) <= pos
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
-    p = torch.softmax(scores, dim=-1).to(v_cache.dtype)
-    o = torch.einsum("bkgs,bskd->bkgd", p.to(torch.float32),
+    if axis is None:
+        p = torch.softmax(scores, dim=-1)
+    else:
+        m = coll.pmax(scores.amax(dim=-1, keepdim=True), axis)
+        e = torch.exp(scores - m)
+        p = e / coll.psum(e.sum(dim=-1, keepdim=True), axis)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).to(torch.float32),
                      v_cache.to(torch.float32))
+    if axis is not None:
+        o = coll.psum(o, axis)
     return o.reshape(b, q.shape[1], dh).to(q.dtype)

@@ -33,6 +33,7 @@ from .layers import (
     init_mlp,
     init_norm,
     lm_loss_from_features,
+    remat,
     unembed,
 )
 from .transformer import (
@@ -128,13 +129,18 @@ def _positioned(cfg, x):
                           x.device).to(x.dtype)[None]
 
 
+def _enc_layer(cfg, p_l, x):
+    h = apply_norm(cfg, p_l["ln1"], x)
+    x = x + _mha(cfg, p_l["attn"], h, h, causal=False)
+    return x + apply_mlp(cfg, p_l["mlp"], apply_norm(cfg, p_l["ln2"], x))
+
+
 def encode(cfg, params, frames):
-    """frames (B, S_enc, D) stub embeddings -> (B, S_enc, D)."""
+    """frames (B, S_enc, D) stub embeddings -> (B, S_enc, D); each layer
+    recomputed in the backward under ``cfg.remat`` (``layers.remat``)."""
     x = _positioned(cfg, frames.to(torch_dtype(cfg.compute_dtype)))
     for p_l in params["enc_layers"]:
-        h = apply_norm(cfg, p_l["ln1"], x)
-        x = x + _mha(cfg, p_l["attn"], h, h, causal=False)
-        x = x + apply_mlp(cfg, p_l["mlp"], apply_norm(cfg, p_l["ln2"], x))
+        x = remat(cfg, _enc_layer, cfg, p_l, x)
     return apply_norm(cfg, params["enc_norm"], x)
 
 
@@ -143,14 +149,20 @@ def _embed(cfg, params, tokens):
         torch_dtype(cfg.compute_dtype)))
 
 
+def _dec_layer(cfg, p_l, x, enc_out):
+    h = apply_norm(cfg, p_l["ln1"], x)
+    x = x + _mha(cfg, p_l["self_attn"], h, h, causal=True)
+    h = apply_norm(cfg, p_l["ln_x"], x)
+    x = x + _mha(cfg, p_l["cross_attn"], h, enc_out, causal=False)
+    return x + apply_mlp(cfg, p_l["mlp"], apply_norm(cfg, p_l["ln2"], x))
+
+
 def decode_train(cfg, params, tokens, enc_out):
+    """The decoder over the whole target sequence; each layer recomputed
+    in the backward under ``cfg.remat`` (``layers.remat``)."""
     x = _embed(cfg, params, tokens)
     for p_l in params["dec_layers"]:
-        h = apply_norm(cfg, p_l["ln1"], x)
-        x = x + _mha(cfg, p_l["self_attn"], h, h, causal=True)
-        h = apply_norm(cfg, p_l["ln_x"], x)
-        x = x + _mha(cfg, p_l["cross_attn"], h, enc_out, causal=False)
-        x = x + apply_mlp(cfg, p_l["mlp"], apply_norm(cfg, p_l["ln2"], x))
+        x = remat(cfg, _dec_layer, cfg, p_l, x, enc_out)
     return apply_norm(cfg, params["final_norm"], x)
 
 

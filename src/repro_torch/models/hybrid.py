@@ -29,6 +29,7 @@ from .layers import (
     init_mlp,
     init_norm,
     lm_loss_from_features,
+    remat,
     rmsnorm,
     unembed,
 )
@@ -95,11 +96,17 @@ def _layer(cfg, p_l, x, positions, return_state=False):
     return x, kv, st
 
 
+def _train_layer(cfg, p_l, x, positions):
+    return _layer(cfg, p_l, x, positions)[0]
+
+
 def forward_features(cfg, params, tokens, ctx=None):
+    """tokens (B, S) -> final features (B, S, D); each layer recomputed
+    in the backward under ``cfg.remat`` (``layers.remat``)."""
     x = _embed(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     for p_l in params["layers"]:
-        x = _layer(cfg, p_l, x, positions)[0]
+        x = remat(cfg, _train_layer, cfg, p_l, x, positions)
     return apply_norm(cfg, params["final_norm"], x)
 
 

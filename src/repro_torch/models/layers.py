@@ -5,8 +5,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..core.schedule import Epilogue, torch_dtype
+from ..distributed import collectives as coll
 from ..fuse import gcn_chain, run_plan
 from ..fuse import plan as plan_chain
 from ..sparse.ops import spmm
@@ -55,8 +57,26 @@ def gcn_two_layer(adj, x, w0, w1, b0=None, b1=None, *, activation="relu",
 # ``init_*`` function draws them from ``gen``, a ``torch.Generator`` on
 # the device the tensors are made on (or a ``ShapeOnly`` on meta).
 # ``layer_scan``, ``seq_shard`` and ``seq_unshard`` have no counterpart:
-# layers run in a Python loop and nothing is sharded.
+# layers run in a Python loop, and Megatron-SP is not ported.  Under a
+# tensor-parallel split (``axis``, a ``launch.mesh.MeshAxis`` the weights
+# are split over) the MLP, the embedding and the loss compute the
+# reference's function from the rank's blocks (Megatron's f and g,
+# ``distributed/collectives.py``); ``axis=None`` is the whole leaf.
 # ---------------------------------------------------------------------------
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, one layer; under ``cfg.remat`` while autograd
+    records, recomputed in the backward (``torch.utils.checkpoint``,
+    non-reentrant), so that nothing inside the layer but its inputs is
+    held: the reference's ``jax.checkpoint(..., policy=
+    nothing_saveable)``.  The layer draws no random numbers, so no RNG
+    state is kept; every collective inside it runs again, in the same
+    order on every rank."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 class ShapeOnly:
@@ -167,25 +187,54 @@ def init_mlp(cfg, gen, d_model=None, d_ff=None):
     return p
 
 
-def apply_mlp(cfg, p, x):
+def apply_mlp(cfg, p, x, axis=None):
+    """The MLP; over ``axis`` (``wi``/``wg`` the rank's column block,
+    ``wo`` its row block) the tensor-parallel one: ``x`` enters through
+    ``copy_to`` and the partial products leave through ``reduce_from``,
+    each model rank computing its share of F."""
+    if axis is not None:
+        x = coll.copy_to(x, axis)
     if cfg.mlp_type == "swiglu":
         h = F.silu(dense(x, p["wg"])) * dense(x, p["wi"])
     else:
         h = F.gelu(dense(x, p["wi"]), approximate="tanh")  # jax.nn.gelu
-    return dense(h, p["wo"])
+    y = dense(h, p["wo"])
+    return y if axis is None else coll.reduce_from(y, axis)
 
 
 def init_embedding(gen, vocab, d, dtype):
     return init_normal(gen, (vocab, d), 0.02, dtype)
 
 
-def embed(table, tokens):
-    return table[tokens.long()]
+def _vocab_block(table, ids, axis):
+    """(the ids' rows of the rank's vocabulary block ``table``, each at
+    its row where the id lies in the block and row 0 elsewhere, the mask
+    of those in it)."""
+    n = table.shape[0]
+    local = ids.long() - axis.index * n
+    inside = (local >= 0) & (local < n)
+    return table[torch.where(inside, local, 0)], inside
 
 
-def unembed(table, x):
-    """Logits against the tied embedding, in x's type."""
-    return x @ table.t()
+def embed(table, tokens, axis=None):
+    """The tokens' rows of the embedding; over ``axis`` (``table`` the
+    rank's vocabulary block) each rank looks up the ids in its block,
+    zeros elsewhere, and a ``reduce_from`` sums the blocks' rows: the
+    same bits, since every other term is zero."""
+    if axis is None:
+        return table[tokens.long()]
+    rows, inside = _vocab_block(table, tokens, axis)
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return coll.reduce_from(rows, axis)
+
+
+def unembed(table, x, axis=None):
+    """Logits against the tied embedding, in x's type; over ``axis`` the
+    whole vocabulary's, gathered from the blocks' (``gather_from``), as
+    the reference's global array reads."""
+    if axis is None:
+        return x @ table.t()
+    return coll.gather_from(coll.copy_to(x, axis) @ table.t(), axis, -1)
 
 
 def cross_entropy_loss(logits, labels, mask=None):
@@ -203,13 +252,31 @@ def _masked_mean(nll, mask):
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
-def lm_loss_from_features(table, x, labels, mask=None):
+def lm_loss_from_features(table, x, labels, mask=None, axis=None):
     """The LM loss from final features, as the reference computes it: the
     log-partition over the tied embedding's logits (in x's type, upcast to
     f32), and the gold logit as ``<x, E[label]>`` in f32, a gather of the
-    label's row of the table rather than of the logits' column."""
-    logits = unembed(table, x).to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)  # (B, S)
-    gold_emb = embed(table, labels)  # (B, S, D)
-    gold = (x.to(torch.float32) * gold_emb.to(torch.float32)).sum(-1)
+    label's row of the table rather than of the logits' column.
+
+    Over ``axis`` (``table`` the rank's vocabulary block) the logits stay
+    in blocks: the log-partition is ``m + log(s)`` with ``m`` the
+    ``pmax`` of the blocks' row maxima (no gradient through it) and
+    ``s`` the ``psum`` of their sums of ``exp(logit - m)``, and the gold
+    logit the ``psum`` of the term the rank holding the label computes
+    (zero elsewhere); ``x`` enters through ``copy_to``."""
+    if axis is None:
+        logits = unembed(table, x).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)  # (B, S)
+        gold_emb = embed(table, labels)  # (B, S, D)
+        gold = (x.to(torch.float32) * gold_emb.to(torch.float32)).sum(-1)
+        return _masked_mean(logz - gold, mask)
+    x = coll.copy_to(x, axis)
+    logits = (x @ table.t()).to(torch.float32)
+    m = coll.pmax(logits.detach().amax(dim=-1), axis)
+    s = coll.reduce_from(torch.exp(logits - m[..., None]).sum(-1), axis)
+    logz = m + torch.log(s)
+    rows, inside = _vocab_block(table, labels, axis)
+    gold = (x.to(torch.float32) * rows.to(torch.float32)).sum(-1)
+    gold = coll.reduce_from(torch.where(inside, gold,
+                                        torch.zeros_like(gold)), axis)
     return _masked_mean(logz - gold, mask)

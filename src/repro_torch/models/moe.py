@@ -56,7 +56,9 @@ from .layers import init_normal
 class ShardingCtx:
     """How the model's sharded regions see the mesh (a
     ``launch.mesh.Mesh``): the data axes the batch is split over and the
-    model axis the experts are split over.  ``None`` (or no mesh or no
+    model axis the experts are split over (the transformer's other
+    tensor-parallel leaves read their axes from the applied specs,
+    ``distributed.sharding.applied_spec``).  ``None`` (or no mesh or no
     model axis) means single-shard execution.  ``moe_dispatch`` is the
     dispatch the model's MoE layers run under (e.g.
     ``moe_tune_collective``'s pick, whose ``collective`` picks the

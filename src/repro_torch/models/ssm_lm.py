@@ -22,6 +22,7 @@ from .layers import (
     init_embedding,
     init_norm,
     lm_loss_from_features,
+    remat,
     unembed,
 )
 from .mamba2 import init_mixer, init_mixer_cache, mixer_decode, mixer_fwd
@@ -55,10 +56,16 @@ def _embed(cfg, params, tokens):
     return embed(params["embed"], tokens).to(torch_dtype(cfg.compute_dtype))
 
 
+def _layer(cfg, p_l, x):
+    return x + mixer_fwd(cfg, p_l["mixer"], apply_norm(cfg, p_l["ln"], x))
+
+
 def forward_features(cfg, params, tokens, ctx=None):
+    """tokens (B, S) -> final features (B, S, D); each layer recomputed
+    in the backward under ``cfg.remat`` (``layers.remat``)."""
     x = _embed(cfg, params, tokens)
     for p_l in params["layers"]:
-        x = x + mixer_fwd(cfg, p_l["mixer"], apply_norm(cfg, p_l["ln"], x))
+        x = remat(cfg, _layer, cfg, p_l, x)
     return apply_norm(cfg, params["final_norm"], x)
 
 

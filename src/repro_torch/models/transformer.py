@@ -13,17 +13,30 @@ with ``pos + 1``.  ``loss_fn`` is the reference's LM loss (next-token NLL
 from the final features against the tied embedding, plus ``AUX_WEIGHT``
 times the MoE load-balance loss), differentiable with torch autograd.
 
+``cfg.remat`` recomputes each layer of a training forward in the
+backward (``layers.remat``), as the reference's ``jax.checkpoint``.
+
 Under a ``ShardingCtx`` with a mesh (``models.moe.ShardingCtx``) every
 rank of the mesh calls the entry points (``forward``, ``loss_fn``,
 ``prefill``, ``decode_step``) alike with the **global** batch and takes
 its data block by its data coordinate (``distributed.sharding.
-data_block``): the rank's block of logits out, a cache of the rank's
-slots, and ``loss_fn`` the global mean on every rank.  The MoE layers run
-expert-parallel over the model axis (the parameters hold the rank's
-expert block, ``sharding.shard_params``); everything else is replicated
-over it.  An 'nnz_rs' combine leaves each model rank a slice of the
-token block, which ``ffn_block`` all-gathers back, as XLA does in the
-reference where the next layer needs the whole block.
+data_block``): the rank's block of logits out (the whole vocabulary), a
+cache of the rank's slots, and ``loss_fn`` the global mean on every
+rank.  The parameters are the rank's blocks under the reference's specs
+(``sharding.shard_params``; each read from ``sharding.applied_spec``):
+the embedding's vocabulary block on the model axis (the lookup, the
+logits and the loss's log-partition combined over the blocks,
+``layers.embed``, ``unembed``, ``lm_loss_from_features``), the attention
+weights' FSDP blocks over the data axes (all-gathered before each
+layer's use, ``collectives.fsdp_gather``, and dropped after it), and the
+dense MLP's column and row blocks (``layers.apply_mlp``) or the MoE's
+expert block (expert-parallel, ``models.moe``) on the model axis.  An
+'nnz_rs' combine leaves each model rank a slice of the token block,
+which ``ffn_block`` all-gathers back, as XLA does in the reference where
+the next layer needs the whole block.  The KV cache holds the rank's
+block of the sequence (``cache_shardings``' rule): ``prefill`` writes
+the prompt's positions that fall in it, ``decode_step`` the new position
+on the rank owning it, and ``decode_attention`` combines the blocks.
 
 The other families build on it: ``_qkv``, ``attn_block`` and
 ``init_attn`` serve ``models.hybrid`` and ``models.encdec``;
@@ -57,6 +70,7 @@ from .layers import (
     init_mlp,
     init_norm,
     lm_loss_from_features,
+    remat,
     rmsnorm,
     unembed,
 )
@@ -83,14 +97,27 @@ def init_attn(cfg, gen):
     return p
 
 
+def _kept(keep, prefix, tree):
+    """``tree`` (a dict of leaves and dicts) with ``keep(path, leaf)``
+    applied to each leaf, its path under ``prefix``."""
+    if keep is None:
+        return tree
+    return {k: (_kept(keep, f"{prefix}/{k}", v) if isinstance(v, dict)
+                else keep(f"{prefix}/{k}", v)) for k, v in tree.items()}
+
+
 def init_layer(cfg, gen, keep=None):
+    """One layer's parameters; ``keep(path, leaf)``, when given, takes
+    each sharded sub-tree's leaves as soon as they are drawn (the
+    attention's and the MLP's after their tree, the experts' one leaf at
+    a time) and returns what to hold."""
     p = {"ln1": init_norm(cfg, cfg.d_model, gen.device),
-         "attn": init_attn(cfg, gen),
+         "attn": _kept(keep, "attn", init_attn(cfg, gen)),
          "ln2": init_norm(cfg, cfg.d_model, gen.device)}
     if cfg.family == "moe":
         p["moe"] = init_moe(cfg, gen, keep)
     else:
-        p["mlp"] = init_mlp(cfg, gen)
+        p["mlp"] = _kept(keep, "mlp", init_mlp(cfg, gen))
     return p
 
 
@@ -122,15 +149,18 @@ def init_params(cfg, generator: torch.Generator, device=None, mesh=None):
     are drawn in f32 a tensor at a time and cast to ``cfg.param_dtype``,
     so no f32 copy of the model is ever held.  With ``mesh`` (a rank's
     ``launch.mesh.Mesh``) every rank draws the whole model, the same
-    numbers as one process, one leaf at a time, and keeps its block of
-    each (``distributed.sharding.shard_leaf``): the expert blocks of its
-    model coordinate, every other leaf whole.  ``device="meta"`` takes
-    any generator and builds the shapes alone (``draw_source``)."""
+    numbers as one process, and keeps its block of each leaf
+    (``distributed.sharding.shard_leaf`` under the applied specs): the
+    embedding's vocabulary block, the attention weights' FSDP blocks,
+    the MLP's or the experts' blocks of its coordinates, every other
+    leaf whole.  ``device="meta"`` takes any generator and builds the
+    shapes alone (``draw_source``)."""
     dev, generator = draw_source(generator, device)
     keep = (None if mesh is None else
-            lambda path, t: sharding.shard_leaf(mesh, path, t))
-    return {"embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
-                                    cfg.param_dtype),
+            lambda path, t: sharding.shard_leaf(mesh, path, t, cfg.family))
+    table = init_embedding(generator, cfg.vocab_size, cfg.d_model,
+                           cfg.param_dtype)
+    return {"embed": table if keep is None else keep("embed", table),
             "layers": [init_layer(cfg, generator, keep)
                        for _ in range(cfg.n_layers)],
             "final_norm": init_norm(cfg, cfg.d_model, dev)}
@@ -177,6 +207,46 @@ def params_from_jax(cfg, tree, device=None):
 # -------------------------------------------------------------- forward
 
 
+def _split(cfg, ctx, path, shape, dim=0) -> tuple:
+    """The mesh axes (of more than one member) the applied spec splits
+    dim ``dim`` of the whole leaf of ``shape`` at ``path`` over under
+    ``ctx``; () with no mesh."""
+    if ctx is None or ctx.mesh is None:
+        return ()
+    names = sharding.split_axes(ctx.mesh, path, shape, cfg.family, dim)
+    return tuple(ax for ax in map(ctx.mesh.axis, names) if ax.size > 1)
+
+
+def vocab_axis(cfg, ctx):
+    """The axis the embedding's vocabulary is split over under ``ctx``
+    (None: the whole table); the rule names one axis, ``model``."""
+    axes = _split(cfg, ctx, "embed", (cfg.vocab_size, cfg.d_model))
+    return axes[0] if axes else None
+
+
+def _mlp_axis(cfg, ctx):
+    axes = _split(cfg, ctx, "mlp/wi", (cfg.d_model, cfg.d_ff), 1)
+    return axes[0] if axes else None
+
+
+def gathered_attn(cfg, ctx, p):
+    """The attention's parameters with every weight whole: the FSDP
+    blocks all-gathered over the data axes (``collectives.fsdp_gather``);
+    ``p`` itself where nothing is split."""
+    if ctx is None or ctx.mesh is None:
+        return p
+    shapes = {"wq": (cfg.d_model, cfg.attn_dim),
+              "wk": (cfg.d_model, cfg.kv_dim),
+              "wv": (cfg.d_model, cfg.kv_dim),
+              "wo": (cfg.attn_dim, cfg.d_model)}
+    out = dict(p)
+    for name, shape in shapes.items():
+        axes = _split(cfg, ctx, f"attn/{name}/w", shape)
+        if axes:
+            out[name] = {**p[name], "w": coll.fsdp_gather(p[name]["w"], axes)}
+    return out
+
+
 def _qkv(cfg, p, x, positions):
     b, s, _ = x.shape
     q = apply_dense(p["wq"], x).reshape(b, s, cfg.n_heads, cfg.d_head)
@@ -190,7 +260,8 @@ def _qkv(cfg, p, x, positions):
     return q, k, v
 
 
-def attn_block(cfg, p, x, positions):
+def attn_block(cfg, p, x, positions, ctx=None):
+    p = gathered_attn(cfg, ctx, p)
     q, k, v = _qkv(cfg, p, x, positions)
     o = flash_attention(q, k, v)
     b, s = o.shape[:2]
@@ -206,33 +277,41 @@ def ffn_block(cfg, p, x, ctx=None):
         if out.shape[0] != b * s:  # an 'nnz_rs' slice of the token block
             out = coll.gather_from(out, ctx.mesh.axis(ctx.model_axis), 0)
         return out.reshape(b, s, d), aux
-    return apply_mlp(cfg, p["mlp"], x), torch.zeros((), device=x.device)
+    return (apply_mlp(cfg, p["mlp"], x, _mlp_axis(cfg, ctx)),
+            torch.zeros((), device=x.device))
 
 
 def layer_fwd(cfg, p, x, positions, ctx=None):
     a, _ = attn_block(cfg, p["attn"], apply_norm(cfg, p["ln1"], x),
-                      positions)
+                      positions, ctx)
     x = x + a
     f, aux = ffn_block(cfg, p, apply_norm(cfg, p["ln2"], x), ctx)
     return x + f, aux
 
 
-def _embed_input(cfg, params, tokens, inputs_embeds=None):
+def embed_tokens(cfg, ctx, table, tokens):
+    """The tokens' embeddings (the vocabulary-parallel lookup under a ctx
+    that splits the table), in the table's type."""
+    return embed(table, tokens, vocab_axis(cfg, ctx))
+
+
+def _embed_input(cfg, params, tokens, inputs_embeds=None, ctx=None):
     """The first layer's input: the tokens' embeddings, or
     ``inputs_embeds`` (B, S, D) in their place, in the compute type."""
-    x = embed(params["embed"], tokens) if inputs_embeds is None \
-        else inputs_embeds
+    x = (embed_tokens(cfg, ctx, params["embed"], tokens)
+         if inputs_embeds is None else inputs_embeds)
     return x.to(torch_dtype(cfg.compute_dtype))
 
 
 def forward_features(cfg, params, tokens, ctx=None, inputs_embeds=None):
     """tokens (B, S), or ``inputs_embeds`` (B, S, D) in their place ->
-    (final features (B, S, D), summed aux loss)."""
-    x = _embed_input(cfg, params, tokens, inputs_embeds)
+    (final features (B, S, D), summed aux loss).  Each layer is
+    recomputed in the backward under ``cfg.remat`` (``layers.remat``)."""
+    x = _embed_input(cfg, params, tokens, inputs_embeds, ctx)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), device=x.device)
     for p_l in params["layers"]:
-        x, a = layer_fwd(cfg, p_l, x, positions, ctx)
+        x, a = remat(cfg, layer_fwd, cfg, p_l, x, positions, ctx)
         aux = aux + a
     return apply_norm(cfg, params["final_norm"], x), aux
 
@@ -250,7 +329,7 @@ def forward(cfg, params, tokens, ctx=None, inputs_embeds=None):
     place of the tokens' embeddings."""
     x, aux = forward_features(cfg, params, _block(ctx, tokens), ctx,
                               _block(ctx, inputs_embeds))
-    return unembed(params["embed"], x), aux
+    return unembed(params["embed"], x, vocab_axis(cfg, ctx)), aux
 
 
 def loss_fn(cfg, params, batch, ctx=None):
@@ -267,7 +346,7 @@ def loss_fn(cfg, params, batch, ctx=None):
     tokens, mask = _block(ctx, batch["tokens"]), _block(ctx, batch.get("mask"))
     x, aux = forward_features(cfg, params, tokens, ctx)
     loss = lm_loss_from_features(params["embed"], x[:, :-1], tokens[:, 1:],
-                                 mask)
+                                 mask, vocab_axis(cfg, ctx))
     return global_mean(ctx, loss, mask) + AUX_WEIGHT * aux
 
 
@@ -300,10 +379,34 @@ def global_mean(ctx, loss, mask=None):
 # --------------------------------------------------------------- serving
 
 
-def init_cache(cfg, batch_size, max_len, device=None):
+def seq_axis(ctx):
+    """The axis the KV cache's sequence is split over under ``ctx``
+    (``cache_shardings``' rule: the model axis, where it has more than
+    one member), or None."""
+    if ctx is None or ctx.mesh is None:
+        return None
+    if sharding.MODEL_AXIS not in ctx.mesh.axis_names:
+        return None
+    ax = ctx.mesh.axis(sharding.MODEL_AXIS)
+    return ax if ax.size > 1 else None
+
+
+def init_cache(cfg, batch_size, max_len, device=None, ctx=None):
+    """A zero cache of ``batch_size`` slots and ``max_len`` positions;
+    under a ctx whose model axis has more than one member, the rank's
+    block of the sequence, ``max_len / model`` positions (``max_len``
+    must divide)."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.compute_dtype)
     shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.d_head)
+    ax = seq_axis(ctx)
+    if ax is not None:
+        whole = torch.empty(shape, device="meta")
+        if sharding.cache_shardings(ctx.mesh, cfg, {"k": whole})["k"][2] \
+                is None:
+            raise ValueError(f"a cache of max_len {max_len} does not split "
+                             f"over a model axis of {ax.size}")
+        shape = shape[:2] + (max_len // ax.size,) + shape[3:]
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev), "pos": 0}
 
@@ -311,33 +414,41 @@ def init_cache(cfg, batch_size, max_len, device=None):
 def prefill(cfg, params, tokens, max_len, ctx=None, inputs_embeds=None):
     """Run the whole prompt; return (last-token logits (B, V), a cache of
     ``max_len`` positions holding the prompt's keys and values).  Under a
-    ctx: the rank's block of the logits and a cache of its slots.
+    ctx: the rank's block of the logits and a cache of its slots and its
+    block of the sequence (the prompt's positions in it).
     ``inputs_embeds`` (B, S, D) takes the place of the tokens'
     embeddings."""
     x = _embed_input(cfg, params, _block(ctx, tokens),
-                     _block(ctx, inputs_embeds))
+                     _block(ctx, inputs_embeds), ctx)
     b, s = x.shape[:2]
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
     positions = torch.arange(s, device=x.device)
-    cache = init_cache(cfg, b, max_len, device=x.device)
+    cache = init_cache(cfg, b, max_len, device=x.device, ctx=ctx)
+    ax = seq_axis(ctx)
+    s_loc = cache["k"].shape[2]
+    first = 0 if ax is None else ax.index * s_loc
+    n = min(max(s - first, 0), s_loc)  # the prompt's positions held here
     for i, p_l in enumerate(params["layers"]):
         a, (k, v) = attn_block(cfg, p_l["attn"],
-                               apply_norm(cfg, p_l["ln1"], x), positions)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
+                               apply_norm(cfg, p_l["ln1"], x), positions,
+                               ctx)
+        cache["k"][i, :, :n] = k[:, first:first + n]
+        cache["v"][i, :, :n] = v[:, first:first + n]
         x = x + a
         f, _ = ffn_block(cfg, p_l, apply_norm(cfg, p_l["ln2"], x), ctx)
         x = x + f
     x = apply_norm(cfg, params["final_norm"], x)
     cache["pos"] = s
-    return unembed(params["embed"], x[:, -1]), cache
+    return unembed(params["embed"], x[:, -1], vocab_axis(cfg, ctx)), cache
 
 
-def check_pos(cache) -> int:
-    """The cache's ``pos``; raises unless it is a position of its ``k``."""
+def check_pos(cache, max_len=None) -> int:
+    """The cache's ``pos``; raises unless it is a position of the cache
+    (``max_len``, default its ``k``'s length)."""
     pos = int(cache["pos"])
-    max_len = cache["k"].shape[2]
+    if max_len is None:
+        max_len = cache["k"].shape[2]
     if not 0 <= pos < max_len:
         raise ValueError(f"decode_step at pos {pos} is outside the cache's "
                          f"max_len {max_len}")
@@ -348,22 +459,29 @@ def decode_step(cfg, params, cache, tokens, ctx=None):
     """One decode step.  tokens (B,); cache from ``init_cache`` or
     ``prefill``, written in place at ``pos``.  Returns (logits (B, V), the
     cache with ``pos + 1``).  Under a ctx ``tokens`` is the global batch
-    and the cache holds the rank's slots; the logits are the rank's."""
-    pos = check_pos(cache)
-    x = _embed_input(cfg, params, _block(ctx, tokens))[:, None, :]
+    and the cache holds the rank's slots and sequence block, the new
+    position written on the rank that holds it; the logits are the
+    rank's slots'."""
+    ax = seq_axis(ctx)
+    s_loc = cache["k"].shape[2]
+    pos = check_pos(cache, s_loc * (1 if ax is None else ax.size))
+    here = pos - (0 if ax is None else ax.index * s_loc)
+    x = _embed_input(cfg, params, _block(ctx, tokens), ctx=ctx)[:, None, :]
     b = x.shape[0]
     positions = torch.full((b, 1), float(pos), dtype=torch.float32,
                            device=x.device)
     for i, p_l in enumerate(params["layers"]):
         h = apply_norm(cfg, p_l["ln1"], x)
-        q, k, v = _qkv(cfg, p_l["attn"], h, positions)
+        p_a = gathered_attn(cfg, ctx, p_l["attn"])
+        q, k, v = _qkv(cfg, p_a, h, positions)
         k_c, v_c = cache["k"][i], cache["v"][i]
-        k_c[:, pos] = k[:, 0]
-        v_c[:, pos] = v[:, 0]
-        o = decode_attention(q[:, 0], k_c, v_c, pos)
-        x = x + apply_dense(p_l["attn"]["wo"],
-                            o.reshape(b, cfg.attn_dim))[:, None, :]
+        if 0 <= here < s_loc:
+            k_c[:, here] = k[:, 0]
+            v_c[:, here] = v[:, 0]
+        o = decode_attention(q[:, 0], k_c, v_c, pos, ax)
+        x = x + apply_dense(p_a["wo"], o.reshape(b, cfg.attn_dim))[:, None, :]
         f, _ = ffn_block(cfg, p_l, apply_norm(cfg, p_l["ln2"], x), ctx)
         x = x + f
     x = apply_norm(cfg, params["final_norm"], x)
-    return unembed(params["embed"], x[:, 0]), {**cache, "pos": pos + 1}
+    return (unembed(params["embed"], x[:, 0], vocab_axis(cfg, ctx)),
+            {**cache, "pos": pos + 1})

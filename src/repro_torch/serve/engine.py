@@ -21,6 +21,16 @@ the request path.  Tuning happens ahead of time in
 in :meth:`ServeEngine.prepare_dist` (or ``launch.hillclimb --dist``),
 which ``dist_spmm(schedule="tune")`` replays.
 
+Under a ``ShardingCtx`` with a mesh (``ctx=``) every rank of the mesh
+runs an engine alike, on the same requests, with its blocks of the
+parameters (``sharding.shard_params``): the cache holds the rank's data
+block of the slots and its block of the sequence (``max_len / model``
+positions, ``transformer.init_cache``); a slot's prefill runs on every
+rank (its batch of one is not split over the data axes) and is spliced
+into the rank holding the slot; a decode step runs the global slots and
+all-gathers the slots' logits over the data axes, so every rank samples
+alike.  The dense and moe families are served so.
+
 Kept from the reference as it is, for parity: the cache has one
 position ``pos`` for all slots, set by the last prefill, so prompts of
 one wave must have equal lengths (ROADMAP.md §3).
@@ -35,6 +45,8 @@ import torch
 
 from ..core.device import check_on, resolve_device
 from ..core.tree import tree_map
+from ..distributed import collectives as coll
+from ..distributed import sharding
 
 
 @dataclasses.dataclass
@@ -47,18 +59,25 @@ class Request:
 class ServeEngine:
     def __init__(self, api, params, *, slots: int = 4, max_len: int = 128,
                  temperature: float = 0.0, seed: int = 0, device=None,
-                 tuner_cache=None):
+                 tuner_cache=None, ctx=None):
         self.device = resolve_device(device)
         check_on(self.device, embed=params["embed"])
         self.api = api
         self.params = params
         self.slots = slots
         self.max_len = max_len
+        self.ctx = ctx if ctx is not None and ctx.mesh is not None else None
+        self._first_slot, self._local_slots = 0, slots
+        kw = {}
+        if self.ctx is not None:
+            self._check_mesh(api.cfg, slots, max_len)
+            kw["ctx"] = self.ctx
         self.temperature = temperature
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.queue: deque[Request] = deque()
         self.active: dict[int, dict] = {}  # slot -> {rid, remaining, out}
-        self.cache = api.init_cache(slots, max_len, device=self.device)
+        self.cache = api.init_cache(self._local_slots, max_len,
+                                    device=self.device, **kw)
         self.results: dict[int, list[int]] = {}
         self._next_tokens = np.zeros((slots,), np.int64)
         # the tuner's ScheduleCache (None: the default cache of the
@@ -67,6 +86,24 @@ class ServeEngine:
         # aliases two matrices
         self.tuner_cache = tuner_cache
         self._sched_memo: dict[str, object] = {}
+
+    def _check_mesh(self, cfg, slots: int, max_len: int) -> None:
+        """The rank's slots under the engine's ctx (its data block of
+        them); raises unless the family is served under one, ``max_len``
+        divides the model axis and the slots the data axes."""
+        ctx = self.ctx
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"the engine serves the dense and moe families "
+                             f"under a mesh, not {cfg.family!r}")
+        mesh = ctx.mesh
+        if sharding.MODEL_AXIS in mesh.axis_names:
+            m = mesh.axis(sharding.MODEL_AXIS).size
+            if max_len % m:
+                raise ValueError(f"max_len {max_len} does not split over a "
+                                 f"model axis of {m}: the cache holds "
+                                 "max_len / model positions a rank")
+        mine = sharding.data_block(mesh, ctx.data_axes, torch.arange(slots))
+        self._first_slot, self._local_slots = int(mine[0]), len(mine)
 
     def submit(self, req: Request):
         """Queue ``req``; refuse one whose prompt and decode steps would
@@ -184,12 +221,20 @@ class ServeEngine:
         at the slot's index (keys and values; a state model's states)."""
         tokens = torch.as_tensor(np.asarray(req.prompt)[None, :],
                                  dtype=torch.int64, device=self.device)
-        logits, cache1 = self.api.prefill(self.params, {"tokens": tokens},
-                                          self.max_len)
+        if self.ctx is None:
+            logits, cache1 = self.api.prefill(self.params, {"tokens": tokens},
+                                              self.max_len)
+        else:  # every rank runs the slot; its holder splices it
+            logits, cache1 = self.api.prefill(
+                self.params, {"tokens": tokens}, self.max_len,
+                dataclasses.replace(self.ctx, data_axes=()))
+        here = slot - self._first_slot
+        mine = 0 <= here < self._local_slots
 
         def splice(full, one):
-            if torch.is_tensor(one) and one.dim() >= 2 and one.shape[1] == 1:
-                full[:, slot] = one[:, 0].to(full.dtype)
+            if (mine and torch.is_tensor(one) and one.dim() >= 2
+                    and one.shape[1] == 1):
+                full[:, here] = one[:, 0].to(full.dtype)
             return full
 
         tree_map(splice, self.cache, cache1)
@@ -221,7 +266,10 @@ class ServeEngine:
             return False
         toks = torch.as_tensor(self._next_tokens, device=self.device)
         logits, self.cache = self.api.decode_step(self.params, self.cache,
-                                                  toks)
+                                                  toks, self.ctx)
+        if self.ctx is not None:  # every slot's logits on every rank
+            for a in reversed(self.ctx.data_axes):
+                logits = coll.all_gather(logits, self.ctx.mesh.axis(a), 0)
         nxt = self._sample(logits).cpu().numpy()
         for slot, st in list(self.active.items()):
             tok = int(nxt[slot])

@@ -7,7 +7,8 @@ the gradients of every parameter (the grouped matmul's on its backward
 kernels), and the optimizer updates the parameters in place.  With
 ``microbatches`` > 1 the batch is split on dim 0 and the gradients are
 summed in f32 over a loop, the reference's ``lax.scan``, with the same
-mean.  ``TrainState`` is a named tuple of the parameter tree and the
+mean; the sums are accumulated in place, so one f32 copy of the
+gradients is held beside a microbatch's own.  ``TrainState`` is a named tuple of the parameter tree and the
 optimizer state.
 
 Data parallelism: under a ``ShardingCtx`` with a mesh every rank runs the
@@ -16,11 +17,15 @@ global batch (the reference's reshape), of which the loss takes the
 rank's data block; the step all-reduces every gradient as a mean over
 the data axes (the all-reduce XLA inserts inside the reference's
 ``value_and_grad``), and a leaf replicated over the model axis over that
-axis too (the expert leaves, already whole per rank's expert block, over
-the data axes only; ``reduce_grads``), then compresses and decompresses them
-as the reference does after that all-reduce, then clips by the norm of
-the whole tree (the expert blocks' squares summed over the model axis)
-and runs AdamW on the rank's leaves.
+axis too; a leaf split over an axis (``sharding.applied_spec``) is not
+reduced over it: its block's gradient is already that of the whole batch
+(the experts, the vocabulary block and the MLP's blocks over the model
+axis; the FSDP attention weights over the data axes, whose gather's
+backward averaged the ranks' gradients, ``collectives.fsdp_gather``;
+``reduce_grads``).  It then compresses and decompresses them as the
+reference does after that all-reduce, clips by the norm of the whole
+tree (each block's squares summed over the axes it is split over) and
+runs AdamW on the rank's leaves.
 """
 from __future__ import annotations
 
@@ -52,18 +57,19 @@ def init_state(api, optimizer: AdamW, generator: torch.Generator,
     return TrainState(params=params, opt=optimizer.init(params))
 
 
-def reduce_grads(ctx, grads):
+def reduce_grads(ctx, grads, specs: dict):
     """Each gradient's mean over the data axes of ``ctx``'s mesh (in its
     own type), on every rank; a leaf replicated over the model axis also
     over that axis, whose ranks computed it alike in math but not
     always in bits (atomic sums on the card): so its copies stay the
     same bits on every rank, as one replicated array is in the
-    reference.  An expert leaf, split over the model axis, is reduced
-    over the data axes only."""
+    reference.  A leaf split over an axis by its applied spec (``specs``,
+    ``sharding.applied_shardings`` of the whole tree) is not reduced
+    over it."""
     mesh = ctx.mesh
     out = []
     for path, g in tree_leaves_with_path(grads):
-        split = sharding.sharded_axes(mesh, key_str(path), g)
+        split = sharding.sharded_axes(specs[key_str(path)])
         for a in tuple(ctx.data_axes) + (
                 (ctx.model_axis,) if ctx.model_axis else ()):
             if a not in split:
@@ -72,15 +78,16 @@ def reduce_grads(ctx, grads):
     return tree_unflatten(grads, out)
 
 
-def sharded_global_norm(mesh, grads) -> torch.Tensor:
+def sharded_global_norm(mesh, grads, specs: dict) -> torch.Tensor:
     """The global norm of the whole gradient tree from a rank's blocks of
     it: each leaf's sum of squares in f32, summed over the axes its block
-    is split over, then over the leaves."""
+    is split over (``specs``, as :func:`reduce_grads`), then over the
+    leaves."""
     total = None
     for path, g in tree_leaves_with_path(grads):
         gf = g.to(torch.float32)
         sq = (gf * gf).sum()
-        for a in sharding.sharded_axes(mesh, key_str(path), g):
+        for a in sharding.sharded_axes(specs[key_str(path)]):
             sq = coll.psum(sq, mesh.axis(a))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
@@ -104,6 +111,8 @@ def make_train_step(api, optimizer: AdamW, ctx=None, *,
     step is data-parallel (see the module docstring)."""
     loss_fn = functools.partial(api.loss, ctx=ctx)
     mesh = None if ctx is None else ctx.mesh
+    specs = None if mesh is None else sharding.applied_shardings(
+        mesh, api.init(torch.Generator(), device="meta"), api.cfg.family)
 
     def grads_of(params, batch):
         leaves = tree_leaves(params)
@@ -132,21 +141,26 @@ def make_train_step(api, optimizer: AdamW, ctx=None, *,
             for i in range(microbatches):
                 loss, g = grads_of(state.params,
                                    {k: v[i] for k, v in mbs.items()})
-                gsum = tree_map(torch.add, gsum, g)
+                for acc, gi in zip(tree_leaves(gsum), tree_leaves(g)):
+                    acc.add_(gi)
+                del g
                 loss_sum = loss_sum + loss
-            grads = tree_map(lambda g: g / microbatches, gsum)
+            for acc in tree_leaves(gsum):
+                acc.div_(microbatches)
+            grads = gsum
             loss = loss_sum / microbatches
         else:
             loss, grads = grads_of(state.params, batch)
 
         if mesh is not None:
-            grads = reduce_grads(ctx, grads)
+            grads = reduce_grads(ctx, grads, specs)
         if grad_compression:
             grads = decompress_tree(compress_tree(grads, grad_compression))
 
         new_params, new_opt, gnorm = optimizer.update(
             grads, state.opt, state.params,
-            gnorm=None if mesh is None else sharded_global_norm(mesh, grads))
+            gnorm=None if mesh is None else sharded_global_norm(mesh, grads,
+                                                                specs))
         metrics = {"loss": loss.to(torch.float32), "grad_norm": gnorm,
                    "step": new_opt.step}
         return TrainState(params=new_params, opt=new_opt), metrics

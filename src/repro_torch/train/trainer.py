@@ -6,8 +6,9 @@ With a ``ctx`` holding a mesh every rank of it runs a ``Trainer`` alike
 on the same token stream (the global batch, from one seed): the step is
 data-parallel (``train_step.py``) and the parameters are the rank's
 blocks.  Checkpoints are whole, as the reference's global arrays are:
-the expert leaves are gathered over the model axis, leaf by leaf, and
-data-rank 0, model-rank 0 writes them; every rank restores the whole
+each split leaf is gathered over the axes its applied spec splits it
+over (``sharding.applied_shardings``), leaf by leaf, and data-rank 0,
+model-rank 0 writes them; every rank restores the whole
 tree and keeps its blocks, so a checkpoint written on one mesh restores
 on another, or in one process.  The ranks must share the checkpoint
 directory."""
@@ -67,7 +68,8 @@ class Trainer:
         if latest is not None:
             state, step = self.ckpt.restore(state)
             if self.mesh is not None:
-                state = sharding.shard_params(self.mesh, state)
+                state = sharding.shard_params(self.mesh, state,
+                                              self.api.cfg.family)
             print(f"[trainer] restored checkpoint step {step}")
         return state
 
@@ -82,9 +84,13 @@ class Trainer:
             self.ckpt.save(step, state)
             return
         writer = all(ax.index == 0 for ax in self._axes())
+        like = init_state(self.api, self.optimizer, torch.Generator(),
+                          device="meta")
+        specs = sharding.applied_shardings(self.mesh, like,
+                                           self.api.cfg.family)
         leaves = []
         for path, v in tree_leaves_with_path(state):
-            whole = sharding.gather_leaf(self.mesh, key_str(path), v)
+            whole = sharding.gather_leaf(self.mesh, specs[key_str(path)], v)
             if writer:
                 leaves.append(whole.cpu())
         if writer:

@@ -587,12 +587,14 @@ def test_fit_matches_reference():
 
 
 def test_shard_params_blocks_tile_the_whole_and_init_draws_them():
-    """Over every coordinate of a (2, 2) mesh the expert blocks tile each
-    expert leaf along E in model order, every other leaf stays whole (the
-    specs the port does not apply yet), a data block of a batch is its
-    rows in data order, and ``init_params(mesh=)`` holds the same bits as
-    the whole draw's blocks; on a one-member mesh ``gather_params`` is the
-    identity."""
+    """Over every coordinate of a (2, 2) mesh the blocks of each leaf
+    the MoE family applies a spec to tile the whole: the experts along E
+    and the embedding along the vocabulary in model order, the attention
+    weights along their input dim in data order (FSDP; the biases and
+    norms whole); every other leaf stays whole; a data block of a batch
+    is its rows in data order, and ``init_params(mesh=)`` holds the same
+    bits as the whole draw's blocks; on a one-member mesh
+    ``gather_params`` is the identity."""
     import repro_torch.configs as tcfgs
     import repro_torch.distributed.sharding as tsh
     from repro_torch.core.tree import key_str, tree_leaves_with_path
@@ -606,7 +608,7 @@ def test_shard_params_blocks_tile_the_whole_and_init_draws_them():
     for d in range(2):
         for m in range(2):
             mesh = _RankMesh((2, 2), (d, m))
-            got = tree_leaves_with_path(tsh.shard_params(mesh, whole))
+            got = tree_leaves_with_path(tsh.shard_params(mesh, whole, "moe"))
             drawn = tree_leaves_with_path(api.init(
                 torch.Generator().manual_seed(0), device="cpu", mesh=mesh))
             for (p, a), (_, b) in zip(got, drawn):
@@ -615,18 +617,31 @@ def test_shard_params_blocks_tile_the_whole_and_init_draws_them():
             x = torch.arange(8 * 3).reshape(8, 3)
             assert torch.equal(tsh.data_block(mesh, ("data",), x),
                                x[4 * d:4 * d + 4])
+    split = {"model": [], "data": []}
     for i, (path, leaf) in enumerate(wl):
         name = key_str(path)
-        for d in range(2):
-            parts = [blocks[(d, m)][i][1] for m in range(2)]
-            if "/moe/w" in name:
+        if "/moe/w" in name or name == "embed":
+            for d in range(2):  # along dim 0 in model order
+                parts = [blocks[(d, m)][i][1] for m in range(2)]
                 assert parts[0].shape[0] == leaf.shape[0] // 2
                 assert torch.equal(torch.cat(parts), leaf), name
-            else:
-                assert all(torch.equal(p_, leaf) for p_ in parts), name
+            split["model"].append(name)
+        elif "/attn/" in name and name.endswith("/w"):
+            for m in range(2):  # along the input dim in data order
+                parts = [blocks[(d, m)][i][1] for d in range(2)]
+                assert parts[0].shape[0] == leaf.shape[0] // 2
+                assert torch.equal(torch.cat(parts), leaf), name
+            split["data"].append(name)
+        else:
+            assert all(torch.equal(b[i][1], leaf)
+                       for b in blocks.values()), name
+    assert len(split["model"]) == 1 + 3 * cfg.n_layers
+    assert len(split["data"]) == 4 * cfg.n_layers
     one = tmesh.make_local_mesh(1, device="cpu")
+    specs = tsh.applied_shardings(one, whole, "moe")
     for (p, a), (_, b) in zip(wl, tree_leaves_with_path(
-            tsh.gather_params(one, tsh.shard_params(one, whole)))):
+            tsh.gather_params(one, tsh.shard_params(one, whole, "moe"),
+                              specs))):
         assert torch.equal(a, b), key_str(p)
     with pytest.raises(ValueError, match="does not split"):
         tsh.data_block(_RankMesh((3, 1), (0, 0)), ("data",),

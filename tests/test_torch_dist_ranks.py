@@ -382,8 +382,10 @@ for mp in MOE_MESHES:
     mesh = make_local_mesh(mp, device="cpu")
     ctx = ShardingCtx(mesh=mesh, data_axes=("data",), model_axis="model")
     m_ax = mesh.axis("model")
-    pb = sharding.shard_params(mesh, {"moe": whole})["moe"]
-    back = sharding.gather_params(mesh, {"moe": pb})["moe"]
+    pb = sharding.shard_params(mesh, {"moe": whole}, "moe")["moe"]
+    back = sharding.gather_params(mesh, {"moe": pb}, sharding.
+                                  applied_shardings(mesh, {"moe": whole},
+                                                    "moe"))["moe"]
     meta[f"moe_roundtrip_{mp}"] = all(torch.equal(back[k], whole[k])
                                       for k in whole)
     xb = sharding.data_block(mesh, ("data",), torch.from_numpy(MOE_X))
@@ -420,7 +422,7 @@ for mp in MOE_MESHES:
         like = api.init(torch.Generator().manual_seed(0), device="cpu")
         params = sharding.shard_params(mesh, tree_unflatten(like, [
             torch.from_numpy(train_param(key_str(p), tuple(v.shape)))
-            for p, v in tree_leaves_with_path(like)]))
+            for p, v in tree_leaves_with_path(like)]), cfg.family)
         opt = AdamW(lr=1e-3)
         def trainer():
             tr = Trainer(api, opt, iter([{"tokens": t}

@@ -390,23 +390,53 @@ def test_dry_moe_combine_hands_over_the_predicted_bytes(shape, mode):
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
 def test_dry_data_parallel_mean_hands_over_the_gradients(shape):
-    """The data-parallel step's all-reduces on a dry mesh: every gradient
-    over each axis of more than one member (a dense leaf is replicated
-    over the model axis too), and the loss's mean over the data axis."""
+    """The data-parallel step's collectives on a dry mesh under the
+    applied specs, each op's count and bytes from the specs alone: each
+    gradient's all-reduce over each axis of more than one member its leaf
+    is not split over, and its norm's square summed (4 bytes) over each
+    it is; the loss's mean over the data axis; over the data axis the
+    FSDP attention weights' all-gathers (the whole weight) and their
+    reduce-scatters (the rank's block); over the model axis the
+    vocabulary-parallel lookup's rows, the loss's features' cotangent,
+    its max, sum and gold logit, and each MLP's f and g."""
+    from repro_torch.distributed import sharding
+
     cfg = _smoke("qwen2-7b")
+    d, m = shape
     mesh = make_dry_mesh(shape, ("data", "model"))
     ctx = ShardingCtx(mesh=mesh, data_axes=("data",), model_axis="model")
     run = _train_program(cfg, "meta", ctx=ctx, mesh=mesh)
     with ta.count_costs() as c:
         run()
-    grads = ta.tree_bytes(get_model(cfg).init(torch.Generator(),
-                                              device="meta"))
-    axes = sum(n > 1 for n in shape)
-    loss = 4 if shape[0] > 1 else 0
-    assert c.costs()["collectives"] == {"all-reduce": {
-        "count": len(tree_leaves(get_model(cfg).init(
-            torch.Generator(), device="meta"))) * axes + (loss > 0),
-        "bytes": grads * axes + loss}}
+    whole = get_model(cfg).init(torch.Generator(), device="meta")
+    specs = sharding.applied_shardings(mesh, whole, cfg.family)
+    want = {}
+
+    def add(op, nbytes, n=1):
+        row = want.setdefault(op, {"count": 0, "bytes": 0})
+        row["count"] += n
+        row["bytes"] += nbytes * n
+
+    for path, leaf in tree_leaves_with_path(whole):
+        spec = specs[key_str(path)]
+        split = sharding.sharded_axes(spec)
+        block = leaf.numel() * 4 // math.prod(mesh.shape[a] for a in split)
+        for a, n in (("data", d), ("model", m)):
+            if n > 1:
+                add("all-reduce", 4 if a in split else block)
+        if d > 1 and "data" in split:
+            add("all-gather", leaf.numel() * 4)
+            add("reduce-scatter", block)
+    b, s = SMALL.global_batch // d, SMALL.seq_len
+    if d > 1:
+        add("all-reduce", 4)
+    if m > 1:
+        rows = b * s * cfg.d_model * 4
+        add("all-reduce", rows)  # the lookup
+        add("all-reduce", b * (s - 1) * cfg.d_model * 4)  # the loss's x
+        add("all-reduce", b * (s - 1) * 4, 3)  # max, sum, gold
+        add("all-reduce", rows, 2 * cfg.n_layers)  # the MLPs' f and g
+    assert c.costs()["collectives"] == want
 
 
 def test_a_real_axis_still_needs_a_process_group():
@@ -493,14 +523,20 @@ def test_dryrun_main_writes_a_record_and_a_skip(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "SKIP qwen2-7b × long_500k" in out and "dry-run complete" in out
     assert res["fits"] and res["zero1_applied"] is False
-    assert res["dominant"] == "memory"
+    # a rank reads its 1/16 of the weights and of the cache, and
+    # all-gathers the layer's FSDP attention weights whole each step
+    assert res["dominant"] == "collective"
     assert res["overrides"] == {"n_layers": 1}
     pc = res["per_chip"]
-    # the rank's weights (vocab 152,064 x 3,584 tied, one layer) and its
-    # 8 slots of a 32k cache at bf16
-    assert pc["arg_bytes"] > 8 * 32768 * 4 * 128 * 2 * 2
+    # the rank's blocks of the weights (its 1/16 of the vocabulary of
+    # 152,064 x 3,584 tied, one layer) and its 8 slots of its 1/16 of a
+    # 32k cache at bf16: the sequence-sharded KV cache is applied
+    held = 8 * (32768 // 16) * 4 * 128 * 2 * 2 + 152064 * 3584 * 2 // 16
+    assert held < pc["arg_bytes"] < 2 * held
     assert res["hardware"]["name"] == "NVIDIA H100 80GB HBM3, 700 W"
-    assert res["savings"]["sequence-sharded KV cache"] > 0
+    assert res["applied"] == ["vocab-sharded embedding", "FSDP attention",
+                              "dense MLP split", "sequence-sharded KV cache"]
+    assert res["savings"] == {}
     assert len(list(tmp_path.glob("*.json"))) == 2
 
 

@@ -41,8 +41,9 @@ from repro_torch.serve import Request, ServeEngine
 RTOL = ATOL = 1e-5
 LM_TOL = 1e-4
 
-#: Fields of the reference's ModelConfig the port leaves out (XLA only).
-DROPPED = {"remat", "seq_parallel_attn", "scan_unroll", "ssd_unroll",
+#: Fields of the reference's ModelConfig the port leaves out (XLA only;
+#: ``remat`` is kept: it decides what a training step holds).
+DROPPED = {"seq_parallel_attn", "scan_unroll", "ssd_unroll",
            "decode_inplace_cache", "moe_pallas_dispatch"}
 
 
