@@ -273,7 +273,10 @@ near-regular "roadnet" graph (``RB+PR`` -> the RB kernel), both at
   card's name and power limit), then every cell of the ten
   architectures x four shapes on the (16, 16) mesh counted on ``meta``
   (``launch/dryrun.py``, one rank's program at its whole depth, the
-  cells spread over the host's cores, ``DRY_JOBS``) and the report's
+  cells spread over the host's cores, ``DRY_JOBS``; started in the
+  background at nice 19 once the kernels are built, so that they take
+  the cores the card's phases leave idle, and waited for here) and the
+  report's
   tables (roofline terms under the H100 constants, the
   counted detail, a rank's memory against 80 GB); then three cells cut
   in depth and batch to one rank on the card (``DRY_CHECKS``: qwen2-7b
@@ -5905,7 +5908,7 @@ class FirstStepCheck:
     def __getattr__(self, name):
         return getattr(self.opt, name)
 
-    def update(self, grads, state, params, gnorm=None):
+    def update(self, grads, state, params, gnorm=None, mesh=None):
         import torch
         from repro_torch.core.tree import key_str, tree_leaves_with_path
 
@@ -5913,7 +5916,7 @@ class FirstStepCheck:
             self.checked = True
             self.bad = [key_str(p) for p, g in tree_leaves_with_path(grads)
                         if not bool(torch.isfinite(g).all())]
-        return self.opt.update(grads, state, params, gnorm=gnorm)
+        return self.opt.update(grads, state, params, gnorm=gnorm, mesh=mesh)
 
 
 def ssd_share(cfg, dev, step_ms):
@@ -6109,8 +6112,10 @@ DRY_PEAK_SLACK = 4 << 20
 #: The planted faults of each cut: the op classes that allocate most.
 DRY_FAULTS = 4
 DRY_ITERS = 5
-#: Processes counting the dry run's cells (spawned, on meta).
-DRY_JOBS = 8
+#: Processes counting the dry run's cells (spawned, on meta, at nice 19
+#: beside the card's phases: the host has 8 cores).
+DRY_JOBS = 6
+DRY_TIMEOUT = 900
 
 
 def lossy_counter(lost=()):
@@ -6233,29 +6238,71 @@ def dryrun_cards(arch, kind, overrides, batch, seq, dev):
             "floor_ms": floor, "faults": faults}
 
 
-def dryrun_phase(dev):
-    """The dry run (``launch/dryrun.py``): ``backend_info``, every cell of
-    the ten architectures on the (16, 16) mesh counted on meta at its
-    whole depth, in ``DRY_JOBS`` processes, with the report's tables,
-    then DRY_CHECKS on the card."""
+def start_dry_cells():
+    """Start the dry run's cells in the background: ``python -m
+    repro_torch.launch.dryrun --all --jobs DRY_JOBS`` (every cell of the
+    ten architectures on the (16, 16) mesh, counted on meta at its whole
+    depth), at nice 19 and with no card in sight, its records and output
+    in a new directory.  Returns ``(process, directory, start time)``
+    for :func:`dryrun_phase`; at exit the process group is killed if it
+    is still running and the directory removed."""
+    import atexit
+    import os
+    import shutil
+    import signal
     import tempfile
 
-    from repro_torch.configs import ARCHS, SHAPES
-    from repro_torch.launch import backend, dryrun
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]]
+                                          if os.environ.get("PYTHONPATH")
+                                          else [])))
+    with open(out / "log.txt", "w") as log:
+        proc = subprocess.Popen(
+            ["nice", "-n", "19", sys.executable, "-m",
+             "repro_torch.launch.dryrun", "--all", "--jobs", str(DRY_JOBS),
+             "--out", str(out / "records")],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT),
+            start_new_session=True)
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        shutil.rmtree(out, ignore_errors=True)
+
+    atexit.register(stop)
+    return proc, out, time.time()
+
+
+def dryrun_phase(dev, cells):
+    """The dry run (``launch/dryrun.py``): ``backend_info``, the cells
+    :func:`start_dry_cells` counted (waited for, their output printed),
+    with the report's tables, then DRY_CHECKS on the card."""
+    import shutil
+
+    from repro_torch.launch import backend
     from repro_torch.roofline import report
 
     t0 = time.perf_counter()
     print(f"dryrun: backend_info {json.dumps(backend.backend_info(dev))}",
           flush=True)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out:
-        failures = dryrun.run_cells(
-            [(a, s) for a in ARCHS for s in SHAPES], jobs=DRY_JOBS,
-            out_dir=out)
-        if failures:
-            fail(f"dryrun: cells failed: {failures}")
-        recs = report.load(Path(out))
-    t_cells = time.perf_counter() - t0
-    print(f"\ndryrun: {len(recs)} records in {t_cells:.1f} s", flush=True)
+    proc, out, started = cells
+    try:
+        rc = proc.wait(timeout=DRY_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        rc = None
+    t_wait = time.perf_counter() - t0
+    log = out / "log.txt"
+    print(log.read_text(), flush=True)
+    if rc != 0:
+        fail(f"dryrun: the cells' process ended with {rc}")
+    recs = report.load(out / "records")
+    took = log.stat().st_mtime - started  # its last line written
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"\ndryrun: {len(recs)} records in {took:.1f} s beside the "
+          f"card's phases (waited {t_wait:.1f} s for them here)", flush=True)
     print(report.roofline_table(recs, "16x16"))
     print(report.dryrun_table(recs, "16x16"))
     print(report.fits_table(recs, "16x16"), flush=True)
@@ -6646,10 +6693,11 @@ def dist_rank_main(rank: int, world: int, tmp: str,
         sys.exit(1)
 
 
-def dist_world(world: int, tmp: str, job: str = "spmm") -> list:
+def dist_world(world: int, tmp: str, job: str = "spmm",
+               timeout: float = DIST_TIMEOUT) -> list:
     """Start ``world`` rank processes of ``job`` on the card, wait for all
-    within DIST_TIMEOUT (killing every one at the first failure), and
-    return their results."""
+    within ``timeout`` seconds (killing every one at the first failure),
+    and return their results."""
     import os
 
     env = dict(os.environ, REPRO_TUNE_CACHE=str(Path(tmp) / "tune.json"))
@@ -6667,7 +6715,7 @@ def dist_world(world: int, tmp: str, job: str = "spmm") -> list:
         while True:
             codes = [p.poll() for p in procs]
             bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
-            late = time.perf_counter() - t0 > DIST_TIMEOUT
+            late = time.perf_counter() - t0 > timeout
             if bad or late or all(c == 0 for c in codes):
                 break
             time.sleep(0.1)
@@ -7339,10 +7387,14 @@ def dist_train_rank(rank, world, tmp, dev, counters, res):
     first batch's gradients, reduced over the data axis, against the
     one-process run's within LM_GRAD_REL_L2 relative L2 (a split leaf
     against its block, ``sharding.shard_leaf``); row 7b on its expert
-    block; then
-    DIST_TRAIN_STEPS ``Trainer`` steps on the global batches (the counts
-    zeroed just before, read just after), the DIST_TRAIN_CKPT world
-    writing a whole checkpoint at the end."""
+    block; then DIST_TRAIN_STEPS ``Trainer`` steps on the global batches
+    under ZeRO-1 (the counts zeroed just before, read just after; its
+    moment bytes against the reference rule's count,
+    :func:`spec_moment_bytes`), a twin of the parameters
+    with whole moments updated from the same gradients each step
+    (:class:`TwinUpdate`), whose parameters must equal ZeRO-1's bit for
+    bit (its moments' crc to the parent); the DIST_TRAIN_CKPT world
+    writes a whole checkpoint of the ZeRO-1 state."""
     import torch
     from repro_torch.distributed import sharding
     from repro_torch.launch.mesh import make_local_mesh
@@ -7351,6 +7403,9 @@ def dist_train_rank(rank, world, tmp, dev, counters, res):
     from repro_torch.train.optimizer import AdamW, constant_schedule
     from repro_torch.train.train_step import TrainState
     from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    from repro_torch.core.tree import tree_leaves, tree_unflatten
+    from repro_torch.train.train_step import zero1_shapes
 
     cfg = dist_train_config()
     api = get_model(cfg)
@@ -7382,7 +7437,9 @@ def dist_train_rank(rank, world, tmp, dev, counters, res):
     opt = AdamW(lr=constant_schedule(dist_train_lr(cfg)), weight_decay=0.0)
     every = (DIST_TRAIN_STEPS if world == DIST_TRAIN_CKPT
              else DIST_TRAIN_STEPS + 1)
-    tr = one_host(Trainer(api, opt, iter(batches),
+    twin = tree_unflatten(params, [t.clone() for t in tree_leaves(params)])
+    shadow = TwinUpdate(opt, TrainState(params=twin, opt=opt.init(twin)))
+    tr = one_host(Trainer(api, shadow, iter(batches),
                           ckpt_dir=Path(tmp) / "ckpt",
                           tcfg=TrainerConfig(total_steps=DIST_TRAIN_STEPS,
                                              ckpt_every=every, log_every=1),
@@ -7398,22 +7455,87 @@ def dist_train_rank(rank, world, tmp, dev, counters, res):
         return out
 
     tr.step_fn = timed
+    state = TrainState(params=params, opt=opt.init(
+        params, zero1_shapes(mesh, api)))
+    coords = [mesh.axis("data").index, m]
+    res["moments"] = sum(t.numel() * 4 for t in tree_leaves(state.opt.mu)
+                         + tree_leaves(state.opt.nu))
+    res["spec_moments"] = spec_moment_bytes(mesh, api)
+    res["whole_moments"] = 8 * sum(t.numel() for t in tree_leaves(params))
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
-    state = tr.run(TrainState(params=params, opt=opt.init(params)))
+    state = tr.run(state)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     res["counts"] = {n: c.launches for n, c in counters.items()}
     res["crc"] = {n: block_crc(t) for n, t in _param_leaves(state.params)}
     res.update(losses=tr.losses().tolist(), loss0=loss0, step_ms=step_ms,
-               coords=[mesh.axis("data").index, m],
-               run_s=run_s, grad_rel_l2=worst,
+               coords=coords, run_s=run_s, grad_rel_l2=worst,
                peak=torch.cuda.max_memory_allocated(),
                mesh=[world // mp, mp],
                expert_block=list(state.params["layers"][0]["moe"][
                    "wg"].shape))
-    del state, params
+    # the whole moments' twin, updated from the same gradients each step
+    # (two runs would not do: the card's backward sums some gradients in
+    # another order from run to run): every parameter bit for bit, and
+    # its moments' crc, which the parent holds the ZeRO-1 checkpoint's
+    # blocks to
+    twin = shadow.state
+    res["zero1_bits"] = all(
+        block_crc(t) == res["crc"][n] for n, t in _param_leaves(
+            twin.params))
+    if not res["zero1_bits"]:
+        res["failures"].append("ZeRO-1's parameters differ from the whole "
+                               "moments' twin")
+    res["twin_crc"] = {f"{m}/{n}": block_crc(t) for m in ("mu", "nu")
+                       for n, t in _param_leaves(getattr(twin.opt, m))}
+    del state, params, twin, shadow
+
+
+class TwinUpdate:
+    """An optimizer that updates, besides the trainer's state, a twin
+    ``state`` (another layout of the same parameters' moments) from the
+    same gradients and norm each step, the twin first."""
+
+    def __init__(self, opt, state):
+        self.opt, self.state = opt, state
+
+    def __getattr__(self, name):
+        return getattr(self.opt, name)
+
+    def update(self, grads, state, params, gnorm=None, mesh=None):
+        twin = self.state
+        p, o, _ = self.opt.update(grads, twin.opt, twin.params, gnorm=gnorm,
+                                  mesh=mesh)
+        self.state = type(twin)(params=p, opt=o)
+        return self.opt.update(grads, state, params, gnorm=gnorm, mesh=mesh)
+
+
+def spec_moment_bytes(mesh, api) -> int:
+    """A rank's bytes of AdamW's two f32 moments by the reference's ZeRO-1
+    rule alone: each whole leaf's elements over the ranks its moment spec
+    splits it over (``sharding.zero1_shardings`` of ``param_shardings``,
+    which tests/test_torch_zero1.py holds to the JAX package's rules).
+    Counted without the shapes the port gives a rank's moments
+    (``zero1_shapes``), which a rank's held bytes are checked against.
+    Exact fractions: a stack's leaf split over its layers is a fraction
+    of a layer a rank, a whole number of layers over the stack."""
+    from fractions import Fraction
+
+    import torch
+    from repro_torch.core.tree import key_str, tree_leaves_with_path
+    from repro_torch.distributed import sharding
+
+    whole = api.init(torch.Generator(), device="meta")
+    specs = sharding.zero1_shardings(mesh, whole,
+                                     sharding.param_shardings(mesh, whole))
+    total = sum(
+        Fraction(v.numel(), math.prod(
+            mesh.shape[a] for a in sharding.sharded_axes(specs[key_str(p)])))
+        for p, v in tree_leaves_with_path(whole))
+    total *= 8
+    return int(total) if total.denominator == 1 else float(total)
 
 
 def block_crc(t) -> int:
@@ -7429,7 +7551,8 @@ def block_crc(t) -> int:
 
 def dist_ep_rank(job, rank, world, tmp):
     """A rank of an expert-parallel ('moe'), data-parallel ('train') or
-    tensor-parallel ('tp') world on the card's gloo group; writes
+    tensor-parallel ('tp', 'families') world on the card's gloo group;
+    writes
     ``tmp/rank<R>.json``, exits 1 on a failed check."""
     import os
 
@@ -7450,8 +7573,8 @@ def dist_ep_rank(job, rank, world, tmp):
     res = {"rank": rank, "world": world, "job": job, "failures": [],
            "counts": dict.fromkeys(counters, 0),
            "tune_counts": dict.fromkeys(counters, 0)}
-    {"moe": dist_moe_rank, "train": dist_train_rank,
-     "tp": dist_tp_rank}[job](rank, world, tmp, dev, counters, res)
+    {"moe": dist_moe_rank, "train": dist_train_rank, "tp": dist_tp_rank,
+     "families": dist_fam_rank}[job](rank, world, tmp, dev, counters, res)
     (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
     if res["failures"]:
@@ -7593,17 +7716,28 @@ def dist_moe_phase(tmp, counters, dev):
               f"{max(r['grad_rel_l2'] for r in ranks):.3e}; expert block "
               f"{lead['expert_block']}; max_memory_allocated per rank "
               + ", ".join(f"{r['peak'] / 1e9:.2f}" for r in ranks)
-              + f" GB; launches {out['train']}", flush=True)
+              + f" GB; launches {out['train']}; ZeRO-1 moment bytes per "
+              "rank " + ", ".join(str(r["moments"]) for r in ranks)
+              + " (the reference rule's count " + ", ".join(
+                  str(r["spec_moments"]) for r in ranks)
+              + "; whole moments " + ", ".join(
+                  str(r["whole_moments"]) for r in ranks)
+              + "); parameters after the steps equal the whole moments' "
+              f"twin's (the same gradients) bit for bit on every rank "
+              f"{all(r['zero1_bits'] for r in ranks)}", flush=True)
+        if any(r["moments"] != r["spec_moments"] for r in ranks):
+            fail("dist train: a rank's ZeRO-1 moments differ from the "
+                 "reference rule's count")
         if world == DIST_TRAIN_CKPT:
             writers = ranks
     like = ref["params"]  # by path: the keys the checkpoint's tree gives
-    state, step = CheckpointManager(Path(tmp) / "ckpt").restore(TrainState(
-        params=like, opt=AdamState(step=torch.zeros((), dtype=torch.int32),
-                                   mu=like, nu=like)))
+    like = TrainState(params=like, opt=AdamState(
+        step=torch.zeros((), dtype=torch.int32), mu=like, nu=like))
+    state, step = CheckpointManager(Path(tmp) / "ckpt").restore(like)
     shapes = all(tuple(state.params[n].shape) == tuple(w.shape)
                  for n, w in ref["params"].items())
     mp = DIST_TRAIN_WORLDS[DIST_TRAIN_CKPT]
-    differ = []
+    differ, twin_differ = [], []
     for r in writers:  # each rank's blocks of the whole leaves, bit for bit
         mesh = make_dry_mesh((DIST_TRAIN_CKPT // mp, mp), ("data", "model"),
                              r["coords"], device="cpu")
@@ -7611,21 +7745,29 @@ def dist_moe_phase(tmp, counters, dev):
             t = shard_leaf(mesh, n, t, cfg_t.family)
             if block_crc(t) != r["crc"][n]:
                 differ.append(f"rank {r['rank']} {n}")
-    same = not differ
+        for m in ("mu", "nu"):  # against the whole moments' twin's blocks
+            for n, t in getattr(state.opt, m).items():
+                t = shard_leaf(mesh, n, t, cfg_t.family)
+                if block_crc(t) != r["twin_crc"][f"{m}/{n}"]:
+                    twin_differ.append(f"rank {r['rank']} {m}/{n}")
+    same, same_ckpt = not differ, not twin_differ
     whole = rel_l2(torch.cat([t.float().reshape(-1)
                               for t in state.params.values()]),
                    torch.cat([w.float().reshape(-1)
                               for w in ref["params"].values()]))
-    print(f"dist train: the (2, 2) world's whole checkpoint (step {step}) "
-          f"restored in one process: every leaf whole {shapes}, each "
+    print(f"dist train: the (2, 2) world's whole ZeRO-1 checkpoint (step "
+          f"{step}) restored in one process: every leaf whole {shapes}, "
+          f"its moments, cut by the applied specs, each rank's whole "
+          f"moments' twin's bit for bit {same_ckpt}, each "
           f"rank's blocks bit for bit {same}; the parameters within "
           f"{whole:.3e} relative L2 of the one-process run's (tol "
           f"{LM_GRAD_REL_L2:.3e}); trainer worlds "
           f"{time.perf_counter() - t1:.1f} s", flush=True)
-    if not (shapes and same and step == DIST_TRAIN_STEPS
+    if not (shapes and same and same_ckpt and step == DIST_TRAIN_STEPS
             and whole <= LM_GRAD_REL_L2):
         fail(f"dist train: the restored checkpoint disagrees with the ranks "
-             f"({differ[:8]}) or with the one-process run")
+             f"({differ[:8]}, {twin_differ[:8]}) or with the one-process "
+             "run")
     print(f"dist moe: phase {time.perf_counter() - t0:.1f} s; launches over "
           f"the ranks: serving {out['serve']}, training {out['train']}, "
           f"tuner {out['tune']}", flush=True)
@@ -7679,17 +7821,17 @@ def dist_tp_inputs(cfg, dev):
 
 
 def dist_tp_trainer(api, batches, dev, ctx=None, ckpt=None):
-    """A ``Trainer`` of DIST_TP_STEPS steps under AdamW (constant rate,
-    no weight decay) on ``batches``, with no checkpoint."""
+    """A ``Trainer`` of a step a batch of ``batches`` under AdamW
+    (constant rate, no weight decay), with no checkpoint."""
     from repro_torch.train.optimizer import AdamW, constant_schedule
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     opt = AdamW(lr=constant_schedule(dist_train_lr(api.cfg)),
                 weight_decay=0.0)
     return one_host(Trainer(api, opt, iter(batches), ckpt_dir=ckpt,
-                            tcfg=TrainerConfig(total_steps=DIST_TP_STEPS,
-                                               ckpt_every=DIST_TP_STEPS + 1,
-                                               log_every=DIST_TP_STEPS + 1),
+                            tcfg=TrainerConfig(total_steps=len(batches),
+                                               ckpt_every=len(batches) + 1,
+                                               log_every=len(batches) + 1),
                             ctx=ctx, device=dev)), opt
 
 
@@ -7932,6 +8074,325 @@ def dist_tp_phase(tmp, counters, dev):
     return {"counts": counts}
 
 
+# ---------------------------------------------------------------------------
+# dist families: the reference's specs in the ssm, hybrid and encdec
+# families, and ZeRO-1's moments, on gloo ranks
+# ---------------------------------------------------------------------------
+
+#: The families' tensor-parallel phase: each model at full width cut to
+#: DIST_FAM_LAYERS layers (whisper: as many encoder and decoder layers),
+#: four ranks and the one-process run sharing the card, on the (data,
+#: model) meshes of DIST_TP_MESHES.  At (1, 4) hymba's 50 SSM heads
+#: straddle the ranks (12.5 a rank) and whisper's vocabulary of 51866
+#: falls back to whole.  Serving in bf16: DIST_TP_PROMPTS prompts of
+#: DIST_TP_PROMPT tokens (whisper's with 1500 frames) into a cache of
+#: DIST_FAM_MAX_LEN positions, DIST_TP_DECODE decode steps fed the
+#: one-process run's greedy tokens.  Training in f32: DIST_TP_STEPS
+#: ``Trainer`` steps of DIST_TP_BATCH x DIST_TP_SEQ tokens under ZeRO-1,
+#: the losses within DIST_FAM_LOSS_REL of one process's (whole moments),
+#: the parameters after them, gathered whole, within DIST_FAM_PARAM_REL_L2
+#: relative L2 over the tree.
+DIST_FAM_ARCHS = ("mamba2-2.7b", "hymba-1.5b", "whisper-large-v3")
+DIST_FAM_LAYERS, DIST_FAM_MAX_LEN = 4, 256
+DIST_FAM_LOSS_REL, DIST_FAM_PARAM_REL_L2 = 1e-6, 1e-5
+DIST_FAM_TIMEOUT = 300
+
+
+def dist_fam_configs(arch):
+    """(the bf16 serving config, the f32 training config) of ``arch``
+    cut to DIST_FAM_LAYERS layers."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    cut = {"n_layers": DIST_FAM_LAYERS}
+    if cfg.family == "encdec":
+        cut["n_encoder_layers"] = DIST_FAM_LAYERS
+    cfg = cfg.scaled(**cut)
+    return cfg, cfg.scaled(param_dtype="float32", compute_dtype="float32")
+
+
+def dist_fam_inputs(cfg, dev):
+    """(the prompt batch, the training batches), seeded, the same on every
+    rank: tokens (and whisper's frames, standard normal f32)."""
+    import torch
+    from repro_torch.data.synthetic import ShardedTokenStream
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 35)
+
+    def frames(n):
+        return torch.randn(n, cfg.encoder_seq, cfg.d_model,
+                           generator=gen).to(dev)
+
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (
+        DIST_TP_PROMPTS, DIST_TP_PROMPT), generator=gen).to(dev)}
+    it = iter(ShardedTokenStream(cfg.vocab_size, DIST_TP_SEQ, DIST_TP_BATCH,
+                                 seed=SEED + 35))
+    batches = [dict(next(it)) for _ in range(DIST_TP_STEPS)]
+    if cfg.family == "encdec":
+        prompt["encoder_embeds"] = frames(DIST_TP_PROMPTS)
+        for b in batches:
+            b["encoder_embeds"] = frames(DIST_TP_BATCH)
+    return prompt, batches
+
+
+def dist_fam_serve(api, params, prompt, fed, ctx=None):
+    """The prefill's logits, then one a decode step fed ``fed`` (the
+    greedy tokens, or None to feed the argmax), all in f32 on the host;
+    and the tokens fed."""
+    import torch
+
+    with torch.no_grad():
+        logits, cache = api.prefill(params, prompt, DIST_FAM_MAX_LEN, ctx)
+        served, toks = [logits.float().cpu()], []
+        for i in range(DIST_TP_DECODE):
+            tok = logits.argmax(-1) if fed is None else fed[i].to(
+                logits.device)
+            toks.append(tok.cpu())
+            logits, cache = api.decode_step(params, cache, tok, ctx)
+            served.append(logits.float().cpu())
+    shapes = {k: list(v.shape) for k, v in _param_leaves(cache)
+              if hasattr(v, "shape") and v.dim()}
+    return served, toks, shapes
+
+
+def dist_fam_reference(arch, dev, tmp):
+    """The one-process run of ``arch`` the ranks are held to: the bf16
+    prefill and greedy decode (``tmp/<arch>_serve.pt``), then
+    DIST_TP_STEPS f32 ``Trainer`` steps with whole moments (its losses in
+    ``tmp/<arch>_losses.json``, its parameters after them in
+    ``tmp/<arch>_params.pt``); returns the losses, the peaks and the
+    seconds."""
+    import tempfile
+
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.train.train_step import TrainState
+
+    t0 = time.perf_counter()
+    cfg, cfg32 = dist_fam_configs(arch)
+    prompt, batches = dist_fam_inputs(cfg, dev)
+    api = get_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED),
+                      device=dev)
+    served, fed, _ = dist_fam_serve(api, params, prompt, None)
+    torch.save({"logits": served, "fed": fed}, Path(tmp) / f"{arch}_serve.pt")
+    serve_peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    api32 = get_model(cfg32)
+    params = api32.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    with tempfile.TemporaryDirectory() as ckpt:
+        tr, opt = dist_tp_trainer(api32, batches, dev, ckpt=ckpt)
+        state = tr.run(TrainState(params=params, opt=opt.init(params)))
+    torch.save({n: t.cpu() for n, t in _param_leaves(state.params)},
+               Path(tmp) / f"{arch}_params.pt")
+    (Path(tmp) / f"{arch}_losses.json").write_text(json.dumps(
+        tr.losses().tolist()))
+    out = {"losses": tr.losses().tolist(), "serve_peak": serve_peak,
+           "train_peak": torch.cuda.max_memory_allocated(),
+           "n_params": sum(t.numel() for _, t in _param_leaves(params)),
+           "s": time.perf_counter() - t0}
+    del state, params, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_fam_rank(rank, world, tmp, dev, counters, res):
+    """One rank of the families' world (job 'families'): for each arch of
+    DIST_FAM_ARCHS, on each mesh of DIST_TP_MESHES, it draws the bf16
+    model from SEED keeping its blocks (``init_params(mesh=)``: the mamba
+    rules, FSDP attention, the MLP's split, the vocabulary where it
+    divides), prefills the prompts into its blocks of the cache and
+    decodes DIST_TP_DECODE steps fed the one-process run's tokens, each
+    step's logits within LOGIT_REL_L2; then draws the f32 model and runs
+    DIST_TP_STEPS ``Trainer`` steps under ZeRO-1 (``zero1_shapes``), the
+    losses within DIST_FAM_LOSS_REL and the parameters after them,
+    gathered whole leaf by leaf, within DIST_FAM_PARAM_REL_L2 relative L2
+    of the one-process run's; the collectives it reported in those steps
+    against the same steps counted on a dry mesh of its coordinates on
+    meta (equal by op, count and bytes), its moment bytes against the
+    reference rule's count (:func:`spec_moment_bytes`)."""
+    import itertools
+
+    import torch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_dry_mesh, make_local_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models.moe import ShardingCtx
+    from repro_torch.roofline.analysis import CostCounter, count_costs
+    from repro_torch.train.train_step import (TrainState, make_train_step,
+                                              zero1_shapes)
+
+    meshes = [make_local_mesh(shape[1], device=dev)
+              for shape in DIST_TP_MESHES]
+    res["meshes"] = []
+    for arch, (shape, mesh) in itertools.product(
+            DIST_FAM_ARCHS, zip(DIST_TP_MESHES, meshes)):
+        t0 = time.perf_counter()
+        cfg, cfg32 = dist_fam_configs(arch)
+        api, api32 = get_model(cfg), get_model(cfg32)
+        prompt, batches = dist_fam_inputs(cfg, dev)
+        ref = torch.load(Path(tmp) / f"{arch}_serve.pt")
+        want = torch.load(Path(tmp) / f"{arch}_params.pt", mmap=True)
+        losses = json.loads((Path(tmp) / f"{arch}_losses.json").read_text())
+        ctx = ShardingCtx(mesh=mesh, data_axes=("data",), model_axis="model")
+        coords = [mesh.axis("data").index, mesh.axis("model").index]
+        b_loc = DIST_TP_PROMPTS // shape[0]
+        mine = slice(coords[0] * b_loc, (coords[0] + 1) * b_loc)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = api.init(torch.Generator(device=dev).manual_seed(SEED),
+                          device=dev, mesh=mesh)
+        held = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        served, _, cache = dist_fam_serve(api, params, prompt, ref["fed"],
+                                          ctx)
+        errs = [rel_l2(g, w[mine]) for g, w in zip(served, ref["logits"])]
+        serve_peak = torch.cuda.max_memory_allocated()
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = api32.init(torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev, mesh=mesh)
+        tr, opt = dist_tp_trainer(api32, batches, dev, ctx=ctx,
+                                  ckpt=Path(tmp) / f"ckpt{rank}")
+        state = TrainState(params=params, opt=opt.init(
+            params, zero1_shapes(mesh, api32)))
+        moments = sum(t.numel() * 4 for t in tree_leaves(state.opt.mu)
+                      + tree_leaves(state.opt.nu))
+        log = CostCounter()  # a recorder of the collectives alone
+        coll.add_recorder(log)
+        try:
+            state = tr.run(state)
+        finally:
+            coll.remove_recorder(log)
+        torch.cuda.synchronize()
+        train_peak = torch.cuda.max_memory_allocated()
+        step_losses = tr.losses().tolist()
+        specs = sharding.applied_shardings(
+            mesh, api32.init(torch.Generator(), device="meta"), cfg.family)
+        num = den = 0.0
+        leaf_errs = {}
+        for name, t in _param_leaves(state.params):
+            whole = sharding.gather_leaf(mesh, specs[name], t)
+            w = want[name].to(dev)
+            d2 = float(torch.linalg.vector_norm(whole - w)) ** 2
+            w2 = float(torch.linalg.vector_norm(w)) ** 2
+            num, den = num + d2, den + w2
+            leaf_errs[name] = (d2 / max(w2, 1e-60)) ** 0.5
+            del whole, w
+        param_err = (num / max(den, 1e-60)) ** 0.5
+        del state, params, tr
+        torch.cuda.empty_cache()
+        # the same steps counted on a dry mesh of this rank's coordinates
+        dry = make_dry_mesh(shape, ("data", "model"), coords)
+        dctx = ShardingCtx(mesh=dry, data_axes=("data",), model_axis="model")
+        mparams = api32.init(torch.Generator(), device="meta", mesh=dry)
+        mstate = TrainState(params=mparams, opt=opt.init(
+            mparams, zero1_shapes(dry, api32)))
+        spec_moments = spec_moment_bytes(mesh, api32)
+        step = make_train_step(api32, opt, dctx)
+        with count_costs() as c:
+            for b in batches:
+                mstate, _ = step(mstate, {k: torch.empty_like(
+                    torch.as_tensor(v), device="meta") for k, v in b.items()})
+        counted = c.costs()["collectives"]
+        del mstate, mparams
+        loss_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(step_losses, losses))
+        ok = (max(errs) <= LOGIT_REL_L2 and loss_err <= DIST_FAM_LOSS_REL
+              and param_err <= DIST_FAM_PARAM_REL_L2
+              and log.collectives == counted and moments == spec_moments)
+        row = {"arch": arch, "mesh": list(shape), "coords": coords,
+               "held": held,
+               "cache": cache, "logit_rel_l2": errs, "losses": step_losses,
+               "loss_err": loss_err, "param_err": param_err,
+               "param_at": max(leaf_errs, key=leaf_errs.get),
+               "param_worst": max(leaf_errs.values()),
+               "moments": moments, "spec_moments": spec_moments,
+               "serve_peak": serve_peak, "train_peak": train_peak,
+               "collectives": log.collectives, "dry": counted,
+               "s": time.perf_counter() - t0, "ok": ok}
+        res["meshes"].append(row)
+        print(f"rank {rank} {arch} mesh {shape} at {tuple(coords)}: holds "
+              f"{held / 1e9:.3f} GB of bf16 blocks, cache {cache}; logits "
+              "relative L2 " + ", ".join(f"{e:.3e}" for e in errs)
+              + f" (tol {LOGIT_REL_L2:.3e}); trainer losses {step_losses} "
+              f"(error {loss_err:.3e}, tol {DIST_FAM_LOSS_REL:.0e}); "
+              f"parameters after them {param_err:.3e} relative L2 (tol "
+              f"{DIST_FAM_PARAM_REL_L2:.0e}; worst leaf {row['param_at']} "
+              f"{row['param_worst']:.3e}); ZeRO-1 moments {moments} bytes "
+              f"(the reference rule {spec_moments}); collectives "
+              f"{log.collectives} "
+              f"(dry mesh {counted}); peaks serve {serve_peak / 1e9:.2f} "
+              f"GB, train {train_peak / 1e9:.2f} GB; {row['s']:.1f} s",
+              flush=True)
+        if not ok:
+            res["failures"].append(f"families {arch} {shape}")
+
+
+def dist_families_phase(tmp, counters, dev):
+    """The ``dist families`` phase: the one-process run of each arch of
+    DIST_FAM_ARCHS, then one 4-rank world over every arch and mesh of
+    DIST_TP_MESHES (:func:`dist_fam_rank`); prints every rank's errors,
+    peaks, moment bytes and collectives beside the one-process run's and
+    the dry mesh's.  The families reach no kernel of the port: the counts
+    are zeroed before and read after."""
+    t0 = time.perf_counter()
+    for k in counters.values():
+        k.launches = 0
+    refs = {}
+    for arch in DIST_FAM_ARCHS:
+        cfg, _ = dist_fam_configs(arch)
+        refs[arch] = ref = dist_fam_reference(arch, dev, tmp)
+        print(f"dist families {arch}: full width (d_model {cfg.d_model}, "
+              f"vocab {cfg.vocab_size}), cut to {DIST_FAM_LAYERS} layers"
+              + (" a stack" if cfg.family == "encdec" else "")
+              + f", {ref['n_params'] / 1e9:.3f} B parameters; one process: "
+              f"f32 trainer losses {ref['losses']} (whole moments); "
+              f"max_memory_allocated serve {ref['serve_peak'] / 1e9:.2f} GB,"
+              f" train {ref['train_peak'] / 1e9:.2f} GB; {ref['s']:.1f} s",
+              flush=True)
+    ranks = dist_world(4, tmp, "families", timeout=DIST_FAM_TIMEOUT)
+    for i, row in enumerate(ranks[0]["meshes"]):
+        arch, shape, ref = row["arch"], tuple(row["mesh"]), refs[row["arch"]]
+        rows = [r["meshes"][i] for r in ranks]
+        print(f"dist families {arch} mesh {shape}: logits worst relative L2 "
+              f"{max(max(x['logit_rel_l2']) for x in rows):.3e} (tol "
+              f"{LOGIT_REL_L2:.3e}); trainer losses {rows[0]['losses']} "
+              f"(error {max(x['loss_err'] for x in rows):.3e}); parameters "
+              f"after {DIST_TP_STEPS} ZeRO-1 steps within "
+              f"{max(x['param_err'] for x in rows):.3e} relative L2 of one "
+              "process's; ZeRO-1 moment bytes per rank "
+              + ", ".join(str(x["moments"]) for x in rows)
+              + " (the reference rule's " + ", ".join(
+                  str(x["spec_moments"]) for x in rows)
+              + "); max_memory_allocated per rank serve "
+              + ", ".join(f"{x['serve_peak'] / 1e9:.2f}" for x in rows)
+              + " GB, train " + ", ".join(f"{x['train_peak'] / 1e9:.2f}"
+                                         for x in rows)
+              + f" GB (one process {ref['serve_peak'] / 1e9:.2f} and "
+              f"{ref['train_peak'] / 1e9:.2f} GB); collective bytes per rank "
+              + "; ".join(", ".join(f"{op} {c['bytes']}" for op, c in
+                                    sorted(x["collectives"].items()))
+                          for x in rows)
+              + " (the dry mesh's count of the same steps: "
+              + "; ".join(", ".join(f"{op} {c['bytes']}" for op, c in
+                                    sorted(x["dry"].items()))
+                          for x in rows)
+              + f"); {max(x['s'] for x in rows):.1f} s", flush=True)
+    counts = {n: k.launches for n, k in counters.items()}
+    print(f"dist families: phase {time.perf_counter() - t0:.1f} s; kernel "
+          f"launches {({n: c for n, c in counts.items() if c})}; "
+          f"{card_line()}", flush=True)
+    return {"counts": counts}
+
+
 def main() -> None:
     import tempfile
 
@@ -7970,6 +8431,7 @@ def main() -> None:
     reports = build.build()
     print(f"build: {len(reports)} libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    dry_cells = start_dry_cells()
     for src, rep in reports.items():
         for line in rep.splitlines():
             if "Used" in line or "spill" in line or "build (" in line:
@@ -8170,6 +8632,13 @@ def main() -> None:
     runs.append(tp["counts"])
     expected.append(("dist tp", ()))
 
+    # the same specs in the ssm, hybrid and encdec families, with ZeRO-1
+    fam_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_fam_")
+    dfam = dist_families_phase(fam_tmp.name, counters, dev)
+    fam_tmp.cleanup()
+    runs.append(dfam["counts"])
+    expected.append(("dist families", ()))
+
     # LM training at full width, one layer: the grouped matmul's backward
     lm = lm_train_phase(dev, counters)
     runs.append(lm["counts"])
@@ -8190,7 +8659,7 @@ def main() -> None:
     # the dry run: every cell of the production mesh counted on meta,
     # three cuts of it counted on the card and timed (no kernel of the
     # port: the dry run counts the MoE's einsum path)
-    dry = dryrun_phase(dev)
+    dry = dryrun_phase(dev, dry_cells)
     for (path, kernels), counts in zip(expected, runs):
         for n in kernels:
             if counts[n] == 0:

@@ -23,30 +23,39 @@ What the port applies.  The reference hands these specs to XLA, whose
 partitioner inserts every collective the sharded program needs.  The
 port has no such partitioner: a rank's code consumes a sharded leaf only
 where it was written to, so :func:`applied_spec` applies a rule only in
-the families whose code consumes it (:data:`APPLIED`):
+the families whose code consumes it (:data:`APPLIED`).  Every family now
+consumes every group of its leaves, so the applied spec of every leaf is
+the reference's (:func:`param_shardings`, after ``_fit``):
 
-- dense, moe and vlm (whose decoder is the transformer): the
-  vocab-sharded embedding (``embed`` on ``model``: each model rank looks
-  up and unembeds its vocabulary block, and the loss's log-partition is
-  a ``pmax`` and a ``psum`` over the blocks), the FSDP attention weights
-  (``attn/*/w`` over the data axes along their input dim, all-gathered
-  before each layer's use; the biases and norms stay whole), and the
-  dense MLP's split (``mlp/{wi,wg}`` column-, ``mlp/wo`` row-parallel on
-  ``model``, Megatron's f and g) or the experts' (``moe/{wg,wi,wo}`` on
-  ``model`` along E, ``models/moe.py``);
-- the transformer's KV cache (``cache_shardings``' rule): the sequence
-  over ``model``, each model rank holding ``max_len / model`` positions;
-- every family: the batch rule (the entry points slice the rank's data
-  block, :func:`data_block`).
+- the vocab-sharded embedding (``embed`` on ``model``: each model rank
+  looks up and unembeds its vocabulary block, and the loss's
+  log-partition is a ``pmax`` and a ``psum`` over the blocks);
+- the FSDP attention weights (``attn/*/w`` over the data axes along
+  their input dim, whisper's ``self_attn`` and ``cross_attn`` included,
+  all-gathered before each layer's use; the biases and norms whole);
+- the dense MLP's split (``mlp/{wi,wg}`` column-, ``mlp/wo``
+  row-parallel on ``model``, Megatron's f and g; whisper's gelu MLP has
+  ``wi`` and ``wo``) or the experts' (``moe/{wg,wi,wo}`` on ``model``
+  along E, ``models/moe.py``);
+- the mamba rules (``models/mamba2.py``): ``z_proj``, ``x_proj``,
+  ``dt_proj`` and ``conv_x_w`` on ``model`` along their last dim,
+  ``conv_x_b``, the mixer's ``norm``, ``A_log``, ``D`` and ``dt_bias``
+  on ``model``, ``out_proj`` along d_inner; ``bc_proj`` and the
+  ``conv_bc`` leaves whole;
+- the caches (``cache_shardings``' rule): the KV caches' sequence over
+  ``model`` (transformer, hybrid, encdec), the cross-attention's
+  head_dim, the SSM state's heads and the conv windows' channels;
+- the batch rule in every family (the entry points slice the rank's
+  data block, :func:`data_block`), and ZeRO-1's moments over the data
+  axes (:func:`zero1_shardings`, ``train/optimizer.py``).
 
-Not applied (every rank holds such a leaf whole): the mamba rules, the
-ssm, hybrid and encdec families' leaves, the mamba state over ``model``,
-and ZeRO-1's moments (``launch.dryrun.zero1_shardings``).  A dim that
-does not divide its axis falls back to replication, as the reference's
-``_fit`` does (e.g. a vocabulary of 130 over a model axis of 4); the
-model code reads each spec from :func:`applied_spec`, never from the
-rule, so a fallback leaf runs whole.  An expert leaf never falls back:
-a dim that does not divide is an error (:func:`shard_leaf`).
+Megatron-SP (the reference's ``seq_parallel_attn``) is not a leaf spec
+and is not ported.  A dim that does not divide its axis falls back to
+replication, as the reference's ``_fit`` does (e.g. a vocabulary of 130
+over a model axis of 4, hymba's 50 SSM heads over 16); the model code
+reads each spec from :func:`applied_spec`, never from the rule, so a
+fallback leaf runs whole.  An expert leaf never falls back: a dim that
+does not divide is an error (:func:`shard_leaf`).
 """
 from __future__ import annotations
 
@@ -61,20 +70,30 @@ __all__ = [
     "APPLIED",
     "DATA",
     "MODEL_AXIS",
+    "STACKS",
     "applied_shardings",
     "applied_spec",
     "batch_shardings",
+    "block_shape",
     "cache_shardings",
     "data_axes",
     "data_block",
     "gather_leaf",
+    "gather_layers",
     "gather_params",
+    "layer_key",
+    "layer_of",
+    "layer_split",
+    "moment_shape",
     "param_shardings",
     "replicated",
+    "shard_block",
     "shard_leaf",
     "shard_params",
     "sharded_axes",
     "split_axes",
+    "stack_lengths",
+    "zero1_shardings",
 ]
 
 MODEL_AXIS = "model"
@@ -88,13 +107,16 @@ GROUPS = {
                             for n in ("wi", "wg", "wo")),
     "experts": lambda path: any(f"moe/{n}" in path
                                 for n in ("wg", "wi", "wo")),
+    "mamba": lambda path: "mixer/" in path,
 }
 
 #: The groups each family's code consumes (see the module docstring).
 APPLIED = {"dense": ("embed", "attention", "mlp"),
            "moe": ("embed", "attention", "experts"),
            "vlm": ("embed", "attention", "mlp"),
-           "ssm": (), "hybrid": (), "encdec": ()}
+           "ssm": ("embed", "mamba"),
+           "hybrid": ("embed", "attention", "mamba", "mlp"),
+           "encdec": ("embed", "attention", "mlp")}
 
 
 def data_axes(mesh) -> tuple:
@@ -194,10 +216,10 @@ def cache_shardings(mesh, cfg, cache):
     batch over the data axes and sequence over ``model``; cross-attention
     caches head_dim over ``model``; SSM state heads and conv state
     channels over ``model``; ``pos`` replicated; by path, as
-    :func:`param_shardings`.  The port applies the KV rule to the
-    transformer's cache (``models/transformer.py::init_cache``: the
-    rank's slots and its sequence block); the others are computed, not
-    applied."""
+    :func:`param_shardings`.  Every family's ``init_cache`` holds the
+    rank's block of each leaf (its slots, and its block over ``model``).
+    The rule matches the reference's names: ``k``, ``v``, ``ck`` and
+    ``cv`` at the cache's top, any path naming ``ssm`` or ``conv``."""
     dp = data_axes(mesh)
 
     def rule(name, leaf):
@@ -278,11 +300,10 @@ def _coords(mesh, entry) -> tuple:
     return index, count
 
 
-def shard_leaf(mesh, path: str, t: torch.Tensor, family: str):
-    """This rank's block of the whole leaf ``t`` at ``path`` under
-    :func:`applied_spec`: a new tensor (the whole one may be freed), or
-    ``t`` itself where the leaf stays replicated."""
-    spec = applied_spec(mesh, path, t, family)
+def shard_block(mesh, spec: tuple, t, path: str = "leaf"):
+    """This rank's block of the whole tensor ``t`` under ``spec``: a new
+    tensor (the whole one may be freed), or ``t`` itself where the spec
+    splits nothing (or ``t`` is no tensor)."""
     if not isinstance(t, torch.Tensor) or all(e is None for e in spec):
         return t
     out = t
@@ -296,6 +317,136 @@ def shard_leaf(mesh, path: str, t: torch.Tensor, family: str):
             size = out.shape[dim] // n
             out = out.narrow(dim, i * size, size)
     return out.clone()
+
+
+def block_shape(mesh, spec: tuple, shape) -> tuple:
+    """The shape of a rank's block of a whole leaf of ``shape`` under
+    ``spec``."""
+    return tuple(n // math.prod(mesh.shape[a] for a in _axes_of(e))
+                 if e else n for n, e in zip(shape, spec))
+
+
+def shard_leaf(mesh, path: str, t: torch.Tensor, family: str):
+    """This rank's block of the whole leaf ``t`` at ``path`` under
+    :func:`applied_spec` (:func:`shard_block`)."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    return shard_block(mesh, applied_spec(mesh, path, t, family), t, path)
+
+
+#: The parameter trees' stacks of layers (lists; the reference stacks
+#: each on a leading L axis).
+STACKS = ("layers", "enc_layers", "dec_layers")
+
+
+def layer_of(path: str):
+    """(stack, layer index) of a leaf of a stack of layers at ``path``
+    (e.g. ``opt/mu/layers/5/mixer/z_proj`` -> ``("layers", 5)``), or
+    None."""
+    keys = path.split("/")
+    for j, k in enumerate(keys[:-1]):
+        if k in STACKS and keys[j + 1].isdigit():
+            return k, int(keys[j + 1])
+    return None
+
+
+def stack_lengths(params) -> dict:
+    """{stack: its number of layers} of a parameter tree."""
+    return {k: len(v) for k, v in params.items()
+            if k in STACKS and isinstance(v, list)}
+
+
+def zero1_shardings(mesh, params_shape, pshard: dict) -> dict:
+    """ZeRO-1, the reference's rule (``repro/launch/dryrun.py``): the
+    optimizer's moments of each parameter over the data axes on the
+    first dim its spec leaves whole and the data axes' product divides.
+    ``pshard`` is the parameters' specs by path (:func:`param_shardings`,
+    or :func:`applied_shardings`, which equal it); the result is the
+    moments' specs by the same paths.  A leaf already split over a data
+    axis (the FSDP attention weights), or with no such dim, keeps its
+    parameter's spec.
+
+    The reference's leaf of a stack of layers has a leading L axis, which
+    is its first dim: where L divides the data axes (mamba2's 64 layers
+    over 16) the reference splits the moments over the layers.  The
+    port's layers are a list, so such a moment's spec is the reference's
+    whole, one entry longer than the layer's leaf, its first entry the
+    data axes over the stack's layers (:func:`layer_split`): a rank holds
+    the moments of its block of the layers (``moment_shape``)."""
+    dp = data_axes(mesh)
+    dp_size = math.prod(mesh.shape[a] for a in dp)
+    stacks = stack_lengths(params_shape)
+    out = {}
+    for path, leaf in tree_leaves_with_path(params_shape):
+        name = key_str(path)
+        psh = pshard[name]
+        shape = _shape(leaf)
+        spec = list(psh) + [None] * (len(shape) - len(psh))
+        used = {a for cur in spec for a in (_axes_of(cur) if cur else ())}
+        if used & set(dp):
+            out[name] = tuple(psh)
+            continue
+        layer = layer_of(name)
+        if layer is not None:
+            shape, spec = (stacks[layer[0]],) + shape, [None] + spec
+        for dim, cur in enumerate(spec):
+            if cur is None and shape[dim] % dp_size == 0:
+                spec[dim] = dp
+                break
+        if layer is not None and spec[0] is None:
+            spec = spec[1:]
+        out[name] = tuple(spec)
+    return out
+
+
+def layer_split(spec: tuple, shape) -> bool:
+    """Whether ``spec`` splits a stack's layers (one entry more than the
+    layer's leaf of ``shape`` has dims, :func:`zero1_shardings`)."""
+    return len(spec) == len(tuple(shape)) + 1
+
+
+def _owns_layer(mesh, path: str, spec: tuple, n_layers: int) -> bool:
+    """Whether this rank holds the layer of ``path`` under a layer split
+    ``spec``: the stack's ``n_layers`` in equal blocks over the data
+    axes of its first entry, row-major."""
+    index, count = _coords(mesh, spec[0])
+    return layer_of(path)[1] // (n_layers // count) == index
+
+
+def moment_shape(mesh, path: str, spec: tuple, shape, n_layers=None):
+    """The shape of a rank's moment of the leaf of ``shape`` at ``path``
+    under its ZeRO-1 ``spec``: its block, or under a layer split
+    (``n_layers`` the stack's length) its block of the layer's leaf with
+    a leading dim of 1 where the rank holds the layer and 0 elsewhere."""
+    if not layer_split(spec, shape):
+        return block_shape(mesh, spec, shape)
+    mine = _owns_layer(mesh, path, spec, n_layers)
+    return (int(mine),) + block_shape(mesh, spec[1:], shape)
+
+
+def layer_key(path: str) -> str:
+    """``path`` of a leaf of a stack of layers with its layer index
+    starred (``layers/5/mixer/z_proj`` -> ``layers/*/mixer/z_proj``):
+    one key for that leaf of every layer of the stack."""
+    stack, i = layer_of(path)
+    return path.replace(f"{stack}/{i}/", f"{stack}/*/", 1)
+
+
+def gather_layers(mesh, axes, held) -> list:
+    """Every layer of one leaf of a stack whose layers are split over
+    the data ``axes`` (:func:`layer_split`), from each rank's ``held``
+    layers of it (its block of the stack, in layer order): an all-gather
+    over the axes of each rank's i-th held layer, for each i, the
+    reference's all-gather of the stacked leaf cut into the blocks'
+    rows.  Returns the stack's layers in order, on every rank."""
+    k = len(held)
+    _, count = _coords(mesh, axes)
+    out = [None] * (k * count)
+    for j, t in enumerate(held):
+        rows = gather_leaf(mesh, (axes,), t[None])
+        for r in range(count):
+            out[r * k + j] = rows[r]
+    return out
 
 
 def shard_params(mesh, params, family: str):

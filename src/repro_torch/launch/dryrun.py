@@ -8,10 +8,11 @@ rank's program at full width on the ``meta`` device (port of
 
 Where the reference lowers and compiles the global program for XLA's
 partitioner, the port has one program a rank (``distributed/sharding.py``
-says which specs it applies: in the dense, moe and vlm families the
+says how it applies the reference's specs: in every family the
 vocab-sharded embedding, the FSDP attention weights, the dense MLP's
-split or the experts over ``model``, and the sequence-sharded KV cache;
-the batch over the data axes in every family).  A cell here is the
+split or the experts over ``model``, the mamba rules, the caches' splits
+and the batch over the data axes; in a training cell, unless
+``--no-zero1``, ZeRO-1's moments over the data axes).  A cell here is the
 program of the rank at the mesh's first coordinates, on a dry mesh
 (``launch.mesh.make_dry_mesh``): its parameters (``init_params`` on
 ``meta``, the rank's blocks),
@@ -38,7 +39,10 @@ Records land in ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``
 rank's arguments and its counted peak fit one card's memory,
 ``applied``: the spec groups the rank's program applies, ``savings``:
 what each spec still unapplied would take off its arguments
-(:func:`unapplied_savings`), and ``overrides``: the config fields the
+(:func:`unapplied_savings`, ``{}`` where every spec is applied: a guard
+that shows a spec a later change stops applying), ``zero1_applied``:
+whether the rank's moments are ZeRO-1's blocks, and ``overrides``: the
+config fields the
 cell was counted under ({} at the catalog's widths).
 ``roofline/report.py`` prints the tables.
 """
@@ -53,22 +57,28 @@ import pathlib
 import time
 import traceback
 from concurrent.futures import ProcessPoolExecutor
+from fractions import Fraction
 
 import torch
 
 from ..configs import (ARCHS, SHAPES, batch_from_specs, cell_is_runnable,
                        decode_specs, get_config, train_batch_specs)
-from ..core.tree import key_str, tree_leaves_with_path
+from ..core.tree import key_str, tree_leaves, tree_leaves_with_path
 from ..distributed import sharding
-from ..distributed.sharding import (_axes_of, cache_shardings, data_axes,
-                                    param_shardings)
+from ..distributed.sharding import (  # noqa: F401
+    _axes_of,
+    cache_shardings,
+    data_axes,
+    param_shardings,
+    zero1_shardings,
+)
 from ..models import get_model
 from ..models.moe import ShardingCtx
 from ..roofline.analysis import (H100, analyze, count_active_params,
                                  count_costs,
                                  count_params, link_bw_for, tree_bytes)
 from ..train.optimizer import AdamW, cosine_schedule
-from ..train.train_step import TrainState, make_train_step
+from ..train.train_step import TrainState, make_train_step, zero1_shapes
 from .mesh import make_production_mesh
 
 OUT_DIR = (pathlib.Path(__file__).resolve().parents[3] / "experiments"
@@ -80,8 +90,9 @@ SPEC_GROUPS = (("embed", "vocab-sharded embedding"),
                ("attn/", "FSDP attention"),
                ("mlp/", "dense MLP split"),
                ("mixer/", "mamba rules"))
-#: The name of the expert rule's group and of the KV cache's.
+#: The names of the expert rule's group, the caches' and ZeRO-1's.
 EXPERT_GROUP, KV_GROUP = "expert-parallel MoE", "sequence-sharded KV cache"
+STATE_GROUP, ZERO1_GROUP = "mamba state over model", "ZeRO-1 moments"
 
 
 def _spec_count(mesh, spec) -> int:
@@ -90,32 +101,6 @@ def _spec_count(mesh, spec) -> int:
         for a in (_axes_of(e) if e else ()):
             n *= mesh.shape[a]
     return n
-
-
-def zero1_shardings(mesh, params_shape, pshard: dict) -> dict:
-    """ZeRO-1: shard optimizer moments over the data axes on the first
-    still-unsharded, divisible dim of each param.  ``pshard`` is
-    ``param_shardings(mesh, params_shape)`` (a flat dict by path); the
-    result is the moments' specs by the same paths.  A spec only: the
-    port's AdamW holds whole moments (records say ``zero1_applied``
-    false)."""
-    dp = data_axes(mesh)
-    dp_size = _dp_size(mesh)
-    out = {}
-    for path, leaf in tree_leaves_with_path(params_shape):
-        name = key_str(path)
-        psh = pshard[name]
-        spec = list(psh) + [None] * (len(leaf.shape) - len(psh))
-        used = {a for cur in spec for a in (_axes_of(cur) if cur else ())}
-        if used & set(dp):  # already data-sharded (e.g. FSDP attention)
-            out[name] = tuple(psh)
-            continue
-        for dim, cur in enumerate(spec):
-            if cur is None and leaf.shape[dim] % dp_size == 0:
-                spec[dim] = dp
-                break
-        out[name] = tuple(spec)
-    return out
 
 
 def make_ctx(cfg, mesh, *, collective=None, block_batch: bool = True):
@@ -142,14 +127,11 @@ def _dp_size(mesh) -> int:
 
 
 def _rank_params(api, cfg, mesh, device, seed):
-    """The rank's parameters: its blocks under the applied specs (dense,
-    moe and vlm; every leaf whole in the other families); on meta the
-    shapes alone, on a real device drawn from ``seed``."""
+    """The rank's parameters: its blocks under the applied specs; on meta
+    the shapes alone, on a real device drawn from ``seed``."""
     gen = (torch.Generator() if device.type == "meta" else
            torch.Generator(device=device).manual_seed(seed))
-    if cfg.family in ("dense", "moe", "vlm"):
-        return api.init(gen, device=device, mesh=mesh)
-    return api.init(gen, device=device)
+    return api.init(gen, device=device, mesh=mesh)
 
 
 def _inputs(specs: dict, device, seed) -> dict:
@@ -213,8 +195,7 @@ def lower_cell(arch: str, shape, *, multi_pod: bool = False,
         "moe_collective": ((collective or "nnz_ar")
                            if cfg.family == "moe" else None),
         "zero1": bool(zero1 and shape.kind == "train"),
-        "zero1_applied": False,
-        "applied": applied_groups(mesh, cfg, whole, shape.kind),
+        "zero1_applied": bool(zero1 and shape.kind == "train"),
     }
     block = shape.global_batch % dp == 0
     ctx = make_ctx(cfg, mesh, collective=collective, block_batch=block)
@@ -222,19 +203,24 @@ def lower_cell(arch: str, shape, *, multi_pod: bool = False,
 
     if shape.kind == "train":
         opt = AdamW(lr=cosine_schedule(3e-4, 2000, 100_000))
-        state = TrainState(params=params, opt=opt.init(params))
+        state = TrainState(params=params, opt=opt.init(
+            params, zero1_shapes(mesh, api, whole) if zero1 else None))
         specs = _inputs(train_batch_specs(cfg, shape), dev, seed)
         step = make_train_step(api, opt, ctx, microbatches=microbatches,
                                grad_compression=grad_compression)
-        meta["savings"] = unapplied_savings(mesh, cfg, whole, pshard,
-                                            kind="train", zero1=zero1)
+        meta["applied"] = applied_groups(mesh, whole, params,
+                                         moments=state.opt.mu)
+        meta["savings"] = unapplied_savings(
+            mesh, cfg, whole, pshard, params=params, moments=state.opt.mu,
+            zero1=zero1)
         return Program(lambda: step(state, specs),
                        (state, _blocks(ctx, specs))), meta
 
     if shape.kind == "prefill":
         specs = _inputs(train_batch_specs(cfg, shape), dev, seed)
+        meta["applied"] = applied_groups(mesh, whole, params)
         meta["savings"] = unapplied_savings(mesh, cfg, whole, pshard,
-                                            kind="prefill")
+                                            params=params)
 
         def prefill():
             with torch.no_grad():
@@ -242,16 +228,18 @@ def lower_cell(arch: str, shape, *, multi_pod: bool = False,
 
         return Program(prefill, (params, _blocks(ctx, specs))), meta
 
-    # decode: one new token against a full cache of the rank's slots (and
-    # its block of the sequence, where the family applies the KV rule)
-    cache = (api.init_cache(b_loc, shape.seq_len, device=dev, ctx=ctx)
-             if _kv_applied(cfg) else
-             api.init_cache(b_loc, shape.seq_len, device=dev))
+    # decode: one new token against a full cache of the rank's slots and
+    # its blocks over the model axis
+    cache = api.init_cache(b_loc, shape.seq_len, device=dev, ctx=ctx)
     cache["pos"] = shape.seq_len - 1
+    whole_cache = api.init_cache(b_loc, shape.seq_len, device="meta")
     tokens = _inputs({"t": decode_specs(cfg, shape, api.init_cache)[
         "tokens"]}, dev, seed)["t"]
+    meta["applied"] = applied_groups(mesh, whole, params, cache=cache,
+                                     whole_cache=whole_cache)
     meta["savings"] = unapplied_savings(mesh, cfg, whole, pshard,
-                                        kind="decode", cache=cache)
+                                        params=params, cache=cache,
+                                        whole_cache=whole_cache)
 
     def decode():
         with torch.no_grad():
@@ -268,87 +256,108 @@ def _blocks(ctx, specs: dict) -> dict:
             for k, v in specs.items()}
 
 
-def _kv_applied(cfg) -> bool:
-    """Whether the family's cache holds the sequence over ``model``."""
-    return cfg.family in ("dense", "moe", "vlm")
-
-
 def _group_of(name: str):
+    if "moe/" in name:
+        return EXPERT_GROUP
     return next((g for key, g in SPEC_GROUPS if key in name), None)
 
 
-def applied_groups(mesh, cfg, whole, kind: str) -> list:
-    """The spec groups the rank's program of a ``kind`` cell applies:
-    those of :data:`SPEC_GROUPS` (and the experts) with a leaf the rank
-    holds a block of, and the KV cache's sequence where a serving cell
-    of a family that splits it runs on a model axis of more than one."""
+def _cache_group(name: str) -> str:
+    return STATE_GROUP if "ssm" in name or "conv" in name else KV_GROUP
+
+
+def _held(whole, held) -> dict:
+    """{path: how many blocks of its whole leaf the rank's leaf is} of
+    every leaf of the rank's tree ``held`` (1: whole)."""
+    sizes = {key_str(p): v.numel() for p, v in tree_leaves_with_path(whole)
+             if isinstance(v, torch.Tensor)}
+    return {key_str(p): sizes[key_str(p)] // max(v.numel(), 1)
+            for p, v in tree_leaves_with_path(held)
+            if isinstance(v, torch.Tensor)}
+
+
+def applied_groups(mesh, whole, params, *, moments=None, cache=None,
+                   whole_cache=None) -> list:
+    """The spec groups the rank's program applies, read from what it
+    holds: each group of :data:`SPEC_GROUPS` (and the experts) with a
+    leaf the rank holds a block of (``params`` against the whole tree
+    ``whole``), ZeRO-1 where a moment is a smaller block than its
+    parameter, and the caches' groups where a leaf of the rank's
+    ``cache`` is a block of ``whole_cache``'s (the batch of both is the
+    rank's slots)."""
     out = []
-    for path, leaf in tree_leaves_with_path(whole):
-        name = key_str(path)
-        spec = sharding.applied_spec(mesh, name, leaf, cfg.family)
-        if _spec_count(mesh, spec) > 1:
-            group = EXPERT_GROUP if "moe/" in name else _group_of(name)
-            if group not in out:
-                out.append(group)
-    if (kind != "train" and _kv_applied(cfg)
-            and mesh.shape.get("model", 1) > 1):
-        out.append(KV_GROUP)
+
+    def add(group):
+        if group not in out:
+            out.append(group)
+
+    for name, n in _held(whole, params).items():
+        if n > 1:
+            add(_group_of(name))
+    if moments is not None and (
+            sum(m.numel() for m in tree_leaves(moments))
+            < sum(p.numel() for p in tree_leaves(params))):
+        add(ZERO1_GROUP)
+    if cache is not None:
+        for name, n in _held(whole_cache, cache).items():
+            if n > 1:
+                add(_cache_group(name))
     return out
 
 
-def unapplied_savings(mesh, cfg, whole, pshard, *, kind, zero1=False,
-                      cache=None) -> dict:
-    """Bytes a rank's arguments would lose under each spec the port
-    computes but does not apply (``distributed/sharding.py``), each
-    alone from what the port holds now, largest first: by group of
-    parameter rules (:data:`SPEC_GROUPS`; a leaf the rank holds in
-    ``have`` blocks that the reference splits in ``n`` keeps ``have / n``
-    of its block, of its parameter and, training, of its two f32
-    moments), ZeRO-1 (``zero1``: the moments over the data axes on top of
-    the applied specs, :func:`zero1_shardings`), and the cache's split
-    over ``model`` where the family does not apply it (a KV cache's
-    sequence, a mamba state's heads; its batch split over the data axes
-    is applied already).  The savings overlap (the dense MLP's moments
-    under its split and under ZeRO-1), so they do not add.  An applied
-    group saves nothing more and is not listed."""
+def unapplied_savings(mesh, cfg, whole, pshard, *, params, moments=None,
+                      zero1=False, cache=None, whole_cache=None) -> dict:
+    """Bytes a rank's arguments would lose under each of the reference's
+    specs it does not apply, read from what the rank holds (``params``,
+    and training ``moments``, against the whole tree ``whole``; the
+    ``cache`` against ``whole_cache`` of the same slots), each alone,
+    largest first: by group of parameter rules (:data:`SPEC_GROUPS`; a
+    leaf the rank holds in ``have`` blocks that the reference splits in
+    ``n`` keeps ``have / n`` of it, and of its f32 moments up to the
+    group's own split), ZeRO-1 (``zero1``: the moments over the data
+    axes beyond their parameter's spec, :func:`zero1_shardings`, summed
+    over the leaves: under a layer split a rank holds its layers' moments
+    whole and the others' not at all), and
+    the cache's blocks over ``model`` (``cache_shardings``; its batch is
+    the rank's slots already).  ``{}`` where every spec is applied: the
+    record's guard."""
     out = {}
-    applied = {key_str(p): sharding.applied_spec(mesh, key_str(p), leaf,
-                                                 cfg.family)
-               for p, leaf in tree_leaves_with_path(whole)}
-    moments = zero1_shardings(mesh, whole, applied) if zero1 else None
+
+    def add(group, nbytes):
+        if nbytes > 0:
+            out[group] = out.get(group, 0) + nbytes
+
+    zspecs = zero1_shardings(mesh, whole, pshard) if zero1 else None
+    have = _held(whole, params)
+    held_m = ({} if moments is None else
+              {key_str(p): m.numel() for p, m in tree_leaves_with_path(
+                  moments)})
+    excess = {}  # moment bytes held beyond the reference's, by group
     for path, leaf in tree_leaves_with_path(whole):
         name = key_str(path)
         elems = leaf.numel()
-        have = _spec_count(mesh, applied[name])
-        if moments is not None:
-            m = _spec_count(mesh, moments[name])
-            if m > have:
-                out["ZeRO-1 moments"] = (out.get("ZeRO-1 moments", 0)
-                                         + elems * 8 * (m - have)
-                                         // (m * have))
-        if "moe/" in name:
-            continue
-        group = _group_of(name)
         n = _spec_count(mesh, pshard[name])
-        per = leaf.element_size() + (8 if kind == "train" else 0)
-        if group and n > have:
-            out[group] = (out.get(group, 0)
-                          + elems * per * (n - have) // (n * have))
+        group = _group_of(name) or "other specs"
+        if n > have[name]:
+            add(group, elems * leaf.element_size() * (n - have[name])
+                // (n * have[name]))
+        if name not in held_m:
+            continue
+        ref = zspecs[name] if zspecs is not None else pshard[name]
+        bucket = group if n > have[name] or zspecs is None else ZERO1_GROUP
+        excess[bucket] = excess.get(bucket, 0) + 8 * (
+            held_m[name] - Fraction(elems, _spec_count(mesh, ref)))
+    for bucket, nbytes in excess.items():
+        add(bucket, int(nbytes))
     if cache is not None:
-        cspec = cache_shardings(mesh, cfg, cache)
-        for path, leaf in tree_leaves_with_path(cache):
-            if not isinstance(leaf, torch.Tensor):
-                continue
-            name = key_str(path)
-            if name in ("k", "v") and _kv_applied(cfg):
-                continue  # the rank's cache holds its sequence block
+        cspec = cache_shardings(mesh, cfg, whole_cache)
+        sizes = {key_str(p): v for p, v in tree_leaves_with_path(whole_cache)}
+        for name, h in _held(whole_cache, cache).items():
             split = any("model" in _axes_of(e) for e in cspec[name] if e)
             n = mesh.shape["model"] if split else 1
-            if n > 1:
-                group = ("mamba state over model"
-                         if "ssm" in name or "conv" in name else KV_GROUP)
-                out[group] = (out.get(group, 0)
-                              + tree_bytes(leaf) * (n - 1) // n)
+            if n > h:
+                add(_cache_group(name),
+                    tree_bytes(sizes[name]) * (n - h) // (n * h))
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 

@@ -101,10 +101,18 @@ def init_normal(gen, shape, scale, dtype):
     return t.mul_(scale).to(torch_dtype(dtype))
 
 
-def rmsnorm(x, scale, eps: float = 1e-6):
-    """RMS norm in f32, scaled by ``1 + scale``, cast back to x's type."""
+def rmsnorm(x, scale, eps: float = 1e-6, axis=None):
+    """RMS norm in f32, scaled by ``1 + scale``, cast back to x's type.
+    Over ``axis`` (x the rank's equal block of the normed dim, ``scale``
+    its block) the sum of squares is a ``psum`` (its cotangent too, each
+    rank holding a part of it)."""
     xf = x.to(torch.float32)
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    if axis is None or axis.size == 1:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+    else:
+        ss = coll.copy_to(coll.reduce_from(
+            (xf * xf).sum(dim=-1, keepdim=True), axis), axis)
+        var = ss / (xf.shape[-1] * axis.size)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.to(torch.float32))).to(x.dtype)
 

@@ -29,7 +29,11 @@ positions, ``transformer.init_cache``); a slot's prefill runs on every
 rank (its batch of one is not split over the data axes) and is spliced
 into the rank holding the slot; a decode step runs the global slots and
 all-gathers the slots' logits over the data axes, so every rank samples
-alike.  The dense and moe families are served so.
+alike.  Every family the engine serves is served so: dense and moe, and
+the state models ssm and hybrid, whose caches hold the rank's blocks of
+the mixer's state (``models/mamba2.py``) and, for hybrid, of the
+sequence; the splice writes the slot's blocks, the prefill of one slot
+having run under the same model axis.
 
 Kept from the reference as it is, for parity: the cache has one
 position ``pos`` for all slots, set by the last prefill, so prompts of
@@ -47,6 +51,12 @@ from ..core.device import check_on, resolve_device
 from ..core.tree import tree_map
 from ..distributed import collectives as coll
 from ..distributed import sharding
+
+
+#: The families the engine serves (it feeds tokens only), and those of
+#: them whose cache holds keys and values over ``max_len`` positions.
+SERVED = ("dense", "moe", "ssm", "hybrid")
+KV_FAMILIES = ("dense", "moe", "hybrid")
 
 
 @dataclasses.dataclass
@@ -89,14 +99,16 @@ class ServeEngine:
 
     def _check_mesh(self, cfg, slots: int, max_len: int) -> None:
         """The rank's slots under the engine's ctx (its data block of
-        them); raises unless the family is served under one, ``max_len``
-        divides the model axis and the slots the data axes."""
+        them); raises unless the engine serves the family, ``max_len``
+        divides the model axis (where the cache holds keys and values)
+        and the slots the data axes."""
         ctx = self.ctx
-        if cfg.family not in ("dense", "moe"):
-            raise ValueError(f"the engine serves the dense and moe families "
-                             f"under a mesh, not {cfg.family!r}")
+        if cfg.family not in SERVED:
+            raise ValueError(f"the engine serves the {', '.join(SERVED)} "
+                             f"families, not {cfg.family!r}")
         mesh = ctx.mesh
-        if sharding.MODEL_AXIS in mesh.axis_names:
+        if cfg.family in KV_FAMILIES and sharding.MODEL_AXIS in \
+                mesh.axis_names:
             m = mesh.axis(sharding.MODEL_AXIS).size
             if max_len % m:
                 raise ValueError(f"max_len {max_len} does not split over a "

@@ -25,7 +25,11 @@ backward averaged the ranks' gradients, ``collectives.fsdp_gather``;
 ``reduce_grads``).  It then compresses and decompresses them as the
 reference does after that all-reduce, clips by the norm of the whole
 tree (each block's squares summed over the axes it is split over) and
-runs AdamW on the rank's leaves.
+runs AdamW on the rank's leaves.  Under ZeRO-1 (``init_state``'s
+default on a mesh) each rank's moments are its blocks over the data axes
+(``sharding.zero1_shardings``): AdamW updates the rank's block of each
+such parameter and all-gathers it (``train/optimizer.py``), which leaves
+the parameters bit for bit as the step with whole moments leaves them.
 """
 from __future__ import annotations
 
@@ -51,10 +55,119 @@ def init_state(api, optimizer: AdamW, generator: torch.Generator,
                device=None, mesh=None) -> TrainState:
     """Parameters drawn from ``generator`` (on ``device``: None means
     'cuda') and the optimizer's zero state; with ``mesh``, the rank's
-    blocks of them (``transformer.init_params``)."""
-    params = (api.init(generator, device=device) if mesh is None
-              else api.init(generator, device=device, mesh=mesh))
-    return TrainState(params=params, opt=optimizer.init(params))
+    blocks of them (``transformer.init_params``) and ZeRO-1's blocks of
+    the moments (:func:`zero1_shapes`).  That is the reference's default
+    (``lower_cell(zero1=True)``): the step's parameters are the same
+    as with whole moments, and the moments take ``1 / data`` of their
+    memory."""
+    if mesh is None:
+        params = api.init(generator, device=device)
+        return TrainState(params=params, opt=optimizer.init(params))
+    params = api.init(generator, device=device, mesh=mesh)
+    return TrainState(params=params, opt=optimizer.init(
+        params, zero1_shapes(mesh, api)))
+
+
+def zero1_shapes(mesh, api, whole=None) -> list:
+    """The shapes of a rank's ZeRO-1 moments, one a parameter in the
+    tree's order (``sharding.zero1_shardings`` over the applied specs of
+    the whole tree ``whole``, by default a ``meta`` init;
+    ``sharding.moment_shape``)."""
+    if whole is None:
+        whole = api.init(torch.Generator(), device="meta")
+    mspecs = sharding.zero1_shardings(
+        mesh, whole, sharding.applied_shardings(mesh, whole,
+                                                api.cfg.family))
+    stacks = sharding.stack_lengths(whole)
+    out = []
+    for p, v in tree_leaves_with_path(whole):
+        name = key_str(p)
+        layer = sharding.layer_of(name)
+        out.append(sharding.moment_shape(
+            mesh, name, mspecs[name], v.shape,
+            None if layer is None else stacks[layer[0]]))
+    return out
+
+
+def state_shardings(mesh, api, state: TrainState) -> dict:
+    """The spec of every leaf of a rank's ``state`` by its path (e.g.
+    ``params/embed``, ``opt/mu/embed``): the parameters' applied specs,
+    and each moment's the same or ZeRO-1's, as its shape says (the
+    layout ``init_state`` chose; a layer split's spec is one entry longer
+    than its parameter's, ``sharding.zero1_shardings``).  What a whole
+    checkpoint gathers the state by (:func:`gather_state`), and a
+    restore cuts it by (:func:`shard_state`)."""
+    whole = api.init(torch.Generator(), device="meta")
+    pspecs = sharding.applied_shardings(mesh, whole, api.cfg.family)
+    mspecs = sharding.zero1_shardings(mesh, whole, pspecs)
+    shapes = {key_str(p): tuple(v.shape)
+              for p, v in tree_leaves_with_path(whole)}
+    out = {}
+    for path, leaf in tree_leaves_with_path(state):
+        name = key_str(path)
+        head, _, rest = name.partition("/")
+        if head == "params":
+            out[name] = pspecs[rest]
+        elif rest.startswith(("mu/", "nu/")):
+            p, m = rest[3:], mspecs[rest[3:]]
+            zero1 = (leaf.dim() == len(shapes[p]) + 1
+                     if sharding.layer_split(m, shapes[p]) else
+                     tuple(leaf.shape) == sharding.block_shape(mesh, m,
+                                                               shapes[p]))
+            out[name] = m if zero1 else pspecs[p]
+        else:
+            out[name] = (None,) * getattr(leaf, "dim", lambda: 0)()
+    return out
+
+
+def gather_state(mesh, state, specs: dict, whole):
+    """Yield (path, the whole leaf) of a rank's ``state`` under ``specs``
+    (:func:`state_shardings`), leaf by leaf: every rank of the mesh must
+    walk it alike.  ``whole`` is a whole state of the same tree (e.g. a
+    ``meta`` ``init_state`` without a mesh), which says each leaf's
+    dims.  The leaves come in the tree's order, but for a moment whose
+    stack's layers split over the data axes: each of its layers comes
+    after the stack's last, all of them together
+    (``sharding.gather_layers``)."""
+    pending, count = {}, {}
+    items = []
+    for (path, v), w in zip(tree_leaves_with_path(state),
+                            tree_leaves(whole)):
+        spec = specs[key_str(path)]
+        split = (isinstance(v, torch.Tensor)
+                 and sharding.layer_split(spec, w.shape))
+        key = sharding.layer_key(key_str(path)) if split else None
+        count[key] = count.get(key, 0) + 1
+        items.append((path, v, spec, key))
+    for path, v, spec, key in items:
+        if key is None:
+            yield path, sharding.gather_leaf(mesh, spec, v)
+            continue
+        pending.setdefault(key, []).append((path, v))
+        if len(pending[key]) == count[key]:
+            layers = pending.pop(key)
+            held = sharding.gather_layers(
+                mesh, spec[0], [t[0] for _, t in layers if t.shape[0]])
+            for (p, _), t in zip(layers, held):
+                yield p, sharding.gather_leaf(mesh, spec[1:], t)
+
+
+def shard_state(mesh, whole, held, specs: dict):
+    """The rank's blocks of a whole ``state`` (a restored checkpoint) in
+    the layout of the rank's ``held`` state, under ``specs``
+    (:func:`state_shardings` of ``held``)."""
+    out = []
+    for (path, t), h in zip(tree_leaves_with_path(whole),
+                            tree_leaves(held)):
+        spec = specs[key_str(path)]
+        if not (isinstance(t, torch.Tensor)
+                and sharding.layer_split(spec, t.shape)):
+            out.append(sharding.shard_block(mesh, spec, t, key_str(path)))
+        elif h.shape[0]:  # the rank holds this layer's moments
+            out.append(sharding.shard_block(mesh, spec[1:], t)[None].clone())
+        else:
+            out.append(h)
+    return tree_unflatten(whole, out)
 
 
 def reduce_grads(ctx, grads, specs: dict):
@@ -160,7 +273,8 @@ def make_train_step(api, optimizer: AdamW, ctx=None, *,
         new_params, new_opt, gnorm = optimizer.update(
             grads, state.opt, state.params,
             gnorm=None if mesh is None else sharded_global_norm(mesh, grads,
-                                                                specs))
+                                                                specs),
+            mesh=mesh)
         metrics = {"loss": loss.to(torch.float32), "grad_norm": gnorm,
                    "step": new_opt.step}
         return TrainState(params=new_params, opt=new_opt), metrics

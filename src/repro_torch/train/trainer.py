@@ -5,13 +5,15 @@ restart plan.  Runs on the card unless ``device='cpu'`` is given.
 With a ``ctx`` holding a mesh every rank of it runs a ``Trainer`` alike
 on the same token stream (the global batch, from one seed): the step is
 data-parallel (``train_step.py``) and the parameters are the rank's
-blocks.  Checkpoints are whole, as the reference's global arrays are:
-each split leaf is gathered over the axes its applied spec splits it
-over (``sharding.applied_shardings``), leaf by leaf, and data-rank 0,
-model-rank 0 writes them; every rank restores the whole
-tree and keeps its blocks, so a checkpoint written on one mesh restores
-on another, or in one process.  The ranks must share the checkpoint
-directory."""
+blocks, the moments ZeRO-1's blocks over the data axes
+(``train_step.init_state``).  Checkpoints are whole, as the reference's
+global arrays are: each split leaf is gathered over the axes its spec
+splits it over (``train_step.state_shardings``: a parameter's applied
+spec, a moment's ZeRO-1 spec), leaf by leaf, and data-rank 0, model-rank
+0 writes them; every rank restores the whole tree and keeps its blocks
+under the fresh state's layout, so a checkpoint written on one mesh, with
+or without ZeRO-1, restores on another, or in one process.  The ranks
+must share the checkpoint directory."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,10 +26,10 @@ from ..checkpoint.manager import CheckpointManager
 from ..core.device import resolve_device
 from ..core.tree import key_str, tree_leaves_with_path, tree_unflatten
 from ..distributed import collectives as coll
-from ..distributed import sharding
 from ..distributed.fault_tolerance import HeartbeatMonitor, make_elastic_plan
 from .optimizer import AdamW
-from .train_step import TrainState, init_state, make_train_step
+from .train_step import (TrainState, gather_state, init_state,
+                         make_train_step, shard_state, state_shardings)
 
 
 @dataclasses.dataclass
@@ -66,10 +68,11 @@ class Trainer:
                            device=self.device, mesh=self.mesh)
         latest = self.ckpt.latest_step()
         if latest is not None:
-            state, step = self.ckpt.restore(state)
-            if self.mesh is not None:
-                state = sharding.shard_params(self.mesh, state,
-                                              self.api.cfg.family)
+            specs = (None if self.mesh is None else
+                     state_shardings(self.mesh, self.api, state))
+            whole, step = self.ckpt.restore(state)
+            state = (whole if specs is None else
+                     shard_state(self.mesh, whole, state, specs))
             print(f"[trainer] restored checkpoint step {step}")
         return state
 
@@ -86,15 +89,16 @@ class Trainer:
         writer = all(ax.index == 0 for ax in self._axes())
         like = init_state(self.api, self.optimizer, torch.Generator(),
                           device="meta")
-        specs = sharding.applied_shardings(self.mesh, like,
-                                           self.api.cfg.family)
-        leaves = []
-        for path, v in tree_leaves_with_path(state):
-            whole = sharding.gather_leaf(self.mesh, specs[key_str(path)], v)
+        leaves = {}
+        for path, whole in gather_state(
+                self.mesh, state, state_shardings(self.mesh, self.api,
+                                                  state), like):
             if writer:
-                leaves.append(whole.cpu())
+                leaves[key_str(path)] = whole.cpu()
         if writer:
-            self.ckpt.save(step, tree_unflatten(state, leaves))
+            self.ckpt.save(step, tree_unflatten(state, [
+                leaves[key_str(p)] for p, _ in tree_leaves_with_path(
+                    state)]))
 
     def run(self, state: TrainState) -> TrainState:
         t = self.tcfg

@@ -373,7 +373,7 @@ from repro_torch.models import get_model
 from repro_torch.models.moe import (ShardingCtx, apply_moe,
                                     moe_tune_collective)
 from repro_torch.train.optimizer import AdamW
-from repro_torch.train.train_step import TrainState
+from repro_torch.train.train_step import TrainState, zero1_shapes
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.tune.moe import MoeDispatchSchedule, moe_schedule_key
 cfg = moe_cfg(tcfgs)
@@ -434,7 +434,9 @@ for mp in MOE_MESHES:
             tr.monitor.straggler_factor = math.inf
             return tr
         tr = trainer()
-        state = tr.run(TrainState(params=params, opt=opt.init(params)))
+        # ZeRO-1's moment blocks, the layout init_or_restore makes
+        state = tr.run(TrainState(params=params, opt=opt.init(
+            params, zero1_shapes(mesh, api))))
         meta["train_losses"] = tr.losses().tolist()
         restored = trainer().init_or_restore(torch.Generator().manual_seed(1))
         meta["restored_blocks_equal"] = all(
@@ -773,10 +775,11 @@ def test_data_parallel_trainer_matches_one_device_step(runs):
 
 def test_checkpoint_written_on_a_mesh_restores_whole_in_one_process(runs):
     """The (2, 2) trainer's checkpoint holds whole leaves (the expert
-    leaves gathered over the model axis): it restores in this process
-    into a one-process state whose parameters are the reference's after
-    its two data-parallel steps on (2, 2) within 1e-4 relative L2; every
-    rank restored it on the mesh into the same blocks it trained.  (The
+    leaves gathered over the model axis, ZeRO-1's moment blocks over the
+    data axis): it restores in this process into a one-process state
+    whose parameters are the reference's after its two data-parallel
+    steps on (2, 2) within 1e-4 relative L2; every rank restored it on
+    the mesh into the same blocks it trained, moments included.  (The
     reference's one-device step is not the yardstick for parameters: its
     aux loss averages over the whole batch where a mesh averages over
     each data block, and AdamW's first step moves every element by about
